@@ -1,0 +1,96 @@
+"""Render-only mode (-r): test-pose evaluation or the orbit (port of
+nerf_tpu/cli/render.py:68-134).
+
+Loads ``model/<name>_mip.pt`` and ``model/<name>_prop.pt``; renders the test
+poses (-e) with per-frame MSE and PSNR against the ground truth, or the
+120-pose orbit; writes ``output/{given|sphere}/result_%03d.png`` grids with
+nrow = 1 + render_depth (+ the ground-truth panel under -e); the normal
+panel (--render_normal) is Ref-NeRF's and waits for it.  The orbit GIF is
+written only when Pillow imports.
+"""
+
+from __future__ import annotations
+
+import os
+import numpy as np
+import torch
+
+from nerf_tpu_torch.cli.flags import config_from_args, finalize_config
+from nerf_tpu_torch.core.rays import orbit_poses
+from nerf_tpu_torch.data.blender import BlenderDataset, pillow
+from nerf_tpu_torch.device import resolve_device
+from nerf_tpu_torch.train.renderer import render_image
+from nerf_tpu_torch.utils.checkpoint import load_models
+from nerf_tpu_torch.utils.image import save_image_grid, to_uint8
+
+MODEL_DIR = "model"
+
+
+def frame_generator(seed: int, index: int, device) -> torch.Generator:
+    """The generator of frame ``index``'s noise, on ``device``."""
+    state = np.random.SeedSequence([seed, index]).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def render_only(args, device=None):
+    """Render with a trained model; returns the mean PSNR under -e."""
+    dev = resolve_device(device)
+    cfg = config_from_args(args)
+    root = os.path.join(args.dataset_root, args.dataset_name)
+    testset = BlenderDataset.load(root, "test", img_scale=args.img_scale,
+                                  scene_scale=args.scene_scale,
+                                  white_bkg=args.white_bkg)
+    print(f"Loaded {len(testset)} test images with {testset.decoder}")
+    hw = testset.image_hw
+    focal = testset.focal(legacy_square=args.legacy_focal)
+    cfg = finalize_config(cfg, focal)
+    models, step, epoch = load_models(MODEL_DIR, args.name, cfg, dev)
+    print(f"Loaded {MODEL_DIR}/{args.name}_{{mip,prop}}.pt (step {step}, "
+          f"epoch {epoch}) on {dev.type}")
+
+    if args.eval_poses:
+        poses = testset.poses
+        out_dir = os.path.join(args.output_dir, "given")
+    else:
+        poses = orbit_poses(120, phi_deg=-30.0, radius=4.0)[:, :3, :].copy()
+        poses[:, :, 3] *= args.scene_scale
+        out_dir = os.path.join(args.output_dir, "sphere")
+    os.makedirs(out_dir, exist_ok=True)
+
+    psnrs, frames = [], []
+    for i, pose in enumerate(poses):
+        out = render_image(
+            models, pose, hw, focal, cfg, sample_num=cfg.n_fine,
+            render_depth=args.render_depth,
+            generator=frame_generator(args.seed, i, dev),
+            chunk=args.eval_chunk, device=dev)
+        panels = [out["rgb"]]
+        if "depth" in out:
+            d = out["depth"]
+            panels.append(d / max(float(d.max()), 1e-8))
+        if args.eval_poses:
+            gt = testset.images[i]
+            mse = float(np.mean((out["rgb"] - gt) ** 2))
+            psnr = -10.0 * np.log10(max(mse, 1e-12))
+            psnrs.append(psnr)
+            print(f"Image loss:{mse:.6f}\tPSNR:{psnr:.4f}")
+            panels.append(gt)
+        save_image_grid(os.path.join(out_dir, f"result_{i:03d}.png"),
+                        panels, nrow=len(panels))
+        if not args.eval_poses:
+            frames.append(to_uint8(out["rgb"]))
+    if frames:
+        pil = pillow()
+        if pil is None:
+            print("Orbit animation skipped: Pillow is not installed "
+                  "(the PNG frames are written)")
+        else:
+            gif = os.path.join(out_dir, "orbit.gif")
+            imgs = [pil.fromarray(f) for f in frames]
+            imgs[0].save(gif, save_all=True, append_images=imgs[1:],
+                         duration=50, loop=0)
+            print(f"Orbit animation -> {gif}")
+    if psnrs:
+        print(f"Mean PSNR over {len(psnrs)} test poses: {np.mean(psnrs):.4f}")
+    print(f"Output completed -> {out_dir}")
+    return float(np.mean(psnrs)) if psnrs else None

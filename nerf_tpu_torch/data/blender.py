@@ -1,0 +1,161 @@
+"""Blender-synthetic dataset loader (port of nerf_tpu/data/blender.py,
+without the native decoder and the pose-division variant).
+
+``transforms_<split>.json`` gives ``camera_angle_x`` (optionally ``_y``) and
+a 4x4 ``transform_matrix`` per frame; the PNGs of ``<split>/`` are listed in
+natural order without the ``*normal*``/``*alpha*`` files.  Images are
+resized by ``img_scale`` (bilinear with Pillow's antialiasing), composited
+onto white under ``white_bkg``, and ``scene_scale`` scales the translation.
+
+Pillow decodes and resizes when it imports, as in the JAX package.  Without
+it the loader decodes with ``utils/png.py`` and resizes in numpy with the
+same filter; ``BlenderDataset.decoder`` says which path ran.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+from dataclasses import dataclass
+
+import numpy as np
+
+from nerf_tpu_torch.core.rays import fov_to_focal
+from nerf_tpu_torch.utils.png import read_png
+
+
+def pillow():
+    """Pillow's ``Image`` module, or None where Pillow is not installed."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    return Image
+
+
+def natural_sorted(names):
+    """Natural sort ('r_2.png' < 'r_10.png')."""
+    def key(s):
+        return [int(t) if t.isdigit() else t for t in re.split(r"(\d+)", s)]
+    return sorted(names, key=key)
+
+
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) bilinear (triangle) resampling matrix with Pillow's
+    support scaling when shrinking and its edge renormalization."""
+    scale = n_in / n_out
+    fscale = max(scale, 1.0)
+    m = np.zeros((n_out, n_in), np.float64)
+    for i in range(n_out):
+        center = (i + 0.5) * scale
+        lo = max(int(center - fscale + 0.5), 0)
+        hi = min(int(center + fscale + 0.5), n_in)
+        x = (np.arange(lo, hi) - center + 0.5) / fscale
+        w = np.clip(1.0 - np.abs(x), 0.0, None)
+        m[i, lo:hi] = w / w.sum()
+    return m
+
+
+def _resize_numpy(img: np.ndarray, ratio: float) -> np.ndarray:
+    """uint8 (H, W, C) resize by ``ratio``; RGBA is resampled premultiplied,
+    as Pillow does."""
+    h, w = img.shape[:2]
+    new_h, new_w = int(h * ratio), int(w * ratio)
+    x = img.astype(np.float64)
+    rgba = x.shape[-1] == 4
+    if rgba:
+        x[..., :3] *= x[..., 3:] / 255.0
+    x = np.einsum("oh,hwc->owc", _resize_weights(h, new_h), x)
+    x = np.einsum("pw,owc->opc", _resize_weights(w, new_w), x)
+    if rgba:
+        a = x[..., 3:]
+        x[..., :3] = np.where(a > 0, x[..., :3] * 255.0 / np.maximum(a, 1e-12),
+                              0.0)
+    return np.clip(np.rint(x), 0, 255).astype(np.uint8)
+
+
+def _load_pillow(path: str, mode: str, ratio: float, image_mod) -> np.ndarray:
+    img = image_mod.open(path).convert(mode)
+    if ratio != 1.0:
+        img = img.resize((int(img.width * ratio), int(img.height * ratio)),
+                         image_mod.BILINEAR)
+    return np.asarray(img, dtype=np.float32) / 255.0
+
+
+def _load_builtin(path: str, mode: str, ratio: float) -> np.ndarray:
+    img = read_png(path)
+    if mode == "RGB":
+        img = img[..., :3]
+    elif img.shape[-1] == 3:
+        img = np.concatenate([img, np.full_like(img[..., :1], 255)], -1)
+    if ratio != 1.0:
+        img = _resize_numpy(img, ratio)
+    return img.astype(np.float32) / 255.0
+
+
+@dataclass
+class BlenderDataset:
+    """In-memory split: images (N, H, W, 3) f32 in [0, 1], poses (N, 3, 4)
+    f32 with ``scene_scale`` applied to the translation."""
+
+    images: np.ndarray
+    poses: np.ndarray
+    fov: object  # float or (fov_x, fov_y)
+    decoder: str = ""
+
+    @property
+    def image_hw(self):
+        return self.images.shape[1], self.images.shape[2]
+
+    def __len__(self):
+        return self.images.shape[0]
+
+    def focal(self, legacy_square: bool = False):
+        return fov_to_focal(self.fov, self.image_hw, legacy_square=legacy_square)
+
+    @classmethod
+    def load(cls, root: str, split: str = "test", img_scale: float = 1.0,
+             scene_scale: float = 1.0,
+             white_bkg: bool = False) -> "BlenderDataset":
+        json_path = os.path.join(root, f"transforms_{split}.json")
+        if not os.path.exists(json_path):
+            raise FileNotFoundError(
+                f"dataset not found: {json_path} - expected a Blender-"
+                f"synthetic layout <dataset_root>/<dataset_name>/"
+                f"transforms_{split}.json; check --dataset_root/--dataset_name")
+        with open(json_path) as f:
+            meta = json.load(f)
+        fov = meta["camera_angle_x"]
+        if "camera_angle_y" in meta:
+            fov = (fov, meta["camera_angle_y"])
+
+        img_dir = os.path.join(root, split)
+        names = natural_sorted(
+            n for n in os.listdir(img_dir)
+            if n.endswith("png") and "normal" not in n and "alpha" not in n)
+        frames = meta["frames"]
+        # pair images and poses even when the listing and the frames differ
+        n = min(len(names), len(frames))
+        names, frames = names[:n], frames[:n]
+
+        mode = "RGBA" if white_bkg else "RGB"
+        pil = pillow()
+        images = []
+        for name in names:
+            path = os.path.join(img_dir, name)
+            arr = (_load_pillow(path, mode, img_scale, pil) if pil is not None
+                   else _load_builtin(path, mode, img_scale))
+            if white_bkg:
+                arr = arr[..., :3] * arr[..., 3:] + (1.0 - arr[..., 3:])
+            images.append(arr[..., :3])
+
+        poses = []
+        for frame in frames:
+            tf = np.asarray(frame["transform_matrix"], np.float32)[:3, :]
+            tf[:, 3] *= scene_scale
+            poses.append(tf)
+        return cls(images=np.stack(images).astype(np.float32),
+                   poses=np.stack(poses).astype(np.float32), fov=fov,
+                   decoder="Pillow" if pil is not None
+                   else "built-in zlib PNG decoder (Pillow not installed)")

@@ -1,0 +1,156 @@
+"""The eval render pipeline: proposal -> importance sampling -> fine model
+(port of the vanilla branch of nerf_tpu/train/pipeline.py:580-671).
+
+Models are ``nn.Module``s holding their weights, so where the JAX functions
+take ``(models, variables, ..., key)`` these take ``(models, ...)`` and an
+optional ``torch.Generator``.  ``noise=(jitter, u)`` injects the draws, as in
+the JAX package.
+
+The MLPs run through the fused kernels of ``ops/fused_mlp.py`` unless
+``cfg.eval_use_pallas`` is False, which selects the ``nn.Module`` forward,
+layer by layer.  (The JAX package renders vanilla eval through XLA by
+default; that choice rested on one TPU measurement and does not carry over.)
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from nerf_tpu_torch.core import render as render_lib
+from nerf_tpu_torch.core import sampling
+from nerf_tpu_torch.core.encoding import cat_pos_pe
+from nerf_tpu_torch.device import check_device, resolve_device
+from nerf_tpu_torch.models import ProposalNetwork, VanillaNeRF
+from nerf_tpu_torch.models.mlp import init_flax_
+from nerf_tpu_torch.ops import prop_mlp_fwd, vanilla_mlp_fwd
+from nerf_tpu_torch.train.config import PipelineConfig
+
+_NOT_PORTED = ("the {} path is not ported to nerf_tpu_torch yet; see "
+               "ROADMAP.md (section A) for the order of the remaining slices")
+
+
+def _require_vanilla(cfg: PipelineConfig) -> None:
+    if cfg.model == "mip":
+        raise NotImplementedError(_NOT_PORTED.format("Mip-NeRF (-m, _mip_pass)"))
+    if cfg.model == "ref":
+        raise NotImplementedError(
+            _NOT_PORTED.format("Ref-NeRF (-t, _ref_fine_forward)"))
+    if cfg.model != "vanilla":
+        raise ValueError(f"unknown model {cfg.model!r}")
+    if cfg.use_ipe:
+        raise NotImplementedError(_NOT_PORTED.format("IPE (--use_ipe)"))
+
+
+def make_models(cfg: PipelineConfig, device=None,
+                generator: Optional[torch.Generator] = None):
+    """(VanillaNeRF, ProposalNetwork) on ``device`` with flax-initialized
+    weights drawn from ``generator`` (a CPU generator; seed 0 if None)."""
+    _require_vanilla(cfg)
+    dev = resolve_device(device)
+    dtype = torch.bfloat16 if cfg.use_bf16 else torch.float32
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    nerf = init_flax_(VanillaNeRF(hidden=cfg.nerf_width, dtype=dtype),
+                      generator)
+    prop = init_flax_(ProposalNetwork(hidden=cfg.prop_width, dtype=dtype),
+                      generator)
+    return nerf.to(dev).eval(), prop.to(dev).eval()
+
+
+def init_variables(cfg: PipelineConfig,
+                   generator: Optional[torch.Generator] = None):
+    """{"nerf": state_dict, "prop": state_dict} of freshly initialized
+    models, on the CPU."""
+    nerf, prop = make_models(cfg, "cpu", generator)
+    return {"nerf": nerf.state_dict(), "prop": prop.state_dict()}
+
+
+def _use_kernels(cfg: PipelineConfig) -> bool:
+    return cfg.eval_use_pallas is not False
+
+
+def _ray_dir_encoding(nerf: VanillaNeRF, ray_dirs: torch.Tensor,
+                      n_samples: int) -> torch.Tensor:
+    """Per-ray [d/|d|, PE(d/|d|, 4)] (R, 27) broadcast to (R, P, 27).
+
+    Encoding per ray and broadcasting the finished rows gives the same bits
+    as encoding per point."""
+    enc = nerf.encode_dirs(ray_dirs)
+    return enc[:, None, :].expand(-1, n_samples, -1)
+
+
+def _apply_vanilla(nerf: VanillaNeRF, pos: torch.Tensor,
+                   ray_dirs: torch.Tensor, cfg: PipelineConfig, dev):
+    """Fine net on points (R, P, 3) -> (rgb3 (3, R, P), raw sigma (R, P))."""
+    r, p = pos.shape[:2]
+    enc_d = _ray_dir_encoding(nerf, ray_dirs, p)
+    if not _use_kernels(cfg):
+        rgb, sigma = nerf(pos, None, enc_d=enc_d)
+        return rgb.permute(2, 0, 1), sigma
+    cd = nerf.dtype
+    enc_x = cat_pos_pe(pos.reshape(r * p, 3), nerf.pos_levels, cd)
+    enc_d = enc_d.reshape(r * p, -1).to(cd)
+    rgb3, sigma = vanilla_mlp_fwd(nerf.kernel_weights(), enc_x, enc_d,
+                                  device=dev)
+    return rgb3.reshape(3, r, p), sigma.reshape(r, p)
+
+
+def _apply_prop(prop: ProposalNetwork, pts: torch.Tensor,
+                cfg: PipelineConfig, dev) -> torch.Tensor:
+    """Proposal net on points (R, P, 3) -> raw density (R, P)."""
+    if not _use_kernels(cfg):
+        return prop(pts)
+    r, p = pts.shape[:2]
+    enc = cat_pos_pe(pts.reshape(r * p, 3), prop.pos_levels, prop.dtype)
+    return prop_mlp_fwd(prop.kernel_weights(), enc, device=dev).reshape(r, p)
+
+
+def _proposal_weights(prop: ProposalNetwork, rays: torch.Tensor,
+                      c_z: torch.Tensor, cfg: PipelineConfig, dev):
+    """Eval proposal weights: raw density, relu inside the transmittance
+    (the eval path never applies softplus), depths scaled by |d|, then
+    max-blur."""
+    c_pts = render_lib.lengths_to_points(rays, c_z)
+    density = _apply_prop(prop, c_pts, cfg, dev)
+    w_raw = render_lib.transmittance_weights(
+        density, c_z, ray_dirs=rays[..., 3:], density_act=torch.relu)
+    return sampling.max_blur_filter(w_raw, cfg.max_blur_alpha)
+
+
+@torch.no_grad()
+def render_rays_eval(models, rays: torch.Tensor, cfg: PipelineConfig,
+                     sample_num: Optional[int] = None,
+                     render_depth: bool = False,
+                     noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     generator: Optional[torch.Generator] = None,
+                     device=None):
+    """Eval forward for a ray batch rays (R, 6).  Returns (rgb (R, 3), extras).
+
+    ``noise`` = (stratified jitter (R, n_coarse), sorted inverse-CDF
+    uniforms (R, sample_num + 1)) replaces the draws from ``generator``.
+    ``device`` defaults to ``cuda``; ``rays`` must lie there.
+    """
+    _require_vanilla(cfg)
+    dev = resolve_device(device)
+    check_device(rays, dev, "rays")
+    nerf, prop = models
+    sample_num = cfg.n_fine if sample_num is None else sample_num
+    jitter, u = (None, None) if noise is None else noise
+    n_rays = rays.shape[0]
+
+    c_z = sampling.stratified_samples(n_rays, cfg.n_coarse, cfg.near, cfg.far,
+                                      jitter=jitter, generator=generator,
+                                      device=rays.device)
+    w_blur = _proposal_weights(prop, rays, c_z, cfg, dev)
+    f_z, _ = sampling.inverse_sample(w_blur, c_z, sample_num + 1, u=u,
+                                     generator=generator)
+    z_vals = f_z[..., :-1]
+    pos = render_lib.lengths_to_points(rays, z_vals)
+    rgb3, density = _apply_vanilla(nerf, pos, rays[:, 3:], cfg, dev)
+    rgb_out, _, extras = render_lib.composite(
+        rgb3.permute(1, 2, 0), density, z_vals, rays[:, 3:],
+        white_bkg=cfg.white_bkg, density_act=torch.relu,
+        depth_bounds=(cfg.near, cfg.far) if render_depth else None)
+    return rgb_out, extras

@@ -1,0 +1,71 @@
+"""Full-image eval renderer (port of nerf_tpu/train/renderer.py:25-90,
+166-195, single device).
+
+The frame's rays go through ``render_rays_eval`` in chunks of ``chunk`` rays
+(``--eval_chunk``).  Noise is drawn for the whole frame at the unpadded pixel
+count and padded with 0.5, so the render does not depend on the chunk size.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from nerf_tpu_torch.core import rays as rays_lib
+from nerf_tpu_torch.core.sampling import sorted_uniforms
+from nerf_tpu_torch.device import resolve_device
+from nerf_tpu_torch.train.config import PipelineConfig
+from nerf_tpu_torch.train.pipeline import render_rays_eval
+
+
+def _pad_noise(jitter: torch.Tensor, u: torch.Tensor, pad: int):
+    """Pad per-pixel noise rows with 0.5 (a valid sorted row) to the
+    chunked length; padded rows are sliced away after the render."""
+    return (torch.cat([jitter, jitter.new_full((pad, jitter.shape[1]), 0.5)]),
+            torch.cat([u, u.new_full((pad, u.shape[1]), 0.5)]))
+
+
+@torch.no_grad()
+def render_image(models, c2w, hw, focal, cfg: PipelineConfig,
+                 sample_num: Optional[int] = None, render_depth: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 chunk: int = 4096, device=None) -> Dict[str, np.ndarray]:
+    """Render a full frame; returns numpy images in [0, 1].
+
+    ``c2w`` is a (3, 4) or (4, 4) camera-to-world pose.  ``noise`` =
+    (jitter (H*W, n_coarse), sorted uniforms (H*W, sample_num + 1)) replaces
+    the draws from ``generator`` (a generator on ``device``).
+    """
+    dev = resolve_device(device)
+    sample_num = cfg.n_fine if sample_num is None else int(sample_num)
+    h, w = int(hw[0]), int(hw[1])
+    c2w = torch.as_tensor(np.asarray(c2w, np.float32)[:3, :], device=dev)
+    rays = rays_lib.full_image_rays(h, w, c2w, (float(focal[0]),
+                                                float(focal[1])))
+    n_pix = h * w
+    pad = (-n_pix) % chunk
+    rays = torch.cat([rays, rays.new_ones((pad, 6))])
+    if noise is None:
+        jitter = torch.rand((n_pix, cfg.n_coarse), generator=generator,
+                            device=dev)
+        u = sorted_uniforms((n_pix, sample_num + 1), generator, device=dev)
+    else:
+        jitter, u = (t.to(dev, torch.float32) for t in noise)
+    jitter, u = _pad_noise(jitter, u, pad)
+
+    rgb, depth = [], []
+    for s in range(0, n_pix + pad, chunk):
+        out, extras = render_rays_eval(
+            models, rays[s:s + chunk], cfg, sample_num=sample_num,
+            render_depth=render_depth,
+            noise=(jitter[s:s + chunk], u[s:s + chunk]), device=dev)
+        rgb.append(out)
+        if render_depth:
+            depth.append(extras["depth"])
+    out = {"rgb": torch.cat(rgb)[:n_pix].reshape(h, w, 3)}
+    if render_depth:
+        out["depth"] = torch.cat(depth)[:n_pix].reshape(h, w)
+    return {k: v.cpu().numpy() for k, v in out.items()}
