@@ -5,15 +5,35 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device  - a CUDA device must be present; the card's name and power limit
-  2. build   - nvcc builds every kernel of nerf_tpu_torch/ops/csrc
+  2. build   - nvcc builds every kernel of nerf_tpu_torch/ops/csrc, one nvcc
+               per source, all started together
   3. kernels - each kernel against its plain PyTorch version, bf16 and f32,
-               at the shapes of one default 4096-ray chunk, with timings
+               with timings and bounds: the eval forwards at the shapes of
+               one default 4096-ray chunk, the training kernels at those of
+               one default step (1024 rays: 131,072 fine and 65,536 coarse
+               points); for the bf16 backwards, planted cast faults must
+               read beyond the limit that the kernels meet
   4. path    - `python -m nerf_tpu_torch -r -e -s -w` on a two-view 800x800
                Blender-layout test split with seeded random weights (full
                width vanilla model), counting kernel launches; then one f32
                frame through the kernels against the plain nn.Module path,
                and one warm bf16 frame timed and traced with torch.profiler
-  5. the kernels line, then the last line {"ok": true, "device": {...}}
+  5. step    - one f32 training step at full width through the kernels and
+               through the nn.Module path (use_pallas=False): same weights,
+               rays and noise; loss and all 32 parameter grads compared, and
+               each kernel call of the step held against its plain version
+               on the call's own operands
+  6. train   - `python -m nerf_tpu_torch --epochs 5 -s -w` on a 20-view
+               800x800 train split (rendered at 400x400, 100 steps),
+               counting kernel launches per step, and the same 100 seeded
+               steps with `--no_pallas`: the kernel route's loss curve must
+               follow the nn.Module route's and the loss must fall; then
+               `-r -e -s -w` renders the written checkpoint
+  7. profile - the trainer's own epoch loop (cli.trainer.Trainer, bf16,
+               steps issued back to back) timed (ms per step, rays/s) and
+               one epoch traced with torch.profiler (device busy share, top
+               ops)
+  8. the kernels line, then the last line {"ok": true, "device": {...}}
 
 Imports nothing of JAX or nerf_tpu.
 """
@@ -35,18 +55,26 @@ import torch
 
 from nerf_tpu_torch import ops
 from nerf_tpu_torch.cli.entry import main as entry_main
+from nerf_tpu_torch.cli.flags import get_parser
+from nerf_tpu_torch.cli.trainer import Trainer
 from nerf_tpu_torch.core.rays import fov_to_focal, pose_spherical
 from nerf_tpu_torch.ops import build
 from nerf_tpu_torch.train.config import PipelineConfig
 from nerf_tpu_torch.train.pipeline import make_models
 from nerf_tpu_torch.train.renderer import render_image
+from nerf_tpu_torch.train.step import (
+    compute_loss, sample_train_rays, train_parameters,
+)
 from nerf_tpu_torch.utils.checkpoint import save_models
+from nerf_tpu_torch.utils.metrics import read_scalars
 from nerf_tpu_torch.utils.png import write_png
 
 LEGO_FOV = 0.6911112070083618       # lego's camera_angle_x
 CHUNK = 4096                        # --eval_chunk default
 N_COARSE, N_FINE = 64, 128          # sample defaults
+RAYS = 1024                         # --sample_ray_num default
 N_FRAMES = 2
+TRAIN_VIEWS, TRAIN_EPOCHS = 20, 5   # 100 steps of the train phase
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # kernel vs plain version on the card.  bf16: both round every layer to
@@ -55,10 +83,42 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # summation order alone over K <= 319 terms.
 TOLS = {torch.bfloat16: dict(rtol=2e-2, atol=1e-2),
         torch.float32: dict(rtol=1e-4, atol=1e-5)}
+# backward grads against the plain version, as the relative Frobenius error
+# of each grad tensor, on the same stored activations.  Both round the same
+# deltas to bf16 per layer; they part only where an f32 sum taken in another
+# order lands on the other side of a rounding edge.  Measured on an H100
+# 80GB HBM3 at these shapes: bf16 1.5e-6 (vanilla) and 8.8e-7 (proposal),
+# f32 1.7e-6 and 7.6e-6.  A bf16 backward with a cast left out or added reads
+# 2.2e-3 or more (``cast_controls``), so the limit sits between the two.
+GRAD_REL = {torch.bfloat16: 1e-4, torch.float32: 1e-4}
+# the 9 stored activations of vanilla_mlp_fwd_res, as the relative Frobenius
+# error of each: a bf16 value that rounds one ulp apart in an early layer
+# carries on through up to 8 layers, so single values deep in the net can
+# sit several ulps apart (0.0625 on one value of 131,072 x 2,176 on an H100
+# 80GB HBM3) while the tensors agree closely.
+ACT_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 # one f32 frame, kernels vs the nn.Module path: per-point outputs agree to
 # ~1e-5 relative; the composite over 128 samples and the inverse-CDF depths
 # pass it on without amplifying it by more than a few times.
 FRAME_ATOL = 1e-3
+# one f32 training step, kernels vs the nn.Module path.  Each kernel call of
+# the step meets its plain version on the call's own operands (forwards
+# within TOLS, backwards within GRAD_REL), so the kernels are not what parts
+# the two routes: their forwards sum in another order, the fine sample
+# depths that the inverse CDF draws from the proposal's density differ by
+# f32 ulps, and the positional encoding's top frequency (2^9) amplifies
+# that in the fine net's first layers (tests/test_torch_cuda.py shows it).
+# Measured: 1.8e-4 on the worst grad of this step on an H100 80GB HBM3.
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_REL = 2e-3
+# the 100-step bf16 train run, kernels vs the nn.Module route (--no_pallas)
+# from the same seed: the routes round differently (the kernels add each
+# bias in f32, the nn.Modules in bf16), so their trajectories part step by
+# step; each epoch's mean loss and mean image MSE must agree within these
+# relative bands.  Measured on an H100 80GB HBM3: 6.9e-2 (loss, mostly the
+# proposal loss, on its epoch of lowest mean) and 6.3e-3 (image MSE).  A
+# trainer that stops learning reads above 1 on both.
+TRAIN_BAND = {"loss": 0.25, "img_mse": 0.05}
 
 KERNELS = {
     "prop_mlp_fwd": dict(
@@ -67,7 +127,18 @@ KERNELS = {
     "vanilla_mlp_fwd": dict(
         source="nerf_tpu_torch/ops/csrc/fused_mlp.cu",
         replaces="nerf_tpu/ops/fused_mlp.py:128"),
+    "vanilla_mlp_fwd_res": dict(
+        source="nerf_tpu_torch/ops/csrc/fused_mlp.cu",
+        replaces="nerf_tpu/ops/fused_mlp.py:150"),
+    "vanilla_mlp_bwd": dict(
+        source="nerf_tpu_torch/ops/csrc/fused_mlp_bwd.cu",
+        replaces="nerf_tpu/ops/fused_mlp.py:163"),
+    "prop_mlp_bwd": dict(
+        source="nerf_tpu_torch/ops/csrc/fused_mlp_bwd.cu",
+        replaces="nerf_tpu/ops/fused_mlp.py:493"),
 }
+TRAIN_KERNELS = ("prop_mlp_fwd", "vanilla_mlp_fwd_res", "vanilla_mlp_bwd",
+                 "prop_mlp_bwd")
 
 
 def emit(phase: str, **kw):
@@ -137,76 +208,195 @@ def macs_per_point(shapes):
     return sum(s[0] * s[1] for s, is_bias in shapes if not is_bias)
 
 
-def check_kernel(name, dtype, gen):
+def _rel_err(got, want):
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want).clamp_min(1e-30))
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _encodings(gen, dtype, n, dd=True):
+    x = torch.rand((n, 63), generator=gen, device="cuda").mul_(2).sub_(1)
+    d = torch.rand((n, 27), generator=gen, device="cuda").mul_(2).sub_(1)
+    return x.to(dtype), (d.to(dtype) if dd else None)
+
+
+def kernel_case(name, dtype, gen):
+    """(kernel call, plain call, compare(got, want) -> max abs err, bytes
+    moved, FLOPs, points) of ``name`` at its main-path shapes."""
     if name == "prop_mlp_fwd":
         shapes, n = prop_shapes(), CHUNK * N_COARSE
         ws = random_weights(shapes, gen, dtype)
-        x = torch.rand((n, 63), generator=gen, device="cuda").mul_(2).sub_(1)
-        args = (ws, x.to(dtype))
-        kernel, plain = ops.prop_mlp_fwd, ops.prop_mlp_plain
-        in_bytes = x.numel() * x.to(dtype).element_size()
-        out_bytes = n * 4
-    else:
+        x, _ = _encodings(gen, dtype, n, dd=False)
+        args, kernel, plain = (ws, x), ops.prop_mlp_fwd, ops.prop_mlp_plain
+        moved = _nbytes(x, *ws) + n * 4
+        macs = macs_per_point(shapes)
+    elif name == "vanilla_mlp_fwd":
         shapes, n = vanilla_shapes(), CHUNK * N_FINE
         ws = random_weights(shapes, gen, dtype)
-        x = torch.rand((n, 63), generator=gen, device="cuda").mul_(2).sub_(1)
-        d = torch.rand((n, 27), generator=gen, device="cuda").mul_(2).sub_(1)
-        args = (ws, x.to(dtype), d.to(dtype))
+        x, d = _encodings(gen, dtype, n)
+        args = (ws, x, d)
         kernel, plain = ops.vanilla_mlp_fwd, ops.vanilla_mlp_plain
+        moved = _nbytes(x, d, *ws) + n * 4 * 4
+        macs = macs_per_point(shapes)
+    elif name == "vanilla_mlp_fwd_res":
+        shapes, n = vanilla_shapes(), RAYS * N_FINE
+        ws = random_weights(shapes, gen, dtype)
+        x, d = _encodings(gen, dtype, n)
+        args = (ws, x, d)
+        kernel, plain = ops.vanilla_mlp_fwd_res, ops.vanilla_mlp_fwd_res_plain
         elem = torch.empty((), dtype=dtype).element_size()
-        in_bytes = n * (63 + 27) * elem
-        out_bytes = n * 4 * 4
-    got = kernel(*args)
-    want = plain(*args)
-    torch.cuda.synchronize()
+        moved = _nbytes(x, d, *ws) + n * 4 * 4 + n * 2176 * elem
+        macs = macs_per_point(shapes)
+    elif name == "vanilla_mlp_bwd":
+        shapes, n = vanilla_shapes(), RAYS * N_FINE
+        ws = random_weights(shapes, gen, dtype)
+        x, d = _encodings(gen, dtype, n)
+        rgb3, _, acts = ops.vanilla_mlp_fwd_res(ws, x, d)
+        g_rgb = torch.randn((3, n), generator=gen, device="cuda")
+        g_sig = torch.randn((n,), generator=gen, device="cuda")
+        args = (ws, x, d, g_rgb, g_sig, rgb3, acts)
+        kernel, plain = ops.vanilla_mlp_bwd, ops.vanilla_mlp_bwd_plain
+        moved = _nbytes(x, d, g_rgb, g_sig, rgb3, *acts, *ws) \
+            + 4 * sum(w.numel() for w in ws)
+        # weight grads plus the deltas (none to the encodings)
+        macs = macs_per_point(shapes) + 492_160
+    else:   # prop_mlp_bwd
+        shapes, n = prop_shapes(), RAYS * N_COARSE
+        ws = random_weights(shapes, gen, dtype)
+        x, _ = _encodings(gen, dtype, n, dd=False)
+        g = torch.randn((n,), generator=gen, device="cuda")
+        args, kernel, plain = (ws, x, g), ops.prop_mlp_bwd, \
+            ops.prop_mlp_bwd_plain
+        moved = _nbytes(x, g, *ws) + 4 * sum(w.numel() for w in ws)
+        # the recomputed forward, the deltas and the weight grads
+        macs = 2 * macs_per_point(shapes) + 256 + 3 * 256 * 256
+    return args, kernel, plain, moved, 2.0 * macs * n, n
+
+
+def compare(name, dtype, got, want):
+    """Hold a kernel's outputs against the plain version's; returns (max
+    abs err of the outputs, worst relative Frobenius error of the grads or
+    the stored activations, or None)."""
+    if name.endswith("bwd"):
+        rels = []
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not torch.isfinite(g).all():
+                fail(f"{name} {dtype}: non-finite grad {i}")
+            rels.append(_rel_err(g, w))
+            if rels[-1] > GRAD_REL[dtype]:
+                fail(f"{name} {dtype}: grad {i} relative error {rels[-1]} "
+                     f"beyond {GRAD_REL[dtype]}")
+        return max(float((g - w).abs().max()) for g, w in zip(got, want)), \
+            max(rels)
+    act_rel = None
+    if name == "vanilla_mlp_fwd_res":
+        act_rels = [_rel_err(g.float(), w.float())
+                    for g, w in zip(got[2], want[2])]
+        act_rel = max(act_rels)
+        if not all(math.isfinite(r) for r in act_rels) \
+                or act_rel > ACT_REL[dtype]:
+            fail(f"{name} {dtype}: activation relative errors {act_rels} "
+                 f"beyond {ACT_REL[dtype]}")
+        got, want = got[:2], want[:2]
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
     for g, w in zip(got, want):
         if not torch.isfinite(g).all():
             fail(f"{name} {dtype}: non-finite output")
-        if not torch.allclose(g, w, **TOLS[dtype]):
+        if not torch.allclose(g.float(), w.float(), **TOLS[dtype]):
             fail(f"{name} {dtype}: max abs err {err} beyond {TOLS[dtype]}")
     # share of points whose density/sigma passes the ReLU downstream
     active = float((want[-1] > 0).float().mean())
     if not 0.0 < active < 1.0:
         fail(f"{name} {dtype}: degenerate test inputs (positive share "
              f"{active})")
-    w_bytes = sum(w.numel() * w.element_size() for w in ws)
-    flops = 2.0 * macs_per_point(shapes) * n
-    bytes_moved = in_bytes + w_bytes + out_bytes
-    bound_s = max(bytes_moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
+    return err, act_rel
+
+
+def cast_controls(name, args, want):
+    """Readings of planted faults of a bf16 backward against the plain
+    version's grads ``want``, each the worst relative Frobenius error over
+    the grads it changes: the vanilla backward with every delta left in f32
+    (the plain backward on operands upcast to f32) and with dbb summed from
+    dbvec rounded to bf16 (fused_mlp.py:240 sums it in f32); the proposal
+    backward run in f32 throughout."""
+    up = lambda ts: [t.float() for t in ts]   # noqa: E731
+    if name == "prop_mlp_bwd":
+        ws, x, g = args
+        f32 = ops.prop_mlp_bwd_plain(up(ws), x.float(), g)
+        return {"f32_throughout": max(_rel_err(a, b)
+                                      for a, b in zip(f32, want))}
+    ws, x, d, g_rgb, g_sig, rgb3, acts = args
+    f32 = ops.vanilla_mlp_bwd_plain(up(ws), x.float(), d.float(), g_rgb,
+                                    g_sig, rgb3, up(acts))
+    cd = x.dtype
+    dlogit3 = (g_rgb * rgb3 * (1.0 - rgb3)).to(cd).float()
+    dr1 = torch.where(acts[8].float() > 0, dlogit3.T @ ws[22].float().T,
+                      0.0).to(cd).float()
+    dbvec = dr1 @ ws[19].float().T
+    dbb = dbvec.to(cd).float().sum(0, keepdim=True)
+    return {"deltas_f32": max(_rel_err(a, b) for a, b in zip(f32, want)),
+            "dbb_from_rounded_dbvec": _rel_err(dbb, want[18])}
+
+
+def check_kernel(name, dtype, gen):
+    args, kernel, plain, moved, flops, n = kernel_case(name, dtype, gen)
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    err, rel = compare(name, dtype, got, want)
+    controls = None
+    if name.endswith("bwd") and dtype == torch.bfloat16:
+        controls = cast_controls(name, args, want)
+        if min(controls.values()) <= GRAD_REL[dtype]:
+            fail(f"{name}: a planted cast fault reads {controls}, within "
+                 f"the limit {GRAD_REL[dtype]}: the limit cannot tell it")
+    del got, want
+    bytes_s, ops_s = moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     ms = cuda_ms(lambda: kernel(*args), 20)
     plain_ms = cuda_ms(lambda: plain(*args), 20)
+    rel_key = "act_rel_err" if name == "vanilla_mlp_fwd_res" else \
+        "grad_rel_err"
+    tol = (GRAD_REL[dtype] if name.endswith("bwd") else
+           dict(TOLS[dtype], act_rel=ACT_REL[dtype]) if rel is not None
+           else TOLS[dtype])
+    extra = {} if controls is None else {"planted_faults_rel": controls}
     return dict(name=name, dtype=str(dtype).replace("torch.", ""), n=n,
-                max_abs_err=err, tol=TOLS[dtype], positive_share=active,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
-                bound_by="bytes" if bytes_moved / HBM_BYTES_PER_S
-                > flops / PEAK_FLOPS[dtype] else "operations",
-                tflops=flops / (ms * 1e-3) / 1e12)
+                max_abs_err=err, **{rel_key: rel}, tol=tol, **extra,
+                ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
+                bound_by="bytes" if bytes_s > ops_s else "operations",
+                bytes=moved, flops=flops, tflops=flops / (ms * 1e-3) / 1e12)
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the render path
 # ---------------------------------------------------------------------------
 
-def write_test_split(root: str, gen: np.random.Generator):
-    """Two 800x800 RGBA views in the Blender layout, lego's field of view."""
+def write_split(root: str, split: str, n_views: int,
+                gen: np.random.Generator):
+    """``n_views`` 800x800 RGBA views of ``split`` in the Blender layout
+    under root/data/lego, lego's field of view, poses on the orbit."""
     scene = os.path.join(root, "data", "lego")
-    os.makedirs(os.path.join(scene, "test"))
+    os.makedirs(os.path.join(scene, split))
     yy, xx = np.mgrid[0:800, 0:800] / 800.0
     frames = []
-    for i in range(N_FRAMES):
-        pose = pose_spherical(-180.0 + 90.0 * i, -30.0, 4.0)
-        frames.append({"file_path": f"./test/r_{i}",
+    for i in range(n_views):
+        pose = pose_spherical(-180.0 + 360.0 * i / max(n_views, 4), -30.0,
+                              4.0)
+        frames.append({"file_path": f"./{split}/r_{i}",
                        "transform_matrix": pose.tolist()})
         phase = gen.uniform(0, 2 * np.pi, 3)
         rgb = 0.5 + 0.5 * np.sin(6 * xx[..., None] + 4 * yy[..., None] + phase)
         alpha = ((xx - 0.5) ** 2 + (yy - 0.5) ** 2 < 0.1)[..., None]
         img = np.concatenate([rgb, alpha], -1) * 255.0 + 0.5
-        write_png(os.path.join(scene, "test", f"r_{i}.png"),
+        write_png(os.path.join(scene, split, f"r_{i}.png"),
                   img.astype(np.uint8))
-    with open(os.path.join(scene, "transforms_test.json"), "w") as f:
+    with open(os.path.join(scene, f"transforms_{split}.json"), "w") as f:
         json.dump({"camera_angle_x": LEGO_FOV, "frames": frames}, f)
 
 
@@ -235,7 +425,7 @@ def cwd(path):
 
 
 def run_path(tmp: str):
-    write_test_split(tmp, np.random.default_rng(0))
+    write_split(tmp, "test", N_FRAMES, np.random.default_rng(0))
     cfg = PipelineConfig()
     save_models(os.path.join(tmp, "model"), "model_1", seeded_models(cfg, 0))
     argv = ["-r", "-e", "-s", "-w", "--dataset_root", os.path.join(tmp, "data"),
@@ -253,9 +443,11 @@ def run_path(tmp: str):
         fail(f"entry returned {rc}")
     n_chunks = math.ceil(400 * 400 / CHUNK)
     for k, v in launches.items():
-        if v != n_chunks * N_FRAMES:
-            fail(f"{k} launched {v} times, expected {n_chunks} per frame "
-                 f"over {N_FRAMES} frames")
+        want = n_chunks * N_FRAMES if k in ("prop_mlp_fwd",
+                                            "vanilla_mlp_fwd") else 0
+        if v != want:
+            fail(f"{k} launched {v} times, expected {want} ({n_chunks} per "
+                 f"frame of the eval forwards over {N_FRAMES} frames)")
     for i in range(N_FRAMES):
         if not os.path.getsize(os.path.join(tmp, "output", "given",
                                             f"result_{i:03d}.png")):
@@ -323,19 +515,311 @@ def profile_frame():
         t0 = time.perf_counter()
         frame()
         wall_profiled = time.perf_counter() - t0
+    device_ms, top = device_times(prof)
+    return dict(
+        frame_s=wall, profiled_frame_s=wall_profiled, device_ms=device_ms,
+        device_busy_share=(device_ms / 1e3 / wall_profiled
+                           if device_ms is not None else None),
+        top_device_ms=top)
+
+
+def device_times(prof, n_top: int = 8):
+    """(total device ms, [[kernel name, ms], ...] of the top ``n_top``) of a
+    torch.profiler run; (None, []) when it saw no device activity."""
+    from torch.autograd import DeviceType
+
     by_name = {}
     for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
+        # user annotations (Optimizer.step#...) are ranges, not device work
+        if evt.device_type == DeviceType.CUDA and not getattr(
+                evt, "is_user_annotation", False):
             by_name[evt.name] = (by_name.get(evt.name, 0.0)
                                  + evt.time_range.elapsed_us() / 1e3)
-    device_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return dict(
-        frame_s=wall, profiled_frame_s=wall_profiled,
-        device_ms=device_ms if by_name else None,
-        device_busy_share=(device_ms / 1e3 / wall_profiled
-                           if by_name else None),
-        top_device_ms=[[name[:90], ms] for name, ms in top])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
+    return ((sum(by_name.values()) if by_name else None),
+            [[name[:90], ms] for name, ms in top])
+
+
+# ---------------------------------------------------------------------------
+# phase 5: one f32 training step, kernels against the nn.Module path
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def calls_held_against_plain(record: dict):
+    """While open, every call of a training kernel's wrapper made by the
+    autograd Functions also runs the plain version on the call's own
+    operands.  ``record`` gets, per kernel, the worst error: for a forward
+    max |got - want| / (atol + rtol |want|) over its outputs, with TOLS'
+    f32 terms (allclose holds where it is at most 1); for a backward the
+    relative Frobenius error of each grad.  Under "relu_mask_flips" it
+    counts the stored activations whose ReLU mask differs from the plain
+    forward's."""
+    fm = ops.fused_mlp
+    orig = {k: getattr(fm, k) for k in TRAIN_KERNELS}
+    tol = TOLS[torch.float32]
+
+    def note(key, value):
+        record[key] = max(record.get(key, 0.0), value)
+
+    def close(got, want):
+        return max(float(((a - b).abs() / (tol["atol"] + tol["rtol"]
+                                           * b.abs())).max())
+                   for a, b in zip(got, want))
+
+    def prop_fwd(ws, enc, device=None):
+        out = orig["prop_mlp_fwd"](ws, enc, device=device)
+        note("prop_mlp_fwd", close((out,), (fm.prop_mlp_plain(ws, enc),)))
+        return out
+
+    def vanilla_fwd_res(ws, enc_x, enc_d, device=None):
+        out = orig["vanilla_mlp_fwd_res"](ws, enc_x, enc_d, device=device)
+        want = fm.vanilla_mlp_fwd_res_plain(ws, enc_x, enc_d)
+        note("vanilla_mlp_fwd_res", close(out[:2], want[:2]))
+        record["relu_mask_flips"] = record.get("relu_mask_flips", 0) + sum(
+            int(((a > 0) != (b > 0)).sum()) for a, b in zip(out[2], want[2]))
+        return out
+
+    def bwd(name, plain):
+        def call(*args, device=None):
+            grads = orig[name](*args, device=device)
+            note(name, max(_rel_err(a, b)
+                           for a, b in zip(grads, plain(*args))))
+            return grads
+        return call
+
+    held = dict(prop_mlp_fwd=prop_fwd, vanilla_mlp_fwd_res=vanilla_fwd_res,
+                vanilla_mlp_bwd=bwd("vanilla_mlp_bwd",
+                                    fm.vanilla_mlp_bwd_plain),
+                prop_mlp_bwd=bwd("prop_mlp_bwd", fm.prop_mlp_bwd_plain))
+    for k, fn in held.items():
+        setattr(fm, k, fn)
+    try:
+        yield record
+    finally:
+        for k, fn in orig.items():
+            setattr(fm, k, fn)
+
+
+def step_check():
+    """Loss and grads of one f32 step at full width (1024 rays, 64 + 128
+    samples, 256-wide nets) through the kernels' autograd and through the
+    nn.Module path, same weights, rays and injected noise; each kernel call
+    of the step held against its plain version on its own operands."""
+    cfg = PipelineConfig()
+    models = seeded_models(cfg, 1)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    focal = fov_to_focal(LEGO_FOV, (400, 400))
+    pose = torch.tensor(pose_spherical(30.0, -30.0, 4.0)[:3],
+                        device="cuda")
+    pool = torch.rand((1, 400 * 400, 3), generator=g, device="cuda")
+    rays, gt = sample_train_rays(pool, pose[None], 0, (400, 400), focal,
+                                 RAYS, generator=g)
+    jitter = torch.rand((RAYS, N_COARSE), generator=g, device="cuda")
+    u = torch.sort(torch.rand((RAYS, N_FINE + 1), generator=g,
+                              device="cuda"), dim=-1).values
+    params = train_parameters(models)
+    out, per_call = {}, {}
+    for use_kernels in (True, False):
+        ops.reset_launches()
+        with calls_held_against_plain(per_call):
+            loss, metrics = compute_loss(models, rays, gt,
+                                         cfg.replace(use_pallas=use_kernels),
+                                         noise=(jitter, u))
+            grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        out[use_kernels] = (loss, metrics, grads, dict(ops.LAUNCHES))
+    launches = out[True][3]
+    if any(launches[k] != 1 for k in TRAIN_KERNELS) or any(
+            out[False][3].values()):
+        fail(f"step check: unexpected launches {launches} / {out[False][3]}")
+    f32 = torch.float32
+    for k in TRAIN_KERNELS:
+        lim = GRAD_REL[f32] if k.endswith("bwd") else 1.0
+        if k not in per_call or not per_call[k] <= lim:
+            fail(f"step check: {k} against its plain version on the step's "
+                 f"own operands reads {per_call.get(k)}, limit {lim}")
+    loss_k, loss_p = out[True][0].item(), out[False][0].item()
+    if not (math.isfinite(loss_k)
+            and abs(loss_k - loss_p) <= STEP_LOSS_RTOL * abs(loss_p)):
+        fail(f"step check: loss {loss_k} (kernels) vs {loss_p} (plain)")
+    rels = [_rel_err(a, b) for a, b in zip(out[True][2], out[False][2])]
+    if not all(math.isfinite(r) for r in rels) or max(rels) > STEP_GRAD_REL:
+        fail(f"step check: grad relative errors {rels} beyond "
+             f"{STEP_GRAD_REL}")
+    metrics = {k: float(v.detach()) for k, v in out[False][1].items()}
+    if metrics["prop_loss"] <= 0.0:
+        fail("step check: the proposal loss is zero (degenerate weights)")
+    return dict(loss_kernels=loss_k, loss_plain=loss_p,
+                loss_rtol=STEP_LOSS_RTOL,
+                img_loss=metrics["img_loss"], prop_loss=metrics["prop_loss"],
+                grad_rel_err_max=max(rels),
+                grad_rel_err_median=statistics.median(rels),
+                grad_rel_tol=STEP_GRAD_REL, n_grads=len(rels),
+                per_call_vs_plain=per_call)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the train path, then render-only on its checkpoint
+# ---------------------------------------------------------------------------
+
+def train_argv(tmp: str, *extra: str):
+    """The train phase's command line (after ``python -m nerf_tpu_torch``)."""
+    return ["--epochs", str(TRAIN_EPOCHS), "-s", "-w", "--dataset_root",
+            os.path.join(tmp, "data"), "--dataset_name", "lego",
+            "--warmup_step", "20", "--eval_time", "1", "--no_tensorboard",
+            "--output_dir", os.path.join(tmp, "output"), *extra]
+
+
+def train_once(tmp: str, route: str, *extra: str):
+    """One run of the entry with the train phase's flags and ``extra``:
+    (launches, per-step losses, per-step image MSEs, seconds)."""
+    log_dir = os.path.join(tmp, "logs", route)
+    argv = train_argv(tmp, "--log_dir", log_dir, *extra)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with cwd(tmp):
+        rc = entry_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    if rc != 0:
+        fail(f"train entry ({route}) returned {rc}")
+    log = [os.path.join(d, f) for d, _, fs in os.walk(log_dir)
+           for f in fs if f == "metrics.jsonl"][0]
+    losses = [v for _, v in read_scalars(log, "Train Loss")]
+    mses = [10.0 ** (-v / 10.0) for _, v in read_scalars(log, "PSNR")]
+    steps = TRAIN_VIEWS * TRAIN_EPOCHS
+    if not (len(losses) == len(mses) == steps
+            and all(math.isfinite(v) for v in losses + mses)):
+        fail(f"train path ({route}): {len(losses)} logged losses, expected "
+             f"{steps} finite ones")
+    return launches, losses, mses, wall
+
+
+def epoch_means(values):
+    return [statistics.mean(values[i:i + TRAIN_VIEWS])
+            for i in range(0, len(values), TRAIN_VIEWS)]
+
+
+def run_train(tmp: str):
+    """``python -m nerf_tpu_torch --epochs 5 -s -w`` on a 20-view train
+    split, through the kernels and through the nn.Module route
+    (``--no_pallas``, its checkpoint under another name): launches per step
+    of each training kernel, and the two routes' loss curves."""
+    rng = np.random.default_rng(1)
+    write_split(tmp, "train", TRAIN_VIEWS, rng)
+    write_split(tmp, "test", 1, rng)
+    steps = TRAIN_VIEWS * TRAIN_EPOCHS
+    eval_chunks = math.ceil(400 * 400 / CHUNK)   # one test view, at the end
+    runs = {"plain": train_once(tmp, "plain", "--no_pallas", "--name",
+                                "plain_route"),
+            "kernels": train_once(tmp, "kernels")}
+    want = dict(prop_mlp_fwd=eval_chunks, vanilla_mlp_fwd=eval_chunks,
+                vanilla_mlp_fwd_res=0, vanilla_mlp_bwd=0, prop_mlp_bwd=0)
+    if runs["plain"][0] != want:
+        fail(f"train path --no_pallas launches {runs['plain'][0]}, "
+             f"expected {want}")
+    want = dict(want, prop_mlp_fwd=steps + eval_chunks,
+                **{k: steps for k in TRAIN_KERNELS[1:]})
+    launches, losses, mses, wall = runs["kernels"]
+    if launches != want:
+        fail(f"train path launches {launches}, expected {want}")
+    curves = {route: {"loss": epoch_means(r[1]), "img_mse": epoch_means(r[2])}
+              for route, r in runs.items()}
+    for route, c in curves.items():
+        c["prop_loss"] = [a - b for a, b in zip(c["loss"], c["img_mse"])]
+    band = {key: [abs(k / p - 1.0) for k, p in zip(curves["kernels"][key],
+                                                   curves["plain"][key])]
+            for key in ("loss", "img_mse")}
+    if any(max(band[k]) > TRAIN_BAND[k] for k in band):
+        fail(f"train path: the kernel route's epoch means part from the "
+             f"nn.Module route's by {band}, beyond {TRAIN_BAND}: {curves}")
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    if not last < first:
+        fail(f"train path: loss did not fall ({first} -> {last})")
+    if not curves["kernels"]["img_mse"][-1] < curves["kernels"]["img_mse"][0]:
+        fail(f"train path: the image MSE did not fall: {curves}")
+    return dict(command="python -m nerf_tpu_torch " + " ".join(
+        a if "/" not in a else "<tmp>" for a in train_argv(tmp)), steps=steps,
+        launches=launches,
+        launches_per_step={k: launches[k] / steps for k in TRAIN_KERNELS},
+        loss_first10=first, loss_last10=last, epoch_means=curves,
+        kernels_vs_plain_rel=band, band=TRAIN_BAND, s_entry=wall,
+        s_entry_plain=runs["plain"][3])
+
+
+def render_trained(tmp: str):
+    """``-r -e -s -w`` on the checkpoint the train phase wrote."""
+    argv = ["-r", "-e", "-s", "-w", "--dataset_root",
+            os.path.join(tmp, "data"), "--dataset_name", "lego",
+            "--output_dir", os.path.join(tmp, "output")]
+    ops.reset_launches()
+    with cwd(tmp):
+        rc = entry_main(argv)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    n_chunks = math.ceil(400 * 400 / CHUNK)
+    if rc != 0 or launches["vanilla_mlp_fwd"] != n_chunks:
+        fail(f"render of the trained checkpoint: rc {rc}, launches "
+             f"{launches}")
+    img = os.path.join(tmp, "output", "given", "result_000.png")
+    if not os.path.getsize(img):
+        fail("render of the trained checkpoint wrote no image")
+    return dict(command="python -m nerf_tpu_torch -r -e -s -w",
+                launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the trainer's epoch loop, timed and profiled
+# ---------------------------------------------------------------------------
+
+def profile_trainer(tmp: str, epochs: int = 5):
+    """ms per default bf16 step (1024 rays, -s) of the trainer's own epoch
+    loop on the train split of phase 6: ``Trainer.run_epoch`` issues its
+    steps back to back and the epoch ends in a synchronize, as the trainer's
+    one read-back per epoch does.  The median over ``epochs`` epochs after
+    a warm one, with the host's share (the time until ``run_epoch``
+    returns); then one epoch traced with torch.profiler (device time and
+    device operations per step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = get_parser().parse_args(train_argv(tmp))
+    with cwd(tmp):
+        trainer = Trainer(args, "cuda")
+    steps = len(trainer.train_set)
+    trainer.run_epoch(0)
+    torch.cuda.synchronize()
+    times, issue = [], []
+    for ep in range(1, epochs + 1):
+        t0 = time.perf_counter()
+        trainer.run_epoch(ep)
+        issue.append((time.perf_counter() - t0) / steps)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / steps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run_epoch(epochs + 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_ms, top = device_times(prof, 10)
+    from torch.autograd import DeviceType
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+    ms = statistics.median(times) * 1e3
+    return dict(step_ms_median=ms, step_ms_min=min(times) * 1e3,
+                rays_per_s=RAYS / (ms * 1e-3), epochs_timed=epochs,
+                host_issue_ms_per_step=statistics.median(issue) * 1e3,
+                device_ops_per_step=kernels / steps,
+                steps_per_epoch=steps, profiled_steps=steps,
+                profiled_wall_ms_per_step=wall * 1e3 / steps,
+                device_ms_per_step=(device_ms / steps
+                                    if device_ms is not None else None),
+                device_busy_share=(device_ms / (wall * 1e3)
+                                   if device_ms is not None else None),
+                top_device_ms_per_step=[[k, v / steps] for k, v in top])
 
 
 def main() -> int:
@@ -369,32 +853,49 @@ def main() -> int:
             res = check_kernel(name, dtype, gen)
             checks[(name, dtype)] = res
             emit("kernel", **res)
+            torch.cuda.empty_cache()
 
     # phase 4: the render path
     with tempfile.TemporaryDirectory() as tmp:
-        launches, s_per_frame = run_path(tmp)
+        render_launches, s_per_frame = run_path(tmp)
         emit("path", command="python -m nerf_tpu_torch -r -e -s -w",
-             frames=N_FRAMES, hw=[400, 400], launches=launches,
+             frames=N_FRAMES, hw=[400, 400], launches=render_launches,
              s_per_frame_entry=s_per_frame)
     diff, depth_std = frame_check()
     emit("frame", f32_kernels_vs_plain_max_abs=diff, atol=FRAME_ATOL,
          depth_std=depth_std)
     emit("profile", **profile_frame())
 
-    # phase 5: the kernels line, then the last line
+    # phase 5: one f32 training step, kernels against the nn.Module path
+    emit("step", **step_check())
+
+    # phases 6 and 7: the train path, render-only on its checkpoint, and a
+    # timed and profiled warm step
+    with tempfile.TemporaryDirectory() as tmp:
+        train = run_train(tmp)
+        emit("train", **train)
+        emit("render_trained", **render_trained(tmp))
+        emit("train_profile", **profile_trainer(tmp))
+
+    # phase 8: the kernels line, then the last line.  ``launches`` is each
+    # kernel's count in the train path's run (training steps and the final
+    # eval render); ``launches_render`` its count in the render path's.
     kernels = []
     for name, meta in KERNELS.items():
-        res = checks[(name, torch.bfloat16)]   # -s renders in bf16
+        res = checks[(name, torch.bfloat16)]   # -s trains and renders in bf16
+        f32 = checks[(name, torch.float32)]
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=launches[name],
-            max_abs_err=res["max_abs_err"], tol=res["tol"], ms=res["ms"],
+            replaces=meta["replaces"], launches=train["launches"][name],
+            launches_render=render_launches[name],
+            max_abs_err=res["max_abs_err"],
+            rel_err=res.get("grad_rel_err", res.get("act_rel_err")),
+            tol=res["tol"], n=res["n"], ms=res["ms"],
             plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
             bound_by=res["bound_by"], library_ms=None,
-            f32=dict(max_abs_err=checks[(name, torch.float32)]["max_abs_err"],
-                     ms=checks[(name, torch.float32)]["ms"],
-                     plain_ms=checks[(name, torch.float32)]["plain_ms"],
-                     bound_ms=checks[(name, torch.float32)]["bound_ms"])))
+            f32=dict(rel_err=f32.get("grad_rel_err", f32.get("act_rel_err")),
+                     **{k: f32[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by")})))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,5 +6,6 @@ of the ported paths is a CUDA kernel written by hand for ``sm_90a``
 (``ops/csrc``).  Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise rather than run on the CPU.
 
-Ported so far: the vanilla render path (``python -m nerf_tpu_torch -r``).
+Ported so far: the vanilla render path (``python -m nerf_tpu_torch -r``) and
+the vanilla training step and trainer (``python -m nerf_tpu_torch``).
 """

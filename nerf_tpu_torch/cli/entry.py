@@ -1,24 +1,20 @@
-"""CLI main(): ``python -m nerf_tpu_torch -r [-e] [-s] [-w] ...``.
+"""CLI main(): ``python -m nerf_tpu_torch [-r [-e]] [-s] [-w] ...``.
 
-Only render-only mode (-r) is ported; without it the entry exits non-zero
-and says that training is a later slice of the port.
+With ``-r`` it renders with a trained model (cli/render.py); without it it
+trains (cli/trainer.py), single device.  Both run on the CUDA device.
 """
 
 from __future__ import annotations
 
-import sys
-
 from nerf_tpu_torch.cli.flags import get_parser
 from nerf_tpu_torch.cli.render import render_only
+from nerf_tpu_torch.cli.trainer import train
 
 
-def main(argv=None) -> int:
+def main(argv=None, device=None) -> int:
     args = get_parser().parse_args(argv)
-    if not args.do_render:
-        print("nerf_tpu_torch: training is a later slice of the port "
-              "(ROADMAP.md); only render-only mode (-r) runs so far. "
-              "Train with the JAX package (train.py) and export the model "
-              "with tools/export_torch_checkpoint.py.", file=sys.stderr)
-        return 2
-    render_only(args)
+    if args.do_render:
+        render_only(args, device)
+    else:
+        train(args, device)
     return 0

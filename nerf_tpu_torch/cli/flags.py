@@ -90,7 +90,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--pallas", dest="pallas", default=None,
                    action="store_true",
                    help="force the fused MLP kernels on the training path "
-                        "(ops/fused_mlp.py); training is not ported yet")
+                        "(ops/fused_mlp.py; the default)")
     p.add_argument("--no_pallas", dest="pallas", action="store_false",
                    help="force the per-layer nn.Module path instead of the "
                         "fused MLP kernels on the training path")

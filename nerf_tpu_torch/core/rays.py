@@ -1,4 +1,5 @@
-"""Camera model and ray generation (port of nerf_tpu/core/rays.py).
+"""Camera model, ray generation and the training crop window (port of
+nerf_tpu/core/rays.py).
 
 Pinhole camera looking down -z in camera space; pixel coordinates are
 centered (col - W//2, H//2 - row) and shifted by +0.5 at ray generation,
@@ -32,6 +33,22 @@ def fov_to_focal(fov, image_hw, legacy_square: bool = False):
     return (focal, focal)
 
 
+def crop_bounds(h: int, w: int, crop_xy) -> tuple:
+    """Center-crop window [x_lb, x_ub) x [y_lb, y_ub) of an (h, w) image for
+    the (x, y) crop ratios; a ratio of 0.99 or more keeps the whole axis."""
+    half_w, half_h = w // 2, h // 2
+    cx, cy = crop_xy
+    if cx < 0.99:
+        x_lb, x_ub = int(half_w * (1.0 - cx)), int(half_w + half_w * cx)
+    else:
+        x_lb, x_ub = 0, w
+    if cy < 0.99:
+        y_lb, y_ub = int(half_h * (1.0 - cy)), int(half_h + half_h * cy)
+    else:
+        y_lb, y_ub = 0, h
+    return x_lb, x_ub, y_lb, y_ub
+
+
 def pixel_coord_grid(h: int, w: int, device=None) -> torch.Tensor:
     """Centered integer (x, y) per pixel, row-major, (H*W, 2) int32."""
     rows = torch.arange(h, dtype=torch.int32, device=device)
@@ -46,8 +63,11 @@ def rays_from_coords(coords: torch.Tensor, c2w: torch.Tensor,
     """Centered pixel coords (N, 2) + camera-to-world (3, 4) -> rays (N, 6)
     as (origin | unnormalized direction)."""
     f_row, f_col = focal
-    xy = (coords.to(torch.float32) + 0.5) / torch.tensor(
-        [f_col, f_row], dtype=torch.float32, device=coords.device)
+    # the divisor is filled on the device: a tensor built from a list would
+    # be a host-to-device copy, which waits for the device at every step
+    div = torch.stack([torch.full((), f, dtype=torch.float32,
+                                  device=coords.device) for f in (f_col, f_row)])
+    xy = (coords.to(torch.float32) + 0.5) / div
     d_cam = torch.cat([xy, -torch.ones_like(xy[..., :1])], dim=-1)
     d_world = d_cam @ c2w[:, :3].T
     origin = c2w[:, 3].expand_as(d_world)

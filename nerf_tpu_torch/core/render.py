@@ -1,5 +1,5 @@
 """Volume rendering: transmittance weights and alpha compositing (port of
-nerf_tpu/core/render.py:26-118).
+nerf_tpu/core/render.py:26-145).
 
 Always f32: exp(-sigma * delta) with the 1e10 final delta and the
 transmittance chain do not survive bf16.  The transmittance is
@@ -62,3 +62,17 @@ def composite(rgb: torch.Tensor, density: torch.Tensor, zvals: torch.Tensor,
         near, far = depth_bounds
         extras["depth"] = (torch.sum(weights * zv, dim=-1) - near) / (far - near)
     return rgb_out, weights, extras
+
+
+def composite_rl(rgb3: torch.Tensor, density: torch.Tensor,
+                 zvals: torch.Tensor, ray_dirs: torch.Tensor,
+                 white_bkg: bool = False, density_act=torch.relu):
+    """``composite`` with row-land radiance, for training: rgb3 (3, R, P) ->
+    (rgb_out (R, 3), weights (R, P)), depths scaled by |d|, no extras."""
+    zv = zvals.to(torch.float32) * torch.linalg.norm(
+        ray_dirs.to(torch.float32), dim=-1, keepdim=True)
+    weights = transmittance_weights(density, zv, density_act=density_act)
+    rgb_out = torch.sum(weights[None] * rgb3.to(torch.float32), dim=-1).T
+    if white_bkg:
+        rgb_out = rgb_out + (1.0 - torch.sum(weights, dim=-1))[..., None]
+    return rgb_out, weights

@@ -1,5 +1,6 @@
-"""Depth sampling: stratified and inverse-CDF importance samples, max-blur
-(port of nerf_tpu/core/sampling.py:43-163 and fastmath.sorted_uniforms).
+"""Depth sampling: stratified and inverse-CDF importance samples, max-blur,
+the proposal bounds (port of nerf_tpu/core/sampling.py:43-197 and
+fastmath.sorted_uniforms).
 
 The JAX package reads interval endpoints with gather-free compare-and-reduce
 forms and cumulative sums as triangular matmuls; those are TPU layout
@@ -99,3 +100,21 @@ def max_blur_filter(weights: torch.Tensor, alpha: float) -> torch.Tensor:
     front = torch.cat([weights[..., :1], maxi], dim=-1)
     rear = torch.cat([maxi, weights[..., -1:]], dim=-1)
     return 0.5 * (front + rear) + alpha
+
+
+def weight_bounds(prop_weights: torch.Tensor,
+                  below_idx: torch.Tensor) -> torch.Tensor:
+    """Proposal-weight mass over each fine-sample index interval.
+
+    prop_weights (R, P); below_idx (R, K) sorted lower indices from
+    ``inverse_sample``.  bounds[:, k] = sum(prop_weights[:, start_k:end_k])
+    with starts = below_idx[:, :-1] and ends = below_idx[:, 1:] + 1, read as
+    two endpoints of the cumulative sum (R, K - 1).  Differentiable in
+    ``prop_weights``.
+    """
+    sat = torch.cat([torch.zeros_like(prop_weights[..., :1]),
+                     torch.cumsum(prop_weights.to(torch.float32), dim=-1)],
+                    dim=-1)
+    below_idx = below_idx.to(torch.int64)
+    return (torch.gather(sat, -1, below_idx[..., 1:] + 1)
+            - torch.gather(sat, -1, below_idx[..., :-1]))

@@ -1,5 +1,6 @@
-"""Blender-synthetic dataset loader (port of nerf_tpu/data/blender.py,
-without the native decoder and the pose-division variant).
+"""Blender-synthetic dataset loader, train and test splits (port of
+nerf_tpu/data/blender.py, without the native decoder and the pose-division
+variant).
 
 ``transforms_<split>.json`` gives ``camera_angle_x`` (optionally ``_y``) and
 a 4x4 ``transform_matrix`` per frame; the PNGs of ``<split>/`` are listed in
@@ -113,6 +114,12 @@ class BlenderDataset:
 
     def focal(self, legacy_square: bool = False):
         return fov_to_focal(self.fov, self.image_hw, legacy_square=legacy_square)
+
+    def pixel_pool(self) -> np.ndarray:
+        """(N, H*W, 3) flattened pixels: the trainer keeps them on the device
+        and samples its rays from them."""
+        n, h, w, _ = self.images.shape
+        return self.images.reshape(n, h * w, 3)
 
     @classmethod
     def load(cls, root: str, split: str = "test", img_scale: float = 1.0,

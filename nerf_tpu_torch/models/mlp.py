@@ -82,11 +82,11 @@ def mlp(widths, in_features: int, dtype: torch.dtype,
     return nn.Sequential(*layers)
 
 
-def kernel_matrix(layer: Dense, dtype: torch.dtype) -> torch.Tensor:
-    """(in, out) weight in the compute dtype, as the fused kernels take it."""
-    return layer.weight.detach().T.to(dtype).contiguous()
+def kernel_matrix(layer: Dense) -> torch.Tensor:
+    """(in, out) f32 weight, a differentiable view of the parameter."""
+    return layer.weight.T
 
 
 def kernel_bias(layer: Dense) -> torch.Tensor:
-    """(1, out) f32 bias, as the fused kernels take it."""
-    return layer.bias.detach().reshape(1, -1).to(torch.float32).contiguous()
+    """(1, out) f32 bias, a differentiable view of the parameter."""
+    return layer.bias.reshape(1, -1)

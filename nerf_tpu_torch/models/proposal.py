@@ -13,6 +13,7 @@ from torch import nn
 
 from nerf_tpu_torch.core.encoding import cat_pos_pe
 from nerf_tpu_torch.models.mlp import Dense, kernel_bias, kernel_matrix, mlp
+from nerf_tpu_torch.ops.fused_mlp import prep_weights
 
 
 class ProposalNetwork(nn.Module):
@@ -29,9 +30,17 @@ class ProposalNetwork(nn.Module):
         out = self.layers(cat_pos_pe(pos, self.pos_levels, self.dtype))
         return out[..., 0].to(torch.float32)
 
-    def kernel_weights(self):
-        """The fused kernel's flat weight tuple (w0 b0 ... w3 b3 wo bo)."""
+    def kernel_params(self):
+        """The fused kernel's flat weight tuple (w0 b0 ... w3 b3 wo bo) as
+        differentiable f32 views of the parameters ((in, out) matrices,
+        (1, out) biases): the operands of ``ops.PropMLP`` in training."""
         ws = []
         for lin in self.layers[0::2]:
-            ws += [kernel_matrix(lin, self.dtype), kernel_bias(lin)]
+            ws += [kernel_matrix(lin), kernel_bias(lin)]
         return tuple(ws)
+
+    def kernel_weights(self):
+        """The kernel operands for inference: ``kernel_params`` detached,
+        matrices in the compute dtype, biases f32."""
+        return prep_weights([w.detach() for w in self.kernel_params()],
+                            self.dtype)

@@ -14,6 +14,7 @@ from torch import nn
 
 from nerf_tpu_torch.core.encoding import cat_pos_pe
 from nerf_tpu_torch.models.mlp import Dense, kernel_bias, kernel_matrix, mlp
+from nerf_tpu_torch.ops.fused_mlp import prep_weights
 
 
 class VanillaNeRF(nn.Module):
@@ -56,29 +57,36 @@ class VanillaNeRF(nn.Module):
         rgb = self.rgb_layer(torch.cat([b, enc_d.to(self.dtype)], dim=-1))
         return rgb.to(torch.float32), sigma.to(torch.float32)
 
-    def kernel_weights(self):
+    def kernel_params(self):
         """The fused kernel's flat 24-entry weight tuple, in the order of
-        nerf_tpu/ops/fused_mlp.py:79-92; the skip and rgb-input weights are
-        split at the concat boundary."""
-        cd = self.dtype
+        nerf_tpu/ops/fused_mlp.py:79-92, as differentiable f32 views of the
+        parameters ((in, out) matrices, (1, out) biases); the skip and
+        rgb-input weights are split at the concat boundary.  The operands of
+        ``ops.VanillaMLP`` in training: their grads flow back to the
+        parameters, as through ``vanilla_weights_from_params``
+        (fused_mlp.py:421-450)."""
         b1, b2, rgb = self.lin_block1, self.lin_block2, self.rgb_layer
-        w4 = kernel_matrix(b2[0], cd)
-        wr1 = kernel_matrix(rgb[0], cd)
+        w4 = kernel_matrix(b2[0])
+        wr1 = kernel_matrix(rgb[0])
         bneck = self.bottle_neck[0].out_features
         return (
-            kernel_matrix(b1[0], cd), kernel_bias(b1[0]),
-            kernel_matrix(b1[2], cd), kernel_bias(b1[2]),
-            kernel_matrix(b1[4], cd), kernel_bias(b1[4]),
-            kernel_matrix(b1[6], cd), kernel_bias(b1[6]),
-            w4[:self.d_x].contiguous(), w4[self.d_x:].contiguous(),
-            kernel_bias(b2[0]),
-            kernel_matrix(b2[2], cd), kernel_bias(b2[2]),
-            kernel_matrix(b2[4], cd), kernel_bias(b2[4]),
-            kernel_matrix(self.opacity_head[0], cd),
+            kernel_matrix(b1[0]), kernel_bias(b1[0]),
+            kernel_matrix(b1[2]), kernel_bias(b1[2]),
+            kernel_matrix(b1[4]), kernel_bias(b1[4]),
+            kernel_matrix(b1[6]), kernel_bias(b1[6]),
+            w4[:self.d_x], w4[self.d_x:], kernel_bias(b2[0]),
+            kernel_matrix(b2[2]), kernel_bias(b2[2]),
+            kernel_matrix(b2[4]), kernel_bias(b2[4]),
+            kernel_matrix(self.opacity_head[0]),
             kernel_bias(self.opacity_head[0]),
-            kernel_matrix(self.bottle_neck[0], cd),
+            kernel_matrix(self.bottle_neck[0]),
             kernel_bias(self.bottle_neck[0]),
-            wr1[:bneck].contiguous(), wr1[bneck:].contiguous(),
-            kernel_bias(rgb[0]),
-            kernel_matrix(rgb[2], cd), kernel_bias(rgb[2]),
+            wr1[:bneck], wr1[bneck:], kernel_bias(rgb[0]),
+            kernel_matrix(rgb[2]), kernel_bias(rgb[2]),
         )
+
+    def kernel_weights(self):
+        """The kernel operands for inference: ``kernel_params`` detached,
+        matrices in the compute dtype, biases f32."""
+        return prep_weights([w.detach() for w in self.kernel_params()],
+                            self.dtype)

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``build/nerf_tpu_torch/lib<name>-<hash>.so``
 under the repository root, and loaded with ``ctypes``.  The file name carries
-a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is not.  Nothing is built when a module is imported: the first
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source is rebuilt and an unchanged one is not.  Nothing is built when a module is imported: the first
 call that launches a kernel builds it, and ``build()`` builds all of them at
 once, one ``nvcc`` per source, started together.
 """
@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerf_tpu_torch"
-SOURCES = ("fused_mlp",)
+SOURCES = ("fused_mlp", "fused_mlp_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +40,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

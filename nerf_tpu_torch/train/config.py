@@ -2,12 +2,13 @@
 ``PipelineConfig`` (nerf_tpu/train/config.py), field for field, so that
 ``cli.flags.config_from_args`` maps the same flags to the same values.
 
-Field defaults mirror the reference CLI defaults.  The vanilla render path
-reads ``model``, ``near``, ``far``, ``n_coarse``, ``n_fine``, ``white_bkg``,
-``nerf_width``, ``prop_width``, ``max_blur_alpha``, ``use_bf16``, ``use_ipe``
-and ``eval_use_pallas``; the other fields belong to paths that are not
-ported yet (ROADMAP.md) and are kept so that a config means the same thing
-in both packages.
+Field defaults mirror the reference CLI defaults.  The vanilla render and
+training paths read ``model``, ``near``, ``far``, ``n_coarse``, ``n_fine``,
+``ray_batch``, ``white_bkg``, ``nerf_width``, ``prop_width``,
+``max_blur_alpha``, ``use_bf16``, ``use_pallas``, ``store_residuals``,
+``prop_store_residuals``, ``use_ipe`` and ``eval_use_pallas``; the other
+fields belong to paths that are not ported yet (ROADMAP.md) and are kept so
+that a config means the same thing in both packages.
 """
 
 from __future__ import annotations
@@ -56,7 +57,8 @@ class PipelineConfig:
     second_order_normals: bool = False
     # Ref-NeRF kernel strategy ("all" | "hybrid")
     ref_kernels: str = "all"
-    # training-kernel backward strategies
+    # training-kernel backward strategies; the port has the shipped pair
+    # (True, False) and raises for the others
     store_residuals: bool = True
     prop_store_residuals: Optional[bool] = False
     bwd_bufs: Optional[int] = None

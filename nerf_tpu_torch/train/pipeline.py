@@ -1,15 +1,18 @@
-"""The eval render pipeline: proposal -> importance sampling -> fine model
-(port of the vanilla branch of nerf_tpu/train/pipeline.py:580-671).
+"""The render pipeline, train and eval: proposal -> importance sampling ->
+fine model (port of the vanilla branches of nerf_tpu/train/pipeline.py:
+``render_rays_train`` :483-577 and ``render_rays_eval`` :580-671).
 
 Models are ``nn.Module``s holding their weights, so where the JAX functions
 take ``(models, variables, ..., key)`` these take ``(models, ...)`` and an
 optional ``torch.Generator``.  ``noise=(jitter, u)`` injects the draws, as in
 the JAX package.
 
-The MLPs run through the fused kernels of ``ops/fused_mlp.py`` unless
-``cfg.eval_use_pallas`` is False, which selects the ``nn.Module`` forward,
-layer by layer.  (The JAX package renders vanilla eval through XLA by
-default; that choice rested on one TPU measurement and does not carry over.)
+Training runs the MLPs through the fused kernels' autograd Functions
+(``ops.PropMLP``, ``ops.VanillaMLP``) unless ``cfg.use_pallas`` is False,
+which selects the ``nn.Module`` forward with autograd: the oracle.  Eval runs
+them through the forward-only kernels unless ``cfg.eval_use_pallas`` is
+False.  (The JAX package renders vanilla eval through XLA by default; that
+choice rested on one TPU measurement and does not carry over.)
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from nerf_tpu_torch.core.encoding import cat_pos_pe
 from nerf_tpu_torch.device import check_device, resolve_device
 from nerf_tpu_torch.models import ProposalNetwork, VanillaNeRF
 from nerf_tpu_torch.models.mlp import init_flax_
-from nerf_tpu_torch.ops import prop_mlp_fwd, vanilla_mlp_fwd
+from nerf_tpu_torch.ops import PropMLP, VanillaMLP, prop_mlp_fwd, vanilla_mlp_fwd
 from nerf_tpu_torch.train.config import PipelineConfig
 
 _NOT_PORTED = ("the {} path is not ported to nerf_tpu_torch yet; see "
@@ -67,8 +70,24 @@ def init_variables(cfg: PipelineConfig,
     return {"nerf": nerf.state_dict(), "prop": prop.state_dict()}
 
 
-def _use_kernels(cfg: PipelineConfig) -> bool:
-    return cfg.eval_use_pallas is not False
+def _use_kernels(cfg: PipelineConfig, train: bool) -> bool:
+    if not train:
+        return cfg.eval_use_pallas is not False
+    if cfg.use_pallas is False:
+        return False
+    # the shipped training variants (nerf_tpu/train/config.py:93,102) are
+    # the ported ones; the others raise rather than run something else
+    if not cfg.store_residuals:
+        raise NotImplementedError(_NOT_PORTED.format(
+            "recompute vanilla backward (store_residuals=False, "
+            "_vanilla_bwd_kernel; ROADMAP.md B2)"))
+    prop_res = (cfg.store_residuals if cfg.prop_store_residuals is None
+                else cfg.prop_store_residuals)
+    if prop_res:
+        raise NotImplementedError(_NOT_PORTED.format(
+            "residual proposal pair (prop_store_residuals=True, "
+            "_prop_fwd_res_kernel/_prop_bwd_res_kernel; ROADMAP.md B1)"))
+    return True
 
 
 def _ray_dir_encoding(nerf: VanillaNeRF, ray_dirs: torch.Tensor,
@@ -82,41 +101,89 @@ def _ray_dir_encoding(nerf: VanillaNeRF, ray_dirs: torch.Tensor,
 
 
 def _apply_vanilla(nerf: VanillaNeRF, pos: torch.Tensor,
-                   ray_dirs: torch.Tensor, cfg: PipelineConfig, dev):
-    """Fine net on points (R, P, 3) -> (rgb3 (3, R, P), raw sigma (R, P))."""
+                   ray_dirs: torch.Tensor, cfg: PipelineConfig, dev,
+                   train: bool = False):
+    """Fine net on points (R, P, 3) -> (rgb3 (3, R, P), raw sigma (R, P)).
+
+    In training the kernel route is ``VanillaMLP`` over the f32 parameters;
+    the points carry no gradient (their depths come from detached weights)."""
     r, p = pos.shape[:2]
     enc_d = _ray_dir_encoding(nerf, ray_dirs, p)
-    if not _use_kernels(cfg):
+    if not _use_kernels(cfg, train):
         rgb, sigma = nerf(pos, None, enc_d=enc_d)
         return rgb.permute(2, 0, 1), sigma
     cd = nerf.dtype
-    enc_x = cat_pos_pe(pos.reshape(r * p, 3), nerf.pos_levels, cd)
-    enc_d = enc_d.reshape(r * p, -1).to(cd)
-    rgb3, sigma = vanilla_mlp_fwd(nerf.kernel_weights(), enc_x, enc_d,
-                                  device=dev)
+    enc_x = cat_pos_pe(pos.detach().reshape(r * p, 3), nerf.pos_levels, cd)
+    enc_d = enc_d.reshape(r * p, -1).to(cd).contiguous()
+    if train:
+        rgb3, sigma = VanillaMLP.apply(dev, enc_x, enc_d,
+                                       *nerf.kernel_params())
+    else:
+        rgb3, sigma = vanilla_mlp_fwd(nerf.kernel_weights(), enc_x, enc_d,
+                                      device=dev)
     return rgb3.reshape(3, r, p), sigma.reshape(r, p)
 
 
 def _apply_prop(prop: ProposalNetwork, pts: torch.Tensor,
-                cfg: PipelineConfig, dev) -> torch.Tensor:
+                cfg: PipelineConfig, dev, train: bool = False) -> torch.Tensor:
     """Proposal net on points (R, P, 3) -> raw density (R, P)."""
-    if not _use_kernels(cfg):
+    if not _use_kernels(cfg, train):
         return prop(pts)
     r, p = pts.shape[:2]
-    enc = cat_pos_pe(pts.reshape(r * p, 3), prop.pos_levels, prop.dtype)
+    enc = cat_pos_pe(pts.detach().reshape(r * p, 3), prop.pos_levels,
+                     prop.dtype)
+    if train:
+        return PropMLP.apply(dev, enc, *prop.kernel_params()).reshape(r, p)
     return prop_mlp_fwd(prop.kernel_weights(), enc, device=dev).reshape(r, p)
 
 
 def _proposal_weights(prop: ProposalNetwork, rays: torch.Tensor,
-                      c_z: torch.Tensor, cfg: PipelineConfig, dev):
-    """Eval proposal weights: raw density, relu inside the transmittance
-    (the eval path never applies softplus), depths scaled by |d|, then
-    max-blur."""
+                      c_z: torch.Tensor, cfg: PipelineConfig, dev,
+                      train: bool = False):
+    """Proposal weights, max-blurred.  Training applies softplus to the raw
+    density before the transmittance; eval applies relu inside it (the
+    reference's eval path never applies softplus).  Depths scaled by |d|."""
     c_pts = render_lib.lengths_to_points(rays, c_z)
-    density = _apply_prop(prop, c_pts, cfg, dev)
+    density = _apply_prop(prop, c_pts, cfg, dev, train)
+    if train:
+        density = torch.nn.functional.softplus(density)
     w_raw = render_lib.transmittance_weights(
-        density, c_z, ray_dirs=rays[..., 3:], density_act=torch.relu)
+        density, c_z, ray_dirs=rays[..., 3:],
+        density_act=(lambda x: x) if train else torch.relu)
     return sampling.max_blur_filter(w_raw, cfg.max_blur_alpha)
+
+
+def render_rays_train(models, rays: torch.Tensor, cfg: PipelineConfig,
+                      noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      generator: Optional[torch.Generator] = None,
+                      device=None):
+    """Training forward for a ray batch rays (R, 6): a dict with fine_rgb
+    (R, 3), weights (R, P), prop_weights (R, n_coarse), bounds (R, P),
+    bounds_idx (R, P + 1) and z_fine (R, P), P = n_fine.
+
+    ``noise`` = (stratified jitter (R, n_coarse), sorted inverse-CDF uniforms
+    (R, n_fine + 1)) replaces the draws from ``generator``.  ``device``
+    defaults to ``cuda``; ``rays`` must lie there.
+    """
+    _require_vanilla(cfg)
+    dev = resolve_device(device)
+    check_device(rays, dev, "rays")
+    nerf, prop = models
+    jitter, u = (None, None) if noise is None else noise
+    c_z = sampling.stratified_samples(rays.shape[0], cfg.n_coarse, cfg.near,
+                                      cfg.far, jitter=jitter,
+                                      generator=generator, device=rays.device)
+    w_blur = _proposal_weights(prop, rays, c_z, cfg, dev, train=True)
+    f_z, below = sampling.inverse_sample(w_blur, c_z, cfg.n_fine + 1, u=u,
+                                         generator=generator)
+    z_fine = f_z[..., :-1]
+    pos = render_lib.lengths_to_points(rays, z_fine)
+    rgb3, sigma = _apply_vanilla(nerf, pos, rays[:, 3:], cfg, dev, train=True)
+    fine_rgb, weights = render_lib.composite_rl(rgb3, sigma, z_fine,
+                                                rays[:, 3:])
+    return {"fine_rgb": fine_rgb, "weights": weights, "prop_weights": w_blur,
+            "bounds": sampling.weight_bounds(w_blur, below),
+            "bounds_idx": below, "z_fine": z_fine}
 
 
 @torch.no_grad()

@@ -1,5 +1,6 @@
 """The CUDA kernels of nerf_tpu_torch against their plain versions, and the
-eval path through them against the nn.Module path, on the card.
+eval path and the training step through them against the nn.Module path,
+on the card.
 
     python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 
@@ -13,9 +14,11 @@ import pytest
 import torch
 
 from nerf_tpu_torch import ops
+from nerf_tpu_torch.core import sampling
 from nerf_tpu_torch.models import ProposalNetwork, VanillaNeRF
 from nerf_tpu_torch.train.config import PipelineConfig
 from nerf_tpu_torch.train.pipeline import make_models, render_rays_eval
+from nerf_tpu_torch.train.step import compute_loss, train_parameters
 
 pytestmark = pytest.mark.cuda
 
@@ -24,6 +27,16 @@ pytestmark = pytest.mark.cuda
 # f32: summation order alone.
 TOLS = {torch.float32: dict(rtol=1e-4, atol=1e-5),
         torch.bfloat16: dict(rtol=2e-2, atol=1e-2)}
+# backward grads, as the relative Frobenius error of each grad tensor.  The
+# kernel and the plain version round the same deltas per layer and part only
+# where an f32 sum taken in another order lands on the other side of a
+# rounding edge: at most 9.3e-7 over these cases on an H100 80GB HBM3, both
+# dtypes.  A bf16 backward with its per-layer casts left out reads 3.6e-3 or
+# more there (the control in test_training_kernels_match_plain).
+GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-4}
+# one f32 step, kernels vs the nn.Module path with the kernel route's fine
+# sample depths handed to the module path
+SHARED_DEPTH_REL = 1e-4
 
 
 @pytest.fixture
@@ -95,3 +108,162 @@ def test_eval_kernels_match_module_path(cuda):
     torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-4, atol=2e-4)
     torch.testing.assert_close(outs[0][1]["depth"], outs[1][1]["depth"],
                                rtol=1e-4, atol=2e-4)
+
+
+def _rel_err(got, want):
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want).clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", list(TOLS))
+@pytest.mark.parametrize("n", [1, 70, 4099])
+@pytest.mark.parametrize("width", [48, 256])
+def test_training_kernels_match_plain(cuda, dtype, n, width):
+    """vanilla_mlp_fwd_res, vanilla_mlp_bwd and prop_mlp_bwd against their
+    plain versions on the same operands; each launches once.  In bf16 a
+    control, the plain backwards with no per-layer cast (run on operands
+    upcast to f32), must read beyond GRAD_REL."""
+    v = _randomize(VanillaNeRF(hidden=width, bottleneck=width - 8,
+                               dtype=dtype), 2).to(cuda)
+    p = _randomize(ProposalNetwork(hidden=width, dtype=dtype), 3).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n + 7)
+    x = (torch.rand((n, v.d_x), generator=gen, device=cuda) * 2 - 1).to(dtype)
+    d = (torch.rand((n, v.d_d), generator=gen, device=cuda) * 2 - 1).to(dtype)
+    g_rgb = torch.randn((3, n), generator=gen, device=cuda)
+    g_sig = torch.randn((n,), generator=gen, device=cuda)
+    vw, pw = v.kernel_weights(), p.kernel_weights()
+    ops.reset_launches()
+    rgb3, sig, acts = ops.vanilla_mlp_fwd_res(vw, x, d)
+    grads = ops.vanilla_mlp_bwd(vw, x, d, g_rgb, g_sig, rgb3, acts)
+    pgrads = ops.prop_mlp_bwd(pw, x, g_sig)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == {"prop_mlp_fwd": 0, "vanilla_mlp_fwd": 0,
+                            "vanilla_mlp_fwd_res": 1, "vanilla_mlp_bwd": 1,
+                            "prop_mlp_bwd": 1}
+    prgb3, psig, pacts = ops.vanilla_mlp_fwd_res_plain(vw, x, d)
+    torch.testing.assert_close(rgb3, prgb3, **TOLS[dtype])
+    torch.testing.assert_close(sig, psig, **TOLS[dtype])
+    for a, pa in zip(acts, pacts):
+        torch.testing.assert_close(a.float(), pa.float(), **TOLS[dtype])
+    # the same stored activations for both backwards: the masks agree
+    want = ops.vanilla_mlp_bwd_plain(vw, x, d, g_rgb, g_sig, rgb3, acts)
+    for i, (g, w) in enumerate(zip(grads, want)):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert _rel_err(g, w) < GRAD_REL[dtype], (i, _rel_err(g, w))
+    pwant = ops.prop_mlp_bwd_plain(pw, x, g_sig)
+    for i, (g, w) in enumerate(zip(pgrads, pwant)):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert _rel_err(g, w) < GRAD_REL[dtype], (i, _rel_err(g, w))
+    if dtype == torch.bfloat16:
+        def up(ts):
+            return [t.float() for t in ts]
+        uncast = ops.vanilla_mlp_bwd_plain(up(vw), x.float(), d.float(),
+                                           g_rgb, g_sig, rgb3, up(acts))
+        assert max(map(_rel_err, uncast, want)) > GRAD_REL[dtype]
+        uncast = ops.prop_mlp_bwd_plain(up(pw), x.float(), g_sig)
+        assert max(map(_rel_err, uncast, pwant)) > GRAD_REL[dtype]
+
+
+def _held_against_plain(monkeypatch, record):
+    """Make every call of a training kernel's wrapper from the autograd
+    Functions also run its plain version on the call's own operands: the
+    forwards must match within TOLS, and ``record`` gets each backward's
+    worst relative grad error."""
+    fm = ops.fused_mlp
+    f32 = TOLS[torch.float32]
+
+    def wrap(name, plain, compare):
+        orig = getattr(fm, name)
+
+        def call(*args, device=None):
+            out = orig(*args, device=device)
+            compare(name, out, plain(*args))
+            return out
+        monkeypatch.setattr(fm, name, call)
+
+    def grads(name, got, want):
+        record[name] = max(record.get(name, 0.0),
+                           max(map(_rel_err, got, want)))
+
+    def outputs(name, got, want):
+        for a, b in zip(got[:2], want[:2]):
+            torch.testing.assert_close(a, b, **f32)
+
+    wrap("prop_mlp_fwd", fm.prop_mlp_plain,
+         lambda name, got, want: outputs(name, (got,), (want,)))
+    wrap("vanilla_mlp_fwd_res", fm.vanilla_mlp_fwd_res_plain, outputs)
+    wrap("vanilla_mlp_bwd", fm.vanilla_mlp_bwd_plain, grads)
+    wrap("prop_mlp_bwd", fm.prop_mlp_bwd_plain, grads)
+
+
+def test_train_step_kernels_match_module_path(cuda, monkeypatch):
+    """One f32 step's loss and 32 parameter grads through the kernels'
+    autograd and through the nn.Module path, same weights, rays and noise.
+
+    Each kernel call of the step meets its plain version on the call's own
+    operands (backwards within GRAD_REL), so the kernels' backward is not
+    what parts the routes.  The fine sample depths are: they come from the
+    proposal's density through the inverse CDF, so they differ between the
+    routes by f32 ulps, and the positional encoding's top frequency (2^9)
+    amplifies that in the inputs of the fine net's first layers.  The worst
+    grad, the fine net's first matrix, parts by 3.5e-3 on an H100 80GB HBM3
+    (the proposal net's grads by 1e-6); the bound is 1e-2.  Given the kernel
+    route's depths, the module route's grads agree within SHARED_DEPTH_REL.
+    """
+    cfg = PipelineConfig(n_coarse=16, n_fine=32, nerf_width=64, prop_width=64,
+                         ray_batch=300)
+    models = make_models(cfg, cuda)
+    for i, m in enumerate(models):
+        _randomize(m, 20 + i, gain=1.0)
+    rng = np.random.default_rng(1)
+    rays = np.concatenate([rng.normal(0, 0.2, (300, 3)) + [0, 0, 4.0],
+                           rng.normal(0, 0.3, (300, 3)) + [0, 0, -1.0]], -1)
+    rays = torch.tensor(rays, dtype=torch.float32, device=cuda)
+    gt = torch.tensor(rng.uniform(size=(300, 3)), dtype=torch.float32,
+                      device=cuda)
+    jit = torch.tensor(rng.uniform(size=(300, 16)), dtype=torch.float32,
+                       device=cuda)
+    u = torch.tensor(np.sort(rng.uniform(size=(300, 33)), -1),
+                     dtype=torch.float32, device=cuda)
+    params = train_parameters(models)
+    per_call, depths = {}, []
+    _held_against_plain(monkeypatch, per_call)
+    inverse_sample = sampling.inverse_sample
+
+    def recorded(*args, **kw):
+        depths.append(inverse_sample(*args, **kw))
+        return depths[-1]
+
+    out = []
+    for use_kernels, sample in ((True, recorded), (False, inverse_sample),
+                                (False, lambda *a, **kw: depths[0])):
+        monkeypatch.setattr(sampling, "inverse_sample", sample)
+        ops.reset_launches()
+        loss, _ = compute_loss(models, rays, gt,
+                               cfg.replace(use_pallas=use_kernels),
+                               noise=(jit, u))
+        grads = torch.autograd.grad(loss, params)
+        out.append((loss, grads, dict(ops.LAUNCHES)))
+    assert out[0][2]["vanilla_mlp_bwd"] == out[0][2]["prop_mlp_bwd"] == 1
+    assert not any(out[1][2].values())
+    assert per_call["vanilla_mlp_bwd"] < GRAD_REL[torch.float32], per_call
+    assert per_call["prop_mlp_bwd"] < GRAD_REL[torch.float32], per_call
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-4, atol=1e-6)
+    rels = [_rel_err(g, w) for g, w in zip(out[0][1], out[1][1])]
+    assert max(rels) < 1e-2, rels
+    shared = [_rel_err(g, w) for g, w in zip(out[0][1], out[2][1])]
+    assert max(shared) < SHARED_DEPTH_REL, (shared, rels)
+
+
+def test_oversized_widths_raise_and_leave_no_error(cuda):
+    """A width whose tile does not fit a block's shared memory raises the
+    CUDA error from the launch, and the next launch runs clean."""
+    p = ProposalNetwork(hidden=1024).to(cuda)
+    x = torch.zeros((70, 63), device=cuda)
+    with pytest.raises(RuntimeError, match="prop_mlp_fwd launch failed"):
+        ops.prop_mlp_fwd(p.kernel_weights(), x)
+    small = _randomize(ProposalNetwork(hidden=48), 0).to(cuda)
+    torch.testing.assert_close(
+        ops.prop_mlp_fwd(small.kernel_weights(), x),
+        ops.prop_mlp_plain(small.kernel_weights(), x), **TOLS[torch.float32])
+    torch.cuda.synchronize()

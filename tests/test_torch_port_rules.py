@@ -1,5 +1,5 @@
 """Rules of the nerf_tpu_torch package: no JAX inside, no quiet CPU runs,
-no Pillow needed on the render path."""
+no Pillow needed on the render and training paths."""
 
 import os
 import pkgutil
@@ -83,9 +83,12 @@ def test_flags_match_the_jax_package(argv):
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
 
 
-def test_entry_without_render_exits_nonzero(capsys):
-    assert main(["--epochs", "1"]) != 0
-    assert "training is a later slice" in capsys.readouterr().err
+def test_entry_without_render_exits_nonzero(no_card, tmp_path):
+    """Without -r the entry trains, on the card: with none it raises (the
+    process exits non-zero) before it reads any data, rather than train on
+    the CPU."""
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--epochs", "1", "--dataset_root", str(tmp_path)])
 
 
 def _filtered_png(img: np.ndarray, ftype: int) -> bytes:

@@ -19,10 +19,10 @@ SMALL = dict(n_coarse=8, n_fine=16, nerf_width=32, prop_width=32,
 
 
 def configs(**kw):
-    """(JAX config, port config) at the small test size; the JAX kernels
-    use a 32-point tile so interpret mode stays quick."""
-    return (JaxConfig(pallas_tile=32, **SMALL, **kw),
-            PipelineConfig(**SMALL, **kw))
+    """(JAX config, port config) at the small test size, ``kw`` overriding
+    it; the JAX kernels use a 32-point tile so interpret mode stays quick."""
+    kw = {**SMALL, **kw}
+    return JaxConfig(pallas_tile=32, **kw), PipelineConfig(**kw)
 
 
 def random_params(template, rng: np.random.Generator, gain: float = 1.5,
@@ -43,15 +43,16 @@ def random_params(template, rng: np.random.Generator, gain: float = 1.5,
     return out
 
 
-def jax_variables(jax_cfg, seed: int = 0):
-    """{"nerf": params, "prop": params} as numpy trees for ``jax_cfg``."""
+def jax_variables(jax_cfg, seed: int = 0, **kw):
+    """{"nerf": params, "prop": params} as numpy trees for ``jax_cfg``;
+    ``kw`` goes to ``random_params``."""
     import jax
 
     from nerf_tpu.train.pipeline import init_variables
 
     template = init_variables(jax_cfg, jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
-    return {k: random_params(v, rng) for k, v in template.items()}
+    return {k: random_params(v, rng, **kw) for k, v in template.items()}
 
 
 def port_models(cfg, variables, device="cpu"):
