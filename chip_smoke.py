@@ -12,28 +12,38 @@ Phases, each printing one JSON line; any failure exits non-zero:
                one default 4096-ray chunk, the training kernels at those of
                one default step (1024 rays: 131,072 fine and 65,536 coarse
                points); for the bf16 backwards, planted cast faults must
-               read beyond the limit that the kernels meet
+               read beyond the limit that the kernels meet.  The Ref-NeRF
+               forwards (ref_kernels) at one default chunk's 786,432 merged
+               points, the directional one also with sRGB on and at IDE
+               level 2
   4. path    - `python -m nerf_tpu_torch -r -e -s -w` on a two-view 800x800
                Blender-layout test split with seeded random weights (full
                width vanilla model), counting kernel launches; then one f32
                frame through the kernels against the plain nn.Module path,
                and one warm bf16 frame timed and traced with torch.profiler
-  5. step    - one f32 training step at full width through the kernels and
+  5. ref     - the Ref-NeRF render path: `python -m nerf_tpu_torch -t -r -e
+               -s -w --render_normal` on the same split with seeded random
+               full-width Ref-NeRF weights, counting kernel launches and
+               reading the normal panel (ref_path); one f32 frame through
+               the kernels against the nn.Module path, rgb and normal map
+               (ref_frame_check); one warm bf16 frame timed and traced
+               (ref_profile)
+  6. step    - one f32 training step at full width through the kernels and
                through the nn.Module path (use_pallas=False): same weights,
                rays and noise; loss and all 32 parameter grads compared, and
                each kernel call of the step held against its plain version
                on the call's own operands
-  6. train   - `python -m nerf_tpu_torch --epochs 5 -s -w` on a 20-view
+  7. train   - `python -m nerf_tpu_torch --epochs 5 -s -w` on a 20-view
                800x800 train split (rendered at 400x400, 100 steps),
                counting kernel launches per step, and the same 100 seeded
                steps with `--no_pallas`: the kernel route's loss curve must
                follow the nn.Module route's and the loss must fall; then
                `-r -e -s -w` renders the written checkpoint
-  7. profile - the trainer's own epoch loop (cli.trainer.Trainer, bf16,
+  8. profile - the trainer's own epoch loop (cli.trainer.Trainer, bf16,
                steps issued back to back) timed (ms per step, rays/s) and
                one epoch traced with torch.profiler (device busy share, top
                ops)
-  8. the kernels line, then the last line {"ok": true, "device": {...}}
+  9. the kernels line, then the last line {"ok": true, "device": {...}}
 
 Imports nothing of JAX or nerf_tpu.
 """
@@ -57,8 +67,9 @@ from nerf_tpu_torch import ops
 from nerf_tpu_torch.cli.entry import main as entry_main
 from nerf_tpu_torch.cli.flags import get_parser
 from nerf_tpu_torch.cli.trainer import Trainer
+from nerf_tpu_torch.core.encoding import ide_tables
 from nerf_tpu_torch.core.rays import fov_to_focal, pose_spherical
-from nerf_tpu_torch.ops import build
+from nerf_tpu_torch.ops import build, ref_fused
 from nerf_tpu_torch.train.config import PipelineConfig
 from nerf_tpu_torch.train.pipeline import make_models
 from nerf_tpu_torch.train.renderer import render_image
@@ -67,11 +78,12 @@ from nerf_tpu_torch.train.step import (
 )
 from nerf_tpu_torch.utils.checkpoint import save_models
 from nerf_tpu_torch.utils.metrics import read_scalars
-from nerf_tpu_torch.utils.png import write_png
+from nerf_tpu_torch.utils.png import read_png, write_png
 
 LEGO_FOV = 0.6911112070083618       # lego's camera_angle_x
 CHUNK = 4096                        # --eval_chunk default
 N_COARSE, N_FINE = 64, 128          # sample defaults
+N_MERGED = N_COARSE + N_FINE        # Ref-NeRF's merged samples per ray
 RAYS = 1024                         # --sample_ray_num default
 N_FRAMES = 2
 TRAIN_VIEWS, TRAIN_EPOCHS = 20, 5   # 100 steps of the train phase
@@ -83,6 +95,15 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # summation order alone over K <= 319 terms.
 TOLS = {torch.bfloat16: dict(rtol=2e-2, atol=1e-2),
         torch.float32: dict(rtol=1e-4, atol=1e-5)}
+# The Ref-NeRF kernels' check draws its matrices N(0, 1 / fan_in), the scale
+# of ``seeded_models`` (the weights its render path runs), not He's 2 /
+# fan_in.  At He's scale the spatial net's nine bf16 layers amplify a
+# one-ulp rounding difference from layer to layer: its function itself, in
+# plain PyTorch on a CPU with the sums taken in f32 and then in f64, parts
+# by up to 0.032 on 299 of 5.56 M heads, beyond TOLS, and at this scale by
+# 0.007 on none.  The directional check takes its ray directions as a
+# camera casts them: a |d| of 3 raises the level-4 IDE's z^8 terms to 1e5.
+REF_GAIN = 1.0
 # backward grads against the plain version, as the relative Frobenius error
 # of each grad tensor, on the same stored activations.  Both round the same
 # deltas to bf16 per layer; they part only where an f32 sum taken in another
@@ -136,7 +157,17 @@ KERNELS = {
     "prop_mlp_bwd": dict(
         source="nerf_tpu_torch/ops/csrc/fused_mlp_bwd.cu",
         replaces="nerf_tpu/ops/fused_mlp.py:493"),
+    "ref_spa_fwd": dict(
+        source="nerf_tpu_torch/ops/csrc/ref_fused.cu",
+        replaces="nerf_tpu/ops/ref_fused.py:643"),
+    "ref_dir_fwd": dict(
+        source="nerf_tpu_torch/ops/csrc/ref_fused.cu",
+        replaces="nerf_tpu/ops/ref_fused.py:841"),
 }
+REF_KERNELS = ("prop_mlp_fwd", "ref_spa_fwd", "ref_dir_fwd")
+# the other (ide_level, use_srgb) cases of the directional kernel's check;
+# the timed one is the default (4, False)
+REF_DIR_VARIANTS = ((4, True), (2, False))
 TRAIN_KERNELS = ("prop_mlp_fwd", "vanilla_mlp_fwd_res", "vanilla_mlp_bwd",
                  "prop_mlp_bwd")
 
@@ -170,16 +201,26 @@ def cuda_ms(fn, reps: int) -> float:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def random_weights(shapes, gen, dtype, bias_std=0.5):
-    """(in, out) matrices N(0, 2 / in) in ``dtype`` and (1, W) f32 biases."""
+def random_weights(shapes, gen, dtype, bias_std=0.5, gain=2.0):
+    """(in, out) matrices N(0, gain / in) in ``dtype`` and (1, W) f32
+    biases."""
     ws = []
     for shape, is_bias in shapes:
         t = torch.randn(shape, generator=gen, device="cuda")
         if is_bias:
             ws.append((t * bias_std).contiguous())
         else:
-            ws.append((t * math.sqrt(2.0 / shape[0])).to(dtype).contiguous())
+            ws.append((t * math.sqrt(gain / shape[0])).to(dtype).contiguous())
     return ws
+
+
+def camera_dirs(gen, n):
+    """n raw ray directions as a lego camera casts them: |d| from 1 (the
+    optical axis) to 1.12 (a corner of the 0.69 rad field of view), in all
+    orientations."""
+    d = torch.randn((n, 3), generator=gen, device="cuda")
+    scale = 1.0 + 0.12 * torch.rand((n, 1), generator=gen, device="cuda")
+    return d / torch.linalg.vector_norm(d, dim=-1, keepdim=True) * scale
 
 
 def prop_shapes(dx=63, h=256):
@@ -191,9 +232,30 @@ def prop_shapes(dx=63, h=256):
 
 
 def vanilla_shapes(dx=63, dd=27, h=256, bn=256, r=128):
-    m = [(dx, h), None, (h, h), None, (h, h), None, (h, h), None,
-         (dx, h), (h, h), None, (h, h), None, (h, bn), None, (bn, 1), None,
-         (bn, bn), None, (bn, r), (dd, r), None, (r, 3), None]
+    return tuple_shapes([
+        (dx, h), None, (h, h), None, (h, h), None, (h, h), None,
+        (dx, h), (h, h), None, (h, h), None, (h, bn), None, (bn, 1), None,
+        (bn, bn), None, (bn, r), (dd, r), None, (r, 3), None])
+
+
+def ref_spa_shapes(dx=63, h=256, o=256, nb=128):
+    return tuple_shapes([
+        (dx, h), None, (h, h), None, (h, h), None, (h, h), None,
+        (dx, h), (h, h), None, (h, h), None, (h, h), None, (h, o), None,
+        (o, 2), None, (o, 9), None, (o, nb), None])
+
+
+def ref_dir_shapes(n_ch, h=256, o=256, nb=128):
+    dd = nb + 2 * n_ch + 1
+    return tuple_shapes([
+        (dd, h), None, (h, h), None, (h, h), None, (h, h), None,
+        (dd, h), (h, h), None, (h, h), None, (h, o), None, (o, o), None,
+        (o, 3), None])
+
+
+def tuple_shapes(m):
+    """(shape, is_bias) of a weight tuple given as its matrices' shapes with
+    None where a bias follows its (last) matrix."""
     out = []
     for i, s in enumerate(m):
         if s is None:   # a bias follows its (last) matrix
@@ -223,9 +285,10 @@ def _encodings(gen, dtype, n, dd=True):
     return x.to(dtype), (d.to(dtype) if dd else None)
 
 
-def kernel_case(name, dtype, gen):
-    """(kernel call, plain call, compare(got, want) -> max abs err, bytes
-    moved, FLOPs, points) of ``name`` at its main-path shapes."""
+def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
+    """(arguments, kernel call, plain call, bytes moved, FLOPs, points) of
+    ``name`` at its main-path shapes; ``ide_level`` and ``use_srgb`` pick
+    the case of ref_dir_fwd."""
     if name == "prop_mlp_fwd":
         shapes, n = prop_shapes(), CHUNK * N_COARSE
         ws = random_weights(shapes, gen, dtype)
@@ -263,6 +326,27 @@ def kernel_case(name, dtype, gen):
             + 4 * sum(w.numel() for w in ws)
         # weight grads plus the deltas (none to the encodings)
         macs = macs_per_point(shapes) + 492_160
+    elif name == "ref_spa_fwd":
+        shapes, n = ref_spa_shapes(), CHUNK * N_MERGED
+        ws = random_weights(shapes, gen, dtype, gain=REF_GAIN)
+        x, _ = _encodings(gen, dtype, n, dd=False)
+        args, kernel, plain = (ws, x), ops.ref_spa_fwd, ops.ref_spa_plain
+        moved = _nbytes(x, *ws) + n * (ref_fused.HEAD_FIXED + 128) * 4
+        macs = macs_per_point(shapes)
+    elif name == "ref_dir_fwd":
+        tables = ide_tables(ide_level)
+        shapes, n = ref_dir_shapes(tables["n_ch"]), CHUNK * N_MERGED
+        ws = random_weights(shapes, gen, dtype, gain=REF_GAIN)
+        # heads as the spatial kernel writes them: f32, the bottleneck last
+        heads = torch.randn((n, ref_fused.HEAD_FIXED + 128), generator=gen,
+                            device="cuda")
+        dirs = camera_dirs(gen, CHUNK)
+        args = (ws, heads, dirs, N_MERGED, None, ide_level, use_srgb)
+        kernel, plain = ops.ref_dir_fwd, ops.ref_dir_plain
+        moved = _nbytes(heads, dirs, *ws) + n * 7 * 4 \
+            + (tables["mat"].size + tables["sigma"].size) * 4
+        # the trunk, and the IDE's z-powers @ mat
+        macs = macs_per_point(shapes) + tables["mat"].size
     else:   # prop_mlp_bwd
         shapes, n = prop_shapes(), RAYS * N_COARSE
         ws = random_weights(shapes, gen, dtype)
@@ -344,8 +428,11 @@ def cast_controls(name, args, want):
             "dbb_from_rounded_dbvec": _rel_err(dbb, want[18])}
 
 
-def check_kernel(name, dtype, gen):
-    args, kernel, plain, moved, flops, n = kernel_case(name, dtype, gen)
+def check_kernel(name, dtype, gen, timed=True, **case):
+    """Hold ``name`` against its plain version at its main-path shapes (the
+    ``case`` of ref_dir_fwd); with ``timed`` also time both."""
+    args, kernel, plain, moved, flops, n = kernel_case(name, dtype, gen,
+                                                       **case)
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
@@ -358,6 +445,9 @@ def check_kernel(name, dtype, gen):
                  f"the limit {GRAD_REL[dtype]}: the limit cannot tell it")
     del got, want
     bytes_s, ops_s = moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    if not timed:
+        return dict(name=name, dtype=str(dtype).replace("torch.", ""), n=n,
+                    **case, max_abs_err=err, tol=TOLS[dtype])
     ms = cuda_ms(lambda: kernel(*args), 20)
     plain_ms = cuda_ms(lambda: plain(*args), 20)
     rel_key = "act_rel_err" if name == "vanilla_mlp_fwd_res" else \
@@ -367,7 +457,7 @@ def check_kernel(name, dtype, gen):
            else TOLS[dtype])
     extra = {} if controls is None else {"planted_faults_rel": controls}
     return dict(name=name, dtype=str(dtype).replace("torch.", ""), n=n,
-                max_abs_err=err, **{rel_key: rel}, tol=tol, **extra,
+                **case, max_abs_err=err, **{rel_key: rel}, tol=tol, **extra,
                 ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
                 bound_by="bytes" if bytes_s > ops_s else "operations",
                 bytes=moved, flops=flops, tflops=flops / (ms * 1e-3) / 1e12)
@@ -424,13 +514,22 @@ def cwd(path):
         os.chdir(old)
 
 
-def run_path(tmp: str):
+def run_path(tmp: str, model: str = "vanilla"):
+    """``python -m nerf_tpu_torch -r -e -s -w`` (``model="ref"``: with ``-t
+    --render_normal``) on a two-view test split with seeded random weights:
+    (launches, s per frame).  Each eval forward of the path launches once per
+    chunk, every other kernel never; the Ref-NeRF grids carry the normal
+    panel, which must not be blank."""
     write_split(tmp, "test", N_FRAMES, np.random.default_rng(0))
-    cfg = PipelineConfig()
-    save_models(os.path.join(tmp, "model"), "model_1", seeded_models(cfg, 0))
-    argv = ["-r", "-e", "-s", "-w", "--dataset_root", os.path.join(tmp, "data"),
-            "--dataset_name", "lego", "--output_dir",
-            os.path.join(tmp, "output")]
+    cfg = PipelineConfig(model=model)
+    save_models(os.path.join(tmp, "model"), "model_1",
+                seeded_models(cfg, 0 if model == "vanilla" else 3))
+    ref = model == "ref"
+    argv = ((["-t"] if ref else []) + ["-r", "-e", "-s", "-w"]
+            + (["--render_normal"] if ref else [])
+            + ["--img_scale", "0.5", "--dataset_root",
+               os.path.join(tmp, "data"), "--dataset_name", "lego",
+               "--output_dir", os.path.join(tmp, "output")])
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -442,17 +541,24 @@ def run_path(tmp: str):
     if rc != 0:
         fail(f"entry returned {rc}")
     n_chunks = math.ceil(400 * 400 / CHUNK)
+    path_kernels = REF_KERNELS if ref else ("prop_mlp_fwd", "vanilla_mlp_fwd")
     for k, v in launches.items():
-        want = n_chunks * N_FRAMES if k in ("prop_mlp_fwd",
-                                            "vanilla_mlp_fwd") else 0
+        want = n_chunks * N_FRAMES if k in path_kernels else 0
         if v != want:
             fail(f"{k} launched {v} times, expected {want} ({n_chunks} per "
                  f"frame of the eval forwards over {N_FRAMES} frames)")
+    normal_std = []
     for i in range(N_FRAMES):
-        if not os.path.getsize(os.path.join(tmp, "output", "given",
-                                            f"result_{i:03d}.png")):
-            fail(f"no output image {i}")
-    return launches, wall / N_FRAMES
+        grid = read_png(os.path.join(tmp, "output", "given",
+                                     f"result_{i:03d}.png"))
+        # panels of 400 columns, 2 apart: rgb[, normal], ground truth
+        if grid.shape[1] != (3 if ref else 2) * 402 - 2:
+            fail(f"output image {i} has shape {grid.shape}")
+        if ref:
+            normal_std.append(float(grid[:, 402:802].std()))
+            if normal_std[-1] == 0.0:
+                fail(f"the normal panel of image {i} is blank")
+    return launches, wall / N_FRAMES, normal_std
 
 
 def frame_inputs():
@@ -466,44 +572,54 @@ def frame_inputs():
     return pose, focal, (jitter, u)
 
 
-def frame_check():
+def frame_check(model: str = "vanilla"):
     """One f32 frame through the kernels and through the nn.Module path,
-    same weights, same injected noise."""
-    cfg = PipelineConfig(white_bkg=True)
-    models = seeded_models(cfg, 0)
+    same weights, same injected noise: max abs diff of rgb (and of the
+    Ref-NeRF normal map), and the depth's spread."""
+    ref = model == "ref"
+    cfg = PipelineConfig(model=model, white_bkg=True)
+    models = seeded_models(cfg, 3 if ref else 0)
     pose, focal, noise = frame_inputs()
     frames = {}
     for use_kernels in (True, False):
+        ops.reset_launches()
         frames[use_kernels] = render_image(
             models, pose, (400, 400), focal,
             cfg.replace(eval_use_pallas=use_kernels), noise=noise,
-            render_depth=True, device="cuda")
-    rgb_k, rgb_p = frames[True]["rgb"], frames[False]["rgb"]
-    if not (np.isfinite(rgb_k).all()
-            and np.isfinite(frames[True]["depth"]).all()):
-        fail("non-finite f32 frame")
-    diff = float(np.abs(rgb_k - rgb_p).max())
-    if diff > FRAME_ATOL:
-        fail(f"f32 frame: kernels vs plain path max abs diff {diff}")
+            render_depth=True, render_normal=ref, device="cuda")
+        launched = sum(ops.LAUNCHES.values())
+        if (launched > 0) != use_kernels:
+            fail(f"f32 {model} frame (kernels: {use_kernels}) launched "
+                 f"{dict(ops.LAUNCHES)}")
+    diffs = {}
+    for key in ("rgb", "normal") if ref else ("rgb",):
+        got, want = frames[True][key], frames[False][key]
+        if not np.isfinite(got).all():
+            fail(f"non-finite f32 {model} frame ({key})")
+        diffs[key] = float(np.abs(got - want).max())
+        if diffs[key] > FRAME_ATOL:
+            fail(f"f32 {model} frame: kernels vs plain path {key} max abs "
+                 f"diff {diffs[key]}")
     depth_std = float(frames[True]["depth"].std())
-    if depth_std == 0.0:
-        fail("blank frame: depth is constant")
-    return diff, depth_std
+    if not (np.isfinite(frames[True]["depth"]).all() and depth_std > 0.0):
+        fail(f"blank or non-finite f32 {model} frame: depth std {depth_std}")
+    return diffs, depth_std
 
 
-def profile_frame():
-    """Where one warm 400x400 bf16 frame (-s -w) spends its time: the host
-    wall clock, and the device time of each kernel from torch.profiler."""
-    from torch.autograd import DeviceType
+def profile_frame(model: str = "vanilla"):
+    """Where one warm 400x400 bf16 frame (-s -w; Ref-NeRF with the normal
+    map) spends its time: the host wall clock, and the device time of each
+    kernel from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = PipelineConfig(white_bkg=True, use_bf16=True)
-    models = seeded_models(cfg, 0)
+    ref = model == "ref"
+    cfg = PipelineConfig(model=model, white_bkg=True, use_bf16=True)
+    models = seeded_models(cfg, 3 if ref else 0)
     pose, focal, noise = frame_inputs()
 
     def frame():
         render_image(models, pose, (400, 400), focal, cfg, noise=noise,
-                     device="cuda")
+                     render_normal=ref, device="cuda")
         torch.cuda.synchronize()
 
     frame()
@@ -629,7 +745,7 @@ def step_check():
         torch.cuda.synchronize()
         out[use_kernels] = (loss, metrics, grads, dict(ops.LAUNCHES))
     launches = out[True][3]
-    if any(launches[k] != 1 for k in TRAIN_KERNELS) or any(
+    if any(launches[k] != (k in TRAIN_KERNELS) for k in launches) or any(
             out[False][3].values()):
         fail(f"step check: unexpected launches {launches} / {out[False][3]}")
     f32 = torch.float32
@@ -715,8 +831,8 @@ def run_train(tmp: str):
     runs = {"plain": train_once(tmp, "plain", "--no_pallas", "--name",
                                 "plain_route"),
             "kernels": train_once(tmp, "kernels")}
-    want = dict(prop_mlp_fwd=eval_chunks, vanilla_mlp_fwd=eval_chunks,
-                vanilla_mlp_fwd_res=0, vanilla_mlp_bwd=0, prop_mlp_bwd=0)
+    want = dict(dict.fromkeys(ops.LAUNCHES, 0), prop_mlp_fwd=eval_chunks,
+                vanilla_mlp_fwd=eval_chunks)
     if runs["plain"][0] != want:
         fail(f"train path --no_pallas launches {runs['plain'][0]}, "
              f"expected {want}")
@@ -852,24 +968,45 @@ def main() -> int:
         for dtype in (torch.bfloat16, torch.float32):
             res = check_kernel(name, dtype, gen)
             checks[(name, dtype)] = res
-            emit("kernel", **res)
+            emit("ref_kernels" if name.startswith("ref") else "kernel", **res)
+            torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        for level, srgb in REF_DIR_VARIANTS:
+            emit("ref_kernels", **check_kernel(
+                "ref_dir_fwd", dtype, gen, timed=False, ide_level=level,
+                use_srgb=srgb))
             torch.cuda.empty_cache()
 
     # phase 4: the render path
     with tempfile.TemporaryDirectory() as tmp:
-        render_launches, s_per_frame = run_path(tmp)
+        render_launches, s_per_frame, _ = run_path(tmp)
         emit("path", command="python -m nerf_tpu_torch -r -e -s -w",
              frames=N_FRAMES, hw=[400, 400], launches=render_launches,
              s_per_frame_entry=s_per_frame)
-    diff, depth_std = frame_check()
-    emit("frame", f32_kernels_vs_plain_max_abs=diff, atol=FRAME_ATOL,
+    diffs, depth_std = frame_check()
+    emit("frame", f32_kernels_vs_plain_max_abs=diffs["rgb"], atol=FRAME_ATOL,
          depth_std=depth_std)
     emit("profile", **profile_frame())
 
-    # phase 5: one f32 training step, kernels against the nn.Module path
+    # phase 5: the Ref-NeRF render path
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_launches, ref_s_per_frame, normal_std = run_path(tmp, "ref")
+        emit("ref_path", command="python -m nerf_tpu_torch -t -r -e -s -w "
+             "--render_normal", frames=N_FRAMES, hw=[400, 400],
+             launches=ref_launches,
+             launches_per_frame={k: ref_launches[k] / N_FRAMES
+                                 for k in REF_KERNELS},
+             s_per_frame_entry=ref_s_per_frame,
+             normal_panel_std=normal_std)
+    diffs, depth_std = frame_check("ref")
+    emit("ref_frame_check", f32_kernels_vs_plain_max_abs=diffs,
+         atol=FRAME_ATOL, depth_std=depth_std)
+    emit("ref_profile", **profile_frame("ref"))
+
+    # phase 6: one f32 training step, kernels against the nn.Module path
     emit("step", **step_check())
 
-    # phases 6 and 7: the train path, render-only on its checkpoint, and a
+    # phases 7 and 8: the train path, render-only on its checkpoint, and a
     # timed and profiled warm step
     with tempfile.TemporaryDirectory() as tmp:
         train = run_train(tmp)
@@ -877,17 +1014,21 @@ def main() -> int:
         emit("render_trained", **render_trained(tmp))
         emit("train_profile", **profile_trainer(tmp))
 
-    # phase 8: the kernels line, then the last line.  ``launches`` is each
-    # kernel's count in the train path's run (training steps and the final
-    # eval render); ``launches_render`` its count in the render path's.
+    # phase 9: the kernels line, then the last line.  ``launches`` is each
+    # kernel's count in its path's run: the train path (training steps and
+    # the final eval render) for the vanilla kernels, the Ref-NeRF render
+    # path for the Ref-NeRF ones; ``launches_render`` its count in the
+    # vanilla render path's run, ``launches_ref`` in the Ref-NeRF one's.
     kernels = []
     for name, meta in KERNELS.items():
         res = checks[(name, torch.bfloat16)]   # -s trains and renders in bf16
         f32 = checks[(name, torch.float32)]
+        path = ref_launches if name.startswith("ref") else train["launches"]
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=train["launches"][name],
+            replaces=meta["replaces"], launches=path[name],
             launches_render=render_launches[name],
+            launches_ref=ref_launches[name],
             max_abs_err=res["max_abs_err"],
             rel_err=res.get("grad_rel_err", res.get("act_rel_err")),
             tol=res["tol"], n=res["n"], ms=res["ms"],

@@ -25,6 +25,21 @@ VANILLA_LAYERS = (
     ("rgb_layer.0", ("rgb_layer", "Dense_0")),
     ("rgb_layer.2", ("rgb_layer", "Dense_1")),
 )
+
+
+def _block4(name: str):
+    """A 4-layer flax MLP ``name`` -> the torch Sequential ``name``."""
+    return tuple((f"{name}.{t}", (name, f)) for t, f in zip((0, 2, 4, 6), _D4))
+
+
+REF_LAYERS = (
+    *_block4("spa_block1"), *_block4("spa_block2"),
+    ("rho_tau_head", ("rho_tau_head",)),
+    ("norm_col_tint_head", ("norm_col_tint_head",)),
+    ("bottle_neck", ("bottle_neck",)),
+    *_block4("dir_block1"), *_block4("dir_block2"),
+    ("spec_rgb_head.0", ("spec_rgb_head", "Dense_0")),
+)
 PROP_LAYERS = (
     *((f"layers.{t}", ("MLP_0", f)) for t, f in zip((0, 2, 4, 6), _D4)),
     ("layers.8", ("MLP_1", "Dense_0")),
@@ -34,13 +49,16 @@ PROP_LAYERS = (
 def _layers(net: str):
     if net == "nerf":
         return VANILLA_LAYERS
+    if net == "ref":
+        return REF_LAYERS
     if net == "prop":
         return PROP_LAYERS
-    raise ValueError(f"unknown net {net!r}; expected 'nerf' or 'prop'")
+    raise ValueError(f"unknown net {net!r}; expected 'nerf', 'ref' or 'prop'")
 
 
 def flax_to_state_dict(params: dict, net: str) -> dict:
-    """flax params of ``net`` ("nerf" = VanillaNeRF, "prop") -> state_dict."""
+    """flax params of ``net`` ("nerf" = VanillaNeRF, "ref" = RefNeRF,
+    "prop") -> state_dict."""
     sd = {}
     for prefix, path in _layers(net):
         layer = params
@@ -68,7 +86,9 @@ def state_dict_to_flax(sd: dict, net: str) -> dict:
 
 
 def load_flax_variables(models, variables: dict) -> None:
-    """Copy {"nerf": params, "prop": params} into (nerf, prop) modules."""
+    """Copy {"nerf": params, "prop": params} into (nerf, prop) modules; the
+    fine net's params are a VanillaNeRF's or a RefNeRF's."""
     nerf, prop = models
-    nerf.load_state_dict(flax_to_state_dict(variables["nerf"], "nerf"))
+    net = "ref" if "spa_block1" in variables["nerf"] else "nerf"
+    nerf.load_state_dict(flax_to_state_dict(variables["nerf"], net))
     prop.load_state_dict(flax_to_state_dict(variables["prop"], "prop"))

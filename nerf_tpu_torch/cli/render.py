@@ -4,8 +4,8 @@ nerf_tpu/cli/render.py:68-134).
 Loads ``model/<name>_mip.pt`` and ``model/<name>_prop.pt``; renders the test
 poses (-e) with per-frame MSE and PSNR against the ground truth, or the
 120-pose orbit; writes ``output/{given|sphere}/result_%03d.png`` grids with
-nrow = 1 + render_depth (+ the ground-truth panel under -e); the normal
-panel (--render_normal) is Ref-NeRF's and waits for it.  The orbit GIF is
+nrow = 1 + render_depth + render_normal (+ the ground-truth panel under -e),
+the normal panel (--render_normal) for Ref-NeRF (-t) only.  The orbit GIF is
 written only when Pillow imports.
 """
 
@@ -61,10 +61,12 @@ def render_only(args, device=None):
     for i, pose in enumerate(poses):
         out = render_image(
             models, pose, hw, focal, cfg, sample_num=cfg.n_fine,
-            render_depth=args.render_depth,
+            render_depth=args.render_depth, render_normal=args.render_normal,
             generator=frame_generator(args.seed, i, dev),
             chunk=args.eval_chunk, device=dev)
         panels = [out["rgb"]]
+        if "normal" in out:
+            panels.append(out["normal"])
         if "depth" in out:
             d = out["depth"]
             panels.append(d / max(float(d.max()), 1e-8))

@@ -69,7 +69,8 @@ def check_trainer_flags(args) -> None:
     if args.trace is not None:
         raise _not_ported("--trace (a profiler trace of one epoch)", "A4")
     if args.ref_nerf:
-        raise _not_ported("-t/--ref_nerf (Ref-NeRF)", "A6")
+        raise _not_ported("-t/--ref_nerf training (Ref-NeRF renders with "
+                          "-r)", "A6")
     if args.mip_nerf:
         raise _not_ported("-m/--mip_nerf (Mip-NeRF)", "A5")
     if args.use_ipe:

@@ -45,11 +45,14 @@ def transmittance_weights(density: torch.Tensor, zvals: torch.Tensor,
 def composite(rgb: torch.Tensor, density: torch.Tensor, zvals: torch.Tensor,
               ray_dirs: torch.Tensor, white_bkg: bool = False,
               density_act=torch.relu,
-              depth_bounds: Optional[Tuple[float, float]] = None):
+              depth_bounds: Optional[Tuple[float, float]] = None,
+              normal_info: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Alpha-composite (R, P, 3) radiance into (R, 3), depths scaled by |d|.
 
     Returns (rgb_out, weights (R, P), extras) with the white-background
-    completion and the normalized depth extra (``depth_bounds=(near, far)``).
+    completion, the normalized depth extra (``depth_bounds=(near, far)``)
+    and the normal map extra (``normal_info=(normals (R, P, 3), camera axis
+    (3,))``: the weighted projection on the axis, mapped to [0, 1]).
     """
     zv = zvals.to(torch.float32) * torch.linalg.norm(
         ray_dirs.to(torch.float32), dim=-1, keepdim=True)
@@ -61,6 +64,10 @@ def composite(rgb: torch.Tensor, density: torch.Tensor, zvals: torch.Tensor,
     if depth_bounds is not None:
         near, far = depth_bounds
         extras["depth"] = (torch.sum(weights * zv, dim=-1) - near) / (far - near)
+    if normal_info is not None:
+        normal, cam_dir = normal_info
+        proj = torch.sum(normal * cam_dir, dim=-1)
+        extras["normal"] = (torch.sum(weights * proj, dim=-1) + 1.0) * 0.5
     return rgb_out, weights, extras
 
 

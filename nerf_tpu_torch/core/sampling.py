@@ -1,6 +1,6 @@
 """Depth sampling: stratified and inverse-CDF importance samples, max-blur,
-the proposal bounds (port of nerf_tpu/core/sampling.py:43-197 and
-fastmath.sorted_uniforms).
+the proposal bounds, the coarse/fine merge of Ref-NeRF (port of
+nerf_tpu/core/sampling.py:43-288 and fastmath.sorted_uniforms).
 
 The JAX package reads interval endpoints with gather-free compare-and-reduce
 forms and cumulative sums as triangular matmuls; those are TPU layout
@@ -100,6 +100,18 @@ def max_blur_filter(weights: torch.Tensor, alpha: float) -> torch.Tensor:
     front = torch.cat([weights[..., :1], maxi], dim=-1)
     rear = torch.cat([maxi, weights[..., -1:]], dim=-1)
     return 0.5 * (front + rear) + alpha
+
+
+def merge_coarse_fine(c_z: torch.Tensor, f_z: torch.Tensor) -> torch.Tensor:
+    """Sorted merge of coarse (R, C) and fine (R, F) depths with the largest
+    element dropped: z_merged (R, C + F - 1).
+
+    A stable sort of cat(fine, coarse), as the reference does (on ties the
+    fine entries come first); ``merge_coarse_fine_via_sort`` of the JAX
+    package.  The index bookkeeping of its training form is not ported yet.
+    """
+    z = torch.cat([f_z, c_z], dim=-1).to(torch.float32)
+    return torch.sort(z, dim=-1, stable=True).values[..., :-1]
 
 
 def weight_bounds(prop_weights: torch.Tensor,

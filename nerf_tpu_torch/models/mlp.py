@@ -50,8 +50,10 @@ class Dense(nn.Linear):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # flax rounds the product to ``dtype`` and then adds the bias in
+        # ``dtype``; F.linear with a bias (addmm) would round once
         cd = self.compute_dtype
-        return F.linear(x.to(cd), self.weight.to(cd), self.bias.to(cd))
+        return F.linear(x.to(cd), self.weight.to(cd)) + self.bias.to(cd)
 
 
 def init_flax_(module: nn.Module, generator: torch.Generator | None = None):

@@ -47,9 +47,9 @@ tensor cores, so they sit far from the bound (PERF.md has their times).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  There is no fallback from the kernel to the plain
-version.  ``LAUNCHES`` counts the wrappers' kernel launches, one per call
-that launches (a backward is one count for its three CUDA launches), and
-nowhere else.
+version.  ``LAUNCHES`` (``ops/launch.py``) counts the wrappers' kernel
+launches, one per call that launches (a backward is one count for its three
+CUDA launches), and nowhere else.
 
 ``VanillaMLP`` and ``PropMLP`` are the ``torch.autograd.Function``s of the
 training path (the ``jax.custom_vjp`` of ``make_vanilla_fused`` and
@@ -65,8 +65,12 @@ import math
 
 import torch
 
-from nerf_tpu_torch.device import check_device, resolve_device
-from nerf_tpu_torch.ops import build
+from nerf_tpu_torch.device import resolve_device
+from nerf_tpu_torch.ops import launch as launch_lib
+from nerf_tpu_torch.ops.launch import (
+    I64, INT, INTP, PTR, U64P, check_operands, check_shapes, check_tensor,
+    launch, pointers, register,
+)
 
 F32 = torch.float32
 N_PROP_WS = 10      # w0 b0 w1 b1 w2 b2 w3 b3 wo bo
@@ -77,21 +81,12 @@ VANILLA_BIASES = (1, 3, 5, 7, 10, 12, 14, 16, 18, 21, 23)
 ROWS_PER_SPLIT = 4096  # points per K-split of the weight-grad pass
 MAX_SPLITS = 64
 
-LAUNCHES = {"prop_mlp_fwd": 0, "vanilla_mlp_fwd": 0, "vanilla_mlp_fwd_res": 0,
-            "vanilla_mlp_bwd": 0, "prop_mlp_bwd": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 def prep_weights(ws, cd: torch.dtype):
     """Kernel operands of a weight tuple: matrices in ``cd``, biases f32,
     all contiguous (``_prep`` of fused_mlp.py:326-331)."""
     biases = VANILLA_BIASES if len(ws) == N_VANILLA_WS else PROP_BIASES
-    return tuple(w.to(F32 if i in biases else cd).contiguous()
-                 for i, w in enumerate(ws))
+    return launch_lib.prep_weights(ws, biases, cd)
 
 
 # ---------------------------------------------------------------------------
@@ -229,56 +224,11 @@ def prop_mlp_bwd_plain(ws, enc, g):
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _check_operands(ws, encs, n_ws: int, biases, dev: torch.device):
-    """Validate what the kernels take: 2-D contiguous f32/bf16 encodings of
-    one dtype and row count, (in, out) matrices in that dtype and (1, W) f32
-    biases, all on ``dev``."""
-    if len(ws) != n_ws:
-        raise ValueError(f"expected {n_ws} weights, got {len(ws)}")
-    cd = encs[0].dtype
-    if cd not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"compute dtype must be f32 or bf16, got {cd}")
-    for i, e in enumerate(encs):
-        check_device(e, dev, f"encoding {i}")
-        if e.dim() != 2 or e.dtype != cd or not e.is_contiguous():
-            raise ValueError(f"encoding {i} must be a contiguous 2-D {cd} "
-                             f"tensor, got {tuple(e.shape)} {e.dtype}")
-        if e.shape[0] != encs[0].shape[0]:
-            raise ValueError("encodings differ in row count")
-    for i, w in enumerate(ws):
-        check_device(w, dev, f"weight {i}")
-        if w.dim() != 2 or not w.is_contiguous():
-            raise ValueError(f"weight {i} must be a contiguous 2-D tensor")
-        want = torch.float32 if i in biases else cd
-        if w.dtype != want:
-            raise ValueError(f"weight {i} must be {want}, got {w.dtype}")
-
-
-def _check_tensor(t, shape, dtype, dev, name: str):
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``dev``."""
-    check_device(t, dev, name)
-    if tuple(t.shape) != tuple(shape) or t.dtype != dtype \
-            or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
-                         f"shape {tuple(shape)}, got {tuple(t.shape)} "
-                         f"{t.dtype}")
-
-
-def _chain(shapes, pairs):
-    """Check that each (index, expected shape) pair holds."""
-    for i, want in pairs:
-        if tuple(shapes[i]) != tuple(want):
-            raise ValueError(f"weight {i} has shape {tuple(shapes[i])}, "
-                             f"expected {tuple(want)}")
-
-
 def _prop_dims(ws, enc):
     n, dx = enc.shape
     h = ws[0].shape[1]
-    _chain([w.shape for w in ws],
-           [(0, (dx, h)), (2, (h, h)), (4, (h, h)), (6, (h, h)), (8, (h, 1))]
-           + [(i, (1, ws[i - 1].shape[1])) for i in PROP_BIASES])
+    check_shapes(ws, [(0, (dx, h)), (2, (h, h)), (4, (h, h)), (6, (h, h)),
+                      (8, (h, 1))], PROP_BIASES)
     return n, dx, h
 
 
@@ -286,12 +236,10 @@ def _vanilla_dims(ws, enc_x, enc_d):
     n, dx = enc_x.shape
     dd = enc_d.shape[1]
     h, bn, r = ws[0].shape[1], ws[13].shape[1], ws[19].shape[1]
-    _chain([w.shape for w in ws],
-           [(0, (dx, h)), (2, (h, h)), (4, (h, h)), (6, (h, h)),
-            (8, (dx, h)), (9, (h, h)), (11, (h, h)), (13, (h, bn)),
-            (15, (bn, 1)), (17, (bn, bn)), (19, (bn, r)), (20, (dd, r)),
-            (22, (r, 3))]
-           + [(i, (1, ws[i - 1].shape[1])) for i in VANILLA_BIASES])
+    check_shapes(ws, [(0, (dx, h)), (2, (h, h)), (4, (h, h)), (6, (h, h)),
+                      (8, (dx, h)), (9, (h, h)), (11, (h, h)), (13, (h, bn)),
+                      (15, (bn, 1)), (17, (bn, bn)), (19, (bn, r)),
+                      (20, (dd, r)), (22, (r, 3))], VANILLA_BIASES)
     return n, dx, dd, h, bn, r
 
 
@@ -300,48 +248,18 @@ def _act_widths(h, bn, r):
     return (h, h, h, h, h, h, bn, bn, r)
 
 
-_PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_U64P, _INTP = ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int)
 # library and C signature of each kernel (csrc/<library>.cu)
-_SIGNATURES = {
-    "prop_mlp_fwd": ("fused_mlp", [_PTR, _U64P, _I64, _INT, _INT, _PTR, _PTR]),
-    "vanilla_mlp_fwd": ("fused_mlp", [_PTR, _PTR, _U64P, _I64, _INTP, _PTR,
-                                      _PTR, _PTR]),
-    "vanilla_mlp_fwd_res": ("fused_mlp", [_PTR, _PTR, _U64P, _I64, _INTP,
-                                          _PTR, _PTR, _U64P, _PTR]),
-    "vanilla_mlp_bwd": ("fused_mlp_bwd", [_PTR, _PTR, _PTR, _PTR, _PTR, _U64P,
-                                          _U64P, _I64, _INTP, _U64P, _PTR,
-                                          _INT, _U64P, _PTR]),
-    "prop_mlp_bwd": ("fused_mlp_bwd", [_PTR, _PTR, _U64P, _I64, _INT, _INT,
-                                       _PTR, _PTR, _PTR, _PTR, _INT, _U64P,
-                                       _PTR]),
-}
-
-
-def _launch(fn_name: str, dtype, device, *args):
-    """Call the C entry ``<fn_name>_<bf16|f32>`` on ``device``'s current
-    stream (the last argument) and raise if it reports a CUDA error."""
-    lib_name, argtypes = _SIGNATURES[fn_name]
-    lib = build.load(lib_name)
-    suffix = "bf16" if dtype == torch.bfloat16 else "f32"
-    fn = getattr(lib, f"{fn_name}_{suffix}")
-    err_fn = getattr(lib, f"{lib_name}_error_string")
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-        err_fn.restype = ctypes.c_char_p
-        err_fn.argtypes = [ctypes.c_int]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        msg = err_fn(err).decode()
-        raise RuntimeError(f"{fn_name} launch failed: {msg} ({err})")
-    LAUNCHES[fn_name] += 1
-
-
-def _pointers(ts):
-    return (ctypes.c_uint64 * len(ts))(*[t.data_ptr() for t in ts])
+register({
+    "prop_mlp_fwd": ("fused_mlp", [PTR, U64P, I64, INT, INT, PTR]),
+    "vanilla_mlp_fwd": ("fused_mlp", [PTR, PTR, U64P, I64, INTP, PTR, PTR]),
+    "vanilla_mlp_fwd_res": ("fused_mlp", [PTR, PTR, U64P, I64, INTP, PTR,
+                                          PTR, U64P]),
+    "vanilla_mlp_bwd": ("fused_mlp_bwd", [PTR, PTR, PTR, PTR, PTR, U64P,
+                                          U64P, I64, INTP, U64P, PTR, INT,
+                                          U64P]),
+    "prop_mlp_bwd": ("fused_mlp_bwd", [PTR, PTR, U64P, I64, INT, INT, PTR,
+                                       PTR, PTR, PTR, INT, U64P]),
+})
 
 
 def _splits(n: int) -> int:
@@ -356,21 +274,21 @@ def prop_mlp_fwd(ws, enc: torch.Tensor, device=None) -> torch.Tensor:
     (``device="cpu"``) this is ``prop_mlp_plain``.
     """
     dev = resolve_device(device)
-    _check_operands(ws, (enc,), N_PROP_WS, PROP_BIASES, dev)
+    check_operands(ws, (enc,), N_PROP_WS, PROP_BIASES, dev)
     n, dx, h = _prop_dims(ws, enc)
     if dev.type == "cpu":
         return prop_mlp_plain(ws, enc)
     out = torch.empty(n, dtype=F32, device=enc.device)
     if n == 0:
         return out
-    _launch("prop_mlp_fwd", enc.dtype, enc.device, enc.data_ptr(),
-            _pointers(ws), n, dx, h, out.data_ptr())
+    launch("prop_mlp_fwd", enc.dtype, enc.device, enc.data_ptr(),
+           pointers(ws), n, dx, h, out.data_ptr())
     return out
 
 
 def _vanilla_fwd(ws, enc_x, enc_d, device, res: bool):
     dev = resolve_device(device)
-    _check_operands(ws, (enc_x, enc_d), N_VANILLA_WS, VANILLA_BIASES, dev)
+    check_operands(ws, (enc_x, enc_d), N_VANILLA_WS, VANILLA_BIASES, dev)
     n, dx, dd, h, bn, r = _vanilla_dims(ws, enc_x, enc_d)
     if dev.type == "cpu":
         rgb3, sigma, acts = vanilla_mlp_fwd_res_plain(ws, enc_x, enc_d)
@@ -383,10 +301,10 @@ def _vanilla_fwd(ws, enc_x, enc_d, device, res: bool):
                  for w in _act_widths(h, bn, r)) if res else ()
     if n > 0:
         dims = (ctypes.c_int * 5)(dx, dd, h, bn, r)
-        extra = (_pointers(acts),) if res else ()
-        _launch(name, enc_x.dtype, enc_x.device, enc_x.data_ptr(),
-                enc_d.data_ptr(), _pointers(ws), n, dims, rgb3.data_ptr(),
-                sigma.data_ptr(), *extra)
+        extra = (pointers(acts),) if res else ()
+        launch(name, enc_x.dtype, enc_x.device, enc_x.data_ptr(),
+               enc_d.data_ptr(), pointers(ws), n, dims, rgb3.data_ptr(),
+               sigma.data_ptr(), *extra)
     return (rgb3, sigma, acts) if res else (rgb3, sigma)
 
 
@@ -424,17 +342,17 @@ def vanilla_mlp_bwd(ws, enc_x, enc_d, g_rgb, g_sigma, rgb3, acts,
     returned.  On the CPU this is ``vanilla_mlp_bwd_plain``.
     """
     dev = resolve_device(device)
-    _check_operands(ws, (enc_x, enc_d), N_VANILLA_WS, VANILLA_BIASES, dev)
+    check_operands(ws, (enc_x, enc_d), N_VANILLA_WS, VANILLA_BIASES, dev)
     n, dx, dd, h, bn, r = _vanilla_dims(ws, enc_x, enc_d)
     cd = enc_x.dtype
     if len(acts) != N_VANILLA_ACTS:
         raise ValueError(f"expected {N_VANILLA_ACTS} activations, "
                          f"got {len(acts)}")
     for i, (a, w) in enumerate(zip(acts, _act_widths(h, bn, r))):
-        _check_tensor(a, (n, w), cd, dev, f"activation {i}")
-    _check_tensor(g_rgb, (3, n), F32, dev, "g_rgb")
-    _check_tensor(g_sigma, (n,), F32, dev, "g_sigma")
-    _check_tensor(rgb3, (3, n), F32, dev, "rgb3")
+        check_tensor(a, (n, w), cd, dev, f"activation {i}")
+    check_tensor(g_rgb, (3, n), F32, dev, "g_rgb")
+    check_tensor(g_sigma, (n,), F32, dev, "g_sigma")
+    check_tensor(rgb3, (3, n), F32, dev, "rgb3")
     if dev.type == "cpu":
         return vanilla_mlp_bwd_plain(ws, enc_x, enc_d, g_rgb, g_sigma, rgb3,
                                      acts)
@@ -448,10 +366,10 @@ def vanilla_mlp_bwd(ws, enc_x, enc_d, g_rgb, g_sigma, rgb3, acts,
                           **like)
     grads = _grad_buffers(ws, enc_x.device)
     dims = (ctypes.c_int * 5)(dx, dd, h, bn, r)
-    _launch("vanilla_mlp_bwd", cd, enc_x.device, enc_x.data_ptr(),
-            enc_d.data_ptr(), g_rgb.data_ptr(), g_sigma.data_ptr(),
-            rgb3.data_ptr(), _pointers(acts), _pointers(ws), n, dims,
-            _pointers(deltas), partial.data_ptr(), splits, _pointers(grads))
+    launch("vanilla_mlp_bwd", cd, enc_x.device, enc_x.data_ptr(),
+           enc_d.data_ptr(), g_rgb.data_ptr(), g_sigma.data_ptr(),
+           rgb3.data_ptr(), pointers(acts), pointers(ws), n, dims,
+           pointers(deltas), partial.data_ptr(), splits, pointers(grads))
     return grads
 
 
@@ -460,9 +378,9 @@ def prop_mlp_bwd(ws, enc: torch.Tensor, g: torch.Tensor, device=None):
     grads of the weight tuple from g (N,) f32, the cotangent of the raw
     density.  On the CPU this is ``prop_mlp_bwd_plain``."""
     dev = resolve_device(device)
-    _check_operands(ws, (enc,), N_PROP_WS, PROP_BIASES, dev)
+    check_operands(ws, (enc,), N_PROP_WS, PROP_BIASES, dev)
     n, dx, h = _prop_dims(ws, enc)
-    _check_tensor(g, (n,), F32, dev, "g")
+    check_tensor(g, (n,), F32, dev, "g")
     if dev.type == "cpu":
         return prop_mlp_bwd_plain(ws, enc, g)
     cd = enc.dtype
@@ -474,9 +392,9 @@ def prop_mlp_bwd(ws, enc: torch.Tensor, g: torch.Tensor, device=None):
     partial = torch.empty(splits * sum(w.numel() for w in ws), dtype=F32,
                           **like)
     grads = _grad_buffers(ws, enc.device)
-    _launch("prop_mlp_bwd", cd, enc.device, enc.data_ptr(), g.data_ptr(),
-            _pointers(ws), n, dx, h, hs.data_ptr(), go.data_ptr(),
-            dhs.data_ptr(), partial.data_ptr(), splits, _pointers(grads))
+    launch("prop_mlp_bwd", cd, enc.device, enc.data_ptr(), g.data_ptr(),
+           pointers(ws), n, dx, h, hs.data_ptr(), go.data_ptr(),
+           dhs.data_ptr(), partial.data_ptr(), splits, pointers(grads))
     return grads
 
 

@@ -1,6 +1,8 @@
 """The render pipeline, train and eval: proposal -> importance sampling ->
-fine model (port of the vanilla branches of nerf_tpu/train/pipeline.py:
-``render_rays_train`` :483-577 and ``render_rays_eval`` :580-671).
+fine model (port of nerf_tpu/train/pipeline.py: the vanilla branch of
+``render_rays_train`` :483-577, and the vanilla and Ref-NeRF branches of
+``render_rays_eval`` :580-671 with ``_ref_fine_forward``'s eval route
+:263-326, :393-451).
 
 Models are ``nn.Module``s holding their weights, so where the JAX functions
 take ``(models, variables, ..., key)`` these take ``(models, ...)`` and an
@@ -12,7 +14,9 @@ Training runs the MLPs through the fused kernels' autograd Functions
 which selects the ``nn.Module`` forward with autograd: the oracle.  Eval runs
 them through the forward-only kernels unless ``cfg.eval_use_pallas`` is
 False.  (The JAX package renders vanilla eval through XLA by default; that
-choice rested on one TPU measurement and does not carry over.)
+choice rested on one TPU measurement and does not carry over.)  Ref-NeRF
+renders (the proposal kernel, then the spatial and directional kernels of
+``ops/ref_fused.py``, or ``RefNeRF``); its training is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,38 +29,48 @@ from nerf_tpu_torch.core import render as render_lib
 from nerf_tpu_torch.core import sampling
 from nerf_tpu_torch.core.encoding import cat_pos_pe
 from nerf_tpu_torch.device import check_device, resolve_device
-from nerf_tpu_torch.models import ProposalNetwork, VanillaNeRF
+from nerf_tpu_torch.models import ProposalNetwork, RefNeRF, VanillaNeRF
 from nerf_tpu_torch.models.mlp import init_flax_
-from nerf_tpu_torch.ops import PropMLP, VanillaMLP, prop_mlp_fwd, vanilla_mlp_fwd
+from nerf_tpu_torch.ops import (
+    PropMLP, VanillaMLP, prop_mlp_fwd, ref_fine_fwd, vanilla_mlp_fwd,
+)
+from nerf_tpu_torch.ops.ref_fused import softplus
 from nerf_tpu_torch.train.config import PipelineConfig
 
 _NOT_PORTED = ("the {} path is not ported to nerf_tpu_torch yet; see "
                "ROADMAP.md (section A) for the order of the remaining slices")
 
 
-def _require_vanilla(cfg: PipelineConfig) -> None:
+def _require_ported(cfg: PipelineConfig, train: bool = False) -> None:
+    """Raise for the paths not ported yet: Mip-NeRF, IPE and Ref-NeRF
+    training."""
     if cfg.model == "mip":
         raise NotImplementedError(_NOT_PORTED.format("Mip-NeRF (-m, _mip_pass)"))
-    if cfg.model == "ref":
-        raise NotImplementedError(
-            _NOT_PORTED.format("Ref-NeRF (-t, _ref_fine_forward)"))
-    if cfg.model != "vanilla":
+    if cfg.model not in ("vanilla", "ref"):
         raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.use_ipe:
         raise NotImplementedError(_NOT_PORTED.format("IPE (--use_ipe)"))
+    if train and cfg.model == "ref":
+        raise NotImplementedError(_NOT_PORTED.format(
+            "Ref-NeRF training (-t without -r; ROADMAP.md A6)"))
 
 
 def make_models(cfg: PipelineConfig, device=None,
                 generator: Optional[torch.Generator] = None):
-    """(VanillaNeRF, ProposalNetwork) on ``device`` with flax-initialized
-    weights drawn from ``generator`` (a CPU generator; seed 0 if None)."""
-    _require_vanilla(cfg)
+    """(VanillaNeRF or RefNeRF, ProposalNetwork) on ``device`` with
+    flax-initialized weights drawn from ``generator`` (a CPU generator;
+    seed 0 if None)."""
+    _require_ported(cfg)
     dev = resolve_device(device)
     dtype = torch.bfloat16 if cfg.use_bf16 else torch.float32
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    nerf = init_flax_(VanillaNeRF(hidden=cfg.nerf_width, dtype=dtype),
-                      generator)
+    if cfg.model == "ref":
+        nerf = RefNeRF(ide_level=cfg.ide_level, hidden=cfg.nerf_width,
+                       use_srgb=cfg.use_srgb, dtype=dtype)
+    else:
+        nerf = VanillaNeRF(hidden=cfg.nerf_width, dtype=dtype)
+    nerf = init_flax_(nerf, generator)
     prop = init_flax_(ProposalNetwork(hidden=cfg.prop_width, dtype=dtype),
                       generator)
     return nerf.to(dev).eval(), prop.to(dev).eval()
@@ -137,6 +151,34 @@ def _apply_prop(prop: ProposalNetwork, pts: torch.Tensor,
     return prop_mlp_fwd(prop.kernel_weights(), enc, device=dev).reshape(r, p)
 
 
+def _identity(x):
+    return x
+
+
+def _ref_fine_forward(nerf: RefNeRF, pos: torch.Tensor,
+                      ray_dirs: torch.Tensor, cfg: PipelineConfig, dev):
+    """Ref-NeRF on points (R, P, 3) of rays with directions (R, 3), eval:
+    (rgb (R, P, 3), raw density (R, P), normal (R, P, 3)), f32.
+
+    The kernel route is ``_ref_fine_forward_allkernel`` without the density
+    gradient and with zero noise (``ops.ref_fine_fwd``); with
+    ``eval_use_pallas=False`` the ``RefNeRF`` module runs, the oracle."""
+    r, p = pos.shape[:2]
+    if not _use_kernels(cfg, train=False):
+        return nerf(pos, ray_dirs[:, None, :].expand(r, p, 3))
+    if cfg.ref_kernels != "all":
+        raise NotImplementedError(_NOT_PORTED.format(
+            f"ref_kernels={cfg.ref_kernels!r} (_ref_fine_forward_fused; "
+            "ROADMAP.md B5)"))
+    enc = cat_pos_pe(pos.reshape(r * p, 3), nerf.pos_levels, nerf.dtype)
+    spa_ws, dir_ws = nerf.kernel_weights()
+    rgb, density, normal = ref_fine_fwd(
+        spa_ws, dir_ws, enc, ray_dirs.to(torch.float32).contiguous(), p,
+        ide_level=nerf.ide_level, use_srgb=nerf.use_srgb, device=dev)
+    return (rgb.reshape(r, p, 3), density.reshape(r, p),
+            normal.reshape(r, p, 3))
+
+
 def _proposal_weights(prop: ProposalNetwork, rays: torch.Tensor,
                       c_z: torch.Tensor, cfg: PipelineConfig, dev,
                       train: bool = False):
@@ -165,7 +207,7 @@ def render_rays_train(models, rays: torch.Tensor, cfg: PipelineConfig,
     (R, n_fine + 1)) replaces the draws from ``generator``.  ``device``
     defaults to ``cuda``; ``rays`` must lie there.
     """
-    _require_vanilla(cfg)
+    _require_ported(cfg, train=True)
     dev = resolve_device(device)
     check_device(rays, dev, "rays")
     nerf, prop = models
@@ -190,16 +232,20 @@ def render_rays_train(models, rays: torch.Tensor, cfg: PipelineConfig,
 def render_rays_eval(models, rays: torch.Tensor, cfg: PipelineConfig,
                      sample_num: Optional[int] = None,
                      render_depth: bool = False,
+                     normal_cam_dir: Optional[torch.Tensor] = None,
                      noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                      generator: Optional[torch.Generator] = None,
                      device=None):
     """Eval forward for a ray batch rays (R, 6).  Returns (rgb (R, 3), extras).
 
-    ``noise`` = (stratified jitter (R, n_coarse), sorted inverse-CDF
-    uniforms (R, sample_num + 1)) replaces the draws from ``generator``.
-    ``device`` defaults to ``cuda``; ``rays`` must lie there.
+    Ref-NeRF composites the merged coarse and fine depths with
+    softplus(raw + 0.5) as the density; ``normal_cam_dir`` (3,) adds its
+    normal map extra (ignored for the vanilla model).  ``noise`` =
+    (stratified jitter (R, n_coarse), sorted inverse-CDF uniforms
+    (R, sample_num + 1)) replaces the draws from ``generator``.  ``device``
+    defaults to ``cuda``; ``rays`` must lie there.
     """
-    _require_vanilla(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
     check_device(rays, dev, "rays")
     nerf, prop = models
@@ -213,11 +259,24 @@ def render_rays_eval(models, rays: torch.Tensor, cfg: PipelineConfig,
     w_blur = _proposal_weights(prop, rays, c_z, cfg, dev)
     f_z, _ = sampling.inverse_sample(w_blur, c_z, sample_num + 1, u=u,
                                      generator=generator)
-    z_vals = f_z[..., :-1]
-    pos = render_lib.lengths_to_points(rays, z_vals)
-    rgb3, density = _apply_vanilla(nerf, pos, rays[:, 3:], cfg, dev)
+    normal_info = None
+    if cfg.model == "ref":
+        z_vals = sampling.merge_coarse_fine(c_z, f_z)
+        pos = render_lib.lengths_to_points(rays, z_vals)
+        rgb, raw_density, normal = _ref_fine_forward(nerf, pos, rays[:, 3:],
+                                                     cfg, dev)
+        density = softplus(raw_density + 0.5)
+        act = _identity
+        if normal_cam_dir is not None:
+            normal_info = (normal, normal_cam_dir)
+    else:
+        z_vals = f_z[..., :-1]
+        pos = render_lib.lengths_to_points(rays, z_vals)
+        rgb3, density = _apply_vanilla(nerf, pos, rays[:, 3:], cfg, dev)
+        rgb, act = rgb3.permute(1, 2, 0), torch.relu
     rgb_out, _, extras = render_lib.composite(
-        rgb3.permute(1, 2, 0), density, z_vals, rays[:, 3:],
-        white_bkg=cfg.white_bkg, density_act=torch.relu,
-        depth_bounds=(cfg.near, cfg.far) if render_depth else None)
+        rgb, density, z_vals, rays[:, 3:], white_bkg=cfg.white_bkg,
+        density_act=act,
+        depth_bounds=(cfg.near, cfg.far) if render_depth else None,
+        normal_info=normal_info)
     return rgb_out, extras

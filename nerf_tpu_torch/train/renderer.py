@@ -1,5 +1,5 @@
 """Full-image eval renderer (port of nerf_tpu/train/renderer.py:25-90,
-166-195, single device).
+166-195, single device), with the depth and (Ref-NeRF) normal maps.
 
 The frame's rays go through ``render_rays_eval`` in chunks of ``chunk`` rays
 (``--eval_chunk``).  Noise is drawn for the whole frame at the unpadded pixel
@@ -30,6 +30,7 @@ def _pad_noise(jitter: torch.Tensor, u: torch.Tensor, pad: int):
 @torch.no_grad()
 def render_image(models, c2w, hw, focal, cfg: PipelineConfig,
                  sample_num: Optional[int] = None, render_depth: bool = False,
+                 render_normal: bool = False,
                  generator: Optional[torch.Generator] = None,
                  noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  chunk: int = 4096, device=None) -> Dict[str, np.ndarray]:
@@ -38,6 +39,8 @@ def render_image(models, c2w, hw, focal, cfg: PipelineConfig,
     ``c2w`` is a (3, 4) or (4, 4) camera-to-world pose.  ``noise`` =
     (jitter (H*W, n_coarse), sorted uniforms (H*W, sample_num + 1)) replaces
     the draws from ``generator`` (a generator on ``device``).
+    ``render_normal`` adds the normal map along the camera axis c2w[:, 2];
+    it is honoured only for the ref model.
     """
     dev = resolve_device(device)
     sample_num = cfg.n_fine if sample_num is None else int(sample_num)
@@ -55,17 +58,18 @@ def render_image(models, c2w, hw, focal, cfg: PipelineConfig,
     else:
         jitter, u = (t.to(dev, torch.float32) for t in noise)
     jitter, u = _pad_noise(jitter, u, pad)
+    normal_cam_dir = (c2w[:, 2] if render_normal and cfg.model == "ref"
+                      else None)
 
-    rgb, depth = [], []
+    chunks = {"rgb": [], "depth": [], "normal": []}
     for s in range(0, n_pix + pad, chunk):
         out, extras = render_rays_eval(
             models, rays[s:s + chunk], cfg, sample_num=sample_num,
-            render_depth=render_depth,
+            render_depth=render_depth, normal_cam_dir=normal_cam_dir,
             noise=(jitter[s:s + chunk], u[s:s + chunk]), device=dev)
-        rgb.append(out)
-        if render_depth:
-            depth.append(extras["depth"])
-    out = {"rgb": torch.cat(rgb)[:n_pix].reshape(h, w, 3)}
-    if render_depth:
-        out["depth"] = torch.cat(depth)[:n_pix].reshape(h, w)
-    return {k: v.cpu().numpy() for k, v in out.items()}
+        chunks["rgb"].append(out)
+        for k, v in extras.items():
+            chunks[k].append(v)
+    shapes = {"rgb": (h, w, 3), "depth": (h, w), "normal": (h, w)}
+    return {k: torch.cat(v)[:n_pix].reshape(shapes[k]).cpu().numpy()
+            for k, v in chunks.items() if v}

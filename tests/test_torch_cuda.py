@@ -15,7 +15,8 @@ import torch
 
 from nerf_tpu_torch import ops
 from nerf_tpu_torch.core import sampling
-from nerf_tpu_torch.models import ProposalNetwork, VanillaNeRF
+from nerf_tpu_torch.core.encoding import cat_pos_pe
+from nerf_tpu_torch.models import ProposalNetwork, RefNeRF, VanillaNeRF
 from nerf_tpu_torch.train.config import PipelineConfig
 from nerf_tpu_torch.train.pipeline import make_models, render_rays_eval
 from nerf_tpu_torch.train.step import compute_loss, train_parameters
@@ -139,7 +140,8 @@ def test_training_kernels_match_plain(cuda, dtype, n, width):
     torch.cuda.synchronize()
     assert ops.LAUNCHES == {"prop_mlp_fwd": 0, "vanilla_mlp_fwd": 0,
                             "vanilla_mlp_fwd_res": 1, "vanilla_mlp_bwd": 1,
-                            "prop_mlp_bwd": 1}
+                            "prop_mlp_bwd": 1, "ref_spa_fwd": 0,
+                            "ref_dir_fwd": 0}
     prgb3, psig, pacts = ops.vanilla_mlp_fwd_res_plain(vw, x, d)
     torch.testing.assert_close(rgb3, prgb3, **TOLS[dtype])
     torch.testing.assert_close(sig, psig, **TOLS[dtype])
@@ -267,3 +269,113 @@ def test_oversized_widths_raise_and_leave_no_error(cuda):
         ops.prop_mlp_fwd(small.kernel_weights(), x),
         ops.prop_mlp_plain(small.kernel_weights(), x), **TOLS[torch.float32])
     torch.cuda.synchronize()
+
+
+def _ref_operands(cuda, dtype, n, per_ray, seed, **model):
+    """A randomized RefNeRF's kernel weights, the encodings of n points
+    N(0, 1) and the raw directions of n / per_ray rays as a camera casts
+    them (|d| from 1 to 1.12: at larger |d| the IDE's z^l_max terms grow as
+    |d|^l_max)."""
+    m = _randomize(RefNeRF(dtype=dtype, **model), seed, gain=1.0).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    pos = torch.randn((n, 3), generator=gen, device=cuda)
+    dirs = torch.randn((n // per_ray, 3), generator=gen, device=cuda)
+    dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True) * (
+        1.0 + 0.12 * torch.rand((n // per_ray, 1), generator=gen,
+                                device=cuda))
+    return m, cat_pos_pe(pos, m.pos_levels, dtype), dirs
+
+
+def _assert_ref_match(cuda, dtype, n, per_ray, **model):
+    ide_level, use_srgb = model.get("ide_level", 4), model.get("use_srgb",
+                                                               False)
+    m, enc, dirs = _ref_operands(cuda, dtype, n, per_ray, n, **model)
+    spa_ws, dir_ws = m.kernel_weights()
+    ops.reset_launches()
+    heads = ops.ref_spa_fwd(spa_ws, enc)
+    out = ops.ref_dir_fwd(dir_ws, heads, dirs, per_ray,
+                          ide_level=ide_level, use_srgb=use_srgb)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ref_spa_fwd"] == ops.LAUNCHES["ref_dir_fwd"] == 1
+    torch.testing.assert_close(heads, ops.ref_spa_plain(spa_ws, enc),
+                               **TOLS[dtype])
+    # the directional kernel on the kernel's own heads
+    want = ops.ref_dir_plain(dir_ws, heads, dirs, per_ray,
+                             ide_level=ide_level, use_srgb=use_srgb)
+    for name, a, b in zip(("rgb", "normal", "density"), out, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        torch.testing.assert_close(a, b, **TOLS[dtype], msg=name)
+    if n > 1:
+        assert float(out[0].std()) > 0.0
+
+
+@pytest.mark.parametrize("dtype", list(TOLS))
+@pytest.mark.parametrize("n, per_ray", [(1, 1), (70, 7), (4097, 17)])
+@pytest.mark.parametrize("hidden, output_dim", [(256, 256), (48, 80)])
+def test_ref_kernels_match_plain(cuda, dtype, n, per_ray, hidden,
+                                 output_dim):
+    """ref_spa_fwd and ref_dir_fwd against their plain versions: a single
+    point, ragged last tiles, and a trunk whose width H differs from the
+    output_dim O (the skip and O-wide layers are not square)."""
+    _assert_ref_match(cuda, dtype, n, per_ray, hidden=hidden,
+                      output_dim=output_dim)
+
+
+@pytest.mark.parametrize("dtype", list(TOLS))
+@pytest.mark.parametrize("ide_level, use_srgb, bottleneck_dim",
+                         [(1, False, 128), (2, True, 128), (5, False, 64)])
+def test_ref_dir_kernel_levels_and_srgb(cuda, dtype, ide_level, use_srgb,
+                                        bottleneck_dim):
+    """The directional kernel at other IDE levels (l_max 1, 2 and 16), with
+    the sRGB curve and a narrower bottleneck."""
+    _assert_ref_match(cuda, dtype, 4097, 17, hidden=64, output_dim=64,
+                      ide_level=ide_level, use_srgb=use_srgb,
+                      bottleneck_dim=bottleneck_dim)
+
+
+def test_ref_kernels_raise_on_misplaced_operands(cuda):
+    """A CUDA call with one operand on the CPU raises instead of running the
+    plain version, and launches nothing."""
+    m, enc, dirs = _ref_operands(cuda, torch.float32, 70, 7, 0, hidden=32)
+    spa_ws, dir_ws = m.kernel_weights()
+    heads = ops.ref_spa_plain(spa_ws, enc)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="weight 3 is on cpu"):
+        ops.ref_spa_fwd(spa_ws[:3] + (spa_ws[3].cpu(),) + spa_ws[4:], enc)
+    with pytest.raises(ValueError, match="dirs is on cpu"):
+        ops.ref_dir_fwd(dir_ws, heads, dirs.cpu(), 7)
+    with pytest.raises(ValueError, match="weight 0 is on cpu"):
+        ops.ref_dir_fwd((dir_ws[0].cpu(),) + dir_ws[1:], heads, dirs, 7)
+    assert not any(ops.LAUNCHES.values())
+
+
+def test_ref_eval_kernels_match_module_path(cuda):
+    """f32 Ref-NeRF render of a ray batch through the kernels and through
+    the RefNeRF module, same weights and noise: rgb, depth and normal map."""
+    cfg = PipelineConfig(model="ref", n_coarse=16, n_fine=32, nerf_width=64,
+                         prop_width=64, white_bkg=True)
+    models = make_models(cfg, cuda)
+    for i, m in enumerate(models):
+        _randomize(m, 30 + i, gain=1.0)
+    rng = np.random.default_rng(2)
+    rays = np.concatenate([rng.normal(0, 0.2, (300, 3)) + [0, 0, 4.0],
+                           rng.normal(0, 0.3, (300, 3)) + [0, 0, -1.0]], -1)
+    rays = torch.tensor(rays, dtype=torch.float32, device=cuda)
+    jit = torch.tensor(rng.uniform(size=(300, 16)), dtype=torch.float32,
+                       device=cuda)
+    u = torch.tensor(np.sort(rng.uniform(size=(300, 33)), -1),
+                     dtype=torch.float32, device=cuda)
+    cam = torch.tensor([0.0, 0.0, 1.0], device=cuda)
+    outs = []
+    for k in (True, False):
+        ops.reset_launches()
+        outs.append(render_rays_eval(models, rays,
+                                     cfg.replace(eval_use_pallas=k),
+                                     render_depth=True, normal_cam_dir=cam,
+                                     noise=(jit, u)))
+        assert (ops.LAUNCHES["ref_dir_fwd"] == 1) == k
+    assert float(outs[1][1]["depth"].std()) > 0.1   # not a blank batch
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-4, atol=2e-4)
+    for key in ("depth", "normal"):
+        torch.testing.assert_close(outs[0][1][key], outs[1][1][key],
+                                   rtol=1e-4, atol=2e-4, msg=key)

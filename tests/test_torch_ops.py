@@ -111,7 +111,7 @@ def test_cpu_dispatch_counts_no_launch(nets):
                      device="cpu")
     assert set(ops.LAUNCHES) == {"prop_mlp_fwd", "vanilla_mlp_fwd",
                                  "vanilla_mlp_fwd_res", "vanilla_mlp_bwd",
-                                 "prop_mlp_bwd"}
+                                 "prop_mlp_bwd", "ref_spa_fwd", "ref_dir_fwd"}
     assert not any(ops.LAUNCHES.values())
 
 

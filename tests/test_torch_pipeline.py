@@ -18,7 +18,7 @@ from nerf_tpu.train.pipeline import make_models as jax_make_models
 from nerf_tpu.train.pipeline import render_rays_eval as jax_render_rays_eval
 from nerf_tpu_torch.cli.flags import get_parser
 from nerf_tpu_torch.cli.render import render_only
-from nerf_tpu_torch.train.pipeline import render_rays_eval
+from nerf_tpu_torch.train.pipeline import render_rays_eval, render_rays_train
 from nerf_tpu_torch.train.renderer import render_image
 from nerf_tpu_torch.utils.checkpoint import load_models
 from nerf_tpu_torch.utils.png import write_png
@@ -67,9 +67,13 @@ def test_render_rays_eval_rejects_unported_paths(variables):
     _, cfg = configs()
     models = port_models(cfg, variables)
     rays = torch.ones(4, 6)
-    for kw in (dict(model="mip"), dict(model="ref"), dict(use_ipe=True)):
+    for kw in (dict(model="mip"), dict(use_ipe=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             render_rays_eval(models, rays, cfg.replace(**kw), device="cpu")
+    # Ref-NeRF renders (tests/test_torch_ref.py); its training is not ported
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+        render_rays_train(models, rays, cfg.replace(model="ref"),
+                          device="cpu")
 
 
 def _write_scene(root, variables, hw=(10, 12), n_views=2):

@@ -30,7 +30,9 @@ def test_port_imports_no_jax():
     interpreter: neither jax nor nerf_tpu may be loaded."""
     mods = sorted(m.name for m in pkgutil.walk_packages(
         nerf_tpu_torch.__path__, "nerf_tpu_torch."))
-    assert "nerf_tpu_torch.ops.fused_mlp" in mods
+    assert {"nerf_tpu_torch.ops.fused_mlp", "nerf_tpu_torch.ops.ref_fused",
+            "nerf_tpu_torch.ops.launch",
+            "nerf_tpu_torch.models.refnerf"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -56,10 +58,14 @@ def test_entry_points_never_run_quietly_on_cpu(no_card, tmp_path):
     models = make_models(cfg, "cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         render_rays_eval(models, torch.ones(4, 6), cfg)
-    args = get_parser().parse_args(["-r", "-e", "--dataset_root",
-                                    str(tmp_path)])
+    ref = cfg.replace(model="ref")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        render_only(args)
+        render_rays_eval(make_models(ref, "cpu"), torch.ones(4, 6), ref)
+    for flags in ([], ["-t", "--render_normal"]):
+        args = get_parser().parse_args(["-r", "-e", "--dataset_root",
+                                        str(tmp_path), *flags])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            render_only(args)
 
 
 @pytest.mark.parametrize("argv", [

@@ -20,9 +20,10 @@ SMALL = dict(n_coarse=8, n_fine=16, nerf_width=32, prop_width=32,
 
 def configs(**kw):
     """(JAX config, port config) at the small test size, ``kw`` overriding
-    it; the JAX kernels use a 32-point tile so interpret mode stays quick."""
+    it; the JAX kernels use a 32-point tile unless ``kw`` sets
+    ``pallas_tile``, so interpret mode stays quick."""
     kw = {**SMALL, **kw}
-    return JaxConfig(pallas_tile=32, **kw), PipelineConfig(**kw)
+    return JaxConfig(**{"pallas_tile": 32, **kw}), PipelineConfig(**kw)
 
 
 def random_params(template, rng: np.random.Generator, gain: float = 1.5,
