@@ -15,7 +15,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                read beyond the limit that the kernels meet.  The Ref-NeRF
                forwards (ref_kernels) at one default chunk's 786,432 merged
                points, the directional one also with sRGB on and at IDE
-               level 2
+               level 2; the Ref-NeRF training kernels at one default step's
+               196,608 merged points, the directional backward also with
+               sRGB on and at IDE level 2
   4. path    - `python -m nerf_tpu_torch -r -e -s -w` on a two-view 800x800
                Blender-layout test split with seeded random weights (full
                width vanilla model), counting kernel launches; then one f32
@@ -32,7 +34,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                through the nn.Module path (use_pallas=False): same weights,
                rays and noise; loss and all 32 parameter grads compared, and
                each kernel call of the step held against its plain version
-               on the call's own operands
+               on the call's own operands; the same for one f32 Ref-NeRF
+               step (ref_step, bottleneck noise off, 1024 rays of 192 merged
+               samples)
   7. train   - `python -m nerf_tpu_torch --epochs 5 -s -w` on a 20-view
                800x800 train split (rendered at 400x400, 100 steps),
                counting kernel launches per step, and the same 100 seeded
@@ -43,7 +47,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                steps issued back to back) timed (ms per step, rays/s) and
                one epoch traced with torch.profiler (device busy share, top
                ops)
-  9. the kernels line, then the last line {"ok": true, "device": {...}}
+  9. ref_train - phases 7 and 8 for Ref-NeRF: `python -m nerf_tpu_torch -t
+               --epochs 5 -s -w` on the same split and the same steps with
+               `--no_pallas`, launches per step, the two routes' curves and
+               the normal and back-face losses; `-t -r -e -s -w
+               --render_normal` of its checkpoint; its trainer loop timed and
+               profiled (ref_train_profile)
+ 10. the kernels line, then the last line {"ok": true, "device": {...}}
 
 Imports nothing of JAX or nerf_tpu.
 """
@@ -67,7 +77,7 @@ from nerf_tpu_torch import ops
 from nerf_tpu_torch.cli.entry import main as entry_main
 from nerf_tpu_torch.cli.flags import get_parser
 from nerf_tpu_torch.cli.trainer import Trainer
-from nerf_tpu_torch.core.encoding import ide_tables
+from nerf_tpu_torch.core.encoding import cat_pos_pe, ide_tables
 from nerf_tpu_torch.core.rays import fov_to_focal, pose_spherical
 from nerf_tpu_torch.ops import build, ref_fused
 from nerf_tpu_torch.train.config import PipelineConfig
@@ -112,6 +122,15 @@ REF_GAIN = 1.0
 # f32 1.7e-6 and 7.6e-6.  A bf16 backward with a cast left out or added reads
 # 2.2e-3 or more (``cast_controls``), so the limit sits between the two.
 GRAD_REL = {torch.bfloat16: 1e-4, torch.float32: 1e-4}
+# The Ref-NeRF backwards also round each TILE_ROWS rows' weight grad to
+# bf16, as the TPU kernels do per grid step: a delta rounded one ulp apart
+# moves a tile's partial by about 1e-4 of itself, and some rounded partials
+# then land one bf16 ulp (2^-8) apart (7.9e-4 at N = 70 with 64-row tiles,
+# tests/test_torch_cuda.py); d(heads) rounds the same way.  Measured on an
+# H100 80GB HBM3 at these shapes: at most 2.4e-4 (d(heads) of the sRGB case);
+# the planted faults, f32 throughout and each weight grad rounded once
+# instead of per tile, read 5.4e-3 and 2.4e-3 or more.
+REF_GRAD_REL = {torch.bfloat16: 8e-4, torch.float32: 1e-4}
 # the 9 stored activations of vanilla_mlp_fwd_res, as the relative Frobenius
 # error of each: a bf16 value that rounds one ulp apart in an early layer
 # carries on through up to 8 layers, so single values deep in the net can
@@ -140,6 +159,34 @@ STEP_GRAD_REL = 2e-3
 # proposal loss, on its epoch of lowest mean) and 6.3e-3 (image MSE).  A
 # trainer that stops learning reads above 1 on both.
 TRAIN_BAND = {"loss": 0.25, "img_mse": 0.05}
+# the Ref-NeRF training kernels round each TILE_ROWS rows' weight grad to
+# the compute dtype (cfg.pallas_tile, the TPU kernels' grid tile)
+TILE_ROWS = 2048
+# The normal target -g / max(1e-5, |g|) is held against the plain version's
+# target on the kernel's own stored activations (g is a pullback through
+# their ReLU masks, and a pre-activation within rounding of 0 that the plain
+# forward masks the other way moves g by a whole unit's term: 7.7e-4 on the
+# measure below in f32, on an H100 80GB HBM3), weighted by |g|: the relative
+# Frobenius error ||(t_kernel - t_plain) |g||| / ||g||.  g passes nine
+# layers and the encoding's 2^9 frequency, so where |g| is small next to its
+# own rounding noise its direction is that noise (3 of 12,291 components
+# 0.5 apart in bf16 on the plain forward's masks, tests/test_torch_cuda.py);
+# the weighting holds every point to its share of g.  Measured on the
+# kernel's masks: 3.9e-8 (bf16) and 5.6e-8 (f32).  In f32 the targets are
+# also held elementwise, within TOLS, where |g| exceeds DGRAD_MIN_NORM, a
+# thousand times the clamp.
+DGRAD_REL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+DGRAD_MIN_NORM = 1e-2
+# one f32 Ref-NeRF step, kernels vs the nn.Module path: the same sources of
+# difference as STEP_*, through 192 merged samples and two nets.  Measured
+# on an H100 80GB HBM3: loss equal, worst grad 2.8e-5.
+REF_STEP_LOSS_RTOL = 1e-4
+REF_STEP_GRAD_REL = 1e-3
+# the 100-step bf16 Ref-NeRF train run, kernels vs --no_pallas, epoch means
+# of loss and image MSE: measured 1.8e-3 and 1.3e-3 on an H100 80GB HBM3
+# (the routes round differently, as for TRAIN_BAND, but the Ref-NeRF loss is
+# dominated by terms that the two routes compute alike)
+REF_TRAIN_BAND = {"loss": 0.02, "img_mse": 0.02}
 
 KERNELS = {
     "prop_mlp_fwd": dict(
@@ -163,13 +210,27 @@ KERNELS = {
     "ref_dir_fwd": dict(
         source="nerf_tpu_torch/ops/csrc/ref_fused.cu",
         replaces="nerf_tpu/ops/ref_fused.py:841"),
+    "ref_spa_fwd_res": dict(
+        source="nerf_tpu_torch/ops/csrc/ref_fused.cu",
+        replaces="nerf_tpu/ops/ref_fused.py:643"),
+    "ref_dir_fwd_res": dict(
+        source="nerf_tpu_torch/ops/csrc/ref_fused.cu",
+        replaces="nerf_tpu/ops/ref_fused.py:841"),
+    "ref_spa_bwd": dict(
+        source="nerf_tpu_torch/ops/csrc/ref_fused_bwd.cu",
+        replaces="nerf_tpu/ops/ref_fused.py:729"),
+    "ref_dir_bwd": dict(
+        source="nerf_tpu_torch/ops/csrc/ref_fused_bwd.cu",
+        replaces="nerf_tpu/ops/ref_fused.py:901"),
 }
 REF_KERNELS = ("prop_mlp_fwd", "ref_spa_fwd", "ref_dir_fwd")
-# the other (ide_level, use_srgb) cases of the directional kernel's check;
+# the other (ide_level, use_srgb) cases of the directional kernels' checks;
 # the timed one is the default (4, False)
 REF_DIR_VARIANTS = ((4, True), (2, False))
 TRAIN_KERNELS = ("prop_mlp_fwd", "vanilla_mlp_fwd_res", "vanilla_mlp_bwd",
                  "prop_mlp_bwd")
+REF_TRAIN_KERNELS = ("prop_mlp_fwd", "ref_spa_fwd_res", "ref_dir_fwd_res",
+                     "ref_spa_bwd", "ref_dir_bwd", "prop_mlp_bwd")
 
 
 def emit(phase: str, **kw):
@@ -270,6 +331,32 @@ def macs_per_point(shapes):
     return sum(s[0] * s[1] for s, is_bias in shapes if not is_bias)
 
 
+def ref_density_grad_macs(dx=63, h=256, o=256):
+    """The normal target in ref_spa_fwd_res: the density column's pullback
+    ([0, 1] @ wrt^T, w7^T, w6^T, w5^T, w4b^T, w3^T .. w1^T), the two
+    pullbacks into the encoding and its transpose (3 x (dx - 3) each way)."""
+    return 2 * o + h * o + 6 * h * h + 2 * dx * h + 6 * (dx - 3)
+
+
+def ref_spa_delta_macs(h=256, o=256, nb=128):
+    """ref_spa_bwd's deltas: the three heads' pullbacks, w7^T, then six
+    H x H pullbacks (none into the encoding)."""
+    return o * (11 + nb) + h * o + 6 * h * h
+
+
+def ref_dir_delta_macs(n_ch, h=256, o=256, nb=128):
+    """ref_dir_bwd's deltas: wh^T, w7^T, w6^T, five H x H pullbacks and the
+    two pullbacks into the trunk input (Dd = nb + 2 C + 1 wide)."""
+    dd = nb + 2 * n_ch + 1
+    return 3 * o + o * o + h * o + 5 * h * h + 2 * dd * h
+
+
+def ref_points(gen, dtype, n):
+    """n points in the scene's box and their encoding [pos, PE(pos)]."""
+    pos = torch.rand((n, 3), generator=gen, device="cuda").mul_(3).sub_(1.5)
+    return pos, cat_pos_pe(pos, 10, dtype)
+
+
 def _rel_err(got, want):
     return float(torch.linalg.vector_norm(got - want)
                  / torch.linalg.vector_norm(want).clamp_min(1e-30))
@@ -347,6 +434,55 @@ def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
             + (tables["mat"].size + tables["sigma"].size) * 4
         # the trunk, and the IDE's z-powers @ mat
         macs = macs_per_point(shapes) + tables["mat"].size
+    elif name in ("ref_spa_fwd_res", "ref_spa_bwd"):
+        shapes, n = ref_spa_shapes(), RAYS * N_MERGED
+        ws = random_weights(shapes, gen, dtype, gain=REF_GAIN)
+        pos, x = ref_points(gen, dtype, n)
+        elem = x.element_size()
+        if name == "ref_spa_fwd_res":
+            args, kernel = (ws, x, pos), ops.ref_spa_fwd_res
+            plain = ops.ref_spa_fwd_res_plain
+            moved = _nbytes(x, pos, *ws) + n * (ref_fused.HEAD_FIXED + 128
+                                                + 3) * 4 + n * 8 * 256 * elem
+            macs = macs_per_point(shapes) + ref_density_grad_macs()
+        else:
+            _, _, acts = ops.ref_spa_fwd_res(ws, x, pos)
+            g = torch.randn((n, ref_fused.HEAD_FIXED + 128), generator=gen,
+                            device="cuda")
+            args, kernel = (ws, x, g, acts, TILE_ROWS), ops.ref_spa_bwd
+            plain = ops.ref_spa_bwd_plain
+            moved = _nbytes(x, g, *acts, *ws) + 4 * sum(w.numel() for w in ws)
+            macs = macs_per_point(shapes) + ref_spa_delta_macs()
+    elif name in ("ref_dir_fwd_res", "ref_dir_bwd"):
+        tables = ide_tables(ide_level)
+        shapes, n = ref_dir_shapes(tables["n_ch"]), RAYS * N_MERGED
+        ws = random_weights(shapes, gen, dtype, gain=REF_GAIN)
+        heads = torch.randn((n, ref_fused.HEAD_FIXED + 128), generator=gen,
+                            device="cuda")
+        dirs = camera_dirs(gen, RAYS)
+        noise = (0.02 * torch.randn((n, 128), generator=gen,
+                                    device="cuda")).to(dtype)
+        fwd = (ws, heads, dirs, N_MERGED, noise, ide_level, use_srgb)
+        glue = tables["mat"].size + tables["sigma"].size
+        if name == "ref_dir_fwd_res":
+            args, kernel = fwd, ops.ref_dir_fwd_res
+            plain = ops.ref_dir_fwd_res_plain
+            moved = _nbytes(heads, dirs, noise, *ws) + n * 7 * 4 \
+                + glue * 4 + n * 8 * 256 * noise.element_size()
+            macs = macs_per_point(shapes) + tables["mat"].size
+        else:
+            acts = ops.ref_dir_fwd_res(*fwd)[3]
+            g_rgb, g_nrm = torch.randn((2, n, 3), generator=gen,
+                                       device="cuda")
+            g_den = torch.randn((n,), generator=gen, device="cuda")
+            args = (*fwd[:5], g_rgb, g_nrm, g_den, acts, ide_level, use_srgb,
+                    TILE_ROWS)
+            kernel, plain = ops.ref_dir_bwd, ops.ref_dir_bwd_plain
+            moved = _nbytes(heads, dirs, noise, g_rgb, g_nrm, g_den, *acts,
+                            *ws) + glue * 4 + n * heads.shape[1] * 4 \
+                + 4 * sum(w.numel() for w in ws)
+            macs = macs_per_point(shapes) + ref_dir_delta_macs(
+                tables["n_ch"]) + 2 * tables["mat"].size
     else:   # prop_mlp_bwd
         shapes, n = prop_shapes(), RAYS * N_COARSE
         ws = random_weights(shapes, gen, dtype)
@@ -360,31 +496,87 @@ def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
     return args, kernel, plain, moved, 2.0 * macs * n, n
 
 
-def compare(name, dtype, got, want):
+HEAD_GROUPS = ((0, 1), (1, 2), (2, 5), (5, 8), (8, 11), (11, None))
+
+
+def dheads_rel(got, want):
+    """The worst relative Frobenius error over the column groups of
+    d(heads): rho, density, normal, diffuse, tint, bottleneck."""
+    return max(_rel_err(got[:, a:b], want[:, a:b]) for a, b in HEAD_GROUPS)
+
+
+def grad_rel(name, dtype):
+    return (REF_GRAD_REL if name.startswith("ref") else GRAD_REL)[dtype]
+
+
+def compare_grads(name, dtype, got, want):
+    rels, lim = [], grad_rel(name, dtype)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.isfinite(g).all():
+            fail(f"{name} {dtype}: non-finite grad {i}")
+        rels.append(_rel_err(g, w))
+        if rels[-1] > lim:
+            fail(f"{name} {dtype}: grad {i} relative error {rels[-1]} "
+                 f"beyond {lim}")
+    return max(float((g - w).abs().max()) for g, w in zip(got, want)), \
+        max(rels)
+
+
+def target_check(dtype, got, ws, enc, pos, acts):
+    """Hold the kernel's normal target ``got`` against the plain one on the
+    kernel's activations ``acts`` (DGRAD_REL): its |g|-weighted relative
+    error, and where |g| > DGRAD_MIN_NORM the f32 targets' largest allclose
+    ratio (at most 1 within TOLS); both are returned."""
+    g = ref_fused.density_grad_plain(ws, enc, pos, acts)
+    want = ref_fused.normal_target(g)
+    g = torch.linalg.vector_norm(g, dim=-1, keepdim=True)
+    rel = _rel_err(got * g, want * g)
+    live = g[:, 0] > DGRAD_MIN_NORM
+    tol = TOLS[torch.float32]
+    ratio = float(((got[live] - want[live]).abs()
+                   / (tol["atol"] + tol["rtol"] * want[live].abs())).max())
+    if not (float(live.float().mean()) > 0.99
+            and rel <= DGRAD_REL[dtype]
+            and (dtype != torch.float32 or ratio <= 1.0)):
+        fail(f"normal target {dtype}: |g|-weighted relative error {rel} "
+             f"(limit {DGRAD_REL[dtype]}), f32 allclose ratio {ratio}, "
+             f"live share {float(live.float().mean())}")
+    return rel, ratio
+
+
+def compare(name, dtype, got, want, args=()):
     """Hold a kernel's outputs against the plain version's; returns (max
     abs err of the outputs, worst relative Frobenius error of the grads or
-    the stored activations, or None)."""
+    the stored activations, or None, and a dict of further readings)."""
+    if name == "ref_dir_bwd":
+        rel = dheads_rel(got[0], want[0])
+        if not (torch.isfinite(got[0]).all() and rel <= grad_rel(name,
+                                                                  dtype)):
+            fail(f"{name} {dtype}: d(heads) relative error {rel} beyond "
+                 f"{grad_rel(name, dtype)}")
+        err, worst = compare_grads(name, dtype, got[1], want[1])
+        return max(err, float((got[0] - want[0]).abs().max())), \
+            max(rel, worst), {"dheads_rel_err": rel}
     if name.endswith("bwd"):
-        rels = []
-        for i, (g, w) in enumerate(zip(got, want)):
-            if not torch.isfinite(g).all():
-                fail(f"{name} {dtype}: non-finite grad {i}")
-            rels.append(_rel_err(g, w))
-            if rels[-1] > GRAD_REL[dtype]:
-                fail(f"{name} {dtype}: grad {i} relative error {rels[-1]} "
-                     f"beyond {GRAD_REL[dtype]}")
-        return max(float((g - w).abs().max()) for g, w in zip(got, want)), \
-            max(rels)
-    act_rel = None
-    if name == "vanilla_mlp_fwd_res":
+        return (*compare_grads(name, dtype, got, want), {})
+    act_rel, extra = None, {}
+    if name.endswith("_res"):
         act_rels = [_rel_err(g.float(), w.float())
-                    for g, w in zip(got[2], want[2])]
+                    for g, w in zip(got[-1], want[-1])]
         act_rel = max(act_rels)
         if not all(math.isfinite(r) for r in act_rels) \
                 or act_rel > ACT_REL[dtype]:
             fail(f"{name} {dtype}: activation relative errors {act_rels} "
                  f"beyond {ACT_REL[dtype]}")
-        got, want = got[:2], want[:2]
+        if name == "ref_spa_fwd_res":
+            # the normal target, then the heads (whose last column decides
+            # the positive share below)
+            rel, ratio = target_check(dtype, got[1], *args, got[-1])
+            extra = {"normal_target_rel": rel, "normal_target_tol":
+                     DGRAD_REL[dtype], "normal_target_f32_ratio": ratio}
+            got, want = (got[0],), (want[0],)
+        else:
+            got, want = got[:-1], want[:-1]
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     err = max(float((g.float() - w.float()).abs().max())
@@ -399,7 +591,7 @@ def compare(name, dtype, got, want):
     if not 0.0 < active < 1.0:
         fail(f"{name} {dtype}: degenerate test inputs (positive share "
              f"{active})")
-    return err, act_rel
+    return err, act_rel, extra
 
 
 def cast_controls(name, args, want):
@@ -408,8 +600,29 @@ def cast_controls(name, args, want):
     the grads it changes: the vanilla backward with every delta left in f32
     (the plain backward on operands upcast to f32) and with dbb summed from
     dbvec rounded to bf16 (fused_mlp.py:240 sums it in f32); the proposal
-    backward run in f32 throughout."""
+    backward run in f32 throughout; the Ref-NeRF backwards in f32
+    throughout, and with each weight grad rounded to bf16 once instead of
+    per TILE_ROWS rows."""
     up = lambda ts: [t.float() for t in ts]   # noqa: E731
+
+    def worst(got, ref):
+        return max(_rel_err(a, b) for a, b in zip(got, ref))
+
+    if name == "ref_spa_bwd":
+        ws, x, g, acts, tile = args
+        return {"f32_throughout": worst(ops.ref_spa_bwd_plain(
+                    up(ws), x.float(), g, up(acts), tile), want),
+                "rounded_once": worst(ops.ref_spa_bwd_plain(
+                    ws, x, g, acts, x.shape[0]), want)}
+    if name == "ref_dir_bwd":
+        (ws, heads, dirs, per_ray, noise, g_rgb, g_nrm, g_den, acts, level,
+         srgb, tile) = args
+        f32 = ops.ref_dir_bwd_plain(up(ws), heads, dirs, per_ray,
+                                    noise.float(), g_rgb, g_nrm, g_den,
+                                    up(acts), level, srgb, tile)[1]
+        once = ops.ref_dir_bwd_plain(*args[:11], heads.shape[0])[1]
+        return {"f32_throughout": worst(f32, want[1]),
+                "rounded_once": worst(once, want[1])}
     if name == "prop_mlp_bwd":
         ws, x, g = args
         f32 = ops.prop_mlp_bwd_plain(up(ws), x.float(), g)
@@ -436,29 +649,30 @@ def check_kernel(name, dtype, gen, timed=True, **case):
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
-    err, rel = compare(name, dtype, got, want)
+    err, rel, readings = compare(name, dtype, got, want, args)
     controls = None
     if name.endswith("bwd") and dtype == torch.bfloat16:
         controls = cast_controls(name, args, want)
-        if min(controls.values()) <= GRAD_REL[dtype]:
+        if min(controls.values()) <= grad_rel(name, dtype):
             fail(f"{name}: a planted cast fault reads {controls}, within "
-                 f"the limit {GRAD_REL[dtype]}: the limit cannot tell it")
+                 f"the limit {grad_rel(name, dtype)}: the limit cannot tell "
+                 f"it")
     del got, want
     bytes_s, ops_s = moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    if not timed:
-        return dict(name=name, dtype=str(dtype).replace("torch.", ""), n=n,
-                    **case, max_abs_err=err, tol=TOLS[dtype])
-    ms = cuda_ms(lambda: kernel(*args), 20)
-    plain_ms = cuda_ms(lambda: plain(*args), 20)
-    rel_key = "act_rel_err" if name == "vanilla_mlp_fwd_res" else \
-        "grad_rel_err"
-    tol = (GRAD_REL[dtype] if name.endswith("bwd") else
+    rel_key = "act_rel_err" if name.endswith("_res") else "grad_rel_err"
+    tol = (grad_rel(name, dtype) if name.endswith("bwd") else
            dict(TOLS[dtype], act_rel=ACT_REL[dtype]) if rel is not None
            else TOLS[dtype])
     extra = {} if controls is None else {"planted_faults_rel": controls}
-    return dict(name=name, dtype=str(dtype).replace("torch.", ""), n=n,
-                **case, max_abs_err=err, **{rel_key: rel}, tol=tol, **extra,
-                ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
+    res = dict(name=name, dtype=str(dtype).replace("torch.", ""), n=n,
+               **case, max_abs_err=err, **{rel_key: rel}, tol=tol,
+               **readings, **extra)
+    if not timed:
+        return res
+    ms = cuda_ms(lambda: kernel(*args), 20)
+    plain_ms = cuda_ms(lambda: plain(*args), 20)
+    return dict(res, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(bytes_s, ops_s) * 1e3,
                 bound_by="bytes" if bytes_s > ops_s else "operations",
                 bytes=moved, flops=flops, tflops=flops / (ms * 1e-3) / 1e12)
 
@@ -666,12 +880,12 @@ def calls_held_against_plain(record: dict):
     autograd Functions also runs the plain version on the call's own
     operands.  ``record`` gets, per kernel, the worst error: for a forward
     max |got - want| / (atol + rtol |want|) over its outputs, with TOLS'
-    f32 terms (allclose holds where it is at most 1); for a backward the
-    relative Frobenius error of each grad.  Under "relu_mask_flips" it
-    counts the stored activations whose ReLU mask differs from the plain
-    forward's."""
-    fm = ops.fused_mlp
-    orig = {k: getattr(fm, k) for k in TRAIN_KERNELS}
+    f32 terms (allclose holds where it is at most 1; the Ref-NeRF normal
+    target by ``target_check``); for a backward the relative
+    Frobenius error of each grad (and of d(heads)).  Under
+    "relu_mask_flips" it counts the stored activations whose ReLU mask
+    differs from the plain forward's."""
+    fm, rf = ops.fused_mlp, ops.ref_fused
     tol = TOLS[torch.float32]
 
     def note(key, value):
@@ -680,49 +894,70 @@ def calls_held_against_plain(record: dict):
     def close(got, want):
         return max(float(((a - b).abs() / (tol["atol"] + tol["rtol"]
                                            * b.abs())).max())
-                   for a, b in zip(got, want))
+                   for a, b in zip(got, want) if a.numel())
 
-    def prop_fwd(ws, enc, device=None):
-        out = orig["prop_mlp_fwd"](ws, enc, device=device)
-        note("prop_mlp_fwd", close((out,), (fm.prop_mlp_plain(ws, enc),)))
-        return out
-
-    def vanilla_fwd_res(ws, enc_x, enc_d, device=None):
-        out = orig["vanilla_mlp_fwd_res"](ws, enc_x, enc_d, device=device)
-        want = fm.vanilla_mlp_fwd_res_plain(ws, enc_x, enc_d)
-        note("vanilla_mlp_fwd_res", close(out[:2], want[:2]))
+    def flips(got, want):
         record["relu_mask_flips"] = record.get("relu_mask_flips", 0) + sum(
-            int(((a > 0) != (b > 0)).sum()) for a, b in zip(out[2], want[2]))
-        return out
+            int(((a > 0) != (b > 0)).sum()) for a, b in zip(got, want))
 
-    def bwd(name, plain):
-        def call(*args, device=None):
-            grads = orig[name](*args, device=device)
-            note(name, max(_rel_err(a, b)
-                           for a, b in zip(grads, plain(*args))))
-            return grads
+    def fwd(name, got, want, args):
+        if name.endswith("_res"):
+            flips(got[-1], want[-1])
+            if name == "ref_spa_fwd_res":
+                note("normal_target_rel", target_check(
+                    torch.float32, got[1], *args, got[-1])[0])
+                got, want = (got[0],), (want[0],)
+            else:
+                got, want = got[:-1], want[:-1]
+        note(name, close(got if isinstance(got, tuple) else (got,),
+                         want if isinstance(want, tuple) else (want,)))
+
+    def bwd(name, got, want, args):
+        if name == "ref_dir_bwd":
+            note(name, dheads_rel(got[0], want[0]))
+            got, want = got[1], want[1]
+        note(name, max(_rel_err(a, b) for a, b in zip(got, want)))
+
+    held = {"prop_mlp_fwd": (fm, fm.prop_mlp_plain),
+            "vanilla_mlp_fwd_res": (fm, fm.vanilla_mlp_fwd_res_plain),
+            "vanilla_mlp_bwd": (fm, fm.vanilla_mlp_bwd_plain),
+            "prop_mlp_bwd": (fm, fm.prop_mlp_bwd_plain),
+            "ref_spa_fwd_res": (rf, rf.ref_spa_fwd_res_plain),
+            "ref_dir_fwd_res": (rf, rf.ref_dir_fwd_res_plain),
+            "ref_spa_bwd": (rf, rf.ref_spa_bwd_plain),
+            "ref_dir_bwd": (rf, rf.ref_dir_bwd_plain)}
+    orig = {k: getattr(mod, k) for k, (mod, _) in held.items()}
+
+    def wrap(name, plain):
+        check = bwd if name.endswith("bwd") else fwd
+
+        def call(*args, device=None, **kw):
+            out = orig[name](*args, device=device, **kw)
+            check(name, out, plain(*args, **kw), args)
+            return out
         return call
 
-    held = dict(prop_mlp_fwd=prop_fwd, vanilla_mlp_fwd_res=vanilla_fwd_res,
-                vanilla_mlp_bwd=bwd("vanilla_mlp_bwd",
-                                    fm.vanilla_mlp_bwd_plain),
-                prop_mlp_bwd=bwd("prop_mlp_bwd", fm.prop_mlp_bwd_plain))
-    for k, fn in held.items():
-        setattr(fm, k, fn)
+    for k, (mod, plain) in held.items():
+        setattr(mod, k, wrap(k, plain))
     try:
         yield record
     finally:
-        for k, fn in orig.items():
-            setattr(fm, k, fn)
+        for k, (mod, _) in held.items():
+            setattr(mod, k, orig[k])
 
 
-def step_check():
+def step_check(model: str = "vanilla"):
     """Loss and grads of one f32 step at full width (1024 rays, 64 + 128
-    samples, 256-wide nets) through the kernels' autograd and through the
-    nn.Module path, same weights, rays and injected noise; each kernel call
-    of the step held against its plain version on its own operands."""
-    cfg = PipelineConfig()
-    models = seeded_models(cfg, 1)
+    samples, 256-wide nets; Ref-NeRF with its bottleneck noise off) through
+    the kernels' autograd and through the nn.Module path, same weights, rays
+    and injected noise; each kernel call of the step held against its plain
+    version on its own operands."""
+    ref = model == "ref"
+    cfg = PipelineConfig(model=model, bottleneck_noise=0.0)
+    kernels = REF_TRAIN_KERNELS if ref else TRAIN_KERNELS
+    loss_rtol, grad_rel = ((REF_STEP_LOSS_RTOL, REF_STEP_GRAD_REL) if ref
+                           else (STEP_LOSS_RTOL, STEP_GRAD_REL))
+    models = seeded_models(cfg, 4 if ref else 1)
     g = torch.Generator(device="cuda").manual_seed(2)
     focal = fov_to_focal(LEGO_FOV, (400, 400))
     pose = torch.tensor(pose_spherical(30.0, -30.0, 4.0)[:3],
@@ -745,32 +980,33 @@ def step_check():
         torch.cuda.synchronize()
         out[use_kernels] = (loss, metrics, grads, dict(ops.LAUNCHES))
     launches = out[True][3]
-    if any(launches[k] != (k in TRAIN_KERNELS) for k in launches) or any(
+    if any(launches[k] != (k in kernels) for k in launches) or any(
             out[False][3].values()):
-        fail(f"step check: unexpected launches {launches} / {out[False][3]}")
+        fail(f"{model} step check: unexpected launches {launches} / "
+             f"{out[False][3]}")
     f32 = torch.float32
-    for k in TRAIN_KERNELS:
+    for k in kernels:
         lim = GRAD_REL[f32] if k.endswith("bwd") else 1.0
         if k not in per_call or not per_call[k] <= lim:
-            fail(f"step check: {k} against its plain version on the step's "
-                 f"own operands reads {per_call.get(k)}, limit {lim}")
+            fail(f"{model} step check: {k} against its plain version on the "
+                 f"step's own operands reads {per_call.get(k)}, limit {lim}")
     loss_k, loss_p = out[True][0].item(), out[False][0].item()
     if not (math.isfinite(loss_k)
-            and abs(loss_k - loss_p) <= STEP_LOSS_RTOL * abs(loss_p)):
-        fail(f"step check: loss {loss_k} (kernels) vs {loss_p} (plain)")
+            and abs(loss_k - loss_p) <= loss_rtol * abs(loss_p)):
+        fail(f"{model} step check: loss {loss_k} (kernels) vs {loss_p} "
+             f"(plain)")
     rels = [_rel_err(a, b) for a, b in zip(out[True][2], out[False][2])]
-    if not all(math.isfinite(r) for r in rels) or max(rels) > STEP_GRAD_REL:
-        fail(f"step check: grad relative errors {rels} beyond "
-             f"{STEP_GRAD_REL}")
+    if not all(math.isfinite(r) for r in rels) or max(rels) > grad_rel:
+        fail(f"{model} step check: grad relative errors {rels} beyond "
+             f"{grad_rel}")
     metrics = {k: float(v.detach()) for k, v in out[False][1].items()}
-    if metrics["prop_loss"] <= 0.0:
-        fail("step check: the proposal loss is zero (degenerate weights)")
-    return dict(loss_kernels=loss_k, loss_plain=loss_p,
-                loss_rtol=STEP_LOSS_RTOL,
-                img_loss=metrics["img_loss"], prop_loss=metrics["prop_loss"],
-                grad_rel_err_max=max(rels),
+    if metrics["prop_loss"] <= 0.0 or (ref and metrics["normal_loss"] <= 0.0):
+        fail(f"{model} step check: a loss term is zero (degenerate "
+             f"weights): {metrics}")
+    return dict(loss_kernels=loss_k, loss_plain=loss_p, loss_rtol=loss_rtol,
+                metrics_plain=metrics, grad_rel_err_max=max(rels),
                 grad_rel_err_median=statistics.median(rels),
-                grad_rel_tol=STEP_GRAD_REL, n_grads=len(rels),
+                grad_rel_tol=grad_rel, n_grads=len(rels),
                 per_call_vs_plain=per_call)
 
 
@@ -788,7 +1024,8 @@ def train_argv(tmp: str, *extra: str):
 
 def train_once(tmp: str, route: str, *extra: str):
     """One run of the entry with the train phase's flags and ``extra``:
-    (launches, per-step losses, per-step image MSEs, seconds)."""
+    (launches, per-step losses, per-step image MSEs, seconds); under ``-t``
+    the normal and back-face losses must be logged and finite too."""
     log_dir = os.path.join(tmp, "logs", route)
     argv = train_argv(tmp, "--log_dir", log_dir, *extra)
     ops.reset_launches()
@@ -806,6 +1043,12 @@ def train_once(tmp: str, route: str, *extra: str):
     losses = [v for _, v in read_scalars(log, "Train Loss")]
     mses = [10.0 ** (-v / 10.0) for _, v in read_scalars(log, "PSNR")]
     steps = TRAIN_VIEWS * TRAIN_EPOCHS
+    if "-t" in extra:
+        for tag in ("Normal Loss", "Backface Loss"):
+            vals = [v for _, v in read_scalars(log, tag)]
+            if len(vals) != steps or not all(map(math.isfinite, vals)):
+                fail(f"train path ({route}): {len(vals)} logged {tag} "
+                     f"values, expected {steps} finite ones")
     if not (len(losses) == len(mses) == steps
             and all(math.isfinite(v) for v in losses + mses)):
         fail(f"train path ({route}): {len(losses)} logged losses, expected "
@@ -818,79 +1061,100 @@ def epoch_means(values):
             for i in range(0, len(values), TRAIN_VIEWS)]
 
 
-def run_train(tmp: str):
-    """``python -m nerf_tpu_torch --epochs 5 -s -w`` on a 20-view train
-    split, through the kernels and through the nn.Module route
-    (``--no_pallas``, its checkpoint under another name): launches per step
-    of each training kernel, and the two routes' loss curves."""
+def write_train_split(tmp: str):
     rng = np.random.default_rng(1)
     write_split(tmp, "train", TRAIN_VIEWS, rng)
     write_split(tmp, "test", 1, rng)
+
+
+def run_train(tmp: str, model: str = "vanilla"):
+    """``python -m nerf_tpu_torch [-t] --epochs 5 -s -w`` on the 20-view
+    train split, through the kernels and through the nn.Module route
+    (``--no_pallas``, its checkpoint under another name): launches per step
+    of each training kernel, and the two routes' loss curves."""
+    ref = model == "ref"
+    flags = ("-t", "--name", "ref_1") if ref else ()
+    kernels = REF_TRAIN_KERNELS if ref else TRAIN_KERNELS
+    band_lim = REF_TRAIN_BAND if ref else TRAIN_BAND
     steps = TRAIN_VIEWS * TRAIN_EPOCHS
     eval_chunks = math.ceil(400 * 400 / CHUNK)   # one test view, at the end
-    runs = {"plain": train_once(tmp, "plain", "--no_pallas", "--name",
-                                "plain_route"),
-            "kernels": train_once(tmp, "kernels")}
-    want = dict(dict.fromkeys(ops.LAUNCHES, 0), prop_mlp_fwd=eval_chunks,
-                vanilla_mlp_fwd=eval_chunks)
+    runs = {"plain": train_once(tmp, f"{model}_plain", *flags, "--no_pallas",
+                                "--name", f"{model}_plain_route"),
+            "kernels": train_once(tmp, f"{model}_kernels", *flags)}
+    eval_kernels = REF_KERNELS if ref else ("prop_mlp_fwd", "vanilla_mlp_fwd")
+    want = dict(dict.fromkeys(ops.LAUNCHES, 0),
+                **dict.fromkeys(eval_kernels, eval_chunks))
     if runs["plain"][0] != want:
-        fail(f"train path --no_pallas launches {runs['plain'][0]}, "
+        fail(f"{model} train path --no_pallas launches {runs['plain'][0]}, "
              f"expected {want}")
     want = dict(want, prop_mlp_fwd=steps + eval_chunks,
-                **{k: steps for k in TRAIN_KERNELS[1:]})
+                **{k: steps for k in kernels[1:]})
     launches, losses, mses, wall = runs["kernels"]
     if launches != want:
-        fail(f"train path launches {launches}, expected {want}")
+        fail(f"{model} train path launches {launches}, expected {want}")
     curves = {route: {"loss": epoch_means(r[1]), "img_mse": epoch_means(r[2])}
               for route, r in runs.items()}
     for route, c in curves.items():
-        c["prop_loss"] = [a - b for a, b in zip(c["loss"], c["img_mse"])]
+        c["other_loss"] = [a - b for a, b in zip(c["loss"], c["img_mse"])]
     band = {key: [abs(k / p - 1.0) for k, p in zip(curves["kernels"][key],
                                                    curves["plain"][key])]
             for key in ("loss", "img_mse")}
-    if any(max(band[k]) > TRAIN_BAND[k] for k in band):
-        fail(f"train path: the kernel route's epoch means part from the "
-             f"nn.Module route's by {band}, beyond {TRAIN_BAND}: {curves}")
+    if any(max(band[k]) > band_lim[k] for k in band):
+        fail(f"{model} train path: the kernel route's epoch means part from "
+             f"the nn.Module route's by {band}, beyond {band_lim}: {curves}")
     first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
     if not last < first:
-        fail(f"train path: loss did not fall ({first} -> {last})")
-    if not curves["kernels"]["img_mse"][-1] < curves["kernels"]["img_mse"][0]:
-        fail(f"train path: the image MSE did not fall: {curves}")
+        fail(f"{model} train path: loss did not fall ({first} -> {last})")
+    for route, c in curves.items():
+        if not c["img_mse"][-1] < c["img_mse"][0]:
+            fail(f"{model} train path: the image MSE of the {route} route "
+                 f"did not fall: {curves}")
     return dict(command="python -m nerf_tpu_torch " + " ".join(
-        a if "/" not in a else "<tmp>" for a in train_argv(tmp)), steps=steps,
-        launches=launches,
-        launches_per_step={k: launches[k] / steps for k in TRAIN_KERNELS},
+        a if "/" not in a else "<tmp>" for a in train_argv(tmp, *flags)),
+        steps=steps, launches=launches,
+        launches_per_step={k: launches[k] / steps for k in kernels},
         loss_first10=first, loss_last10=last, epoch_means=curves,
-        kernels_vs_plain_rel=band, band=TRAIN_BAND, s_entry=wall,
+        kernels_vs_plain_rel=band, band=band_lim, s_entry=wall,
         s_entry_plain=runs["plain"][3])
 
 
-def render_trained(tmp: str):
-    """``-r -e -s -w`` on the checkpoint the train phase wrote."""
-    argv = ["-r", "-e", "-s", "-w", "--dataset_root",
-            os.path.join(tmp, "data"), "--dataset_name", "lego",
-            "--output_dir", os.path.join(tmp, "output")]
+def render_trained(tmp: str, model: str = "vanilla"):
+    """``-r -e -s -w`` (Ref-NeRF: ``-t ... --render_normal``) on the
+    checkpoint the train phase wrote."""
+    ref = model == "ref"
+    flags = ["-t", "--name", "ref_1"] if ref else []
+    argv = flags + ["-r", "-e", "-s", "-w", "--dataset_root",
+                    os.path.join(tmp, "data"), "--dataset_name", "lego",
+                    "--output_dir", os.path.join(tmp, "output")] \
+        + (["--render_normal"] if ref else [])
     ops.reset_launches()
     with cwd(tmp):
         rc = entry_main(argv)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     n_chunks = math.ceil(400 * 400 / CHUNK)
-    if rc != 0 or launches["vanilla_mlp_fwd"] != n_chunks:
-        fail(f"render of the trained checkpoint: rc {rc}, launches "
+    fine = "ref_dir_fwd" if ref else "vanilla_mlp_fwd"
+    if rc != 0 or launches[fine] != n_chunks:
+        fail(f"render of the trained {model} checkpoint: rc {rc}, launches "
              f"{launches}")
-    img = os.path.join(tmp, "output", "given", "result_000.png")
-    if not os.path.getsize(img):
-        fail("render of the trained checkpoint wrote no image")
-    return dict(command="python -m nerf_tpu_torch -r -e -s -w",
-                launches=launches)
+    grid = read_png(os.path.join(tmp, "output", "given", "result_000.png"))
+    # panels of 400 columns, 2 apart: rgb[, normal], ground truth
+    if grid.shape[1] != (3 if ref else 2) * 402 - 2:
+        fail(f"render of the trained {model} checkpoint: image shape "
+             f"{grid.shape}")
+    normal_std = float(grid[:, 402:802].std()) if ref else None
+    if ref and not normal_std > 0.0:
+        fail("render of the trained ref checkpoint: blank normal panel")
+    return dict(command="python -m nerf_tpu_torch " + " ".join(
+        a if "/" not in a else "<tmp>" for a in argv), launches=launches,
+        normal_panel_std=normal_std)
 
 
 # ---------------------------------------------------------------------------
 # phase 7: the trainer's epoch loop, timed and profiled
 # ---------------------------------------------------------------------------
 
-def profile_trainer(tmp: str, epochs: int = 5):
+def profile_trainer(tmp: str, epochs: int = 5, *extra: str):
     """ms per default bf16 step (1024 rays, -s) of the trainer's own epoch
     loop on the train split of phase 6: ``Trainer.run_epoch`` issues its
     steps back to back and the epoch ends in a synchronize, as the trainer's
@@ -900,7 +1164,7 @@ def profile_trainer(tmp: str, epochs: int = 5):
     device operations per step)."""
     from torch.profiler import ProfilerActivity, profile
 
-    args = get_parser().parse_args(train_argv(tmp))
+    args = get_parser().parse_args(train_argv(tmp, *extra))
     with cwd(tmp):
         trainer = Trainer(args, "cuda")
     steps = len(trainer.train_set)
@@ -971,11 +1235,12 @@ def main() -> int:
             emit("ref_kernels" if name.startswith("ref") else "kernel", **res)
             torch.cuda.empty_cache()
     for dtype in (torch.bfloat16, torch.float32):
-        for level, srgb in REF_DIR_VARIANTS:
-            emit("ref_kernels", **check_kernel(
-                "ref_dir_fwd", dtype, gen, timed=False, ide_level=level,
-                use_srgb=srgb))
-            torch.cuda.empty_cache()
+        for name in ("ref_dir_fwd", "ref_dir_bwd"):
+            for level, srgb in REF_DIR_VARIANTS:
+                emit("ref_kernels", **check_kernel(
+                    name, dtype, gen, timed=False, ide_level=level,
+                    use_srgb=srgb))
+                torch.cuda.empty_cache()
 
     # phase 4: the render path
     with tempfile.TemporaryDirectory() as tmp:
@@ -1003,32 +1268,44 @@ def main() -> int:
          atol=FRAME_ATOL, depth_std=depth_std)
     emit("ref_profile", **profile_frame("ref"))
 
-    # phase 6: one f32 training step, kernels against the nn.Module path
+    # phase 6: one f32 training step of each model, kernels against the
+    # nn.Module path
     emit("step", **step_check())
+    emit("ref_step", **step_check("ref"))
 
-    # phases 7 and 8: the train path, render-only on its checkpoint, and a
-    # timed and profiled warm step
+    # phases 7 to 9: the train paths, render-only on their checkpoints, and
+    # their trainer loops timed and profiled
     with tempfile.TemporaryDirectory() as tmp:
+        write_train_split(tmp)
         train = run_train(tmp)
         emit("train", **train)
         emit("render_trained", **render_trained(tmp))
         emit("train_profile", **profile_trainer(tmp))
+        ref_train = run_train(tmp, "ref")
+        emit("ref_train", **ref_train)
+        emit("ref_render_trained", **render_trained(tmp, "ref"))
+        emit("ref_train_profile", **profile_trainer(tmp, 3, "-t"))
 
-    # phase 9: the kernels line, then the last line.  ``launches`` is each
-    # kernel's count in its path's run: the train path (training steps and
-    # the final eval render) for the vanilla kernels, the Ref-NeRF render
-    # path for the Ref-NeRF ones; ``launches_render`` its count in the
-    # vanilla render path's run, ``launches_ref`` in the Ref-NeRF one's.
+    # phase 10: the kernels line, then the last line.  ``launches`` is each
+    # kernel's count in its path's run: the vanilla train path (training
+    # steps and the final eval render) for the vanilla kernels, the Ref-NeRF
+    # render path for the Ref-NeRF eval forwards, the Ref-NeRF train path
+    # for its training kernels; ``launches_render``, ``launches_ref`` and
+    # ``launches_ref_train`` its count in the vanilla render path's, the
+    # Ref-NeRF render path's and the Ref-NeRF train path's runs.
     kernels = []
     for name, meta in KERNELS.items():
         res = checks[(name, torch.bfloat16)]   # -s trains and renders in bf16
         f32 = checks[(name, torch.float32)]
-        path = ref_launches if name.startswith("ref") else train["launches"]
+        path = (ref_train["launches"] if name in REF_TRAIN_KERNELS[1:-1]
+                else ref_launches if name.startswith("ref")
+                else train["launches"])
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=path[name],
             launches_render=render_launches[name],
             launches_ref=ref_launches[name],
+            launches_ref_train=ref_train["launches"][name],
             max_abs_err=res["max_abs_err"],
             rel_err=res.get("grad_rel_err", res.get("act_rel_err")),
             tol=res["tol"], n=res["n"], ms=res["ms"],

@@ -1,8 +1,9 @@
 """The single-device trainer (port of the single mode of
 nerf_tpu/cli/trainer.py:46-650).
 
-``python -m nerf_tpu_torch [-s] [-w] --epochs E ...`` trains the vanilla
-model with proposal distillation on one CUDA device:
+``python -m nerf_tpu_torch [-t] [-s] [-w] --epochs E ...`` trains the vanilla
+model (Ref-NeRF under ``-t``) with proposal distillation on one CUDA
+device:
 
 - the train split's pixels (an (N, H*W, 3) pool) and poses stay on the
   device; every step picks ``--sample_ray_num`` pixels of one image, in a
@@ -12,9 +13,12 @@ model with proposal distillation on one CUDA device:
   runs at the scaled base rate under the warmup-and-decay schedule;
 - the step's metrics stay on the device and are read back once per epoch,
   for the console line (loss, PSNR, learning rate, rays/s, ETA) and the
-  metrics log (``--log_dir``, every ``--eval_time`` steps);
+  metrics log (``--log_dir``, every ``--eval_time`` steps; Ref-NeRF's
+  normal and back-face losses too);
 - every ``--output_time`` epochs and at the end it renders test views 1 and
-  4 with their test loss and saves the image grid to ``--output_dir``;
+  4 with their test loss and saves the image grid (with the normal map
+  under ``--render_normal`` and the depth under ``--render_depth``) to
+  ``--output_dir``;
 - at the end it writes ``model/<name>_{mip,prop}.pt``, which
   ``python -m nerf_tpu_torch -r`` loads.
 
@@ -68,9 +72,6 @@ def check_trainer_flags(args) -> None:
         raise _not_ported("-b/--debug (per-module NaN attribution)", "A10")
     if args.trace is not None:
         raise _not_ported("--trace (a profiler trace of one epoch)", "A4")
-    if args.ref_nerf:
-        raise _not_ported("-t/--ref_nerf training (Ref-NeRF renders with "
-                          "-r)", "A6")
     if args.mip_nerf:
         raise _not_ported("-m/--mip_nerf (Mip-NeRF)", "A5")
     if args.use_ipe:
@@ -147,6 +148,11 @@ class Trainer:
             self.writer.add_scalar("Train Loss", metrics["loss"][i],
                                    step_base + i)
             self.writer.add_scalar("PSNR", metrics["psnr"][i], step_base + i)
+            for key, tag in (("normal_loss", "Normal Loss"),
+                             ("bf_loss", "Backface Loss")):
+                if key in metrics:
+                    self.writer.add_scalar(tag, metrics[key][i],
+                                           step_base + i)
             self.writer.add_scalar("Learning Rate",
                                    self.schedule(step_base + i),
                                    step_base + i)
@@ -171,11 +177,14 @@ class Trainer:
                 self.models, self.test_set.poses[vid], self.hw, self.focal,
                 self.cfg, sample_num=self.cfg.n_fine,
                 render_depth=args.render_depth,
+                render_normal=args.render_normal,
                 generator=frame_generator(args.seed, 10_000 + vid, self.dev),
                 chunk=args.eval_chunk, device=self.dev)
             test_loss += float(np.mean((out["rgb"] - self.test_set.images[vid])
                                        ** 2))
             panels.append(out["rgb"])
+            if "normal" in out:
+                panels.append(out["normal"])
             if "depth" in out:
                 d = out["depth"]
                 panels.append(d / max(float(d.max()), 1e-8))
@@ -183,7 +192,8 @@ class Trainer:
         test_loss /= len(self.test_view_ids)
         self.writer.add_scalar("Test Loss", test_loss, self.step)
         img_path = os.path.join(args.output_dir, f"result_ep{ep:04d}.png")
-        save_image_grid(img_path, panels, nrow=1 + int(args.render_depth))
+        save_image_grid(img_path, panels, nrow=len(panels)
+                        // len(self.test_view_ids))
         print(f"Evaluation in epoch: {ep:4d} / {args.epochs:4d}\t"
               f"test loss: {test_loss:.4f}\t"
               f"avg eval time: {self.eval_timer.get_mean_time():.4f}s -> "

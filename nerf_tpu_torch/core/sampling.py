@@ -102,16 +102,43 @@ def max_blur_filter(weights: torch.Tensor, alpha: float) -> torch.Tensor:
     return 0.5 * (front + rear) + alpha
 
 
-def merge_coarse_fine(c_z: torch.Tensor, f_z: torch.Tensor) -> torch.Tensor:
+def count_le(sorted_vals: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """#{m : sorted_vals[..., m] <= q} per query (..., N), int32."""
+    le = sorted_vals[..., None, :] <= queries[..., :, None]
+    return le.sum(-1, dtype=torch.int32)
+
+
+def count_lt(sorted_vals: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """#{m : sorted_vals[..., m] < q} per query (..., N), int32."""
+    lt = sorted_vals[..., None, :] < queries[..., :, None]
+    return lt.sum(-1, dtype=torch.int32)
+
+
+def merge_coarse_fine(c_z: torch.Tensor, f_z: torch.Tensor,
+                      f_idx: torch.Tensor | None = None):
     """Sorted merge of coarse (R, C) and fine (R, F) depths with the largest
     element dropped: z_merged (R, C + F - 1).
 
     A stable sort of cat(fine, coarse), as the reference does (on ties the
     fine entries come first); ``merge_coarse_fine_via_sort`` of the JAX
-    package.  The index bookkeeping of its training form is not ported yet.
+    package.  With ``f_idx`` (R, F), the fine samples' ``below`` indices,
+    the training form: (z_merged, coarse_pos (R, C), idx_full (R, C + F)).
+    coarse_pos is each coarse sample's merged position (C + F - 1 marks the
+    dropped one); idx_full is cat(f_idx, arange(C)) in merged order,
+    untruncated.
     """
     z = torch.cat([f_z, c_z], dim=-1).to(torch.float32)
-    return torch.sort(z, dim=-1, stable=True).values[..., :-1]
+    z_sorted, order = torch.sort(z, dim=-1, stable=True)
+    if f_idx is None:
+        return z_sorted[..., :-1]
+    nc = c_z.shape[-1]
+    arange_c = torch.arange(nc, dtype=torch.int32, device=c_z.device)
+    coarse_pos = arange_c + count_le(f_z, c_z)
+    idx_cat = torch.cat([f_idx.to(torch.int64),
+                         arange_c.to(torch.int64).expand(c_z.shape[0], nc)],
+                        dim=-1)
+    idx_full = torch.gather(idx_cat, -1, order).to(f_idx.dtype)
+    return z_sorted[..., :-1], coarse_pos, idx_full
 
 
 def weight_bounds(prop_weights: torch.Tensor,

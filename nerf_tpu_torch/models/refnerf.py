@@ -5,8 +5,9 @@ last ``output_dim`` wide) -> heads {rho_tau 2, normal/diffuse/tint 9,
 bottleneck}.  Directional MLP: [bottleneck, IDE(reflection, roughness),
 n.d] -> 4 layers -> skip concat -> 4 layers -> sigmoid specular head, times
 sigmoid(tint), plus sigmoid(diffuse), optionally through sRGB.  The density
-is returned raw; the caller applies softplus(x + 0.5).  This is the eval
-forward: the bottleneck noise of training comes with the training slice.
+is returned raw; the caller applies softplus(x + 0.5).  In training the
+bottleneck gets a Gaussian perturbation of std ``perturb_bottleneck``
+(``--bottle_neck_noise``).
 
 Numerics follow the flax module: every Dense computes in ``dtype`` (bf16
 under ``-s``), the heads are rounded to it, and the normal, the reflection
@@ -51,9 +52,11 @@ class RefNeRF(nn.Module):
     def __init__(self, pos_levels: int = 10, ide_level: int = 4,
                  hidden: int = 256, output_dim: int = 256,
                  bottleneck_dim: int = 128, use_srgb: bool = False,
+                 perturb_bottleneck: float = 0.1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pos_levels = pos_levels
+        self.perturb_bottleneck = perturb_bottleneck
         self.ide_level = ide_level
         self.bottleneck_dim = bottleneck_dim
         self.use_srgb = use_srgb
@@ -93,13 +96,22 @@ class RefNeRF(nn.Module):
             "bottleneck": self.bottle_neck(inter),
         }
 
-    def directional(self, spatial_out: dict,
-                    dirs: torch.Tensor) -> torch.Tensor:
+    def directional(self, spatial_out: dict, dirs: torch.Tensor,
+                    train: bool = False, noise: torch.Tensor | None = None,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
         """Spatial fields and the raw (unnormalized) view directions
-        (..., 3) -> rgb (..., 3) f32, in eval: no bottleneck noise."""
+        (..., 3) -> rgb (..., 3) f32.  In training (``train`` and a positive
+        ``perturb_bottleneck``) the bottleneck gets ``perturb_bottleneck *
+        N(0, 1)`` drawn in the compute dtype from ``generator``, or ``noise``
+        (already scaled) when given."""
         cd = self.dtype
         normal = spatial_out["normal"].to(cd)
         b = spatial_out["bottleneck"]
+        if train and self.perturb_bottleneck > 0:
+            if noise is None:
+                noise = self.perturb_bottleneck * torch.randn(
+                    b.shape, dtype=cd, generator=generator, device=b.device)
+            b = b + noise.to(cd)
         dirs = dirs.to(cd)
         d_dot_n = torch.sum(dirs * normal, dim=-1, keepdim=True)
         reflect = dirs - 2.0 * d_dot_n * normal
@@ -118,18 +130,20 @@ class RefNeRF(nn.Module):
         return rgb.to(torch.float32)
 
     def forward(self, pos: torch.Tensor, dirs: torch.Tensor):
-        """(rgb (..., 3), raw density (...), normal (..., 3)), all f32."""
+        """(rgb (..., 3), raw density (...), normal (..., 3)), all f32, in
+        eval (no bottleneck noise)."""
         spa = self.spatial(pos)
         rgb = self.directional(spa, dirs)
         return rgb, spa["density"], spa["normal"]
 
-    def kernel_weights(self):
-        """The fused kernels' operands: the spatial (23) and directional
-        (19) weight tuples in the order of nerf_tpu/ops/ref_fused.py:51-75,
-        (in, out) matrices in the compute dtype and (1, out) f32 biases; both
-        skip layers are split at their trunk's input width, as
+    def kernel_params(self):
+        """The spatial (23) and directional (19) weight tuples in the order
+        of nerf_tpu/ops/ref_fused.py:51-75 as differentiable f32 views of
+        the parameters ((in, out) matrices, (1, out) biases); both skip
+        layers are split at their trunk's input width, as
         ``ref_spatial_weights_from_params`` and
-        ``ref_directional_weights_from_params`` (:1309, :1333) do."""
+        ``ref_directional_weights_from_params`` (:1309, :1333) do.  The
+        operands of ``ops.RefSpatialMLP`` and ``ops.RefDirectionalMLP``."""
         spa = _trunk_params(self.spa_block1, self.spa_block2, self.d_x)
         for lin in (self.rho_tau_head, self.norm_col_tint_head,
                     self.bottle_neck):
@@ -137,6 +151,12 @@ class RefNeRF(nn.Module):
         dr = _trunk_params(self.dir_block1, self.dir_block2, self.d_dir)
         head = self.spec_rgb_head[0]
         dr += [kernel_matrix(head), kernel_bias(head)]
+        return tuple(spa), tuple(dr)
+
+    def kernel_weights(self):
+        """The kernel operands for inference: ``kernel_params`` detached,
+        matrices in the compute dtype, biases f32."""
+        spa, dr = self.kernel_params()
         return (prep_weights([w.detach() for w in spa], REF_SPA_BIASES,
                              self.dtype),
                 prep_weights([w.detach() for w in dr], REF_DIR_BIASES,

@@ -9,7 +9,10 @@ from nerf_tpu_torch.ops.fused_mlp import (
 )
 from nerf_tpu_torch.ops.launch import LAUNCHES, reset_launches
 from nerf_tpu_torch.ops.ref_fused import (
-    ref_dir_fwd, ref_dir_plain, ref_fine_fwd, ref_spa_fwd, ref_spa_plain,
+    RefDirectionalMLP, RefSpatialMLP, ref_dir_bwd, ref_dir_bwd_plain,
+    ref_dir_fwd, ref_dir_fwd_res, ref_dir_fwd_res_plain, ref_dir_plain,
+    ref_fine_fwd, ref_spa_bwd, ref_spa_bwd_plain, ref_spa_fwd,
+    ref_spa_fwd_res, ref_spa_fwd_res_plain, ref_spa_plain,
 )
 
 __all__ = ["LAUNCHES", "reset_launches", "prep_weights", "PropMLP",
@@ -17,4 +20,8 @@ __all__ = ["LAUNCHES", "reset_launches", "prep_weights", "PropMLP",
            "prop_mlp_bwd_plain", "vanilla_mlp_fwd", "vanilla_mlp_plain",
            "vanilla_mlp_fwd_res", "vanilla_mlp_fwd_res_plain",
            "vanilla_mlp_bwd", "vanilla_mlp_bwd_plain", "ref_spa_fwd",
-           "ref_spa_plain", "ref_dir_fwd", "ref_dir_plain", "ref_fine_fwd"]
+           "ref_spa_plain", "ref_dir_fwd", "ref_dir_plain", "ref_fine_fwd",
+           "RefSpatialMLP", "RefDirectionalMLP", "ref_spa_fwd_res",
+           "ref_spa_fwd_res_plain", "ref_dir_fwd_res",
+           "ref_dir_fwd_res_plain", "ref_spa_bwd", "ref_spa_bwd_plain",
+           "ref_dir_bwd", "ref_dir_bwd_plain"]

@@ -1,5 +1,5 @@
 // Tile building blocks shared by the fused MLP kernels (fused_mlp.cu,
-// fused_mlp_bwd.cu).
+// fused_mlp_bwd.cu, ref_fused.cu, ref_fused_bwd.cu).
 //
 // One block of THREADS threads owns a tile of TM points.  Activations of the
 // tile live in shared memory as (TM, width) row-major arrays in the compute
@@ -153,6 +153,49 @@ __device__ void dense_tile(const T* a0, int k0, const T* __restrict__ w0,
         const T vt = from_f<T>(v);
         out[(r0 + i) * n_out + c] = vt;
         if (STORE && row0 + r0 + i < n) gout[(row0 + r0 + i) * n_out + c] = vt;
+      }
+    }
+  }
+}
+
+// delta = mask(act) (a @ W^T [+ gs[row] * wcol[c]]) for the whole tile, where
+// W is the layer's (n_out, k_dim) = (in, out) forward matrix, a the next
+// layer's (TM, k_dim) delta in shared memory, act the stored (n, n_out)
+// activation in device memory (null: no ReLU), and gs/wcol an optional K = 1
+// outer-product term added in f32 before the mask.  With ADD the product is
+// first rounded to T and added to what ``out`` holds (a sum of T-valued
+// pullbacks that rounds after each add).  The result goes to shared memory
+// in T (the operand of the next product) and, when gout is not null, its
+// valid rows to gout, in OutT (T, or f32).  ``stage`` is the shared-memory
+// stage of accumulate_t; every thread of the block must call this.
+template <bool ADD = false, typename T, typename OutT>
+__device__ void delta_tile(const T* a, int k_dim, const T* __restrict__ w,
+                           int n_out, const T* __restrict__ act,
+                           const T* gs, const T* __restrict__ wcol, T* out,
+                           OutT* __restrict__ gout, int64_t row0, int64_t n,
+                           T* stage) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * RPT;
+  for (int c0 = 0; c0 < n_out; c0 += CHUNK) {
+    float acc[RPT][CPT];
+    zero(acc);
+    accumulate_t(acc, a, k_dim, w, n_out, c0, stage);
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int c = c0 + lane + 32 * j;
+      if (c >= n_out) continue;
+      const float wc = wcol != nullptr ? to_f(wcol[c]) : 0.f;
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int t = r0 + i;
+        const int64_t row = row0 + t;
+        float v = acc[i][j];
+        if (wcol != nullptr) v += to_f(gs[t]) * wc;
+        if (ADD) v = to_f(from_f<T>(v)) + to_f(out[t * n_out + c]);
+        if (act != nullptr)
+          v = (row < n && to_f(act[row * n_out + c]) > 0.f) ? v : 0.f;
+        out[t * n_out + c] = from_f<T>(v);
+        if (gout != nullptr && row < n) gout[row * n_out + c] = from_f<OutT>(v);
       }
     }
   }

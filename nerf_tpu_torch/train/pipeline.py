@@ -1,8 +1,8 @@
 """The render pipeline, train and eval: proposal -> importance sampling ->
-fine model (port of nerf_tpu/train/pipeline.py: the vanilla branch of
-``render_rays_train`` :483-577, and the vanilla and Ref-NeRF branches of
-``render_rays_eval`` :580-671 with ``_ref_fine_forward``'s eval route
-:263-326, :393-451).
+fine model (port of nerf_tpu/train/pipeline.py: the vanilla and Ref-NeRF
+branches of ``render_rays_train`` :483-577 and ``render_rays_eval``
+:580-671, ``_proposal_weights`` :202-242 and ``_ref_fine_forward`` with its
+all-kernel route :263-326, :393-451).
 
 Models are ``nn.Module``s holding their weights, so where the JAX functions
 take ``(models, variables, ..., key)`` these take ``(models, ...)`` and an
@@ -10,13 +10,16 @@ optional ``torch.Generator``.  ``noise=(jitter, u)`` injects the draws, as in
 the JAX package.
 
 Training runs the MLPs through the fused kernels' autograd Functions
-(``ops.PropMLP``, ``ops.VanillaMLP``) unless ``cfg.use_pallas`` is False,
-which selects the ``nn.Module`` forward with autograd: the oracle.  Eval runs
-them through the forward-only kernels unless ``cfg.eval_use_pallas`` is
-False.  (The JAX package renders vanilla eval through XLA by default; that
-choice rested on one TPU measurement and does not carry over.)  Ref-NeRF
-renders (the proposal kernel, then the spatial and directional kernels of
-``ops/ref_fused.py``, or ``RefNeRF``); its training is not ported yet.
+(``ops.PropMLP``, ``ops.VanillaMLP``, ``ops.RefSpatialMLP`` and
+``ops.RefDirectionalMLP``) unless ``cfg.use_pallas`` is False, which selects
+the ``nn.Module`` forward with autograd: the oracle.  Ref-NeRF's normal
+target d(density)/d(pos) comes from the spatial kernel on the kernel route
+and from ``torch.autograd.grad`` on the module route, which is also taken
+for ``second_order_normals`` and, for the proposal net, ``--prop_normal``.
+Eval runs the MLPs through the forward-only kernels unless
+``cfg.eval_use_pallas`` is False.  (The JAX package renders vanilla eval
+through XLA by default; that choice rested on one TPU measurement and does
+not carry over.)
 """
 
 from __future__ import annotations
@@ -32,27 +35,26 @@ from nerf_tpu_torch.device import check_device, resolve_device
 from nerf_tpu_torch.models import ProposalNetwork, RefNeRF, VanillaNeRF
 from nerf_tpu_torch.models.mlp import init_flax_
 from nerf_tpu_torch.ops import (
-    PropMLP, VanillaMLP, prop_mlp_fwd, ref_fine_fwd, vanilla_mlp_fwd,
+    PropMLP, RefDirectionalMLP, RefSpatialMLP, VanillaMLP, prop_mlp_fwd,
+    ref_fine_fwd, vanilla_mlp_fwd,
 )
-from nerf_tpu_torch.ops.ref_fused import softplus
+from nerf_tpu_torch.ops.ref_fused import normal_target, softplus
 from nerf_tpu_torch.train.config import PipelineConfig
 
 _NOT_PORTED = ("the {} path is not ported to nerf_tpu_torch yet; see "
                "ROADMAP.md (section A) for the order of the remaining slices")
 
 
-def _require_ported(cfg: PipelineConfig, train: bool = False) -> None:
-    """Raise for the paths not ported yet: Mip-NeRF, IPE and Ref-NeRF
-    training."""
+def _require_ported(cfg: PipelineConfig) -> None:
+    """Raise for the paths not ported yet: Mip-NeRF and IPE."""
     if cfg.model == "mip":
-        raise NotImplementedError(_NOT_PORTED.format("Mip-NeRF (-m, _mip_pass)"))
+        raise NotImplementedError(_NOT_PORTED.format(
+            "Mip-NeRF (-m, _mip_pass; ROADMAP.md A5)"))
     if cfg.model not in ("vanilla", "ref"):
         raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.use_ipe:
-        raise NotImplementedError(_NOT_PORTED.format("IPE (--use_ipe)"))
-    if train and cfg.model == "ref":
         raise NotImplementedError(_NOT_PORTED.format(
-            "Ref-NeRF training (-t without -r; ROADMAP.md A6)"))
+            "IPE (--use_ipe; ROADMAP.md A5)"))
 
 
 def make_models(cfg: PipelineConfig, device=None,
@@ -67,7 +69,8 @@ def make_models(cfg: PipelineConfig, device=None,
         generator = torch.Generator().manual_seed(0)
     if cfg.model == "ref":
         nerf = RefNeRF(ide_level=cfg.ide_level, hidden=cfg.nerf_width,
-                       use_srgb=cfg.use_srgb, dtype=dtype)
+                       use_srgb=cfg.use_srgb,
+                       perturb_bottleneck=cfg.bottleneck_noise, dtype=dtype)
     else:
         nerf = VanillaNeRF(hidden=cfg.nerf_width, dtype=dtype)
     nerf = init_flax_(nerf, generator)
@@ -91,6 +94,11 @@ def _use_kernels(cfg: PipelineConfig, train: bool) -> bool:
         return False
     # the shipped training variants (nerf_tpu/train/config.py:93,102) are
     # the ported ones; the others raise rather than run something else
+    if not cfg.store_residuals and cfg.model == "ref":
+        raise NotImplementedError(_NOT_PORTED.format(
+            "recompute Ref-NeRF backwards (store_residuals=False, "
+            "_make_spa_bwd_kernel and _make_dir_bwd_kernel; ROADMAP.md B3/B4 "
+            "recompute forms)"))
     if not cfg.store_residuals:
         raise NotImplementedError(_NOT_PORTED.format(
             "recompute vanilla backward (store_residuals=False, "
@@ -155,6 +163,22 @@ def _identity(x):
     return x
 
 
+def _ref_kernel_route(cfg: PipelineConfig, train: bool) -> bool:
+    if not _use_kernels(cfg, train):
+        return False
+    if cfg.ref_kernels != "all":
+        raise NotImplementedError(_NOT_PORTED.format(
+            f"ref_kernels={cfg.ref_kernels!r} (_ref_fine_forward_fused; "
+            "ROADMAP.md B5)"))
+    return True
+
+
+def _normal_target(g: torch.Tensor, second_order: bool) -> torch.Tensor:
+    """The normal target of g, detached unless ``second_order``."""
+    target = normal_target(g)
+    return target if second_order else target.detach()
+
+
 def _ref_fine_forward(nerf: RefNeRF, pos: torch.Tensor,
                       ray_dirs: torch.Tensor, cfg: PipelineConfig, dev):
     """Ref-NeRF on points (R, P, 3) of rays with directions (R, 3), eval:
@@ -164,12 +188,8 @@ def _ref_fine_forward(nerf: RefNeRF, pos: torch.Tensor,
     gradient and with zero noise (``ops.ref_fine_fwd``); with
     ``eval_use_pallas=False`` the ``RefNeRF`` module runs, the oracle."""
     r, p = pos.shape[:2]
-    if not _use_kernels(cfg, train=False):
+    if not _ref_kernel_route(cfg, train=False):
         return nerf(pos, ray_dirs[:, None, :].expand(r, p, 3))
-    if cfg.ref_kernels != "all":
-        raise NotImplementedError(_NOT_PORTED.format(
-            f"ref_kernels={cfg.ref_kernels!r} (_ref_fine_forward_fused; "
-            "ROADMAP.md B5)"))
     enc = cat_pos_pe(pos.reshape(r * p, 3), nerf.pos_levels, nerf.dtype)
     spa_ws, dir_ws = nerf.kernel_weights()
     rgb, density, normal = ref_fine_fwd(
@@ -179,20 +199,78 @@ def _ref_fine_forward(nerf: RefNeRF, pos: torch.Tensor,
             normal.reshape(r, p, 3))
 
 
+def _ref_fine_forward_train(nerf: RefNeRF, pos: torch.Tensor,
+                            ray_dirs: torch.Tensor, cfg: PipelineConfig, dev,
+                            generator: Optional[torch.Generator] = None):
+    """Ref-NeRF on points (R, P, 3), training: (rgb (R, P, 3), raw density
+    (R, P), normal (R, P, 3), normal target (R, P, 3)), f32.
+
+    Kernel route (``_ref_fine_forward_allkernel``): ``RefSpatialMLP`` gives
+    the heads and the detached normal target, ``RefDirectionalMLP`` the rgb,
+    normal and density, with the bottleneck noise ``bottleneck_noise *
+    N(0, 1)`` drawn from ``generator`` in the compute dtype (its values
+    differ from the JAX package's draw, as the JAX package's own two routes
+    differ).  Module route (``use_pallas=False`` or
+    ``second_order_normals``): ``RefNeRF.spatial`` on points that require
+    grad, the target from ``torch.autograd.grad`` of the density."""
+    r, p = pos.shape[:2]
+    n = r * p
+    second_order = cfg.second_order_normals
+    if second_order or not _ref_kernel_route(cfg, train=True):
+        pts = pos.detach().requires_grad_()
+        spa = nerf.spatial(pts)
+        (g,) = torch.autograd.grad(spa["density"].sum(), pts,
+                                   retain_graph=True,
+                                   create_graph=second_order)
+        rgb = nerf.directional(spa, ray_dirs[:, None, :].expand(r, p, 3),
+                               train=True, generator=generator)
+        return (rgb, spa["density"], spa["normal"],
+                _normal_target(g, second_order))
+    cd = nerf.dtype
+    pos_f = pos.detach().reshape(n, 3).to(torch.float32).contiguous()
+    enc = cat_pos_pe(pos_f, nerf.pos_levels, cd)
+    noise = None
+    if nerf.perturb_bottleneck > 0:
+        noise = nerf.perturb_bottleneck * torch.randn(
+            (n, nerf.bottleneck_dim), dtype=cd, generator=generator,
+            device=pos.device)
+    spa_params, dir_params = nerf.kernel_params()
+    heads, dgrad = RefSpatialMLP.apply(dev, cfg.pallas_tile, enc, pos_f,
+                                       *spa_params)
+    rgb, normal, density = RefDirectionalMLP.apply(
+        dev, cfg.pallas_tile, heads,
+        ray_dirs.detach().to(torch.float32).contiguous(), noise, p,
+        nerf.ide_level, nerf.use_srgb, cd, *dir_params)
+    return (rgb.reshape(r, p, 3), density.reshape(r, p),
+            normal.reshape(r, p, 3), dgrad.reshape(r, p, 3))
+
+
 def _proposal_weights(prop: ProposalNetwork, rays: torch.Tensor,
                       c_z: torch.Tensor, cfg: PipelineConfig, dev,
-                      train: bool = False):
-    """Proposal weights, max-blurred.  Training applies softplus to the raw
-    density before the transmittance; eval applies relu inside it (the
-    reference's eval path never applies softplus).  Depths scaled by |d|."""
+                      train: bool = False, with_grad: bool = False):
+    """(proposal weights, max-blurred, and with ``with_grad`` the coarse
+    normals -g / max(1e-5, |g|) (R, C, 3) of the density's gradient g, else
+    None).  Training applies softplus to the raw density before the
+    transmittance; eval applies relu inside it (the reference's eval path
+    never applies softplus).  Depths scaled by |d|.  ``with_grad`` runs the
+    ``ProposalNetwork`` module, whose input gradient the kernel does not
+    give (pipeline.py:213-228)."""
     c_pts = render_lib.lengths_to_points(rays, c_z)
-    density = _apply_prop(prop, c_pts, cfg, dev, train)
+    coarse_grad = None
+    if with_grad:
+        c_pts = c_pts.detach().requires_grad_()
+        density = prop(c_pts)
+        (g,) = torch.autograd.grad(density.sum(), c_pts, retain_graph=True,
+                                   create_graph=cfg.second_order_normals)
+        coarse_grad = _normal_target(g, cfg.second_order_normals)
+    else:
+        density = _apply_prop(prop, c_pts, cfg, dev, train)
     if train:
         density = torch.nn.functional.softplus(density)
     w_raw = render_lib.transmittance_weights(
         density, c_z, ray_dirs=rays[..., 3:],
-        density_act=(lambda x: x) if train else torch.relu)
-    return sampling.max_blur_filter(w_raw, cfg.max_blur_alpha)
+        density_act=_identity if train else torch.relu)
+    return sampling.max_blur_filter(w_raw, cfg.max_blur_alpha), coarse_grad
 
 
 def render_rays_train(models, rays: torch.Tensor, cfg: PipelineConfig,
@@ -200,32 +278,64 @@ def render_rays_train(models, rays: torch.Tensor, cfg: PipelineConfig,
                       generator: Optional[torch.Generator] = None,
                       device=None):
     """Training forward for a ray batch rays (R, 6): a dict with fine_rgb
-    (R, 3), weights (R, P), prop_weights (R, n_coarse), bounds (R, P),
-    bounds_idx (R, P + 1) and z_fine (R, P), P = n_fine.
+    (R, 3), weights (R, P), prop_weights (R, n_coarse), bounds (R, P) and
+    bounds_idx (R, P + 1).  Vanilla: z_fine (R, P), P = n_fine.  Ref-NeRF
+    (P = n_coarse + n_fine - 1 merged samples): pred_normal and
+    density_grad (R, P, 3), fine_dirs (R, 3), coarse_pos (R, n_coarse),
+    z_merged (R, P), and under ``--prop_normal`` coarse_grad (R, n_coarse,
+    3) and last_fine_pos (R,).
 
     ``noise`` = (stratified jitter (R, n_coarse), sorted inverse-CDF uniforms
-    (R, n_fine + 1)) replaces the draws from ``generator``.  ``device``
-    defaults to ``cuda``; ``rays`` must lie there.
+    (R, n_fine + 1)) replaces the draws from ``generator``, which also draws
+    the bottleneck noise.  ``device`` defaults to ``cuda``; ``rays`` must lie
+    there.
     """
-    _require_ported(cfg, train=True)
+    _require_ported(cfg)
     dev = resolve_device(device)
     check_device(rays, dev, "rays")
     nerf, prop = models
+    ref = cfg.model == "ref"
     jitter, u = (None, None) if noise is None else noise
     c_z = sampling.stratified_samples(rays.shape[0], cfg.n_coarse, cfg.near,
                                       cfg.far, jitter=jitter,
                                       generator=generator, device=rays.device)
-    w_blur = _proposal_weights(prop, rays, c_z, cfg, dev, train=True)
+    prop_grad = ref and cfg.prop_normal
+    w_blur, coarse_grad = _proposal_weights(prop, rays, c_z, cfg, dev,
+                                            train=True, with_grad=prop_grad)
     f_z, below = sampling.inverse_sample(w_blur, c_z, cfg.n_fine + 1, u=u,
                                          generator=generator)
-    z_fine = f_z[..., :-1]
-    pos = render_lib.lengths_to_points(rays, z_fine)
-    rgb3, sigma = _apply_vanilla(nerf, pos, rays[:, 3:], cfg, dev, train=True)
-    fine_rgb, weights = render_lib.composite_rl(rgb3, sigma, z_fine,
-                                                rays[:, 3:])
-    return {"fine_rgb": fine_rgb, "weights": weights, "prop_weights": w_blur,
-            "bounds": sampling.weight_bounds(w_blur, below),
-            "bounds_idx": below, "z_fine": z_fine}
+    out = {"prop_weights": w_blur}
+    if ref:
+        z_merged, coarse_pos, idx_full = sampling.merge_coarse_fine(
+            c_z, f_z, below)
+        pos = render_lib.lengths_to_points(rays, z_merged)
+        rgb, raw_density, pred_normal, density_grad = \
+            _ref_fine_forward_train(nerf, pos, rays[:, 3:], cfg, dev,
+                                    generator)
+        fine_rgb, weights, _ = render_lib.composite(
+            rgb, softplus(raw_density + 0.5), z_merged, rays[:, 3:],
+            density_act=_identity)
+        out.update(fine_rgb=fine_rgb, weights=weights, bounds_idx=idx_full,
+                   pred_normal=pred_normal, density_grad=density_grad,
+                   fine_dirs=rays[:, 3:], coarse_pos=coarse_pos,
+                   z_merged=z_merged)
+        if prop_grad:
+            # the merged position of the last fine sample, which the
+            # reference's off-by-one coarse selection reads as coarse
+            out["coarse_grad"] = coarse_grad
+            out["last_fine_pos"] = cfg.n_fine + sampling.count_lt(
+                c_z, f_z[:, -1:])[:, 0]
+    else:
+        z_fine = f_z[..., :-1]
+        pos = render_lib.lengths_to_points(rays, z_fine)
+        rgb3, sigma = _apply_vanilla(nerf, pos, rays[:, 3:], cfg, dev,
+                                     train=True)
+        fine_rgb, weights = render_lib.composite_rl(rgb3, sigma, z_fine,
+                                                    rays[:, 3:])
+        out.update(fine_rgb=fine_rgb, weights=weights, bounds_idx=below,
+                   z_fine=z_fine)
+    out["bounds"] = sampling.weight_bounds(w_blur, out["bounds_idx"])
+    return out
 
 
 @torch.no_grad()
@@ -256,7 +366,7 @@ def render_rays_eval(models, rays: torch.Tensor, cfg: PipelineConfig,
     c_z = sampling.stratified_samples(n_rays, cfg.n_coarse, cfg.near, cfg.far,
                                       jitter=jitter, generator=generator,
                                       device=rays.device)
-    w_blur = _proposal_weights(prop, rays, c_z, cfg, dev)
+    w_blur, _ = _proposal_weights(prop, rays, c_z, cfg, dev)
     f_z, _ = sampling.inverse_sample(w_blur, c_z, sample_num + 1, u=u,
                                      generator=generator)
     normal_info = None

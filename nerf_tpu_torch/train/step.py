@@ -1,4 +1,4 @@
-"""The vanilla training step (port of nerf_tpu/train/step.py:40-117, 241).
+"""The training step (port of nerf_tpu/train/step.py:40-180, 241).
 
 The JAX package compiles pixel picks, ray generation, the render, the loss
 and the optimizer update into one program per step.  Here they are eager
@@ -8,7 +8,9 @@ PyTorch on the device, with the same arithmetic:
   crop window while it is active, and one flat gather from the on-device
   pixel pool;
 - ``compute_loss``: MSE of the fine render plus the proposal loss over the
-  detached fine weights;
+  detached fine weights; for Ref-NeRF also the weighted normal loss against
+  the detached density-gradient normals, the back-face loss and, under
+  ``--prop_normal``, the proposal net's normal loss at the coarse samples;
 - Adam(0.9, 0.999, eps 1e-8), its rate set to ``schedule(step)`` before each
   update (optax evaluates its schedule at the update's own count, so the
   first update uses ``schedule(0)``), after optax's global-norm clipping
@@ -64,19 +66,69 @@ def sample_train_rays(pixel_pool: torch.Tensor, poses: torch.Tensor,
     return rays, rgb_gt
 
 
+def legacy_coarse_positions(coarse_pos: torch.Tensor,
+                            last_fine_pos: torch.Tensor) -> torch.Tensor:
+    """The merged positions that the reference's coarse_grad_select reads
+    (ref_model.py:108-117, nerf_tpu/train/step.py:65-87): the last fine
+    sample's position inserted into the sorted positions of coarse samples
+    0..C-2.  coarse_pos (R, C), last_fine_pos (R,) -> (R, C) int64."""
+    n_c = coarse_pos.shape[1]
+    rc = coarse_pos[:, :n_c - 1].to(torch.int64)
+    t = last_fine_pos[:, None].to(torch.int64)
+    m = torch.sum(rc < t, dim=1, keepdim=True)
+    k = torch.arange(n_c, device=coarse_pos.device)[None, :]
+    shift = torch.clamp(torch.where(k < m, k, k - 1), 0, max(n_c - 2, 0))
+    return torch.where(k == m, t, torch.gather(rc, 1, shift))
+
+
+def _coarse_normal_loss(out, cfg: PipelineConfig) -> torch.Tensor:
+    """The proposal net's normal loss: the fine density-gradient normals,
+    gathered back to the coarse samples' merged positions, against the
+    proposal's own.  By default the dropped largest coarse sample is masked
+    out; ``legacy_coarse_select`` reads the reference's off-by-one
+    positions instead."""
+    dgrad = out["density_grad"]
+    n_kept = dgrad.shape[1]
+    cp = out["coarse_pos"].to(torch.int64)
+    if cfg.legacy_coarse_select:
+        lfp = torch.clamp_max(out["last_fine_pos"], n_kept - 1)
+        q, valid = legacy_coarse_positions(cp, lfp), 1.0
+    else:
+        valid = (cp < n_kept).to(torch.float32)
+        q = torch.clamp_max(cp, n_kept - 1)
+    target = torch.gather(dgrad, 1, q[..., None].expand(-1, -1, 3))
+    return losses.weighted_normal_loss(out["prop_weights"] * valid,
+                                       target.detach(), out["coarse_grad"])
+
+
 def compute_loss(models, rays: torch.Tensor, rgb_gt: torch.Tensor,
                  cfg: PipelineConfig, noise=None,
                  generator: Optional[torch.Generator] = None, device=None):
     """(loss, metrics) for one ray batch: the proposal loss over the
-    detached fine weights plus the MSE of the fine render.  ``metrics``
-    holds img_loss, prop_loss, psnr and loss, as device tensors."""
+    detached fine weights plus the MSE of the fine render, and for Ref-NeRF
+    ``normal_loss_w`` (normal loss + ``coarse_normal_rel_w`` coarse normal
+    loss) + ``backface_w`` back-face loss.  ``metrics`` holds img_loss,
+    prop_loss, psnr and loss (Ref-NeRF: also normal_loss and bf_loss), as
+    device tensors."""
     out = render_rays_train(models, rays, cfg, noise=noise,
                             generator=generator, device=device)
     img_loss = losses.mse(out["fine_rgb"], rgb_gt)
     prop_loss = losses.proposal_loss(out["bounds"], out["weights"].detach())
     loss = prop_loss + img_loss
     metrics = {"img_loss": img_loss, "prop_loss": prop_loss,
-               "psnr": losses.mse_to_psnr(img_loss), "loss": loss}
+               "psnr": losses.mse_to_psnr(img_loss)}
+    if cfg.model == "ref":
+        normal_loss = losses.weighted_normal_loss(
+            out["weights"], out["density_grad"], out["pred_normal"])
+        bf_loss = losses.backface_loss(out["weights"], out["pred_normal"],
+                                       out["fine_dirs"])
+        coarse = (_coarse_normal_loss(out, cfg) if cfg.prop_normal
+                  else 0.0)
+        loss = loss + cfg.normal_loss_w * (
+            normal_loss + cfg.coarse_normal_rel_w * coarse) \
+            + cfg.backface_w * bf_loss
+        metrics.update(normal_loss=normal_loss, bf_loss=bf_loss)
+    metrics["loss"] = loss
     return loss, metrics
 
 

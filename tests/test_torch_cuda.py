@@ -138,10 +138,9 @@ def test_training_kernels_match_plain(cuda, dtype, n, width):
     grads = ops.vanilla_mlp_bwd(vw, x, d, g_rgb, g_sig, rgb3, acts)
     pgrads = ops.prop_mlp_bwd(pw, x, g_sig)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES == {"prop_mlp_fwd": 0, "vanilla_mlp_fwd": 0,
-                            "vanilla_mlp_fwd_res": 1, "vanilla_mlp_bwd": 1,
-                            "prop_mlp_bwd": 1, "ref_spa_fwd": 0,
-                            "ref_dir_fwd": 0}
+    assert ops.LAUNCHES == dict(dict.fromkeys(ops.LAUNCHES, 0),
+                                vanilla_mlp_fwd_res=1, vanilla_mlp_bwd=1,
+                                prop_mlp_bwd=1)
     prgb3, psig, pacts = ops.vanilla_mlp_fwd_res_plain(vw, x, d)
     torch.testing.assert_close(rgb3, prgb3, **TOLS[dtype])
     torch.testing.assert_close(sig, psig, **TOLS[dtype])
@@ -379,3 +378,195 @@ def test_ref_eval_kernels_match_module_path(cuda):
     for key in ("depth", "normal"):
         torch.testing.assert_close(outs[0][1][key], outs[1][1][key],
                                    rtol=1e-4, atol=2e-4, msg=key)
+
+
+# ---------------------------------------------------------------------------
+# the Ref-NeRF training kernels
+# ---------------------------------------------------------------------------
+
+# The normal target -g / max(1e-5, |g|) is held against the plain target on
+# the kernel's own activations (g is a pullback through their ReLU masks;
+# a mask the plain forward sets the other way moves g by a unit's whole
+# term), weighted by |g|, as the relative Frobenius error
+# ||(t_kernel - t_plain) |g||| / ||g||: g passes the bf16 layers and the
+# encoding's 2^9 frequency, and where |g| is small next to its own rounding
+# noise its direction is that noise (3 of 12,291 components 0.5 apart at
+# H = 48, O = 80, N = 4,097 on an H100 80GB HBM3).  bf16 gets the
+# activations' own bound (1e-2); f32 is also held elementwise where |g|
+# exceeds DGRAD_MIN_NORM, a thousand times the clamp.
+DGRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+DGRAD_MIN_NORM = 1e-2
+# The Ref-NeRF backwards round each 64-row tile's weight grad to bf16, as
+# the TPU kernels do per grid step.  A delta that the kernel and the plain
+# version round one ulp apart (f32 sums in another order) moves the tile's
+# partial by about 1e-4 of itself, and then a few percent of the rounded
+# partials land one bf16 ulp (2^-8) apart: 7.9e-4 on an H100 80GB HBM3 at
+# N = 70.  The bf16 backward with no per-layer cast reads 5e-3 or more.
+REF_GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
+HEAD_GROUPS = ((0, 1), (1, 2), (2, 5), (5, 8), (8, 11), (11, None))
+
+
+def _dheads_rel(got, want):
+    """The worst relative Frobenius error over the column groups of
+    d(heads): rho, density, normal, diffuse, tint, bottleneck."""
+    return max(_rel_err(got[:, a:b], want[:, a:b]) for a, b in HEAD_GROUPS)
+
+
+def _assert_ref_train_match(cuda, dtype, n, per_ray, tile=64, **model):
+    """ref_spa_fwd_res, ref_spa_bwd, ref_dir_fwd_res and ref_dir_bwd against
+    their plain versions on the same operands (the backwards on the kernels'
+    own activations); each launches once.  In bf16 the plain backwards with
+    no per-layer cast (operands upcast to f32) must read beyond
+    REF_GRAD_REL."""
+    ide_level, use_srgb = model.get("ide_level", 4), model.get("use_srgb",
+                                                               False)
+    m, enc, dirs = _ref_operands(cuda, dtype, n, per_ray, n + 1, **model)
+    gen = torch.Generator(device=cuda).manual_seed(n + 2)
+    pos = enc[:, :3].float().contiguous()
+    spa_ws, dir_ws = m.kernel_weights()
+    nb = m.bottleneck_dim
+    noise = (0.05 * torch.randn((n, nb), generator=gen, device=cuda)).to(dtype)
+    g_heads = torch.randn((n, 11 + nb), generator=gen, device=cuda)
+    g_rgb, g_nrm = torch.randn((2, n, 3), generator=gen, device=cuda)
+    g_den = torch.randn((n,), generator=gen, device=cuda)
+    ops.reset_launches()
+    heads, dgrad, sacts = ops.ref_spa_fwd_res(spa_ws, enc, pos)
+    sgrads = ops.ref_spa_bwd(spa_ws, enc, g_heads, sacts, tile=tile)
+    rgb, nrm, den, dacts = ops.ref_dir_fwd_res(dir_ws, heads, dirs, per_ray,
+                                               noise, ide_level, use_srgb)
+    dheads, dgrads = ops.ref_dir_bwd(dir_ws, heads, dirs, per_ray, noise,
+                                     g_rgb, g_nrm, g_den, dacts, ide_level,
+                                     use_srgb, tile=tile)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == dict(dict.fromkeys(ops.LAUNCHES, 0),
+                                ref_spa_fwd_res=1, ref_spa_bwd=1,
+                                ref_dir_fwd_res=1, ref_dir_bwd=1)
+    pheads, pdgrad, pacts = ops.ref_spa_fwd_res_plain(spa_ws, enc, pos)
+    torch.testing.assert_close(heads, pheads, **TOLS[dtype])
+    for a, pa in zip(sacts, pacts):
+        torch.testing.assert_close(a.float(), pa.float(), **TOLS[dtype])
+    g = ops.ref_fused.density_grad_plain(spa_ws, enc, pos, sacts)
+    pdgrad = ops.ref_fused.normal_target(g)
+    g = torch.linalg.vector_norm(g, dim=-1, keepdim=True)
+    assert _rel_err(dgrad * g, pdgrad * g) < DGRAD_REL[dtype]
+    live = g[:, 0] > DGRAD_MIN_NORM
+    assert int(live.sum()) >= 0.99 * n - 1
+    if dtype == torch.float32:
+        torch.testing.assert_close(dgrad[live], pdgrad[live], **TOLS[dtype])
+    want = ops.ref_spa_bwd_plain(spa_ws, enc, g_heads, sacts, tile)
+    lim = REF_GRAD_REL[dtype]
+    for i, (a, b) in enumerate(zip(sgrads, want)):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert _rel_err(a, b) < lim, ("spa", i, _rel_err(a, b))
+    prgb, pnrm, pden, pdacts = ops.ref_dir_fwd_res_plain(
+        dir_ws, heads, dirs, per_ray, noise, ide_level, use_srgb)
+    for name, a, b in (("rgb", rgb, prgb), ("normal", nrm, pnrm),
+                       ("density", den, pden)):
+        torch.testing.assert_close(a, b, **TOLS[dtype], msg=name)
+    for a, pa in zip(dacts, pdacts):
+        torch.testing.assert_close(a.float(), pa.float(), **TOLS[dtype])
+    pdheads, pdgrads = ops.ref_dir_bwd_plain(
+        dir_ws, heads, dirs, per_ray, noise, g_rgb, g_nrm, g_den, dacts,
+        ide_level, use_srgb, tile)
+    assert _dheads_rel(dheads, pdheads) < lim, _dheads_rel(dheads, pdheads)
+    for i, (a, b) in enumerate(zip(dgrads, pdgrads)):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert _rel_err(a, b) < lim, ("dir", i, _rel_err(a, b))
+    if dtype == torch.bfloat16 and n > 1:
+        def up(ts):
+            return [t.float() for t in ts]
+        uncast = ops.ref_spa_bwd_plain(up(spa_ws), enc.float(), g_heads,
+                                       up(sacts), tile)
+        assert max(map(_rel_err, uncast, want)) > lim
+        _, uncast = ops.ref_dir_bwd_plain(
+            up(dir_ws), heads, dirs, per_ray, noise.float(), g_rgb, g_nrm,
+            g_den, up(dacts), ide_level, use_srgb, tile)
+        assert max(map(_rel_err, uncast, pdgrads)) > lim
+
+
+@pytest.mark.parametrize("dtype", list(TOLS))
+@pytest.mark.parametrize("n, per_ray", [(1, 1), (70, 7), (4097, 17)])
+@pytest.mark.parametrize("hidden, output_dim", [(256, 256), (48, 80)])
+def test_ref_train_kernels_match_plain(cuda, dtype, n, per_ray, hidden,
+                                       output_dim):
+    """The four Ref-NeRF training kernels against their plain versions: a
+    single point, ragged last tiles and weight-grad tiles of 64 rows, and a
+    trunk whose width H differs from the output_dim O."""
+    _assert_ref_train_match(cuda, dtype, n, per_ray, hidden=hidden,
+                            output_dim=output_dim)
+
+
+@pytest.mark.parametrize("dtype", list(TOLS))
+@pytest.mark.parametrize("ide_level, use_srgb", [(2, True), (2, False),
+                                                 (4, True)])
+def test_ref_train_kernels_levels_and_srgb(cuda, dtype, ide_level, use_srgb):
+    """The training kernels at IDE level 2 and with the sRGB curve."""
+    _assert_ref_train_match(cuda, dtype, 4097, 17, hidden=64, output_dim=64,
+                            ide_level=ide_level, use_srgb=use_srgb)
+
+
+def test_ref_train_kernels_raise_on_bad_operands(cuda):
+    """A CUDA call with a CPU weight or a noise of the wrong dtype raises
+    instead of running the plain version, and launches nothing."""
+    m, enc, dirs = _ref_operands(cuda, torch.float32, 70, 7, 0, hidden=32)
+    spa_ws, dir_ws = m.kernel_weights()
+    pos = enc[:, :3].contiguous()
+    heads, _, sacts = ops.ref_spa_fwd_res_plain(spa_ws, enc, pos)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="weight 3 is on cpu"):
+        ops.ref_spa_fwd_res(spa_ws[:3] + (spa_ws[3].cpu(),) + spa_ws[4:],
+                            enc, pos)
+    with pytest.raises(ValueError, match="pos is on cpu"):
+        ops.ref_spa_fwd_res(spa_ws, enc, pos.cpu())
+    with pytest.raises(ValueError, match="g_heads must be"):
+        ops.ref_spa_bwd(spa_ws, enc, heads[:, :100].contiguous(), sacts)
+    with pytest.raises(ValueError, match="noise must be"):
+        ops.ref_dir_fwd_res(dir_ws, heads, dirs, 7,
+                            torch.zeros((70, 128), device=cuda,
+                                        dtype=torch.bfloat16))
+    g = torch.zeros((70, 3), device=cuda)
+    _, _, _, dacts = ops.ref_dir_fwd_res_plain(dir_ws, heads, dirs, 7)
+    with pytest.raises(ValueError, match="activation 7 is on cpu"):
+        ops.ref_dir_bwd(dir_ws, heads, dirs, 7, None, g, g, g[:, 0].clone(),
+                        dacts[:7] + (dacts[7].cpu(),))
+    assert not any(ops.LAUNCHES.values())
+
+
+def test_ref_train_step_kernels_match_module_path(cuda, monkeypatch):
+    """One f32 Ref-NeRF step's loss and parameter grads through the kernels'
+    autograd and through the nn.Module path, same weights, rays and noise,
+    bottleneck noise off; the kernel route launches each training kernel
+    once, the module route none."""
+    cfg = PipelineConfig(model="ref", n_coarse=16, n_fine=32, nerf_width=64,
+                         prop_width=64, ray_batch=300, bottleneck_noise=0.0,
+                         pallas_tile=256)
+    models = make_models(cfg, cuda)
+    for i, m in enumerate(models):
+        _randomize(m, 40 + i, gain=1.0)
+    rng = np.random.default_rng(3)
+    rays = np.concatenate([rng.normal(0, 0.2, (300, 3)) + [0, 0, 4.0],
+                           rng.normal(0, 0.3, (300, 3)) + [0, 0, -1.0]], -1)
+    rays = torch.tensor(rays, dtype=torch.float32, device=cuda)
+    gt = torch.tensor(rng.uniform(size=(300, 3)), dtype=torch.float32,
+                      device=cuda)
+    jit = torch.tensor(rng.uniform(size=(300, 16)), dtype=torch.float32,
+                       device=cuda)
+    u = torch.tensor(np.sort(rng.uniform(size=(300, 33)), -1),
+                     dtype=torch.float32, device=cuda)
+    params = train_parameters(models)
+    out = []
+    for use_kernels in (True, False):
+        ops.reset_launches()
+        loss, metrics = compute_loss(models, rays, gt,
+                                     cfg.replace(use_pallas=use_kernels),
+                                     noise=(jit, u))
+        grads = torch.autograd.grad(loss, params)
+        out.append((loss, metrics, grads, dict(ops.LAUNCHES)))
+    assert out[0][3] == dict(dict.fromkeys(ops.LAUNCHES, 0), prop_mlp_fwd=1,
+                             prop_mlp_bwd=1, ref_spa_fwd_res=1,
+                             ref_spa_bwd=1, ref_dir_fwd_res=1, ref_dir_bwd=1)
+    assert not any(out[1][3].values())
+    assert float(out[1][1]["normal_loss"]) > 0.0
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-4, atol=1e-6)
+    rels = [_rel_err(g, w) for g, w in zip(out[0][2], out[1][2])]
+    assert max(rels) < 1e-2, rels

@@ -70,9 +70,11 @@ def test_render_rays_eval_rejects_unported_paths(variables):
     for kw in (dict(model="mip"), dict(use_ipe=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             render_rays_eval(models, rays, cfg.replace(**kw), device="cpu")
-    # Ref-NeRF renders (tests/test_torch_ref.py); its training is not ported
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        render_rays_train(models, rays, cfg.replace(model="ref"),
+    # Ref-NeRF trains (tests/test_torch_ref_train.py), but not through the
+    # recompute forms of its backwards, which are still to be ported
+    with pytest.raises(NotImplementedError, match="B3/B4 recompute"):
+        render_rays_train(models, rays, cfg.replace(model="ref",
+                                                    store_residuals=False),
                           device="cpu")
 
 

@@ -19,7 +19,9 @@ from nerf_tpu_torch.cli.flags import get_parser
 from nerf_tpu_torch.cli.render import render_only
 from nerf_tpu_torch.data import blender
 from nerf_tpu_torch.train.pipeline import make_models, render_rays_eval
+from nerf_tpu_torch.ops import build
 from nerf_tpu_torch.train.config import PipelineConfig
+from nerf_tpu_torch.train.step import compute_loss
 from nerf_tpu_torch.utils.png import decode_png, encode_png, write_png
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,6 +47,16 @@ def test_port_imports_no_jax():
                    check=True, timeout=120)
 
 
+def test_every_cuda_source_is_built():
+    """build() compiles every csrc/*.cu, and each library's kernels are
+    registered under it."""
+    from nerf_tpu_torch.ops.launch import SIGNATURES
+
+    assert sorted(build.SOURCES) == sorted(
+        p.stem for p in build.CSRC.glob("*.cu"))
+    assert {lib for lib, _ in SIGNATURES.values()} == set(build.SOURCES)
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
@@ -61,6 +73,9 @@ def test_entry_points_never_run_quietly_on_cpu(no_card, tmp_path):
     ref = cfg.replace(model="ref")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         render_rays_eval(make_models(ref, "cpu"), torch.ones(4, 6), ref)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compute_loss(make_models(ref, "cpu"), torch.ones(4, 6),
+                     torch.ones(4, 3), ref)
     for flags in ([], ["-t", "--render_normal"]):
         args = get_parser().parse_args(["-r", "-e", "--dataset_root",
                                         str(tmp_path), *flags])

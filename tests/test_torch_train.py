@@ -414,12 +414,25 @@ def test_trainer_end_to_end_on_cpu(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["-l"], "A8"), (["--ckpt_dir", "ck"], "A8"), (["-b"], "A10"),
-    (["--trace", "tr"], "A4"), (["-t"], "A6"), (["-m"], "A5"),
-    (["--use_ipe"], "A5")])
+    (["--trace", "tr"], "A4"), (["-m"], "A5"), (["--use_ipe"], "A5")])
 def test_trainer_rejects_unported_flags(tmp_path, flag, item):
     args = get_parser().parse_args(_train_argv(tmp_path, *flag))
     with pytest.raises(NotImplementedError, match=item):
         train(args, device="cpu")
+
+
+def test_entry_trains_ref_nerf_on_cpu(tmp_path, monkeypatch):
+    """``-t --epochs 1`` trains Ref-NeRF through the entry on the CPU and
+    writes a RefNeRF checkpoint; the hybrid kernel strategy, not ported,
+    still raises naming its ROADMAP.md item."""
+    monkeypatch.chdir(tmp_path)
+    argv = _train_argv(tmp_path, "-t", "--epochs", "1", "--output_time", "5")
+    assert main(argv, device="cpu") == 0
+    sd = torch.load(tmp_path / "model" / "model_1_mip.pt",
+                    weights_only=True)["model"]
+    assert "spa_block1.0.weight" in sd and "dir_block2.6.weight" in sd
+    with pytest.raises(NotImplementedError, match="B5"):
+        main(argv + ["--ref_kernels", "hybrid"], device="cpu")
 
 
 def test_entry_trains_on_cpu_only_when_asked(tmp_path, monkeypatch):
