@@ -53,7 +53,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the normal and back-face losses; `-t -r -e -s -w
                --render_normal` of its checkpoint; its trainer loop timed and
                profiled (ref_train_profile)
- 10. the kernels line, then the last line {"ok": true, "device": {...}}
+ 10. recompute - the recompute form of the training step
+               (store_residuals=False): the four kernels of phase 3 that
+               carry it (recompute_kernels, default step shapes); one f32
+               step of each model, kernels vs nn.Module, with its launch set
+               (step_recompute, ref_step_recompute); one bf16 step in the
+               recompute form against the same step in the residual form
+               (recompute_vs_res); the peak device memory and the ms per
+               step of a default bf16 step in each form and model, 20
+               `train_step` calls back to back (step_memory)
+ 11. hybrid  - `python -m nerf_tpu_torch -t --ref_kernels hybrid --epochs 5
+               -s -w` against the same run with `--no_pallas`, one launch
+               per step of the spatial recompute pair; `-t -r -e -s -w
+               --ref_kernels hybrid --render_normal` of its checkpoint; its
+               trainer loop timed and profiled (hybrid_train_profile)
+ 12. the kernels line, then the last line {"ok": true, "device": {...}}
 
 Imports nothing of JAX or nerf_tpu.
 """
@@ -84,7 +98,8 @@ from nerf_tpu_torch.train.config import PipelineConfig
 from nerf_tpu_torch.train.pipeline import make_models
 from nerf_tpu_torch.train.renderer import render_image
 from nerf_tpu_torch.train.step import (
-    compute_loss, sample_train_rays, train_parameters,
+    compute_loss, make_optimizer, sample_train_rays, train_parameters,
+    train_step,
 )
 from nerf_tpu_torch.utils.checkpoint import save_models
 from nerf_tpu_torch.utils.metrics import read_scalars
@@ -222,7 +237,21 @@ KERNELS = {
     "ref_dir_bwd": dict(
         source="nerf_tpu_torch/ops/csrc/ref_fused_bwd.cu",
         replaces="nerf_tpu/ops/ref_fused.py:901"),
+    "vanilla_mlp_bwd_recompute": dict(
+        source="nerf_tpu_torch/ops/csrc/fused_mlp_recompute.cu",
+        replaces="nerf_tpu/ops/fused_mlp.py:136"),
+    "ref_spa_fwd_grad": dict(
+        source="nerf_tpu_torch/ops/csrc/ref_fused.cu",
+        replaces="nerf_tpu/ops/ref_fused.py:643"),
+    "ref_spa_bwd_recompute": dict(
+        source="nerf_tpu_torch/ops/csrc/ref_fused_recompute.cu",
+        replaces="nerf_tpu/ops/ref_fused.py:701"),
+    "ref_dir_bwd_recompute": dict(
+        source="nerf_tpu_torch/ops/csrc/ref_fused_recompute.cu",
+        replaces="nerf_tpu/ops/ref_fused.py:867"),
 }
+RECOMPUTE_KERNELS = ("vanilla_mlp_bwd_recompute", "ref_spa_fwd_grad",
+                     "ref_spa_bwd_recompute", "ref_dir_bwd_recompute")
 REF_KERNELS = ("prop_mlp_fwd", "ref_spa_fwd", "ref_dir_fwd")
 # the other (ide_level, use_srgb) cases of the directional kernels' checks;
 # the timed one is the default (4, False)
@@ -231,6 +260,19 @@ TRAIN_KERNELS = ("prop_mlp_fwd", "vanilla_mlp_fwd_res", "vanilla_mlp_bwd",
                  "prop_mlp_bwd")
 REF_TRAIN_KERNELS = ("prop_mlp_fwd", "ref_spa_fwd_res", "ref_dir_fwd_res",
                      "ref_spa_bwd", "ref_dir_bwd", "prop_mlp_bwd")
+# the launch sets of a recompute-form step and of a hybrid step
+STEP_KERNELS = {
+    ("vanilla", True): TRAIN_KERNELS,
+    ("ref", True): REF_TRAIN_KERNELS,
+    ("vanilla", False): ("prop_mlp_fwd", "vanilla_mlp_fwd",
+                         "vanilla_mlp_bwd_recompute", "prop_mlp_bwd"),
+    ("ref", False): ("prop_mlp_fwd", "ref_spa_fwd_grad", "ref_dir_fwd",
+                     "ref_dir_bwd_recompute", "ref_spa_bwd_recompute",
+                     "prop_mlp_bwd"),
+    ("hybrid", True): ("prop_mlp_fwd", "ref_spa_fwd_grad",
+                       "ref_spa_bwd_recompute", "prop_mlp_bwd")}
+# steps of the memory and time phase: 20 back to back, median of 3 runs
+MEMORY_STEPS, MEMORY_RUNS = 20, 3
 
 
 def emit(phase: str, **kw):
@@ -373,9 +415,15 @@ def _encodings(gen, dtype, n, dd=True):
 
 
 def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
-    """(arguments, kernel call, plain call, bytes moved, FLOPs, points) of
-    ``name`` at its main-path shapes; ``ide_level`` and ``use_srgb`` pick
-    the case of ref_dir_fwd."""
+    """(arguments, kernel call, plain call, held call, bytes moved, FLOPs,
+    points) of ``name`` at its main-path shapes; ``ide_level`` and
+    ``use_srgb`` pick the case of ref_dir_fwd.  The held call is what the
+    kernel's output is held against: the plain version, except for the
+    recompute backwards, whose plain version runs on the forward kernel's
+    activations there (the kernel rebuilds them bit for bit; a plain
+    forward rounds elsewhere in bf16 and may set a ReLU mask the other way,
+    which moves a grad by a unit's whole term)."""
+    held = None
     if name == "prop_mlp_fwd":
         shapes, n = prop_shapes(), CHUNK * N_COARSE
         ws = random_weights(shapes, gen, dtype)
@@ -413,6 +461,21 @@ def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
             + 4 * sum(w.numel() for w in ws)
         # weight grads plus the deltas (none to the encodings)
         macs = macs_per_point(shapes) + 492_160
+    elif name == "vanilla_mlp_bwd_recompute":
+        shapes, n = vanilla_shapes(), RAYS * N_FINE
+        ws = random_weights(shapes, gen, dtype)
+        x, d = _encodings(gen, dtype, n)
+        g_rgb = torch.randn((3, n), generator=gen, device="cuda")
+        g_sig = torch.randn((n,), generator=gen, device="cuda")
+        args = (ws, x, d, g_rgb, g_sig)
+        kernel = ops.vanilla_mlp_bwd_recompute
+        plain = ops.vanilla_mlp_bwd_recompute_plain
+        rgb3, _, acts = ops.vanilla_mlp_fwd_res(ws, x, d)
+        held = lambda *a: plain(*a, fwd=(rgb3, acts))   # noqa: E731
+        moved = _nbytes(x, d, g_rgb, g_sig, *ws) + 4 * sum(w.numel()
+                                                          for w in ws)
+        # the rebuilt forward, the deltas and the weight grads
+        macs = 2 * macs_per_point(shapes) + 492_160
     elif name == "ref_spa_fwd":
         shapes, n = ref_spa_shapes(), CHUNK * N_MERGED
         ws = random_weights(shapes, gen, dtype, gain=REF_GAIN)
@@ -434,17 +497,31 @@ def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
             + (tables["mat"].size + tables["sigma"].size) * 4
         # the trunk, and the IDE's z-powers @ mat
         macs = macs_per_point(shapes) + tables["mat"].size
-    elif name in ("ref_spa_fwd_res", "ref_spa_bwd"):
+    elif name in ("ref_spa_fwd_res", "ref_spa_bwd", "ref_spa_fwd_grad",
+                  "ref_spa_bwd_recompute"):
         shapes, n = ref_spa_shapes(), RAYS * N_MERGED
         ws = random_weights(shapes, gen, dtype, gain=REF_GAIN)
         pos, x = ref_points(gen, dtype, n)
         elem = x.element_size()
-        if name == "ref_spa_fwd_res":
-            args, kernel = (ws, x, pos), ops.ref_spa_fwd_res
-            plain = ops.ref_spa_fwd_res_plain
+        if name in ("ref_spa_fwd_res", "ref_spa_fwd_grad"):
+            args = (ws, x, pos)
+            kernel, plain = (
+                (ops.ref_spa_fwd_res, ops.ref_spa_fwd_res_plain)
+                if name == "ref_spa_fwd_res" else
+                (ops.ref_spa_fwd_grad, ops.ref_spa_fwd_grad_plain))
             moved = _nbytes(x, pos, *ws) + n * (ref_fused.HEAD_FIXED + 128
-                                                + 3) * 4 + n * 8 * 256 * elem
+                                                + 3) * 4 + (
+                n * 8 * 256 * elem if name == "ref_spa_fwd_res" else 0)
             macs = macs_per_point(shapes) + ref_density_grad_macs()
+        elif name == "ref_spa_bwd_recompute":
+            acts = ops.ref_spa_fwd_res(ws, x, pos)[2]
+            g = torch.randn((n, ref_fused.HEAD_FIXED + 128), generator=gen,
+                            device="cuda")
+            args, kernel = (ws, x, g, TILE_ROWS), ops.ref_spa_bwd_recompute
+            plain = ops.ref_spa_bwd_recompute_plain
+            held = lambda *a: plain(*a, acts=acts)   # noqa: E731
+            moved = _nbytes(x, g, *ws) + 4 * sum(w.numel() for w in ws)
+            macs = 2 * macs_per_point(shapes) + ref_spa_delta_macs()
         else:
             _, _, acts = ops.ref_spa_fwd_res(ws, x, pos)
             g = torch.randn((n, ref_fused.HEAD_FIXED + 128), generator=gen,
@@ -453,7 +530,7 @@ def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
             plain = ops.ref_spa_bwd_plain
             moved = _nbytes(x, g, *acts, *ws) + 4 * sum(w.numel() for w in ws)
             macs = macs_per_point(shapes) + ref_spa_delta_macs()
-    elif name in ("ref_dir_fwd_res", "ref_dir_bwd"):
+    elif name in ("ref_dir_fwd_res", "ref_dir_bwd", "ref_dir_bwd_recompute"):
         tables = ide_tables(ide_level)
         shapes, n = ref_dir_shapes(tables["n_ch"]), RAYS * N_MERGED
         ws = random_weights(shapes, gen, dtype, gain=REF_GAIN)
@@ -475,14 +552,27 @@ def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
             g_rgb, g_nrm = torch.randn((2, n, 3), generator=gen,
                                        device="cuda")
             g_den = torch.randn((n,), generator=gen, device="cuda")
-            args = (*fwd[:5], g_rgb, g_nrm, g_den, acts, ide_level, use_srgb,
-                    TILE_ROWS)
-            kernel, plain = ops.ref_dir_bwd, ops.ref_dir_bwd_plain
-            moved = _nbytes(heads, dirs, noise, g_rgb, g_nrm, g_den, *acts,
-                            *ws) + glue * 4 + n * heads.shape[1] * 4 \
-                + 4 * sum(w.numel() for w in ws)
-            macs = macs_per_point(shapes) + ref_dir_delta_macs(
-                tables["n_ch"]) + 2 * tables["mat"].size
+            grads_out = n * heads.shape[1] * 4 + 4 * sum(w.numel()
+                                                         for w in ws)
+            if name == "ref_dir_bwd":
+                args = (*fwd[:5], g_rgb, g_nrm, g_den, acts, ide_level,
+                        use_srgb, TILE_ROWS)
+                kernel, plain = ops.ref_dir_bwd, ops.ref_dir_bwd_plain
+                moved = _nbytes(heads, dirs, noise, g_rgb, g_nrm, g_den,
+                                *acts, *ws) + glue * 4 + grads_out
+                macs = macs_per_point(shapes) + ref_dir_delta_macs(
+                    tables["n_ch"]) + 2 * tables["mat"].size
+            else:
+                args = (*fwd[:5], g_rgb, g_nrm, g_den, ide_level, use_srgb,
+                        TILE_ROWS)
+                kernel = ops.ref_dir_bwd_recompute
+                plain = ops.ref_dir_bwd_recompute_plain
+                held = lambda *a: plain(*a, acts=acts)   # noqa: E731
+                moved = _nbytes(heads, dirs, noise, g_rgb, g_nrm, g_den,
+                                *ws) + glue * 4 + grads_out
+                # the rebuilt glue and trunk, the deltas, the weight grads
+                macs = 2 * macs_per_point(shapes) + ref_dir_delta_macs(
+                    tables["n_ch"]) + 3 * tables["mat"].size
     else:   # prop_mlp_bwd
         shapes, n = prop_shapes(), RAYS * N_COARSE
         ws = random_weights(shapes, gen, dtype)
@@ -493,7 +583,11 @@ def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
         moved = _nbytes(x, g, *ws) + 4 * sum(w.numel() for w in ws)
         # the recomputed forward, the deltas and the weight grads
         macs = 2 * macs_per_point(shapes) + 256 + 3 * 256 * 256
-    return args, kernel, plain, moved, 2.0 * macs * n, n
+    return args, kernel, plain, held or plain, moved, 2.0 * macs * n, n
+
+
+def is_bwd(name: str) -> bool:
+    return "_bwd" in name
 
 
 HEAD_GROUPS = ((0, 1), (1, 2), (2, 5), (5, 8), (8, 11), (11, None))
@@ -548,7 +642,7 @@ def compare(name, dtype, got, want, args=()):
     """Hold a kernel's outputs against the plain version's; returns (max
     abs err of the outputs, worst relative Frobenius error of the grads or
     the stored activations, or None, and a dict of further readings)."""
-    if name == "ref_dir_bwd":
+    if name in ("ref_dir_bwd", "ref_dir_bwd_recompute"):
         rel = dheads_rel(got[0], want[0])
         if not (torch.isfinite(got[0]).all() and rel <= grad_rel(name,
                                                                   dtype)):
@@ -557,9 +651,19 @@ def compare(name, dtype, got, want, args=()):
         err, worst = compare_grads(name, dtype, got[1], want[1])
         return max(err, float((got[0] - want[0]).abs().max())), \
             max(rel, worst), {"dheads_rel_err": rel}
-    if name.endswith("bwd"):
+    if is_bwd(name):
         return (*compare_grads(name, dtype, got, want), {})
     act_rel, extra = None, {}
+    if name == "ref_spa_fwd_grad":
+        # the target on the residual form's activations, which this form
+        # computes but keeps as bit masks in shared memory
+        res = ops.ref_spa_fwd_res(*args)
+        rel, ratio = target_check(dtype, got[1], *args, res[2])
+        extra = {"normal_target_rel": rel, "normal_target_tol":
+                 DGRAD_REL[dtype], "normal_target_f32_ratio": ratio,
+                 "equals_res_form": bool(torch.equal(got[0], res[0])
+                                         and torch.equal(got[1], res[1]))}
+        got, want = (got[0],), (want[0],)
     if name.endswith("_res"):
         act_rels = [_rel_err(g.float(), w.float())
                     for g, w in zip(got[-1], want[-1])]
@@ -614,6 +718,23 @@ def cast_controls(name, args, want):
                     up(ws), x.float(), g, up(acts), tile), want),
                 "rounded_once": worst(ops.ref_spa_bwd_plain(
                     ws, x, g, acts, x.shape[0]), want)}
+    if name == "ref_spa_bwd_recompute":
+        ws, x, g, tile = args
+        acts = ops.ref_spa_fwd_res(ws, x, x[:, :3].float().contiguous())[2]
+        plain = ops.ref_spa_bwd_recompute_plain
+        return {"f32_throughout": worst(plain(up(ws), x.float(), g, tile,
+                                              up(acts)), want),
+                "rounded_once": worst(plain(ws, x, g, x.shape[0], acts),
+                                      want)}
+    if name == "ref_dir_bwd_recompute":
+        (ws, heads, dirs, per_ray, noise, g_rgb, g_nrm, g_den, level, srgb,
+         tile) = args
+        acts = ops.ref_dir_fwd_res(ws, heads, dirs, per_ray, noise, level,
+                                   srgb)[3]
+        name, args = "ref_dir_bwd", (*args[:8], acts, level, srgb, tile)
+    if name == "vanilla_mlp_bwd_recompute":
+        rgb3, _, acts = ops.vanilla_mlp_fwd_res(*args[:3])
+        args = (*args, rgb3, acts)
     if name == "ref_dir_bwd":
         (ws, heads, dirs, per_ray, noise, g_rgb, g_nrm, g_den, acts, level,
          srgb, tile) = args
@@ -644,14 +765,22 @@ def cast_controls(name, args, want):
 def check_kernel(name, dtype, gen, timed=True, **case):
     """Hold ``name`` against its plain version at its main-path shapes (the
     ``case`` of ref_dir_fwd); with ``timed`` also time both."""
-    args, kernel, plain, moved, flops, n = kernel_case(name, dtype, gen,
-                                                       **case)
+    args, kernel, plain, held, moved, flops, n = kernel_case(name, dtype,
+                                                             gen, **case)
     got = kernel(*args)
-    want = plain(*args)
+    want = held(*args)
     torch.cuda.synchronize()
     err, rel, readings = compare(name, dtype, got, want, args)
+    if held is not plain:
+        # a reading: against the plain version with its own forward
+        full = plain(*args)
+        pairs = (list(zip(got[1], full[1])) + [(got[0], full[0])]
+                 if name == "ref_dir_bwd_recompute" else zip(got, full))
+        readings["plain_forward_rel_err"] = max(_rel_err(a, b)
+                                                for a, b in pairs)
+        del full
     controls = None
-    if name.endswith("bwd") and dtype == torch.bfloat16:
+    if is_bwd(name) and dtype == torch.bfloat16:
         controls = cast_controls(name, args, want)
         if min(controls.values()) <= grad_rel(name, dtype):
             fail(f"{name}: a planted cast fault reads {controls}, within "
@@ -660,7 +789,7 @@ def check_kernel(name, dtype, gen, timed=True, **case):
     del got, want
     bytes_s, ops_s = moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     rel_key = "act_rel_err" if name.endswith("_res") else "grad_rel_err"
-    tol = (grad_rel(name, dtype) if name.endswith("bwd") else
+    tol = (grad_rel(name, dtype) if is_bwd(name) else
            dict(TOLS[dtype], act_rel=ACT_REL[dtype]) if rel is not None
            else TOLS[dtype])
     extra = {} if controls is None else {"planted_faults_rel": controls}
@@ -888,6 +1017,15 @@ def calls_held_against_plain(record: dict):
     fm, rf = ops.fused_mlp, ops.ref_fused
     tol = TOLS[torch.float32]
 
+    def quiet(name, *args, **kw):
+        """A kernel call made only to hold another kernel against its plain
+        version (the residual forwards give the activations that the
+        recompute kernels rebuild bit for bit): its launch is not counted."""
+        before = dict(ops.LAUNCHES)
+        out = orig[name](*args, **kw)
+        ops.LAUNCHES.update(before)
+        return out
+
     def note(key, value):
         record[key] = max(record.get(key, 0.0), value)
 
@@ -901,6 +1039,11 @@ def calls_held_against_plain(record: dict):
             int(((a > 0) != (b > 0)).sum()) for a, b in zip(got, want))
 
     def fwd(name, got, want, args):
+        if name == "ref_spa_fwd_grad":
+            acts = quiet("ref_spa_fwd_res", *args)[2]
+            note("normal_target_rel", target_check(torch.float32, got[1],
+                                                   *args, acts)[0])
+            got, want = (got[0],), (want[0],)
         if name.endswith("_res"):
             flips(got[-1], want[-1])
             if name == "ref_spa_fwd_res":
@@ -913,23 +1056,47 @@ def calls_held_against_plain(record: dict):
                          want if isinstance(want, tuple) else (want,)))
 
     def bwd(name, got, want, args):
-        if name == "ref_dir_bwd":
+        if name in ("ref_dir_bwd", "ref_dir_bwd_recompute"):
             note(name, dheads_rel(got[0], want[0]))
             got, want = got[1], want[1]
         note(name, max(_rel_err(a, b) for a, b in zip(got, want)))
 
+    def vanilla_rc(ws, x, d, g_rgb, g_sig, **kw):
+        rgb3, _, acts = quiet("vanilla_mlp_fwd_res", ws, x, d)
+        return fm.vanilla_mlp_bwd_recompute_plain(ws, x, d, g_rgb, g_sig,
+                                                  fwd=(rgb3, acts))
+
+    def spa_rc(ws, enc, g, tile=ref_fused.TILE, **kw):
+        acts = quiet("ref_spa_fwd_res", ws, enc,
+                     enc[:, :3].float().contiguous())[2]
+        return rf.ref_spa_bwd_recompute_plain(ws, enc, g, tile, acts=acts)
+
+    def dir_rc(ws, heads, dirs, per_ray, noise, g_rgb, g_nrm, g_den,
+               ide_level=4, use_srgb=False, tile=ref_fused.TILE, **kw):
+        acts = quiet("ref_dir_fwd_res", ws, heads, dirs, per_ray, noise,
+                     ide_level, use_srgb)[3]
+        return rf.ref_dir_bwd_recompute_plain(
+            ws, heads, dirs, per_ray, noise, g_rgb, g_nrm, g_den, ide_level,
+            use_srgb, tile, acts=acts)
+
     held = {"prop_mlp_fwd": (fm, fm.prop_mlp_plain),
+            "vanilla_mlp_fwd": (fm, fm.vanilla_mlp_plain),
             "vanilla_mlp_fwd_res": (fm, fm.vanilla_mlp_fwd_res_plain),
             "vanilla_mlp_bwd": (fm, fm.vanilla_mlp_bwd_plain),
+            "vanilla_mlp_bwd_recompute": (fm, vanilla_rc),
             "prop_mlp_bwd": (fm, fm.prop_mlp_bwd_plain),
             "ref_spa_fwd_res": (rf, rf.ref_spa_fwd_res_plain),
+            "ref_spa_fwd_grad": (rf, rf.ref_spa_fwd_grad_plain),
+            "ref_dir_fwd": (rf, rf.ref_dir_plain),
             "ref_dir_fwd_res": (rf, rf.ref_dir_fwd_res_plain),
             "ref_spa_bwd": (rf, rf.ref_spa_bwd_plain),
-            "ref_dir_bwd": (rf, rf.ref_dir_bwd_plain)}
+            "ref_spa_bwd_recompute": (rf, spa_rc),
+            "ref_dir_bwd": (rf, rf.ref_dir_bwd_plain),
+            "ref_dir_bwd_recompute": (rf, dir_rc)}
     orig = {k: getattr(mod, k) for k, (mod, _) in held.items()}
 
     def wrap(name, plain):
-        check = bwd if name.endswith("bwd") else fwd
+        check = bwd if is_bwd(name) else fwd
 
         def call(*args, device=None, **kw):
             out = orig[name](*args, device=device, **kw)
@@ -946,19 +1113,10 @@ def calls_held_against_plain(record: dict):
             setattr(mod, k, orig[k])
 
 
-def step_check(model: str = "vanilla"):
-    """Loss and grads of one f32 step at full width (1024 rays, 64 + 128
-    samples, 256-wide nets; Ref-NeRF with its bottleneck noise off) through
-    the kernels' autograd and through the nn.Module path, same weights, rays
-    and injected noise; each kernel call of the step held against its plain
-    version on its own operands."""
-    ref = model == "ref"
-    cfg = PipelineConfig(model=model, bottleneck_noise=0.0)
-    kernels = REF_TRAIN_KERNELS if ref else TRAIN_KERNELS
-    loss_rtol, grad_rel = ((REF_STEP_LOSS_RTOL, REF_STEP_GRAD_REL) if ref
-                           else (STEP_LOSS_RTOL, STEP_GRAD_REL))
-    models = seeded_models(cfg, 4 if ref else 1)
-    g = torch.Generator(device="cuda").manual_seed(2)
+def step_batch(seed: int = 2):
+    """One default step's rays (1024 of a 400x400 view), ground truth and
+    injected noise (jitter, sorted uniforms), from ``seed``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     focal = fov_to_focal(LEGO_FOV, (400, 400))
     pose = torch.tensor(pose_spherical(30.0, -30.0, 4.0)[:3],
                         device="cuda")
@@ -968,6 +1126,25 @@ def step_check(model: str = "vanilla"):
     jitter = torch.rand((RAYS, N_COARSE), generator=g, device="cuda")
     u = torch.sort(torch.rand((RAYS, N_FINE + 1), generator=g,
                               device="cuda"), dim=-1).values
+    return rays, gt, jitter, u
+
+
+def step_check(model: str = "vanilla", store_residuals: bool = True):
+    """Loss and grads of one f32 step at full width (1024 rays, 64 + 128
+    samples, 256-wide nets; Ref-NeRF with its bottleneck noise off) through
+    the kernels' autograd (the residual or the recompute form) and through
+    the nn.Module path, same weights, rays and injected noise; each kernel
+    call of the step held against its plain version on its own operands
+    (a recompute backward on its forward kernel's activations, which it
+    rebuilds bit for bit), and the step's launch set checked."""
+    ref = model == "ref"
+    cfg = PipelineConfig(model=model, bottleneck_noise=0.0,
+                         store_residuals=store_residuals)
+    kernels = STEP_KERNELS[(model, store_residuals)]
+    loss_rtol, grad_rel = ((REF_STEP_LOSS_RTOL, REF_STEP_GRAD_REL) if ref
+                           else (STEP_LOSS_RTOL, STEP_GRAD_REL))
+    models = seeded_models(cfg, 4 if ref else 1)
+    rays, gt, jitter, u = step_batch()
     params = train_parameters(models)
     out, per_call = {}, {}
     for use_kernels in (True, False):
@@ -986,7 +1163,7 @@ def step_check(model: str = "vanilla"):
              f"{out[False][3]}")
     f32 = torch.float32
     for k in kernels:
-        lim = GRAD_REL[f32] if k.endswith("bwd") else 1.0
+        lim = GRAD_REL[f32] if is_bwd(k) else 1.0
         if k not in per_call or not per_call[k] <= lim:
             fail(f"{model} step check: {k} against its plain version on the "
                  f"step's own operands reads {per_call.get(k)}, limit {lim}")
@@ -1007,7 +1184,111 @@ def step_check(model: str = "vanilla"):
                 metrics_plain=metrics, grad_rel_err_max=max(rels),
                 grad_rel_err_median=statistics.median(rels),
                 grad_rel_tol=grad_rel, n_grads=len(rels),
-                per_call_vs_plain=per_call)
+                per_call_vs_plain=per_call, launches=launches)
+
+
+def recompute_vs_res(model: str):
+    """One default bf16 step (1024 rays, 64 + 128 samples, 256-wide nets,
+    bottleneck noise off) in the recompute form against the same step in
+    the residual form: same weights, rays and noise.  Both forms rebuild or
+    store the same forward bits; the vanilla and directional backwards sum
+    alike, the spatial recompute backward as jax.vjp does (d(inter) in
+    another order, the heads' bias grads from the f32 cotangent).  The
+    loss, each grad's relative error (limit: the backward's bf16 grad
+    limit) and how many grads are equal bit for bit."""
+    cfg = PipelineConfig(model=model, bottleneck_noise=0.0, use_bf16=True)
+    models = seeded_models(cfg, 6)
+    rays, gt, jitter, u = step_batch(7)
+    params = train_parameters(models)
+    out = {}
+    for res in (True, False):
+        loss, _ = compute_loss(models, rays, gt,
+                               cfg.replace(store_residuals=res),
+                               noise=(jitter, u))
+        out[res] = (loss.item(), torch.autograd.grad(loss, params))
+    rels = [_rel_err(a, b) for a, b in zip(out[False][1], out[True][1])]
+    lim = (REF_GRAD_REL if model == "ref" else GRAD_REL)[torch.bfloat16]
+    names = [n for m in models for n, _ in m.named_parameters()]
+    worst = max(range(len(rels)), key=rels.__getitem__)
+    loss_rel = abs(out[False][0] / out[True][0] - 1.0)
+    if not (math.isfinite(out[False][0]) and max(rels) <= lim
+            and loss_rel <= STEP_LOSS_RTOL):
+        fail(f"{model} bf16 recompute vs residual step: loss {out[False][0]}"
+             f" vs {out[True][0]}, grad relative errors {rels} (limit {lim})")
+    return dict(loss_res=out[True][0], loss_recompute=out[False][0],
+                loss_rel=loss_rel, grad_rel_err_max=max(rels),
+                worst_grad=names[worst],
+                grad_rel_err_median=statistics.median(rels), grad_rel_tol=lim,
+                n_grads=len(rels),
+                grads_equal=sum(int(torch.equal(a, b)) for a, b in
+                                zip(out[False][1], out[True][1])))
+
+
+# the least peak-memory saving of the recompute form over the residual form
+# at one default bf16 step: the residual Ref-NeRF step holds 16 activations
+# of 196,608 x 256 in bf16 (1.6 GB) from the forward to the backward, the
+# vanilla step 9 of 131,072 x (256, 128) (0.57 GB)
+MEMORY_SAVING = {"vanilla": 0.4e9, "ref": 1.2e9}
+
+
+def step_memory(model: str):
+    """The peak device memory and the time of one default bf16 step (1024
+    rays, -s, bottleneck noise 0.02) through ``train_step`` in the residual
+    and the recompute form, same seeded weights and rays.  Memory:
+    ``max_memory_allocated`` after ``reset_peak_memory_stats`` around one
+    warm step (forward, backward, Adam), and its excess over what was
+    allocated before the step.  Time: ms per step over MEMORY_STEPS
+    back-to-back calls then a synchronize, median of MEMORY_RUNS; the
+    launches of those steps, one per step of each kernel of the form and
+    none of the other form's."""
+    out = {}
+    for res in (True, False):
+        form = "res" if res else "recompute"
+        cfg = PipelineConfig(model=model, use_bf16=True, store_residuals=res)
+        models = seeded_models(cfg, 8)
+        opt = make_optimizer(models)
+        rays, gt, _, _ = step_batch(9)
+        gen = torch.Generator(device="cuda").manual_seed(10)
+
+        def step():
+            train_step(models, opt, rays, gt, cfg, 1e-4, generator=gen)
+
+        step()                      # Adam's state, the kernels loaded
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        ops.reset_launches()
+        times = []
+        for _ in range(MEMORY_RUNS):
+            t0 = time.perf_counter()
+            for _ in range(MEMORY_STEPS):
+                step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) / MEMORY_STEPS)
+        launches = dict(ops.LAUNCHES)
+        steps = MEMORY_STEPS * MEMORY_RUNS
+        want = dict(dict.fromkeys(launches, 0),
+                    **dict.fromkeys(STEP_KERNELS[(model, res)], steps))
+        if launches != want:
+            fail(f"{model} {form} steps launched {launches}, expected {want}")
+        ms = statistics.median(times) * 1e3
+        out[form] = dict(peak_bytes=peak, step_bytes=peak - base,
+                         ms_per_step=ms, ms_per_step_runs=[t * 1e3
+                                                           for t in times],
+                         rays_per_s=RAYS / (ms * 1e-3), steps=steps,
+                         launches=launches)
+        del models, opt
+        torch.cuda.empty_cache()
+    saving = out["res"]["peak_bytes"] - out["recompute"]["peak_bytes"]
+    if saving < MEMORY_SAVING[model]:
+        fail(f"{model}: the recompute form saves {saving} bytes of peak "
+             f"memory, less than {MEMORY_SAVING[model]}: {out}")
+    return dict(out, peak_saving_bytes=saving,
+                peak_saving_min=MEMORY_SAVING[model])
 
 
 # ---------------------------------------------------------------------------
@@ -1067,21 +1348,30 @@ def write_train_split(tmp: str):
     write_split(tmp, "test", 1, rng)
 
 
+# the train phases' routes: (flags, kernels of a step, band of the epoch
+# means against --no_pallas, kernels of an eval render)
+ROUTES = {
+    "vanilla": ((), TRAIN_KERNELS, TRAIN_BAND,
+                ("prop_mlp_fwd", "vanilla_mlp_fwd")),
+    "ref": (("-t", "--name", "ref_1"), REF_TRAIN_KERNELS, REF_TRAIN_BAND,
+            REF_KERNELS),
+    "hybrid": (("-t", "--ref_kernels", "hybrid", "--name", "hybrid_1"),
+               STEP_KERNELS[("hybrid", True)], REF_TRAIN_BAND,
+               ("prop_mlp_fwd", "ref_spa_fwd"))}
+
+
 def run_train(tmp: str, model: str = "vanilla"):
-    """``python -m nerf_tpu_torch [-t] --epochs 5 -s -w`` on the 20-view
-    train split, through the kernels and through the nn.Module route
-    (``--no_pallas``, its checkpoint under another name): launches per step
-    of each training kernel, and the two routes' loss curves."""
-    ref = model == "ref"
-    flags = ("-t", "--name", "ref_1") if ref else ()
-    kernels = REF_TRAIN_KERNELS if ref else TRAIN_KERNELS
-    band_lim = REF_TRAIN_BAND if ref else TRAIN_BAND
+    """``python -m nerf_tpu_torch [-t [--ref_kernels hybrid]] --epochs 5 -s
+    -w`` on the 20-view train split, through the kernels and through the
+    nn.Module route (``--no_pallas``, its checkpoint under another name):
+    launches per step of each training kernel, and the two routes' loss
+    curves."""
+    flags, kernels, band_lim, eval_kernels = ROUTES[model]
     steps = TRAIN_VIEWS * TRAIN_EPOCHS
     eval_chunks = math.ceil(400 * 400 / CHUNK)   # one test view, at the end
     runs = {"plain": train_once(tmp, f"{model}_plain", *flags, "--no_pallas",
                                 "--name", f"{model}_plain_route"),
             "kernels": train_once(tmp, f"{model}_kernels", *flags)}
-    eval_kernels = REF_KERNELS if ref else ("prop_mlp_fwd", "vanilla_mlp_fwd")
     want = dict(dict.fromkeys(ops.LAUNCHES, 0),
                 **dict.fromkeys(eval_kernels, eval_chunks))
     if runs["plain"][0] != want:
@@ -1119,11 +1409,13 @@ def run_train(tmp: str, model: str = "vanilla"):
 
 
 def render_trained(tmp: str, model: str = "vanilla"):
-    """``-r -e -s -w`` (Ref-NeRF: ``-t ... --render_normal``) on the
-    checkpoint the train phase wrote."""
-    ref = model == "ref"
-    flags = ["-t", "--name", "ref_1"] if ref else []
-    argv = flags + ["-r", "-e", "-s", "-w", "--dataset_root",
+    """``-r -e -s -w`` (Ref-NeRF: ``-t ... --render_normal``, the hybrid
+    route with ``--ref_kernels hybrid``) on the checkpoint the train phase
+    wrote: each eval kernel of the route launches once per chunk, no other
+    kernel."""
+    ref = model != "vanilla"
+    flags, _, _, eval_kernels = ROUTES[model]
+    argv = list(flags) + ["-r", "-e", "-s", "-w", "--dataset_root",
                     os.path.join(tmp, "data"), "--dataset_name", "lego",
                     "--output_dir", os.path.join(tmp, "output")] \
         + (["--render_normal"] if ref else [])
@@ -1133,10 +1425,11 @@ def render_trained(tmp: str, model: str = "vanilla"):
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     n_chunks = math.ceil(400 * 400 / CHUNK)
-    fine = "ref_dir_fwd" if ref else "vanilla_mlp_fwd"
-    if rc != 0 or launches[fine] != n_chunks:
+    want = dict(dict.fromkeys(launches, 0),
+                **dict.fromkeys(eval_kernels, n_chunks))
+    if rc != 0 or launches != want:
         fail(f"render of the trained {model} checkpoint: rc {rc}, launches "
-             f"{launches}")
+             f"{launches}, expected {want}")
     grid = read_png(os.path.join(tmp, "output", "given", "result_000.png"))
     # panels of 400 columns, 2 apart: rgb[, normal], ground truth
     if grid.shape[1] != (3 if ref else 2) * 402 - 2:
@@ -1229,6 +1522,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = {}
     for name in KERNELS:
+        if name in RECOMPUTE_KERNELS:    # phase 10
+            continue
         for dtype in (torch.bfloat16, torch.float32):
             res = check_kernel(name, dtype, gen)
             checks[(name, dtype)] = res
@@ -1286,18 +1581,50 @@ def main() -> int:
         emit("ref_render_trained", **render_trained(tmp, "ref"))
         emit("ref_train_profile", **profile_trainer(tmp, 3, "-t"))
 
-    # phase 10: the kernels line, then the last line.  ``launches`` is each
+        # phase 10: the recompute form of the training step
+        for name in RECOMPUTE_KERNELS:
+            for dtype in (torch.bfloat16, torch.float32):
+                res = check_kernel(name, dtype, gen)
+                checks[(name, dtype)] = res
+                emit("recompute_kernels", **res)
+                torch.cuda.empty_cache()
+        emit("step_recompute", **step_check("vanilla", False))
+        emit("ref_step_recompute", **step_check("ref", False))
+        for model in ("vanilla", "ref"):
+            emit("recompute_vs_res", model=model, **recompute_vs_res(model))
+        memory = {}
+        for model in ("vanilla", "ref"):
+            memory[model] = step_memory(model)
+            emit("step_memory", model=model, **memory[model])
+
+        # phase 11: the hybrid route through the entry
+        hybrid = run_train(tmp, "hybrid")
+        emit("hybrid_train", **hybrid)
+        emit("hybrid_render_trained", **render_trained(tmp, "hybrid"))
+        emit("hybrid_train_profile", **profile_trainer(
+            tmp, 3, "-t", "--ref_kernels", "hybrid"))
+
+    # phase 12: the kernels line, then the last line.  ``launches`` is each
     # kernel's count in its path's run: the vanilla train path (training
     # steps and the final eval render) for the vanilla kernels, the Ref-NeRF
     # render path for the Ref-NeRF eval forwards, the Ref-NeRF train path
-    # for its training kernels; ``launches_render``, ``launches_ref`` and
-    # ``launches_ref_train`` its count in the vanilla render path's, the
-    # Ref-NeRF render path's and the Ref-NeRF train path's runs.
+    # for its training kernels, the hybrid train path for the spatial
+    # recompute pair, and the recompute steps of phase 10 (60 train_step
+    # calls of each model) for the other two recompute backwards;
+    # ``launches_render``, ``launches_ref``, ``launches_ref_train``,
+    # ``launches_recompute_steps`` and ``launches_hybrid_train`` its count in
+    # each of those runs.
+    recompute_steps = {k: memory["vanilla"]["recompute"]["launches"][k]
+                       + memory["ref"]["recompute"]["launches"][k]
+                       for k in ops.LAUNCHES}
     kernels = []
     for name, meta in KERNELS.items():
         res = checks[(name, torch.bfloat16)]   # -s trains and renders in bf16
         f32 = checks[(name, torch.float32)]
-        path = (ref_train["launches"] if name in REF_TRAIN_KERNELS[1:-1]
+        path = (hybrid["launches"] if name in ("ref_spa_fwd_grad",
+                                               "ref_spa_bwd_recompute")
+                else recompute_steps if name in RECOMPUTE_KERNELS
+                else ref_train["launches"] if name in REF_TRAIN_KERNELS[1:-1]
                 else ref_launches if name.startswith("ref")
                 else train["launches"])
         kernels.append(dict(
@@ -1306,6 +1633,8 @@ def main() -> int:
             launches_render=render_launches[name],
             launches_ref=ref_launches[name],
             launches_ref_train=ref_train["launches"][name],
+            launches_recompute_steps=recompute_steps[name],
+            launches_hybrid_train=hybrid["launches"][name],
             max_abs_err=res["max_abs_err"],
             rel_err=res.get("grad_rel_err", res.get("act_rel_err")),
             tol=res["tol"], n=res["n"], ms=res["ms"],

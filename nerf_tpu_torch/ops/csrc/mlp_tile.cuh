@@ -1,5 +1,4 @@
-// Tile building blocks shared by the fused MLP kernels (fused_mlp.cu,
-// fused_mlp_bwd.cu, ref_fused.cu, ref_fused_bwd.cu).
+// Tile building blocks shared by the fused MLP kernels (every csrc/*.cu).
 //
 // One block of THREADS threads owns a tile of TM points.  Activations of the
 // tile live in shared memory as (TM, width) row-major arrays in the compute
@@ -117,6 +116,37 @@ struct MinBlocks {
   static constexpr int value = sizeof(T) == 2 ? 2 : 1;
 };
 
+__device__ __forceinline__ float sigmoidf(float v) {
+  return 1.f / (1.f + expf(-v));
+}
+
+// dst[(row0 + r) * ld + col0 + o] = act(a[r] @ w[:, o] + bias[o]) for the
+// tile's rows r with row0 + r < n and o < n_out, with a (TM, k_dim) in
+// shared memory and w (k_dim, n_out): one warp per (r, o), lanes stride over
+// k and reduce with shuffles.  For the narrow heads.
+template <typename T>
+__device__ void narrow_head(const T* a, int k_dim, const T* __restrict__ w,
+                            const float* __restrict__ bias, int n_out,
+                            bool sigmoid, float* dst, int64_t ld, int col0,
+                            int64_t row0, int64_t n) {
+  const int lane = threadIdx.x & 31;
+  for (int idx = threadIdx.x >> 5; idx < TM * n_out; idx += WARPS) {
+    const int r = idx / n_out;
+    const int o = idx - r * n_out;
+    float acc = 0.f;
+    for (int k = lane; k < k_dim; k += 32)
+      acc = fmaf(to_f(a[r * k_dim + k]), to_f(w[(size_t)k * n_out + o]), acc);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0 && row0 + r < n) {
+      float v = acc + bias[o];
+      if (sigmoid) v = sigmoidf(v);
+      dst[(row0 + r) * ld + col0 + o] = v;
+    }
+  }
+}
+
 __device__ __forceinline__ void zero(float (&acc)[RPT][CPT]) {
 #pragma unroll
   for (int i = 0; i < RPT; ++i)
@@ -124,16 +154,24 @@ __device__ __forceinline__ void zero(float (&acc)[RPT][CPT]) {
     for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
 }
 
+// Words of a ReLU bit mask row: bit c % 32 of word c / 32 is (act[c] > 0).
+__host__ __device__ constexpr int mask_words(int width) {
+  return (width + 31) >> 5;
+}
+
 // out = act(a0 @ w0 [+ a1 @ w1] + bias) for the whole tile, cast to T.
 // a0, a1 and out are (TM, width) row-major in shared memory.  With STORE the
 // tile's valid rows are also written to gout, an (n, n_out) array in device
-// memory (rows row0 .. row0 + TM).
-template <bool STORE, typename T>
+// memory (rows row0 .. row0 + TM).  With MASK the ReLU mask (out > 0) of
+// every row goes to mbits, (TM, mask_words(n_out)) words in shared memory:
+// the 32 lanes of a warp hold 32 consecutive columns of a row, one word.
+template <bool STORE, typename T, bool MASK = false>
 __device__ void dense_tile(const T* a0, int k0, const T* __restrict__ w0,
                            const T* a1, int k1, const T* __restrict__ w1,
                            const float* __restrict__ bias, int n_out,
                            bool relu, T* out, T* __restrict__ gout,
-                           int64_t row0, int64_t n) {
+                           int64_t row0, int64_t n,
+                           uint32_t* mbits = nullptr) {
   const int lane = threadIdx.x & 31;
   const int r0 = (threadIdx.x >> 5) * RPT;
   for (int c0 = 0; c0 < n_out; c0 += CHUNK) {
@@ -155,6 +193,21 @@ __device__ void dense_tile(const T* a0, int k0, const T* __restrict__ w0,
         if (STORE && row0 + r0 + i < n) gout[(row0 + r0 + i) * n_out + c] = vt;
       }
     }
+    if (MASK) {
+      // each lane reads back the values it wrote itself: no barrier needed
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int cw = c0 + 32 * j;   // the warp's first column, uniform
+        if (cw >= n_out) break;
+        const int c = cw + lane;
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const bool on = c < n_out && to_f(out[(r0 + i) * n_out + c]) > 0.f;
+          const uint32_t bits = __ballot_sync(0xffffffffu, on);
+          if (lane == 0) mbits[(r0 + i) * mask_words(n_out) + (cw >> 5)] = bits;
+        }
+      }
+    }
   }
 }
 
@@ -162,18 +215,20 @@ __device__ void dense_tile(const T* a0, int k0, const T* __restrict__ w0,
 // W is the layer's (n_out, k_dim) = (in, out) forward matrix, a the next
 // layer's (TM, k_dim) delta in shared memory, act the stored (n, n_out)
 // activation in device memory (null: no ReLU), and gs/wcol an optional K = 1
-// outer-product term added in f32 before the mask.  With ADD the product is
-// first rounded to T and added to what ``out`` holds (a sum of T-valued
-// pullbacks that rounds after each add).  The result goes to shared memory
-// in T (the operand of the next product) and, when gout is not null, its
-// valid rows to gout, in OutT (T, or f32).  ``stage`` is the shared-memory
-// stage of accumulate_t; every thread of the block must call this.
-template <bool ADD = false, typename T, typename OutT>
+// outer-product term added in f32 before the mask.  With MBITS the mask is
+// read from the tile's bit mask mbits (dense_tile's MASK) instead of act.
+// With ADD the product is first rounded to T and added to what ``out`` holds
+// (a sum of T-valued pullbacks that rounds after each add).  The result goes
+// to shared memory in T (the operand of the next product) and, when gout is
+// not null, its valid rows to gout, in OutT (T, or f32).  ``stage`` is the
+// shared-memory stage of accumulate_t; every thread of the block must call
+// this.
+template <bool ADD = false, typename T, typename OutT, bool MBITS = false>
 __device__ void delta_tile(const T* a, int k_dim, const T* __restrict__ w,
                            int n_out, const T* __restrict__ act,
                            const T* gs, const T* __restrict__ wcol, T* out,
                            OutT* __restrict__ gout, int64_t row0, int64_t n,
-                           T* stage) {
+                           T* stage, const uint32_t* mbits = nullptr) {
   const int lane = threadIdx.x & 31;
   const int r0 = (threadIdx.x >> 5) * RPT;
   for (int c0 = 0; c0 < n_out; c0 += CHUNK) {
@@ -192,8 +247,12 @@ __device__ void delta_tile(const T* a, int k_dim, const T* __restrict__ w,
         float v = acc[i][j];
         if (wcol != nullptr) v += to_f(gs[t]) * wc;
         if (ADD) v = to_f(from_f<T>(v)) + to_f(out[t * n_out + c]);
-        if (act != nullptr)
+        if (MBITS) {
+          const uint32_t word = mbits[t * mask_words(n_out) + (c >> 5)];
+          v = (row < n && ((word >> (c & 31)) & 1u)) ? v : 0.f;
+        } else if (act != nullptr) {
           v = (row < n && to_f(act[row * n_out + c]) > 0.f) ? v : 0.f;
+        }
         out[t * n_out + c] = from_f<T>(v);
         if (gout != nullptr && row < n) gout[row * n_out + c] = from_f<OutT>(v);
       }

@@ -1,6 +1,6 @@
-// Device code shared by the Ref-NeRF forward and backward kernels
-// (ref_fused.cu, ref_fused_bwd.cu): the weight tuples, the narrow heads and
-// the per-point glue of the directional branch.
+// Device code shared by the Ref-NeRF kernels (ref_fused.cu, ref_fused_bwd.cu,
+// ref_fused_recompute.cu): the weight tuples, the wide head and the
+// per-point glue of the directional branch and its pullback.
 
 #pragma once
 
@@ -69,10 +69,6 @@ struct DirDims {
   int nb, dd, h, o, maxw, l_max, n_ch, srgb;
 };
 
-__device__ __forceinline__ float sigmoidf(float v) {
-  return 1.f / (1.f + expf(-v));
-}
-
 // jax.nn.softplus: logaddexp(v, 0)
 __device__ __forceinline__ float softplusf(float v) {
   return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
@@ -83,33 +79,6 @@ __device__ __forceinline__ float srgbf(float v) {
   return v <= 0.0031308f
       ? 323.f / 25.f * v
       : (211.f * powf(fmaxf(FLT_EPSILON, v), 5.f / 12.f) - 11.f) / 200.f;
-}
-
-// dst[(row0 + r) * ld + col0 + o] = act(a[r] @ w[:, o] + bias[o]) for the
-// tile's rows r with row0 + r < n and o < n_out, with a (TM, k_dim) in
-// shared memory and w (k_dim, n_out): one warp per (r, o), lanes stride over
-// k and reduce with shuffles.  For the narrow heads.
-template <typename T>
-__device__ void narrow_head(const T* a, int k_dim, const T* __restrict__ w,
-                            const float* __restrict__ bias, int n_out,
-                            bool sigmoid, float* dst, int64_t ld, int col0,
-                            int64_t row0, int64_t n) {
-  const int lane = threadIdx.x & 31;
-  for (int idx = threadIdx.x >> 5; idx < TM * n_out; idx += WARPS) {
-    const int r = idx / n_out;
-    const int o = idx - r * n_out;
-    float acc = 0.f;
-    for (int k = lane; k < k_dim; k += 32)
-      acc = fmaf(to_f(a[r * k_dim + k]), to_f(w[(size_t)k * n_out + o]), acc);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0 && row0 + r < n) {
-      float v = acc + bias[o];
-      if (sigmoid) v = sigmoidf(v);
-      dst[(row0 + r) * ld + col0 + o] = v;
-    }
-  }
 }
 
 // dst[(row0 + r) * ld + col0 + c] = a[r] @ w[:, c] + bias[c] in f32 for
@@ -214,6 +183,92 @@ __device__ void dir_glue(const float* hr, const float* dv, const float* mat,
   nrm_out[1] = m1;
   nrm_out[2] = m2;
   *den_out = hr[1];
+}
+
+// d/dv of linear_to_srgb (ref_fused.py:303-308) times g, as jax.vjp takes it
+// through the where: 323/25 below the knee, else (g / 200) 211 (5/12)
+// max(eps, v)^(5/12 - 1).
+__device__ __forceinline__ float srgb_bwd(float v, float g) {
+  return v <= 0.0031308f
+      ? g * (323.f / 25.f)
+      : g / 200.f * 211.f * (5.f / 12.f * powf(fmaxf(FLT_EPSILON, v),
+                                                5.f / 12.f - 1.f));
+}
+
+// The pullback of one point's glue (_dir_glue_prelude_rowland, ref_fused.py
+// :543-572, with the recurrence IDE's hand rules :410-414, :474-482) into
+// its row dh of d(heads), columns 0..10: xr is the pullback of the trunk
+// input row in T (IDE in columns [nb, nb + 2C), d.n in nb + 2C); gn the
+// normal's cotangent; dtint3 and ddiff3 those of sigmoid(tint) and
+// sigmoid(diffuse [- ln 3]).  The forward is recomputed as dir_glue does it.
+template <typename T>
+__device__ void dir_glue_bwd(const float* hr, const float* dv,
+                             const float* mat, const float* sig,
+                             const DirDims& d, const T* xr, const float* gn,
+                             float gden, const float* tint3,
+                             const float* diff3, const float* dtint3,
+                             const float* ddiff3, float* dh) {
+  const float n0 = hr[2], n1 = hr[3], n2 = hr[4];
+  const float nrm = sqrtf(n0 * n0 + n1 * n1 + n2 * n2 + 1e-20f);
+  const float s = nrm + 1e-7f;
+  const float m0 = -n0 / s, m1 = -n1 / s, m2 = -n2 / s;
+  const float dn = dv[0] * m0 + dv[1] * m1 + dv[2] * m2;
+  const float x = dv[0] - 2.f * dn * m0;
+  const float y = dv[1] - 2.f * dn * m1;
+  const float z = dv[2] - 2.f * dn * m2;
+  const float rho = hr[0] - 1.f;
+  const float rough = softplusf(rho);
+  float gx = 0.f, gy = 0.f, gz = 0.f, grough = 0.f;
+  int c = 0;
+  for (int l = 1; l <= d.l_max; l *= 2) {
+    float pr = 1.f, pi = 0.f;   // (x + iy)^m
+    float qr = 0.f, qi = 0.f;   // (x + iy)^(m - 1), 0 at m = 0
+    for (int m = 0; m <= l; ++m, ++c) {
+      float vzm = 0.f, dvzm = 0.f, zp = 1.f, zq = 0.f;
+      for (int i = 0; i <= d.l_max; ++i) {
+        const float mc = mat[i * d.n_ch + c];
+        vzm = fmaf(mc, zp, vzm);             // sum_i mat[i, c] z^i
+        dvzm = fmaf(mc * (float)i, zq, dvzm);  // sum_i mat[i, c] i z^(i-1)
+        zq = zp;
+        zp *= z;
+      }
+      const float att = expf(-sig[c] * rough);
+      const float gre = to_f(xr[d.nb + c]);
+      const float gim = to_f(xr[d.nb + d.n_ch + c]);
+      // out_re = (re vzm) att, out_im = (im vzm) att
+      const float are = gre * att, aim = gim * att;
+      const float dre = are * vzm, dim = aim * vzm;
+      gz = fmaf(are * pr + aim * pi, dvzm, gz);
+      gx += (float)m * (dre * qr + dim * qi);
+      gy += (float)m * (dim * qr - dre * qi);
+      grough += (gre * (pr * vzm) + gim * (pi * vzm)) * att * -sig[c];
+      qr = pr;
+      qi = pi;
+      const float next = pr * x - pi * y;
+      pi = pi * x + pr * y;
+      pr = next;
+    }
+  }
+  // reflect = d - (2 d.n) m; d.n = d . m, which also takes the trunk's row
+  const float two_dn = 2.f * dn;
+  const float gdn = to_f(xr[d.nb + 2 * d.n_ch])
+      - 2.f * (gx * m0 + gy * m1 + gz * m2);
+  const float gm0 = gn[0] - two_dn * gx + dv[0] * gdn;
+  const float gm1 = gn[1] - two_dn * gy + dv[1] * gdn;
+  const float gm2 = gn[2] - two_dn * gz + dv[2] * gdn;
+  // m = -n / s, s = sqrt(|n|^2 + 1e-20) + 1e-7
+  const float ds = (gm0 * n0 + gm1 * n1 + gm2 * n2) / (s * s);
+  const float dq = ds * (0.5f / nrm);
+  dh[0] = grough * expf(rho - rough);
+  dh[1] = gden;
+  dh[2] = -(gm0 / s) + 2.f * n0 * dq;
+  dh[3] = -(gm1 / s) + 2.f * n1 * dq;
+  dh[4] = -(gm2 / s) + 2.f * n2 * dq;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    dh[5 + k] = ddiff3[k] * (diff3[k] * (1.f - diff3[k]));
+    dh[8 + k] = dtint3[k] * (tint3[k] * (1.f - tint3[k]));
+  }
 }
 
 }  // namespace

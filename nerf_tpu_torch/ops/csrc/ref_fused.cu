@@ -139,7 +139,28 @@ __device__ void enc_pull(const T* a, int k_dim, const T* __restrict__ w,
   }
 }
 
-template <typename T>
+// Bytes of the encoding tile of ref_spa_fwd_res_kernel<false>: the f32
+// d(density)/d(enc) tile is laid over the masks of z5 z6 z7 inter and the
+// encoding tile, all dead once it is first written (after z5's pullback), so
+// the tile is padded where those are smaller than it.  At H = O = 256 in
+// bf16 that keeps the block at 106 KB of shared memory: two fit an SM.
+__host__ __device__ inline size_t grad_xs_bytes(int dx, int h, int o,
+                                                size_t t_size) {
+  const size_t tail =
+      (size_t)TM * (3 * mask_words(h) + mask_words(o)) * sizeof(uint32_t);
+  const size_t xs = (size_t)TM * dx * t_size;
+  const size_t denc = (size_t)TM * dx * sizeof(float);
+  const size_t need = denc > tail + xs ? denc - tail : xs;
+  return (need + 15) & ~(size_t)15;
+}
+
+// The training forward of the spatial net.  With STORE (ref_spa_fwd_res)
+// the 8 activations go to s in device memory and the density pullback reads
+// its ReLU masks back from them; without (ref_spa_fwd_grad) nothing of the
+// trunk leaves the block: each layer's mask is kept as bits in shared
+// memory (dense_tile's MASK, 8 words a row at width 256), which is all the
+// pullback needs of an activation.
+template <bool STORE, typename T>
 __global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
 ref_spa_fwd_res_kernel(const T* __restrict__ x, const float* __restrict__ pos,
                        const float* __restrict__ pe_w,
@@ -148,9 +169,18 @@ ref_spa_fwd_res_kernel(const T* __restrict__ x, const float* __restrict__ pos,
                        Acts<T> s, float* __restrict__ heads,
                        float* __restrict__ dgrad) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* denc = reinterpret_cast<float*>(smem);   // (TM, dx) d(density)/d(enc)
-  T* xs = reinterpret_cast<T*>(denc + TM * dx);
-  T* buf_a = xs + TM * dx;
+  const int hwd = TM * mask_words(h);             // mask words of an H layer
+  uint32_t* mb = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* m[8];                                 // h1..h4 z5 z6 z7 inter
+  for (int i = 0; i < 8; ++i) m[i] = STORE ? nullptr : mb + i * hwd;
+  // (TM, dx) d(density)/d(enc): first in STORE, else over dead masks
+  float* denc = STORE ? reinterpret_cast<float*>(smem)
+                      : reinterpret_cast<float*>(mb + 4 * hwd);
+  T* xs = STORE ? reinterpret_cast<T*>(denc + TM * dx)
+                : reinterpret_cast<T*>(mb + 7 * hwd + TM * mask_words(o));
+  T* buf_a = STORE ? xs + TM * dx
+      : reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(xs)
+                             + grad_xs_bytes(dx, h, o, sizeof(T)));
   T* buf_b = buf_a + TM * maxw;
   T* unit = buf_b + TM * maxw;                    // (TM, 2) rows [0, 1]
   T* st = unit + TM * 2;                          // the W^T stage
@@ -164,43 +194,44 @@ ref_spa_fwd_res_kernel(const T* __restrict__ x, const float* __restrict__ pos,
     unit[2 * t + 1] = from_f<T>(1.f);
   }
   __syncthreads();
-  dense_tile<true>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n);     // h1
+  constexpr bool MK = !STORE;
+  dense_tile<STORE, T, MK>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n, m[0]);     // h1
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n);   // h2
+  dense_tile<STORE, T, MK>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n, m[1]);   // h2
   __syncthreads();
-  dense_tile<true>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n);   // h3
+  dense_tile<STORE, T, MK>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n, m[2]);   // h3
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n);   // h4
+  dense_tile<STORE, T, MK>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n, m[3]);   // h4
   __syncthreads();
-  dense_tile<true>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n); // z5
+  dense_tile<STORE, T, MK>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n, m[4]); // z5
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n);   // z6
+  dense_tile<STORE, T, MK>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n, m[5]);   // z6
   __syncthreads();
-  dense_tile<true>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, s.a[6], row0, n);   // z7
+  dense_tile<STORE, T, MK>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, s.a[6], row0, n, m[6]);   // z7
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n);   // inter
+  dense_tile<STORE, T, MK>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n, m[7]);   // inter
   __syncthreads();
   narrow_head(buf_b, o, p.wrt, p.brt, 2, false, heads, hw, 0, row0, n);
   narrow_head(buf_b, o, p.wnct, p.bnct, 9, false, heads, hw, 2, row0, n);
   wide_head(buf_b, o, p.wbn, p.bbn, nb, heads, hw, HEAD_FIXED, row0, n);
   __syncthreads();   // also makes the stored activations visible to the block
   // the density column's pullback: [0, 1] @ wrt^T = wrt[:, 1], then the trunk
-  delta_tile(unit, 2, p.wrt, o, s.a[7], none, none, buf_a, drop, row0, n, st);    // inter
+  delta_tile<false, T, T, MK>(unit, 2, p.wrt, o, s.a[7], none, none, buf_a, drop, row0, n, st, m[7]);    // inter
   __syncthreads();
-  delta_tile(buf_a, o, p.w7, h, s.a[6], none, none, buf_b, drop, row0, n, st);    // z7
+  delta_tile<false, T, T, MK>(buf_a, o, p.w7, h, s.a[6], none, none, buf_b, drop, row0, n, st, m[6]);    // z7
   __syncthreads();
-  delta_tile(buf_b, h, p.w6, h, s.a[5], none, none, buf_a, drop, row0, n, st);    // z6
+  delta_tile<false, T, T, MK>(buf_b, h, p.w6, h, s.a[5], none, none, buf_a, drop, row0, n, st, m[5]);    // z6
   __syncthreads();
-  delta_tile(buf_a, h, p.w5, h, s.a[4], none, none, buf_b, drop, row0, n, st);    // z5
+  delta_tile<false, T, T, MK>(buf_a, h, p.w5, h, s.a[4], none, none, buf_b, drop, row0, n, st, m[4]);    // z5
   __syncthreads();
   enc_pull<false>(buf_b, h, p.w4a, dx, denc, st);
-  delta_tile(buf_b, h, p.w4b, h, s.a[3], none, none, buf_a, drop, row0, n, st);   // h4
+  delta_tile<false, T, T, MK>(buf_b, h, p.w4b, h, s.a[3], none, none, buf_a, drop, row0, n, st, m[3]);   // h4
   __syncthreads();
-  delta_tile(buf_a, h, p.w3, h, s.a[2], none, none, buf_b, drop, row0, n, st);    // h3
+  delta_tile<false, T, T, MK>(buf_a, h, p.w3, h, s.a[2], none, none, buf_b, drop, row0, n, st, m[2]);    // h3
   __syncthreads();
-  delta_tile(buf_b, h, p.w2, h, s.a[1], none, none, buf_a, drop, row0, n, st);    // h2
+  delta_tile<false, T, T, MK>(buf_b, h, p.w2, h, s.a[1], none, none, buf_a, drop, row0, n, st, m[1]);    // h2
   __syncthreads();
-  delta_tile(buf_a, h, p.w1, h, s.a[0], none, none, buf_b, drop, row0, n, st);    // h1
+  delta_tile<false, T, T, MK>(buf_a, h, p.w1, h, s.a[0], none, none, buf_b, drop, row0, n, st, m[0]);    // h1
   __syncthreads();
   enc_pull<true>(buf_b, h, p.w0, dx, denc, st);
   __syncthreads();
@@ -321,7 +352,8 @@ int launch_spa(const void* x, const uint64_t* ptrs, int64_t n,
   return (int)cudaGetLastError();
 }
 
-// dims: dx h o nb; acts: the 8 (n, width) outputs h1..h4 z5 z6 z7 inter
+// dims: dx h o nb; acts: the 8 (n, width) outputs h1..h4 z5 z6 z7 inter,
+// or null (ref_spa_fwd_grad: the masks stay on chip)
 template <typename T>
 int launch_spa_res(const void* x, const void* pos, const void* pe_w,
                    const void* pe_b, const uint64_t* ptrs, int64_t n,
@@ -330,15 +362,23 @@ int launch_spa_res(const void* x, const void* pos, const void* pe_w,
   const RefSpaWeights<T> p = spa_weights<T>(ptrs);
   const int dx = dims[0], h = dims[1], o = dims[2], nb = dims[3];
   const int maxw = h > o ? h : o;
-  const size_t smem = (size_t)TM * dx * sizeof(float)
-      + ((size_t)TM * (dx + 2 * maxw + 2) + KC * stage_ld<T>()) * sizeof(T);
-  int err = set_smem(ref_spa_fwd_res_kernel<T>, smem);
+  const bool store = acts != nullptr;
+  const size_t tail = ((size_t)TM * (2 * maxw + 2) + KC * stage_ld<T>())
+      * sizeof(T);                                // buf_a buf_b unit stage
+  const size_t smem = store
+      ? (size_t)TM * dx * (sizeof(float) + sizeof(T)) + tail
+      : (size_t)TM * (7 * mask_words(h) + mask_words(o)) * sizeof(uint32_t)
+        + grad_xs_bytes(dx, h, o, sizeof(T)) + tail;
+  auto kernel = store ? ref_spa_fwd_res_kernel<true, T>
+                      : ref_spa_fwd_res_kernel<false, T>;
+  int err = set_smem(kernel, smem);
   if (err != 0 || n == 0) return err;
+  Acts<T> s = {};
+  if (store) s = acts_of<T>(acts);
   const unsigned grid = (unsigned)((n + TM - 1) / TM);
-  ref_spa_fwd_res_kernel<T><<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       (const T*)x, (const float*)pos, (const float*)pe_w,
-      (const float*)pe_b, p, n, dx, h, o, nb, maxw, acts_of<T>(acts), heads,
-      dgrad);
+      (const float*)pe_b, p, n, dx, h, o, nb, maxw, s, heads, dgrad);
   return (int)cudaGetLastError();
 }
 
@@ -385,6 +425,15 @@ extern "C" {
                                const uint64_t* acts, void* stream) {           \
     return launch_spa_res<T>(x, pos, pe_w, pe_b, ptrs, n, dims,                \
                              (float*)heads, (float*)dgrad, acts,               \
+                             (cudaStream_t)stream);                            \
+  }                                                                            \
+  int ref_spa_fwd_grad_##SUFFIX(const void* x, const void* pos,                \
+                                const void* pe_w, const void* pe_b,            \
+                                const uint64_t* ptrs, int64_t n,               \
+                                const int* dims, void* heads, void* dgrad,     \
+                                void* stream) {                                \
+    return launch_spa_res<T>(x, pos, pe_w, pe_b, ptrs, n, dims,                \
+                             (float*)heads, (float*)dgrad, nullptr,            \
                              (cudaStream_t)stream);                            \
   }                                                                            \
   int ref_dir_fwd_##SUFFIX(const void* heads, const void* noise,               \

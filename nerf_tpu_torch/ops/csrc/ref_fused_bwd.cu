@@ -126,92 +126,6 @@ ref_spa_delta_kernel(RefSpaWeights<T> p, Acts<T> s,
   delta_tile(buf_a, h, p.w1, h, s.a[0], none, none, buf_b, dl.d[0], row0, n, st);    // h1
 }
 
-// d/dv of linear_to_srgb (ref_fused.py:303-308) times g, as jax.vjp takes it
-// through the where: 323/25 below the knee, else (g / 200) 211 (5/12)
-// max(eps, v)^(5/12 - 1).
-__device__ __forceinline__ float srgb_bwd(float v, float g) {
-  return v <= 0.0031308f
-      ? g * (323.f / 25.f)
-      : g / 200.f * 211.f * (5.f / 12.f * powf(fmaxf(FLT_EPSILON, v),
-                                                5.f / 12.f - 1.f));
-}
-
-// The pullback of one point's glue (_dir_glue_prelude_rowland, ref_fused.py
-// :543-572, with the recurrence IDE's hand rules :410-414, :474-482) into
-// its row dh of d(heads), columns 0..10: xr is the pullback of the trunk
-// input row in T (IDE in columns [nb, nb + 2C), d.n in nb + 2C); gn the
-// normal's cotangent; dtint3 and ddiff3 those of sigmoid(tint) and
-// sigmoid(diffuse [- ln 3]).  The forward is recomputed as dir_glue does it.
-template <typename T>
-__device__ void dir_glue_bwd(const float* hr, const float* dv,
-                             const float* mat, const float* sig,
-                             const DirDims& d, const T* xr, const float* gn,
-                             float gden, const float* tint3,
-                             const float* diff3, const float* dtint3,
-                             const float* ddiff3, float* dh) {
-  const float n0 = hr[2], n1 = hr[3], n2 = hr[4];
-  const float nrm = sqrtf(n0 * n0 + n1 * n1 + n2 * n2 + 1e-20f);
-  const float s = nrm + 1e-7f;
-  const float m0 = -n0 / s, m1 = -n1 / s, m2 = -n2 / s;
-  const float dn = dv[0] * m0 + dv[1] * m1 + dv[2] * m2;
-  const float x = dv[0] - 2.f * dn * m0;
-  const float y = dv[1] - 2.f * dn * m1;
-  const float z = dv[2] - 2.f * dn * m2;
-  const float rho = hr[0] - 1.f;
-  const float rough = softplusf(rho);
-  float gx = 0.f, gy = 0.f, gz = 0.f, grough = 0.f;
-  int c = 0;
-  for (int l = 1; l <= d.l_max; l *= 2) {
-    float pr = 1.f, pi = 0.f;   // (x + iy)^m
-    float qr = 0.f, qi = 0.f;   // (x + iy)^(m - 1), 0 at m = 0
-    for (int m = 0; m <= l; ++m, ++c) {
-      float vzm = 0.f, dvzm = 0.f, zp = 1.f, zq = 0.f;
-      for (int i = 0; i <= d.l_max; ++i) {
-        const float mc = mat[i * d.n_ch + c];
-        vzm = fmaf(mc, zp, vzm);             // sum_i mat[i, c] z^i
-        dvzm = fmaf(mc * (float)i, zq, dvzm);  // sum_i mat[i, c] i z^(i-1)
-        zq = zp;
-        zp *= z;
-      }
-      const float att = expf(-sig[c] * rough);
-      const float gre = to_f(xr[d.nb + c]);
-      const float gim = to_f(xr[d.nb + d.n_ch + c]);
-      // out_re = (re vzm) att, out_im = (im vzm) att
-      const float are = gre * att, aim = gim * att;
-      const float dre = are * vzm, dim = aim * vzm;
-      gz = fmaf(are * pr + aim * pi, dvzm, gz);
-      gx += (float)m * (dre * qr + dim * qi);
-      gy += (float)m * (dim * qr - dre * qi);
-      grough += (gre * (pr * vzm) + gim * (pi * vzm)) * att * -sig[c];
-      qr = pr;
-      qi = pi;
-      const float next = pr * x - pi * y;
-      pi = pi * x + pr * y;
-      pr = next;
-    }
-  }
-  // reflect = d - (2 d.n) m; d.n = d . m, which also takes the trunk's row
-  const float two_dn = 2.f * dn;
-  const float gdn = to_f(xr[d.nb + 2 * d.n_ch])
-      - 2.f * (gx * m0 + gy * m1 + gz * m2);
-  const float gm0 = gn[0] - two_dn * gx + dv[0] * gdn;
-  const float gm1 = gn[1] - two_dn * gy + dv[1] * gdn;
-  const float gm2 = gn[2] - two_dn * gz + dv[2] * gdn;
-  // m = -n / s, s = sqrt(|n|^2 + 1e-20) + 1e-7
-  const float ds = (gm0 * n0 + gm1 * n1 + gm2 * n2) / (s * s);
-  const float dq = ds * (0.5f / nrm);
-  dh[0] = grough * expf(rho - rough);
-  dh[1] = gden;
-  dh[2] = -(gm0 / s) + 2.f * n0 * dq;
-  dh[3] = -(gm1 / s) + 2.f * n1 * dq;
-  dh[4] = -(gm2 / s) + 2.f * n2 * dq;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    dh[5 + k] = ddiff3[k] * (diff3[k] * (1.f - diff3[k]));
-    dh[8 + k] = dtint3[k] * (tint3[k] * (1.f - tint3[k]));
-  }
-}
-
 // deltas: d1 .. d6 (H), d7 d8 (O) in T; xg (n, dd) the trunk input in T;
 // dlog (n, 3) the f32 cotangent of the specular logits
 template <typename T>

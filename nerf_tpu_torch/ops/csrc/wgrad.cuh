@@ -26,12 +26,14 @@ constexpr int MAX_JOBS = 16;
 // dW (m, k) = A^T delta over the points of one K-split, and, with
 // bias_partial, db (k) = the column sums of delta.  A is (n, m) in T; delta is
 // (n, k) in T or f32 (then rounded to T for the product, and summed unrounded
-// for the bias).  partial: (splits, m, k); bias_partial: (splits, k).
+// for the bias), its rows ld elements apart.  partial: (splits, m, k);
+// bias_partial: (splits, k).
 struct WGradJob {
   const void* a;
   const void* delta;
   float* partial;
   float* bias_partial;
+  int64_t ld;
   int m, k, delta_f32, tiles_k, tile_begin;
 };
 
@@ -72,7 +74,7 @@ wgrad_kernel(WGradJobs jobs, int64_t n, int64_t rows_per_split,
           ? to_f(a[row * jb.m + m0 + cc]) : 0.f;
       float dv = 0.f, dp = 0.f;
       if (in_rows && k0 + cc < jb.k) {
-        const int64_t at = row * jb.k + k0 + cc;
+        const int64_t at = row * jb.ld + k0 + cc;
         if (jb.delta_f32) {
           dv = ((const float*)jb.delta)[at];
           dp = to_f(from_f<T>(dv));
@@ -115,7 +117,10 @@ wgrad_kernel(WGradJobs jobs, int64_t n, int64_t rows_per_split,
 }
 
 // out[e] = sum over splits s = 0, 1, ... of partial[s * count + e], for every
-// grad; one thread per output element, the splits summed in order.
+// grad; one thread per output element, the splits summed in order.  With
+// accumulate the sum starts from out[e] instead of 0: a backward that walks
+// the points in chunks of whole splits reduces each chunk's splits onto the
+// sum so far, in the same order as one reduction over all of them.
 constexpr int MAX_GRADS = 24;
 
 struct ReduceJobs {
@@ -126,7 +131,7 @@ struct ReduceJobs {
 };
 
 __global__ void __launch_bounds__(THREADS)
-reduce_kernel(ReduceJobs jobs, int splits) {
+reduce_kernel(ReduceJobs jobs, int splits, bool accumulate) {
   const int64_t idx = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (idx >= jobs.begin[jobs.n_grads]) return;
   int gx = 0;
@@ -134,7 +139,7 @@ reduce_kernel(ReduceJobs jobs, int splits) {
   const int64_t count = jobs.begin[gx + 1] - jobs.begin[gx];
   const int64_t e = idx - jobs.begin[gx];
   const float* src = jobs.partial[gx];
-  float s = 0.f;
+  float s = accumulate ? jobs.out[gx][e] : 0.f;
   for (int k = 0; k < splits; ++k) s += src[k * count + e];
   jobs.out[gx][e] = s;
 }
@@ -161,14 +166,15 @@ inline GradPlan plan_grads(const int64_t* sizes, int n_grads, int splits) {
 }
 
 // One weight-grad job: grad index wi = A^T delta (m x k), bias index bi
-// (-1: none).
+// (-1: none); delta's rows are ld apart (0: k, a contiguous (n, k) array).
 inline void add_job(WGradJobs& jobs, int& tiles, const GradPlan& g,
                     float* partial,
              const void* a, int m, const void* delta, int k, bool delta_f32,
-             int wi, int bi) {
+             int wi, int bi, int64_t ld = 0) {
   WGradJob& j = jobs.job[jobs.n_jobs++];
   j.a = a;
   j.delta = delta;
+  j.ld = ld > 0 ? ld : k;
   j.m = m;
   j.k = k;
   j.delta_f32 = delta_f32 ? 1 : 0;
@@ -180,12 +186,14 @@ inline void add_job(WGradJobs& jobs, int& tiles, const GradPlan& g,
 }
 
 // rows_per_split: the points of each K-split; round_partial: round each
-// split's weight grad (not the bias sums) to T before the reduction.
+// split's weight grad (not the bias sums) to T before the reduction;
+// accumulate: add the splits' sum to what grads hold (reduce_kernel).
 template <typename T>
 int launch_wgrad_reduce(const WGradJobs& jobs, int tiles, const GradPlan& g,
                         float* partial, const uint64_t* grads, int64_t n,
                         int splits, int64_t rows_per_split,
-                        bool round_partial, cudaStream_t stream) {
+                        bool round_partial, cudaStream_t stream,
+                        bool accumulate = false) {
   wgrad_kernel<T><<<dim3((unsigned)tiles, (unsigned)splits), THREADS, 0,
                     stream>>>(jobs, n, rows_per_split, round_partial);
   int err = (int)cudaGetLastError();
@@ -200,7 +208,7 @@ int launch_wgrad_reduce(const WGradJobs& jobs, int tiles, const GradPlan& g,
   }
   const unsigned blocks =
       (unsigned)((rj.begin[g.n_grads] + THREADS - 1) / THREADS);
-  reduce_kernel<<<blocks, THREADS, 0, stream>>>(rj, splits);
+  reduce_kernel<<<blocks, THREADS, 0, stream>>>(rj, splits, accumulate);
   return (int)cudaGetLastError();
 }
 

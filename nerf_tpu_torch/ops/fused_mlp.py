@@ -1,6 +1,6 @@
 """Fused whole-network MLP kernels, their plain versions and their autograd.
 
-Five kernels, CUDA C++ for ``sm_90a`` (``csrc/``), each replacing a Pallas
+Six kernels, CUDA C++ for ``sm_90a`` (``csrc/``), each replacing a Pallas
 kernel of nerf_tpu/ops/fused_mlp.py:
 
 ``prop_mlp_fwd`` (``fused_mlp.cu``)
@@ -21,6 +21,13 @@ kernel of nerf_tpu/ops/fused_mlp.py:
 ``prop_mlp_bwd`` (``fused_mlp_bwd.cu``)
     ``_prop_bwd_kernel`` (:493) with ``_prop_bwd_math`` (:506), the recompute
     form: h1..h4 are rebuilt in the tile; g (N,) f32 -> the 10 f32 grads.
+``vanilla_mlp_bwd_recompute`` (``fused_mlp_recompute.cu``)
+    ``_vanilla_bwd_kernel`` (:136) over ``_vanilla_bwd_tile`` (:181), the
+    backward of ``store_residuals=False``: enc_x, enc_d, g_rgb (3, N) and
+    g_sigma (N,) f32 -> the 24 f32 grads.  h1 .. r1 and rgb3 are rebuilt
+    from the encodings, chunk by chunk of whole K-splits, so that no
+    activation of all N points is held: the chain rule and the sums are
+    ``vanilla_mlp_bwd``'s.
 
 Contract (fused_mlp.py:96-125, :195-246, :326-331): weight matrices (in, out)
 in the compute dtype (f32, or bf16 under ``-s``), biases (1, W) f32; products
@@ -51,8 +58,9 @@ version.  ``LAUNCHES`` (``ops/launch.py``) counts the wrappers' kernel
 launches, one per call that launches (a backward is one count for its three
 CUDA launches), and nowhere else.
 
-``VanillaMLP`` and ``PropMLP`` are the ``torch.autograd.Function``s of the
-training path (the ``jax.custom_vjp`` of ``make_vanilla_fused`` and
+``VanillaMLP``, ``VanillaMLPRecompute`` and ``PropMLP`` are the
+``torch.autograd.Function``s of the training path (the ``jax.custom_vjp`` of
+``make_vanilla_fused`` with ``store_residuals`` True and False, and of
 ``make_prop_fused``).  They take the f32 parameters and cast them inside, as
 ``_prep`` does (fused_mlp.py:326-331), so the f32 grads reach the parameters
 unrounded.
@@ -80,6 +88,9 @@ PROP_BIASES = (1, 3, 5, 7, 9)
 VANILLA_BIASES = (1, 3, 5, 7, 10, 12, 14, 16, 18, 21, 23)
 ROWS_PER_SPLIT = 4096  # points per K-split of the weight-grad pass
 MAX_SPLITS = 64
+# points per chunk of a recompute backward (rounded down to whole K-splits):
+# its scratch holds this many points' activations and deltas
+CHUNK_ROWS = 32768
 
 
 def prep_weights(ws, cd: torch.dtype):
@@ -203,6 +214,21 @@ def vanilla_mlp_bwd_plain(ws, enc_x, enc_d, g_rgb, g_sigma, rgb3, acts):
             _dxw(r1, dlogit3.T), _bsum(dlogit3.T))
 
 
+def vanilla_mlp_bwd_recompute_plain(ws, enc_x, enc_d, g_rgb, g_sigma,
+                                    fwd=None):
+    """``_vanilla_bwd_tile`` (fused_mlp.py:181-192) in plain PyTorch: the
+    forward recomputed, then ``vanilla_mlp_bwd_plain`` on its activations
+    and rgb3.  ``fwd`` = (rgb3, acts) gives the forward instead: the card's
+    checks differentiate through the kernel's own forward, which the kernel
+    rebuilds bit for bit and whose bf16 rounding the plain forward does not
+    share."""
+    if fwd is None:
+        acts, _, rgb3 = _vanilla_forward(ws, enc_x, enc_d)
+    else:
+        rgb3, acts = fwd
+    return vanilla_mlp_bwd_plain(ws, enc_x, enc_d, g_rgb, g_sigma, rgb3, acts)
+
+
 def prop_mlp_bwd_plain(ws, enc, g):
     """``_prop_bwd_kernel`` with ``_prop_bwd_math`` (fused_mlp.py:493,
     :506-536) in plain PyTorch: the forward recomputed, then the 10 f32
@@ -259,6 +285,9 @@ register({
                                           U64P]),
     "prop_mlp_bwd": ("fused_mlp_bwd", [PTR, PTR, U64P, I64, INT, INT, PTR,
                                        PTR, PTR, PTR, INT, U64P]),
+    "vanilla_mlp_bwd_recompute": ("fused_mlp_recompute", [
+        PTR, PTR, PTR, PTR, U64P, I64, INTP, U64P, U64P, PTR, I64, I64,
+        U64P]),
 })
 
 
@@ -373,6 +402,51 @@ def vanilla_mlp_bwd(ws, enc_x, enc_d, g_rgb, g_sigma, rgb3, acts,
     return grads
 
 
+def chunk_rows(rows_per_split: int) -> int:
+    """Points per chunk of a recompute backward: as many whole K-splits of
+    ``rows_per_split`` points as fit in ``CHUNK_ROWS``, at least one."""
+    return max(1, CHUNK_ROWS // rows_per_split) * rows_per_split
+
+
+def vanilla_mlp_bwd_recompute(ws, enc_x, enc_d, g_rgb, g_sigma,
+                              device=None):
+    """Fused VanillaNeRF backward in the recompute form: the 24 f32 grads of
+    the weight tuple from the encodings and the f32 cotangents g_rgb (3, N)
+    and g_sigma (N,) alone.  The points are walked in chunks of whole
+    K-splits (``chunk_rows``), each chunk's activations rebuilt into scratch
+    of the chunk's size; the grads do not depend on the chunk size.  On the
+    CPU this is ``vanilla_mlp_bwd_recompute_plain``."""
+    dev = resolve_device(device)
+    check_operands(ws, (enc_x, enc_d), N_VANILLA_WS, VANILLA_BIASES, dev)
+    n, dx, dd, h, bn, r = _vanilla_dims(ws, enc_x, enc_d)
+    check_tensor(g_rgb, (3, n), F32, dev, "g_rgb")
+    check_tensor(g_sigma, (n,), F32, dev, "g_sigma")
+    splits = _splits(n)
+    rows = math.ceil(n / splits) if n else ROWS_PER_SPLIT
+    chunk = chunk_rows(rows)
+    if dev.type == "cpu":
+        return vanilla_mlp_bwd_recompute_plain(ws, enc_x, enc_d, g_rgb,
+                                               g_sigma)
+    cd = enc_x.dtype
+    like = dict(device=enc_x.device)
+    m = min(n, chunk)
+    acts = tuple(torch.empty((m, w), dtype=cd, **like)
+                 for w in _act_widths(h, bn, r))
+    # dlogit gsig dr1 dbvec dz7 dz6 dz5 dh4 dh3 dh2 dh1
+    deltas = tuple(
+        torch.empty((m, w), dtype=F32 if i == 3 else cd, **like)
+        for i, w in enumerate((3, 1, r, bn, bn, h, h, h, h, h, h)))
+    partial = torch.empty(min(splits, chunk // rows)
+                          * sum(w.numel() for w in ws), dtype=F32, **like)
+    grads = _grad_buffers(ws, enc_x.device)
+    dims = (ctypes.c_int * 5)(dx, dd, h, bn, r)
+    launch("vanilla_mlp_bwd_recompute", cd, enc_x.device, enc_x.data_ptr(),
+           enc_d.data_ptr(), g_rgb.data_ptr(), g_sigma.data_ptr(),
+           pointers(ws), n, dims, pointers(acts), pointers(deltas),
+           partial.data_ptr(), rows, chunk, pointers(grads))
+    return grads
+
+
 def prop_mlp_bwd(ws, enc: torch.Tensor, g: torch.Tensor, device=None):
     """Fused ProposalNetwork backward in the recompute form: the 10 f32
     grads of the weight tuple from g (N,) f32, the cotangent of the raw
@@ -430,6 +504,28 @@ class VanillaMLP(torch.autograd.Function):
                                 g_rgb.to(F32).contiguous(),
                                 g_sigma.to(F32).contiguous(), rgb3, acts,
                                 device=ctx.device)
+        return (None, None, None, *grads)
+
+
+class VanillaMLPRecompute(torch.autograd.Function):
+    """``VanillaMLP`` in the recompute form (``store_residuals=False``): the
+    forward is ``vanilla_mlp_fwd`` and saves what ``make_vanilla_fused``'s
+    ``fused_fwd`` keeps then (fused_mlp.py:375-379), the weights and the
+    encodings; the backward is ``vanilla_mlp_bwd_recompute``."""
+
+    @staticmethod
+    def forward(ctx, device, enc_x, enc_d, *ws):
+        wsc = prep_weights(ws, enc_x.dtype)
+        ctx.device = device
+        ctx.save_for_backward(enc_x, enc_d, *wsc)
+        return vanilla_mlp_fwd(wsc, enc_x, enc_d, device=device)
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_sigma):
+        enc_x, enc_d, *wsc = ctx.saved_tensors
+        grads = vanilla_mlp_bwd_recompute(
+            wsc, enc_x, enc_d, g_rgb.to(F32).contiguous(),
+            g_sigma.to(F32).contiguous(), device=ctx.device)
         return (None, None, None, *grads)
 
 

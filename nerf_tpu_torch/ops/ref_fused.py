@@ -1,6 +1,6 @@
 """Fused Ref-NeRF kernels, their plain versions, wrappers and autograd.
 
-Six kernels, CUDA C++ for ``sm_90a``, each replacing a Pallas kernel of
+Nine kernels, CUDA C++ for ``sm_90a``, each replacing a Pallas kernel of
 nerf_tpu/ops/ref_fused.py.  The forwards are in ``csrc/ref_fused.cu``:
 
 ``ref_spa_fwd``
@@ -15,6 +15,11 @@ nerf_tpu/ops/ref_fused.py.  The forwards are in ``csrc/ref_fused.cu``:
     -g / max(1e-5, |g|) (N, 3) f32, where g = d(density)/d(pos) is the
     hand-written backward of the density column alone through the trunk
     and the positional encoding.
+``ref_spa_fwd_grad``
+    The training form of ``store_residuals=False`` (``need_grad=True,
+    store_acts=False``): the heads and the normal target, and no
+    activations; the density pullback reads its ReLU masks from bits the
+    block keeps in shared memory.
 ``ref_dir_fwd`` / ``ref_dir_fwd_res``
     ``_make_dir_fwd_kernel`` (:841) over ``_dir_glue_pure_rowland`` (:575)
     with the recurrence IDE (``hand_vjp=True``), without and with the 8
@@ -36,6 +41,24 @@ The backwards are in ``csrc/ref_fused_bwd.cu``:
     19 f32 grads of the directional tuple.  The rgb tail and the glue before
     the trunk (normal, reflection, IDE, roughness), which the TPU kernel
     differentiates with ``jax.vjp``, are written out by hand.
+
+The recompute backwards of ``store_residuals=False`` are in
+``csrc/ref_fused_recompute.cu``:
+
+``ref_spa_bwd_recompute``
+    ``_make_spa_bwd_kernel`` (:701): enc and the heads' cotangent -> the 23
+    grads, the trunk rebuilt from enc.
+``ref_dir_bwd_recompute``
+    ``_make_dir_bwd_kernel`` (:867): ``ref_dir_bwd``'s outputs from the
+    forward's operands and the cotangents, the glue and the trunk rebuilt.
+
+Both walk the points in chunks of whole ``tile``-row K-splits, each
+chunk's activations and deltas in scratch of the chunk's size, so that no
+activation of all N points is held.  Their numerics are ``jax.vjp``'s
+through ``_cd_matmul_rules``, which differ from the residual kernels' hand
+rules in the spatial net only: d(inter) sums the heads' pullbacks as
+(bn + nct) + rt, the reverse of the residual kernel's order, and the heads'
+bias grads sum the f32 cotangent instead of its rounded copy.
 
 Numerics are the Pallas kernels' (ref_fused.py:79-163, :543-637), not the
 flax module's: weight matrices (in, out) in the compute dtype, biases (1, W)
@@ -66,7 +89,9 @@ tensor launches the kernel or raises.  ``LAUNCHES`` (``ops/launch.py``)
 counts each wrapper call that launches.  ``RefSpatialMLP`` and
 ``RefDirectionalMLP`` are the ``torch.autograd.Function``s of the training
 path, the ``custom_vjp`` pairs of ``_make_spa_fused`` (:1013) and
-``_make_dir_fused`` (:1116).
+``_make_dir_fused`` (:1116) with ``store_residuals=True``;
+``RefSpatialMLPRecompute`` and ``RefDirectionalMLPRecompute`` are the same
+pairs with ``store_residuals=False``.
 """
 
 from __future__ import annotations
@@ -83,7 +108,7 @@ from nerf_tpu_torch.core.encoding import ide_tables, integrated_dir_enc
 from nerf_tpu_torch.core.encoding import linear_to_srgb
 from nerf_tpu_torch.device import resolve_device
 from nerf_tpu_torch.ops.fused_mlp import (
-    _bsum, _dense, _dwt, _hidden, _mask,
+    _bsum, _dense, _dwt, _hidden, _mask, chunk_rows,
 )
 from nerf_tpu_torch.ops.launch import (
     I64, INT, INTP, PTR, U64P, check_operands, check_shapes, check_tensor,
@@ -184,6 +209,12 @@ def ref_spa_fwd_res_plain(ws, enc: torch.Tensor, pos: torch.Tensor):
     return heads, normal_target(density_grad_plain(ws, enc, pos, acts)), acts
 
 
+def ref_spa_fwd_grad_plain(ws, enc: torch.Tensor, pos: torch.Tensor):
+    """``ref_spa_fwd_res_plain`` without the activations: (heads, normal
+    target)."""
+    return ref_spa_fwd_res_plain(ws, enc, pos)[:2]
+
+
 def softplus(v: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: logaddexp(v, 0)."""
     return torch.clamp_min(v, 0.0) + torch.log1p(torch.exp(-v.abs()))
@@ -267,14 +298,32 @@ def ref_spa_bwd_plain(ws, enc, g_heads, acts, tile: int = TILE):
     """``_make_spa_bwd_res_kernel`` (:729-796) in plain PyTorch, cast for
     cast: the 23 f32 grads of the spatial tuple from the heads' cotangent
     g_heads (N, 11 + NB) f32 and the stored activations."""
+    return _spa_bwd(ws, enc, g_heads, acts, tile, recompute=False)
+
+
+def ref_spa_bwd_recompute_plain(ws, enc, g_heads, tile: int = TILE,
+                                acts=None):
+    """``_make_spa_bwd_kernel`` (:701-721) in plain PyTorch: the forward
+    recomputed, then the 23 f32 grads as ``jax.vjp`` takes them through
+    ``_cd_matmul_rules``: d(inter) summed as (bn + nct) + rt, the heads'
+    bias grads from the f32 cotangent.  ``acts`` gives the 8 activations
+    instead of the recomputed ones (the card's checks pass the kernel's
+    own, as for ``vanilla_mlp_bwd_recompute_plain``)."""
+    if acts is None:
+        acts, _ = _spa_forward(ws, enc)
+    return _spa_bwd(ws, enc, g_heads, acts, tile, recompute=True)
+
+
+def _spa_bwd(ws, enc, g_heads, acts, tile: int, recompute: bool):
     (w0, b0, w1, b1, w2, b2, w3, b3, w4a, w4b, b4, w5, b5, w6, b6,
      w7, b7, wrt, brt, wnct, bnct, wbn, bbn) = ws
     h1, h2, h3, h4, z5, z6, z7, inter = acts
     cd = enc.dtype
     g = g_heads.to(F32)
     g_rt, g_nct, g_bn = g[:, :2].to(cd), g[:, 2:11].to(cd), g[:, 11:].to(cd)
-    d_inter = (_dwt(g_rt, wrt).to(cd) + _dwt(g_nct, wnct).to(cd)
-               + _dwt(g_bn, wbn).to(cd))
+    p_rt, p_nct, p_bn = (_dwt(g_rt, wrt).to(cd), _dwt(g_nct, wnct).to(cd),
+                         _dwt(g_bn, wbn).to(cd))
+    d_inter = (p_bn + p_nct) + p_rt if recompute else (p_rt + p_nct) + p_bn
     d8 = _mask(inter, d_inter, cd)
     d7 = _mask(z7, _dwt(d8, w7), cd)
     d6 = _mask(z6, _dwt(d7, w6), cd)
@@ -287,12 +336,32 @@ def ref_spa_bwd_plain(ws, enc, g_heads, acts, tile: int = TILE):
     def dxw(a, d):
         return _tiled_dxw(a, d, tile, cd)
 
+    # the heads' bias grads: jax.vjp's rule sums the f32 cotangent
+    bias = g if recompute else torch.cat([g_rt, g_nct, g_bn], dim=1)
     return (dxw(enc, d1), _bsum(d1), dxw(h1, d2), _bsum(d2),
             dxw(h2, d3), _bsum(d3), dxw(h3, d4), _bsum(d4),
             dxw(enc, d5), dxw(h4, d5), _bsum(d5), dxw(z5, d6), _bsum(d6),
             dxw(z6, d7), _bsum(d7), dxw(z7, d8), _bsum(d8),
-            dxw(inter, g_rt), _bsum(g_rt), dxw(inter, g_nct), _bsum(g_nct),
-            dxw(inter, g_bn), _bsum(g_bn))
+            dxw(inter, g_rt), _bsum(bias[:, :2]), dxw(inter, g_nct),
+            _bsum(bias[:, 2:11]), dxw(inter, g_bn), _bsum(bias[:, 11:]))
+
+
+def ref_dir_bwd_recompute_plain(ws, heads, dirs, per_ray, noise, g_rgb,
+                                g_normal, g_density, ide_level: int = 4,
+                                use_srgb: bool = False, tile: int = TILE,
+                                acts=None):
+    """``_make_dir_bwd_kernel`` (:867-898) in plain PyTorch: the glue and
+    the trunk recomputed, then ``ref_dir_bwd_plain`` on their activations
+    (``jax.vjp`` through the recompute form sums as the residual kernel
+    does).  ``acts`` gives the 8 trunk activations instead (the card's
+    checks pass the kernel's own)."""
+    if acts is None:
+        x = _dir_glue(heads.to(F32), dirs, per_ray, noise, ide_level,
+                      use_srgb, ws[0].dtype)[0]
+        acts = _dir_trunk(ws, x)
+    return ref_dir_bwd_plain(ws, heads, dirs, per_ray, noise, g_rgb,
+                             g_normal, g_density, acts, ide_level, use_srgb,
+                             tile)
 
 
 def ref_dir_bwd_plain(ws, heads, dirs, per_ray, noise, g_rgb, g_normal,
@@ -434,6 +503,13 @@ register({
     "ref_dir_bwd": ("ref_fused_bwd", [PTR, PTR, PTR, I64, PTR, PTR, PTR, PTR,
                                       PTR, U64P, U64P, I64, INTP, PTR, U64P,
                                       PTR, PTR, PTR, INT, I64, U64P]),
+    "ref_spa_fwd_grad": ("ref_fused", [PTR, PTR, PTR, PTR, U64P, I64, INTP,
+                                       PTR, PTR]),
+    "ref_spa_bwd_recompute": ("ref_fused_recompute", [
+        PTR, PTR, U64P, I64, INTP, U64P, U64P, PTR, I64, I64, U64P]),
+    "ref_dir_bwd_recompute": ("ref_fused_recompute", [
+        PTR, PTR, PTR, I64, PTR, PTR, PTR, PTR, PTR, U64P, I64, INTP, PTR,
+        U64P, U64P, PTR, PTR, PTR, I64, I64, U64P]),
 })
 
 
@@ -463,6 +539,17 @@ def ref_spa_fwd_res(ws, enc: torch.Tensor, pos: torch.Tensor, device=None):
     (N, H or O) in enc's dtype).  ``pos`` (N, 3) f32 are the points whose
     encoding ``enc`` is ([pos, PE(pos)]).  On the CPU this is
     ``ref_spa_fwd_res_plain``."""
+    return _spa_train_fwd(ws, enc, pos, device, store=True)
+
+
+def ref_spa_fwd_grad(ws, enc: torch.Tensor, pos: torch.Tensor, device=None):
+    """The spatial training forward of the recompute form: (heads, the
+    detached normal target), as ``ref_spa_fwd_res`` gives them, and no
+    activations.  On the CPU this is ``ref_spa_fwd_grad_plain``."""
+    return _spa_train_fwd(ws, enc, pos, device, store=False)
+
+
+def _spa_train_fwd(ws, enc, pos, device, store: bool):
     dev = resolve_device(device)
     check_operands(ws, (enc,), N_REF_SPA_WS, REF_SPA_BIASES, dev)
     n, dx, h, o, nb = _spa_dims(ws, enc)
@@ -470,19 +557,22 @@ def ref_spa_fwd_res(ws, enc: torch.Tensor, pos: torch.Tensor, device=None):
         raise ValueError(f"enc width {dx} is not [pos 3 | PE 6 L]")
     check_tensor(pos, (n, 3), F32, dev, "pos")
     if dev.type == "cpu":
-        return ref_spa_fwd_res_plain(ws, enc, pos)
+        out = ref_spa_fwd_res_plain(ws, enc, pos)
+        return out if store else out[:2]
     like = dict(device=enc.device)
     heads = torch.empty((n, HEAD_FIXED + nb), dtype=F32, **like)
     dgrad = torch.empty((n, 3), dtype=F32, **like)
     acts = tuple(torch.empty((n, w), dtype=enc.dtype, **like)
-                 for w in (h,) * 7 + (o,))
+                 for w in (h,) * 7 + (o,)) if store else ()
     if n > 0:
         pe_w, pe_b = _pe_operands((dx - 3) // 6, enc.device)
         dims = (ctypes.c_int * 4)(dx, h, o, nb)
-        launch("ref_spa_fwd_res", enc.dtype, enc.device, enc.data_ptr(),
-               pos.data_ptr(), pe_w.data_ptr(), pe_b.data_ptr(), pointers(ws),
-               n, dims, heads.data_ptr(), dgrad.data_ptr(), pointers(acts))
-    return heads, dgrad, acts
+        extra = (pointers(acts),) if store else ()
+        launch("ref_spa_fwd_res" if store else "ref_spa_fwd_grad", enc.dtype,
+               enc.device, enc.data_ptr(), pos.data_ptr(), pe_w.data_ptr(),
+               pe_b.data_ptr(), pointers(ws), n, dims, heads.data_ptr(),
+               dgrad.data_ptr(), *extra)
+    return (heads, dgrad, acts) if store else (heads, dgrad)
 
 
 def _dir_fwd(ws, heads, dirs, per_ray, noise, ide_level, use_srgb, device,
@@ -612,6 +702,88 @@ def ref_dir_bwd(ws, heads: torch.Tensor, dirs: torch.Tensor, per_ray: int,
     return dheads, grads
 
 
+def ref_spa_bwd_recompute(ws, enc: torch.Tensor, g_heads: torch.Tensor,
+                          tile: int = TILE, device=None):
+    """Fused Ref-NeRF spatial backward in the recompute form: the 23 f32
+    grads of the spatial tuple from enc and the heads' cotangent g_heads
+    (N, 11 + NB) f32 alone, each ``tile`` rows' weight grad rounded to the
+    compute dtype.  The points are walked in chunks of whole tiles
+    (``fused_mlp.chunk_rows``), each chunk's activations and deltas in
+    scratch of the chunk's size; the grads do not depend on the chunk size.
+    On the CPU this is ``ref_spa_bwd_recompute_plain``."""
+    dev = resolve_device(device)
+    check_operands(ws, (enc,), N_REF_SPA_WS, REF_SPA_BIASES, dev)
+    n, dx, h, o, nb = _spa_dims(ws, enc)
+    check_tensor(g_heads, (n, HEAD_FIXED + nb), F32, dev, "g_heads")
+    splits = _splits(n, tile)
+    chunk = chunk_rows(tile)
+    if dev.type == "cpu":
+        return ref_spa_bwd_recompute_plain(ws, enc, g_heads, tile)
+    like = dict(dtype=enc.dtype, device=enc.device)
+    m = min(n, chunk)
+    widths = (h,) * 7 + (o,)
+    acts = tuple(torch.empty((m, w), **like) for w in widths)
+    deltas = tuple(torch.empty((m, w), **like) for w in widths)
+    partial = torch.empty(min(splits, chunk // tile)
+                          * sum(w.numel() for w in ws), dtype=F32,
+                          device=enc.device)
+    grads = tuple(torch.empty(w.shape, dtype=F32, device=enc.device)
+                  for w in ws)
+    dims = (ctypes.c_int * 4)(dx, h, o, nb)
+    launch("ref_spa_bwd_recompute", enc.dtype, enc.device, enc.data_ptr(),
+           g_heads.data_ptr(), pointers(ws), n, dims, pointers(acts),
+           pointers(deltas), partial.data_ptr(), tile, chunk,
+           pointers(grads))
+    return grads
+
+
+def ref_dir_bwd_recompute(ws, heads: torch.Tensor, dirs: torch.Tensor,
+                          per_ray: int, noise, g_rgb: torch.Tensor,
+                          g_normal: torch.Tensor, g_density: torch.Tensor,
+                          ide_level: int = 4, use_srgb: bool = False,
+                          tile: int = TILE, device=None):
+    """Fused Ref-NeRF directional backward in the recompute form:
+    ``ref_dir_bwd``'s (d(heads), 19 f32 grads) from the forward's operands
+    and the f32 cotangents alone, walked in chunks as
+    ``ref_spa_bwd_recompute`` is.  On the CPU this is
+    ``ref_dir_bwd_recompute_plain``."""
+    dev = resolve_device(device)
+    n, nb, h, o, l_max, n_ch, cd = _check_dir(ws, heads, dirs, per_ray,
+                                              noise, ide_level, dev)
+    check_tensor(g_rgb, (n, 3), F32, dev, "g_rgb")
+    check_tensor(g_normal, (n, 3), F32, dev, "g_normal")
+    check_tensor(g_density, (n,), F32, dev, "g_density")
+    splits = _splits(n, tile)
+    chunk = chunk_rows(tile)
+    if dev.type == "cpu":
+        return ref_dir_bwd_recompute_plain(ws, heads, dirs, per_ray, noise,
+                                           g_rgb, g_normal, g_density,
+                                           ide_level, use_srgb, tile)
+    like = dict(dtype=cd, device=heads.device)
+    m = min(n, chunk)
+    x = torch.empty((m, nb + 2 * n_ch + 1), **like)    # the trunk input
+    widths = (h,) * 6 + (o, o)
+    acts = tuple(torch.empty((m, w), **like) for w in widths)
+    deltas = tuple(torch.empty((m, w), **like) for w in widths)
+    dlogit = torch.empty((m, 3), dtype=F32, device=heads.device)
+    dheads = torch.empty_like(heads)
+    partial = torch.empty(min(splits, chunk // tile)
+                          * sum(w.numel() for w in ws), dtype=F32,
+                          device=heads.device)
+    grads = tuple(torch.empty(w.shape, dtype=F32, device=heads.device)
+                  for w in ws)
+    mat, sigma = _ide_operands(ide_level, heads.device)
+    dims = (ctypes.c_int * 6)(nb, h, o, l_max, n_ch, int(use_srgb))
+    launch("ref_dir_bwd_recompute", cd, heads.device, heads.data_ptr(),
+           None if noise is None else noise.data_ptr(), dirs.data_ptr(),
+           per_ray, mat.data_ptr(), sigma.data_ptr(), g_rgb.data_ptr(),
+           g_normal.data_ptr(), g_density.data_ptr(), pointers(ws), n, dims,
+           x.data_ptr(), pointers(acts), pointers(deltas), dlogit.data_ptr(),
+           dheads.data_ptr(), partial.data_ptr(), tile, chunk,
+           pointers(grads))
+    return dheads, grads
+
+
 def ref_fine_fwd(spa_ws, dir_ws, enc: torch.Tensor, dirs: torch.Tensor,
                  per_ray: int, ide_level: int = 4, use_srgb: bool = False,
                  device=None):
@@ -691,5 +863,58 @@ class RefDirectionalMLP(torch.autograd.Function):
             *(g.to(F32).contiguous() for g in (g_rgb, g_normal, g_density)),
             acts, ctx.ide_level, ctx.use_srgb, tile=ctx.tile,
             device=ctx.device)
+        return (None, None, dheads, None, None, None, None, None, None,
+                *grads)
+
+
+class RefSpatialMLPRecompute(torch.autograd.Function):
+    """``RefSpatialMLP`` in the recompute form (``store_residuals=False``,
+    and the spatial half of ``ref_kernels="hybrid"``): the forward is
+    ``ref_spa_fwd_grad`` and saves what ``_make_spa_fused``'s ``fused_fwd``
+    keeps then (ref_fused.py:1081-1085), the weights and enc; the backward
+    is ``ref_spa_bwd_recompute``."""
+
+    @staticmethod
+    def forward(ctx, device, tile, enc, pos, *ws):
+        wsc = prep_weights(ws, REF_SPA_BIASES, enc.dtype)
+        heads, dgrad = ref_spa_fwd_grad(wsc, enc, pos, device=device)
+        ctx.device, ctx.tile = device, tile
+        ctx.save_for_backward(enc, *wsc)
+        ctx.mark_non_differentiable(dgrad)
+        return heads, dgrad
+
+    @staticmethod
+    def backward(ctx, g_heads, _):
+        enc, *wsc = ctx.saved_tensors
+        grads = ref_spa_bwd_recompute(wsc, enc, g_heads.to(F32).contiguous(),
+                                      tile=ctx.tile, device=ctx.device)
+        return (None, None, None, None, *grads)
+
+
+class RefDirectionalMLPRecompute(torch.autograd.Function):
+    """``RefDirectionalMLP`` in the recompute form: the forward is
+    ``ref_dir_fwd`` (with the noise) and saves what ``_make_dir_fused``'s
+    ``fused_fwd`` keeps (ref_fused.py:1192-1194), the weights and the
+    inputs; the backward is ``ref_dir_bwd_recompute``."""
+
+    @staticmethod
+    def forward(ctx, device, tile, heads, dirs, noise, per_ray, ide_level,
+                use_srgb, cd, *ws):
+        wsc = prep_weights(ws, REF_DIR_BIASES, cd)
+        rgb, normal, density = ref_dir_fwd(wsc, heads, dirs, per_ray, noise,
+                                           ide_level, use_srgb, device=device)
+        ctx.device, ctx.tile = device, tile
+        ctx.per_ray, ctx.ide_level, ctx.use_srgb = per_ray, ide_level, \
+            use_srgb
+        ctx.save_for_backward(heads, dirs, noise, *wsc)
+        return rgb, normal, density
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_normal, g_density):
+        heads, dirs, noise, *wsc = ctx.saved_tensors
+        dheads, grads = ref_dir_bwd_recompute(
+            wsc, heads, dirs, ctx.per_ray, noise,
+            *(g.to(F32).contiguous() for g in (g_rgb, g_normal, g_density)),
+            ctx.ide_level, ctx.use_srgb, tile=ctx.tile, device=ctx.device)
         return (None, None, dheads, None, None, None, None, None, None,
                 *grads)

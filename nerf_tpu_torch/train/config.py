@@ -57,8 +57,10 @@ class PipelineConfig:
     second_order_normals: bool = False
     # Ref-NeRF kernel strategy ("all" | "hybrid")
     ref_kernels: str = "all"
-    # training-kernel backward strategies; the port has the shipped pair
-    # (True, False) and raises for the others
+    # training-kernel backward strategies: the fine nets store their
+    # activations (True) or recompute them in the backward (False); the
+    # proposal net follows store_residuals when prop_store_residuals is
+    # None.  The port raises for the proposal net's residual pair.
     store_residuals: bool = True
     prop_store_residuals: Optional[bool] = False
     bwd_bufs: Optional[int] = None

@@ -2,7 +2,7 @@
 fine model (port of nerf_tpu/train/pipeline.py: the vanilla and Ref-NeRF
 branches of ``render_rays_train`` :483-577 and ``render_rays_eval``
 :580-671, ``_proposal_weights`` :202-242 and ``_ref_fine_forward`` with its
-all-kernel route :263-326, :393-451).
+all-kernel and hybrid routes :263-390, :393-451).
 
 Models are ``nn.Module``s holding their weights, so where the JAX functions
 take ``(models, variables, ..., key)`` these take ``(models, ...)`` and an
@@ -11,11 +11,17 @@ the JAX package.
 
 Training runs the MLPs through the fused kernels' autograd Functions
 (``ops.PropMLP``, ``ops.VanillaMLP``, ``ops.RefSpatialMLP`` and
-``ops.RefDirectionalMLP``) unless ``cfg.use_pallas`` is False, which selects
-the ``nn.Module`` forward with autograd: the oracle.  Ref-NeRF's normal
-target d(density)/d(pos) comes from the spatial kernel on the kernel route
-and from ``torch.autograd.grad`` on the module route, which is also taken
-for ``second_order_normals`` and, for the proposal net, ``--prop_normal``.
+``ops.RefDirectionalMLP``; with ``cfg.store_residuals=False`` their
+recompute forms ``ops.VanillaMLPRecompute``, ``ops.RefSpatialMLPRecompute``
+and ``ops.RefDirectionalMLPRecompute``, which hold no activation from the
+forward to the backward) unless ``cfg.use_pallas`` is False, which selects
+the ``nn.Module`` forward with autograd: the oracle.
+``cfg.ref_kernels="hybrid"`` runs Ref-NeRF's spatial net through its kernel
+(the recompute pair in training) and the directional net through
+``RefNeRF.directional``.  Ref-NeRF's normal target d(density)/d(pos) comes
+from the spatial kernel on the kernel route and from
+``torch.autograd.grad`` on the module route, which is also taken for
+``second_order_normals`` and, for the proposal net, ``--prop_normal``.
 Eval runs the MLPs through the forward-only kernels unless
 ``cfg.eval_use_pallas`` is False.  (The JAX package renders vanilla eval
 through XLA by default; that choice rested on one TPU measurement and does
@@ -35,8 +41,9 @@ from nerf_tpu_torch.device import check_device, resolve_device
 from nerf_tpu_torch.models import ProposalNetwork, RefNeRF, VanillaNeRF
 from nerf_tpu_torch.models.mlp import init_flax_
 from nerf_tpu_torch.ops import (
-    PropMLP, RefDirectionalMLP, RefSpatialMLP, VanillaMLP, prop_mlp_fwd,
-    ref_fine_fwd, vanilla_mlp_fwd,
+    PropMLP, RefDirectionalMLP, RefDirectionalMLPRecompute, RefSpatialMLP,
+    RefSpatialMLPRecompute, VanillaMLP, VanillaMLPRecompute, prop_mlp_fwd,
+    ref_fine_fwd, ref_spa_fwd, vanilla_mlp_fwd,
 )
 from nerf_tpu_torch.ops.ref_fused import normal_target, softplus
 from nerf_tpu_torch.train.config import PipelineConfig
@@ -92,17 +99,9 @@ def _use_kernels(cfg: PipelineConfig, train: bool) -> bool:
         return cfg.eval_use_pallas is not False
     if cfg.use_pallas is False:
         return False
-    # the shipped training variants (nerf_tpu/train/config.py:93,102) are
-    # the ported ones; the others raise rather than run something else
-    if not cfg.store_residuals and cfg.model == "ref":
-        raise NotImplementedError(_NOT_PORTED.format(
-            "recompute Ref-NeRF backwards (store_residuals=False, "
-            "_make_spa_bwd_kernel and _make_dir_bwd_kernel; ROADMAP.md B3/B4 "
-            "recompute forms)"))
-    if not cfg.store_residuals:
-        raise NotImplementedError(_NOT_PORTED.format(
-            "recompute vanilla backward (store_residuals=False, "
-            "_vanilla_bwd_kernel; ROADMAP.md B2)"))
+    # the proposal net's backward form resolves as in
+    # nerf_tpu/train/config.py:102-106; its residual pair raises rather than
+    # run something else
     prop_res = (cfg.store_residuals if cfg.prop_store_residuals is None
                 else cfg.prop_store_residuals)
     if prop_res:
@@ -127,8 +126,9 @@ def _apply_vanilla(nerf: VanillaNeRF, pos: torch.Tensor,
                    train: bool = False):
     """Fine net on points (R, P, 3) -> (rgb3 (3, R, P), raw sigma (R, P)).
 
-    In training the kernel route is ``VanillaMLP`` over the f32 parameters;
-    the points carry no gradient (their depths come from detached weights)."""
+    In training the kernel route is ``VanillaMLP`` (``VanillaMLPRecompute``
+    with ``store_residuals=False``) over the f32 parameters; the points
+    carry no gradient (their depths come from detached weights)."""
     r, p = pos.shape[:2]
     enc_d = _ray_dir_encoding(nerf, ray_dirs, p)
     if not _use_kernels(cfg, train):
@@ -138,8 +138,8 @@ def _apply_vanilla(nerf: VanillaNeRF, pos: torch.Tensor,
     enc_x = cat_pos_pe(pos.detach().reshape(r * p, 3), nerf.pos_levels, cd)
     enc_d = enc_d.reshape(r * p, -1).to(cd).contiguous()
     if train:
-        rgb3, sigma = VanillaMLP.apply(dev, enc_x, enc_d,
-                                       *nerf.kernel_params())
+        fn = VanillaMLP if cfg.store_residuals else VanillaMLPRecompute
+        rgb3, sigma = fn.apply(dev, enc_x, enc_d, *nerf.kernel_params())
     else:
         rgb3, sigma = vanilla_mlp_fwd(nerf.kernel_weights(), enc_x, enc_d,
                                       device=dev)
@@ -164,13 +164,9 @@ def _identity(x):
 
 
 def _ref_kernel_route(cfg: PipelineConfig, train: bool) -> bool:
-    if not _use_kernels(cfg, train):
-        return False
-    if cfg.ref_kernels != "all":
-        raise NotImplementedError(_NOT_PORTED.format(
-            f"ref_kernels={cfg.ref_kernels!r} (_ref_fine_forward_fused; "
-            "ROADMAP.md B5)"))
-    return True
+    if cfg.ref_kernels not in ("all", "hybrid"):
+        raise ValueError(f"unknown ref_kernels {cfg.ref_kernels!r}")
+    return _use_kernels(cfg, train)
 
 
 def _normal_target(g: torch.Tensor, second_order: bool) -> torch.Tensor:
@@ -185,11 +181,14 @@ def _ref_fine_forward(nerf: RefNeRF, pos: torch.Tensor,
     (rgb (R, P, 3), raw density (R, P), normal (R, P, 3)), f32.
 
     The kernel route is ``_ref_fine_forward_allkernel`` without the density
-    gradient and with zero noise (``ops.ref_fine_fwd``); with
+    gradient and with zero noise (``ops.ref_fine_fwd``), or under
+    ``ref_kernels="hybrid"`` ``_ref_fine_forward_hybrid``; with
     ``eval_use_pallas=False`` the ``RefNeRF`` module runs, the oracle."""
     r, p = pos.shape[:2]
     if not _ref_kernel_route(cfg, train=False):
         return nerf(pos, ray_dirs[:, None, :].expand(r, p, 3))
+    if cfg.ref_kernels == "hybrid":
+        return _ref_fine_forward_hybrid(nerf, pos, ray_dirs, cfg, dev)[:3]
     enc = cat_pos_pe(pos.reshape(r * p, 3), nerf.pos_levels, nerf.dtype)
     spa_ws, dir_ws = nerf.kernel_weights()
     rgb, density, normal = ref_fine_fwd(
@@ -207,10 +206,12 @@ def _ref_fine_forward_train(nerf: RefNeRF, pos: torch.Tensor,
 
     Kernel route (``_ref_fine_forward_allkernel``): ``RefSpatialMLP`` gives
     the heads and the detached normal target, ``RefDirectionalMLP`` the rgb,
-    normal and density, with the bottleneck noise ``bottleneck_noise *
-    N(0, 1)`` drawn from ``generator`` in the compute dtype (its values
-    differ from the JAX package's draw, as the JAX package's own two routes
-    differ).  Module route (``use_pallas=False`` or
+    normal and density (their recompute forms with
+    ``store_residuals=False``), with the bottleneck noise
+    ``bottleneck_noise * N(0, 1)`` drawn from ``generator`` in the compute
+    dtype (its values differ from the JAX package's draw, as the JAX
+    package's own two routes differ).  ``ref_kernels="hybrid"``:
+    ``_ref_fine_forward_hybrid``.  Module route (``use_pallas=False`` or
     ``second_order_normals``): ``RefNeRF.spatial`` on points that require
     grad, the target from ``torch.autograd.grad`` of the density."""
     r, p = pos.shape[:2]
@@ -226,6 +227,9 @@ def _ref_fine_forward_train(nerf: RefNeRF, pos: torch.Tensor,
                                train=True, generator=generator)
         return (rgb, spa["density"], spa["normal"],
                 _normal_target(g, second_order))
+    if cfg.ref_kernels == "hybrid":
+        return _ref_fine_forward_hybrid(nerf, pos, ray_dirs, cfg, dev,
+                                        generator, train=True)
     cd = nerf.dtype
     pos_f = pos.detach().reshape(n, 3).to(torch.float32).contiguous()
     enc = cat_pos_pe(pos_f, nerf.pos_levels, cd)
@@ -235,14 +239,62 @@ def _ref_fine_forward_train(nerf: RefNeRF, pos: torch.Tensor,
             (n, nerf.bottleneck_dim), dtype=cd, generator=generator,
             device=pos.device)
     spa_params, dir_params = nerf.kernel_params()
-    heads, dgrad = RefSpatialMLP.apply(dev, cfg.pallas_tile, enc, pos_f,
-                                       *spa_params)
-    rgb, normal, density = RefDirectionalMLP.apply(
+    spa_fn, dir_fn = (
+        (RefSpatialMLP, RefDirectionalMLP) if cfg.store_residuals
+        else (RefSpatialMLPRecompute, RefDirectionalMLPRecompute))
+    heads, dgrad = spa_fn.apply(dev, cfg.pallas_tile, enc, pos_f, *spa_params)
+    rgb, normal, density = dir_fn.apply(
         dev, cfg.pallas_tile, heads,
         ray_dirs.detach().to(torch.float32).contiguous(), noise, p,
         nerf.ide_level, nerf.use_srgb, cd, *dir_params)
     return (rgb.reshape(r, p, 3), density.reshape(r, p),
             normal.reshape(r, p, 3), dgrad.reshape(r, p, 3))
+
+
+def _ref_fine_forward_hybrid(nerf: RefNeRF, pos: torch.Tensor,
+                             ray_dirs: torch.Tensor, cfg: PipelineConfig, dev,
+                             generator: Optional[torch.Generator] = None,
+                             train: bool = False):
+    """``_ref_fine_forward_fused`` (nerf_tpu/train/pipeline.py:329-390), the
+    ``ref_kernels="hybrid"`` route: the spatial net through its kernel, then
+    ``RefNeRF.directional`` on the heads.  (rgb (R, P, 3), raw density
+    (R, P), normal (R, P, 3), and in training the detached normal target
+    (R, P, 3), else None), f32.
+
+    Training runs ``RefSpatialMLPRecompute`` (the recompute pair, whatever
+    ``store_residuals`` says, as ``_make_spa_fused``'s default does), eval
+    the forward-only ``ops.ref_spa_fwd``.  The heads go through the
+    post-processing of ``RefNeRF.spatial`` as the JAX route writes it: the
+    normal -h / (|h| + 1e-7) in f32; softplus(rho - 1), diffuse, tint and
+    the bottleneck cast to the compute dtype.  Gradients reach the spatial
+    weights through the heads; the bottleneck noise is the directional
+    module's, drawn from ``generator``."""
+    r, p = pos.shape[:2]
+    n = r * p
+    cd = nerf.dtype
+    pos_f = pos.detach().reshape(n, 3).to(torch.float32).contiguous()
+    enc = cat_pos_pe(pos_f, nerf.pos_levels, cd)
+    target = None
+    if train:
+        heads, dgrad = RefSpatialMLPRecompute.apply(
+            dev, cfg.pallas_tile, enc, pos_f, *nerf.kernel_params()[0])
+        target = dgrad.reshape(r, p, 3)
+    else:
+        heads = ref_spa_fwd(nerf.kernel_weights()[0], enc, device=dev)
+    n_raw = heads[:, 2:5]
+    normal = -n_raw / (torch.linalg.vector_norm(n_raw, dim=-1, keepdim=True)
+                       + 1e-7)
+    spatial_out = {
+        "density": heads[:, 1].reshape(r, p),
+        "normal": normal.reshape(r, p, 3),
+        "roughness": softplus(heads[:, 0:1] - 1.0).to(cd).reshape(r, p, 1),
+        "diffuse": heads[:, 5:8].to(cd).reshape(r, p, 3),
+        "tint": heads[:, 8:11].to(cd).reshape(r, p, 3),
+        "bottleneck": heads[:, 11:].to(cd).reshape(r, p, -1),
+    }
+    rgb = nerf.directional(spatial_out, ray_dirs[:, None, :].expand(r, p, 3),
+                           train=train, generator=generator)
+    return rgb, spatial_out["density"], spatial_out["normal"], target
 
 
 def _proposal_weights(prop: ProposalNetwork, rays: torch.Tensor,

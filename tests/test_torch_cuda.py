@@ -570,3 +570,189 @@ def test_ref_train_step_kernels_match_module_path(cuda, monkeypatch):
     torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-4, atol=1e-6)
     rels = [_rel_err(g, w) for g, w in zip(out[0][2], out[1][2])]
     assert max(rels) < 1e-2, rels
+
+
+# ---------------------------------------------------------------------------
+# the recompute forms (store_residuals=False) and the hybrid route
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", list(TOLS))
+@pytest.mark.parametrize("n", [1, 70, 4099])
+@pytest.mark.parametrize("width", [48, 256])
+def test_vanilla_recompute_kernel_matches_plain(cuda, dtype, n, width):
+    """vanilla_mlp_bwd_recompute against the residual pair on the same
+    operands (equal bit for bit: the same forward bits, the same K-splits
+    summed in the same order) and against its plain version, which runs on
+    the kernel's forward (vanilla_mlp_fwd_res): a plain forward rounds
+    elsewhere in bf16, and a ReLU mask set the other way moves a grad by a
+    unit's whole term.  At a few dozen points one delta rounded one bf16
+    ulp apart (f32 sums in another order) moves a grad by 1.8e-4 of itself
+    (width 256, N = 70 on an H100 80GB HBM3), so bf16 is held to
+    REF_GRAD_REL's 2e-3, below the 3.6e-3 of the uncast control.  The grads
+    do not depend on how many K-splits a chunk takes (one, or the
+    default)."""
+    v = _randomize(VanillaNeRF(hidden=width, bottleneck=width - 8,
+                               dtype=dtype), 4).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n + 11)
+    x = (torch.rand((n, v.d_x), generator=gen, device=cuda) * 2 - 1).to(dtype)
+    d = (torch.rand((n, v.d_d), generator=gen, device=cuda) * 2 - 1).to(dtype)
+    g_rgb = torch.randn((3, n), generator=gen, device=cuda)
+    g_sig = torch.randn((n,), generator=gen, device=cuda)
+    vw = v.kernel_weights()
+    ops.reset_launches()
+    grads = ops.vanilla_mlp_bwd_recompute(vw, x, d, g_rgb, g_sig)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops.fused_mlp, "CHUNK_ROWS", 1)    # one K-split a chunk
+        one = ops.vanilla_mlp_bwd_recompute(vw, x, d, g_rgb, g_sig)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["vanilla_mlp_bwd_recompute"] == 2
+    rgb3, _, acts = ops.vanilla_mlp_fwd_res(vw, x, d)
+    want = ops.vanilla_mlp_bwd_recompute_plain(vw, x, d, g_rgb, g_sig,
+                                               fwd=(rgb3, acts))
+    res = ops.vanilla_mlp_bwd(vw, x, d, g_rgb, g_sig, rgb3, acts)
+    for i, (g, w) in enumerate(zip(grads, want)):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert _rel_err(g, w) < REF_GRAD_REL[dtype], (i, _rel_err(g, w))
+        assert torch.equal(g, one[i]) and torch.equal(g, res[i]), i
+
+
+def _assert_ref_recompute_match(cuda, dtype, n, per_ray, tile=64, **model):
+    """ref_spa_fwd_grad, ref_spa_bwd_recompute and ref_dir_bwd_recompute
+    against their plain versions (the backwards with chunks of two tiles,
+    and with the default chunks: equal); the
+    training forward without stored activations gives the residual form's
+    heads and normal target bit for bit.  The plain backwards run on the
+    residual forwards' activations, which the recompute kernels rebuild bit
+    for bit (see test_vanilla_recompute_kernel_matches_plain).  In bf16 the
+    plain backwards with no per-layer cast must read beyond REF_GRAD_REL."""
+    ide_level, use_srgb = model.get("ide_level", 4), model.get("use_srgb",
+                                                               False)
+    m, enc, dirs = _ref_operands(cuda, dtype, n, per_ray, n + 5, **model)
+    gen = torch.Generator(device=cuda).manual_seed(n + 6)
+    pos = enc[:, :3].float().contiguous()
+    spa_ws, dir_ws = m.kernel_weights()
+    nb = m.bottleneck_dim
+    noise = (0.05 * torch.randn((n, nb), generator=gen, device=cuda)).to(dtype)
+    g_heads = torch.randn((n, 11 + nb), generator=gen, device=cuda)
+    g_rgb, g_nrm = torch.randn((2, n, 3), generator=gen, device=cuda)
+    g_den = torch.randn((n,), generator=gen, device=cuda)
+    dir_args = (dir_ws, None, dirs, per_ray, noise, g_rgb, g_nrm, g_den,
+                ide_level, use_srgb)
+    ops.reset_launches()
+    heads, dgrad = ops.ref_spa_fwd_grad(spa_ws, enc, pos)
+    dir_args = (dir_ws, heads) + dir_args[2:]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops.fused_mlp, "CHUNK_ROWS", 2 * tile)
+        sgrads = ops.ref_spa_bwd_recompute(spa_ws, enc, g_heads, tile=tile)
+        dheads, dgrads = ops.ref_dir_bwd_recompute(*dir_args, tile=tile)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == dict(dict.fromkeys(ops.LAUNCHES, 0),
+                                ref_spa_fwd_grad=1, ref_spa_bwd_recompute=1,
+                                ref_dir_bwd_recompute=1)
+    rheads, rdgrad, sacts = ops.ref_spa_fwd_res(spa_ws, enc, pos)
+    assert torch.equal(heads, rheads) and torch.equal(dgrad, rdgrad)
+    dacts = ops.ref_dir_fwd_res(dir_ws, heads, dirs, per_ray, noise,
+                                ide_level, use_srgb)[3]
+    lim = REF_GRAD_REL[dtype]
+    want = ops.ref_spa_bwd_recompute_plain(spa_ws, enc, g_heads, tile,
+                                           acts=sacts)
+    default = ops.ref_spa_bwd_recompute(spa_ws, enc, g_heads, tile=tile)
+    for i, (a, b) in enumerate(zip(sgrads, want)):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert _rel_err(a, b) < lim, ("spa", i, _rel_err(a, b))
+        assert torch.equal(a, default[i]), ("spa", i)
+    pdheads, pdgrads = ops.ref_dir_bwd_recompute_plain(*dir_args, tile,
+                                                       acts=dacts)
+    assert _dheads_rel(dheads, pdheads) < lim, _dheads_rel(dheads, pdheads)
+    ddefault = ops.ref_dir_bwd_recompute(*dir_args, tile=tile)
+    assert torch.equal(dheads, ddefault[0])
+    for i, (a, b) in enumerate(zip(dgrads, pdgrads)):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert _rel_err(a, b) < lim, ("dir", i, _rel_err(a, b))
+        assert torch.equal(a, ddefault[1][i]), ("dir", i)
+    if dtype == torch.bfloat16 and n > 1:
+        def up(ts):
+            return [t.float() for t in ts]
+        uncast = ops.ref_spa_bwd_recompute_plain(up(spa_ws), enc.float(),
+                                                 g_heads, tile, up(sacts))
+        assert max(map(_rel_err, uncast, want)) > lim
+        _, uncast = ops.ref_dir_bwd_recompute_plain(
+            up(dir_ws), heads, dirs, per_ray, noise.float(), g_rgb, g_nrm,
+            g_den, ide_level, use_srgb, tile, up(dacts))
+        assert max(map(_rel_err, uncast, pdgrads)) > lim
+
+
+@pytest.mark.parametrize("dtype", list(TOLS))
+@pytest.mark.parametrize("n, per_ray", [(1, 1), (70, 7), (4097, 17)])
+@pytest.mark.parametrize("hidden, output_dim", [(256, 256), (48, 80)])
+def test_ref_recompute_kernels_match_plain(cuda, dtype, n, per_ray, hidden,
+                                           output_dim):
+    """The three Ref-NeRF recompute-form kernels against their plain
+    versions: a single point, ragged last tiles, chunks of two 64-row tiles
+    (33 chunks at N = 4097), and widths that are no multiple of the 32-bit
+    mask words (48, 80)."""
+    _assert_ref_recompute_match(cuda, dtype, n, per_ray, hidden=hidden,
+                                output_dim=output_dim)
+
+
+@pytest.mark.parametrize("dtype", list(TOLS))
+@pytest.mark.parametrize("ide_level, use_srgb", [(2, True), (4, True)])
+def test_ref_recompute_kernels_levels_and_srgb(cuda, dtype, ide_level,
+                                               use_srgb):
+    _assert_ref_recompute_match(cuda, dtype, 4097, 17, hidden=64,
+                                output_dim=64, ide_level=ide_level,
+                                use_srgb=use_srgb)
+
+
+@pytest.mark.parametrize("model, kw, kernels", [
+    ("vanilla", dict(store_residuals=False),
+     ("prop_mlp_fwd", "prop_mlp_bwd", "vanilla_mlp_fwd",
+      "vanilla_mlp_bwd_recompute")),
+    ("ref", dict(store_residuals=False),
+     ("prop_mlp_fwd", "prop_mlp_bwd", "ref_spa_fwd_grad", "ref_dir_fwd",
+      "ref_dir_bwd_recompute", "ref_spa_bwd_recompute")),
+    ("ref", dict(ref_kernels="hybrid"),
+     ("prop_mlp_fwd", "prop_mlp_bwd", "ref_spa_fwd_grad",
+      "ref_spa_bwd_recompute"))])
+def test_recompute_train_steps_match_module_path(cuda, model, kw, kernels):
+    """One f32 step of the recompute forms and of the hybrid route on the
+    inputs of the residual step tests above: each kernel of the route
+    launches once and no other; the loss and grads agree with the nn.Module
+    path as the residual steps' do, and the recompute forms' grads with the
+    residual form's (the vanilla net's bit for bit; the Ref-NeRF spatial
+    net's sums differ in order only)."""
+    ref = model == "ref"
+    cfg = PipelineConfig(model=model, n_coarse=16, n_fine=32, nerf_width=64,
+                         prop_width=64, ray_batch=300, bottleneck_noise=0.0,
+                         pallas_tile=256)
+    models = make_models(cfg, cuda)
+    for i, m in enumerate(models):
+        _randomize(m, (40 if ref else 20) + i, gain=1.0)
+    rng = np.random.default_rng(3 if ref else 1)
+    rays = np.concatenate([rng.normal(0, 0.2, (300, 3)) + [0, 0, 4.0],
+                           rng.normal(0, 0.3, (300, 3)) + [0, 0, -1.0]], -1)
+    rays = torch.tensor(rays, dtype=torch.float32, device=cuda)
+    gt = torch.tensor(rng.uniform(size=(300, 3)), dtype=torch.float32,
+                      device=cuda)
+    jit = torch.tensor(rng.uniform(size=(300, 16)), dtype=torch.float32,
+                       device=cuda)
+    u = torch.tensor(np.sort(rng.uniform(size=(300, 33)), -1),
+                     dtype=torch.float32, device=cuda)
+    params = train_parameters(models)
+    out = []
+    for route in (cfg.replace(**kw), cfg, cfg.replace(use_pallas=False)):
+        ops.reset_launches()
+        loss, _ = compute_loss(models, rays, gt, route, noise=(jit, u))
+        grads = torch.autograd.grad(loss, params)
+        out.append((loss, grads, dict(ops.LAUNCHES)))
+    assert out[0][2] == dict(dict.fromkeys(ops.LAUNCHES, 0),
+                             **dict.fromkeys(kernels, 1)), out[0][2]
+    assert not any(out[2][2].values())
+    torch.testing.assert_close(out[0][0], out[2][0], rtol=1e-4, atol=1e-6)
+    rels = [_rel_err(g, w) for g, w in zip(out[0][1], out[2][1])]
+    assert max(rels) < 1e-2, rels
+    res = [_rel_err(g, w) for g, w in zip(out[0][1], out[1][1])]
+    if not ref:
+        assert all(map(torch.equal, out[0][1], out[1][1])), res
+    elif "store_residuals" in kw:
+        assert max(res) < GRAD_REL[torch.float32], res

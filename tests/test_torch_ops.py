@@ -109,11 +109,17 @@ def test_cpu_dispatch_counts_no_launch(nets):
                         torch.ones_like(sig), rgb3, acts, device="cpu")
     ops.prop_mlp_bwd(p.kernel_weights(), x, torch.ones_like(sig),
                      device="cpu")
+    ops.vanilla_mlp_bwd_recompute(v.kernel_weights(), x, d,
+                                  torch.ones_like(rgb3), torch.ones_like(sig),
+                                  device="cpu")
     assert set(ops.LAUNCHES) == {"prop_mlp_fwd", "vanilla_mlp_fwd",
                                  "vanilla_mlp_fwd_res", "vanilla_mlp_bwd",
                                  "prop_mlp_bwd", "ref_spa_fwd", "ref_dir_fwd",
                                  "ref_spa_fwd_res", "ref_dir_fwd_res",
-                                 "ref_spa_bwd", "ref_dir_bwd"}
+                                 "ref_spa_bwd", "ref_dir_bwd",
+                                 "vanilla_mlp_bwd_recompute",
+                                 "ref_spa_fwd_grad", "ref_spa_bwd_recompute",
+                                 "ref_dir_bwd_recompute"}
     assert not any(ops.LAUNCHES.values())
 
 

@@ -18,7 +18,9 @@ from nerf_tpu.train.pipeline import make_models as jax_make_models
 from nerf_tpu.train.pipeline import render_rays_eval as jax_render_rays_eval
 from nerf_tpu_torch.cli.flags import get_parser
 from nerf_tpu_torch.cli.render import render_only
-from nerf_tpu_torch.train.pipeline import render_rays_eval, render_rays_train
+from nerf_tpu_torch.train.pipeline import (
+    make_models, render_rays_eval, render_rays_train,
+)
 from nerf_tpu_torch.train.renderer import render_image
 from nerf_tpu_torch.utils.checkpoint import load_models
 from nerf_tpu_torch.utils.png import write_png
@@ -70,12 +72,11 @@ def test_render_rays_eval_rejects_unported_paths(variables):
     for kw in (dict(model="mip"), dict(use_ipe=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             render_rays_eval(models, rays, cfg.replace(**kw), device="cpu")
-    # Ref-NeRF trains (tests/test_torch_ref_train.py), but not through the
-    # recompute forms of its backwards, which are still to be ported
-    with pytest.raises(NotImplementedError, match="B3/B4 recompute"):
-        render_rays_train(models, rays, cfg.replace(model="ref",
-                                                    store_residuals=False),
-                          device="cpu")
+    # Ref-NeRF trains through the recompute forms of its backwards too
+    # (tests/test_torch_recompute.py holds them against nerf_tpu)
+    ref = cfg.replace(model="ref", store_residuals=False)
+    out = render_rays_train(make_models(ref, "cpu"), rays, ref, device="cpu")
+    assert torch.isfinite(out["fine_rgb"]).all()
 
 
 def _write_scene(root, variables, hw=(10, 12), n_views=2):

@@ -57,6 +57,20 @@ def test_every_cuda_source_is_built():
     assert {lib for lib, _ in SIGNATURES.values()} == set(build.SOURCES)
 
 
+def test_every_kernel_has_a_plain_version():
+    """Each registered kernel's wrapper is exported by nerf_tpu_torch.ops
+    beside its plain version (``<name>_plain``, or for a forward-only
+    kernel ``<name without _fwd>_plain``), the yardstick the tests and
+    chip_smoke.py hold it against."""
+    from nerf_tpu_torch import ops
+    from nerf_tpu_torch.ops.launch import SIGNATURES
+
+    for name in SIGNATURES:
+        assert callable(getattr(ops, name)), name
+        assert any(hasattr(ops, p) for p in (
+            f"{name}_plain", name.replace("_fwd", "") + "_plain")), name
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():

@@ -38,9 +38,10 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from torch_port_common import configs, jax_variables, port_models
+from torch_port_common import (
+    configs, jax_variables, port_models, two_camera_batch,
+)
 from nerf_tpu import ops as jops
-from nerf_tpu.core import rays as jrays
 from nerf_tpu.core import sampling as jsampling
 from nerf_tpu.core.fastmath import _pe_tables
 from nerf_tpu.ops import fused_mlp as jfused
@@ -65,7 +66,6 @@ from nerf_tpu_torch.utils.png import read_png
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures")
-FOV = 0.6911112070083618          # lego's camera_angle_x
 TILE = 64
 N_RAYS = 8
 KERNEL_TOLS = {torch.float32: dict(rtol=2e-4, atol=1e-5),
@@ -389,24 +389,8 @@ def test_training_wrappers_reject_bad_operands():
 # ---------------------------------------------------------------------------
 
 def _batch(seed: int):
-    """Rays from two cameras at radius 4 on opposite sides of the origin,
-    ground truth and the step's noise, from one numpy seed."""
-    rng = np.random.default_rng(seed)
-    focal = jrays.fov_to_focal(FOV, (20, 20))
-    rays = []
-    for az in rng.uniform(0, 360) + np.array([0.0, 180.0]):
-        pose = jrays.pose_spherical(float(az), -30.0, 4.0)
-        row, col = rng.integers(0, 20, (2, N_RAYS // 2))
-        coords = jnp.stack((jnp.asarray(col - 10), jnp.asarray(10 - row)),
-                           -1)
-        rays.append(np.asarray(jrays.rays_from_coords(
-            coords, jnp.asarray(pose[:3]), focal)))
-    rays = np.concatenate(rays)
-    gt = rng.uniform(size=(N_RAYS, 3)).astype(np.float32)
     _, cfg = _cfgs()
-    jit = rng.uniform(size=(N_RAYS, cfg.n_coarse)).astype(np.float32)
-    u = np.sort(rng.uniform(size=(N_RAYS, cfg.n_fine + 1)), -1)
-    return rays, gt, jit, u.astype(np.float32)
+    return two_camera_batch(seed, N_RAYS, cfg.n_coarse, cfg.n_fine)
 
 
 def _port_grads(models):

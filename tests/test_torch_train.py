@@ -345,8 +345,7 @@ def test_unported_training_variants_raise():
     _, cfg = configs()
     models = port_models(cfg, jax_variables(configs()[0], seed=0))
     r = torch.ones(4, 6)
-    for kw, item in ((dict(store_residuals=False), "B2"),
-                     (dict(prop_store_residuals=True), "B1"),
+    for kw, item in ((dict(prop_store_residuals=True), "B1"),
                      (dict(prop_store_residuals=None), "B1"),
                      (dict(model="mip"), "section A")):
         with pytest.raises(NotImplementedError, match=item):
@@ -423,16 +422,20 @@ def test_trainer_rejects_unported_flags(tmp_path, flag, item):
 
 def test_entry_trains_ref_nerf_on_cpu(tmp_path, monkeypatch):
     """``-t --epochs 1`` trains Ref-NeRF through the entry on the CPU and
-    writes a RefNeRF checkpoint; the hybrid kernel strategy, not ported,
-    still raises naming its ROADMAP.md item."""
+    writes a RefNeRF checkpoint; so does the hybrid kernel strategy
+    (``--ref_kernels hybrid``, tests/test_torch_recompute.py holds it
+    against nerf_tpu)."""
     monkeypatch.chdir(tmp_path)
     argv = _train_argv(tmp_path, "-t", "--epochs", "1", "--output_time", "5")
     assert main(argv, device="cpu") == 0
     sd = torch.load(tmp_path / "model" / "model_1_mip.pt",
                     weights_only=True)["model"]
     assert "spa_block1.0.weight" in sd and "dir_block2.6.weight" in sd
-    with pytest.raises(NotImplementedError, match="B5"):
-        main(argv + ["--ref_kernels", "hybrid"], device="cpu")
+    assert main(argv + ["--ref_kernels", "hybrid", "--name", "hybrid"],
+                device="cpu") == 0
+    sd = torch.load(tmp_path / "model" / "hybrid_mip.pt",
+                    weights_only=True)["model"]
+    assert "spa_block1.0.weight" in sd and "dir_block2.6.weight" in sd
 
 
 def test_entry_trains_on_cpu_only_when_asked(tmp_path, monkeypatch):

@@ -74,6 +74,31 @@ def eval_noise(rng: np.random.Generator, n_rays: int, n_coarse: int,
     return jitter, u.astype(np.float32)
 
 
+def two_camera_batch(seed: int, n_rays: int, n_coarse: int, n_fine: int):
+    """Rays from two cameras at radius 4 on opposite sides of the origin
+    (lego's field of view, a 20x20 image), ground truth and a step's noise
+    (jitter, sorted uniforms), as numpy, from one numpy seed."""
+    import jax.numpy as jnp
+
+    from nerf_tpu.core import rays as jrays
+
+    rng = np.random.default_rng(seed)
+    focal = jrays.fov_to_focal(0.6911112070083618, (20, 20))
+    rays = []
+    for az in rng.uniform(0, 360) + np.array([0.0, 180.0]):
+        pose = jrays.pose_spherical(float(az), -30.0, 4.0)
+        row, col = rng.integers(0, 20, (2, n_rays // 2))
+        coords = jnp.stack((jnp.asarray(col - 10), jnp.asarray(10 - row)),
+                           -1)
+        rays.append(np.asarray(jrays.rays_from_coords(
+            coords, jnp.asarray(pose[:3]), focal)))
+    rays = np.concatenate(rays)
+    gt = rng.uniform(size=(n_rays, 3)).astype(np.float32)
+    jit = rng.uniform(size=(n_rays, n_coarse)).astype(np.float32)
+    u = np.sort(rng.uniform(size=(n_rays, n_fine + 1)), -1)
+    return rays, gt, jit, u.astype(np.float32)
+
+
 def rays_for(h: int, w: int, pose, focal):
     """Full-image rays of the JAX package, as numpy."""
     import jax.numpy as jnp
