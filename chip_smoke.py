@@ -67,7 +67,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
                per step of the spatial recompute pair; `-t -r -e -s -w
                --ref_kernels hybrid --render_normal` of its checkpoint; its
                trainer loop timed and profiled (hybrid_train_profile)
- 12. the kernels line, then the last line {"ok": true, "device": {...}}
+ 12. prop_res - the proposal net's residual pair
+               (prop_store_residuals=True): its two kernels at one default
+               step's 65,536 coarse points, bf16 and f32, with a planted
+               bf16 fault, the density equal to prop_mlp_fwd's and the
+               grads to prop_mlp_bwd's bit for bit, and prop_mlp_bwd's
+               chunked grads equal to one chunk's (prop_res_kernels); one
+               f32 step of each model with it, kernels vs nn.Module
+               (step_prop_res, ref_step_prop_res); one bf16 step against
+               the same step with the proposal recompute pair
+               (prop_res_vs_recompute); step_memory (phase 10) measures
+               its peak memory as a third form
+ 13. batch_scaling - nerf_tpu_torch.tools.batch_scaling's measure with 10
+               steps a run: vanilla at 1024, 4096 and 16384 rays in three
+               backward forms, Ref-NeRF at 1024 and 4096 in two; rays/s
+               and peak device memory per row
+ 14. dissect - `python -m nerf_tpu_torch.tools.bench_ref_kernels --dissect
+               --dissect_fwd` (N = 197,632, bf16 and f32): the directional
+               forward's five stages and the backward's four modes timed
+               and held against their plain versions, stage and mode
+               "full" against the shipped kernels bit for bit, and the
+               glue's derived costs
+ 15. the kernels line, then the last line {"ok": true, "device": {...}}
 
 Imports nothing of JAX or nerf_tpu.
 """
@@ -249,9 +270,23 @@ KERNELS = {
     "ref_dir_bwd_recompute": dict(
         source="nerf_tpu_torch/ops/csrc/ref_fused_recompute.cu",
         replaces="nerf_tpu/ops/ref_fused.py:867"),
+    "prop_mlp_fwd_res": dict(
+        source="nerf_tpu_torch/ops/csrc/fused_mlp.cu",
+        replaces="nerf_tpu/ops/fused_mlp.py:483"),
+    "prop_mlp_bwd_res": dict(
+        source="nerf_tpu_torch/ops/csrc/fused_mlp_bwd.cu",
+        replaces="nerf_tpu/ops/fused_mlp.py:499"),
+    "ref_dir_fwd_dissect": dict(
+        source="nerf_tpu_torch/ops/csrc/ref_dissect.cu",
+        replaces="tools/bench_ref_kernels.py:145"),
+    "ref_dir_bwd_dissect": dict(
+        source="nerf_tpu_torch/ops/csrc/ref_dissect.cu",
+        replaces="tools/bench_ref_kernels.py:45"),
 }
 RECOMPUTE_KERNELS = ("vanilla_mlp_bwd_recompute", "ref_spa_fwd_grad",
                      "ref_spa_bwd_recompute", "ref_dir_bwd_recompute")
+PROP_RES_KERNELS = ("prop_mlp_fwd_res", "prop_mlp_bwd_res")
+DISSECT_KERNELS = ("ref_dir_fwd_dissect", "ref_dir_bwd_dissect")
 REF_KERNELS = ("prop_mlp_fwd", "ref_spa_fwd", "ref_dir_fwd")
 # the other (ide_level, use_srgb) cases of the directional kernels' checks;
 # the timed one is the default (4, False)
@@ -270,7 +305,13 @@ STEP_KERNELS = {
                      "ref_dir_bwd_recompute", "ref_spa_bwd_recompute",
                      "prop_mlp_bwd"),
     ("hybrid", True): ("prop_mlp_fwd", "ref_spa_fwd_grad",
-                       "ref_spa_bwd_recompute", "prop_mlp_bwd")}
+                       "ref_spa_bwd_recompute", "prop_mlp_bwd"),
+    # prop_store_residuals=True, the fine net residual
+    ("vanilla", "prop_res"): ("prop_mlp_fwd_res", "vanilla_mlp_fwd_res",
+                              "vanilla_mlp_bwd", "prop_mlp_bwd_res"),
+    ("ref", "prop_res"): ("prop_mlp_fwd_res", "ref_spa_fwd_res",
+                          "ref_dir_fwd_res", "ref_spa_bwd", "ref_dir_bwd",
+                          "prop_mlp_bwd_res")}
 # steps of the memory and time phase: 20 back to back, median of 3 runs
 MEMORY_STEPS, MEMORY_RUNS = 20, 3
 
@@ -298,6 +339,13 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(moved, flops, dtype):
+    """The least time of the work on the card, and what bounds it."""
+    bytes_s, ops_s = moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return dict(bound_ms=max(bytes_s, ops_s) * 1e3,
+                bound_by="bytes" if bytes_s > ops_s else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -573,6 +621,25 @@ def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
                 # the rebuilt glue and trunk, the deltas, the weight grads
                 macs = 2 * macs_per_point(shapes) + ref_dir_delta_macs(
                     tables["n_ch"]) + 3 * tables["mat"].size
+    elif name == "prop_mlp_fwd_res":
+        shapes, n = prop_shapes(), RAYS * N_COARSE
+        ws = random_weights(shapes, gen, dtype)
+        x, _ = _encodings(gen, dtype, n, dd=False)
+        args, kernel = (ws, x), ops.prop_mlp_fwd_res
+        plain = ops.prop_mlp_fwd_res_plain
+        moved = _nbytes(x, *ws) + n * 4 + n * 4 * 256 * x.element_size()
+        macs = macs_per_point(shapes)
+    elif name == "prop_mlp_bwd_res":
+        shapes, n = prop_shapes(), RAYS * N_COARSE
+        ws = random_weights(shapes, gen, dtype)
+        x, _ = _encodings(gen, dtype, n, dd=False)
+        acts = ops.prop_mlp_fwd_res(ws, x)[1]
+        g = torch.randn((n,), generator=gen, device="cuda")
+        args, kernel = (ws, x, g, acts), ops.prop_mlp_bwd_res
+        plain = ops.prop_mlp_bwd_res_plain
+        moved = _nbytes(x, g, *acts, *ws) + 4 * sum(w.numel() for w in ws)
+        # the deltas and the weight grads
+        macs = macs_per_point(shapes) + 256 + 3 * 256 * 256
     else:   # prop_mlp_bwd
         shapes, n = prop_shapes(), RAYS * N_COARSE
         ws = random_weights(shapes, gen, dtype)
@@ -651,9 +718,17 @@ def compare(name, dtype, got, want, args=()):
         err, worst = compare_grads(name, dtype, got[1], want[1])
         return max(err, float((got[0] - want[0]).abs().max())), \
             max(rel, worst), {"dheads_rel_err": rel}
+    if name in ("prop_mlp_bwd", "prop_mlp_bwd_res"):
+        return (*compare_grads(name, dtype, got, want),
+                prop_bwd_identities(name, dtype, got, args))
     if is_bwd(name):
         return (*compare_grads(name, dtype, got, want), {})
     act_rel, extra = None, {}
+    if name == "prop_mlp_fwd_res":
+        if not torch.equal(got[0], ops.prop_mlp_fwd(*args)):
+            fail(f"prop_mlp_fwd_res {dtype}: the density differs from "
+                 f"prop_mlp_fwd's on the same operands")
+        extra = {"density_equals_prop_mlp_fwd": True}
     if name == "ref_spa_fwd_grad":
         # the target on the residual form's activations, which this form
         # computes but keeps as bit masks in shared memory
@@ -696,6 +771,29 @@ def compare(name, dtype, got, want, args=()):
         fail(f"{name} {dtype}: degenerate test inputs (positive share "
              f"{active})")
     return err, act_rel, extra
+
+
+def prop_bwd_identities(name, dtype, got, args):
+    """What the proposal backwards must equal bit for bit on the same
+    operands: prop_mlp_bwd_res the recompute form's grads (the same delta
+    pass without the rebuild); prop_mlp_bwd, walked in chunks of whole
+    K-splits, the grads of one chunk over all the points (the unchunked
+    pass, whose ms is timed too)."""
+    if name == "prop_mlp_bwd_res":
+        same = ops.prop_mlp_bwd(*args[:3])
+        readings = {"equals_prop_mlp_bwd": True}
+    else:
+        ops.fused_mlp.CHUNK_ROWS, chunk = 1 << 40, ops.fused_mlp.CHUNK_ROWS
+        try:
+            same = ops.prop_mlp_bwd(*args)
+            readings = {"equals_one_chunk": True, "one_chunk_ms": cuda_ms(
+                lambda: ops.prop_mlp_bwd(*args), 20)}
+        finally:
+            ops.fused_mlp.CHUNK_ROWS = chunk
+    if not all(map(torch.equal, got, same)):
+        fail(f"{name} {dtype}: grads differ from {list(readings)[0]}: "
+             f"{[_rel_err(a, b) for a, b in zip(got, same)]}")
+    return readings
 
 
 def cast_controls(name, args, want):
@@ -749,6 +847,11 @@ def cast_controls(name, args, want):
         f32 = ops.prop_mlp_bwd_plain(up(ws), x.float(), g)
         return {"f32_throughout": max(_rel_err(a, b)
                                       for a, b in zip(f32, want))}
+    if name == "prop_mlp_bwd_res":
+        ws, x, g, acts = args
+        f32 = ops.prop_mlp_bwd_res_plain(up(ws), x.float(), g, up(acts))
+        return {"f32_throughout": max(_rel_err(a, b)
+                                      for a, b in zip(f32, want))}
     ws, x, d, g_rgb, g_sig, rgb3, acts = args
     f32 = ops.vanilla_mlp_bwd_plain(up(ws), x.float(), d.float(), g_rgb,
                                     g_sig, rgb3, up(acts))
@@ -787,7 +890,6 @@ def check_kernel(name, dtype, gen, timed=True, **case):
                  f"the limit {grad_rel(name, dtype)}: the limit cannot tell "
                  f"it")
     del got, want
-    bytes_s, ops_s = moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     rel_key = "act_rel_err" if name.endswith("_res") else "grad_rel_err"
     tol = (grad_rel(name, dtype) if is_bwd(name) else
            dict(TOLS[dtype], act_rel=ACT_REL[dtype]) if rel is not None
@@ -800,9 +902,7 @@ def check_kernel(name, dtype, gen, timed=True, **case):
         return res
     ms = cuda_ms(lambda: kernel(*args), 20)
     plain_ms = cuda_ms(lambda: plain(*args), 20)
-    return dict(res, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(bytes_s, ops_s) * 1e3,
-                bound_by="bytes" if bytes_s > ops_s else "operations",
+    return dict(res, ms=ms, plain_ms=plain_ms, **bound(moved, flops, dtype),
                 bytes=moved, flops=flops, tflops=flops / (ms * 1e-3) / 1e12)
 
 
@@ -1080,6 +1180,8 @@ def calls_held_against_plain(record: dict):
             use_srgb, tile, acts=acts)
 
     held = {"prop_mlp_fwd": (fm, fm.prop_mlp_plain),
+            "prop_mlp_fwd_res": (fm, fm.prop_mlp_fwd_res_plain),
+            "prop_mlp_bwd_res": (fm, fm.prop_mlp_bwd_res_plain),
             "vanilla_mlp_fwd": (fm, fm.vanilla_mlp_plain),
             "vanilla_mlp_fwd_res": (fm, fm.vanilla_mlp_fwd_res_plain),
             "vanilla_mlp_bwd": (fm, fm.vanilla_mlp_bwd_plain),
@@ -1129,18 +1231,22 @@ def step_batch(seed: int = 2):
     return rays, gt, jitter, u
 
 
-def step_check(model: str = "vanilla", store_residuals: bool = True):
+def step_check(model: str = "vanilla", store_residuals: bool = True,
+               prop_res: bool = False):
     """Loss and grads of one f32 step at full width (1024 rays, 64 + 128
     samples, 256-wide nets; Ref-NeRF with its bottleneck noise off) through
-    the kernels' autograd (the residual or the recompute form) and through
-    the nn.Module path, same weights, rays and injected noise; each kernel
-    call of the step held against its plain version on its own operands
-    (a recompute backward on its forward kernel's activations, which it
+    the kernels' autograd (the residual or the recompute form; with
+    ``prop_res`` the proposal net's residual pair) and through the
+    nn.Module path, same weights, rays and injected noise; each kernel call
+    of the step held against its plain version on its own operands (a
+    recompute backward on its forward kernel's activations, which it
     rebuilds bit for bit), and the step's launch set checked."""
     ref = model == "ref"
     cfg = PipelineConfig(model=model, bottleneck_noise=0.0,
-                         store_residuals=store_residuals)
-    kernels = STEP_KERNELS[(model, store_residuals)]
+                         store_residuals=store_residuals,
+                         prop_store_residuals=prop_res)
+    kernels = STEP_KERNELS[(model, "prop_res" if prop_res
+                            else store_residuals)]
     loss_rtol, grad_rel = ((REF_STEP_LOSS_RTOL, REF_STEP_GRAD_REL) if ref
                            else (STEP_LOSS_RTOL, STEP_GRAD_REL))
     models = seeded_models(cfg, 4 if ref else 1)
@@ -1224,6 +1330,44 @@ def recompute_vs_res(model: str):
                                 zip(out[False][1], out[True][1])))
 
 
+def prop_res_vs_recompute(model: str):
+    """One default bf16 step (as ``recompute_vs_res``) with the proposal
+    net's residual pair against the same step with its recompute pair, the
+    fine net residual in both: the residual forward gives the recompute
+    form's density bit for bit and its backward the same grads, so the loss
+    and every grad are expected equal; each grad is held to the bf16 grad
+    limit and the equal ones counted."""
+    cfg = PipelineConfig(model=model, bottleneck_noise=0.0, use_bf16=True)
+    models = seeded_models(cfg, 6)
+    rays, gt, jitter, u = step_batch(7)
+    params = train_parameters(models)
+    out = {}
+    for res in (True, False):
+        ops.reset_launches()
+        loss, _ = compute_loss(models, rays, gt,
+                               cfg.replace(prop_store_residuals=res),
+                               noise=(jitter, u))
+        out[res] = (loss.item(), torch.autograd.grad(loss, params),
+                    dict(ops.LAUNCHES))
+    if out[True][2]["prop_mlp_bwd_res"] != 1 or out[False][2][
+            "prop_mlp_bwd"] != 1:
+        fail(f"{model} bf16 prop residual vs recompute step: launches "
+             f"{out[True][2]} / {out[False][2]}")
+    rels = [_rel_err(a, b) for a, b in zip(out[True][1], out[False][1])]
+    lim = (REF_GRAD_REL if model == "ref" else GRAD_REL)[torch.bfloat16]
+    loss_rel = abs(out[True][0] / out[False][0] - 1.0)
+    if not (math.isfinite(out[True][0]) and max(rels) <= lim
+            and loss_rel <= STEP_LOSS_RTOL):
+        fail(f"{model} bf16 prop residual vs recompute step: loss "
+             f"{out[True][0]} vs {out[False][0]}, grad relative errors "
+             f"{rels} (limit {lim})")
+    return dict(loss_prop_res=out[True][0], loss_prop_recompute=out[False][0],
+                loss_rel=loss_rel, grad_rel_err_max=max(rels),
+                grad_rel_tol=lim, n_grads=len(rels),
+                grads_equal=sum(int(torch.equal(a, b)) for a, b in
+                                zip(out[True][1], out[False][1])))
+
+
 # the least peak-memory saving of the recompute form over the residual form
 # at one default bf16 step: the residual Ref-NeRF step holds 16 activations
 # of 196,608 x 256 in bf16 (1.6 GB) from the forward to the backward, the
@@ -1234,7 +1378,8 @@ MEMORY_SAVING = {"vanilla": 0.4e9, "ref": 1.2e9}
 def step_memory(model: str):
     """The peak device memory and the time of one default bf16 step (1024
     rays, -s, bottleneck noise 0.02) through ``train_step`` in the residual
-    and the recompute form, same seeded weights and rays.  Memory:
+    and the recompute form, and in the residual form with the proposal
+    net's residual pair (``prop_res``), same seeded weights and rays.  Memory:
     ``max_memory_allocated`` after ``reset_peak_memory_stats`` around one
     warm step (forward, backward, Adam), and its excess over what was
     allocated before the step.  Time: ms per step over MEMORY_STEPS
@@ -1242,9 +1387,10 @@ def step_memory(model: str):
     launches of those steps, one per step of each kernel of the form and
     none of the other form's."""
     out = {}
-    for res in (True, False):
-        form = "res" if res else "recompute"
-        cfg = PipelineConfig(model=model, use_bf16=True, store_residuals=res)
+    for form in ("res", "recompute", "prop_res"):
+        res = form != "recompute"
+        cfg = PipelineConfig(model=model, use_bf16=True, store_residuals=res,
+                             prop_store_residuals=form == "prop_res")
         models = seeded_models(cfg, 8)
         opt = make_optimizer(models)
         rays, gt, _, _ = step_batch(9)
@@ -1272,7 +1418,9 @@ def step_memory(model: str):
         launches = dict(ops.LAUNCHES)
         steps = MEMORY_STEPS * MEMORY_RUNS
         want = dict(dict.fromkeys(launches, 0),
-                    **dict.fromkeys(STEP_KERNELS[(model, res)], steps))
+                    **dict.fromkeys(STEP_KERNELS[
+                        (model, "prop_res" if form == "prop_res" else res)],
+                        steps))
         if launches != want:
             fail(f"{model} {form} steps launched {launches}, expected {want}")
         ms = statistics.median(times) * 1e3
@@ -1289,6 +1437,186 @@ def step_memory(model: str):
              f"memory, less than {MEMORY_SAVING[model]}: {out}")
     return dict(out, peak_saving_bytes=saving,
                 peak_saving_min=MEMORY_SAVING[model])
+
+
+# ---------------------------------------------------------------------------
+# the ray-batch sweep and the directional kernels' dissection
+# ---------------------------------------------------------------------------
+
+# the backward forms of the sweep: the distinct configurations of
+# batch_scaling's prop_res and residuals axes (the fine net's form, the
+# proposal net's form)
+SCALING_FORMS = {
+    "fine_res_prop_res": dict(store_residuals=True,
+                              prop_store_residuals=True),
+    "fine_res_prop_recompute": dict(store_residuals=True,
+                                    prop_store_residuals=False),
+    "fine_recompute_prop_recompute": dict(store_residuals=False,
+                                          prop_store_residuals=False),
+}
+# vanilla at three ray batches in all three forms; Ref-NeRF, whose residual
+# step holds about 3 GB at 1024 rays, at two, on the prop_res axis
+SCALING_ROWS = (
+    [("vanilla", r, f) for r in (1024, 4096, 16384) for f in SCALING_FORMS]
+    + [("ref", r, f) for r in (1024, 4096)
+       for f in ("fine_res_prop_res", "fine_res_prop_recompute")])
+SCALING_STEPS = 10
+
+
+def batch_scaling_rows():
+    """``nerf_tpu_torch.tools.batch_scaling.measure(cfg, n_scan=10)`` on each
+    row of SCALING_ROWS, on the tool's default scene: rays/s (the best of 3
+    runs of 10 steps after a warm one) and the peak device memory of the
+    measurement.  Running out of memory fails the phase."""
+    from nerf_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerf_tpu_torch.tools import batch_scaling
+
+    scene = make_synthetic_scene(n_train=8, n_test=1, hw=(400, 400), seed=0,
+                                 n_samples=64, device="cuda")[0]
+    rows = []
+    for model, r, form in SCALING_ROWS:
+        cfg = batch_scaling.config(model, r, use_pallas=True,
+                                   **SCALING_FORMS[form])
+        t0 = time.perf_counter()
+        m = batch_scaling.measure(cfg, SCALING_STEPS, "cuda", scene)
+        rows.append(dict(model=model, R=r, form=form, **m,
+                         seconds=time.perf_counter() - t0))
+        emit("batch_scaling", **rows[-1])
+        torch.cuda.empty_cache()
+    return rows
+
+
+def dissect_macs(n_ch, stage_or_mode):
+    """MACs per point of a dissection stage or mode: the trunk (and the
+    IDE's z-powers @ mat from "vander" on); the backward modes add the
+    delta pass (without the two pullbacks into the trunk input in
+    "wgrads"), the weight grads and a rebuild."""
+    mats = ref_dir_shapes(n_ch)
+    fwd, mat = macs_per_point(mats), ide_tables(4)["mat"].size
+    dd = 128 + 2 * n_ch + 1
+    return {"trunk": fwd, "reflect": fwd, "vander": fwd + mat,
+            "polar": fwd + mat, "full": fwd + mat,
+            "recompute": fwd + mat,
+            "dheads": fwd + ref_dir_delta_macs(n_ch) + 2 * mat,
+            "wgrads": 2 * fwd + ref_dir_delta_macs(n_ch) - 2 * dd * 256 + mat,
+            "bwd_full": 2 * fwd + ref_dir_delta_macs(n_ch) + 3 * mat,
+            }[stage_or_mode]
+
+
+def dissect_phase():
+    """``python -m nerf_tpu_torch.tools.bench_ref_kernels --dissect
+    --dissect_fwd`` at its defaults (N = 197,632, width 256, IDE level 4,
+    seeded operands), bf16 then f32, its launches counted in the bf16 run;
+    then every stage and mode against its plain version on the same
+    operands (the backward modes on the forward kernel's activations, as
+    for ref_dir_bwd_recompute), stage "full" against ref_dir_fwd and mode
+    "full" against ref_dir_bwd_recompute, bit for bit, and the plain
+    versions timed.  The derived costs: each forward stage less the one
+    before it, and the backward's glue pullback (full less wgrads)."""
+    from nerf_tpu_torch.ops.ref_dissect import BWD_MODES
+    from nerf_tpu_torch.ops.ref_fused import DIR_STAGES
+    from nerf_tpu_torch.tools import bench_ref_kernels as bench
+
+    argv = ["--dissect", "--dissect_fwd"]
+    ops.reset_launches()
+    timed = {torch.bfloat16: bench.main(argv)}
+    launches = dict(ops.LAUNCHES)
+    timed[torch.float32] = bench.main(argv + ["--dtype", "f32"])
+    for k in DISSECT_KERNELS:
+        if launches[k] == 0:
+            fail(f"the dissection run launched {k} no time: {launches}")
+    n_ch = ide_tables(4)["n_ch"]
+    per = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        case = bench.make_case(dtype=dtype)
+        n = case["n"]
+        dargs = (case["dir_ws"], case["heads"], case["dirs"], 1)
+        inputs = _nbytes(case["heads"], case["noise"], case["dirs"],
+                         *case["dir_ws"])
+        for stage in DIR_STAGES:
+            got = bench.dissect_fwd_call(case, stage)()
+
+            def plain(stage=stage):
+                return ops.ref_dir_fwd_dissect_plain(
+                    *dargs, stage, case["noise"], case["rows"],
+                    case["ide_level"])
+            want = plain()
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            for a, b in zip(got, want):
+                if not torch.allclose(a, b, **TOLS[dtype]):
+                    fail(f"ref_dir_fwd_dissect[{stage}] {dtype}: max abs err "
+                         f"{err} beyond {TOLS[dtype]}")
+            if stage == "full" and not all(map(torch.equal, got, (
+                    ops.ref_dir_fwd(*dargs, case["noise"],
+                                    case["ide_level"])))):
+                fail(f"ref_dir_fwd_dissect[full] {dtype} differs from "
+                     f"ref_dir_fwd")
+            moved = inputs + n * 7 * 4 + (
+                _nbytes(case["rows"]) if stage in ("trunk", "reflect") else 0)
+            per[("fwd", stage, dtype)] = dict(
+                max_abs_err=err, tol=TOLS[dtype],
+                ms=timed[dtype]["fwd_stages"][stage],
+                plain_ms=cuda_ms(plain, 20),
+                **bound(moved, 2.0 * n * dissect_macs(n_ch, stage), dtype))
+            del got, want
+        acts = ops.ref_dir_fwd_res(*dargs, case["noise"], case["ide_level"])[3]
+        gs = (case["g_rgb"], case["g_normal"], case["g_density"])
+        for mode in BWD_MODES:
+            dh, grads = bench.dissect_bwd_call(case, mode)()
+
+            def plain(mode=mode, acts=None):
+                return ops.ref_dir_bwd_dissect_plain(
+                    *dargs, case["noise"], *gs, mode, case["ide_level"],
+                    acts=acts)
+            pdh, pgrads = plain(acts=acts)
+            if mode == "recompute":
+                rel = None
+                if not torch.allclose(dh, pdh, **TOLS[dtype]):
+                    fail(f"ref_dir_bwd_dissect[recompute] {dtype}: rgb, "
+                         f"normal, density beyond {TOLS[dtype]}")
+            else:
+                rel = dheads_rel(dh, pdh) if mode != "wgrads" else 0.0
+                if not rel <= REF_GRAD_REL[dtype]:
+                    fail(f"ref_dir_bwd_dissect[{mode}] {dtype}: d(heads) "
+                         f"relative error {rel}")
+            gerr, grel = compare_grads("ref_dir_bwd_dissect", dtype, grads,
+                                       pgrads)
+            if mode == "full":
+                full = ops.ref_dir_bwd_recompute(*dargs, case["noise"], *gs,
+                                                 case["ide_level"])
+                if not (torch.equal(dh, full[0])
+                        and all(map(torch.equal, grads, full[1]))):
+                    fail(f"ref_dir_bwd_dissect[full] {dtype} differs from "
+                         f"ref_dir_bwd_recompute")
+                del full
+            moved = inputs + _nbytes(*gs) + n * case["heads"].shape[1] * 4 \
+                + 4 * sum(w.numel() for w in case["dir_ws"])
+            macs = dissect_macs(n_ch, "bwd_full" if mode == "full" else mode)
+            per[("bwd", mode, dtype)] = dict(
+                max_abs_err=max(gerr, float((dh - pdh).abs().max())),
+                dheads_rel_err=rel, grad_rel_err=grel,
+                tol=REF_GRAD_REL[dtype], ms=timed[dtype]["bwd_modes"][mode],
+                plain_ms=cuda_ms(plain, 20),
+                **bound(moved, 2.0 * n * macs, dtype))
+            del dh, grads, pdh, pgrads
+        del case, acts
+        torch.cuda.empty_cache()
+    fw = {k: v["ms"] for (d, k, dt), v in per.items()
+          if d == "fwd" and dt == torch.bfloat16}
+    bw = {k: v["ms"] for (d, k, dt), v in per.items()
+          if d == "bwd" and dt == torch.bfloat16}
+    return dict(
+        n=bench.N_DEFAULT,
+        launches={k: launches[k] for k in DISSECT_KERNELS},
+        per={f"{d} {k} {str(dt).replace('torch.', '')}": v
+             for (d, k, dt), v in per.items()},
+        fwd_stage_cost_ms_bf16={f"{b} - {a}": fw[b] - fw[a] for a, b in
+                                zip(DIR_STAGES, DIR_STAGES[1:])},
+        fwd_glue_ms_bf16=fw["full"] - fw["trunk"],
+        fwd_glue_share_bf16=(fw["full"] - fw["trunk"]) / fw["full"],
+        bwd_glue_pullback_ms_bf16=bw["full"] - bw["wgrads"],
+        bwd_glue_pullback_share_bf16=(bw["full"] - bw["wgrads"]) / bw["full"],
+        bwd_rebuild_share_bf16=bw["recompute"] / bw["full"]), per
 
 
 # ---------------------------------------------------------------------------
@@ -1495,6 +1823,31 @@ def profile_trainer(tmp: str, epochs: int = 5, *extra: str):
                 top_device_ms_per_step=[[k, v / steps] for k, v in top])
 
 
+def dissect_entry(name, meta, launches, per, n):
+    """The kernels line's entry of a dissection kernel: its "full" stage or
+    mode (the shipped kernel's work) at the top, every stage or mode's
+    readings beside it."""
+    kind = "fwd" if name == "ref_dir_fwd_dissect" else "bwd"
+    parts = {k: v for (d, k, dt), v in per.items()
+             if d == kind and dt == torch.bfloat16}
+    f32 = {k: v for (d, k, dt), v in per.items()
+           if d == kind and dt == torch.float32}
+    full = parts["full"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    return dict(
+        name=name, route="cuda", source=meta["source"],
+        replaces=meta["replaces"], launches=launches,
+        max_abs_err=max(v["max_abs_err"] for v in parts.values()),
+        rel_err=full.get("grad_rel_err"), tol=full["tol"],
+        n=n, ms=full["ms"], plain_ms=full["plain_ms"],
+        bound_ms=full["bound_ms"], bound_by=full["bound_by"],
+        library_ms=None,
+        f32={k: f32["full"][k] for k in keys},
+        stages={k: {**{x: v[x] for x in keys}, "f32_ms": f32[k]["ms"],
+                    "f32_max_abs_err": f32[k]["max_abs_err"]}
+                for k, v in parts.items()})
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1522,7 +1875,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = {}
     for name in KERNELS:
-        if name in RECOMPUTE_KERNELS:    # phase 10
+        # the recompute kernels in phase 10, the rest in phases 12 and 14
+        if name in RECOMPUTE_KERNELS + PROP_RES_KERNELS + DISSECT_KERNELS:
             continue
         for dtype in (torch.bfloat16, torch.float32):
             res = check_kernel(name, dtype, gen)
@@ -1604,25 +1958,63 @@ def main() -> int:
         emit("hybrid_train_profile", **profile_trainer(
             tmp, 3, "-t", "--ref_kernels", "hybrid"))
 
-    # phase 12: the kernels line, then the last line.  ``launches`` is each
+    # phase 12: the proposal net's residual pair
+    for name in PROP_RES_KERNELS:
+        for dtype in (torch.bfloat16, torch.float32):
+            res = check_kernel(name, dtype, gen)
+            checks[(name, dtype)] = res
+            emit("prop_res_kernels", **res)
+            torch.cuda.empty_cache()
+    emit("step_prop_res", **step_check("vanilla", prop_res=True))
+    emit("ref_step_prop_res", **step_check("ref", prop_res=True))
+    for model in ("vanilla", "ref"):
+        emit("prop_res_vs_recompute", model=model,
+             **prop_res_vs_recompute(model))
+
+    # phase 13: the training step across ray batches
+    # (nerf_tpu_torch.tools.batch_scaling)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    scaling = batch_scaling_rows()
+    scaling_launches = dict(ops.LAUNCHES)
+    emit("batch_scaling_done", seconds=time.perf_counter() - t0,
+         launches=scaling_launches)
+    for k in PROP_RES_KERNELS:
+        if scaling_launches[k] == 0:
+            fail(f"the batch-scaling sweep launched {k} no time")
+
+    # phase 14: the directional kernels' dissection
+    # (nerf_tpu_torch.tools.bench_ref_kernels --dissect --dissect_fwd)
+    t0 = time.perf_counter()
+    dissect, dissect_per = dissect_phase()
+    emit("dissect", seconds=time.perf_counter() - t0, **dissect)
+
+    # phase 15: the kernels line, then the last line.  ``launches`` is each
     # kernel's count in its path's run: the vanilla train path (training
     # steps and the final eval render) for the vanilla kernels, the Ref-NeRF
     # render path for the Ref-NeRF eval forwards, the Ref-NeRF train path
     # for its training kernels, the hybrid train path for the spatial
-    # recompute pair, and the recompute steps of phase 10 (60 train_step
-    # calls of each model) for the other two recompute backwards;
+    # recompute pair, the recompute steps of phase 10 (60 train_step calls
+    # of each model) for the other two recompute backwards, the
+    # batch-scaling sweep of phase 13 for the proposal net's residual pair
+    # and the dissection run of phase 14 (bf16) for the dissection kernels;
     # ``launches_render``, ``launches_ref``, ``launches_ref_train``,
-    # ``launches_recompute_steps`` and ``launches_hybrid_train`` its count in
-    # each of those runs.
+    # ``launches_recompute_steps``, ``launches_hybrid_train`` and
+    # ``launches_batch_scaling`` its count in each of those runs.
     recompute_steps = {k: memory["vanilla"]["recompute"]["launches"][k]
                        + memory["ref"]["recompute"]["launches"][k]
                        for k in ops.LAUNCHES}
     kernels = []
     for name, meta in KERNELS.items():
+        if name in DISSECT_KERNELS:
+            kernels.append(dissect_entry(name, meta, dissect["launches"][name],
+                                         dissect_per, dissect["n"]))
+            continue
         res = checks[(name, torch.bfloat16)]   # -s trains and renders in bf16
         f32 = checks[(name, torch.float32)]
-        path = (hybrid["launches"] if name in ("ref_spa_fwd_grad",
-                                               "ref_spa_bwd_recompute")
+        path = (scaling_launches if name in PROP_RES_KERNELS
+                else hybrid["launches"] if name in ("ref_spa_fwd_grad",
+                                                    "ref_spa_bwd_recompute")
                 else recompute_steps if name in RECOMPUTE_KERNELS
                 else ref_train["launches"] if name in REF_TRAIN_KERNELS[1:-1]
                 else ref_launches if name.startswith("ref")
@@ -1635,6 +2027,7 @@ def main() -> int:
             launches_ref_train=ref_train["launches"][name],
             launches_recompute_steps=recompute_steps[name],
             launches_hybrid_train=hybrid["launches"][name],
+            launches_batch_scaling=scaling_launches[name],
             max_abs_err=res["max_abs_err"],
             rel_err=res.get("grad_rel_err", res.get("act_rel_err")),
             tol=res["tol"], n=res["n"], ms=res["ms"],

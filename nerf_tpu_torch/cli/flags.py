@@ -99,9 +99,11 @@ def get_parser() -> argparse.ArgumentParser:
                         "kernel paths; accepted and ignored by the port")
     p.add_argument("--ref_kernels", type=str, default="all",
                    choices=["hybrid", "all"],
-                   help="Ref-NeRF kernel strategy: 'all' = whole fine "
-                        "forward in two fused kernels; 'hybrid' = fused "
-                        "spatial net only (Ref-NeRF is not ported yet)")
+                   help="Ref-NeRF kernel strategy: 'all' = the whole "
+                        "fine net in the fused spatial and directional "
+                        "kernels (train and render); 'hybrid' = the fused "
+                        "spatial kernels (the recompute pair in training), "
+                        "the directional net as the nn.Module")
     p.add_argument("--trace", type=str, default=None, metavar="DIR",
                    help="capture a profiler trace of one epoch into DIR "
                         "(training; not ported yet)")

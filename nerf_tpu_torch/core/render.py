@@ -22,18 +22,24 @@ def lengths_to_points(rays: torch.Tensor, zvals: torch.Tensor) -> torch.Tensor:
 
 def transmittance_weights(density: torch.Tensor, zvals: torch.Tensor,
                           ray_dirs: Optional[torch.Tensor] = None,
-                          density_act=torch.relu) -> torch.Tensor:
+                          density_act=torch.relu,
+                          final_delta=None) -> torch.Tensor:
     """w_i = alpha_i * prod_{j<i}(1 - alpha_j), (R, P) f32.
 
     ``density`` is raw and activated here by ``density_act``; with
-    ``ray_dirs`` the depths are scaled by ||d||.  The last interval is 1e10.
+    ``ray_dirs`` the depths are scaled by ||d||.  The last interval is 1e10,
+    or ``final_delta`` (a scalar or a tensor broadcastable to (..., 1), in
+    the depths' units): the ground-truth quadrature of an analytic field
+    passes its honest last bin width (data/synthetic.py).
     """
     density = density.to(torch.float32)
     zvals = zvals.to(torch.float32)
     if ray_dirs is not None:
         zvals = zvals * torch.linalg.norm(ray_dirs, dim=-1, keepdim=True)
-    last = torch.full((*zvals.shape[:-1], 1), FAR_DELTA, dtype=torch.float32,
-                      device=zvals.device)
+    last = torch.broadcast_to(
+        torch.as_tensor(FAR_DELTA if final_delta is None else final_delta,
+                        dtype=torch.float32, device=zvals.device),
+        (*zvals.shape[:-1], 1))
     delta = torch.cat([zvals[..., 1:] - zvals[..., :-1], last], dim=-1)
     mult = torch.exp(-density_act(density) * delta)
     log_t = torch.log(mult + 1e-10)

@@ -2,13 +2,19 @@
 autograd Functions."""
 
 from nerf_tpu_torch.ops.fused_mlp import (
-    PropMLP, VanillaMLP, VanillaMLPRecompute, prep_weights, prop_mlp_bwd,
-    prop_mlp_bwd_plain, prop_mlp_fwd, prop_mlp_plain, vanilla_mlp_bwd,
+    PropMLP, PropMLPRes, VanillaMLP, VanillaMLPRecompute, prep_weights,
+    prop_mlp_bwd, prop_mlp_bwd_plain, prop_mlp_bwd_res,
+    prop_mlp_bwd_res_plain, prop_mlp_fwd, prop_mlp_fwd_res,
+    prop_mlp_fwd_res_plain, prop_mlp_plain, vanilla_mlp_bwd,
     vanilla_mlp_bwd_plain, vanilla_mlp_bwd_recompute,
     vanilla_mlp_bwd_recompute_plain, vanilla_mlp_fwd, vanilla_mlp_fwd_res,
     vanilla_mlp_fwd_res_plain, vanilla_mlp_plain,
 )
 from nerf_tpu_torch.ops.launch import LAUNCHES, reset_launches
+from nerf_tpu_torch.ops.ref_dissect import (
+    ref_dir_bwd_dissect, ref_dir_bwd_dissect_plain, ref_dir_fwd_dissect,
+    ref_dir_fwd_dissect_plain,
+)
 from nerf_tpu_torch.ops.ref_fused import (
     RefDirectionalMLP, RefDirectionalMLPRecompute, RefSpatialMLP,
     RefSpatialMLPRecompute, ref_dir_bwd, ref_dir_bwd_plain,
@@ -21,8 +27,10 @@ from nerf_tpu_torch.ops.ref_fused import (
 )
 
 __all__ = ["LAUNCHES", "reset_launches", "prep_weights", "PropMLP",
-           "VanillaMLP", "VanillaMLPRecompute", "prop_mlp_fwd",
-           "prop_mlp_plain", "prop_mlp_bwd", "prop_mlp_bwd_plain",
+           "PropMLPRes", "VanillaMLP", "VanillaMLPRecompute", "prop_mlp_fwd",
+           "prop_mlp_plain", "prop_mlp_fwd_res", "prop_mlp_fwd_res_plain",
+           "prop_mlp_bwd", "prop_mlp_bwd_plain", "prop_mlp_bwd_res",
+           "prop_mlp_bwd_res_plain",
            "vanilla_mlp_fwd", "vanilla_mlp_plain", "vanilla_mlp_fwd_res",
            "vanilla_mlp_fwd_res_plain", "vanilla_mlp_bwd",
            "vanilla_mlp_bwd_plain", "vanilla_mlp_bwd_recompute",
@@ -35,4 +43,6 @@ __all__ = ["LAUNCHES", "reset_launches", "prep_weights", "PropMLP",
            "ref_dir_fwd_res_plain", "ref_spa_bwd", "ref_spa_bwd_plain",
            "ref_spa_bwd_recompute", "ref_spa_bwd_recompute_plain",
            "ref_dir_bwd", "ref_dir_bwd_plain", "ref_dir_bwd_recompute",
-           "ref_dir_bwd_recompute_plain"]
+           "ref_dir_bwd_recompute_plain", "ref_dir_fwd_dissect",
+           "ref_dir_fwd_dissect_plain", "ref_dir_bwd_dissect",
+           "ref_dir_bwd_dissect_plain"]

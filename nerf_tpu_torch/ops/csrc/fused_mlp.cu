@@ -2,6 +2,11 @@
 //
 // Replace the Pallas TPU kernels of nerf_tpu/ops/fused_mlp.py:
 //   prop_mlp_fwd        <- _prop_fwd_kernel (:478) via make_prop_fused (:540)
+//   prop_mlp_fwd_res    <- _prop_fwd_res_kernel (:483), the training forward
+//                          of prop_store_residuals=True: the same network
+//                          (the density equal to prop_mlp_fwd's bit for
+//                          bit), and h1..h4 of every tile written to device
+//                          memory in T for prop_mlp_bwd_res
 //   vanilla_mlp_fwd     <- _vanilla_fwd_kernel (:128) over
 //                          _vanilla_forward_tile (:96) via make_vanilla_fused
 //                          (:305), the forward-only form
@@ -38,9 +43,11 @@
 // Bound on an H100 SXM (700 W): the vanilla net costs 527,872 MACs per point
 // and the proposal net 212,992.  The forward-only kernels move under 0.2 KB
 // per point and are compute-bound (0.56 ms and 0.11 ms per 4096-ray chunk at
-// the 989 TFLOP/s bf16 peak).  The res variant also writes 2,176 activation
-// values per point (4.35 KB in bf16): at N = 131,072 that is 0.17 ms of
-// writes against 0.14 ms of bf16 tensor-core work, so it is bound by bytes.
+// the 989 TFLOP/s bf16 peak).  The vanilla res variant also writes 2,176
+// activation values per point (4.35 KB in bf16): at N = 131,072 that is
+// 0.17 ms of writes against 0.14 ms of bf16 tensor-core work, so it is bound
+// by bytes; the proposal res variant writes 1,024 (2 KB in bf16), 0.04 ms at
+// one step's N = 65,536 against 0.03 ms of work, bound by bytes as well.
 // This first version multiplies on the CUDA cores in f32, not on the tensor
 // cores; mma.sync / wgmma and TMA are later work.
 
@@ -75,10 +82,17 @@ __device__ void head_tile(const T* a, int k_dim, const T* __restrict__ w,
   }
 }
 
+// Device pointers of the proposal net's 4 stored activations, (n, h) each.
 template <typename T>
+struct PropActs {
+  T *h1, *h2, *h3, *h4;
+};
+
+// With STORE (prop_mlp_fwd_res) h1..h4 also go to s in device memory.
+template <bool STORE, typename T>
 __global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
-prop_mlp_fwd_kernel(const T* __restrict__ x, PropWeights<T> p, int64_t n,
-                    int dx, int h, float* __restrict__ out) {
+prop_mlp_fwd_kernel(const T* __restrict__ x, PropWeights<T> p, PropActs<T> s,
+                    int64_t n, int dx, int h, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);
   T* buf_a = xs + TM * dx;
@@ -87,13 +101,13 @@ prop_mlp_fwd_kernel(const T* __restrict__ x, PropWeights<T> p, int64_t n,
   const int64_t row0 = (int64_t)blockIdx.x * TM;
   load_rows(x, dx, row0, n, xs);
   __syncthreads();
-  dense_tile<false>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, none, row0, n);    // h1
+  dense_tile<STORE>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.h1, row0, n);    // h1
   __syncthreads();
-  dense_tile<false>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, none, row0, n);  // h2
+  dense_tile<STORE>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.h2, row0, n);  // h2
   __syncthreads();
-  dense_tile<false>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, none, row0, n);  // h3
+  dense_tile<STORE>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.h3, row0, n);  // h3
   __syncthreads();
-  dense_tile<false>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, none, row0, n);  // h4
+  dense_tile<STORE>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.h4, row0, n);  // h4
   __syncthreads();
   head_tile(buf_b, h, p.wo, p.bo, 1, false, out, n, row0, n);
 }
@@ -142,16 +156,23 @@ vanilla_mlp_fwd_kernel(const T* __restrict__ x, const T* __restrict__ d,
   head_tile(buf_a, r, p.wr2, p.br2, 3, true, rgb3, n, row0, n);        // rgb
 }
 
-template <typename T>
+// acts: null for the forward-only kernel, else the 4 activation pointers
+// h1 h2 h3 h4.
+template <bool STORE, typename T>
 int launch_prop(const void* x, const uint64_t* ptrs, int64_t n, int dx, int h,
-                float* out, cudaStream_t stream) {
+                float* out, const uint64_t* acts, cudaStream_t stream) {
   const PropWeights<T> p = prop_weights<T>(ptrs);
+  PropActs<T> s = {};
+  if (STORE) {
+    s.h1 = (T*)acts[0]; s.h2 = (T*)acts[1];
+    s.h3 = (T*)acts[2]; s.h4 = (T*)acts[3];
+  }
   const size_t smem = (size_t)TM * (dx + 2 * h) * sizeof(T);
-  int err = set_smem(prop_mlp_fwd_kernel<T>, smem);
+  int err = set_smem(prop_mlp_fwd_kernel<STORE, T>, smem);
   if (err != 0 || n == 0) return err;
   const unsigned grid = (unsigned)((n + TM - 1) / TM);
-  prop_mlp_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
-      (const T*)x, p, n, dx, h, out);
+  prop_mlp_fwd_kernel<STORE, T><<<grid, THREADS, smem, stream>>>(
+      (const T*)x, p, s, n, dx, h, out);
   return (int)cudaGetLastError();
 }
 
@@ -186,14 +207,28 @@ extern "C" {
 
 int prop_mlp_fwd_f32(const void* x, const uint64_t* ptrs, int64_t n, int dx,
                      int h, void* out, void* stream) {
-  return launch_prop<float>(x, ptrs, n, dx, h, (float*)out,
-                            (cudaStream_t)stream);
+  return launch_prop<false, float>(x, ptrs, n, dx, h, (float*)out, nullptr,
+                                   (cudaStream_t)stream);
 }
 
 int prop_mlp_fwd_bf16(const void* x, const uint64_t* ptrs, int64_t n, int dx,
                       int h, void* out, void* stream) {
-  return launch_prop<__nv_bfloat16>(x, ptrs, n, dx, h, (float*)out,
-                                    (cudaStream_t)stream);
+  return launch_prop<false, __nv_bfloat16>(x, ptrs, n, dx, h, (float*)out,
+                                           nullptr, (cudaStream_t)stream);
+}
+
+int prop_mlp_fwd_res_f32(const void* x, const uint64_t* ptrs, int64_t n,
+                         int dx, int h, void* out, const uint64_t* acts,
+                         void* stream) {
+  return launch_prop<true, float>(x, ptrs, n, dx, h, (float*)out, acts,
+                                  (cudaStream_t)stream);
+}
+
+int prop_mlp_fwd_res_bf16(const void* x, const uint64_t* ptrs, int64_t n,
+                          int dx, int h, void* out, const uint64_t* acts,
+                          void* stream) {
+  return launch_prop<true, __nv_bfloat16>(x, ptrs, n, dx, h, (float*)out,
+                                          acts, (cudaStream_t)stream);
 }
 
 int vanilla_mlp_fwd_f32(const void* x, const void* d, const uint64_t* ptrs,

@@ -7,6 +7,11 @@
 //   prop_mlp_bwd    <- _prop_bwd_kernel (:493) with _prop_bwd_math (:506):
 //                      the recompute backward (prop_store_residuals=False),
 //                      which rebuilds h1..h4 inside the tile
+//   prop_mlp_bwd_res <- _prop_bwd_res_kernel (:499) with _prop_bwd_math: the
+//                      backward of prop_store_residuals=True, over the h1..h4
+//                      that prop_mlp_fwd_res stored; the same delta pass
+//                      without the rebuild, so its grads equal
+//                      prop_mlp_bwd's bit for bit on the same operands
 // Both return the f32 weight and bias grads in the shapes of the weight tuple;
 // the input cotangents are zero by construction (fused_mlp.py:14-19) and are
 // not computed.
@@ -32,7 +37,10 @@
 // Bound on an H100 SXM (700 W), bf16 tensor-core peak 989 TFLOP/s:
 // vanilla 527,872 weight-grad MACs plus 492,160 delta MACs per point, 0.27 ms
 // at N = 131,072; proposal (recompute) 622,848 MACs per point, 0.08 ms at
-// N = 65,536.  Both are bound by operations.  This first version multiplies
+// N = 65,536, and 409,856 without the rebuild (res), 0.05 ms.  All are bound
+// by operations.  The proposal backwards walk the points in chunks of whole
+// K-splits (launch_prop_bwd), so their deltas (and the rebuilt activations)
+// take scratch of one chunk, not of all N points.  This first version multiplies
 // on the CUDA cores in f32 and pays the delta round trip through device
 // memory; tensor cores and fusing the weight-grad products into the delta
 // pass are later work.
@@ -111,48 +119,57 @@ vanilla_delta_kernel(VanillaWeights<T> p, VanillaActs<T> s,
   delta_tile(buf_b, h, p.w1, h, s.h1, none, none, buf_a, o.dh1, row0, n, st);      // dh1
 }
 
-// The proposal backward's delta pass: the forward recomputed in the tile
-// (h1..h4 written to device memory for the weight-grad pass), then the chain
-// rule.  hs: 4 consecutive (n, h) arrays h1..h4; go: (n, 1) g cast to T;
-// dhs: 4 consecutive (n, h) arrays dh1..dh4.
+// The proposal net's h1..h4 (or their deltas), (n, h) each.
 template <typename T>
+struct PropHs {
+  T* a[4];
+};
+
+// The proposal backward's delta pass over one chunk of n rows.  With REBUILD
+// (prop_mlp_bwd) the forward is recomputed in the tile, as
+// prop_mlp_fwd_kernel runs it, and h1..h4 are written to hs, the chunk's
+// scratch; without (prop_mlp_bwd_res) hs are the chunk's rows of the stored
+// activations and only read.  Then the chain rule, the ReLU masks read from
+// hs.  x: the chunk's encoding rows (REBUILD only); g: its cotangent; go:
+// (n,) g cast to T; dhs: dh1..dh4.
+template <bool REBUILD, typename T>
 __global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
 prop_delta_kernel(const T* __restrict__ x, PropWeights<T> p,
                   const float* __restrict__ g, int64_t n, int dx, int h,
-                  T* __restrict__ hs, T* __restrict__ go,
-                  T* __restrict__ dhs) {
+                  PropHs<T> hs, T* __restrict__ go, PropHs<T> dhs) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* gs = reinterpret_cast<T*>(smem);     // (TM,) g in T
-  T* xs = gs + TM * 4;
-  T* buf_a = xs + TM * dx;
+  T* xs = gs + TM * 4;                    // (TM, dx), REBUILD only
+  T* buf_a = xs + (REBUILD ? TM * dx : 0);
   T* buf_b = buf_a + TM * h;
   T* st = buf_b + TM * h;                 // the W^T stage
   const T* none = nullptr;
   const int64_t row0 = (int64_t)blockIdx.x * TM;
-  const int64_t nh = n * h;
-  load_rows(x, dx, row0, n, xs);
+  if (REBUILD) load_rows(x, dx, row0, n, xs);
   for (int t = threadIdx.x; t < TM; t += THREADS) {
     const int64_t row = row0 + t;
     gs[t] = from_f<T>(row < n ? g[row] : 0.f);
     if (row < n) go[row] = gs[t];
   }
   __syncthreads();
-  dense_tile<true>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, hs, row0, n);
-  __syncthreads();
-  dense_tile<true>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, hs + nh, row0, n);
-  __syncthreads();
-  dense_tile<true>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, hs + 2 * nh, row0, n);
-  __syncthreads();
-  dense_tile<true>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, hs + 3 * nh, row0, n);
-  __syncthreads();   // also makes the stored h1..h4 visible to the block
+  if (REBUILD) {
+    dense_tile<true>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, hs.a[0], row0, n);
+    __syncthreads();
+    dense_tile<true>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, hs.a[1], row0, n);
+    __syncthreads();
+    dense_tile<true>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, hs.a[2], row0, n);
+    __syncthreads();
+    dense_tile<true>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, hs.a[3], row0, n);
+    __syncthreads();   // also makes the stored h1..h4 visible to the block
+  }
   // dh4 = mask(h4) (go (x) wo): a K = 1 product, no delta operand
-  delta_tile(none, 0, none, h, hs + 3 * nh, gs, p.wo, buf_a, dhs + 3 * nh, row0, n, st);
+  delta_tile(none, 0, none, h, hs.a[3], gs, p.wo, buf_a, dhs.a[3], row0, n, st);
   __syncthreads();
-  delta_tile(buf_a, h, p.w3, h, hs + 2 * nh, none, none, buf_b, dhs + 2 * nh, row0, n, st);
+  delta_tile(buf_a, h, p.w3, h, hs.a[2], none, none, buf_b, dhs.a[2], row0, n, st);
   __syncthreads();
-  delta_tile(buf_b, h, p.w2, h, hs + nh, none, none, buf_a, dhs + nh, row0, n, st);
+  delta_tile(buf_b, h, p.w2, h, hs.a[1], none, none, buf_a, dhs.a[1], row0, n, st);
   __syncthreads();
-  delta_tile(buf_a, h, p.w1, h, hs, none, none, buf_b, dhs, row0, n, st);
+  delta_tile(buf_a, h, p.w1, h, hs.a[0], none, none, buf_b, dhs.a[0], row0, n, st);
 }
 
 // vanilla: acts (9 pointers, h1 h2 h3 h4 z5 z6 z7 bvec r1), deltas (11
@@ -218,42 +235,51 @@ int launch_vanilla_bwd(const void* x, const void* d, const float* grgb,
                                 (n + splits - 1) / splits, false, stream);
 }
 
-// prop: hs (4 (n, h) arrays), go ((n,) T), dhs (4 (n, h) arrays) are scratch
-// from the caller; grads (10 f32 outputs in the order of the weight tuple),
-// partial (splits x 212,992 floats at the default widths).
-template <typename T>
+// prop: the points are walked in chunks of whole K-splits (rows_per_split
+// points each split, chunk_rows points a chunk), each chunk's deltas in
+// scratch of the chunk's size.  REBUILD: hs is scratch of 4 x chunk_rows x h
+// for the rebuilt h1..h4; else the 4 pointers of acts are the stored (n, h)
+// activations.  go (chunk_rows,) and dhs (4 x chunk_rows x h) are scratch;
+// grads: the 10 f32 outputs in the order of the weight tuple; partial:
+// chunk_rows / rows_per_split splits of 212,992 floats at the default
+// widths.
+template <bool REBUILD, typename T>
 int launch_prop_bwd(const void* x, const float* g_out, const uint64_t* ptrs,
-                    int64_t n, int dx, int h, void* hs, void* go, void* dhs,
-                    float* partial, int splits, const uint64_t* grads,
-                    cudaStream_t stream) {
+                    int64_t n, int dx, int h, void* hs, const uint64_t* acts,
+                    void* go, void* dhs, float* partial,
+                    int64_t rows_per_split, int64_t chunk_rows,
+                    const uint64_t* grads, cudaStream_t stream) {
   const PropWeights<T> p = prop_weights<T>(ptrs);
-  const size_t smem =
-      ((size_t)TM * (4 + dx + 2 * h) + KC * stage_ld<T>()) * sizeof(T);
-  int err = set_smem(prop_delta_kernel<T>, smem);
+  const size_t smem = ((size_t)TM * (4 + (REBUILD ? dx : 0) + 2 * h)
+                       + KC * stage_ld<T>()) * sizeof(T);
+  int err = set_smem(prop_delta_kernel<REBUILD, T>, smem);
   if (err != 0) return err;
-  if (n > 0) {
-    const unsigned grid = (unsigned)((n + TM - 1) / TM);
-    prop_delta_kernel<T><<<grid, THREADS, smem, stream>>>(
-        (const T*)x, p, g_out, n, dx, h, (T*)hs, (T*)go, (T*)dhs);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
-  const T* hv = (const T*)hs;
-  const T* dv = (const T*)dhs;
-  const int64_t nh = n * h;
   const int64_t sizes[10] = {(int64_t)dx * h, h, (int64_t)h * h, h,
                              (int64_t)h * h, h, (int64_t)h * h, h, h, 1};
-  const GradPlan g = plan_grads(sizes, 10, splits);
-  WGradJobs jobs;
-  jobs.n_jobs = 0;
-  int tiles = 0;
-  add_job(jobs, tiles, g, partial, x, dx, dv, h, false, 0, 1);
-  add_job(jobs, tiles, g, partial, hv, h, dv + nh, h, false, 2, 3);
-  add_job(jobs, tiles, g, partial, hv + nh, h, dv + 2 * nh, h, false, 4, 5);
-  add_job(jobs, tiles, g, partial, hv + 2 * nh, h, dv + 3 * nh, h, false, 6, 7);
-  add_job(jobs, tiles, g, partial, hv + 3 * nh, h, go, 1, false, 8, 9);
-  return launch_wgrad_reduce<T>(jobs, tiles, g, partial, grads, n, splits,
-                                (n + splits - 1) / splits, false, stream);
+  auto run = [&](int64_t c0, int64_t nc, const GradPlan& gp, WGradJobs& jobs,
+                 int& tiles) -> int {
+    const T* xc = (const T*)x + c0 * dx;
+    PropHs<T> a, d;
+    for (int i = 0; i < 4; ++i) {
+      a.a[i] = REBUILD ? (T*)hs + i * nc * h : (T*)acts[i] + c0 * h;
+      d.a[i] = (T*)dhs + i * nc * h;
+    }
+    if (nc > 0) {
+      const unsigned grid = (unsigned)((nc + TM - 1) / TM);
+      prop_delta_kernel<REBUILD, T><<<grid, THREADS, smem, stream>>>(
+          xc, p, g_out + c0, nc, dx, h, a, (T*)go, d);
+      const int e = (int)cudaGetLastError();
+      if (e != 0) return e;
+    }
+    add_job(jobs, tiles, gp, partial, xc, dx, d.a[0], h, false, 0, 1);
+    add_job(jobs, tiles, gp, partial, a.a[0], h, d.a[1], h, false, 2, 3);
+    add_job(jobs, tiles, gp, partial, a.a[1], h, d.a[2], h, false, 4, 5);
+    add_job(jobs, tiles, gp, partial, a.a[2], h, d.a[3], h, false, 6, 7);
+    add_job(jobs, tiles, gp, partial, a.a[3], h, go, 1, false, 8, 9);
+    return 0;
+  };
+  return chunked_wgrad<T>(sizes, 10, n, rows_per_split, chunk_rows, partial,
+                          grads, false, stream, run);
 }
 
 }  // namespace
@@ -273,13 +299,25 @@ extern "C" {
   }
 
 #define PROP_BWD(SUFFIX, T)                                                    \
-  int prop_mlp_bwd_##SUFFIX(const void* x, const void* g,                      \
-                            const uint64_t* ptrs, int64_t n, int dx, int h,    \
-                            void* hs, void* go, void* dhs, void* partial,      \
-                            int splits, const uint64_t* grads, void* stream) { \
-    return launch_prop_bwd<T>(x, (const float*)g, ptrs, n, dx, h, hs, go, dhs, \
-                              (float*)partial, splits, grads,                  \
-                              (cudaStream_t)stream);                           \
+  int prop_mlp_bwd_##SUFFIX(                                                   \
+      const void* x, const void* g, const uint64_t* ptrs, int64_t n, int dx,  \
+      int h, void* hs, void* go, void* dhs, void* partial,                     \
+      int64_t rows_per_split, int64_t chunk_rows, const uint64_t* grads,       \
+      void* stream) {                                                          \
+    return launch_prop_bwd<true, T>(                                           \
+        x, (const float*)g, ptrs, n, dx, h, hs, nullptr, go, dhs,              \
+        (float*)partial, rows_per_split, chunk_rows, grads,                    \
+        (cudaStream_t)stream);                                                 \
+  }                                                                            \
+  int prop_mlp_bwd_res_##SUFFIX(                                               \
+      const void* x, const void* g, const uint64_t* ptrs, int64_t n, int dx,  \
+      int h, const uint64_t* acts, void* go, void* dhs, void* partial,         \
+      int64_t rows_per_split, int64_t chunk_rows, const uint64_t* grads,       \
+      void* stream) {                                                          \
+    return launch_prop_bwd<false, T>(                                          \
+        x, (const float*)g, ptrs, n, dx, h, nullptr, acts, go, dhs,            \
+        (float*)partial, rows_per_split, chunk_rows, grads,                    \
+        (cudaStream_t)stream);                                                 \
   }
 
 VANILLA_BWD(f32, float)

@@ -166,32 +166,22 @@ int launch_vanilla_bwd_recompute(const void* x, const void* d,
       * sizeof(T);
   int err = set_smem(vanilla_recompute_kernel<T>, smem);
   if (err != 0) return err;
-  if (rows_per_split < 1 || chunk_rows < rows_per_split
-      || chunk_rows % rows_per_split != 0)
-    return (int)cudaErrorInvalidValue;
   const int64_t sizes[24] = {
       (int64_t)dx * h, h, (int64_t)h * h, h, (int64_t)h * h, h,
       (int64_t)h * h, h, (int64_t)dx * h, (int64_t)h * h, h, (int64_t)h * h, h,
       (int64_t)h * bn, bn, bn, 1, (int64_t)bn * bn, bn, (int64_t)bn * r,
       (int64_t)dd * r, r, (int64_t)r * 3, 3};
-  int64_t c0 = 0;
-  do {
-    const int64_t nc = n - c0 < chunk_rows ? n - c0 : chunk_rows;
-    int splits = (int)((nc + rows_per_split - 1) / rows_per_split);
-    if (splits < 1) splits = 1;
+  auto run = [&](int64_t c0, int64_t nc, const GradPlan& g, WGradJobs& jobs,
+                 int& tiles) -> int {
     const T* xc = (const T*)x + c0 * dx;
     const T* dc = (const T*)d + c0 * dd;
     if (nc > 0) {
       const unsigned grid = (unsigned)((nc + TM - 1) / TM);
       vanilla_recompute_kernel<T><<<grid, THREADS, smem, stream>>>(
           xc, dc, p, grgb, gsig, c0, n, s, o, nc, dx, dd, h, bn, r, maxw);
-      err = (int)cudaGetLastError();
-      if (err != 0) return err;
+      const int e = (int)cudaGetLastError();
+      if (e != 0) return e;
     }
-    const GradPlan g = plan_grads(sizes, 24, splits);
-    WGradJobs jobs;
-    jobs.n_jobs = 0;
-    int tiles = 0;
     add_job(jobs, tiles, g, partial, xc, dx, o.dh1, h, false, 0, 1);
     add_job(jobs, tiles, g, partial, s.h1, h, o.dh2, h, false, 2, 3);
     add_job(jobs, tiles, g, partial, s.h2, h, o.dh3, h, false, 4, 5);
@@ -205,12 +195,10 @@ int launch_vanilla_bwd_recompute(const void* x, const void* d,
     add_job(jobs, tiles, g, partial, s.bvec, bn, o.dr1, r, false, 19, -1);
     add_job(jobs, tiles, g, partial, dc, dd, o.dr1, r, false, 20, 21);
     add_job(jobs, tiles, g, partial, s.r1, r, o.dlogit, 3, false, 22, 23);
-    err = launch_wgrad_reduce<T>(jobs, tiles, g, partial, grads, nc, splits,
-                                 rows_per_split, false, stream, c0 > 0);
-    if (err != 0) return err;
-    c0 += chunk_rows;
-  } while (c0 < n);
-  return 0;
+    return 0;
+  };
+  return chunked_wgrad<T>(sizes, 24, n, rows_per_split, chunk_rows, partial,
+                          grads, false, stream, run);
 }
 
 }  // namespace

@@ -136,16 +136,43 @@ Acts<T> acts_of(const uint64_t* ptrs) {
   return s;
 }
 
+// The stages of the directional forward, each adding a part of the glue to
+// the one before (tools/bench_ref_kernels.py:147-156 of the JAX package).
+// Every kernel of the training and render paths runs DIR_FULL; the
+// dissection (ref_dissect.cu) also runs the first four, the same code with
+// the later parts switched off.
+constexpr int DIR_TRUNK = 0;    // the trunk: the IDE and d.n columns of its
+                                // input read from ``rows``, normal = dirs
+constexpr int DIR_REFLECT = 1;  // + the normal, d.n, the reflection and the
+                                // roughness; IDE columns rows + [refl, rough]
+constexpr int DIR_VANDER = 2;   // + the z-powers @ mat and the attenuation:
+                                // Re and Im both (vz @ mat) att
+constexpr int DIR_POLAR = 3;    // + the complex powers: the full IDE
+constexpr int DIR_FULL = 4;     // + the rgb tail (tint, diffuse, sRGB)
+
 // The pre-trunk glue of one point (_dir_glue_prelude_rowland, ref_fused.py
 // :543-572) into its row xr of the tile's input: the IDE in columns
 // [nb, nb + 2C), d.n in column nb + 2C; sigmoid(tint) and
 // sigmoid(diffuse [- ln 3]) into tint3 and diff3; the normal and the density
-// passthrough to device memory unless nrm_out is null.
-template <typename T>
+// passthrough to device memory unless nrm_out is null.  Below DIR_FULL the
+// glue stops at its STAGE (tint3 and diff3 are not written); DIR_TRUNK and
+// DIR_REFLECT read the point's 2C + 1 input rows at rows[c * rs].
+template <int STAGE = DIR_FULL, typename T>
 __device__ void dir_glue(const float* hr, const float* dv, const float* mat,
                          const float* sig, const DirDims& d, T* xr,
                          float* tint3, float* diff3, float* nrm_out,
-                         float* den_out) {
+                         float* den_out, const float* rows = nullptr,
+                         int64_t rs = 0) {
+  if (STAGE == DIR_TRUNK) {
+    for (int c = 0; c <= 2 * d.n_ch; ++c)
+      xr[d.nb + c] = from_f<T>(rows[c * rs]);
+    if (nrm_out == nullptr) return;
+    nrm_out[0] = dv[0];
+    nrm_out[1] = dv[1];
+    nrm_out[2] = dv[2];
+    *den_out = hr[1];
+    return;
+  }
   const float n0 = hr[2], n1 = hr[3], n2 = hr[4];
   const float norm = sqrtf(n0 * n0 + n1 * n1 + n2 * n2 + 1e-20f) + 1e-7f;
   const float m0 = -n0 / norm, m1 = -n1 / norm, m2 = -n2 / norm;
@@ -154,29 +181,41 @@ __device__ void dir_glue(const float* hr, const float* dv, const float* mat,
   const float y = dv[1] - 2.f * dn * m1;
   const float z = dv[2] - 2.f * dn * m2;
   const float rough = softplusf(hr[0] - 1.f);
-  int c = 0;
-  for (int l = 1; l <= d.l_max; l *= 2) {
-    float pr = 1.f, pi = 0.f;          // (x + iy)^m, from m = 0
-    for (int m = 0; m <= l; ++m, ++c) {
-      float vzm = 0.f, zp = 1.f;       // sum_i mat[i, c] z^i
-      for (int i = 0; i <= d.l_max; ++i) {
-        vzm = fmaf(mat[i * d.n_ch + c], zp, vzm);
-        zp *= z;
+  if (STAGE == DIR_REFLECT) {
+    const float add[4] = {x, y, z, rough};
+    for (int c = 0; c < 2 * d.n_ch; ++c)
+      xr[d.nb + c] = from_f<T>(rows[c * rs] + (c < 4 ? add[c] : 0.f));
+  } else {
+    int c = 0;
+    for (int l = 1; l <= d.l_max; l *= 2) {
+      float pr = 1.f, pi = 0.f;          // (x + iy)^m, from m = 0
+      for (int m = 0; m <= l; ++m, ++c) {
+        float vzm = 0.f, zp = 1.f;       // sum_i mat[i, c] z^i
+        for (int i = 0; i <= d.l_max; ++i) {
+          vzm = fmaf(mat[i * d.n_ch + c], zp, vzm);
+          zp *= z;
+        }
+        const float att = expf(-sig[c] * rough);
+        if (STAGE == DIR_VANDER) {
+          xr[d.nb + c] = xr[d.nb + d.n_ch + c] = from_f<T>(vzm * att);
+          continue;
+        }
+        xr[d.nb + c] = from_f<T>(pr * vzm * att);
+        xr[d.nb + d.n_ch + c] = from_f<T>(pi * vzm * att);
+        const float next = pr * x - pi * y;
+        pi = pi * x + pr * y;
+        pr = next;
       }
-      const float att = expf(-sig[c] * rough);
-      xr[d.nb + c] = from_f<T>(pr * vzm * att);
-      xr[d.nb + d.n_ch + c] = from_f<T>(pi * vzm * att);
-      const float next = pr * x - pi * y;
-      pi = pi * x + pr * y;
-      pr = next;
     }
   }
   xr[d.nb + 2 * d.n_ch] = from_f<T>(dn);
-  const float shift = d.srgb ? LN3 : 0.f;
+  if (STAGE == DIR_FULL) {
+    const float shift = d.srgb ? LN3 : 0.f;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    tint3[k] = sigmoidf(hr[8 + k]);
-    diff3[k] = sigmoidf(hr[5 + k] - shift);
+    for (int k = 0; k < 3; ++k) {
+      tint3[k] = sigmoidf(hr[8 + k]);
+      diff3[k] = sigmoidf(hr[5 + k] - shift);
+    }
   }
   if (nrm_out == nullptr) return;
   nrm_out[0] = m0;

@@ -36,7 +36,8 @@
 //                      rgb = sigmoid(z8 @ wh + bh) sigmoid(tint)
 //                      + sigmoid(diffuse [- ln 3]) [-> sRGB].  Outputs rgb and
 //                      normal (N, 3) and the density passthrough heads[:, 1],
-//                      f32.
+//                      f32.  Its code is in ref_dir_fwd.cuh, which the
+//                      dissection (ref_dissect.cu) compiles too.
 //
 // Contract (ref_fused.py:51-75, :1031-1033): weight matrices (in, out)
 // row-major in the compute dtype T (float or __nv_bfloat16), biases f32;
@@ -73,6 +74,7 @@
 // work.
 
 #include "ref_common.cuh"
+#include "ref_dir_fwd.cuh"
 
 namespace {
 
@@ -259,84 +261,6 @@ ref_spa_fwd_res_kernel(const T* __restrict__ x, const float* __restrict__ pos,
   }
 }
 
-// With STORE the 8 trunk activations go to s (device memory) as well.
-template <bool STORE, typename T>
-__global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
-ref_dir_fwd_kernel(const float* __restrict__ heads, const T* __restrict__ noise,
-                   const float* __restrict__ dirs, int64_t per_ray,
-                   const float* __restrict__ mat,
-                   const float* __restrict__ sigma, RefDirWeights<T> p,
-                   int64_t n, DirDims d, float* __restrict__ rgb,
-                   float* __restrict__ normal, float* __restrict__ density,
-                   Acts<T> s) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);
-  T* buf_a = xs + TM * d.dd;
-  T* buf_b = buf_a + TM * d.maxw;
-  float* mat_s = reinterpret_cast<float*>(buf_b + TM * d.maxw);
-  float* sig_s = mat_s + (d.l_max + 1) * d.n_ch;
-  float* tint_s = sig_s + d.n_ch;      // (TM, 3) sigmoid(tint)
-  float* diff_s = tint_s + TM * 3;     // (TM, 3) sigmoid(diffuse [- ln 3])
-  float* spec_s = diff_s + TM * 3;     // (TM, 3) specular
-  const T* none = nullptr;
-  const int64_t row0 = (int64_t)blockIdx.x * TM;
-  const int64_t hw = HEAD_FIXED + d.nb;
-  for (int i = threadIdx.x; i < (d.l_max + 1) * d.n_ch; i += THREADS)
-    mat_s[i] = mat[i];
-  for (int i = threadIdx.x; i < d.n_ch; i += THREADS) sig_s[i] = sigma[i];
-  // b_vec = (bottleneck + noise) cast to T, the first nb columns of x
-  for (int idx = threadIdx.x; idx < TM * d.nb; idx += THREADS) {
-    const int r = idx / d.nb;
-    const int c = idx - r * d.nb;
-    const int64_t row = row0 + r;
-    float v = 0.f;
-    if (row < n) {
-      v = heads[row * hw + HEAD_FIXED + c];
-      if (noise != nullptr) v += to_f(noise[row * d.nb + c]);
-    }
-    xs[r * d.dd + c] = from_f<T>(v);
-  }
-  __syncthreads();
-  for (int r = threadIdx.x; r < TM; r += THREADS) {
-    const int64_t row = row0 + r;
-    T* xr = xs + r * d.dd;
-    if (row < n) {
-      dir_glue(heads + row * hw, dirs + (row / per_ray) * 3, mat_s, sig_s, d,
-               xr, tint_s + r * 3, diff_s + r * 3, normal + row * 3,
-               density + row);
-    } else {
-      for (int c = d.nb; c < d.dd; ++c) xr[c] = from_f<T>(0.f);
-      for (int k = 0; k < 3; ++k) tint_s[r * 3 + k] = diff_s[r * 3 + k] = 0.f;
-    }
-  }
-  __syncthreads();
-  const int h = d.h, o = d.o, dd = d.dd;
-  dense_tile<STORE>(xs, dd, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n);     // h1
-  __syncthreads();
-  dense_tile<STORE>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n);   // h2
-  __syncthreads();
-  dense_tile<STORE>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n);   // h3
-  __syncthreads();
-  dense_tile<STORE>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n);   // h4
-  __syncthreads();
-  dense_tile<STORE>(xs, dd, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n); // z5
-  __syncthreads();
-  dense_tile<STORE>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n);   // z6
-  __syncthreads();
-  dense_tile<STORE>(buf_b, h, p.w6, none, 0, none, p.b6, o, true, buf_a, s.a[6], row0, n);   // z7
-  __syncthreads();
-  dense_tile<STORE>(buf_a, o, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n);   // z8
-  __syncthreads();
-  narrow_head(buf_b, o, p.wh, p.bh, 3, true, spec_s, 3, 0, 0, TM);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TM * 3; idx += THREADS) {
-    const int64_t row = row0 + idx / 3;
-    if (row >= n) continue;
-    const float v = spec_s[idx] * tint_s[idx] + diff_s[idx];
-    rgb[row0 * 3 + idx] = d.srgb ? srgbf(v) : v;
-  }
-}
-
 template <typename T>
 int launch_spa(const void* x, const uint64_t* ptrs, int64_t n,
                const int* dims, float* heads, cudaStream_t stream) {
@@ -382,32 +306,6 @@ int launch_spa_res(const void* x, const void* pos, const void* pe_w,
   return (int)cudaGetLastError();
 }
 
-// dims: nb h o l_max n_ch use_srgb; acts: null (eval) or the 8 (n, width)
-// outputs h1..h4 z5 z6 z7 z8
-template <typename T>
-int launch_dir(const void* heads, const void* noise, const void* dirs,
-               int64_t per_ray, const void* mat, const void* sigma,
-               const uint64_t* ptrs, int64_t n, const int* dims, float* rgb,
-               float* normal, float* density, const uint64_t* acts,
-               cudaStream_t stream) {
-  const RefDirWeights<T> p = dir_weights<T>(ptrs);
-  const DirDims d = dir_dims(dims);
-  const size_t smem = (size_t)TM * (d.dd + 2 * d.maxw) * sizeof(T)
-      + (size_t)((d.l_max + 1) * d.n_ch + d.n_ch + 9 * TM) * sizeof(float);
-  auto kernel = acts != nullptr ? ref_dir_fwd_kernel<true, T>
-                                : ref_dir_fwd_kernel<false, T>;
-  int err = set_smem(kernel, smem);
-  if (err != 0 || n == 0) return err;
-  Acts<T> s = {};
-  if (acts != nullptr) s = acts_of<T>(acts);
-  const unsigned grid = (unsigned)((n + TM - 1) / TM);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      (const float*)heads, (const T*)noise, (const float*)dirs, per_ray,
-      (const float*)mat, (const float*)sigma, p, n, d, rgb, normal, density,
-      s);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -441,18 +339,20 @@ extern "C" {
                            const void* sigma, const uint64_t* ptrs, int64_t n, \
                            const int* dims, void* rgb, void* normal,           \
                            void* density, void* stream) {                      \
-    return launch_dir<T>(heads, noise, dirs, per_ray, mat, sigma, ptrs, n,     \
-                         dims, (float*)rgb, (float*)normal, (float*)density,   \
-                         nullptr, (cudaStream_t)stream);                       \
+    return launch_dir<false, DIR_FULL, T>(                                     \
+        heads, noise, dirs, per_ray, nullptr, mat, sigma, ptrs, n, dims,       \
+        (float*)rgb, (float*)normal, (float*)density, nullptr,                 \
+        (cudaStream_t)stream);                                                 \
   }                                                                            \
   int ref_dir_fwd_res_##SUFFIX(                                                \
       const void* heads, const void* noise, const void* dirs, int64_t per_ray, \
       const void* mat, const void* sigma, const uint64_t* ptrs, int64_t n,     \
       const int* dims, void* rgb, void* normal, void* density,                 \
       const uint64_t* acts, void* stream) {                                    \
-    return launch_dir<T>(heads, noise, dirs, per_ray, mat, sigma, ptrs, n,     \
-                         dims, (float*)rgb, (float*)normal, (float*)density,   \
-                         acts, (cudaStream_t)stream);                          \
+    return launch_dir<true, DIR_FULL, T>(                                      \
+        heads, noise, dirs, per_ray, nullptr, mat, sigma, ptrs, n, dims,       \
+        (float*)rgb, (float*)normal, (float*)density, acts,                    \
+        (cudaStream_t)stream);                                                 \
   }
 
 REF_FWD(f32, float)

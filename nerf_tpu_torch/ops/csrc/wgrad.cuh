@@ -1,5 +1,6 @@
 // Split-K weight grads and their ordered reduction, shared by the backward
-// kernels (fused_mlp_bwd.cu, ref_fused_bwd.cu).
+// kernels (fused_mlp_bwd.cu, fused_mlp_recompute.cu, ref_fused_bwd.cu,
+// ref_dir.cuh).
 //
 // A TPU backward zeroes its grads at grid step 0 and adds each tile's partial
 // into them, in grid order.  GPU blocks run at the same time, so a backward
@@ -210,6 +211,44 @@ int launch_wgrad_reduce(const WGradJobs& jobs, int tiles, const GradPlan& g,
       (unsigned)((rj.begin[g.n_grads] + THREADS - 1) / THREADS);
   reduce_kernel<<<blocks, THREADS, 0, stream>>>(rj, splits, accumulate);
   return (int)cudaGetLastError();
+}
+
+// The chunk loop of the backwards that walk the points in chunks of whole
+// K-splits: for each chunk of chunk_rows points (rows_per_split each split),
+// ``run(c0, nc, plan, jobs, tiles)`` launches the chunk's delta kernel and
+// fills ``jobs``; then, with ``wgrads``, the weight-grad pass over the chunk's
+// splits (each split's weight grad rounded to T with ``round_partial``) and
+// the reduction onto the sums of the chunks before it.  The splits are
+// summed in the same order as one reduction over all of them, so the grads
+// do not depend on the chunk size.
+template <typename T, typename Chunk>
+int chunked_wgrad(const int64_t* sizes, int n_grads, int64_t n,
+                  int64_t rows_per_split, int64_t chunk_rows, float* partial,
+                  const uint64_t* grads, bool round_partial,
+                  cudaStream_t stream, Chunk run, bool wgrads = true) {
+  if (rows_per_split < 1 || chunk_rows < rows_per_split
+      || chunk_rows % rows_per_split != 0)
+    return (int)cudaErrorInvalidValue;
+  int64_t c0 = 0;
+  do {
+    const int64_t nc = n - c0 < chunk_rows ? n - c0 : chunk_rows;
+    int splits = (int)((nc + rows_per_split - 1) / rows_per_split);
+    if (splits < 1) splits = 1;
+    const GradPlan gp = plan_grads(sizes, n_grads, splits);
+    WGradJobs jobs;
+    jobs.n_jobs = 0;
+    int tiles = 0;
+    int err = run(c0, nc, gp, jobs, tiles);
+    if (err != 0) return err;
+    if (wgrads) {
+      err = launch_wgrad_reduce<T>(jobs, tiles, gp, partial, grads, nc,
+                                   splits, rows_per_split, round_partial,
+                                   stream, c0 > 0);
+      if (err != 0) return err;
+    }
+    c0 += chunk_rows;
+  } while (c0 < n);
+  return 0;
 }
 
 }  // namespace

@@ -1,11 +1,15 @@
 """Fused whole-network MLP kernels, their plain versions and their autograd.
 
-Six kernels, CUDA C++ for ``sm_90a`` (``csrc/``), each replacing a Pallas
+Eight kernels, CUDA C++ for ``sm_90a`` (``csrc/``), each replacing a Pallas
 kernel of nerf_tpu/ops/fused_mlp.py:
 
 ``prop_mlp_fwd`` (``fused_mlp.cu``)
     ``_prop_fwd_kernel`` (:478) via ``make_prop_fused`` (:540).  enc (N, 63)
     -> 4 x (dense 256, ReLU, cast) -> raw density (N,) f32.
+``prop_mlp_fwd_res`` (``fused_mlp.cu``)
+    ``_prop_fwd_res_kernel`` (:483), the training forward of
+    ``prop_store_residuals=True``: the same density, bit for bit, and the 4
+    activations h1 h2 h3 h4, (N, width) each in the compute dtype.
 ``vanilla_mlp_fwd`` (``fused_mlp.cu``)
     ``_vanilla_fwd_kernel`` (:128) over ``_vanilla_forward_tile`` (:96), the
     forward-only form.  enc_x (N, 63), enc_d (N, 27) -> rgb3 (3, N) f32 and
@@ -21,6 +25,12 @@ kernel of nerf_tpu/ops/fused_mlp.py:
 ``prop_mlp_bwd`` (``fused_mlp_bwd.cu``)
     ``_prop_bwd_kernel`` (:493) with ``_prop_bwd_math`` (:506), the recompute
     form: h1..h4 are rebuilt in the tile; g (N,) f32 -> the 10 f32 grads.
+``prop_mlp_bwd_res`` (``fused_mlp_bwd.cu``)
+    ``_prop_bwd_res_kernel`` (:499): the same chain rule over the stored
+    h1..h4, without the rebuild; the grads equal ``prop_mlp_bwd``'s.
+    Both proposal backwards walk the points in chunks of whole K-splits, as
+    ``vanilla_mlp_bwd_recompute`` does, so their deltas take scratch of one
+    chunk.
 ``vanilla_mlp_bwd_recompute`` (``fused_mlp_recompute.cu``)
     ``_vanilla_bwd_kernel`` (:136) over ``_vanilla_bwd_tile`` (:181), the
     backward of ``store_residuals=False``: enc_x, enc_d, g_rgb (3, N) and
@@ -58,10 +68,11 @@ version.  ``LAUNCHES`` (``ops/launch.py``) counts the wrappers' kernel
 launches, one per call that launches (a backward is one count for its three
 CUDA launches), and nowhere else.
 
-``VanillaMLP``, ``VanillaMLPRecompute`` and ``PropMLP`` are the
-``torch.autograd.Function``s of the training path (the ``jax.custom_vjp`` of
-``make_vanilla_fused`` with ``store_residuals`` True and False, and of
-``make_prop_fused``).  They take the f32 parameters and cast them inside, as
+``VanillaMLP``, ``VanillaMLPRecompute``, ``PropMLP`` and ``PropMLPRes`` are
+the ``torch.autograd.Function``s of the training path (the
+``jax.custom_vjp`` of ``make_vanilla_fused`` with ``store_residuals`` True
+and False, and of ``make_prop_fused`` with it False and True).  They take
+the f32 parameters and cast them inside, as
 ``_prep`` does (fused_mlp.py:326-331), so the f32 grads reach the parameters
 unrounded.
 """
@@ -82,6 +93,7 @@ from nerf_tpu_torch.ops.launch import (
 
 F32 = torch.float32
 N_PROP_WS = 10      # w0 b0 w1 b1 w2 b2 w3 b3 wo bo
+N_PROP_ACTS = 4     # h1 h2 h3 h4 (fused_mlp.py:475)
 N_VANILLA_WS = 24   # fused_mlp.py:79-92
 N_VANILLA_ACTS = 9  # h1 h2 h3 h4 z5 z6 z7 bvec r1 (fused_mlp.py:144-147)
 PROP_BIASES = (1, 3, 5, 7, 9)
@@ -127,6 +139,13 @@ def _prop_forward(ws, enc):
 def prop_mlp_plain(ws, enc: torch.Tensor) -> torch.Tensor:
     """Proposal forward in plain PyTorch: (N,) f32 raw density."""
     return _prop_forward(ws, enc)[1]
+
+
+def prop_mlp_fwd_res_plain(ws, enc: torch.Tensor):
+    """The prop_store_residuals forward in plain PyTorch: (raw density (N,)
+    f32, the 4 activations (N, width) in the compute dtype)."""
+    acts, density = _prop_forward(ws, enc)
+    return density, acts
 
 
 def _vanilla_forward(ws, enc_x, enc_d):
@@ -231,11 +250,18 @@ def vanilla_mlp_bwd_recompute_plain(ws, enc_x, enc_d, g_rgb, g_sigma,
 
 def prop_mlp_bwd_plain(ws, enc, g):
     """``_prop_bwd_kernel`` with ``_prop_bwd_math`` (fused_mlp.py:493,
-    :506-536) in plain PyTorch: the forward recomputed, then the 10 f32
-    grads of the weight tuple from g (N,) f32."""
+    :506-536) in plain PyTorch: the forward recomputed, then
+    ``prop_mlp_bwd_res_plain`` on its activations."""
+    return prop_mlp_bwd_res_plain(ws, enc, g, _prop_forward(ws, enc)[0])
+
+
+def prop_mlp_bwd_res_plain(ws, enc, g, acts):
+    """``_prop_bwd_res_kernel`` with ``_prop_bwd_math`` (fused_mlp.py:499,
+    :506-536) in plain PyTorch, cast for cast: the 10 f32 grads of the
+    weight tuple from g (N,) f32 and the stored activations h1..h4."""
     w0, b0, w1, b1, w2, b2, w3, b3, wo, bo = ws
     cd = enc.dtype
-    (h1, h2, h3, h4), _ = _prop_forward(ws, enc)
+    h1, h2, h3, h4 = acts
     go = g.to(F32).to(cd)[:, None]                               # (N, 1)
     dh4 = _mask(h4, go.to(F32) * wo.to(F32)[:, 0], cd)
     dh3 = _mask(h3, _dwt(dh4, w3), cd)
@@ -277,6 +303,7 @@ def _act_widths(h, bn, r):
 # library and C signature of each kernel (csrc/<library>.cu)
 register({
     "prop_mlp_fwd": ("fused_mlp", [PTR, U64P, I64, INT, INT, PTR]),
+    "prop_mlp_fwd_res": ("fused_mlp", [PTR, U64P, I64, INT, INT, PTR, U64P]),
     "vanilla_mlp_fwd": ("fused_mlp", [PTR, PTR, U64P, I64, INTP, PTR, PTR]),
     "vanilla_mlp_fwd_res": ("fused_mlp", [PTR, PTR, U64P, I64, INTP, PTR,
                                           PTR, U64P]),
@@ -284,7 +311,10 @@ register({
                                           U64P, I64, INTP, U64P, PTR, INT,
                                           U64P]),
     "prop_mlp_bwd": ("fused_mlp_bwd", [PTR, PTR, U64P, I64, INT, INT, PTR,
-                                       PTR, PTR, PTR, INT, U64P]),
+                                       PTR, PTR, PTR, I64, I64, U64P]),
+    "prop_mlp_bwd_res": ("fused_mlp_bwd", [PTR, PTR, U64P, I64, INT, INT,
+                                           U64P, PTR, PTR, PTR, I64, I64,
+                                           U64P]),
     "vanilla_mlp_bwd_recompute": ("fused_mlp_recompute", [
         PTR, PTR, PTR, PTR, U64P, I64, INTP, U64P, U64P, PTR, I64, I64,
         U64P]),
@@ -302,17 +332,33 @@ def prop_mlp_fwd(ws, enc: torch.Tensor, device=None) -> torch.Tensor:
     ``device`` defaults to ``cuda``; the operands must lie there.  On the CPU
     (``device="cpu"``) this is ``prop_mlp_plain``.
     """
+    return _prop_fwd(ws, enc, device, res=False)
+
+
+def prop_mlp_fwd_res(ws, enc: torch.Tensor, device=None):
+    """The proposal training forward of ``prop_store_residuals=True``:
+    ``prop_mlp_fwd``'s density and the 4 activations h1 h2 h3 h4, (N,
+    width) each in the compute dtype, for ``prop_mlp_bwd_res``.  On the CPU
+    this is ``prop_mlp_fwd_res_plain``."""
+    return _prop_fwd(ws, enc, device, res=True)
+
+
+def _prop_fwd(ws, enc, device, res: bool):
     dev = resolve_device(device)
     check_operands(ws, (enc,), N_PROP_WS, PROP_BIASES, dev)
     n, dx, h = _prop_dims(ws, enc)
     if dev.type == "cpu":
-        return prop_mlp_plain(ws, enc)
+        density, acts = prop_mlp_fwd_res_plain(ws, enc)
+        return (density, acts) if res else density
     out = torch.empty(n, dtype=F32, device=enc.device)
-    if n == 0:
-        return out
-    launch("prop_mlp_fwd", enc.dtype, enc.device, enc.data_ptr(),
-           pointers(ws), n, dx, h, out.data_ptr())
-    return out
+    acts = tuple(torch.empty((n, h), dtype=enc.dtype, device=enc.device)
+                 for _ in range(N_PROP_ACTS)) if res else ()
+    if n > 0:
+        extra = (pointers(acts),) if res else ()
+        launch("prop_mlp_fwd_res" if res else "prop_mlp_fwd", enc.dtype,
+               enc.device, enc.data_ptr(), pointers(ws), n, dx, h,
+               out.data_ptr(), *extra)
+    return (out, acts) if res else out
 
 
 def _vanilla_fwd(ws, enc_x, enc_d, device, res: bool):
@@ -450,25 +496,56 @@ def vanilla_mlp_bwd_recompute(ws, enc_x, enc_d, g_rgb, g_sigma,
 def prop_mlp_bwd(ws, enc: torch.Tensor, g: torch.Tensor, device=None):
     """Fused ProposalNetwork backward in the recompute form: the 10 f32
     grads of the weight tuple from g (N,) f32, the cotangent of the raw
-    density.  On the CPU this is ``prop_mlp_bwd_plain``."""
+    density.  The points are walked in chunks of whole K-splits
+    (``chunk_rows``), each chunk's activations rebuilt and its deltas
+    written into scratch of the chunk's size; the grads do not depend on the
+    chunk size.  On the CPU this is ``prop_mlp_bwd_plain``."""
+    return _prop_bwd(ws, enc, g, None, device)
+
+
+def prop_mlp_bwd_res(ws, enc: torch.Tensor, g: torch.Tensor, acts,
+                     device=None):
+    """Fused ProposalNetwork backward over stored activations: the 10 f32
+    grads of the weight tuple from g (N,) f32 and the 4 activations that
+    ``prop_mlp_fwd_res`` returned, walked in chunks as ``prop_mlp_bwd`` is;
+    the grads equal ``prop_mlp_bwd``'s.  On the CPU this is
+    ``prop_mlp_bwd_res_plain``."""
+    return _prop_bwd(ws, enc, g, acts, device)
+
+
+def _prop_bwd(ws, enc, g, acts, device):
     dev = resolve_device(device)
     check_operands(ws, (enc,), N_PROP_WS, PROP_BIASES, dev)
     n, dx, h = _prop_dims(ws, enc)
-    check_tensor(g, (n,), F32, dev, "g")
-    if dev.type == "cpu":
-        return prop_mlp_bwd_plain(ws, enc, g)
     cd = enc.dtype
-    like = dict(device=enc.device)
-    hs = torch.empty((4, n, h), dtype=cd, **like)
-    go = torch.empty(n, dtype=cd, **like)
-    dhs = torch.empty((4, n, h), dtype=cd, **like)
+    check_tensor(g, (n,), F32, dev, "g")
+    if acts is not None:
+        if len(acts) != N_PROP_ACTS:
+            raise ValueError(f"expected {N_PROP_ACTS} activations, "
+                             f"got {len(acts)}")
+        for i, a in enumerate(acts):
+            check_tensor(a, (n, h), cd, dev, f"activation {i}")
     splits = _splits(n)
-    partial = torch.empty(splits * sum(w.numel() for w in ws), dtype=F32,
-                          **like)
+    rows = math.ceil(n / splits) if n else ROWS_PER_SPLIT
+    chunk = chunk_rows(rows)
+    if dev.type == "cpu":
+        return (prop_mlp_bwd_plain(ws, enc, g) if acts is None
+                else prop_mlp_bwd_res_plain(ws, enc, g, acts))
+    like = dict(device=enc.device)
+    m = min(n, chunk)
+    go = torch.empty(m, dtype=cd, **like)
+    dhs = torch.empty((N_PROP_ACTS, m, h), dtype=cd, **like)
+    partial = torch.empty(min(splits, chunk // rows)
+                          * sum(w.numel() for w in ws), dtype=F32, **like)
     grads = _grad_buffers(ws, enc.device)
-    launch("prop_mlp_bwd", cd, enc.device, enc.data_ptr(), g.data_ptr(),
-           pointers(ws), n, dx, h, hs.data_ptr(), go.data_ptr(),
-           dhs.data_ptr(), partial.data_ptr(), splits, pointers(grads))
+    if acts is None:
+        name, hs = "prop_mlp_bwd", torch.empty((N_PROP_ACTS, m, h), dtype=cd,
+                                                **like).data_ptr()
+    else:
+        name, hs = "prop_mlp_bwd_res", pointers(acts)
+    launch(name, cd, enc.device, enc.data_ptr(), g.data_ptr(), pointers(ws),
+           n, dx, h, hs, go.data_ptr(), dhs.data_ptr(), partial.data_ptr(),
+           rows, chunk, pointers(grads))
     return grads
 
 
@@ -549,4 +626,27 @@ class PropMLP(torch.autograd.Function):
         enc, *wsc = ctx.saved_tensors
         grads = prop_mlp_bwd(wsc, enc, g.to(F32).contiguous(),
                              device=ctx.device)
+        return (None, None, *grads)
+
+
+class PropMLPRes(torch.autograd.Function):
+    """``PropMLP`` in the residual form (``prop_store_residuals=True``): the
+    forward is ``prop_mlp_fwd_res`` and saves what ``make_prop_fused``'s
+    ``fused_fwd`` keeps then (fused_mlp.py:587-589), the weights, the
+    encoding and the 4 activations; the backward is ``prop_mlp_bwd_res``."""
+
+    @staticmethod
+    def forward(ctx, device, enc, *ws):
+        wsc = prep_weights(ws, enc.dtype)
+        density, acts = prop_mlp_fwd_res(wsc, enc, device=device)
+        ctx.device = device
+        ctx.save_for_backward(enc, *acts, *wsc)
+        return density
+
+    @staticmethod
+    def backward(ctx, g):
+        enc, *rest = ctx.saved_tensors
+        acts, wsc = rest[:N_PROP_ACTS], rest[N_PROP_ACTS:]
+        grads = prop_mlp_bwd_res(wsc, enc, g.to(F32).contiguous(), acts,
+                                 device=ctx.device)
         return (None, None, *grads)

@@ -220,22 +220,52 @@ def softplus(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(v, 0.0) + torch.log1p(torch.exp(-v.abs()))
 
 
-def _dir_glue(heads, dirs, per_ray, noise, ide_level, use_srgb, cd):
+# the stages of the directional forward, each adding a part of the glue to
+# the one before (ref_common.cuh's DIR_TRUNK .. DIR_FULL)
+DIR_STAGES = ("trunk", "reflect", "vander", "polar", "full")
+
+
+def _dir_glue(heads, dirs, per_ray, noise, ide_level, use_srgb, cd,
+              stage: str = "full", rows=None):
     """``_dir_glue_prelude_rowland`` (:543-572) in f32, differentiable in
     ``heads``: the trunk input x (N, Dd) in ``cd``, the normal (N, 3),
-    sigmoid(tint) and sigmoid(diffuse [- ln 3]) (N, 3)."""
-    n_raw = heads[:, 2:5]
-    norm = torch.sqrt(torch.sum(n_raw * n_raw, dim=-1, keepdim=True) + 1e-20)
-    normal = -n_raw / (norm + 1e-7)
+    sigmoid(tint) and sigmoid(diffuse [- ln 3]) (N, 3).
+
+    ``stage`` stops the glue early, as the dissection's stages do
+    (``ops/ref_dissect.py``): "trunk" takes the IDE and d.n columns of x
+    from ``rows`` (2C + 1, N) and the normal from the directions;
+    "reflect" adds the reflection and the roughness to the first 4 of the
+    2C IDE rows; "vander" puts (z-powers @ mat) exp(-sigma roughness) in
+    both the Re and the Im half; "polar" is the full glue.  Below "full"
+    tint and diffuse are None."""
     d = torch.repeat_interleave(dirs.to(F32), per_ray, dim=0)
-    d_dot_n = torch.sum(d * normal, dim=-1, keepdim=True)
-    reflect = d - 2.0 * d_dot_n * normal
-    ide = integrated_dir_enc(reflect, softplus(heads[:, 0:1] - 1.0),
-                             ide_level, recurrence=True)
     b_vec = heads[:, HEAD_FIXED:]
     if noise is not None:
         b_vec = b_vec + noise.to(F32)
+    if stage == "trunk":
+        return (torch.cat([b_vec.to(cd), rows.T.to(cd)], dim=1), d, None,
+                None)
+    n_raw = heads[:, 2:5]
+    norm = torch.sqrt(torch.sum(n_raw * n_raw, dim=-1, keepdim=True) + 1e-20)
+    normal = -n_raw / (norm + 1e-7)
+    d_dot_n = torch.sum(d * normal, dim=-1, keepdim=True)
+    reflect = d - 2.0 * d_dot_n * normal
+    rough = softplus(heads[:, 0:1] - 1.0)
+    if stage == "reflect":
+        ide = rows[:-1].T + F.pad(torch.cat([reflect, rough], dim=1),
+                                  (0, rows.shape[0] - 5))
+    elif stage == "vander":
+        # the IDE of (1, 0, z): its real half is (z-powers @ mat) att
+        half = integrated_dir_enc(
+            torch.cat([torch.ones_like(rough), torch.zeros_like(rough),
+                       reflect[:, 2:3]], dim=1), rough, ide_level,
+            recurrence=True)[:, :ide_tables(ide_level)["n_ch"]]
+        ide = torch.cat([half, half], dim=1)
+    else:
+        ide = integrated_dir_enc(reflect, rough, ide_level, recurrence=True)
     x = torch.cat([b_vec.to(cd), ide.to(cd), d_dot_n.to(cd)], dim=1)
+    if stage != "full":
+        return x, normal, None, None
     diff_logit = heads[:, 5:8] - math.log(3.0) if use_srgb else heads[:, 5:8]
     return x, normal, torch.sigmoid(heads[:, 8:11]), torch.sigmoid(diff_logit)
 
@@ -748,17 +778,41 @@ def ref_dir_bwd_recompute(ws, heads: torch.Tensor, dirs: torch.Tensor,
     ``ref_spa_bwd_recompute`` is.  On the CPU this is
     ``ref_dir_bwd_recompute_plain``."""
     dev = resolve_device(device)
-    n, nb, h, o, l_max, n_ch, cd = _check_dir(ws, heads, dirs, per_ray,
-                                              noise, ide_level, dev)
-    check_tensor(g_rgb, (n, 3), F32, dev, "g_rgb")
-    check_tensor(g_normal, (n, 3), F32, dev, "g_normal")
-    check_tensor(g_density, (n,), F32, dev, "g_density")
-    splits = _splits(n, tile)
-    chunk = chunk_rows(tile)
+    n = check_dir_bwd_operands(ws, heads, dirs, per_ray, noise, g_rgb,
+                               g_normal, g_density, ide_level, dev)[0]
+    _splits(n, tile)                       # raises on a tile below 1
     if dev.type == "cpu":
         return ref_dir_bwd_recompute_plain(ws, heads, dirs, per_ray, noise,
                                            g_rgb, g_normal, g_density,
                                            ide_level, use_srgb, tile)
+    return launch_dir_bwd_recompute(
+        "ref_dir_bwd_recompute", (), ws, heads, dirs, per_ray, noise, g_rgb,
+        g_normal, g_density, ide_level, use_srgb, tile)
+
+
+def check_dir_bwd_operands(ws, heads, dirs, per_ray, noise, g_rgb, g_normal,
+                           g_density, ide_level, dev):
+    """The operand checks of the recompute-form directional backward:
+    (n, nb, h, o, l_max, n_ch, cd)."""
+    dims = _check_dir(ws, heads, dirs, per_ray, noise, ide_level, dev)
+    n = dims[0]
+    check_tensor(g_rgb, (n, 3), F32, dev, "g_rgb")
+    check_tensor(g_normal, (n, 3), F32, dev, "g_normal")
+    check_tensor(g_density, (n,), F32, dev, "g_density")
+    return dims
+
+
+def launch_dir_bwd_recompute(name, lead, ws, heads, dirs, per_ray, noise,
+                             g_rgb, g_normal, g_density, ide_level, use_srgb,
+                             tile):
+    """Launch kernel ``name`` (``ref_dir_bwd_recompute``, or a mode of its
+    dissection with the C arguments ``lead`` before the common ones) on
+    checked CUDA operands, with the chunk-sized scratch it walks the points
+    in: (d(heads), the 19 f32 grads)."""
+    n, nb, h, o, l_max, n_ch, cd = _check_dir(ws, heads, dirs, per_ray, noise,
+                                              ide_level, heads.device)
+    splits = _splits(n, tile)
+    chunk = chunk_rows(tile)
     like = dict(dtype=cd, device=heads.device)
     m = min(n, chunk)
     x = torch.empty((m, nb + 2 * n_ch + 1), **like)    # the trunk input
@@ -774,7 +828,7 @@ def ref_dir_bwd_recompute(ws, heads: torch.Tensor, dirs: torch.Tensor,
                   for w in ws)
     mat, sigma = _ide_operands(ide_level, heads.device)
     dims = (ctypes.c_int * 6)(nb, h, o, l_max, n_ch, int(use_srgb))
-    launch("ref_dir_bwd_recompute", cd, heads.device, heads.data_ptr(),
+    launch(name, cd, heads.device, *lead, heads.data_ptr(),
            None if noise is None else noise.data_ptr(), dirs.data_ptr(),
            per_ray, mat.data_ptr(), sigma.data_ptr(), g_rgb.data_ptr(),
            g_normal.data_ptr(), g_density.data_ptr(), pointers(ws), n, dims,

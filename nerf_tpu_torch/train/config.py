@@ -60,7 +60,7 @@ class PipelineConfig:
     # training-kernel backward strategies: the fine nets store their
     # activations (True) or recompute them in the backward (False); the
     # proposal net follows store_residuals when prop_store_residuals is
-    # None.  The port raises for the proposal net's residual pair.
+    # None.
     store_residuals: bool = True
     prop_store_residuals: Optional[bool] = False
     bwd_bufs: Optional[int] = None

@@ -14,8 +14,10 @@ Training runs the MLPs through the fused kernels' autograd Functions
 ``ops.RefDirectionalMLP``; with ``cfg.store_residuals=False`` their
 recompute forms ``ops.VanillaMLPRecompute``, ``ops.RefSpatialMLPRecompute``
 and ``ops.RefDirectionalMLPRecompute``, which hold no activation from the
-forward to the backward) unless ``cfg.use_pallas`` is False, which selects
-the ``nn.Module`` forward with autograd: the oracle.
+forward to the backward; the proposal net's residual form ``ops.PropMLPRes``
+where ``prop_store_residuals`` resolves to True) unless ``cfg.use_pallas``
+is False, which selects the ``nn.Module`` forward with autograd: the
+oracle.
 ``cfg.ref_kernels="hybrid"`` runs Ref-NeRF's spatial net through its kernel
 (the recompute pair in training) and the directional net through
 ``RefNeRF.directional``.  Ref-NeRF's normal target d(density)/d(pos) comes
@@ -41,9 +43,9 @@ from nerf_tpu_torch.device import check_device, resolve_device
 from nerf_tpu_torch.models import ProposalNetwork, RefNeRF, VanillaNeRF
 from nerf_tpu_torch.models.mlp import init_flax_
 from nerf_tpu_torch.ops import (
-    PropMLP, RefDirectionalMLP, RefDirectionalMLPRecompute, RefSpatialMLP,
-    RefSpatialMLPRecompute, VanillaMLP, VanillaMLPRecompute, prop_mlp_fwd,
-    ref_fine_fwd, ref_spa_fwd, vanilla_mlp_fwd,
+    PropMLP, PropMLPRes, RefDirectionalMLP, RefDirectionalMLPRecompute,
+    RefSpatialMLP, RefSpatialMLPRecompute, VanillaMLP, VanillaMLPRecompute,
+    prop_mlp_fwd, ref_fine_fwd, ref_spa_fwd, vanilla_mlp_fwd,
 )
 from nerf_tpu_torch.ops.ref_fused import normal_target, softplus
 from nerf_tpu_torch.train.config import PipelineConfig
@@ -97,18 +99,7 @@ def init_variables(cfg: PipelineConfig,
 def _use_kernels(cfg: PipelineConfig, train: bool) -> bool:
     if not train:
         return cfg.eval_use_pallas is not False
-    if cfg.use_pallas is False:
-        return False
-    # the proposal net's backward form resolves as in
-    # nerf_tpu/train/config.py:102-106; its residual pair raises rather than
-    # run something else
-    prop_res = (cfg.store_residuals if cfg.prop_store_residuals is None
-                else cfg.prop_store_residuals)
-    if prop_res:
-        raise NotImplementedError(_NOT_PORTED.format(
-            "residual proposal pair (prop_store_residuals=True, "
-            "_prop_fwd_res_kernel/_prop_bwd_res_kernel; ROADMAP.md B1)"))
-    return True
+    return cfg.use_pallas is not False
 
 
 def _ray_dir_encoding(nerf: VanillaNeRF, ray_dirs: torch.Tensor,
@@ -148,14 +139,22 @@ def _apply_vanilla(nerf: VanillaNeRF, pos: torch.Tensor,
 
 def _apply_prop(prop: ProposalNetwork, pts: torch.Tensor,
                 cfg: PipelineConfig, dev, train: bool = False) -> torch.Tensor:
-    """Proposal net on points (R, P, 3) -> raw density (R, P)."""
+    """Proposal net on points (R, P, 3) -> raw density (R, P).
+
+    In training the kernel route is ``PropMLP`` (the recompute pair), or
+    ``PropMLPRes`` where the proposal net's form resolves to residual: it
+    follows ``store_residuals`` when ``prop_store_residuals`` is None
+    (nerf_tpu/train/pipeline.py:193-198)."""
     if not _use_kernels(cfg, train):
         return prop(pts)
     r, p = pts.shape[:2]
     enc = cat_pos_pe(pts.detach().reshape(r * p, 3), prop.pos_levels,
                      prop.dtype)
     if train:
-        return PropMLP.apply(dev, enc, *prop.kernel_params()).reshape(r, p)
+        res = (cfg.store_residuals if cfg.prop_store_residuals is None
+               else cfg.prop_store_residuals)
+        fn = PropMLPRes if res else PropMLP
+        return fn.apply(dev, enc, *prop.kernel_params()).reshape(r, p)
     return prop_mlp_fwd(prop.kernel_weights(), enc, device=dev).reshape(r, p)
 
 

@@ -11,6 +11,7 @@ PyTorch on the device, with the same arithmetic:
   detached fine weights; for Ref-NeRF also the weighted normal loss against
   the detached density-gradient normals, the back-face loss and, under
   ``--prop_normal``, the proposal net's normal loss at the coarse samples;
+  the distortion and ray-entropy regularizers under their weights;
 - Adam(0.9, 0.999, eps 1e-8), its rate set to ``schedule(step)`` before each
   update (optax evaluates its schedule at the update's own count, so the
   first update uses ``schedule(0)``), after optax's global-norm clipping
@@ -107,7 +108,10 @@ def compute_loss(models, rays: torch.Tensor, rgb_gt: torch.Tensor,
     """(loss, metrics) for one ray batch: the proposal loss over the
     detached fine weights plus the MSE of the fine render, and for Ref-NeRF
     ``normal_loss_w`` (normal loss + ``coarse_normal_rel_w`` coarse normal
-    loss) + ``backface_w`` back-face loss.  ``metrics`` holds img_loss,
+    loss) + ``backface_w`` back-face loss; ``distortion_w`` times the
+    reference's distortion loss over the fine weights and depths (Ref-NeRF:
+    the merged ones) and ``entropy_w`` times the ray-entropy loss, where
+    they are positive.  ``metrics`` holds img_loss,
     prop_loss, psnr and loss (Ref-NeRF: also normal_loss and bf_loss), as
     device tensors."""
     out = render_rays_train(models, rays, cfg, noise=noise,
@@ -128,6 +132,13 @@ def compute_loss(models, rays: torch.Tensor, rgb_gt: torch.Tensor,
             normal_loss + cfg.coarse_normal_rel_w * coarse) \
             + cfg.backface_w * bf_loss
         metrics.update(normal_loss=normal_loss, bf_loss=bf_loss)
+    if cfg.distortion_w > 0.0:
+        z = out["z_merged"] if "z_merged" in out else out["z_fine"]
+        loss = loss + cfg.distortion_w * losses.reference_distortion_loss(
+            out["weights"], z)
+    if cfg.entropy_w > 0.0:
+        loss = loss + cfg.entropy_w * losses.ray_entropy_loss(
+            out["weights"], cfg.entropy_acc_threshold)
     metrics["loss"] = loss
     return loss, metrics
 

@@ -756,3 +756,171 @@ def test_recompute_train_steps_match_module_path(cuda, model, kw, kernels):
         assert all(map(torch.equal, out[0][1], out[1][1])), res
     elif "store_residuals" in kw:
         assert max(res) < GRAD_REL[torch.float32], res
+
+
+# ---------------------------------------------------------------------------
+# the proposal net's residual pair (prop_store_residuals=True)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", list(TOLS))
+@pytest.mark.parametrize("n", [1, 70, 4099])
+@pytest.mark.parametrize("width", [48, 256])
+def test_prop_res_kernels_match_plain(cuda, dtype, n, width):
+    """prop_mlp_fwd_res gives prop_mlp_fwd's density bit for bit and
+    activations within TOLS of the plain forward's; prop_mlp_bwd_res on
+    them gives prop_mlp_bwd's grads bit for bit (the same delta pass without
+    the rebuild, the same K-splits summed in the same order) and is within
+    GRAD_REL of its plain version.  Both backwards give the same grads with
+    one K-split a chunk (two chunks at N = 4099) as with the default chunks.
+    In bf16 the plain backward with no per-layer cast reads beyond
+    GRAD_REL."""
+    p = _randomize(ProposalNetwork(hidden=width, dtype=dtype), 5).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n + 13)
+    x = (torch.rand((n, 63), generator=gen, device=cuda) * 2 - 1).to(dtype)
+    g = torch.randn((n,), generator=gen, device=cuda)
+    pw = p.kernel_weights()
+    ops.reset_launches()
+    den, acts = ops.prop_mlp_fwd_res(pw, x)
+    grads = ops.prop_mlp_bwd_res(pw, x, g, acts)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == dict(dict.fromkeys(ops.LAUNCHES, 0),
+                                prop_mlp_fwd_res=1, prop_mlp_bwd_res=1)
+    assert torch.equal(den, ops.prop_mlp_fwd(pw, x))
+    pden, pacts = ops.prop_mlp_fwd_res_plain(pw, x)
+    torch.testing.assert_close(den, pden, **TOLS[dtype])
+    for a, pa in zip(acts, pacts):
+        torch.testing.assert_close(a.float(), pa.float(), **TOLS[dtype])
+    recompute = ops.prop_mlp_bwd(pw, x, g)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops.fused_mlp, "CHUNK_ROWS", 1)    # one K-split a chunk
+        one_res = ops.prop_mlp_bwd_res(pw, x, g, acts)
+        one = ops.prop_mlp_bwd(pw, x, g)
+    want = ops.prop_mlp_bwd_res_plain(pw, x, g, acts)
+    for i, (a, w) in enumerate(zip(grads, want)):
+        assert a.shape == w.shape and a.dtype == torch.float32
+        assert _rel_err(a, w) < GRAD_REL[dtype], (i, _rel_err(a, w))
+        assert torch.equal(a, recompute[i]), i
+        assert torch.equal(a, one_res[i]) and torch.equal(a, one[i]), i
+    if dtype == torch.bfloat16 and n > 1:
+        uncast = ops.prop_mlp_bwd_res_plain([t.float() for t in pw],
+                                            x.float(), g,
+                                            [a.float() for a in acts])
+        assert max(map(_rel_err, uncast, want)) > GRAD_REL[dtype]
+
+
+@pytest.mark.parametrize("model, kernels", [
+    ("vanilla", ("prop_mlp_fwd_res", "prop_mlp_bwd_res",
+                 "vanilla_mlp_fwd_res", "vanilla_mlp_bwd")),
+    ("ref", ("prop_mlp_fwd_res", "prop_mlp_bwd_res", "ref_spa_fwd_res",
+             "ref_spa_bwd", "ref_dir_fwd_res", "ref_dir_bwd"))])
+def test_prop_res_train_steps_match_module_path(cuda, model, kernels):
+    """One f32 step with prop_store_residuals=True on the inputs of the
+    residual step tests above: each kernel of the route launches once and
+    no other; the loss and grads agree with the nn.Module path as the
+    residual steps' do, and every grad equals the step's with the proposal
+    net's recompute pair bit for bit."""
+    ref = model == "ref"
+    cfg = PipelineConfig(model=model, n_coarse=16, n_fine=32, nerf_width=64,
+                         prop_width=64, ray_batch=300, bottleneck_noise=0.0,
+                         pallas_tile=256)
+    models = make_models(cfg, cuda)
+    for i, m in enumerate(models):
+        _randomize(m, (40 if ref else 20) + i, gain=1.0)
+    rng = np.random.default_rng(3 if ref else 1)
+    rays = np.concatenate([rng.normal(0, 0.2, (300, 3)) + [0, 0, 4.0],
+                           rng.normal(0, 0.3, (300, 3)) + [0, 0, -1.0]], -1)
+    rays = torch.tensor(rays, dtype=torch.float32, device=cuda)
+    gt = torch.tensor(rng.uniform(size=(300, 3)), dtype=torch.float32,
+                      device=cuda)
+    jit = torch.tensor(rng.uniform(size=(300, 16)), dtype=torch.float32,
+                       device=cuda)
+    u = torch.tensor(np.sort(rng.uniform(size=(300, 33)), -1),
+                     dtype=torch.float32, device=cuda)
+    params = train_parameters(models)
+    out = []
+    for route in (cfg.replace(prop_store_residuals=True), cfg,
+                  cfg.replace(use_pallas=False)):
+        ops.reset_launches()
+        loss, _ = compute_loss(models, rays, gt, route, noise=(jit, u))
+        grads = torch.autograd.grad(loss, params)
+        out.append((loss, grads, dict(ops.LAUNCHES)))
+    assert out[0][2] == dict(dict.fromkeys(ops.LAUNCHES, 0),
+                             **dict.fromkeys(kernels, 1)), out[0][2]
+    assert not any(out[2][2].values())
+    torch.testing.assert_close(out[0][0], out[2][0], rtol=1e-4, atol=1e-6)
+    rels = [_rel_err(g, w) for g, w in zip(out[0][1], out[2][1])]
+    assert max(rels) < 1e-2, rels
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(map(torch.equal, out[0][1], out[1][1]))
+
+
+# ---------------------------------------------------------------------------
+# the directional kernels' dissection
+# ---------------------------------------------------------------------------
+
+STAGES = ("trunk", "reflect", "vander", "polar", "full")
+MODES = ("recompute", "dheads", "wgrads", "full")
+
+
+@pytest.mark.parametrize("dtype", list(TOLS))
+@pytest.mark.parametrize("n, per_ray", [(1, 1), (70, 7), (4097, 17)])
+@pytest.mark.parametrize("hidden, output_dim", [(256, 256), (48, 80)])
+def test_dissect_kernels_match_plain(cuda, dtype, n, per_ray, hidden,
+                                     output_dim):
+    """Every stage of ref_dir_fwd_dissect within TOLS of its plain version,
+    stage "full" equal to ref_dir_fwd bit for bit; every mode of
+    ref_dir_bwd_dissect within REF_GRAD_REL of its plain version on the
+    forward kernel's activations (chunks of two 64-row tiles), zero where the
+    mode computes nothing, mode "full" equal to ref_dir_bwd_recompute bit
+    for bit and the rebuild mode's rgb, normal and density equal to the
+    forward kernel's."""
+    m, _, dirs = _ref_operands(cuda, dtype, n, per_ray, n + 9,
+                               hidden=hidden, output_dim=output_dim)
+    gen = torch.Generator(device=cuda).manual_seed(n + 10)
+    _, dir_ws = m.kernel_weights()
+    nb = m.bottleneck_dim
+    n_ch = (dir_ws[0].shape[0] - nb - 1) // 2
+    heads = torch.randn((n, 11 + nb), generator=gen, device=cuda)
+    noise = (0.05 * torch.randn((n, nb), generator=gen, device=cuda)).to(dtype)
+    rows = 0.1 * torch.randn((2 * n_ch + 1, n), generator=gen, device=cuda)
+    g_rgb, g_nrm = torch.randn((2, n, 3), generator=gen, device=cuda)
+    g_den = torch.randn((n,), generator=gen, device=cuda)
+    ops.reset_launches()
+    for stage in STAGES:
+        out = ops.ref_dir_fwd_dissect(dir_ws, heads, dirs, per_ray, stage,
+                                      noise, rows)
+        want = ops.ref_dir_fwd_dissect_plain(dir_ws, heads, dirs, per_ray,
+                                             stage, noise, rows)
+        for name, a, b in zip(("rgb", "normal", "density"), out, want):
+            torch.testing.assert_close(a, b, **TOLS[dtype],
+                                       msg=f"{stage} {name}")
+    shipped = ops.ref_dir_fwd(dir_ws, heads, dirs, per_ray, noise)
+    assert all(map(torch.equal, out, shipped))
+    dacts = ops.ref_dir_fwd_res(dir_ws, heads, dirs, per_ray, noise)[3]
+    args = (dir_ws, heads, dirs, per_ray, noise, g_rgb, g_nrm, g_den)
+    lim = REF_GRAD_REL[dtype]
+    for mode in MODES:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(ops.fused_mlp, "CHUNK_ROWS", 128)
+            dh, grads = ops.ref_dir_bwd_dissect(*args, mode, tile=64)
+        pdh, pgrads = ops.ref_dir_bwd_dissect_plain(*args, mode, tile=64,
+                                                    acts=dacts)
+        if mode == "recompute":
+            torch.testing.assert_close(dh, pdh, **TOLS[dtype])
+            assert torch.equal(dh[:, :3], shipped[0])
+            assert torch.equal(dh[:, 3:6], shipped[1])
+            assert torch.equal(dh[:, 6], shipped[2])
+        elif mode != "wgrads":
+            assert _dheads_rel(dh, pdh) < lim, (mode, _dheads_rel(dh, pdh))
+        if mode in ("recompute", "dheads"):
+            assert not any(bool(g.any()) for g in grads), mode
+        else:
+            for i, (a, b) in enumerate(zip(grads, pgrads)):
+                assert _rel_err(a, b) < lim, (mode, i, _rel_err(a, b))
+        if mode == "wgrads":
+            assert not bool(dh.any())
+    full = ops.ref_dir_bwd_recompute(*args, tile=64)
+    assert torch.equal(dh, full[0])
+    assert all(map(torch.equal, grads, full[1]))
+    assert ops.LAUNCHES["ref_dir_fwd_dissect"] == len(STAGES)
+    assert ops.LAUNCHES["ref_dir_bwd_dissect"] == len(MODES)

@@ -119,7 +119,9 @@ def test_cpu_dispatch_counts_no_launch(nets):
                                  "ref_spa_bwd", "ref_dir_bwd",
                                  "vanilla_mlp_bwd_recompute",
                                  "ref_spa_fwd_grad", "ref_spa_bwd_recompute",
-                                 "ref_dir_bwd_recompute"}
+                                 "ref_dir_bwd_recompute", "prop_mlp_fwd_res",
+                                 "prop_mlp_bwd_res", "ref_dir_fwd_dissect",
+                                 "ref_dir_bwd_dissect"}
     assert not any(ops.LAUNCHES.values())
 
 

@@ -18,14 +18,13 @@ at hidden 32 with 8 coarse + 16 fine samples (23 merged).  Tolerances:
   of the last trunk layer by 1.4e-3 of itself (the pinning test below).
   The normal target is compared where |g| > 1e-2, as in
   tests/test_torch_ref_train.py.
-- ``compute_loss``: loss terms rtol 1e-4; grads as the existing step tests
-  state them (vanilla: relative Frobenius error 2e-3 per weight-tuple
-  tensor, tests/test_torch_train.py; Ref-NeRF: rtol 5e-3 / atol 3e-4 on
-  the flat vector, tests/test_torch_ref_train.py).
+- ``compute_loss``: as ``torch_port_common.step_loss_and_grads`` states
+  it (loss terms rtol 1e-4; vanilla grads by relative Frobenius error 2e-3
+  per weight-tuple tensor, tests/test_torch_train.py; Ref-NeRF rtol 5e-3 /
+  atol 3e-4 on the flat vector, tests/test_torch_ref_train.py).
 - 3 hybrid steps: losses rtol 2e-4, params as tests/test_torch_ref_train.py.
 """
 
-import functools
 import os
 
 import jax
@@ -36,7 +35,8 @@ import pytest
 import torch
 
 from torch_port_common import (
-    configs, jax_variables, port_models, two_camera_batch,
+    assert_step_grads_close, port_models, step_configs, step_loss_and_grads,
+    step_variables, two_camera_batch,
 )
 from nerf_tpu.ops import fused_mlp as jfused
 from nerf_tpu.ops import ref_fused as jref
@@ -50,7 +50,7 @@ from nerf_tpu_torch.core.encoding import cat_pos_pe
 from nerf_tpu_torch.ops.launch import prep_weights
 from nerf_tpu_torch.train import schedule
 from nerf_tpu_torch.train.pipeline import render_rays_train
-from nerf_tpu_torch.train.step import compute_loss, make_optimizer, train_step
+from nerf_tpu_torch.train.step import make_optimizer, train_step
 from nerf_tpu_torch.utils.metrics import read_scalars
 from nerf_tpu_torch.utils.png import read_png
 
@@ -63,11 +63,7 @@ KERNEL_TOLS = {torch.float32: dict(rtol=2e-4, atol=1e-5),
                torch.bfloat16: dict(rtol=0.05, atol=0.02)}
 DGRAD_MIN_NORM = 1e-2
 LOSS_RTOL = 1e-4
-VANILLA_GRAD_REL = 2e-3
-REF_GRAD_TOL = dict(rtol=5e-3, atol=3e-4)
 N_RAYS = 8
-# weights N(0, 1/fan_in), biases N(0, 0.1^2), as the Ref-NeRF step tests
-WEIGHTS = dict(gain=1.0, bias_std=0.1)
 
 
 def _t(a):
@@ -337,53 +333,13 @@ def test_recompute_wrappers_check_operands():
 # the training step: recompute form and hybrid route against nerf_tpu
 # ---------------------------------------------------------------------------
 
-def _cfgs(model, **kw):
-    base = dict(model=model, pallas_tile=TILE, white_bkg=False,
-                use_pallas=True)
-    if model == "ref":
-        base["bottleneck_noise"] = 0.0
-    return configs(**{**base, **kw})
-
-
-@functools.lru_cache(maxsize=None)
-def _variables(model):
-    return jax_variables(_cfgs(model)[0], seed=0, **WEIGHTS)
+_cfgs = step_configs
+_variables = step_variables
 
 
 def _batch(seed: int):
     _, cfg = _cfgs("ref")
     return two_camera_batch(seed, N_RAYS, cfg.n_coarse, cfg.n_fine)
-
-
-def _loss_and_grads(model, **kw):
-    jcfg, cfg = _cfgs(model, **kw)
-    v = _variables(model)
-    rays, gt, jit, u = _batch(1)
-    (jloss, jm), jg = jax.value_and_grad(
-        lambda prm: jax_compute_loss(jax_make_models(jcfg), prm,
-                                     jnp.asarray(rays), jnp.asarray(gt),
-                                     None, jcfg, noise=(jnp.asarray(jit),
-                                                        jnp.asarray(u))),
-        has_aux=True)(jax.tree.map(jnp.asarray, v))
-    models = port_models(cfg, v)
-    ops.reset_launches()
-    loss, m = compute_loss(models, _t(rays), _t(gt), cfg,
-                           noise=(_t(jit), _t(u)), device="cpu")
-    loss.backward()
-    assert not any(ops.LAUNCHES.values())
-    keys = ("loss", "img_loss", "prop_loss") + (
-        ("normal_loss", "bf_loss") if model == "ref" else ())
-    for k in keys:
-        np.testing.assert_allclose(float(m[k].detach()), float(jm[k]),
-                                   rtol=LOSS_RTOL, atol=1e-7, err_msg=k)
-        assert float(m[k].detach()) > 0.0, k
-    nerf, prop = models
-    got = {"nerf": bridge.state_dict_to_flax(
-               {k: p.grad for k, p in nerf.named_parameters()},
-               "ref" if model == "ref" else "nerf"),
-           "prop": bridge.state_dict_to_flax(
-               {k: p.grad for k, p in prop.named_parameters()}, "prop")}
-    return got, jax.tree.map(np.asarray, jg)
 
 
 @pytest.mark.parametrize("model, kw", [
@@ -395,23 +351,8 @@ def test_compute_loss_recompute_matches_jax(model, kw):
     mode) against the port's recompute Functions (plain versions).  With
     prop_store_residuals=None the proposal net follows store_residuals into
     its (ported) recompute pair."""
-    got, want = _loss_and_grads(model, **kw)
-    if model == "vanilla":
-        from nerf_tpu.ops import (
-            prop_weights_from_params, vanilla_weights_from_params,
-        )
-
-        for net, fn in (("nerf", vanilla_weights_from_params),
-                        ("prop", prop_weights_from_params)):
-            for i, (a, b) in enumerate(zip(fn(got[net]), fn(want[net]))):
-                a, b = np.asarray(a), np.asarray(b)
-                assert a.shape == b.shape and _rel(a, b) < VANILLA_GRAD_REL, \
-                    (net, i, _rel(a, b))
-        return
-    flat_got, _ = jax.flatten_util.ravel_pytree(got)
-    flat_want, _ = jax.flatten_util.ravel_pytree(want)
-    np.testing.assert_allclose(np.asarray(flat_got), np.asarray(flat_want),
-                               **REF_GRAD_TOL)
+    got, want = step_loss_and_grads(model, **kw)
+    assert_step_grads_close(model, got, want)
 
 
 @pytest.mark.parametrize("prop_normal", [False, True])
@@ -420,12 +361,9 @@ def test_compute_loss_hybrid_matches_jax(prop_normal):
     and flax directional branch against the port's RefSpatialMLPRecompute
     and RefNeRF.directional; with --prop_normal also the proposal net's
     coarse normals."""
-    got, want = _loss_and_grads("ref", ref_kernels="hybrid",
-                                prop_normal=prop_normal)
-    flat_got, _ = jax.flatten_util.ravel_pytree(got)
-    flat_want, _ = jax.flatten_util.ravel_pytree(want)
-    np.testing.assert_allclose(np.asarray(flat_got), np.asarray(flat_want),
-                               **REF_GRAD_TOL)
+    got, want = step_loss_and_grads("ref", ref_kernels="hybrid",
+                                    prop_normal=prop_normal)
+    assert_step_grads_close("ref", got, want)
 
 
 def test_hybrid_three_step_trajectory_matches_jax():
@@ -473,23 +411,21 @@ def test_hybrid_three_step_trajectory_matches_jax():
 
 def test_recompute_and_hybrid_routes_run_without_raising():
     """Both models run with store_residuals=False, and the hybrid route
-    with either form; the proposal net's residual pair raises, naming its
-    item, and an unknown ref_kernels is refused."""
+    with either form and with the proposal net's residual pair; an unknown
+    ref_kernels is refused."""
     rays, _, jit, u = _batch(3)
     for model, kw in (("vanilla", dict(store_residuals=False)),
                       ("ref", dict(store_residuals=False)),
                       ("ref", dict(ref_kernels="hybrid")),
                       ("ref", dict(ref_kernels="hybrid",
-                                   store_residuals=False))):
+                                   store_residuals=False)),
+                      ("ref", dict(ref_kernels="hybrid",
+                                   prop_store_residuals=True))):
         _, cfg = _cfgs(model, **kw)
         out = render_rays_train(port_models(cfg, _variables(model)),
                                 _t(rays), cfg, noise=(_t(jit), _t(u)),
                                 device="cpu")
         assert torch.isfinite(out["fine_rgb"]).all(), (model, kw)
-    _, cfg = _cfgs("ref", ref_kernels="hybrid", prop_store_residuals=True)
-    with pytest.raises(NotImplementedError, match="B1"):
-        render_rays_train(port_models(cfg, _variables("ref")), _t(rays), cfg,
-                          device="cpu")
     cfg = cfg.replace(ref_kernels="xla", prop_store_residuals=False)
     with pytest.raises(ValueError, match="unknown ref_kernels"):
         render_rays_train(port_models(cfg, _variables("ref")), _t(rays), cfg,

@@ -26,7 +26,9 @@ import optax
 import pytest
 import torch
 
-from torch_port_common import configs, jax_variables, port_models
+from torch_port_common import (
+    configs, jax_variables, port_models, two_camera_batch,
+)
 from nerf_tpu.core import rays as jrays
 from nerf_tpu.core import render as jrender
 from nerf_tpu.core import sampling as jsampling
@@ -342,14 +344,22 @@ def test_sample_train_rays_draws_inside_the_crop(scene):
 
 
 def test_unported_training_variants_raise():
+    """Mip-NeRF raises, naming its item; the proposal net's residual pair
+    (prop_store_residuals=True, or None with store_residuals=True) runs
+    (tests/test_torch_prop_res.py holds it against nerf_tpu)."""
     _, cfg = configs()
     models = port_models(cfg, jax_variables(configs()[0], seed=0))
     r = torch.ones(4, 6)
-    for kw, item in ((dict(prop_store_residuals=True), "B1"),
-                     (dict(prop_store_residuals=None), "B1"),
-                     (dict(model="mip"), "section A")):
-        with pytest.raises(NotImplementedError, match=item):
-            render_rays_train(models, r, cfg.replace(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="section A"):
+        render_rays_train(models, r, cfg.replace(model="mip"), device="cpu")
+    rays, _, jit, u = two_camera_batch(3, 4, cfg.n_coarse, cfg.n_fine)
+    for kw in (dict(prop_store_residuals=True),
+               dict(prop_store_residuals=None)):
+        ops.reset_launches()
+        out = render_rays_train(models, _t(rays), cfg.replace(**kw),
+                                noise=(_t(jit), _t(u)), device="cpu")
+        assert torch.isfinite(out["fine_rgb"]).all(), kw
+        assert not any(ops.LAUNCHES.values())
 
 
 def test_train_step_never_runs_quietly_on_cpu():
