@@ -6,7 +6,9 @@
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device  - a CUDA device must be present; the card's name and power limit
   2. build   - nvcc builds every kernel of nerf_tpu_torch/ops/csrc, one nvcc
-               per source, all started together
+               per source, all started together; ptxas's registers of the
+               weight-grad kernels and the tensor-core instructions (HMMA)
+               in each library's SASS, which wgrad_mma_kernel must have
   3. kernels - each kernel against its plain PyTorch version, bf16 and f32,
                with timings and bounds: the eval forwards at the shapes of
                one default 4096-ray chunk, the training kernels at those of
@@ -88,7 +90,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
                and held against their plain versions, stage and mode
                "full" against the shipped kernels bit for bit, and the
                glue's derived costs
- 15. the kernels line, then the last line {"ok": true, "device": {...}}
+ 15. wgrad   - the split-K weight-grad pass alone (ops.wgrad_reduce, bf16)
+               at the job lists of one default step's backwards (vanilla,
+               proposal in two chunks, Ref-NeRF spatial, the same as the
+               recompute form walks it, directional), with the plain delta
+               chains' deltas: against the plain version, two walks equal
+               bit for bit, its time, the plain version's, torch.mm's as a
+               yardstick and the bound; the pass's ms per default step
+ 16. the kernels line, then the last line {"ok": true, "device": {...}}
 
 Imports nothing of JAX or nerf_tpu.
 """
@@ -99,6 +108,8 @@ import contextlib
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -114,7 +125,8 @@ from nerf_tpu_torch.cli.flags import get_parser
 from nerf_tpu_torch.cli.trainer import Trainer
 from nerf_tpu_torch.core.encoding import cat_pos_pe, ide_tables
 from nerf_tpu_torch.core.rays import fov_to_focal, pose_spherical
-from nerf_tpu_torch.ops import build, ref_fused
+from nerf_tpu_torch.ops import build, fused_mlp, ref_fused
+from nerf_tpu_torch.ops.wgrad import grad_shapes
 from nerf_tpu_torch.train.config import PipelineConfig
 from nerf_tpu_torch.train.pipeline import make_models
 from nerf_tpu_torch.train.renderer import render_image
@@ -282,6 +294,10 @@ KERNELS = {
     "ref_dir_bwd_dissect": dict(
         source="nerf_tpu_torch/ops/csrc/ref_dissect.cu",
         replaces="tools/bench_ref_kernels.py:45"),
+    # the weight-grad pass of every backward above, on its own entry
+    "wgrad_reduce": dict(
+        source="nerf_tpu_torch/ops/csrc/wgrad.cu",
+        replaces="nerf_tpu/ops/fused_mlp.py:228"),
 }
 RECOMPUTE_KERNELS = ("vanilla_mlp_bwd_recompute", "ref_spa_fwd_grad",
                      "ref_spa_bwd_recompute", "ref_dir_bwd_recompute")
@@ -1620,6 +1636,187 @@ def dissect_phase():
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the weight-grad pass alone
+# ---------------------------------------------------------------------------
+
+# K-splits of TILE_ROWS points, each partial rounded to bf16 (the Ref-NeRF
+# lists), against the plain version: a partial summed in another order may
+# round to the neighbouring bf16 value, as in the Ref-NeRF backwards
+WGRAD_REL = {False: GRAD_REL[torch.bfloat16], True: REF_GRAD_REL[torch.bfloat16]}
+# cuda_device_ms: calls timed together, and the clock cycles (about 30 ms)
+# the card sleeps before each timing while the host queues them
+WGRAD_BATCH = 5
+SLEEP_CYCLES = 60_000_000
+
+
+def cuda_device_ms(fn, reps: int, batch: int = WGRAD_BATCH) -> float:
+    """The device's time of ``fn``: the median of ``reps`` CUDA-event
+    timings of ``batch`` calls, each timing queued behind a sleeping
+    kernel so that the host has issued every call before the card reaches
+    the first (the host's time to issue them is not counted), over
+    ``batch``."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(batch):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / batch)
+    return statistics.median(times)
+
+
+def wgrad_lists(gen):
+    """The weight-grad job lists of one default bf16 step's backwards, the
+    ``add_job`` lists of csrc/*.cu: ``name -> (jobs over all points, points
+    a K-split, rounded partials, points a chunk or None for one pass)``.
+    The deltas are the plain delta chains' (``*_wgrad_jobs``) on the
+    backward kernel cases' operands: vanilla_mlp_bwd (131,072 points),
+    prop_mlp_bwd_res (65,536 points in two chunks of 8 splits),
+    ref_spa_bwd, the same spatial list as the recompute form and the hybrid
+    route walk it (the heads' f32 cotangent read in place, strided at
+    offsets 0, 2 and 11; six chunks) and ref_dir_bwd (196,608 points)."""
+    bf = torch.bfloat16
+    args = kernel_case("vanilla_mlp_bwd", bf, gen)[0]
+    n = args[1].shape[0]
+    yield "vanilla", (fused_mlp.vanilla_wgrad_jobs(*args),
+                      math.ceil(n / fused_mlp._splits(n)), False, None)
+    del args
+    args = kernel_case("prop_mlp_bwd_res", bf, gen)[0]
+    n = args[1].shape[0]
+    rows = math.ceil(n / fused_mlp._splits(n))
+    yield "prop", (fused_mlp.prop_wgrad_jobs(*args), rows, False,
+                   fused_mlp.chunk_rows(rows))
+    del args
+    ws, x, g, acts, tile = kernel_case("ref_spa_bwd", bf, gen)[0]
+    yield "ref_spa", (ref_fused.ref_spa_wgrad_jobs(ws, x, g, acts), tile,
+                      True, None)
+    yield "ref_spa_recompute", (
+        ref_fused.ref_spa_wgrad_jobs(ws, x, g, acts, recompute=True), tile,
+        True, fused_mlp.chunk_rows(tile))
+    del ws, x, g, acts
+    args = kernel_case("ref_dir_bwd", bf, gen)[0]
+    yield "ref_dir", (ref_fused.ref_dir_wgrad_jobs(*args[:-1])[1],
+                      args[-1], True, None)
+
+
+def wgrad_walk(jobs, chunk):
+    """The jobs cut into chunks of ``chunk`` points (one piece if None)."""
+    n = jobs[0][0].shape[0]
+    step = chunk or max(n, 1)
+    return [[(a[c0:c0 + step], d[c0:c0 + step], b) for a, d, b in jobs]
+            for c0 in range(0, n, step)]
+
+
+def stage_path(t, f32: bool):
+    """How csrc/wgrad.cuh's bf16 body stages an operand (stage_mode)."""
+    w, ld = t.shape[1], t.stride(0)
+    if f32:
+        return "f32 copy"
+    if t.data_ptr() % 16 == 0 and w % 8 == 0 and ld % 8 == 0:
+        return "cp.async"
+    return "span" if ld <= 256 else "elementwise"
+
+
+def stage_paths(a, d):
+    """(A's, delta's) staging paths; A is staged element by element when
+    delta takes the stage's copy area (add_job)."""
+    dp = stage_path(d, d.dtype == torch.float32)
+    ap = stage_path(a, False)
+    if ap == "span" and dp in ("span", "f32 copy"):
+        ap = "elementwise"
+    return ap, dp
+
+
+def wgrad_call(pieces, rows, rnd, fn):
+    """One walk of ``fn`` (the kernel or the plain version) over the
+    pieces, each reduced onto the sums of those before it."""
+    grads = None
+    for jobs in pieces:
+        grads = fn(jobs, rows, rnd, grads=grads)
+    return grads
+
+
+def wgrad_phase(gen):
+    """ops.wgrad_reduce at each list of ``wgrad_lists`` in bf16: its grads
+    against wgrad_reduce_plain's (relative Frobenius error of each grad
+    within WGRAD_REL), a second walk equal bit for bit, its device time
+    (``cuda_device_ms``: the pass as the backwards launch it, from C, with
+    no host in the way), the plain version's time, the library yardstick
+    (one torch.mm(A^T, delta) a job over all points on the same bf16
+    operands, delta rounded beforehand; the port never calls it) and the
+    bound: each operand read once (a delta that two jobs share counted
+    once, a strided one by the columns read), each grad written once, 2 m k
+    FLOPs a point and job and k for the bias sums.  Each job's staging
+    paths (stage_paths) are listed as csrc/wgrad.cuh picks them.  The
+    launches are counted over the lists' kernel walks alone."""
+    out, launches = {}, 0
+    for name, (jobs, rows, rnd, chunk) in wgrad_lists(gen):
+        pieces = wgrad_walk(jobs, chunk)
+        n = jobs[0][0].shape[0]
+        ops.reset_launches()
+        got = wgrad_call(pieces, rows, rnd, ops.wgrad_reduce)
+        again = wgrad_call(pieces, rows, rnd, ops.wgrad_reduce)
+        launches += ops.LAUNCHES["wgrad_reduce"]
+        want = wgrad_call(pieces, rows, rnd, ops.wgrad_reduce_plain)
+        torch.cuda.synchronize()
+        rels = [_rel_err(a, b) for a, b in zip(got, want)]
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        if not max(rels) <= WGRAD_REL[rnd]:
+            fail(f"wgrad_reduce[{name}]: grad relative errors {rels} beyond "
+                 f"{WGRAD_REL[rnd]}")
+        if not all(map(torch.equal, got, again)):
+            fail(f"wgrad_reduce[{name}]: two walks differ")
+        del got, again, want
+
+        def walk():
+            return wgrad_call(pieces, rows, rnd, ops.wgrad_reduce)
+        ms = cuda_device_ms(walk, 20)
+        plain_ms = cuda_device_ms(lambda: wgrad_call(
+            pieces, rows, rnd, ops.wgrad_reduce_plain), 20, 1)
+        lib_ops = [(a, d.to(torch.bfloat16)) for a, d, _ in jobs]
+        library_ms = cuda_device_ms(lambda: [torch.mm(a.T, d)
+                                             for a, d in lib_ops], 20)
+        del lib_ops
+        reads = {}
+        for a, d, _ in jobs:
+            for t in (a, d):
+                reads[(t.data_ptr(), tuple(t.shape))] = _nbytes(t)
+        moved = sum(reads.values()) + 4 * sum(
+            math.prod(s) for s in grad_shapes(jobs))
+        flops = float(sum(n * d.shape[1] * (2 * a.shape[1] + bias)
+                          for a, d, bias in jobs))
+        paths = [dict(m=a.shape[1], k=d.shape[1], ld=d.stride(0),
+                      delta=str(d.dtype).replace("torch.", ""),
+                      stages=stage_paths(a, d)) for a, d, _ in jobs]
+        out[name] = dict(
+            n=n, rows_per_split=rows, chunk_points=chunk,
+            round_partial=rnd, jobs=len(jobs), max_abs_err=err,
+            grad_rel_err=max(rels), tol=WGRAD_REL[rnd], bit_equal=True,
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            **bound(moved, flops, torch.bfloat16), bytes=moved, flops=flops,
+            tflops=flops / (ms * 1e-3) / 1e12, paths=paths)
+        del jobs, pieces
+        torch.cuda.empty_cache()
+    if launches == 0:
+        fail("the wgrad phase launched wgrad_reduce no time")
+    # the pass's share of each default bf16 step: the lists its backwards
+    # walk (the hybrid route's directional net is the nn.Module's)
+    steps = {"vanilla": ("vanilla", "prop"),
+             "ref": ("ref_spa", "ref_dir", "prop"),
+             "hybrid": ("ref_spa_recompute", "prop")}
+    per_step = {k: {key: sum(out[x][key] for x in v)
+                    for key in ("ms", "library_ms", "bound_ms")}
+                for k, v in steps.items()}
+    return dict(lists=out, per_step=per_step, launches=launches)
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the train path, then render-only on its checkpoint
 # ---------------------------------------------------------------------------
 
@@ -1848,6 +2045,76 @@ def dissect_entry(name, meta, launches, per, n):
                 for k, v in parts.items()})
 
 
+def wgrad_entry(name, meta, wgrad, train_launches, ref_train_launches):
+    """The kernels line's entry of the weight-grad pass: the vanilla list
+    (the default vanilla step's fine net) at the top, every list beside it;
+    ``launches`` counts this entry's launches in the wgrad phase, and
+    ``backward_launches_train`` / ``_ref_train`` the backward kernels (each
+    running the pass once a chunk) on the train paths."""
+    top = wgrad["lists"]["vanilla"]
+    keys = ("max_abs_err", "grad_rel_err", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "tflops")
+    bwd = ("vanilla_mlp_bwd", "prop_mlp_bwd", "ref_spa_bwd", "ref_dir_bwd")
+    return dict(
+        name=name, route="cuda", source=meta["source"],
+        replaces=meta["replaces"], launches=wgrad["launches"],
+        backward_launches_train={k: train_launches[k] for k in bwd},
+        backward_launches_ref_train={k: ref_train_launches[k] for k in bwd},
+        **{k: top[k] for k in keys}, tol=top["tol"], n=top["n"],
+        per_step=wgrad["per_step"],
+        lists={k: {x: v[x] for x in keys} for k, v in
+               wgrad["lists"].items()})
+
+
+def wgrad_ptxas(reports):
+    """ptxas's lines (registers, shared memory, spills) for each weight-grad
+    kernel it compiled, by library and entry function."""
+    out = {}
+    for lib, log in reports.items():
+        func = None
+        for ln in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)'?", ln)
+            if m:
+                func = m.group(1)
+            elif func and "wgrad" in func and ("registers" in ln
+                                                or "spill" in ln):
+                out.setdefault(lib, {}).setdefault(func, []).append(
+                    ln.split(":", 1)[-1].strip())
+    return out
+
+
+def sass_mma_counts():
+    """The tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma) in
+    each built library's SASS (``cuobjdump -sass``), in all and in the
+    weight-grad kernels (wgrad_mma_kernel, wgrad_kernel); None when the
+    toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = {}
+    for lib in build.SOURCES:
+        sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        counts = {"all": {"HMMA": 0, "HGMMA": 0},
+                  "wgrad_mma_kernel": {"HMMA": 0, "HGMMA": 0},
+                  "wgrad_kernel": {"HMMA": 0, "HGMMA": 0}}
+        func = "all"
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                func = next((k for k in ("wgrad_mma_kernel", "wgrad_kernel")
+                             if k in ln), "all")
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", ln):
+                    counts[func][op] += 1
+                    if func != "all":
+                        counts["all"][op] += 1
+                    break
+        out[lib] = counts
+    return out
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1869,14 +2136,19 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for log in reports.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
-    emit("build", seconds=build_s, sources=list(build.SOURCES), ptxas=ptxas)
+    mma = sass_mma_counts()
+    if mma is not None and not mma["wgrad"]["wgrad_mma_kernel"]["HMMA"]:
+        fail(f"no HMMA in wgrad_mma_kernel's SASS: {mma['wgrad']}")
+    emit("build", seconds=build_s, sources=list(build.SOURCES), ptxas=ptxas,
+         ptxas_wgrad=wgrad_ptxas(reports), sass_mma=mma)
 
     # phase 3: kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = {}
     for name in KERNELS:
-        # the recompute kernels in phase 10, the rest in phases 12 and 14
-        if name in RECOMPUTE_KERNELS + PROP_RES_KERNELS + DISSECT_KERNELS:
+        # the recompute kernels in phase 10, the rest in phases 12, 14, 15
+        if name in RECOMPUTE_KERNELS + PROP_RES_KERNELS + DISSECT_KERNELS \
+                + ("wgrad_reduce",):
             continue
         for dtype in (torch.bfloat16, torch.float32):
             res = check_kernel(name, dtype, gen)
@@ -1989,15 +2261,21 @@ def main() -> int:
     dissect, dissect_per = dissect_phase()
     emit("dissect", seconds=time.perf_counter() - t0, **dissect)
 
-    # phase 15: the kernels line, then the last line.  ``launches`` is each
+    # phase 15: the weight-grad pass alone at the default step's job lists
+    t0 = time.perf_counter()
+    wgrad = wgrad_phase(gen)
+    emit("wgrad", seconds=time.perf_counter() - t0, **wgrad)
+
+    # phase 16: the kernels line, then the last line.  ``launches`` is each
     # kernel's count in its path's run: the vanilla train path (training
     # steps and the final eval render) for the vanilla kernels, the Ref-NeRF
     # render path for the Ref-NeRF eval forwards, the Ref-NeRF train path
     # for its training kernels, the hybrid train path for the spatial
     # recompute pair, the recompute steps of phase 10 (60 train_step calls
     # of each model) for the other two recompute backwards, the
-    # batch-scaling sweep of phase 13 for the proposal net's residual pair
-    # and the dissection run of phase 14 (bf16) for the dissection kernels;
+    # batch-scaling sweep of phase 13 for the proposal net's residual pair,
+    # the dissection run of phase 14 (bf16) for the dissection kernels and
+    # the walks of phase 15 for the weight-grad pass's own entry;
     # ``launches_render``, ``launches_ref``, ``launches_ref_train``,
     # ``launches_recompute_steps``, ``launches_hybrid_train`` and
     # ``launches_batch_scaling`` its count in each of those runs.
@@ -2006,6 +2284,10 @@ def main() -> int:
                        for k in ops.LAUNCHES}
     kernels = []
     for name, meta in KERNELS.items():
+        if name == "wgrad_reduce":
+            kernels.append(wgrad_entry(name, meta, wgrad, train["launches"],
+                                       ref_train["launches"]))
+            continue
         if name in DISSECT_KERNELS:
             kernels.append(dissect_entry(name, meta, dissect["launches"][name],
                                          dissect_per, dissect["n"]))

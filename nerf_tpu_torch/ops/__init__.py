@@ -25,6 +25,7 @@ from nerf_tpu_torch.ops.ref_fused import (
     ref_spa_fwd_grad_plain, ref_spa_fwd_res, ref_spa_fwd_res_plain,
     ref_spa_plain,
 )
+from nerf_tpu_torch.ops.wgrad import wgrad_reduce, wgrad_reduce_plain
 
 __all__ = ["LAUNCHES", "reset_launches", "prep_weights", "PropMLP",
            "PropMLPRes", "VanillaMLP", "VanillaMLPRecompute", "prop_mlp_fwd",
@@ -45,4 +46,5 @@ __all__ = ["LAUNCHES", "reset_launches", "prep_weights", "PropMLP",
            "ref_dir_bwd", "ref_dir_bwd_plain", "ref_dir_bwd_recompute",
            "ref_dir_bwd_recompute_plain", "ref_dir_fwd_dissect",
            "ref_dir_fwd_dissect_plain", "ref_dir_bwd_dissect",
-           "ref_dir_bwd_dissect_plain"]
+           "ref_dir_bwd_dissect_plain", "wgrad_reduce",
+           "wgrad_reduce_plain"]

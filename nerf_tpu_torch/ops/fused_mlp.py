@@ -59,8 +59,10 @@ Bounds on an H100 SXM at its 700 W limit (989 TFLOP/s bf16 tensor-core peak,
 forward 212,992, both compute-bound; the res forward also writes 4.35 KB of
 bf16 activations per point and is bound by those bytes; the vanilla backward
 costs 1,020,032 MACs per point and the proposal backward 622,848, both bound
-by operations.  These first versions multiply on the CUDA cores, not the
-tensor cores, so they sit far from the bound (PERF.md has their times).
+by operations.  The tiles multiply on the CUDA cores, not the tensor cores,
+so they sit far from the bound; the backwards' bf16 weight-grad pass
+(csrc/wgrad.cuh, ``ops.wgrad``) multiplies on the tensor cores (PERF.md has
+their times).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  There is no fallback from the kernel to the plain
@@ -201,11 +203,34 @@ def _bsum(delta):
     return delta.to(F32).sum(0, keepdim=True)
 
 
+def grads_of_jobs(jobs, dxw=None):
+    """The grads of a weight tuple from its backward's weight-grad jobs, a
+    list of (A, delta, bias) in the order of the tuple: ``dxw(A, delta
+    rounded to A's dtype)`` (default ``_dxw``, one f32 product) and, with
+    bias, the f32 column sums of delta as stored.  The lists are the
+    kernels' own (the ``add_job`` calls of csrc/*.cu), which
+    ``ops.wgrad_reduce`` takes too."""
+    out = []
+    for a, d, bias in jobs:
+        out.append((dxw or _dxw)(a, d.to(a.dtype)))
+        if bias:
+            out.append(_bsum(d))
+    return tuple(out)
+
+
 def vanilla_mlp_bwd_plain(ws, enc_x, enc_d, g_rgb, g_sigma, rgb3, acts):
     """``_vanilla_bwd_math`` (fused_mlp.py:195-246) in plain PyTorch, cast
     for cast: the 24 f32 grads of the weight tuple from the row-land
     cotangents g_rgb (3, N), g_sigma (N,) f32 and the forward's rgb3 (3, N)
     and 9 activations."""
+    return grads_of_jobs(vanilla_wgrad_jobs(ws, enc_x, enc_d, g_rgb, g_sigma,
+                                            rgb3, acts))
+
+
+def vanilla_wgrad_jobs(ws, enc_x, enc_d, g_rgb, g_sigma, rgb3, acts):
+    """The deltas of ``vanilla_mlp_bwd_plain`` as its 13 weight-grad jobs
+    (csrc/fused_mlp_bwd.cu:221-233), each delta (N, k) with unit column
+    stride as the kernel's; dbvec stays f32."""
     (w0, b0, w1, b1, w2, b2, w3, b3, w4a, w4b, b4, w5, b5, w6, b6,
      wsig, bsig, wb, bb, wr1a, wr1b, br1, wr2, br2) = ws
     h1, h2, h3, h4, z5, z6, z7, bvec, r1 = acts
@@ -223,14 +248,11 @@ def vanilla_mlp_bwd_plain(ws, enc_x, enc_d, g_rgb, g_sigma, rgb3, acts):
     dh3 = _mask(h3, _dwt(dh4, w3), cd)
     dh2 = _mask(h2, _dwt(dh3, w2), cd)
     dh1 = _mask(h1, _dwt(dh2, w1), cd)
-    return (_dxw(enc_x, dh1), _bsum(dh1), _dxw(h1, dh2), _bsum(dh2),
-            _dxw(h2, dh3), _bsum(dh3), _dxw(h3, dh4), _bsum(dh4),
-            _dxw(enc_x, dz5), _dxw(h4, dz5), _bsum(dz5),
-            _dxw(z5, dz6), _bsum(dz6), _dxw(z6, dz7), _bsum(dz7),
-            _dxw(z7, gsig_c), _bsum(gsig_c),
-            _dxw(z7, dbvec.to(cd)), _bsum(dbvec),
-            _dxw(bvec, dr1), _dxw(enc_d, dr1), _bsum(dr1),
-            _dxw(r1, dlogit3.T), _bsum(dlogit3.T))
+    return [(enc_x, dh1, True), (h1, dh2, True), (h2, dh3, True),
+            (h3, dh4, True), (enc_x, dz5, False), (h4, dz5, True),
+            (z5, dz6, True), (z6, dz7, True), (z7, gsig_c, True),
+            (z7, dbvec, True), (bvec, dr1, False), (enc_d, dr1, True),
+            (r1, dlogit3.T.contiguous(), True)]
 
 
 def vanilla_mlp_bwd_recompute_plain(ws, enc_x, enc_d, g_rgb, g_sigma,
@@ -259,6 +281,12 @@ def prop_mlp_bwd_res_plain(ws, enc, g, acts):
     """``_prop_bwd_res_kernel`` with ``_prop_bwd_math`` (fused_mlp.py:499,
     :506-536) in plain PyTorch, cast for cast: the 10 f32 grads of the
     weight tuple from g (N,) f32 and the stored activations h1..h4."""
+    return grads_of_jobs(prop_wgrad_jobs(ws, enc, g, acts))
+
+
+def prop_wgrad_jobs(ws, enc, g, acts):
+    """The deltas of ``prop_mlp_bwd_res_plain`` as its 5 weight-grad jobs
+    (csrc/fused_mlp_bwd.cu:274-278)."""
     w0, b0, w1, b1, w2, b2, w3, b3, wo, bo = ws
     cd = enc.dtype
     h1, h2, h3, h4 = acts
@@ -267,9 +295,8 @@ def prop_mlp_bwd_res_plain(ws, enc, g, acts):
     dh3 = _mask(h3, _dwt(dh4, w3), cd)
     dh2 = _mask(h2, _dwt(dh3, w2), cd)
     dh1 = _mask(h1, _dwt(dh2, w1), cd)
-    return (_dxw(enc, dh1), _bsum(dh1), _dxw(h1, dh2), _bsum(dh2),
-            _dxw(h2, dh3), _bsum(dh3), _dxw(h3, dh4), _bsum(dh4),
-            _dxw(h4, go), _bsum(go))
+    return [(enc, dh1, True), (h1, dh2, True), (h2, dh3, True),
+            (h3, dh4, True), (h4, go, True)]
 
 
 # ---------------------------------------------------------------------------

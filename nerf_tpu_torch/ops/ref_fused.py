@@ -81,8 +81,9 @@ Bounds on an H100 SXM at its 700 W limit (989 TFLOP/s bf16): at H = O = 256
 the spatial net costs 526,592 MACs per point and the directional 545,024
 (+ 171 for the IDE's z-powers @ mat), both bound by operations; the
 training forward of the spatial net adds about 491,500 MACs for the density
-gradient, and each backward costs about twice its forward.  These first
-versions multiply on the CUDA cores (PERF.md has their times).
+gradient, and each backward costs about twice its forward.  The tiles
+multiply on the CUDA cores, the backwards' bf16 weight-grad pass
+(csrc/wgrad.cuh) on the tensor cores (PERF.md has their times).
 
 Dispatch as in ``fused_mlp``: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.  ``LAUNCHES`` (``ops/launch.py``)
@@ -108,7 +109,7 @@ from nerf_tpu_torch.core.encoding import ide_tables, integrated_dir_enc
 from nerf_tpu_torch.core.encoding import linear_to_srgb
 from nerf_tpu_torch.device import resolve_device
 from nerf_tpu_torch.ops.fused_mlp import (
-    _bsum, _dense, _dwt, _hidden, _mask, chunk_rows,
+    _dense, _dwt, _hidden, _mask, chunk_rows, grads_of_jobs,
 )
 from nerf_tpu_torch.ops.launch import (
     I64, INT, INTP, PTR, U64P, check_operands, check_shapes, check_tensor,
@@ -345,6 +346,18 @@ def ref_spa_bwd_recompute_plain(ws, enc, g_heads, tile: int = TILE,
 
 
 def _spa_bwd(ws, enc, g_heads, acts, tile: int, recompute: bool):
+    return grads_of_jobs(
+        ref_spa_wgrad_jobs(ws, enc, g_heads, acts, recompute),
+        lambda a, d: _tiled_dxw(a, d, tile, enc.dtype))
+
+
+def ref_spa_wgrad_jobs(ws, enc, g_heads, acts, recompute: bool = False):
+    """The deltas of ``ref_spa_bwd_plain`` (``recompute``:
+    ``ref_spa_bwd_recompute_plain``) as its 12 weight-grad jobs
+    (csrc/ref_fused_bwd.cu:286-297, ref_fused_recompute.cu:185-195).  The
+    heads' jobs take the compute-dtype cotangent, or in the recompute form
+    the f32 cotangent's columns, strided views of g_heads: rounded for the
+    product, summed unrounded for the bias (jax.vjp's rule)."""
     (w0, b0, w1, b1, w2, b2, w3, b3, w4a, w4b, b4, w5, b5, w6, b6,
      w7, b7, wrt, brt, wnct, bnct, wbn, bbn) = ws
     h1, h2, h3, h4, z5, z6, z7, inter = acts
@@ -362,18 +375,11 @@ def _spa_bwd(ws, enc, g_heads, acts, tile: int, recompute: bool):
     d3 = _mask(h3, _dwt(d4, w3), cd)
     d2 = _mask(h2, _dwt(d3, w2), cd)
     d1 = _mask(h1, _dwt(d2, w1), cd)
-
-    def dxw(a, d):
-        return _tiled_dxw(a, d, tile, cd)
-
-    # the heads' bias grads: jax.vjp's rule sums the f32 cotangent
-    bias = g if recompute else torch.cat([g_rt, g_nct, g_bn], dim=1)
-    return (dxw(enc, d1), _bsum(d1), dxw(h1, d2), _bsum(d2),
-            dxw(h2, d3), _bsum(d3), dxw(h3, d4), _bsum(d4),
-            dxw(enc, d5), dxw(h4, d5), _bsum(d5), dxw(z5, d6), _bsum(d6),
-            dxw(z6, d7), _bsum(d7), dxw(z7, d8), _bsum(d8),
-            dxw(inter, g_rt), _bsum(bias[:, :2]), dxw(inter, g_nct),
-            _bsum(bias[:, 2:11]), dxw(inter, g_bn), _bsum(bias[:, 11:]))
+    heads = ((g[:, :2], g[:, 2:11], g[:, 11:]) if recompute
+             else (g_rt, g_nct, g_bn))
+    return [(enc, d1, True), (h1, d2, True), (h2, d3, True), (h3, d4, True),
+            (enc, d5, False), (h4, d5, True), (z5, d6, True), (z6, d7, True),
+            (z7, d8, True)] + [(inter, gh, True) for gh in heads]
 
 
 def ref_dir_bwd_recompute_plain(ws, heads, dirs, per_ray, noise, g_rgb,
@@ -402,6 +408,18 @@ def ref_dir_bwd_plain(ws, heads, dirs, per_ray, noise, g_rgb, g_normal,
     cotangents g_rgb, g_normal (N, 3) and g_density (N,) f32 and the stored
     activations.  The trunk's chain rule is written cast for cast; the f32
     rgb tail and glue are differentiated by autograd."""
+    dheads, jobs = ref_dir_wgrad_jobs(ws, heads, dirs, per_ray, noise, g_rgb,
+                                      g_normal, g_density, acts, ide_level,
+                                      use_srgb)
+    return dheads, grads_of_jobs(
+        jobs, lambda a, d: _tiled_dxw(a, d, tile, ws[0].dtype))
+
+
+def ref_dir_wgrad_jobs(ws, heads, dirs, per_ray, noise, g_rgb, g_normal,
+                       g_density, acts, ide_level: int = 4,
+                       use_srgb: bool = False):
+    """(d(heads), the 10 weight-grad jobs) of ``ref_dir_bwd_plain``
+    (csrc/ref_fused_bwd.cu:344-353); the logit's delta stays f32."""
     (w0, b0, w1, b1, w2, b2, w3, b3, w4a, w4b, b4, w5, b5, w6, b6,
      w7, b7, wh, bh) = ws
     h1, h2, h3, h4, z5, z6, z7, z8 = acts
@@ -430,15 +448,10 @@ def ref_dir_bwd_plain(ws, heads, dirs, per_ray, noise, g_rgb, g_normal,
     dheads = dheads.clone()
     dheads[:, 1] += g_density.to(F32)
     x = x.detach()
-
-    def dxw(a, d):
-        return _tiled_dxw(a, d, tile, cd)
-
-    return dheads, (
-        dxw(x, d1), _bsum(d1), dxw(h1, d2), _bsum(d2), dxw(h2, d3),
-        _bsum(d3), dxw(h3, d4), _bsum(d4), dxw(x, d5), dxw(h4, d5),
-        _bsum(d5), dxw(z5, d6), _bsum(d6), dxw(z6, d7), _bsum(d7),
-        dxw(z7, d8), _bsum(d8), dxw(z8, dlc), _bsum(dlogit))
+    return dheads, [
+        (x, d1, True), (h1, d2, True), (h2, d3, True), (h3, d4, True),
+        (x, d5, False), (h4, d5, True), (z5, d6, True), (z6, d7, True),
+        (z7, d8, True), (z8, dlogit, True)]
 
 
 # ---------------------------------------------------------------------------

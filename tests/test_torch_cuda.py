@@ -924,3 +924,93 @@ def test_dissect_kernels_match_plain(cuda, dtype, n, per_ray, hidden,
     assert all(map(torch.equal, grads, full[1]))
     assert ops.LAUNCHES["ref_dir_fwd_dissect"] == len(STAGES)
     assert ops.LAUNCHES["ref_dir_bwd_dissect"] == len(MODES)
+
+
+# ---------------------------------------------------------------------------
+# the split-K weight-grad pass on its own (ops.wgrad_reduce)
+# ---------------------------------------------------------------------------
+
+# the pass against its plain version, as the relative Frobenius error of
+# each grad: GRAD_REL for unrounded partials (vanilla and proposal lists),
+# chip_smoke.py's REF_GRAD_REL (8e-4) for partials rounded per split (the
+# Ref-NeRF lists: a split's partial summed in another order may round to the
+# neighbouring bf16 value)
+WGRAD_REL = {False: GRAD_REL[torch.bfloat16], True: 8e-4}
+# a ragged last split; 40 splits of two chunks, so that a block walks
+# several (tile, split) items
+WGRAD_N, WGRAD_ROWS, WGRAD_CHUNK = 5000, 128, 2048
+
+
+def _wgrad_jobs(cuda, m, k, layout, dtype=torch.bfloat16, seed=0):
+    """A (N, m) in ``dtype`` and delta (N, k): contiguous in ``dtype`` or
+    in f32, or columns [2, 2 + k) of an (N, k + 11) f32 or ``dtype`` array
+    (an f32 one is the strided, offset heads' cotangent of the spatial
+    recompute backward); a second job shares delta with a 256-wide A and no
+    bias.  In bf16 they take every staging path of csrc/wgrad.cuh: 16-byte
+    copies, spans (63- and 27-wide A, the strided bf16 delta), float4 (the
+    contiguous f32 delta of width 128 or 256) and elements."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    a = torch.randn((WGRAD_N, m), generator=gen, device=cuda).to(dtype)
+    a2 = torch.randn((WGRAD_N, 256), generator=gen, device=cuda).to(dtype)
+    dt = torch.float32 if "f32" in layout else dtype
+    if layout.startswith("strided"):
+        wide = torch.randn((WGRAD_N, k + 11), generator=gen, device=cuda)
+        d = wide.to(dt)[:, 2:2 + k]
+    else:
+        d = torch.randn((WGRAD_N, k), generator=gen, device=cuda).to(dt)
+    return [(a, d, True), (a2, d, False)]
+
+
+WGRAD_LAYOUTS = ["contiguous", "f32", "strided_f32", "strided_bf16"]
+
+
+@pytest.mark.parametrize("round_partial", [False, True])
+@pytest.mark.parametrize("layout", WGRAD_LAYOUTS)
+@pytest.mark.parametrize("k", [1, 3, 9, 128, 256])
+@pytest.mark.parametrize("m", [63, 27, 128, 256])
+def test_wgrad_kernel_matches_plain(cuda, m, k, layout, round_partial):
+    """The bf16 tensor-core pass against wgrad_reduce_plain on the same
+    jobs (misaligned 63- and 27-wide A, 1- to 9-wide heads, f32 deltas,
+    strided deltas at an offset), two launches equal bit for bit, and the
+    chunked
+    walk (two splits a chunk, reduced onto the sums so far) equal to one
+    pass bit for bit."""
+    jobs = _wgrad_jobs(cuda, m, k, layout, seed=m * 1000 + k)
+    ops.reset_launches()
+    got = ops.wgrad_reduce(jobs, WGRAD_ROWS, round_partial)
+    again = ops.wgrad_reduce(jobs, WGRAD_ROWS, round_partial)
+    walked = None
+    for c0 in range(0, WGRAD_N, WGRAD_CHUNK):
+        walked = ops.wgrad_reduce(
+            [(a[c0:c0 + WGRAD_CHUNK], d[c0:c0 + WGRAD_CHUNK], b)
+             for a, d, b in jobs], WGRAD_ROWS, round_partial, grads=walked)
+    want = ops.wgrad_reduce_plain(jobs, WGRAD_ROWS, round_partial)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["wgrad_reduce"] == 5
+    assert [tuple(g.shape) for g in got] == [(m, k), (1, k), (256, k)]
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert _rel_err(a, b) < WGRAD_REL[round_partial], (i, _rel_err(a, b))
+    assert all(map(torch.equal, got, again))
+    assert all(map(torch.equal, got, walked))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided_f32"])
+@pytest.mark.parametrize("m, k", [(63, 256), (256, 3), (256, 256)])
+def test_wgrad_f32_body_matches_plain(cuda, m, k, layout):
+    """f32 operands take the CUDA-core body in full f32: within 1e-5 of the
+    plain version's f32 products (no TF32, which keeps about three digits),
+    two launches equal bit for bit."""
+    jobs = _wgrad_jobs(cuda, m, k, layout, dtype=torch.float32, seed=k)
+    got = ops.wgrad_reduce(jobs, WGRAD_ROWS, False)
+    again = ops.wgrad_reduce(jobs, WGRAD_ROWS, False)
+    want = ops.wgrad_reduce_plain(jobs, WGRAD_ROWS, False)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert _rel_err(a, b) < 1e-5, (i, _rel_err(a, b))
+    assert all(map(torch.equal, got, again))
+
+
+def test_wgrad_rejects_cpu_jobs_on_the_card(cuda):
+    (a, d, b), _ = _wgrad_jobs(cuda, 64, 64, "contiguous")
+    with pytest.raises(ValueError, match="is on cpu"):
+        ops.wgrad_reduce([(a, d.cpu(), b)], WGRAD_ROWS)
