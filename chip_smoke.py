@@ -6,15 +6,22 @@
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device  - a CUDA device must be present; the card's name and power limit
   2. build   - nvcc builds every kernel of nerf_tpu_torch/ops/csrc, one nvcc
-               per source, all started together; ptxas's registers of the
-               weight-grad kernels and the tensor-core instructions (HMMA)
-               in each library's SASS, which wgrad_mma_kernel must have
+               per source, all started together; ptxas's registers and
+               spills of the weight-grad kernels and of every kernel that
+               runs the layer tile (dense_tile), and the tensor-core
+               instructions (HMMA) in each library's SASS and in each such
+               kernel: wgrad_mma_kernel and every bf16 instantiation of a
+               tile kernel must have them, no f32 one may
   3. kernels - each kernel against its plain PyTorch version, bf16 and f32,
                with timings and bounds: the eval forwards at the shapes of
                one default 4096-ray chunk, the training kernels at those of
                one default step (1024 rays: 131,072 fine and 65,536 coarse
                points); for the bf16 backwards, planted cast faults must
-               read beyond the limit that the kernels meet.  The Ref-NeRF
+               read beyond the limit that the kernels meet; the backwards
+               that rebuild their forward are held on their forward
+               kernel's activations; the vanilla forwards' order
+               sensitivity at He's scale and at the checks' scale
+               (kernel_order_sensitivity).  The Ref-NeRF
                forwards (ref_kernels) at one default chunk's 786,432 merged
                points, the directional one also with sRGB on and at IDE
                level 2; the Ref-NeRF training kernels at one default step's
@@ -24,7 +31,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                Blender-layout test split with seeded random weights (full
                width vanilla model), counting kernel launches; then one f32
                frame through the kernels against the plain nn.Module path,
-               and one warm bf16 frame timed and traced with torch.profiler
+               and one warm bf16 frame timed and traced with torch.profiler,
+               beside the same frame through the nn.Module route
   5. ref     - the Ref-NeRF render path: `python -m nerf_tpu_torch -t -r -e
                -s -w --render_normal` on the same split with seeded random
                full-width Ref-NeRF weights, counting kernel launches and
@@ -97,7 +105,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                chains' deltas: against the plain version, two walks equal
                bit for bit, its time, the plain version's, torch.mm's as a
                yardstick and the bound; the pass's ms per default step
- 16. the kernels line, then the last line {"ok": true, "device": {...}}
+ 16. dense   - the layer tile alone (ops.dense_layer) at every layer shape
+               of the main paths (inputs 63, 27, 167, 128 and 256 wide to
+               128 or 256, the three skip layers) at an eval chunk's
+               786,432 and a vanilla step's 131,072 rows, bf16: against the
+               plain version within TOLS, its stored rows and mask bits and
+               a second launch bit for bit, its time, the plain version's,
+               torch.addmm's as a yardstick and the bound; the same shapes in
+               f32 (the CUDA-core body); the card tests' narrow widths and
+               ragged row counts, untimed
+ 17. the kernels line, then the last line {"ok": true, "device": {...}}
 
 Imports nothing of JAX or nerf_tpu.
 """
@@ -126,6 +143,7 @@ from nerf_tpu_torch.cli.trainer import Trainer
 from nerf_tpu_torch.core.encoding import cat_pos_pe, ide_tables
 from nerf_tpu_torch.core.rays import fov_to_focal, pose_spherical
 from nerf_tpu_torch.ops import build, fused_mlp, ref_fused
+from nerf_tpu_torch.ops import dense as dense_lib
 from nerf_tpu_torch.ops.wgrad import grad_shapes
 from nerf_tpu_torch.train.config import PipelineConfig
 from nerf_tpu_torch.train.pipeline import make_models
@@ -162,6 +180,16 @@ TOLS = {torch.bfloat16: dict(rtol=2e-2, atol=1e-2),
 # 0.007 on none.  The directional check takes its ray directions as a
 # camera casts them: a |d| of 3 raises the level-4 IDE's z^8 terms to 1e5.
 REF_GAIN = 1.0
+# The vanilla forwards' check draws its matrices N(0, 1 / fan_in) as well.
+# At He's scale the vanilla net's eight bf16 layers do what the spatial
+# net's nine do: a one-ulp rounding difference in an early layer grows from
+# layer to layer: the function itself in plain PyTorch, its sums taken in
+# f32 and then in f64, parts beyond TOLS on most draws, and the tensor-core
+# kernel from either by as much; at this scale they stay within TOLS
+# (``order_sensitivity`` measures both every run; PERF.md has the readings).
+# A layer on the CUDA cores in f32 summed as cuBLAS does, bit for bit, and
+# so never showed it.
+VANILLA_GAIN = 1.0
 # backward grads against the plain version, as the relative Frobenius error
 # of each grad tensor, on the same stored activations.  Both round the same
 # deltas to bf16 per layer; they part only where an f32 sum taken in another
@@ -298,6 +326,11 @@ KERNELS = {
     "wgrad_reduce": dict(
         source="nerf_tpu_torch/ops/csrc/wgrad.cu",
         replaces="nerf_tpu/ops/fused_mlp.py:228"),
+    # the layer tile of every forward above (and of the rebuilds), on its
+    # own entry
+    "dense_layer": dict(
+        source="nerf_tpu_torch/ops/csrc/dense.cu",
+        replaces="nerf_tpu/ops/fused_mlp.py:58"),
 }
 RECOMPUTE_KERNELS = ("vanilla_mlp_bwd_recompute", "ref_spa_fwd_grad",
                      "ref_spa_bwd_recompute", "ref_dir_bwd_recompute")
@@ -483,7 +516,8 @@ def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
     points) of ``name`` at its main-path shapes; ``ide_level`` and
     ``use_srgb`` pick the case of ref_dir_fwd.  The held call is what the
     kernel's output is held against: the plain version, except for the
-    recompute backwards, whose plain version runs on the forward kernel's
+    backwards that rebuild their forward (the recompute backwards and
+    prop_mlp_bwd), whose plain version runs on the forward kernel's
     activations there (the kernel rebuilds them bit for bit; a plain
     forward rounds elsewhere in bf16 and may set a ReLU mask the other way,
     which moves a grad by a unit's whole term)."""
@@ -497,7 +531,7 @@ def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
         macs = macs_per_point(shapes)
     elif name == "vanilla_mlp_fwd":
         shapes, n = vanilla_shapes(), CHUNK * N_FINE
-        ws = random_weights(shapes, gen, dtype)
+        ws = random_weights(shapes, gen, dtype, gain=VANILLA_GAIN)
         x, d = _encodings(gen, dtype, n)
         args = (ws, x, d)
         kernel, plain = ops.vanilla_mlp_fwd, ops.vanilla_mlp_plain
@@ -505,7 +539,7 @@ def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
         macs = macs_per_point(shapes)
     elif name == "vanilla_mlp_fwd_res":
         shapes, n = vanilla_shapes(), RAYS * N_FINE
-        ws = random_weights(shapes, gen, dtype)
+        ws = random_weights(shapes, gen, dtype, gain=VANILLA_GAIN)
         x, d = _encodings(gen, dtype, n)
         args = (ws, x, d)
         kernel, plain = ops.vanilla_mlp_fwd_res, ops.vanilla_mlp_fwd_res_plain
@@ -663,6 +697,8 @@ def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
         g = torch.randn((n,), generator=gen, device="cuda")
         args, kernel, plain = (ws, x, g), ops.prop_mlp_bwd, \
             ops.prop_mlp_bwd_plain
+        acts = ops.prop_mlp_fwd_res(ws, x)[1]
+        held = lambda *a: ops.prop_mlp_bwd_res_plain(*a, acts)  # noqa: E731
         moved = _nbytes(x, g, *ws) + 4 * sum(w.numel() for w in ws)
         # the recomputed forward, the deltas and the weight grads
         macs = 2 * macs_per_point(shapes) + 256 + 3 * 256 * 256
@@ -881,6 +917,50 @@ def cast_controls(name, args, want):
             "dbb_from_rounded_dbvec": _rel_err(dbb, want[18])}
 
 
+ORDER_DRAWS = 6
+
+
+def order_sensitivity(gen):
+    """How far the bf16 vanilla forward parts from itself when only the
+    order of its f32 sums changes, at He's scale (gain 2) and at
+    VANILLA_GAIN, over ORDER_DRAWS draws of a default step's 131,072 points
+    each: the plain version with its products summed in f32 against the
+    same with them summed in f64 (each rounded to f32, then every layer to
+    bf16 as before), and the kernel against both; for each pair the draws
+    whose rgb and sigma are within TOLS and the largest abs error."""
+    def f64_dense(a, w, b=None):
+        out = torch.matmul(a.double(), w.double()).float()
+        return out if b is None else out + b
+
+    tol = TOLS[torch.bfloat16]
+    out = {}
+    for gain in (2.0, VANILLA_GAIN):
+        parts = {"plain_f32_vs_f64": [], "kernel_vs_plain_f32": [],
+                 "kernel_vs_plain_f64": []}
+        for _ in range(ORDER_DRAWS):
+            ws = random_weights(vanilla_shapes(), gen, torch.bfloat16,
+                                gain=gain)
+            x, d = _encodings(gen, torch.bfloat16, RAYS * N_FINE)
+            kernel = ops.vanilla_mlp_fwd(ws, x, d)
+            f32 = ops.vanilla_mlp_plain(ws, x, d)
+            dense, fused_mlp._dense = fused_mlp._dense, f64_dense
+            try:
+                f64 = ops.vanilla_mlp_plain(ws, x, d)
+            finally:
+                fused_mlp._dense = dense
+            for key, (a, b) in (("plain_f32_vs_f64", (f32, f64)),
+                                ("kernel_vs_plain_f32", (kernel, f32)),
+                                ("kernel_vs_plain_f64", (kernel, f64))):
+                parts[key].append((
+                    max(float((u - v).abs().max()) for u, v in zip(a, b)),
+                    all(torch.allclose(u, v, **tol) for u, v in zip(a, b))))
+        out[f"gain_{gain:g}"] = {
+            key: dict(max_abs_err=max(e for e, _ in v),
+                      draws_within_tols=sum(ok for _, ok in v),
+                      draws=len(v)) for key, v in parts.items()}
+    return out
+
+
 def check_kernel(name, dtype, gen, timed=True, **case):
     """Hold ``name`` against its plain version at its main-path shapes (the
     ``case`` of ref_dir_fwd); with ``timed`` also time both."""
@@ -1068,7 +1148,9 @@ def frame_check(model: str = "vanilla"):
 def profile_frame(model: str = "vanilla"):
     """Where one warm 400x400 bf16 frame (-s -w; Ref-NeRF with the normal
     map) spends its time: the host wall clock, and the device time of each
-    kernel from torch.profiler."""
+    kernel from torch.profiler; beside it the same warm frame through the
+    nn.Module route (eval_use_pallas=False: cuBLAS products), as a
+    yardstick."""
     from torch.profiler import ProfilerActivity, profile
 
     ref = model == "ref"
@@ -1091,8 +1173,23 @@ def profile_frame(model: str = "vanilla"):
         frame()
         wall_profiled = time.perf_counter() - t0
     device_ms, top = device_times(prof)
+    module_cfg = cfg.replace(eval_use_pallas=False)
+
+    def module_frame():
+        ops.reset_launches()
+        render_image(models, pose, (400, 400), focal, module_cfg,
+                     noise=noise, render_normal=ref, device="cuda")
+        torch.cuda.synchronize()
+        if sum(ops.LAUNCHES.values()):
+            fail(f"the nn.Module {model} frame launched {dict(ops.LAUNCHES)}")
+
+    module_frame()
+    t0 = time.perf_counter()
+    module_frame()
+    module_wall = time.perf_counter() - t0
     return dict(
-        frame_s=wall, profiled_frame_s=wall_profiled, device_ms=device_ms,
+        frame_s=wall, module_frame_s=module_wall,
+        profiled_frame_s=wall_profiled, device_ms=device_ms,
         device_busy_share=(device_ms / 1e3 / wall_profiled
                            if device_ms is not None else None),
         top_device_ms=top)
@@ -1817,6 +1914,114 @@ def wgrad_phase(gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the forward layer tile alone (ops.dense_layer)
+# ---------------------------------------------------------------------------
+
+# the layers of the main paths: (input widths, output width); one input for
+# a plain layer, two for a skip layer ([x, h4] of the trunks, [bvec, enc_d]
+# of the vanilla net)
+DENSE_SHAPES = ([((k,), o) for k in (63, 27, 167, 128, 256)
+                 for o in (128, 256)]
+                + [((63, 256), 256), ((167, 256), 256), ((256, 27), 128)])
+# an eval chunk's merged Ref-NeRF points and a default vanilla step's fine
+# points
+DENSE_N = (CHUNK * N_MERGED, RAYS * N_FINE)
+# the card tests' narrow widths, over a single row and ragged tiles
+DENSE_NARROW = [((63,), 48), ((48,), 40), ((40,), 48), ((48, 27), 24),
+                ((40,), 80)]
+DENSE_RAGGED_N = (1, 70, 4099)
+
+
+def dense_operands(gen, n, ks, n_out, dtype):
+    """Rows U(-1, 1), matrices N(0, 2 / fan_in), bias N(0, 0.25)."""
+    acts = [(torch.rand((n, k), generator=gen, device="cuda") * 2 - 1)
+            .to(dtype) for k in ks]
+    ws = [(torch.randn((k, n_out), generator=gen, device="cuda")
+           * math.sqrt(2.0 / sum(ks))).to(dtype) for k in ks]
+    b = torch.randn(n_out, generator=gen, device="cuda") * 0.5
+    return acts, ws, b
+
+
+def dense_call(fn, acts, ws, b, **kw):
+    a1 = acts[1] if len(acts) > 1 else None
+    w1 = ws[1] if len(ws) > 1 else None
+    return fn(acts[0], ws[0], b, a1, w1, **kw)
+
+
+def dense_check(gen, n, ks, n_out, dtype, timed=True):
+    """One layer shape: the tile against its plain version (max abs error,
+    within TOLS), its stored rows and mask bits against its own output and
+    a second launch, all bit for bit; with ``timed`` its ms, the plain
+    version's, torch.addmm's on the same operands (the skip layer's inputs
+    and matrices concatenated beforehand: one call a layer), the bound and
+    the weight bytes the blocks stage from L2 (computed, not measured)."""
+    acts, ws, b = dense_operands(gen, n, ks, n_out, dtype)
+    got, stored, bits = dense_call(ops.dense_layer, acts, ws, b, store=True,
+                                   mask=True)
+    again, _, _ = dense_call(ops.dense_layer, acts, ws, b)
+    want, _, _ = dense_call(ops.dense_layer_plain, acts, ws, b)
+    torch.cuda.synchronize()
+    label = f"dense_layer[{'+'.join(map(str, ks))}->{n_out}, n={n}, {dtype}]"
+    err = float((got.float() - want.float()).abs().max()) if n else 0.0
+    tol = TOLS[dtype]
+    if not bool(((got.float() - want.float()).abs()
+                 <= tol["atol"] + tol["rtol"] * want.float().abs()).all()):
+        fail(f"{label}: max abs error {err} beyond {tol}")
+    if not (torch.equal(got, again) and torch.equal(got, stored)):
+        fail(f"{label}: two launches or the stored rows differ")
+    if not torch.equal(bits, dense_lib.pack_mask(got)):
+        fail(f"{label}: the mask bits are not its output's > 0")
+    res = dict(k=list(ks), n_out=n_out, n=n,
+               dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+               tol=tol, bit_equal=True)
+    del got, stored, bits, again, want
+    if not timed:
+        return res
+    ms = cuda_ms(lambda: dense_call(ops.dense_layer, acts, ws, b), 20)
+    plain_ms = cuda_ms(lambda: dense_call(ops.dense_layer_plain, acts, ws,
+                                          b), 20)
+    cat_a = torch.cat(acts, 1) if len(acts) > 1 else acts[0]
+    cat_w = torch.cat(ws, 0) if len(ws) > 1 else ws[0]
+    bias = b.to(dtype).reshape(1, -1)
+    library_ms = cuda_ms(lambda: torch.addmm(bias, cat_a, cat_w), 20)
+    k = sum(ks)
+    moved = _nbytes(*acts, *ws, b) + n * n_out * acts[0].element_size()
+    flops = 2.0 * n * n_out * k
+    staged = math.ceil(n / 64) * k * n_out * acts[0].element_size()
+    return dict(res, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **bound(moved, flops, dtype), bytes=moved, flops=flops,
+                tflops=flops / (ms * 1e-3) / 1e12,
+                weight_bytes_staged=staged,
+                weight_stage_tb_per_s=staged / (ms * 1e-3) / 1e12)
+
+
+def dense_phase(gen):
+    """ops.dense_layer at every layer shape of the main paths (DENSE_SHAPES)
+    and both row counts of DENSE_N in bf16, timed; the same shapes in f32
+    at a step's rows (the CUDA-core body, within TOLS); the narrow widths
+    and ragged row counts untimed.  The launches are counted over the
+    phase's own calls."""
+    ops.reset_launches()
+    timed, f32, narrow = [], [], []
+    for n in DENSE_N:
+        for ks, n_out in DENSE_SHAPES:
+            timed.append(dense_check(gen, n, ks, n_out, torch.bfloat16))
+            torch.cuda.empty_cache()
+    for ks, n_out in DENSE_SHAPES:
+        f32.append(dense_check(gen, DENSE_N[1], ks, n_out, torch.float32))
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in DENSE_RAGGED_N:
+            for ks, n_out in DENSE_NARROW + DENSE_SHAPES:
+                narrow.append(dense_check(gen, n, ks, n_out, dtype, False))
+    launches = ops.LAUNCHES["dense_layer"]
+    if launches == 0:
+        fail("the dense phase launched dense_layer no time")
+    return dict(timed=timed, f32=f32, untimed_cases=len(narrow),
+                untimed_max_abs_err=max(r["max_abs_err"] for r in narrow),
+                launches=launches)
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the train path, then render-only on its checkpoint
 # ---------------------------------------------------------------------------
 
@@ -2066,9 +2271,61 @@ def wgrad_entry(name, meta, wgrad, train_launches, ref_train_launches):
                wgrad["lists"].items()})
 
 
-def wgrad_ptxas(reports):
-    """ptxas's lines (registers, shared memory, spills) for each weight-grad
-    kernel it compiled, by library and entry function."""
+def dense_entry(name, meta, dense):
+    """The kernels line's entry of the layer tile: the 256 -> 256 layer at
+    an eval chunk's rows at the top, every timed shape beside it;
+    ``launches`` counts this entry's launches in the dense phase."""
+    top = next(r for r in dense["timed"] if r["k"] == [256]
+               and r["n_out"] == 256 and r["n"] == DENSE_N[0])
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "tflops")
+    f32 = next(r for r in dense["f32"] if r["k"] == [256]
+               and r["n_out"] == 256)
+    return dict(
+        name=name, route="cuda", source=meta["source"],
+        replaces=meta["replaces"], launches=dense["launches"],
+        **{k: top[k] for k in keys}, tol=top["tol"], n=top["n"],
+        f32={k: f32[k] for k in keys},
+        shapes={f"{'+'.join(map(str, r['k']))}->{r['n_out']} n={r['n']}":
+                {k: r[k] for k in keys} for r in dense["timed"]})
+
+
+# the kernels that run dense_tile (mlp_tile.cuh), by the name in their
+# mangled symbol: the fused forwards, the rebuilds of the recompute
+# backwards and of prop_mlp_bwd (prop_delta_kernel<true, T>), the tile's
+# own entry
+TILE_KERNELS = ("prop_mlp_fwd_kernel", "vanilla_mlp_fwd_kernel",
+                "ref_spa_fwd_kernel", "ref_spa_fwd_res_kernel",
+                "ref_dir_fwd_kernel", "prop_delta_kernelILb1E",
+                "vanilla_recompute_kernel", "ref_spa_recompute_kernel",
+                "ref_dir_recompute_kernel", "dense_layer_kernel")
+
+
+def tile_kernel(func: str):
+    """(kernel name, "bf16" or "f32") of a mangled symbol that runs
+    dense_tile, else None: the bf16 instantiations carry __nv_bfloat16."""
+    base = next((k for k in TILE_KERNELS if k in func), None)
+    if base is None:
+        return None
+    return base.replace("ILb1E", ""), ("bf16" if "__nv_bfloat16" in func
+                                       else "f32")
+
+
+def demangle(names):
+    """cu++filt's (or c++filt's) demangled names, {} without either."""
+    tool = (shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt")
+    if not os.path.exists(tool):
+        tool = shutil.which("c++filt")
+    if not tool or not names:
+        return {}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    return dict(zip(names, out)) if len(out) == len(names) else {}
+
+
+def ptxas_by_function(reports, pick):
+    """ptxas's lines (registers, shared memory, spills) of each entry
+    function that ``pick`` takes, by library and mangled name."""
     out = {}
     for lib, log in reports.items():
         func = None
@@ -2077,18 +2334,35 @@ def wgrad_ptxas(reports):
                           r"for) '?(\w+)'?", ln)
             if m:
                 func = m.group(1)
-            elif func and "wgrad" in func and ("registers" in ln
-                                                or "spill" in ln):
+            elif func and pick(func) and ("registers" in ln
+                                          or "spill" in ln):
                 out.setdefault(lib, {}).setdefault(func, []).append(
                     ln.split(":", 1)[-1].strip())
     return out
 
 
+def wgrad_ptxas(reports):
+    """ptxas's lines for each weight-grad kernel it compiled."""
+    return ptxas_by_function(reports, lambda f: "wgrad" in f)
+
+
+def tile_ptxas(reports):
+    """ptxas's registers and spills of every kernel that runs dense_tile,
+    one line each: "<lib> <kernel> <dtype> <demangled>: <lines>"."""
+    found = ptxas_by_function(reports,
+                              lambda f: tile_kernel(f) is not None)
+    names = demangle(sorted({f for v in found.values() for f in v}))
+    return {f"{lib} {names.get(f, f)}": lines
+            for lib, funcs in found.items() for f, lines in funcs.items()}
+
+
 def sass_mma_counts():
     """The tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma) in
-    each built library's SASS (``cuobjdump -sass``), in all and in the
-    weight-grad kernels (wgrad_mma_kernel, wgrad_kernel); None when the
-    toolkit has no cuobjdump."""
+    each built library's SASS (``cuobjdump -sass``): in all, in the
+    weight-grad kernels (wgrad_mma_kernel, wgrad_kernel), and, by function,
+    in every kernel that runs dense_tile (``tiles``: "name<dtype>" -> the
+    HMMA count of each of its instantiations); None when the toolkit has no
+    cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -2099,20 +2373,43 @@ def sass_mma_counts():
                               timeout=300).stdout
         counts = {"all": {"HMMA": 0, "HGMMA": 0},
                   "wgrad_mma_kernel": {"HMMA": 0, "HGMMA": 0},
-                  "wgrad_kernel": {"HMMA": 0, "HGMMA": 0}}
-        func = "all"
+                  "wgrad_kernel": {"HMMA": 0, "HGMMA": 0}, "tiles": {}}
+        func, tile = "all", None
         for ln in sass.splitlines():
             if "Function :" in ln:
                 func = next((k for k in ("wgrad_mma_kernel", "wgrad_kernel")
                              if k in ln), "all")
+                tile = tile_kernel(ln)
+                if tile is not None:
+                    counts["tiles"].setdefault(
+                        f"{tile[0]}<{tile[1]}>", []).append(0)
             for op in ("HGMMA", "HMMA"):
                 if re.search(rf"\b{op}\.", ln):
                     counts[func][op] += 1
                     if func != "all":
                         counts["all"][op] += 1
+                    if tile is not None and op == "HMMA":
+                        counts["tiles"][f"{tile[0]}<{tile[1]}>"][-1] += 1
                     break
         out[lib] = counts
     return out
+
+
+def check_tile_mma(mma):
+    """Fail unless every bf16 instantiation of a kernel that runs dense_tile
+    holds HMMA and no f32 one does, and every such kernel was found."""
+    seen = set()
+    for lib, counts in mma.items():
+        for key, per in counts["tiles"].items():
+            seen.add(key)
+            if key.endswith("<bf16>") and min(per) == 0:
+                fail(f"{lib}: a bf16 {key} has no HMMA in its SASS: {per}")
+            if key.endswith("<f32>") and max(per) > 0:
+                fail(f"{lib}: an f32 {key} has HMMA in its SASS: {per}")
+    want = {f"{k.replace('ILb1E', '')}<{d}>" for k in TILE_KERNELS
+            for d in ("bf16", "f32")}
+    if want - seen:
+        fail(f"no SASS found for {sorted(want - seen)}")
 
 
 def main() -> int:
@@ -2137,24 +2434,28 @@ def main() -> int:
     ptxas = [ln.strip() for log in reports.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     mma = sass_mma_counts()
-    if mma is not None and not mma["wgrad"]["wgrad_mma_kernel"]["HMMA"]:
-        fail(f"no HMMA in wgrad_mma_kernel's SASS: {mma['wgrad']}")
+    if mma is not None:
+        if not mma["wgrad"]["wgrad_mma_kernel"]["HMMA"]:
+            fail(f"no HMMA in wgrad_mma_kernel's SASS: {mma['wgrad']}")
+        check_tile_mma(mma)
     emit("build", seconds=build_s, sources=list(build.SOURCES), ptxas=ptxas,
-         ptxas_wgrad=wgrad_ptxas(reports), sass_mma=mma)
+         ptxas_wgrad=wgrad_ptxas(reports), ptxas_tile=tile_ptxas(reports),
+         sass_mma=mma)
 
     # phase 3: kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = {}
     for name in KERNELS:
-        # the recompute kernels in phase 10, the rest in phases 12, 14, 15
+        # the recompute kernels in phase 10, the rest in phases 12, 14-16
         if name in RECOMPUTE_KERNELS + PROP_RES_KERNELS + DISSECT_KERNELS \
-                + ("wgrad_reduce",):
+                + ("wgrad_reduce", "dense_layer"):
             continue
         for dtype in (torch.bfloat16, torch.float32):
             res = check_kernel(name, dtype, gen)
             checks[(name, dtype)] = res
             emit("ref_kernels" if name.startswith("ref") else "kernel", **res)
             torch.cuda.empty_cache()
+    emit("kernel_order_sensitivity", **order_sensitivity(gen))
     for dtype in (torch.bfloat16, torch.float32):
         for name in ("ref_dir_fwd", "ref_dir_bwd"):
             for level, srgb in REF_DIR_VARIANTS:
@@ -2266,7 +2567,12 @@ def main() -> int:
     wgrad = wgrad_phase(gen)
     emit("wgrad", seconds=time.perf_counter() - t0, **wgrad)
 
-    # phase 16: the kernels line, then the last line.  ``launches`` is each
+    # phase 16: the layer tile alone at the main paths' layer shapes
+    t0 = time.perf_counter()
+    dense = dense_phase(gen)
+    emit("dense", seconds=time.perf_counter() - t0, **dense)
+
+    # phase 17: the kernels line, then the last line.  ``launches`` is each
     # kernel's count in its path's run: the vanilla train path (training
     # steps and the final eval render) for the vanilla kernels, the Ref-NeRF
     # render path for the Ref-NeRF eval forwards, the Ref-NeRF train path
@@ -2274,8 +2580,9 @@ def main() -> int:
     # recompute pair, the recompute steps of phase 10 (60 train_step calls
     # of each model) for the other two recompute backwards, the
     # batch-scaling sweep of phase 13 for the proposal net's residual pair,
-    # the dissection run of phase 14 (bf16) for the dissection kernels and
-    # the walks of phase 15 for the weight-grad pass's own entry;
+    # the dissection run of phase 14 (bf16) for the dissection kernels, the
+    # walks of phase 15 for the weight-grad pass's own entry and the calls
+    # of phase 16 for the layer tile's;
     # ``launches_render``, ``launches_ref``, ``launches_ref_train``,
     # ``launches_recompute_steps``, ``launches_hybrid_train`` and
     # ``launches_batch_scaling`` its count in each of those runs.
@@ -2287,6 +2594,9 @@ def main() -> int:
         if name == "wgrad_reduce":
             kernels.append(wgrad_entry(name, meta, wgrad, train["launches"],
                                        ref_train["launches"]))
+            continue
+        if name == "dense_layer":
+            kernels.append(dense_entry(name, meta, dense))
             continue
         if name in DISSECT_KERNELS:
             kernels.append(dissect_entry(name, meta, dissect["launches"][name],

@@ -48,8 +48,12 @@
 // 0.17 ms of writes against 0.14 ms of bf16 tensor-core work, so it is bound
 // by bytes; the proposal res variant writes 1,024 (2 KB in bf16), 0.04 ms at
 // one step's N = 65,536 against 0.03 ms of work, bound by bytes as well.
-// This first version multiplies on the CUDA cores in f32, not on the tensor
-// cores; mma.sync / wgmma and TMA are later work.
+// The hidden layers run through dense_tile (mlp_tile.cuh): in bf16 on the
+// tensor cores (mma.sync, each layer's weights staged through a 16.5 KB
+// ring of shared memory after the two activation buffers: 93,952 bytes a
+// block for the vanilla net and 90,496 for the proposal net at width 256,
+// so two blocks share an SM), in f32 on the CUDA cores.  The narrow heads
+// stay on the CUDA cores (head_tile).  wgmma and TMA are later work.
 
 #include "mlp_tile.cuh"
 
@@ -97,17 +101,18 @@ prop_mlp_fwd_kernel(const T* __restrict__ x, PropWeights<T> p, PropActs<T> s,
   T* xs = reinterpret_cast<T*>(smem);
   T* buf_a = xs + TM * dx;
   T* buf_b = buf_a + TM * h;
+  T* st = buf_b + TM * h;                 // dense_tile's weight stage
   T* none = nullptr;
   const int64_t row0 = (int64_t)blockIdx.x * TM;
   load_rows(x, dx, row0, n, xs);
   __syncthreads();
-  dense_tile<STORE>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.h1, row0, n);    // h1
+  dense_tile<STORE>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.h1, row0, n, st);    // h1
   __syncthreads();
-  dense_tile<STORE>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.h2, row0, n);  // h2
+  dense_tile<STORE>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.h2, row0, n, st);  // h2
   __syncthreads();
-  dense_tile<STORE>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.h3, row0, n);  // h3
+  dense_tile<STORE>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.h3, row0, n, st);  // h3
   __syncthreads();
-  dense_tile<STORE>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.h4, row0, n);  // h4
+  dense_tile<STORE>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.h4, row0, n, st);  // h4
   __syncthreads();
   head_tile(buf_b, h, p.wo, p.bo, 1, false, out, n, row0, n);
 }
@@ -129,29 +134,30 @@ vanilla_mlp_fwd_kernel(const T* __restrict__ x, const T* __restrict__ d,
   T* ds = xs + TM * dx;
   T* buf_a = ds + TM * dd;
   T* buf_b = buf_a + TM * maxw;
+  T* st = buf_b + TM * maxw;              // dense_tile's weight stage
   const T* none = nullptr;
   const int64_t row0 = (int64_t)blockIdx.x * TM;
   load_rows(x, dx, row0, n, xs);
   load_rows(d, dd, row0, n, ds);
   __syncthreads();
-  dense_tile<STORE>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.h1, row0, n);
+  dense_tile<STORE>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.h1, row0, n, st);
   __syncthreads();
-  dense_tile<STORE>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.h2, row0, n);
+  dense_tile<STORE>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.h2, row0, n, st);
   __syncthreads();
-  dense_tile<STORE>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.h3, row0, n);
+  dense_tile<STORE>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.h3, row0, n, st);
   __syncthreads();
-  dense_tile<STORE>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.h4, row0, n);
+  dense_tile<STORE>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.h4, row0, n, st);
   __syncthreads();
-  dense_tile<STORE>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.z5, row0, n);
+  dense_tile<STORE>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.z5, row0, n, st);
   __syncthreads();
-  dense_tile<STORE>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.z6, row0, n);
+  dense_tile<STORE>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.z6, row0, n, st);
   __syncthreads();
-  dense_tile<STORE>(buf_b, h, p.w6, none, 0, none, p.b6, bn, true, buf_a, s.z7, row0, n);
+  dense_tile<STORE>(buf_b, h, p.w6, none, 0, none, p.b6, bn, true, buf_a, s.z7, row0, n, st);
   __syncthreads();
   head_tile(buf_a, bn, p.wsig, p.bsig, 1, false, sigma, n, row0, n);   // sigma
-  dense_tile<STORE>(buf_a, bn, p.wb, none, 0, none, p.bb, bn, false, buf_b, s.bvec, row0, n);
+  dense_tile<STORE>(buf_a, bn, p.wb, none, 0, none, p.bb, bn, false, buf_b, s.bvec, row0, n, st);
   __syncthreads();
-  dense_tile<STORE>(buf_b, bn, p.wr1a, ds, dd, p.wr1b, p.br1, r, true, buf_a, s.r1, row0, n);
+  dense_tile<STORE>(buf_b, bn, p.wr1a, ds, dd, p.wr1b, p.br1, r, true, buf_a, s.r1, row0, n, st);
   __syncthreads();
   head_tile(buf_a, r, p.wr2, p.br2, 3, true, rgb3, n, row0, n);        // rgb
 }
@@ -167,7 +173,9 @@ int launch_prop(const void* x, const uint64_t* ptrs, int64_t n, int dx, int h,
     s.h1 = (T*)acts[0]; s.h2 = (T*)acts[1];
     s.h3 = (T*)acts[2]; s.h4 = (T*)acts[3];
   }
-  const size_t smem = (size_t)TM * (dx + 2 * h) * sizeof(T);
+  if (!tile_widths_ok<T>({h})) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)TM * (dx + 2 * h) * sizeof(T) + dense_stage_bytes<T>();
   int err = set_smem(prop_mlp_fwd_kernel<STORE, T>, smem);
   if (err != 0 || n == 0) return err;
   const unsigned grid = (unsigned)((n + TM - 1) / TM);
@@ -192,7 +200,9 @@ int launch_vanilla(const void* x, const void* d, const uint64_t* ptrs,
   const int dx = dims[0], dd = dims[1], h = dims[2], bn = dims[3], r = dims[4];
   int maxw = h > bn ? h : bn;
   maxw = maxw > r ? maxw : r;
-  const size_t smem = (size_t)TM * (dx + dd + 2 * maxw) * sizeof(T);
+  if (!tile_widths_ok<T>({h, bn, r})) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)TM * (dx + dd + 2 * maxw) * sizeof(T)
+      + dense_stage_bytes<T>();
   int err = set_smem(vanilla_mlp_fwd_kernel<STORE, T>, smem);
   if (err != 0 || n == 0) return err;
   const unsigned grid = (unsigned)((n + TM - 1) / TM);

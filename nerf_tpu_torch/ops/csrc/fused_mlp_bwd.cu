@@ -40,9 +40,11 @@
 // N = 65,536, and 409,856 without the rebuild (res), 0.05 ms.  All are bound
 // by operations.  The proposal backwards walk the points in chunks of whole
 // K-splits (launch_prop_bwd), so their deltas (and the rebuilt activations)
-// take scratch of one chunk, not of all N points.  This first version multiplies
-// on the CUDA cores in f32 and pays the delta round trip through device
-// memory; tensor cores and fusing the weight-grad products into the delta
+// take scratch of one chunk, not of all N points.  prop_mlp_bwd's rebuild
+// runs through dense_tile (mlp_tile.cuh; in bf16 on the tensor cores, its
+// weight ring in the W^T stage ``st``).  The delta passes multiply on the
+// CUDA cores in f32 and pay the delta round trip through device memory;
+// tensor cores there and fusing the weight-grad products into the delta
 // pass are later work.
 
 #include "mlp_tile.cuh"
@@ -142,7 +144,7 @@ prop_delta_kernel(const T* __restrict__ x, PropWeights<T> p,
   T* xs = gs + TM * 4;                    // (TM, dx), REBUILD only
   T* buf_a = xs + (REBUILD ? TM * dx : 0);
   T* buf_b = buf_a + TM * h;
-  T* st = buf_b + TM * h;                 // the W^T stage
+  T* st = buf_b + TM * h;                 // the W^T (and weight) stage
   const T* none = nullptr;
   const int64_t row0 = (int64_t)blockIdx.x * TM;
   if (REBUILD) load_rows(x, dx, row0, n, xs);
@@ -153,13 +155,13 @@ prop_delta_kernel(const T* __restrict__ x, PropWeights<T> p,
   }
   __syncthreads();
   if (REBUILD) {
-    dense_tile<true>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, hs.a[0], row0, n);
+    dense_tile<true>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, hs.a[0], row0, n, st);
     __syncthreads();
-    dense_tile<true>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, hs.a[1], row0, n);
+    dense_tile<true>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, hs.a[1], row0, n, st);
     __syncthreads();
-    dense_tile<true>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, hs.a[2], row0, n);
+    dense_tile<true>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, hs.a[2], row0, n, st);
     __syncthreads();
-    dense_tile<true>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, hs.a[3], row0, n);
+    dense_tile<true>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, hs.a[3], row0, n, st);
     __syncthreads();   // also makes the stored h1..h4 visible to the block
   }
   // dh4 = mask(h4) (go (x) wo): a K = 1 product, no delta operand
@@ -250,8 +252,10 @@ int launch_prop_bwd(const void* x, const float* g_out, const uint64_t* ptrs,
                     int64_t rows_per_split, int64_t chunk_rows,
                     const uint64_t* grads, cudaStream_t stream) {
   const PropWeights<T> p = prop_weights<T>(ptrs);
-  const size_t smem = ((size_t)TM * (4 + (REBUILD ? dx : 0) + 2 * h)
-                       + KC * stage_ld<T>()) * sizeof(T);
+  if (REBUILD && !tile_widths_ok<T>({h})) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)TM * (4 + (REBUILD ? dx : 0) + 2 * h) * sizeof(T)
+      + (REBUILD ? stage_bytes<T>() : (size_t)KC * stage_ld<T>() * sizeof(T));
   int err = set_smem(prop_delta_kernel<REBUILD, T>, smem);
   if (err != 0) return err;
   const int64_t sizes[10] = {(int64_t)dx * h, h, (int64_t)h * h, h,

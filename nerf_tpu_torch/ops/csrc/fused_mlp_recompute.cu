@@ -31,7 +31,10 @@
 // Bound on an H100 SXM (700 W), bf16 tensor-core peak 989 TFLOP/s: the
 // residual backward's 527,872 weight-grad and 492,160 delta MACs per point
 // plus one forward (527,872): 0.41 ms at N = 131,072, bound by operations.
-// This first version multiplies on the CUDA cores in f32.
+// The rebuild runs through dense_tile (mlp_tile.cuh), as the forward does:
+// in bf16 on the tensor cores, its weight ring in the W^T stage ``st``
+// (grown to the ring's 16.5 KB).  The delta pass (delta_tile) multiplies on
+// the CUDA cores in f32; the weight-grad pass is wgrad.cuh's.
 
 #include "mlp_tile.cuh"
 #include "wgrad.cuh"
@@ -72,30 +75,30 @@ vanilla_recompute_kernel(const T* __restrict__ x, const T* __restrict__ d,
   T* gs = dl + TM * 4;                    // (TM,) g_sigma in T
   T* buf_a = gs + TM * 4;
   T* buf_b = buf_a + TM * maxw;
-  T* st = buf_b + TM * maxw;              // the W^T stage
+  T* st = buf_b + TM * maxw;              // the W^T and weight stage
   const T* none = nullptr;
   const int64_t row0 = (int64_t)blockIdx.x * TM;
   load_rows(x, dx, row0, n, xs);
   load_rows(d, dd, row0, n, ds);
   __syncthreads();
   // the forward, as vanilla_mlp_fwd_kernel<true> runs it, into the scratch
-  dense_tile<true>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.h1, row0, n);
+  dense_tile<true>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.h1, row0, n, st);
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.h2, row0, n);
+  dense_tile<true>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.h2, row0, n, st);
   __syncthreads();
-  dense_tile<true>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.h3, row0, n);
+  dense_tile<true>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.h3, row0, n, st);
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.h4, row0, n);
+  dense_tile<true>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.h4, row0, n, st);
   __syncthreads();
-  dense_tile<true>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.z5, row0, n);
+  dense_tile<true>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.z5, row0, n, st);
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.z6, row0, n);
+  dense_tile<true>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.z6, row0, n, st);
   __syncthreads();
-  dense_tile<true>(buf_b, h, p.w6, none, 0, none, p.b6, bn, true, buf_a, s.z7, row0, n);
+  dense_tile<true>(buf_b, h, p.w6, none, 0, none, p.b6, bn, true, buf_a, s.z7, row0, n, st);
   __syncthreads();
-  dense_tile<true>(buf_a, bn, p.wb, none, 0, none, p.bb, bn, false, buf_b, s.bvec, row0, n);
+  dense_tile<true>(buf_a, bn, p.wb, none, 0, none, p.bb, bn, false, buf_b, s.bvec, row0, n, st);
   __syncthreads();
-  dense_tile<true>(buf_b, bn, p.wr1a, ds, dd, p.wr1b, p.br1, r, true, buf_a, s.r1, row0, n);
+  dense_tile<true>(buf_b, bn, p.wr1a, ds, dd, p.wr1b, p.br1, r, true, buf_a, s.r1, row0, n, st);
   __syncthreads();
   narrow_head(buf_a, r, p.wr2, p.br2, 3, true, rgb_s, 3, 0, 0, TM);   // rgb
   __syncthreads();   // also makes the stored activations visible to the block
@@ -161,9 +164,9 @@ int launch_vanilla_bwd_recompute(const void* x, const void* d,
   const int dx = dims[0], dd = dims[1], h = dims[2], bn = dims[3], r = dims[4];
   int maxw = h > bn ? h : bn;
   maxw = maxw > r ? maxw : r;
+  if (!tile_widths_ok<T>({h, bn, r})) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)TM * 4 * sizeof(float)
-      + ((size_t)TM * (dx + dd + 8 + 2 * maxw) + KC * stage_ld<T>())
-      * sizeof(T);
+      + (size_t)TM * (dx + dd + 8 + 2 * maxw) * sizeof(T) + stage_bytes<T>();
   int err = set_smem(vanilla_recompute_kernel<T>, smem);
   if (err != 0) return err;
   const int64_t sizes[24] = {

@@ -2,16 +2,24 @@
 //
 // One block of THREADS threads owns a tile of TM points.  Activations of the
 // tile live in shared memory as (TM, width) row-major arrays in the compute
-// dtype T (float or __nv_bfloat16).  Products accumulate in f32 on the CUDA
-// cores: each thread holds an RPT x CPT register tile (its warp's RPT rows,
-// CPT columns strided by 32), and a layer wider than CHUNK columns is done in
-// passes of CHUNK.
+// dtype T (float or __nv_bfloat16).  Products accumulate in f32.  The hidden
+// layers (dense_tile) multiply bf16 operands on the tensor cores (mma.sync
+// m16n8k16, the weights staged in shared memory) and f32 operands on the
+// CUDA cores in full f32.  The other products (the heads, the transposed
+// products of the backwards) run on the CUDA cores: each thread holds an
+// RPT x CPT register tile (its warp's RPT rows, CPT columns strided by 32),
+// and a layer wider than CHUNK columns is done in passes of CHUNK.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <initializer_list>
+#include <type_traits>
+
+#include "mma_sm90.cuh"
 
 namespace mlp {
 
@@ -159,19 +167,52 @@ __host__ __device__ constexpr int mask_words(int width) {
   return (width + 31) >> 5;
 }
 
-// out = act(a0 @ w0 [+ a1 @ w1] + bias) for the whole tile, cast to T.
-// a0, a1 and out are (TM, width) row-major in shared memory.  With STORE the
-// tile's valid rows are also written to gout, an (n, n_out) array in device
-// memory (rows row0 .. row0 + TM).  With MASK the ReLU mask (out > 0) of
-// every row goes to mbits, (TM, mask_words(n_out)) words in shared memory:
-// the 32 lanes of a warp hold 32 consecutive columns of a row, one word.
-template <bool STORE, typename T, bool MASK = false>
-__device__ void dense_tile(const T* a0, int k0, const T* __restrict__ w0,
-                           const T* a1, int k1, const T* __restrict__ w1,
-                           const float* __restrict__ bias, int n_out,
-                           bool relu, T* out, T* __restrict__ gout,
-                           int64_t row0, int64_t n,
-                           uint32_t* mbits = nullptr) {
+// The bf16 layer tile's weight stage: a ring of DSTAGES slots, each DK rows
+// of W (one k-step of the mma) of DPASS output columns, the rows padded
+// to DLD elements (528 bytes) so that the 8 rows an ldmatrix reads start in
+// 8 different bank quads.  The backwards share it with accumulate_t's
+// stage, which never runs at the same time (stage_bytes).  Two slots of one
+// k-step keep every caller at two blocks an SM: three slots ran no faster
+// on an H100, and slots of two k-steps cost ref_dir_fwd its second block
+// (PERF.md; nerf_tpu_torch.tools.tile_variants measures both).
+constexpr int DK = 16;                    // a slot is one k-step
+constexpr int DSTAGES = 2;
+constexpr int DPASS = 256;                // output columns a pass
+constexpr int DLD = DPASS + 8;
+constexpr int DSLOT = DK * DLD;           // elements of a slot
+
+// Shared-memory bytes of dense_tile's stage: the ring in bf16, none in f32.
+template <typename T>
+__host__ __device__ constexpr size_t dense_stage_bytes() {
+  return sizeof(T) == 2 ? (size_t)DSTAGES * DSLOT * sizeof(T) : 0;
+}
+
+// Shared-memory bytes of a backward's stage ``st``, which accumulate_t and
+// (in bf16) dense_tile's ring take in turn.
+template <typename T>
+__host__ __device__ constexpr size_t stage_bytes() {
+  return (size_t)KC * stage_ld<T>() * sizeof(T) > dense_stage_bytes<T>()
+      ? (size_t)KC * stage_ld<T>() * sizeof(T) : dense_stage_bytes<T>();
+}
+
+// Whether every width that a bf16 dense_tile writes is a multiple of 8 (the
+// n-tiles of the mma and the 16-byte rows of the weight stage); the f32 tile
+// takes any width.  Launchers return cudaErrorInvalidValue otherwise.
+template <typename T>
+inline bool tile_widths_ok(std::initializer_list<int> widths) {
+  if (sizeof(T) != 2) return true;
+  for (int w : widths)
+    if (w % 8 != 0) return false;
+  return true;
+}
+
+// The f32 body of dense_tile, on the CUDA cores (see dense_tile).
+template <bool STORE, typename T, bool MASK>
+__device__ void dense_tile_fma(const T* a0, int k0, const T* __restrict__ w0,
+                               const T* a1, int k1, const T* __restrict__ w1,
+                               const float* __restrict__ bias, int n_out,
+                               bool relu, T* out, T* __restrict__ gout,
+                               int64_t row0, int64_t n, uint32_t* mbits) {
   const int lane = threadIdx.x & 31;
   const int r0 = (threadIdx.x >> 5) * RPT;
   for (int c0 = 0; c0 < n_out; c0 += CHUNK) {
@@ -209,6 +250,299 @@ __device__ void dense_tile(const T* a0, int k0, const T* __restrict__ w0,
       }
     }
   }
+}
+
+typedef __nv_bfloat16 bf16_t;
+
+// The 16-byte pieces of a stage slot that a thread copies: rows r0, r0 +
+// rstep, ... < DK, columns c .. c + 7 of the pass (r0 >= DK: none).  Set
+// once a pass, so that the k-loop divides nothing.
+struct StageMap {
+  int r0, rstep, c;
+};
+
+__device__ __forceinline__ StageMap stage_map(int np) {
+  const int pieces = np >> 3;               // 16-byte pieces of a row
+  StageMap m;
+  m.r0 = threadIdx.x / pieces;
+  m.rstep = THREADS / pieces;
+  m.c = (threadIdx.x - m.r0 * pieces) * 8;
+  if (m.r0 >= m.rstep) m.r0 = DK;          // past the last whole row group
+  return m;
+}
+
+// Rows [kb, kb + DK) of columns [c0, c0 + np) of w (k_dim, n_out) into a
+// stage slot: 16-byte cp.async copies (element loads where w is not 16-byte
+// aligned), rows at or past k_dim as zeros.  n_out and np are multiples of 8.
+__device__ __forceinline__ void stage_w(bf16_t* slot, const bf16_t* w,
+                                        int k_dim, int kb, int n_out, int c0,
+                                        const StageMap& m) {
+  const bool vec = (uintptr_t)w % 16 == 0;
+  for (int r = m.r0; r < DK; r += m.rstep) {
+    bf16_t* d = slot + r * DLD + m.c;
+    const int k = kb + r;
+    const bf16_t* src = w + (size_t)k * n_out + c0 + m.c;
+    if (k >= k_dim) {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    } else if (vec) {
+      cp_async16(d, src);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d[e] = src[e];
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16_t lo, bf16_t hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo)
+      | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// The A fragment of rows m0 .. m0 + 15, columns kk .. kk + 15 of a (TM, k_dim)
+// tile in shared memory: one ldmatrix where the rows are 16-byte aligned and
+// the k-step lies inside k_dim, else element loads with columns past k_dim
+// as zeros (the 63-, 27- and 167-wide trunk inputs, a ragged last k-step).
+// At width 256 the 8 rows of an ldmatrix share their banks (512 bytes
+// apart).  Padding the rows by 16 bytes ran the tile alone 5-12% faster on
+// an H100 (tools/tile_variants, PERF.md); every reader of the activation
+// tiles would change with it, which is left to a later redesign.
+__device__ __forceinline__ void load_a(uint32_t (&af)[4], const bf16_t* a,
+                                       int k_dim, int m0, int kk,
+                                       bool aligned) {
+  const int lane = threadIdx.x & 31;
+  if (aligned && kk + 16 <= k_dim) {
+    ldsm_x4(af[0], af[1], af[2], af[3],
+            a + (m0 + (lane & 15)) * k_dim + kk + (lane >> 4) * 8);
+    return;
+  }
+  // a0 a1: row g, columns 2 q, 2 q + 1; a2 a3: row g + 8; a4 .. a7: the same
+  // eight columns on
+  const int g = lane >> 2, c = kk + 2 * (lane & 3);
+  const bf16_t* ra = a + (m0 + g) * k_dim;
+  const bf16_t* rb = ra + 8 * k_dim;
+  const bf16_t z = __float2bfloat16_rn(0.f);
+  af[0] = pack_bf16(c < k_dim ? ra[c] : z, c + 1 < k_dim ? ra[c + 1] : z);
+  af[1] = pack_bf16(c < k_dim ? rb[c] : z, c + 1 < k_dim ? rb[c + 1] : z);
+  af[2] = pack_bf16(c + 8 < k_dim ? ra[c + 8] : z,
+                    c + 9 < k_dim ? ra[c + 9] : z);
+  af[3] = pack_bf16(c + 8 < k_dim ? rb[c + 8] : z,
+                    c + 9 < k_dim ? rb[c + 9] : z);
+}
+
+// The columns of one pass of up to DPASS output columns that a warp of
+// column half ``half`` owns: whole 32-column words of the pass, the first
+// half's ceil(words / 2), the second's the rest.
+struct PassCols {
+  int np;          // columns in the pass (a multiple of 8)
+  int wb, we;      // the warp's words [wb, we) of the pass
+  int col0;        // its first column, from the pass's first
+  int nt_n;        // its n-tiles of 8 columns
+};
+
+__device__ __forceinline__ PassCols pass_cols(int n_out, int c0, int half) {
+  PassCols pc;
+  pc.np = n_out - c0 < DPASS ? n_out - c0 : DPASS;
+  const int words = (pc.np + 31) >> 5;
+  const int wsplit = (words + 1) >> 1;
+  pc.wb = half ? wsplit : 0;
+  pc.we = half ? words : wsplit;
+  pc.col0 = 32 * pc.wb;
+  const int cend = 32 * pc.we < pc.np ? 32 * pc.we : pc.np;
+  pc.nt_n = cend > pc.col0 ? (cend - pc.col0) >> 3 : 0;
+  return pc;
+}
+
+// acc += one k-step's 16-term products, summed by the tensor cores from
+// zero and added to acc in f32 (round to nearest).  The tensor cores'
+// accumulation truncates; chaining the k-steps through it set 1.8 times as
+// many bf16 outputs off the correctly rounded layer as an f32 sum in order
+// does, this 0.8 times, for 3-4% of the eval forwards' time
+// (tools/tile_variants, PERF.md).
+__device__ __forceinline__ void step_mma(float (&acc)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(part, a, b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += part[e];
+}
+
+// One k-step's products into the warp's first nt_n n-tiles: the A fragment
+// af and the B fragments of the slot's rows from pb on.  (A second copy for
+// nt_n = 16 without the tests ran the eval forwards 10-13% faster on an
+// H100, but its registers spilled in ref_dir_fwd, which spills none here:
+// tools/tile_variants.)
+__device__ __forceinline__ void kstep_mma(float (&acc)[16][4],
+                                          const uint32_t (&af)[4],
+                                          const bf16_t* pb, int nt_n) {
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    if (2 * p < nt_n) {
+      uint32_t b[2][2];
+      ldsm_x4_t(b[0][0], b[0][1], b[1][0], b[1][1], pb + p * 16);
+      step_mma(acc[2 * p], af, b[0]);
+      if (2 * p + 1 < nt_n) step_mma(acc[2 * p + 1], af, b[1]);
+    }
+  }
+}
+
+// The products of one pass on the tensor cores: acc[t] = the 16 x 8 block of
+// n-tile t of a0 @ w0 [+ a1 @ w1] at the warp's rows m0 .. m0 + 15 and the
+// columns of ``pc``, from column c0 of the pass on.  The 8 warps cover the
+// tile's 64 rows x the pass as 4 row groups of 16 x 2 column halves (at
+// width 256: 16 x 128 a warp, 16 n-tiles, 64 f32 accumulators a thread).
+// The k-steps of a0 then of a1 run into one f32 sum (step_mma); W is staged
+// by cp.async into the ring, DSTAGES - 1 slots ahead of the products.  The
+// order of the sums does not depend on the block, the caller or the pass's
+// width, so a rebuild gives the forward's values bit for bit.  Every thread
+// of the block must call this (it holds __syncthreads()), with the ring
+// free.
+__device__ __forceinline__ void mma_pass(float (&acc)[16][4],
+                                         const bf16_t* a0, int k0,
+                                         const bf16_t* __restrict__ w0,
+                                         const bf16_t* a1, int k1,
+                                         const bf16_t* __restrict__ w1,
+                                         int n_out, int c0,
+                                         const PassCols& pc,
+                                         bf16_t* stage) {
+  const int lane = threadIdx.x & 31;
+  const int m0 = ((threadIdx.x >> 5) & 3) * 16;
+  const bool al0 = (uintptr_t)a0 % 16 == 0 && k0 % 8 == 0;
+  const bool al1 = (uintptr_t)a1 % 16 == 0 && k1 % 8 == 0;
+  const StageMap sm = stage_map(pc.np);
+  // slot j: k-step j, rows [DK j, DK j + DK) of w0 for j < s0, then of w1
+  const int s0 = (k0 + DK - 1) / DK;
+  const int slots = s0 + (a1 != nullptr ? (k1 + DK - 1) / DK : 0);
+#pragma unroll
+  for (int t = 0; t < 16; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < DSTAGES - 1; ++j) {
+    if (j < slots)
+      stage_w(stage + j * DSLOT, j >= s0 ? w1 : w0, j >= s0 ? k1 : k0,
+              (j >= s0 ? j - s0 : j) * DK, n_out, c0, sm);
+    cp_async_commit();
+  }
+  // lane l reads rows (l & 7) + 8 ((l >> 3) & 1) of the slot, columns
+  // + 8 (l >> 4): the B fragments of n-tiles 2 p and 2 p + 1
+  const int boff = ((lane & 7) + ((lane >> 3) & 1) * 8) * DLD + pc.col0
+      + (lane >> 4) * 8;
+  for (int s = 0; s < slots; ++s) {
+    cp_async_wait<DSTAGES - 2>();           // this thread's copies of slot s
+    __syncthreads();                        // everyone's; slot s - 1 is done
+    const int next = s + DSTAGES - 1;
+    if (next < slots)
+      stage_w(stage + (next % DSTAGES) * DSLOT, next >= s0 ? w1 : w0,
+              next >= s0 ? k1 : k0, (next >= s0 ? next - s0 : next) * DK,
+              n_out, c0, sm);
+    cp_async_commit();
+    const bool on1 = s >= s0;
+    const bf16_t* a = on1 ? a1 : a0;
+    const int k_dim = on1 ? k1 : k0;
+    const int kb = (on1 ? s - s0 : s) * DK;
+    const bool al = on1 ? al1 : al0;
+    uint32_t af[4];
+    load_a(af, a, k_dim, m0, kb, al);
+    kstep_mma(acc, af, stage + (s % DSTAGES) * DSLOT + boff, pc.nt_n);
+  }
+}
+
+// The bf16 body of dense_tile (see there), on the tensor cores (mma_pass).
+// The epilogue adds the bias in f32, applies the ReLU and rounds to bf16
+// into ``out``; then the warp's own rows and columns go on to gout (STORE)
+// and its own 32-column words to the mask (MASK), after a __syncwarp.
+template <bool STORE, bool MASK>
+__device__ void dense_tile_mma(const bf16_t* a0, int k0,
+                               const bf16_t* __restrict__ w0,
+                               const bf16_t* a1, int k1,
+                               const bf16_t* __restrict__ w1,
+                               const float* __restrict__ bias, int n_out,
+                               bool relu, bf16_t* out,
+                               bf16_t* __restrict__ gout, int64_t row0,
+                               int64_t n, bf16_t* stage, uint32_t* mbits) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = (warp & 3) * 16;           // the warp's rows
+  const int g = lane >> 2, q = lane & 3;
+  const bool gvec = (uintptr_t)gout % 16 == 0;
+  for (int c0 = 0; c0 < n_out; c0 += DPASS) {
+    if (c0 > 0) __syncthreads();            // the ring is free again
+    const PassCols pc = pass_cols(n_out, c0, warp >> 2);
+    float acc[16][4];
+    mma_pass(acc, a0, k0, w0, a1, k1, w1, n_out, c0, pc, stage);
+    // c0 c1 of an n-tile: row g, columns 2 q, 2 q + 1; c2 c3: row g + 8
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      if (t >= pc.nt_n) break;
+      const int c = c0 + pc.col0 + 8 * t + 2 * q;
+      const float b0 = bias[c], b1 = bias[c + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = acc[t][2 * h] + b0, v1 = acc[t][2 * h + 1] + b1;
+        if (relu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(out + (m0 + g + 8 * h) * n_out + c)
+            = __floats2bfloat162_rn(v0, v1);
+      }
+    }
+    __syncwarp();                           // the warp's part of out is written
+    if (STORE) {
+      // the warp's 16 rows x 8 nt_n columns to gout, 16 bytes at a time
+      for (int idx = lane; idx < 16 * pc.nt_n; idx += 32) {
+        const int rr = idx / pc.nt_n;
+        const int c = c0 + pc.col0 + 8 * (idx - rr * pc.nt_n);
+        const int64_t row = row0 + m0 + rr;
+        if (row >= n) continue;
+        const bf16_t* src = out + (m0 + rr) * n_out + c;
+        bf16_t* dst = gout + row * n_out + c;
+        if (gvec) {
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) dst[e] = src[e];
+        }
+      }
+    }
+    if (MASK) {
+      // the warp owns whole words of its rows, so it reads back only values
+      // its own lanes wrote
+      for (int wd = pc.wb; wd < pc.we; ++wd) {
+        const int c = c0 + 32 * wd + lane;
+        for (int rr = 0; rr < 16; ++rr) {
+          const int r = m0 + rr;
+          const bool on = c < n_out && to_f(out[r * n_out + c]) > 0.f;
+          const uint32_t bits = __ballot_sync(0xffffffffu, on);
+          if (lane == 0) mbits[r * mask_words(n_out) + (c0 >> 5) + wd] = bits;
+        }
+      }
+    }
+  }
+}
+
+// out = act(a0 @ w0 [+ a1 @ w1] + bias) for the whole tile, cast to T.
+// a0, a1 and out are (TM, width) row-major in shared memory.  With STORE the
+// tile's valid rows are also written to gout, an (n, n_out) array in device
+// memory (rows row0 .. row0 + TM).  With MASK the ReLU mask (out > 0) of
+// every row goes to mbits, (TM, mask_words(n_out)) words in shared memory.
+// bf16 multiplies on the tensor cores (dense_tile_mma), staging W in
+// ``stage`` (dense_stage_bytes<T>() bytes, 16-byte aligned; n_out a multiple
+// of 8); f32 on the CUDA cores in full f32 (dense_tile_fma, no stage).
+// Every thread of the block must call this.
+template <bool STORE, typename T, bool MASK = false>
+__device__ void dense_tile(const T* a0, int k0, const T* __restrict__ w0,
+                           const T* a1, int k1, const T* __restrict__ w1,
+                           const float* __restrict__ bias, int n_out,
+                           bool relu, T* out, T* __restrict__ gout,
+                           int64_t row0, int64_t n, T* stage,
+                           uint32_t* mbits = nullptr) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    dense_tile_mma<STORE, MASK>(a0, k0, w0, a1, k1, w1, bias, n_out, relu,
+                                out, gout, row0, n, stage, mbits);
+  else
+    dense_tile_fma<STORE, T, MASK>(a0, k0, w0, a1, k1, w1, bias, n_out, relu,
+                                   out, gout, row0, n, mbits);
 }
 
 // delta = mask(act) (a @ W^T [+ gs[row] * wcol[c]]) for the whole tile, where

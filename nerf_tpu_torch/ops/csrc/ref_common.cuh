@@ -82,28 +82,57 @@ __device__ __forceinline__ float srgbf(float v) {
 }
 
 // dst[(row0 + r) * ld + col0 + c] = a[r] @ w[:, c] + bias[c] in f32 for
-// c < n_out and the tile's valid rows: a wide linear head, register-tiled
-// as the hidden layers are (dense_tile), written unrounded.
+// c < n_out and the tile's valid rows: a wide linear head (the bottleneck),
+// written unrounded.  bf16 multiplies on the tensor cores as dense_tile does
+// (mma_pass, W staged in ``stage``; n_out a multiple of 8), f32 on the CUDA
+// cores, register-tiled (accumulate).  Every thread of the block must call
+// this, with the stage free.
 template <typename T>
 __device__ void wide_head(const T* a, int k_dim, const T* __restrict__ w,
                           const float* __restrict__ bias, int n_out,
                           float* __restrict__ dst, int64_t ld, int col0,
-                          int64_t row0, int64_t n) {
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * RPT;
-  for (int c0 = 0; c0 < n_out; c0 += CHUNK) {
-    float acc[RPT][CPT];
-    zero(acc);
-    accumulate(acc, a, k_dim, w, n_out, c0);
+                          int64_t row0, int64_t n, T* stage) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int m0 = (warp & 3) * 16;
+    const int g = lane >> 2, q = lane & 3;
+    for (int c0 = 0; c0 < n_out; c0 += DPASS) {
+      if (c0 > 0) __syncthreads();          // the ring is free again
+      const PassCols pc = pass_cols(n_out, c0, warp >> 2);
+      float acc[16][4];
+      mma_pass(acc, a, k_dim, w, nullptr, 0, nullptr, n_out, c0, pc, stage);
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = c0 + lane + 32 * j;
-      if (c >= n_out) continue;
-      const float b = bias[c];
+      for (int t = 0; t < 16; ++t) {
+        if (t >= pc.nt_n) break;
+        const int c = c0 + pc.col0 + 8 * t + 2 * q;
+        const float b0 = bias[c], b1 = bias[c + 1];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int64_t row = row0 + r0 + i;
-        if (row < n) dst[row * ld + col0 + c] = acc[i][j] + b;
+        for (int h = 0; h < 2; ++h) {
+          const int64_t row = row0 + m0 + g + 8 * h;
+          if (row < n) {
+            dst[row * ld + col0 + c] = acc[t][2 * h] + b0;
+            dst[row * ld + col0 + c + 1] = acc[t][2 * h + 1] + b1;
+          }
+        }
+      }
+    }
+  } else {
+    const int lane = threadIdx.x & 31;
+    const int r0 = (threadIdx.x >> 5) * RPT;
+    for (int c0 = 0; c0 < n_out; c0 += CHUNK) {
+      float acc[RPT][CPT];
+      zero(acc);
+      accumulate(acc, a, k_dim, w, n_out, c0);
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int c = c0 + lane + 32 * j;
+        if (c >= n_out) continue;
+        const float b = bias[c];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const int64_t row = row0 + r0 + i;
+          if (row < n) dst[row * ld + col0 + c] = acc[i][j] + b;
+        }
       }
     }
   }

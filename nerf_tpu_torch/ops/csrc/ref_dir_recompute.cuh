@@ -73,7 +73,7 @@ ref_dir_recompute_kernel(const float* __restrict__ heads,
   T* buf_a = xs + TM * d.dd;
   T* buf_b = buf_a + TM * d.maxw;
   T* dlc = buf_b + TM * d.maxw;       // (TM, 3) logit cotangent in T
-  T* st = dlc + TM * 4;               // the W^T stage
+  T* st = dlc + TM * 4;               // the W^T and weight stage
   const T* none = nullptr;
   T* drop = nullptr;
   // the deltas (and dlog) go to device memory only for the weight-grad pass
@@ -117,21 +117,21 @@ ref_dir_recompute_kernel(const float* __restrict__ heads,
   for (int idx = threadIdx.x; idx < valid * dd; idx += THREADS)
     xg[row0 * dd + idx] = xs[idx];
   // the trunk, as ref_dir_fwd_kernel<true> runs it, into the chunk's scratch
-  dense_tile<true>(xs, dd, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n);     // h1
+  dense_tile<true>(xs, dd, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n, st);     // h1
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n);   // h2
+  dense_tile<true>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n, st);   // h2
   __syncthreads();
-  dense_tile<true>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n);   // h3
+  dense_tile<true>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n, st);   // h3
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n);   // h4
+  dense_tile<true>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n, st);   // h4
   __syncthreads();
-  dense_tile<true>(xs, dd, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n); // z5
+  dense_tile<true>(xs, dd, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n, st); // z5
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n);   // z6
+  dense_tile<true>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n, st);   // z6
   __syncthreads();
-  dense_tile<true>(buf_b, h, p.w6, none, 0, none, p.b6, o, true, buf_a, s.a[6], row0, n);   // z7
+  dense_tile<true>(buf_b, h, p.w6, none, 0, none, p.b6, o, true, buf_a, s.a[6], row0, n, st);   // z7
   __syncthreads();
-  dense_tile<true>(buf_a, o, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n);   // z8
+  dense_tile<true>(buf_a, o, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n, st);   // z8
   __syncthreads();   // also makes the stored activations visible to the block
   narrow_head(buf_b, o, p.wh, p.bh, 3, true, spec_s, 3, 0, 0, TM);
   __syncthreads();
@@ -231,9 +231,9 @@ int launch_dir_bwd_recompute(
   const Deltas<T> dl = deltas_of<T>(deltas);
   const DirDims d = dir_dims(dims);
   const int nf = ((d.l_max + 1) * d.n_ch + d.n_ch + 15 * TM + 3) & ~3;
+  if (!tile_widths_ok<T>({d.h, d.o})) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)nf * sizeof(float)
-      + ((size_t)TM * (d.dd + 2 * d.maxw + 4) + KC * stage_ld<T>())
-      * sizeof(T);
+      + (size_t)TM * (d.dd + 2 * d.maxw + 4) * sizeof(T) + stage_bytes<T>();
   int err = set_smem(ref_dir_recompute_kernel<MODE, T>, smem);
   if (err != 0) return err;
   const int h = d.h, o = d.o, dd = d.dd;

@@ -69,9 +69,16 @@
 // transpose).  The eval forwards move about 0.7 KB per point in bf16 and are
 // bound by operations: 0.84 and 0.87 ms per 4096-ray chunk (786,432 points)
 // at the 989 TFLOP/s bf16 peak.  The training forwards also write 4 KB of
-// activations per point in bf16.  This first version multiplies on the CUDA
-// cores in f32, not on the tensor cores; mma.sync / wgmma and TMA are later
-// work.
+// activations per point in bf16.  The trunks run through dense_tile
+// (mlp_tile.cuh): in bf16 on the tensor cores (mma.sync, each layer's
+// weights staged through a 16.5 KB ring of shared memory: ref_spa_fwd
+// 90,496 bytes a block, ref_dir_fwd 106,872 at IDE level 4, two blocks an
+// SM; the
+// training forwards share the ring with the W^T stage of the density
+// gradient, which never runs at the same time), in f32 on the CUDA cores.
+// The bottleneck head (wide_head) takes the same tensor-core product; the
+// narrow heads and the density gradient's transposed products stay on the
+// CUDA cores.  wgmma and TMA are later work.
 
 #include "ref_common.cuh"
 #include "ref_dir_fwd.cuh"
@@ -89,30 +96,31 @@ ref_spa_fwd_kernel(const T* __restrict__ x, RefSpaWeights<T> p, int64_t n,
   T* xs = reinterpret_cast<T*>(smem);
   T* buf_a = xs + TM * dx;
   T* buf_b = buf_a + TM * maxw;
+  T* st = buf_b + TM * maxw;              // dense_tile's weight stage
   T* none = nullptr;
   const int64_t row0 = (int64_t)blockIdx.x * TM;
   const int64_t hw = HEAD_FIXED + nb;
   load_rows(x, dx, row0, n, xs);
   __syncthreads();
-  dense_tile<false>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, none, row0, n);     // h1
+  dense_tile<false>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, none, row0, n, st);     // h1
   __syncthreads();
-  dense_tile<false>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, none, row0, n);   // h2
+  dense_tile<false>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, none, row0, n, st);   // h2
   __syncthreads();
-  dense_tile<false>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, none, row0, n);   // h3
+  dense_tile<false>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, none, row0, n, st);   // h3
   __syncthreads();
-  dense_tile<false>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, none, row0, n);   // h4
+  dense_tile<false>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, none, row0, n, st);   // h4
   __syncthreads();
-  dense_tile<false>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, none, row0, n); // z5
+  dense_tile<false>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, none, row0, n, st); // z5
   __syncthreads();
-  dense_tile<false>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, none, row0, n);   // z6
+  dense_tile<false>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, none, row0, n, st);   // z6
   __syncthreads();
-  dense_tile<false>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, none, row0, n);   // z7
+  dense_tile<false>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, none, row0, n, st);   // z7
   __syncthreads();
-  dense_tile<false>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, none, row0, n);   // inter
+  dense_tile<false>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, none, row0, n, st);   // inter
   __syncthreads();
   narrow_head(buf_b, o, p.wrt, p.brt, 2, false, heads, hw, 0, row0, n);
   narrow_head(buf_b, o, p.wnct, p.bnct, 9, false, heads, hw, 2, row0, n);
-  wide_head(buf_b, o, p.wbn, p.bbn, nb, heads, hw, HEAD_FIXED, row0, n);
+  wide_head(buf_b, o, p.wbn, p.bbn, nb, heads, hw, HEAD_FIXED, row0, n, st);
 }
 
 // enc_grad = [enc_grad +] (a @ W^T rounded to T), f32, for the whole tile:
@@ -145,7 +153,8 @@ __device__ void enc_pull(const T* a, int k_dim, const T* __restrict__ w,
 // d(density)/d(enc) tile is laid over the masks of z5 z6 z7 inter and the
 // encoding tile, all dead once it is first written (after z5's pullback), so
 // the tile is padded where those are smaller than it.  At H = O = 256 in
-// bf16 that keeps the block at 106 KB of shared memory: two fit an SM.
+// bf16 that keeps the block at 107,136 bytes of shared memory (with the
+// shared stage grown to dense_tile's ring): two fit an SM.
 __host__ __device__ inline size_t grad_xs_bytes(int dx, int h, int o,
                                                 size_t t_size) {
   const size_t tail =
@@ -185,7 +194,7 @@ ref_spa_fwd_res_kernel(const T* __restrict__ x, const float* __restrict__ pos,
                              + grad_xs_bytes(dx, h, o, sizeof(T)));
   T* buf_b = buf_a + TM * maxw;
   T* unit = buf_b + TM * maxw;                    // (TM, 2) rows [0, 1]
-  T* st = unit + TM * 2;                          // the W^T stage
+  T* st = unit + TM * 2;                          // the W^T and weight stage
   const T* none = nullptr;
   T* drop = nullptr;                              // deltas not stored
   const int64_t row0 = (int64_t)blockIdx.x * TM;
@@ -197,25 +206,25 @@ ref_spa_fwd_res_kernel(const T* __restrict__ x, const float* __restrict__ pos,
   }
   __syncthreads();
   constexpr bool MK = !STORE;
-  dense_tile<STORE, T, MK>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n, m[0]);     // h1
+  dense_tile<STORE, T, MK>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n, st, m[0]);     // h1
   __syncthreads();
-  dense_tile<STORE, T, MK>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n, m[1]);   // h2
+  dense_tile<STORE, T, MK>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n, st, m[1]);   // h2
   __syncthreads();
-  dense_tile<STORE, T, MK>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n, m[2]);   // h3
+  dense_tile<STORE, T, MK>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n, st, m[2]);   // h3
   __syncthreads();
-  dense_tile<STORE, T, MK>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n, m[3]);   // h4
+  dense_tile<STORE, T, MK>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n, st, m[3]);   // h4
   __syncthreads();
-  dense_tile<STORE, T, MK>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n, m[4]); // z5
+  dense_tile<STORE, T, MK>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n, st, m[4]); // z5
   __syncthreads();
-  dense_tile<STORE, T, MK>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n, m[5]);   // z6
+  dense_tile<STORE, T, MK>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n, st, m[5]);   // z6
   __syncthreads();
-  dense_tile<STORE, T, MK>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, s.a[6], row0, n, m[6]);   // z7
+  dense_tile<STORE, T, MK>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, s.a[6], row0, n, st, m[6]);   // z7
   __syncthreads();
-  dense_tile<STORE, T, MK>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n, m[7]);   // inter
+  dense_tile<STORE, T, MK>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n, st, m[7]);   // inter
   __syncthreads();
   narrow_head(buf_b, o, p.wrt, p.brt, 2, false, heads, hw, 0, row0, n);
   narrow_head(buf_b, o, p.wnct, p.bnct, 9, false, heads, hw, 2, row0, n);
-  wide_head(buf_b, o, p.wbn, p.bbn, nb, heads, hw, HEAD_FIXED, row0, n);
+  wide_head(buf_b, o, p.wbn, p.bbn, nb, heads, hw, HEAD_FIXED, row0, n, st);
   __syncthreads();   // also makes the stored activations visible to the block
   // the density column's pullback: [0, 1] @ wrt^T = wrt[:, 1], then the trunk
   delta_tile<false, T, T, MK>(unit, 2, p.wrt, o, s.a[7], none, none, buf_a, drop, row0, n, st, m[7]);    // inter
@@ -267,7 +276,9 @@ int launch_spa(const void* x, const uint64_t* ptrs, int64_t n,
   const RefSpaWeights<T> p = spa_weights<T>(ptrs);
   const int dx = dims[0], h = dims[1], o = dims[2], nb = dims[3];
   const int maxw = h > o ? h : o;
-  const size_t smem = (size_t)TM * (dx + 2 * maxw) * sizeof(T);
+  if (!tile_widths_ok<T>({h, o, nb})) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)TM * (dx + 2 * maxw) * sizeof(T) + dense_stage_bytes<T>();
   int err = set_smem(ref_spa_fwd_kernel<T>, smem);
   if (err != 0 || n == 0) return err;
   const unsigned grid = (unsigned)((n + TM - 1) / TM);
@@ -287,8 +298,9 @@ int launch_spa_res(const void* x, const void* pos, const void* pe_w,
   const int dx = dims[0], h = dims[1], o = dims[2], nb = dims[3];
   const int maxw = h > o ? h : o;
   const bool store = acts != nullptr;
-  const size_t tail = ((size_t)TM * (2 * maxw + 2) + KC * stage_ld<T>())
-      * sizeof(T);                                // buf_a buf_b unit stage
+  if (!tile_widths_ok<T>({h, o, nb})) return (int)cudaErrorInvalidValue;
+  const size_t tail = (size_t)TM * (2 * maxw + 2) * sizeof(T)
+      + stage_bytes<T>();                         // buf_a buf_b unit stage
   const size_t smem = store
       ? (size_t)TM * dx * (sizeof(float) + sizeof(T)) + tail
       : (size_t)TM * (7 * mask_words(h) + mask_words(o)) * sizeof(uint32_t)

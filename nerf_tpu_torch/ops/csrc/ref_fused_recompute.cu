@@ -42,8 +42,11 @@
 // H = O = 256 each backward costs its residual form's MACs (spatial 526,592
 // weight-grad + 494,336 delta, directional 545,024 + 545,024 per point) plus
 // one forward of its trunk (526,592 and 545,195): about 0.61 and 0.65 ms at
-// N = 196,608, bound by operations.  This first version multiplies on the
-// CUDA cores in f32, as the residual forms do.
+// N = 196,608, bound by operations.  The rebuild runs through dense_tile
+// (mlp_tile.cuh), as the forwards do: in bf16 on the tensor cores, its
+// weight ring in the W^T stage ``st`` (grown to the ring's 16.5 KB).  The
+// delta pass multiplies on the CUDA cores in f32, as the residual forms do;
+// the weight-grad pass is wgrad.cuh's.
 
 #include "ref_common.cuh"
 #include "ref_dir_recompute.cuh"
@@ -68,7 +71,7 @@ ref_spa_recompute_kernel(const T* __restrict__ x, RefSpaWeights<T> p,
   T* gbn = gnct + TM * 9;                // (TM, NB)
   T* buf_a = gbn + TM * nb;
   T* buf_b = buf_a + TM * maxw;
-  T* st = buf_b + TM * maxw;             // the W^T stage
+  T* st = buf_b + TM * maxw;             // the W^T and weight stage
   const T* none = nullptr;
   T* drop = nullptr;
   const int64_t row0 = (int64_t)blockIdx.x * TM;
@@ -88,21 +91,21 @@ ref_spa_recompute_kernel(const T* __restrict__ x, RefSpaWeights<T> p,
   }
   __syncthreads();
   // the trunk, as ref_spa_fwd_kernel runs it, into the chunk's scratch
-  dense_tile<true>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n);     // h1
+  dense_tile<true>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n, st);     // h1
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n);   // h2
+  dense_tile<true>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n, st);   // h2
   __syncthreads();
-  dense_tile<true>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n);   // h3
+  dense_tile<true>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n, st);   // h3
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n);   // h4
+  dense_tile<true>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n, st);   // h4
   __syncthreads();
-  dense_tile<true>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n); // z5
+  dense_tile<true>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n, st); // z5
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n);   // z6
+  dense_tile<true>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n, st);   // z6
   __syncthreads();
-  dense_tile<true>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, s.a[6], row0, n);   // z7
+  dense_tile<true>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, s.a[6], row0, n, st);   // z7
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n);   // inter
+  dense_tile<true>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n, st);   // inter
   __syncthreads();   // also makes the stored activations visible to the block
   // d(inter) = cd(cd(cd(g_bn wbn^T) + cd(g_nct wnct^T)) + cd(g_rt wrt^T)),
   // masked: jax.vjp adds the heads' cotangents last use first
@@ -143,8 +146,9 @@ int launch_spa_bwd_recompute(const void* x, const float* g,
   const int dx = dims[0], h = dims[1], o = dims[2], nb = dims[3];
   const int maxw = h > o ? h : o;
   const int hw = HEAD_FIXED + nb;
+  if (!tile_widths_ok<T>({h, o})) return (int)cudaErrorInvalidValue;
   const size_t smem =
-      ((size_t)TM * (dx + 11 + nb + 2 * maxw) + KC * stage_ld<T>()) * sizeof(T);
+      (size_t)TM * (dx + 11 + nb + 2 * maxw) * sizeof(T) + stage_bytes<T>();
   int err = set_smem(ref_spa_recompute_kernel<T>, smem);
   if (err != 0) return err;
   const int64_t sizes[23] = {

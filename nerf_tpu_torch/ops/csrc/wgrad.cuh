@@ -21,6 +21,7 @@
 #include <type_traits>
 
 #include "mlp_tile.cuh"
+#include "mma_sm90.cuh"
 
 // In a top-level unnamed namespace: each library that includes this keeps
 // its own copy (nvcc cannot emit the host stubs of a __global__ template in
@@ -182,51 +183,6 @@ constexpr int STAGE_BYTES = 2 * TILE_ELEMS * 2 + RAW_BYTES;
 constexpr size_t MSMEM = (size_t)MSTAGES * STAGE_BYTES;
 
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8 x 8 bf16 blocks, each transposed: thread t gets rows 2 (t % 4) and
-// 2 (t % 4) + 1 of column t / 4 of block i in r[i]; lanes 8 i .. 8 i + 7 give
-// the row addresses of block i
-__device__ __forceinline__ void ldsm_x4_t(uint32_t& r0, uint32_t& r1,
-                                          uint32_t& r2, uint32_t& r3,
-                                          const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(smem_addr(p)));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // How an operand is staged (WGradJob::a_mode, d_mode; stage_mode picks it).
 // The chunk is rows [row0, row0 + MR) of columns [c0, c0 + w) of an (n, ld)

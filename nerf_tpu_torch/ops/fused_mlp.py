@@ -59,10 +59,11 @@ Bounds on an H100 SXM at its 700 W limit (989 TFLOP/s bf16 tensor-core peak,
 forward 212,992, both compute-bound; the res forward also writes 4.35 KB of
 bf16 activations per point and is bound by those bytes; the vanilla backward
 costs 1,020,032 MACs per point and the proposal backward 622,848, both bound
-by operations.  The tiles multiply on the CUDA cores, not the tensor cores,
-so they sit far from the bound; the backwards' bf16 weight-grad pass
-(csrc/wgrad.cuh, ``ops.wgrad``) multiplies on the tensor cores (PERF.md has
-their times).
+by operations.  The hidden layers (``dense_tile``, ``ops.dense``) and the
+backwards' weight-grad pass (csrc/wgrad.cuh, ``ops.wgrad``) multiply bf16
+operands on the tensor cores; the heads and the backwards' delta passes
+multiply on the CUDA cores (PERF.md has their times).  The bf16 kernels take
+hidden widths that are multiples of 8 (the launch raises otherwise).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  There is no fallback from the kernel to the plain

@@ -81,9 +81,12 @@ Bounds on an H100 SXM at its 700 W limit (989 TFLOP/s bf16): at H = O = 256
 the spatial net costs 526,592 MACs per point and the directional 545,024
 (+ 171 for the IDE's z-powers @ mat), both bound by operations; the
 training forward of the spatial net adds about 491,500 MACs for the density
-gradient, and each backward costs about twice its forward.  The tiles
-multiply on the CUDA cores, the backwards' bf16 weight-grad pass
-(csrc/wgrad.cuh) on the tensor cores (PERF.md has their times).
+gradient, and each backward costs about twice its forward.  The trunks'
+layers (``dense_tile``, ``ops.dense``) and the backwards' weight-grad pass
+(csrc/wgrad.cuh) multiply bf16 operands on the tensor cores; the heads, the
+glue and the delta passes run on the CUDA cores (PERF.md has their times).
+The bf16 kernels take H and O that are multiples of 8 (the launch raises
+otherwise).
 
 Dispatch as in ``fused_mlp``: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.  ``LAUNCHES`` (``ops/launch.py``)

@@ -17,6 +17,7 @@ from nerf_tpu_torch import ops
 from nerf_tpu_torch.core import sampling
 from nerf_tpu_torch.core.encoding import cat_pos_pe
 from nerf_tpu_torch.models import ProposalNetwork, RefNeRF, VanillaNeRF
+from nerf_tpu_torch.ops.dense import pack_mask
 from nerf_tpu_torch.train.config import PipelineConfig
 from nerf_tpu_torch.train.pipeline import make_models, render_rays_eval
 from nerf_tpu_torch.train.step import compute_loss, train_parameters
@@ -35,6 +36,9 @@ TOLS = {torch.float32: dict(rtol=1e-4, atol=1e-5),
 # dtypes.  A bf16 backward with its per-layer casts left out reads 3.6e-3 or
 # more there (the control in test_training_kernels_match_plain).
 GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-4}
+# stored activations of a whole chain against the plain forward's, as the
+# relative Frobenius error of each (chip_smoke.py's ACT_REL)
+ACT_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # one f32 step, kernels vs the nn.Module path with the kernel route's fine
 # sample depths handed to the module path
 SHARED_DEPTH_REL = 1e-4
@@ -111,6 +115,23 @@ def test_eval_kernels_match_module_path(cuda):
                                rtol=1e-4, atol=2e-4)
 
 
+def _vanilla_layers(ws, x, d, acts):
+    """Each of vanilla_mlp_fwd_res's 9 activations as the plain layer
+    (ops.dense_layer_plain) computes it from the kernel's own activation
+    before it: h1 h2 h3 h4, z5 from [x, h4], z6, z7, bvec (no ReLU), r1
+    from [bvec, d]."""
+    h1, h2, h3, h4, z5, z6, z7, bvec, _ = acts
+
+    def layer(a0, i, a1=None, relu=True):
+        w1 = ws[i + 1] if a1 is not None else None
+        b = ws[i + (2 if a1 is not None else 1)]
+        return ops.dense_layer_plain(a0, ws[i], b, a1, w1, relu=relu)[0]
+
+    return [layer(x, 0), layer(h1, 2), layer(h2, 4), layer(h3, 6),
+            layer(x, 8, h4), layer(z5, 11), layer(z6, 13),
+            layer(z7, 17, relu=False), layer(bvec, 19, d)]
+
+
 def _rel_err(got, want):
     return float(torch.linalg.vector_norm(got - want)
                  / torch.linalg.vector_norm(want).clamp_min(1e-30))
@@ -121,9 +142,20 @@ def _rel_err(got, want):
 @pytest.mark.parametrize("width", [48, 256])
 def test_training_kernels_match_plain(cuda, dtype, n, width):
     """vanilla_mlp_fwd_res, vanilla_mlp_bwd and prop_mlp_bwd against their
-    plain versions on the same operands; each launches once.  In bf16 a
-    control, the plain backwards with no per-layer cast (run on operands
-    upcast to f32), must read beyond GRAD_REL."""
+    plain versions on the same operands; each launches once.  Each stored
+    activation is held within TOLS against the plain layer on the kernel's
+    own input of that layer, and the chain against the plain forward's
+    within ACT_REL: at He's scale a value that rounds one ulp apart in an
+    early layer carries on through up to eight bf16 layers, and the
+    kernel's tensor-core sums round elsewhere than the plain version's
+    (chip_smoke.py's order_sensitivity: the plain version itself parts by
+    as much when only the order of its f32 sums changes).  prop_mlp_bwd
+    rebuilds its forward: its grads are held against the plain backward on
+    prop_mlp_fwd_res's activations, which the rebuild equals bit for bit
+    (test_prop_res_kernels_match_plain), as chip_smoke.py holds the
+    recompute backwards.  In bf16 a control, the plain backwards with no
+    per-layer cast (run on operands upcast to f32), must read beyond
+    GRAD_REL."""
     v = _randomize(VanillaNeRF(hidden=width, bottleneck=width - 8,
                                dtype=dtype), 2).to(cuda)
     p = _randomize(ProposalNetwork(hidden=width, dtype=dtype), 3).to(cuda)
@@ -144,14 +176,16 @@ def test_training_kernels_match_plain(cuda, dtype, n, width):
     prgb3, psig, pacts = ops.vanilla_mlp_fwd_res_plain(vw, x, d)
     torch.testing.assert_close(rgb3, prgb3, **TOLS[dtype])
     torch.testing.assert_close(sig, psig, **TOLS[dtype])
-    for a, pa in zip(acts, pacts):
-        torch.testing.assert_close(a.float(), pa.float(), **TOLS[dtype])
+    for a, pa, la in zip(acts, pacts, _vanilla_layers(vw, x, d, acts)):
+        torch.testing.assert_close(a.float(), la.float(), **TOLS[dtype])
+        assert _rel_err(a.float(), pa.float()) < ACT_REL[dtype]
     # the same stored activations for both backwards: the masks agree
     want = ops.vanilla_mlp_bwd_plain(vw, x, d, g_rgb, g_sig, rgb3, acts)
     for i, (g, w) in enumerate(zip(grads, want)):
         assert g.shape == w.shape and g.dtype == torch.float32
         assert _rel_err(g, w) < GRAD_REL[dtype], (i, _rel_err(g, w))
-    pwant = ops.prop_mlp_bwd_plain(pw, x, g_sig)
+    pacts = ops.prop_mlp_fwd_res(pw, x)[1]
+    pwant = ops.prop_mlp_bwd_res_plain(pw, x, g_sig, pacts)
     for i, (g, w) in enumerate(zip(pgrads, pwant)):
         assert g.shape == w.shape and g.dtype == torch.float32
         assert _rel_err(g, w) < GRAD_REL[dtype], (i, _rel_err(g, w))
@@ -1014,3 +1048,93 @@ def test_wgrad_rejects_cpu_jobs_on_the_card(cuda):
     (a, d, b), _ = _wgrad_jobs(cuda, 64, 64, "contiguous")
     with pytest.raises(ValueError, match="is on cpu"):
         ops.wgrad_reduce([(a, d.cpu(), b)], WGRAD_ROWS)
+
+
+# ---------------------------------------------------------------------------
+# the forward layer tile on its own (ops.dense_layer)
+# ---------------------------------------------------------------------------
+
+# the trunk inputs and hidden widths of the fused kernels' layers (one
+# product), and their skip layers (two)
+DENSE_KS = [(63,), (27,), (167,), (128,), (256,), (63, 256), (167, 256),
+            (256, 27)]
+
+
+def _dense_operands(cuda, n, ks, n_out, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    acts = [(torch.rand((n, k), generator=gen, device=cuda) * 2 - 1).to(dtype)
+            for k in ks]
+    ws = [(torch.randn((k, n_out), generator=gen, device=cuda)
+           * (2.0 / sum(ks)) ** 0.5).to(dtype) for k in ks]
+    b = torch.randn(n_out, generator=gen, device=cuda) * 0.5
+    return acts, ws, b
+
+
+def _dense_call(fn, acts, ws, b, **kw):
+    a1 = acts[1] if len(acts) > 1 else None
+    w1 = ws[1] if len(ws) > 1 else None
+    return fn(acts[0], ws[0], b, a1, w1, **kw)
+
+
+@pytest.mark.parametrize("dtype", list(TOLS))
+@pytest.mark.parametrize("n_out", [128, 256])
+@pytest.mark.parametrize("ks", DENSE_KS)
+def test_dense_layer_matches_plain(cuda, ks, n_out, dtype):
+    """The tile alone against its plain version within TOLS at the fused
+    kernels' layer shapes (misaligned 63-, 27- and 167-wide inputs, the
+    skip layers) over a single row, a ragged second tile and a ragged 65th;
+    its stored rows equal its output and its mask bits are its output's
+    ``> 0``, bit for bit; two launches equal bit for bit.  bf16 runs on the
+    tensor cores, f32 on the CUDA cores in full f32."""
+    for n in (1, 70, 4099):
+        acts, ws, b = _dense_operands(cuda, n, ks, n_out, dtype, seed=n)
+        ops.reset_launches()
+        out, stored, bits = _dense_call(ops.dense_layer, acts, ws, b,
+                                        store=True, mask=True)
+        again, _, _ = _dense_call(ops.dense_layer, acts, ws, b)
+        want, _, _ = _dense_call(ops.dense_layer_plain, acts, ws, b)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["dense_layer"] == 2
+        torch.testing.assert_close(out.float(), want.float(), **TOLS[dtype])
+        assert torch.equal(out, again)
+        assert torch.equal(out, stored)
+        assert torch.equal(bits, pack_mask(out))
+
+
+@pytest.mark.parametrize("dtype", list(TOLS))
+@pytest.mark.parametrize("ks, n_out", [((63,), 48), ((48,), 40), ((40,), 48),
+                                       ((48, 27), 24), ((40,), 80),
+                                       ((80,), 80), ((48,), 552)])
+def test_dense_layer_narrow_and_wide(cuda, ks, n_out, dtype):
+    """The card tests' narrow widths (k-steps past a 40- or 48-wide input,
+    output words split between the warps' halves, a half with no column)
+    and a layer wider than one 256-column pass with a ragged last pass,
+    without the ReLU too."""
+    acts, ws, b = _dense_operands(cuda, 4099, ks, n_out, dtype, seed=n_out)
+    for relu in (True, False):
+        out, stored, bits = _dense_call(ops.dense_layer, acts, ws, b,
+                                        relu=relu, store=True, mask=True)
+        want, _, _ = _dense_call(ops.dense_layer_plain, acts, ws, b,
+                                 relu=relu)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), want.float(), **TOLS[dtype])
+        assert torch.equal(out, stored)
+        assert torch.equal(bits, pack_mask(out))
+
+
+def test_bf16_tile_widths_must_be_multiples_of_8(cuda):
+    """The bf16 tile takes output widths that are multiples of 8: the
+    layer's entry rejects others before a launch, a fused kernel's launch
+    returns the error; neither runs another route."""
+    acts, ws, b = _dense_operands(cuda, 70, (63,), 36, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.dense_layer(acts[0], ws[0], b)
+    p = ProposalNetwork(hidden=36, dtype=torch.bfloat16).to(cuda)
+    x = torch.zeros((70, 63), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="prop_mlp_fwd launch failed"):
+        ops.prop_mlp_fwd(p.kernel_weights(), x)
+    f = ProposalNetwork(hidden=36).to(cuda)
+    torch.testing.assert_close(
+        ops.prop_mlp_fwd(f.kernel_weights(), x.float()),
+        ops.prop_mlp_plain(f.kernel_weights(), x.float()),
+        **TOLS[torch.float32])
