@@ -6,12 +6,14 @@
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device  - a CUDA device must be present; the card's name and power limit
   2. build   - nvcc builds every kernel of nerf_tpu_torch/ops/csrc, one nvcc
-               per source, all started together; ptxas's registers and
-               spills of the weight-grad kernels and of every kernel that
-               runs the layer tile (dense_tile), and the tensor-core
-               instructions (HMMA) in each library's SASS and in each such
-               kernel: wgrad_mma_kernel and every bf16 instantiation of a
-               tile kernel must have them, no f32 one may
+               per source, all started together; ptxas's registers, shared
+               memory and spills of the weight-grad kernels and of every
+               kernel that runs the layer tile (dense_tile) or the delta
+               pass (delta_tile), and the tensor-core instructions (HMMA) in
+               each library's SASS and in each such kernel:
+               wgrad_mma_kernel and every bf16 instantiation of a tile or
+               delta kernel must have them, no f32 one may, and the kernels
+               that run both must hold more than with the tile alone
   3. kernels - each kernel against its plain PyTorch version, bf16 and f32,
                with timings and bounds: the eval forwards at the shapes of
                one default 4096-ray chunk, the training kernels at those of
@@ -19,9 +21,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
                points); for the bf16 backwards, planted cast faults must
                read beyond the limit that the kernels meet; the backwards
                that rebuild their forward are held on their forward
-               kernel's activations; the vanilla forwards' order
-               sensitivity at He's scale and at the checks' scale
-               (kernel_order_sensitivity).  The Ref-NeRF
+               kernel's activations, the bf16 backwards against their
+               plain chains with the delta products summed in f64, within
+               BWD_ORDER_FACTOR of the plain f32 chain's own distance
+               (order_reference); the vanilla forwards' order sensitivity
+               at He's scale and at the checks' scale
+               (kernel_order_sensitivity), and the bf16 backwards' and the
+               density gradient's held the same way on three more draws
+               (backward_order_sensitivity).  The Ref-NeRF
                forwards (ref_kernels) at one default chunk's 786,432 merged
                points, the directional one also with sRGB on and at IDE
                level 2; the Ref-NeRF training kernels at one default step's
@@ -114,7 +121,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                torch.addmm's as a yardstick and the bound; the same shapes in
                f32 (the CUDA-core body); the card tests' narrow widths and
                ragged row counts, untimed
- 17. the kernels line, then the last line {"ok": true, "device": {...}}
+ 17. delta   - the delta pass alone (ops.delta_layer) at every delta shape
+               and form of the main paths (k_dim 0, 2, 3, 9, 128 and 256
+               into 63, 128, 167 or 256 columns; masked by stored
+               activations or bits, with the K = 1 sigma term, the ADD
+               sums, f32 rows) at a vanilla step's 131,072 and a Ref-NeRF
+               step's 196,608 rows, bf16: against the plain version within
+               TOLS, its stored rows and a second launch bit for bit, its
+               device time, the plain version's, torch.mm(a, W^T)'s as the
+               product's yardstick (no mask) and the bound; the same
+               shapes in f32 at 131,072 rows (the CUDA-core body); the card
+               tests' narrow widths at 1, 70 and 4099 rows, untimed
+ 18. the kernels line, then the last line {"ok": true, "device": {...}}
 
 Imports nothing of JAX or nerf_tpu.
 """
@@ -207,6 +225,23 @@ GRAD_REL = {torch.bfloat16: 1e-4, torch.float32: 1e-4}
 # the planted faults, f32 throughout and each weight grad rounded once
 # instead of per tile, read 5.4e-3 and 2.4e-3 or more.
 REF_GRAD_REL = {torch.bfloat16: 8e-4, torch.float32: 1e-4}
+# A bf16 backward whose delta products run on the tensor cores sums them in
+# another order than cuBLAS, and its chain rounds every delta to bf16: a
+# delta one ulp apart moves each value of the next layer's row by about
+# 1 / sqrt(K) of an ulp, so a few dozen of them round the other way, and
+# down eight or nine layers any change of sum order decorrelates a row at
+# the ulp level.  The plain chain parts from itself that way, its delta
+# products summed in f64 instead of f32, by 4e-4 (vanilla) to 1.2e-3
+# (Ref-NeRF spatial) at these shapes on an H100 80GB HBM3, beyond the two
+# limits above (PERF.md; backward_order_sensitivity reads it every run).
+# So a bf16 backward is held against its plain chain with the delta
+# products summed in f64, within the larger of its grad limit and
+# BWD_ORDER_FACTOR times the plain f32 chain's distance from that chain on
+# the same operands: the kernel may be at most 25% less accurate than the
+# plain version (it read 0.82-1.00 of it over four draws of each, on an
+# H100 80GB HBM3), and every planted fault must read beyond that limit
+# (1.7x it or more there).
+BWD_ORDER_FACTOR = 1.25
 # the 9 stored activations of vanilla_mlp_fwd_res, as the relative Frobenius
 # error of each: a bf16 value that rounds one ulp apart in an early layer
 # carries on through up to 8 layers, so single values deep in the net can
@@ -331,6 +366,11 @@ KERNELS = {
     "dense_layer": dict(
         source="nerf_tpu_torch/ops/csrc/dense.cu",
         replaces="nerf_tpu/ops/fused_mlp.py:58"),
+    # the delta pass of every backward above (and of the density gradient),
+    # on its own entry
+    "delta_layer": dict(
+        source="nerf_tpu_torch/ops/csrc/delta.cu",
+        replaces="nerf_tpu/ops/fused_mlp.py:69"),
 }
 RECOMPUTE_KERNELS = ("vanilla_mlp_bwd_recompute", "ref_spa_fwd_grad",
                      "ref_spa_bwd_recompute", "ref_dir_bwd_recompute")
@@ -722,8 +762,8 @@ def grad_rel(name, dtype):
     return (REF_GRAD_REL if name.startswith("ref") else GRAD_REL)[dtype]
 
 
-def compare_grads(name, dtype, got, want):
-    rels, lim = [], grad_rel(name, dtype)
+def compare_grads(name, dtype, got, want, lim=None):
+    rels, lim = [], grad_rel(name, dtype) if lim is None else lim
     for i, (g, w) in enumerate(zip(got, want)):
         if not torch.isfinite(g).all():
             fail(f"{name} {dtype}: non-finite grad {i}")
@@ -757,24 +797,25 @@ def target_check(dtype, got, ws, enc, pos, acts):
     return rel, ratio
 
 
-def compare(name, dtype, got, want, args=()):
-    """Hold a kernel's outputs against the plain version's; returns (max
-    abs err of the outputs, worst relative Frobenius error of the grads or
-    the stored activations, or None, and a dict of further readings)."""
+def compare(name, dtype, got, want, args=(), lim=None):
+    """Hold a kernel's outputs against the plain version's (a backward's
+    grads within ``lim``, by default its grad limit); returns (max abs err
+    of the outputs, worst relative Frobenius error of the grads or the
+    stored activations, or None, and a dict of further readings)."""
+    lim = grad_rel(name, dtype) if lim is None else lim
     if name in ("ref_dir_bwd", "ref_dir_bwd_recompute"):
         rel = dheads_rel(got[0], want[0])
-        if not (torch.isfinite(got[0]).all() and rel <= grad_rel(name,
-                                                                  dtype)):
+        if not (torch.isfinite(got[0]).all() and rel <= lim):
             fail(f"{name} {dtype}: d(heads) relative error {rel} beyond "
-                 f"{grad_rel(name, dtype)}")
-        err, worst = compare_grads(name, dtype, got[1], want[1])
+                 f"{lim}")
+        err, worst = compare_grads(name, dtype, got[1], want[1], lim)
         return max(err, float((got[0] - want[0]).abs().max())), \
             max(rel, worst), {"dheads_rel_err": rel}
     if name in ("prop_mlp_bwd", "prop_mlp_bwd_res"):
-        return (*compare_grads(name, dtype, got, want),
+        return (*compare_grads(name, dtype, got, want, lim),
                 prop_bwd_identities(name, dtype, got, args))
     if is_bwd(name):
-        return (*compare_grads(name, dtype, got, want), {})
+        return (*compare_grads(name, dtype, got, want, lim), {})
     act_rel, extra = None, {}
     if name == "prop_mlp_fwd_res":
         if not torch.equal(got[0], ops.prop_mlp_fwd(*args)):
@@ -961,15 +1002,116 @@ def order_sensitivity(gen):
     return out
 
 
+def _dwt_f64(delta, w):
+    """The plain backwards' delta product, delta @ w^T, summed in f64."""
+    return (delta.double() @ w.double().T).float()
+
+
+@contextlib.contextmanager
+def f64_delta_products():
+    """Within, the plain versions sum every delta product (fused_mlp._dwt,
+    which ref_fused shares) in f64."""
+    saved = fused_mlp._dwt, ref_fused._dwt
+    fused_mlp._dwt = ref_fused._dwt = _dwt_f64
+    try:
+        yield
+    finally:
+        fused_mlp._dwt, ref_fused._dwt = saved
+
+
+def _chain_rel(got, want):
+    """The worst relative Frobenius error over a backward's grads, and over
+    the column groups of d(heads) where it returns (d(heads), grads)."""
+    if not torch.is_tensor(got[1]):
+        return max(dheads_rel(got[0], want[0]),
+                   *(_rel_err(a, b) for a, b in zip(got[1], want[1])))
+    return max(_rel_err(a, b) for a, b in zip(got, want))
+
+
+def order_reference(name, dtype, held, args, got, plain):
+    """A bf16 backward's reference and limit (BWD_ORDER_FACTOR): ``held``'s
+    chain with its delta products summed in f64, and the larger of the grad
+    limit and BWD_ORDER_FACTOR times the distance of ``plain`` (the chain
+    with f32 sums, as cuBLAS takes them) from it; with the readings of both
+    distances, the kernel's ``got`` against ``plain`` beside them."""
+    with f64_delta_products():
+        want = held(*args)
+    own = _chain_rel(plain, want)
+    lim = max(grad_rel(name, dtype), BWD_ORDER_FACTOR * own)
+    return want, lim, dict(plain_vs_plain_f64=own,
+                           kernel_vs_plain_f32=_chain_rel(got, plain),
+                           kernel_vs_plain_f64=_chain_rel(got, want))
+
+
+# each bf16 backward that check_kernel holds, and the density gradient
+ORDER_KERNELS = tuple(k for k in KERNELS if is_bwd(k)
+                      and k not in DISSECT_KERNELS) + ("ref_spa_fwd_res",)
+ORDER_SEEDS = (1, 2, 3)
+
+
+def _density_target(ws, enc, pos, acts):
+    """The plain normal target and |g| on the activations ``acts``."""
+    g = ref_fused.density_grad_plain(ws, enc, pos, acts)
+    return (ref_fused.normal_target(g),
+            torch.linalg.vector_norm(g, dim=-1, keepdim=True))
+
+
+def backward_order_sensitivity():
+    """Over the draws of ORDER_SEEDS, each from a generator of its own (so
+    that the other checks draw their operands as they would without it),
+    every bf16 backward of ORDER_KERNELS at its main-path shapes: the plain
+    chain (f32 sums) against the same with its delta products summed in
+    f64, the kernel against both, and the kernel's distance over the plain
+    chain's; each must meet the limit check_kernel holds it to.  For
+    ref_spa_fwd_res the same readings of the normal target (|g|-weighted,
+    as target_check; ref_spa_fwd_grad's equals it bit for bit), held to
+    DGRAD_REL."""
+    bf16 = torch.bfloat16
+    out = {}
+    for seed in ORDER_SEEDS:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for name in ORDER_KERNELS:
+            args, kernel, _, held = kernel_case(name, bf16, gen)[:4]
+            got = kernel(*args)
+            if name == "ref_spa_fwd_res":
+                t32, _ = _density_target(*args, got[-1])
+                with f64_delta_products():
+                    t64, g = _density_target(*args, got[-1])
+                r = dict(plain_vs_plain_f64=_rel_err(t32 * g, t64 * g),
+                         kernel_vs_plain_f32=_rel_err(got[1] * g, t32 * g),
+                         kernel_vs_plain_f64=_rel_err(got[1] * g, t64 * g))
+                lim = DGRAD_REL[bf16]
+            else:
+                _, lim, r = order_reference(name, bf16, held, args, got,
+                                            held(*args))
+            r.update(limit=lim, ratio=r["kernel_vs_plain_f64"]
+                     / max(r["plain_vs_plain_f64"], 1e-30))
+            if not r["kernel_vs_plain_f64"] <= lim:
+                fail(f"{name} bf16, seed {seed}: {r}")
+            out.setdefault(name, []).append(r)
+            del args, got
+            torch.cuda.empty_cache()
+    return dict(seeds=list(ORDER_SEEDS), factor=BWD_ORDER_FACTOR,
+                max_ratio={k: max(r["ratio"] for r in v)
+                           for k, v in out.items()}, draws=out)
+
+
 def check_kernel(name, dtype, gen, timed=True, **case):
     """Hold ``name`` against its plain version at its main-path shapes (the
-    ``case`` of ref_dir_fwd); with ``timed`` also time both."""
+    ``case`` of ref_dir_fwd), a bf16 backward against its plain chain with
+    the delta products summed in f64 (order_reference); with ``timed`` also
+    time both."""
     args, kernel, plain, held, moved, flops, n = kernel_case(name, dtype,
                                                              gen, **case)
     got = kernel(*args)
     want = held(*args)
+    lim, readings = grad_rel(name, dtype), {}
+    if is_bwd(name) and dtype == torch.bfloat16:
+        want, lim, readings = order_reference(name, dtype, held, args, got,
+                                              want)
     torch.cuda.synchronize()
-    err, rel, readings = compare(name, dtype, got, want, args)
+    err, rel, more = compare(name, dtype, got, want, args, lim)
+    readings.update(more)
     if held is not plain:
         # a reading: against the plain version with its own forward
         full = plain(*args)
@@ -981,13 +1123,12 @@ def check_kernel(name, dtype, gen, timed=True, **case):
     controls = None
     if is_bwd(name) and dtype == torch.bfloat16:
         controls = cast_controls(name, args, want)
-        if min(controls.values()) <= grad_rel(name, dtype):
+        if min(controls.values()) <= lim:
             fail(f"{name}: a planted cast fault reads {controls}, within "
-                 f"the limit {grad_rel(name, dtype)}: the limit cannot tell "
-                 f"it")
+                 f"the limit {lim}: the limit cannot tell it")
     del got, want
     rel_key = "act_rel_err" if name.endswith("_res") else "grad_rel_err"
-    tol = (grad_rel(name, dtype) if is_bwd(name) else
+    tol = (lim if is_bwd(name) else
            dict(TOLS[dtype], act_rel=ACT_REL[dtype]) if rel is not None
            else TOLS[dtype])
     extra = {} if controls is None else {"planted_faults_rel": controls}
@@ -1682,18 +1823,30 @@ def dissect_phase():
                     *dargs, case["noise"], *gs, mode, case["ide_level"],
                     acts=acts)
             pdh, pgrads = plain(acts=acts)
+            lim, order = REF_GRAD_REL[dtype], {}
             if mode == "recompute":
                 rel = None
                 if not torch.allclose(dh, pdh, **TOLS[dtype]):
                     fail(f"ref_dir_bwd_dissect[recompute] {dtype}: rgb, "
                          f"normal, density beyond {TOLS[dtype]}")
-            else:
+            elif dtype == torch.bfloat16:
+                # as check_kernel holds ref_dir_bwd_recompute
+                # (order_reference); the mode's zero parts read 0
+                with f64_delta_products():
+                    ref = plain(acts=acts)
+                own = _chain_rel((pdh, pgrads), ref)
+                lim = max(lim, BWD_ORDER_FACTOR * own)
+                order = dict(plain_vs_plain_f64=own, kernel_vs_plain_f32=max(
+                    [_rel_err(a, b) for a, b in zip(grads, pgrads)]
+                    + [dheads_rel(dh, pdh)] * (mode != "wgrads")))
+                pdh, pgrads = ref
+            if mode != "recompute":
                 rel = dheads_rel(dh, pdh) if mode != "wgrads" else 0.0
-                if not rel <= REF_GRAD_REL[dtype]:
+                if not rel <= lim:
                     fail(f"ref_dir_bwd_dissect[{mode}] {dtype}: d(heads) "
-                         f"relative error {rel}")
+                         f"relative error {rel} beyond {lim}")
             gerr, grel = compare_grads("ref_dir_bwd_dissect", dtype, grads,
-                                       pgrads)
+                                       pgrads, lim)
             if mode == "full":
                 full = ops.ref_dir_bwd_recompute(*dargs, case["noise"], *gs,
                                                  case["ide_level"])
@@ -1707,8 +1860,8 @@ def dissect_phase():
             macs = dissect_macs(n_ch, "bwd_full" if mode == "full" else mode)
             per[("bwd", mode, dtype)] = dict(
                 max_abs_err=max(gerr, float((dh - pdh).abs().max())),
-                dheads_rel_err=rel, grad_rel_err=grel,
-                tol=REF_GRAD_REL[dtype], ms=timed[dtype]["bwd_modes"][mode],
+                dheads_rel_err=rel, grad_rel_err=grel, tol=lim, **order,
+                ms=timed[dtype]["bwd_modes"][mode],
                 plain_ms=cuda_ms(plain, 20),
                 **bound(moved, 2.0 * n * macs, dtype))
             del dh, grads, pdh, pgrads
@@ -2021,6 +2174,131 @@ def dense_phase(gen):
                 launches=launches)
 
 
+# (k_dim, n_out, form) of every delta pass of the main paths (the forms of
+# delta_check): the vanilla dr1, dbvec (f32 rows), dz7 (the sigma term) and
+# trunk layers; the proposal's dh4 (the K = 1 term alone); Ref-NeRF's
+# d(inter) as three pullbacks summed, the density gradient's first layer
+# and trunk with stored activations or mask bits, the directional head and
+# the two pullbacks into its 167-wide input; the density gradient's 63-wide
+# pullback into the encoding (enc_pull) takes the f32 form's product
+DELTA_SHAPES = [(3, 128, "act"), (128, 256, "f32"), (256, 256, "gs"),
+                (256, 256, "act"), (0, 256, "gs"), (2, 256, "none"),
+                (9, 256, "add"), (128, 256, "add_act"), (2, 256, "act"),
+                (2, 256, "bits"), (256, 256, "bits"), (256, 63, "f32"),
+                (3, 256, "act"), (256, 167, "none"), (256, 167, "add"),
+                (2, 256, "add_act")]
+# a vanilla step's fine points and a Ref-NeRF step's merged points
+DELTA_N = (RAYS * N_FINE, RAYS * N_MERGED)
+# the card tests' narrow widths: the heads' k_dim, odd and narrow n_out, a
+# ragged k-step, a layer wider than one pass
+DELTA_NARROW = [(0, 48, "gs"), (2, 40, "add_act"), (3, 24, "act"),
+                (9, 48, "add"), (48, 63, "f32"), (40, 167, "none"),
+                (48, 167, "add"), (40, 37, "bits"), (24, 5, "act"),
+                (48, 552, "gs"), (3, 48, "bits")]
+
+
+def delta_operands(gen, n, k, n_out, form, dtype):
+    """delta_layer's keyword arguments for ``form``: deltas U(-1, 1), the
+    forward matrix N(0, 1 / n_out), activations N(0, 1) (about half of
+    them masked), gs U(-1, 1), wcol N(0, 1 / n_out), the ADD operand
+    U(-1, 1); the rows stored in the compute dtype, or f32 (form "f32")."""
+    def u(*shape):
+        return (torch.rand(shape, generator=gen, device="cuda") * 2
+                - 1).to(dtype)
+
+    def g(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    kw = dict(a=u(n, k), w=g(n_out, k, scale=n_out ** -0.5))
+    act = g(n, n_out)
+    if form in ("act", "gs", "add_act"):
+        kw["act"] = act
+    if form == "bits":
+        kw["bits"] = dense_lib.pack_mask(act)
+    if form == "gs":
+        kw["gs"], kw["wcol"] = u(n), g(n_out, scale=n_out ** -0.5)
+    if form in ("add", "add_act"):
+        kw["add"] = u(n, n_out)
+    kw["store"] = torch.float32 if form == "f32" else dtype
+    return kw
+
+
+def delta_check(gen, n, k, n_out, form, dtype, timed=True):
+    """One delta shape and form: the pass against its plain version (max
+    abs error of its output and its stored rows, within TOLS), its stored
+    rows against its output and a second launch, bit for bit; with
+    ``timed`` the device ms (cuda_device_ms) of the pass, of the plain
+    version and of torch.mm(a, W^T) on the same operands (the product's
+    yardstick: no mask, no store), and the bound: 2 n k n_out FLOPs (plus
+    the K = 1 term's 2 n n_out) against each operand read once and the
+    one output written once."""
+    kw = delta_operands(gen, n, k, n_out, form, dtype)
+    got, stored = ops.delta_layer(**kw)
+    again, _ = ops.delta_layer(**kw)
+    want, want_stored = ops.delta_layer_plain(**kw)
+    torch.cuda.synchronize()
+    label = f"delta_layer[{k}->{n_out} {form}, n={n}, {dtype}]"
+    tol = TOLS[dtype]
+    errs = []
+    for x, y in ((got, want), (stored, want_stored)):
+        d = (x.float() - y.float()).abs()
+        errs.append(float(d.max()) if n else 0.0)
+        if not bool((d <= tol["atol"] + tol["rtol"] * y.float().abs()).all()):
+            fail(f"{label}: max abs error {errs[-1]} beyond {tol}")
+    if not (torch.equal(got, again) and torch.equal(stored.to(dtype), got)):
+        fail(f"{label}: two launches or the stored rows differ")
+    res = dict(k=k, n_out=n_out, form=form, n=n,
+               dtype=str(dtype).replace("torch.", ""), max_abs_err=errs[0],
+               stored_max_abs_err=errs[1], tol=tol, bit_equal=True)
+    del got, stored, again, want, want_stored
+    if not timed:
+        return res
+    # one output, as the fused kernels take the pass: the rows in the
+    # compute dtype, or for form "f32" the unrounded f32 rows (the entry
+    # also writes its copy in the compute dtype, which the bound leaves out)
+    if form != "f32":
+        kw["store"] = None
+    ms = cuda_device_ms(lambda: ops.delta_layer(**kw), 20)
+    plain_ms = cuda_device_ms(lambda: ops.delta_layer_plain(**kw), 20)
+    a, wt = kw["a"], kw["w"].t()
+    library_ms = cuda_device_ms(lambda: torch.mm(a, wt), 20)
+    moved = _nbytes(*[v for v in kw.values() if torch.is_tensor(v)]) \
+        + n * n_out * (4 if form == "f32" else a.element_size())
+    flops = 2.0 * n * n_out * (k + (1 if form == "gs" else 0))
+    return dict(res, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **bound(moved, flops, dtype), bytes=moved, flops=flops,
+                tflops=flops / (ms * 1e-3) / 1e12)
+
+
+def delta_phase(gen):
+    """ops.delta_layer at every delta shape and form of the main paths
+    (DELTA_SHAPES) at both row counts of DELTA_N in bf16, timed; the same
+    shapes in f32 at a vanilla step's rows (the CUDA-core body, within TOLS,
+    timed); the narrow widths at 1, 70 and 4099 rows untimed.  The
+    launches are counted over the phase's own calls."""
+    ops.reset_launches()
+    timed, f32, narrow = [], [], []
+    for n in DELTA_N:
+        for k, n_out, form in DELTA_SHAPES:
+            timed.append(delta_check(gen, n, k, n_out, form, torch.bfloat16))
+            torch.cuda.empty_cache()
+    for k, n_out, form in DELTA_SHAPES:
+        f32.append(delta_check(gen, DELTA_N[0], k, n_out, form,
+                               torch.float32))
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in DENSE_RAGGED_N:
+            for k, n_out, form in DELTA_NARROW:
+                narrow.append(delta_check(gen, n, k, n_out, form, dtype,
+                                          False))
+    launches = ops.LAUNCHES["delta_layer"]
+    if launches == 0:
+        fail("the delta phase launched delta_layer no time")
+    return dict(timed=timed, f32=f32, untimed_cases=len(narrow),
+                untimed_max_abs_err=max(r["max_abs_err"] for r in narrow),
+                launches=launches)
+
+
 # ---------------------------------------------------------------------------
 # phase 6: the train path, then render-only on its checkpoint
 # ---------------------------------------------------------------------------
@@ -2290,6 +2568,27 @@ def dense_entry(name, meta, dense):
                 {k: r[k] for k in keys} for r in dense["timed"]})
 
 
+def delta_entry(name, meta, delta):
+    """The kernels line's entry of the delta pass: the 256 -> 256 trunk layer
+    (masked by its stored activation) at a Ref-NeRF step's rows at the top,
+    every timed shape and form beside it; ``launches`` counts this entry's
+    launches in the delta phase."""
+    top = next(r for r in delta["timed"] if r["k"] == 256
+               and r["n_out"] == 256 and r["form"] == "act"
+               and r["n"] == DELTA_N[1])
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "tflops")
+    f32 = next(r for r in delta["f32"] if r["k"] == 256
+               and r["n_out"] == 256 and r["form"] == "act")
+    return dict(
+        name=name, route="cuda", source=meta["source"],
+        replaces=meta["replaces"], launches=delta["launches"],
+        **{k: top[k] for k in keys}, tol=top["tol"], n=top["n"],
+        f32={k: f32[k] for k in keys},
+        shapes={f"{r['k']}->{r['n_out']} {r['form']} n={r['n']}":
+                {k: r[k] for k in keys} for r in delta["timed"]})
+
+
 # the kernels that run dense_tile (mlp_tile.cuh), by the name in their
 # mangled symbol: the fused forwards, the rebuilds of the recompute
 # backwards and of prop_mlp_bwd (prop_delta_kernel<true, T>), the tile's
@@ -2299,16 +2598,58 @@ TILE_KERNELS = ("prop_mlp_fwd_kernel", "vanilla_mlp_fwd_kernel",
                 "ref_dir_fwd_kernel", "prop_delta_kernelILb1E",
                 "vanilla_recompute_kernel", "ref_spa_recompute_kernel",
                 "ref_dir_recompute_kernel", "dense_layer_kernel")
+# the kernels that run the delta pass (delta_tile) and no dense_tile: the
+# residual backwards' delta passes and the pass's own entry
+DELTA_KERNELS = ("vanilla_delta_kernel", "prop_delta_kernelILb0E",
+                 "ref_spa_delta_kernel", "ref_dir_delta_kernel",
+                 "delta_layer_kernel")
+# HMMA in the SASS of each bf16 kernel that runs dense_tile and the delta
+# pass, as built while the delta pass multiplied on the CUDA cores (nvcc
+# 12.9 on an H100 host); each must hold more now:
+# (library, demangled kernel name) -> count.  (The dissection's
+# recompute-only stage, mode 0, runs no delta pass.)
+TILE_ONLY_HMMA = {
+    ("fused_mlp_bwd", "prop_delta_kernel<(bool)1, __nv_bfloat16>"): 64,
+    ("fused_mlp_recompute", "vanilla_recompute_kernel<__nv_bfloat16>"): 144,
+    ("ref_fused", "ref_spa_fwd_res_kernel<(bool)0, __nv_bfloat16>"): 144,
+    ("ref_fused", "ref_spa_fwd_res_kernel<(bool)1, __nv_bfloat16>"): 144,
+    ("ref_fused_recompute", "ref_spa_recompute_kernel<__nv_bfloat16>"): 128,
+    ("ref_fused_recompute",
+     "ref_dir_recompute_kernel<(int)3, __nv_bfloat16>"): 128,
+    ("ref_dissect", "ref_dir_recompute_kernel<(int)1, __nv_bfloat16>"): 128,
+    ("ref_dissect", "ref_dir_recompute_kernel<(int)2, __nv_bfloat16>"): 128,
+    ("ref_dissect", "ref_dir_recompute_kernel<(int)3, __nv_bfloat16>"): 128,
+}
+
+
+def short_name(demangled: str) -> str:
+    """A demangled kernel's name and template arguments, without its
+    namespace, return type and parameters."""
+    name = re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::", "",
+                  demangled)
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += ch == "<"
+        if ch == ">":
+            depth -= 1
+            if depth == 0:
+                return name[:i + 1]
+    return name.split("(", 1)[0]
+
+
+def kernel_label(base: str) -> str:
+    """A TILE_KERNELS or DELTA_KERNELS name as the build phase prints it."""
+    return base.replace("ILb1E", "<true>").replace("ILb0E", "<false>")
 
 
 def tile_kernel(func: str):
-    """(kernel name, "bf16" or "f32") of a mangled symbol that runs
-    dense_tile, else None: the bf16 instantiations carry __nv_bfloat16."""
-    base = next((k for k in TILE_KERNELS if k in func), None)
+    """(kernel label, "bf16" or "f32") of a mangled symbol that runs
+    dense_tile or delta_tile, else None: the bf16 instantiations carry
+    __nv_bfloat16."""
+    base = next((k for k in TILE_KERNELS + DELTA_KERNELS if k in func), None)
     if base is None:
         return None
-    return base.replace("ILb1E", ""), ("bf16" if "__nv_bfloat16" in func
-                                       else "f32")
+    return kernel_label(base), ("bf16" if "__nv_bfloat16" in func else "f32")
 
 
 def demangle(names):
@@ -2347,8 +2688,8 @@ def wgrad_ptxas(reports):
 
 
 def tile_ptxas(reports):
-    """ptxas's registers and spills of every kernel that runs dense_tile,
-    one line each: "<lib> <kernel> <dtype> <demangled>: <lines>"."""
+    """ptxas's registers, shared memory and spills of every kernel that runs
+    dense_tile or delta_tile, by "<lib> <demangled name>"."""
     found = ptxas_by_function(reports,
                               lambda f: tile_kernel(f) is not None)
     names = demangle(sorted({f for v in found.values() for f in v}))
@@ -2359,10 +2700,10 @@ def tile_ptxas(reports):
 def sass_mma_counts():
     """The tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma) in
     each built library's SASS (``cuobjdump -sass``): in all, in the
-    weight-grad kernels (wgrad_mma_kernel, wgrad_kernel), and, by function,
-    in every kernel that runs dense_tile (``tiles``: "name<dtype>" -> the
-    HMMA count of each of its instantiations); None when the toolkit has no
-    cuobjdump."""
+    weight-grad kernels (wgrad_mma_kernel, wgrad_kernel), and in every
+    kernel that runs dense_tile or delta_tile: ``tiles`` ("name<dtype>" ->
+    the HMMA count of each of its instantiations) and ``functions`` (its
+    short_name -> HMMA count); None when the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -2373,16 +2714,19 @@ def sass_mma_counts():
                               timeout=300).stdout
         counts = {"all": {"HMMA": 0, "HGMMA": 0},
                   "wgrad_mma_kernel": {"HMMA": 0, "HGMMA": 0},
-                  "wgrad_kernel": {"HMMA": 0, "HGMMA": 0}, "tiles": {}}
-        func, tile = "all", None
+                  "wgrad_kernel": {"HMMA": 0, "HGMMA": 0}, "tiles": {},
+                  "functions": {}}
+        func, tile, name = "all", None, None
         for ln in sass.splitlines():
             if "Function :" in ln:
                 func = next((k for k in ("wgrad_mma_kernel", "wgrad_kernel")
                              if k in ln), "all")
                 tile = tile_kernel(ln)
+                name = ln.split("Function :", 1)[1].strip()
                 if tile is not None:
                     counts["tiles"].setdefault(
                         f"{tile[0]}<{tile[1]}>", []).append(0)
+                    counts["functions"][name] = 0
             for op in ("HGMMA", "HMMA"):
                 if re.search(rf"\b{op}\.", ln):
                     counts[func][op] += 1
@@ -2390,14 +2734,20 @@ def sass_mma_counts():
                         counts["all"][op] += 1
                     if tile is not None and op == "HMMA":
                         counts["tiles"][f"{tile[0]}<{tile[1]}>"][-1] += 1
+                        counts["functions"][name] += 1
                     break
+        names = demangle(list(counts["functions"]))
+        counts["functions"] = {short_name(names.get(f, f)): c
+                               for f, c in counts["functions"].items()}
         out[lib] = counts
     return out
 
 
 def check_tile_mma(mma):
     """Fail unless every bf16 instantiation of a kernel that runs dense_tile
-    holds HMMA and no f32 one does, and every such kernel was found."""
+    or delta_tile holds HMMA and no f32 one does, every such kernel was
+    found, and each kernel of TILE_ONLY_HMMA holds more HMMA than its
+    count there."""
     seen = set()
     for lib, counts in mma.items():
         for key, per in counts["tiles"].items():
@@ -2406,10 +2756,15 @@ def check_tile_mma(mma):
                 fail(f"{lib}: a bf16 {key} has no HMMA in its SASS: {per}")
             if key.endswith("<f32>") and max(per) > 0:
                 fail(f"{lib}: an f32 {key} has HMMA in its SASS: {per}")
-    want = {f"{k.replace('ILb1E', '')}<{d}>" for k in TILE_KERNELS
+    want = {f"{kernel_label(k)}<{d}>" for k in TILE_KERNELS + DELTA_KERNELS
             for d in ("bf16", "f32")}
     if want - seen:
         fail(f"no SASS found for {sorted(want - seen)}")
+    for (lib, func), before in TILE_ONLY_HMMA.items():
+        now = mma[lib]["functions"].get(func)
+        if now is None or now <= before:
+            fail(f"{lib}: {func} holds {now} HMMA, not more than the "
+                 f"{before} of the tile alone")
 
 
 def main() -> int:
@@ -2446,9 +2801,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = {}
     for name in KERNELS:
-        # the recompute kernels in phase 10, the rest in phases 12, 14-16
+        # the recompute kernels in phase 10, the rest in phases 12, 14-17
         if name in RECOMPUTE_KERNELS + PROP_RES_KERNELS + DISSECT_KERNELS \
-                + ("wgrad_reduce", "dense_layer"):
+                + ("wgrad_reduce", "dense_layer", "delta_layer"):
             continue
         for dtype in (torch.bfloat16, torch.float32):
             res = check_kernel(name, dtype, gen)
@@ -2456,6 +2811,7 @@ def main() -> int:
             emit("ref_kernels" if name.startswith("ref") else "kernel", **res)
             torch.cuda.empty_cache()
     emit("kernel_order_sensitivity", **order_sensitivity(gen))
+    emit("backward_order_sensitivity", **backward_order_sensitivity())
     for dtype in (torch.bfloat16, torch.float32):
         for name in ("ref_dir_fwd", "ref_dir_bwd"):
             for level, srgb in REF_DIR_VARIANTS:
@@ -2572,7 +2928,12 @@ def main() -> int:
     dense = dense_phase(gen)
     emit("dense", seconds=time.perf_counter() - t0, **dense)
 
-    # phase 17: the kernels line, then the last line.  ``launches`` is each
+    # phase 17: the delta pass alone at the main paths' delta shapes
+    t0 = time.perf_counter()
+    delta = delta_phase(gen)
+    emit("delta", seconds=time.perf_counter() - t0, **delta)
+
+    # phase 18: the kernels line, then the last line.  ``launches`` is each
     # kernel's count in its path's run: the vanilla train path (training
     # steps and the final eval render) for the vanilla kernels, the Ref-NeRF
     # render path for the Ref-NeRF eval forwards, the Ref-NeRF train path
@@ -2581,8 +2942,8 @@ def main() -> int:
     # of each model) for the other two recompute backwards, the
     # batch-scaling sweep of phase 13 for the proposal net's residual pair,
     # the dissection run of phase 14 (bf16) for the dissection kernels, the
-    # walks of phase 15 for the weight-grad pass's own entry and the calls
-    # of phase 16 for the layer tile's;
+    # walks of phase 15 for the weight-grad pass's own entry, the calls
+    # of phase 16 for the layer tile's and of phase 17 for the delta pass's;
     # ``launches_render``, ``launches_ref``, ``launches_ref_train``,
     # ``launches_recompute_steps``, ``launches_hybrid_train`` and
     # ``launches_batch_scaling`` its count in each of those runs.
@@ -2597,6 +2958,9 @@ def main() -> int:
             continue
         if name == "dense_layer":
             kernels.append(dense_entry(name, meta, dense))
+            continue
+        if name == "delta_layer":
+            kernels.append(delta_entry(name, meta, delta))
             continue
         if name in DISSECT_KERNELS:
             kernels.append(dissect_entry(name, meta, dissect["launches"][name],

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper, their wrappers, plain versions and
 autograd Functions."""
 
+from nerf_tpu_torch.ops.delta import delta_layer, delta_layer_plain
 from nerf_tpu_torch.ops.dense import dense_layer, dense_layer_plain
 from nerf_tpu_torch.ops.fused_mlp import (
     PropMLP, PropMLPRes, VanillaMLP, VanillaMLPRecompute, prep_weights,
@@ -48,4 +49,5 @@ __all__ = ["LAUNCHES", "reset_launches", "prep_weights", "PropMLP",
            "ref_dir_bwd_recompute_plain", "ref_dir_fwd_dissect",
            "ref_dir_fwd_dissect_plain", "ref_dir_bwd_dissect",
            "ref_dir_bwd_dissect_plain", "wgrad_reduce",
-           "wgrad_reduce_plain", "dense_layer", "dense_layer_plain"]
+           "wgrad_reduce_plain", "dense_layer", "dense_layer_plain",
+           "delta_layer", "delta_layer_plain"]

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerf_tpu_torch"
 SOURCES = ("fused_mlp", "fused_mlp_bwd", "fused_mlp_recompute", "ref_fused",
            "ref_fused_bwd", "ref_fused_recompute", "ref_dissect", "wgrad",
-           "dense")
+           "dense", "delta")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 PARTS = {"ref_dissect": 4}

@@ -23,29 +23,6 @@ namespace {
 
 using namespace mlp;
 
-// Rows [row0, row0 + TM) of an (n, width) array into shared memory, rows
-// past n as zeros.  The tile's rows are one span of memory: copied by
-// 16-byte cp.async where it is 16-byte aligned (always, for an aligned
-// array), so that the entry's own loads do not hide the tile's time.
-template <typename T>
-__device__ void load_tile(const T* __restrict__ src, int width, int64_t row0,
-                          int64_t n, T* dst) {
-  constexpr int PER = 16 / sizeof(T);
-  const int64_t valid = n - row0 < TM ? n - row0 : TM;
-  const T* base = src + row0 * width;
-  const int count = (int)valid * width;
-  int done = 0;
-  if ((uintptr_t)base % 16 == 0) {
-    for (int j = threadIdx.x; j < count / PER; j += THREADS)
-      cp_async16(dst + j * PER, base + j * PER);
-    cp_async_commit();
-    done = count / PER * PER;
-  }
-  for (int idx = done + threadIdx.x; idx < TM * width; idx += THREADS)
-    dst[idx] = idx < count ? base[idx] : from_f<T>(0.f);
-  cp_async_wait<0>();
-}
-
 template <bool STORE, bool MASK, typename T>
 __global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
 dense_layer_kernel(const T* __restrict__ a0, int k0, const T* __restrict__ w0,

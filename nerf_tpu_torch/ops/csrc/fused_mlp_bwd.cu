@@ -42,10 +42,11 @@
 // K-splits (launch_prop_bwd), so their deltas (and the rebuilt activations)
 // take scratch of one chunk, not of all N points.  prop_mlp_bwd's rebuild
 // runs through dense_tile (mlp_tile.cuh; in bf16 on the tensor cores, its
-// weight ring in the W^T stage ``st``).  The delta passes multiply on the
-// CUDA cores in f32 and pay the delta round trip through device memory;
-// tensor cores there and fusing the weight-grad products into the delta
-// pass are later work.
+// weight ring in the W^T stage ``st``).  The delta passes run through
+// delta_tile (mlp_tile.cuh): in bf16 on the tensor cores, W staged through
+// its own 16 KB ring in ``st``, in f32 on the CUDA cores; they pay the
+// delta round trip through device memory, and fusing the weight-grad
+// products into the delta pass is later work.
 
 #include "mlp_tile.cuh"
 #include "wgrad.cuh"
@@ -201,7 +202,7 @@ int launch_vanilla_bwd(const void* x, const void* d, const float* grgb,
   int maxw = h > bn ? h : bn;
   maxw = maxw > r ? maxw : r;
   const size_t smem =
-      ((size_t)TM * (8 + 2 * maxw) + KC * stage_ld<T>()) * sizeof(T);
+      (size_t)TM * (8 + 2 * maxw) * sizeof(T) + delta_stage_bytes<T>();
   int err = set_smem(vanilla_delta_kernel<T>, smem);
   if (err != 0) return err;
   const unsigned grid = (unsigned)((n + TM - 1) / TM);
@@ -255,7 +256,7 @@ int launch_prop_bwd(const void* x, const float* g_out, const uint64_t* ptrs,
   if (REBUILD && !tile_widths_ok<T>({h})) return (int)cudaErrorInvalidValue;
   const size_t smem =
       (size_t)TM * (4 + (REBUILD ? dx : 0) + 2 * h) * sizeof(T)
-      + (REBUILD ? stage_bytes<T>() : (size_t)KC * stage_ld<T>() * sizeof(T));
+      + (REBUILD ? stage_bytes<T>() : delta_stage_bytes<T>());
   int err = set_smem(prop_delta_kernel<REBUILD, T>, smem);
   if (err != 0) return err;
   const int64_t sizes[10] = {(int64_t)dx * h, h, (int64_t)h * h, h,

@@ -34,7 +34,8 @@
 // The rebuild runs through dense_tile (mlp_tile.cuh), as the forward does:
 // in bf16 on the tensor cores, its weight ring in the W^T stage ``st``
 // (grown to the ring's 16.5 KB).  The delta pass (delta_tile) multiplies on
-// the CUDA cores in f32; the weight-grad pass is wgrad.cuh's.
+// the tensor cores in bf16 too, through the same stage, and on the CUDA
+// cores in f32; the weight-grad pass is wgrad.cuh's.
 
 #include "mlp_tile.cuh"
 #include "wgrad.cuh"

@@ -3,12 +3,13 @@
 // One block of THREADS threads owns a tile of TM points.  Activations of the
 // tile live in shared memory as (TM, width) row-major arrays in the compute
 // dtype T (float or __nv_bfloat16).  Products accumulate in f32.  The hidden
-// layers (dense_tile) multiply bf16 operands on the tensor cores (mma.sync
+// layers (dense_tile) and the transposed products of the backwards
+// (delta_tile) multiply bf16 operands on the tensor cores (mma.sync
 // m16n8k16, the weights staged in shared memory) and f32 operands on the
-// CUDA cores in full f32.  The other products (the heads, the transposed
-// products of the backwards) run on the CUDA cores: each thread holds an
-// RPT x CPT register tile (its warp's RPT rows, CPT columns strided by 32),
-// and a layer wider than CHUNK columns is done in passes of CHUNK.
+// CUDA cores in full f32.  The other products (the narrow heads) and the f32
+// bodies run on the CUDA cores: each thread holds an RPT x CPT register tile
+// (its warp's RPT rows, CPT columns strided by 32), and a layer wider than
+// CHUNK columns is done in passes of CHUNK.
 
 #pragma once
 
@@ -68,13 +69,14 @@ __device__ __forceinline__ void accumulate(float (&acc)[RPT][CPT], const T* a,
   }
 }
 
-// The transposed product of the backward, delta @ W^T: acc[i][j] +=
-// sum_k a[row_i][k] * w[col_j][k], with w the layer's (n_out, k_dim) =
-// (in, out) forward matrix.  Read directly, neighbouring lanes would read
-// neighbouring rows of w; instead the block stages KC rows of W^T at a time
-// in shared memory (``stage``, KC x stage_ld<T>() elements), loading each
-// row segment of w with consecutive lanes, and the row stride is padded to
-// an odd number of 4-byte words so the transposing stores do not collide.
+// The transposed product of the backward in f32 (bf16: mma_pass_t), delta
+// @ W^T: acc[i][j] += sum_k a[row_i][k] * w[col_j][k], with w the layer's
+// (n_out, k_dim) = (in, out) forward matrix.  Read directly, neighbouring
+// lanes would read neighbouring rows of w; instead the block stages KC rows
+// of W^T at a time in shared memory (``stage``, KC x stage_ld<T>()
+// elements), loading each row segment of w with consecutive lanes, and the
+// row stride is padded to an odd number of 4-byte words so the transposing
+// stores do not collide.
 // Holds __syncthreads(): every thread of the block must call it.
 constexpr int KC = 32;
 
@@ -170,7 +172,7 @@ __host__ __device__ constexpr int mask_words(int width) {
 // The bf16 layer tile's weight stage: a ring of DSTAGES slots, each DK rows
 // of W (one k-step of the mma) of DPASS output columns, the rows padded
 // to DLD elements (528 bytes) so that the 8 rows an ldmatrix reads start in
-// 8 different bank quads.  The backwards share it with accumulate_t's
+// 8 different bank quads.  The backwards share it with the delta pass's
 // stage, which never runs at the same time (stage_bytes).  Two slots of one
 // k-step keep every caller at two blocks an SM: three slots ran no faster
 // on an H100, and slots of two k-steps cost ref_dir_fwd its second block
@@ -187,12 +189,37 @@ __host__ __device__ constexpr size_t dense_stage_bytes() {
   return sizeof(T) == 2 ? (size_t)DSTAGES * DSLOT * sizeof(T) : 0;
 }
 
-// Shared-memory bytes of a backward's stage ``st``, which accumulate_t and
-// (in bf16) dense_tile's ring take in turn.
+// The bf16 delta pass's weight stage (delta_tile, enc_pull): a ring of
+// TSTAGES slots, each DPASS rows of W (one output column each) by TK
+// columns (one k-step of the mma), 32 bytes a row.  W (n_out, k_dim) is
+// row-major, so k is contiguous for each output column: the B operand's
+// "col" layout, read by ldmatrix without .trans.  Rows 32 bytes apart
+// would put the 8 rows that an ldmatrix reads on 4 bank quads, a 2-way
+// conflict; the two 16-byte halves of rows 4-7 of every 8 swap places
+// (tslot_off), which spreads them over all 8 quads without padding
+// (48-byte rows would need 24 KB, beyond the backwards' 16.5 KB stage).
+constexpr int TK = 16;                    // a slot is one k-step
+constexpr int TSTAGES = 2;
+constexpr int TSLOT = DPASS * TK;         // elements of a slot
+
+__device__ __forceinline__ int tslot_off(int rr, int half) {
+  return rr * TK + ((half ^ (rr >> 2)) & 1) * 8;
+}
+
+// Shared-memory bytes of the delta pass's stage: the ring in bf16 (16 KB),
+// accumulate_t's KC rows of W^T in f32.
+template <typename T>
+__host__ __device__ constexpr size_t delta_stage_bytes() {
+  return sizeof(T) == 2 ? (size_t)TSTAGES * TSLOT * sizeof(T)
+                        : (size_t)KC * stage_ld<T>() * sizeof(T);
+}
+
+// Shared-memory bytes of a stage ``st`` that the delta pass and dense_tile
+// take in turn (the rebuilding backwards, the density gradient).
 template <typename T>
 __host__ __device__ constexpr size_t stage_bytes() {
-  return (size_t)KC * stage_ld<T>() * sizeof(T) > dense_stage_bytes<T>()
-      ? (size_t)KC * stage_ld<T>() * sizeof(T) : dense_stage_bytes<T>();
+  return delta_stage_bytes<T>() > dense_stage_bytes<T>()
+      ? delta_stage_bytes<T>() : dense_stage_bytes<T>();
 }
 
 // Whether every width that a bf16 dense_tile writes is a multiple of 8 (the
@@ -331,9 +358,10 @@ __device__ __forceinline__ void load_a(uint32_t (&af)[4], const bf16_t* a,
 
 // The columns of one pass of up to DPASS output columns that a warp of
 // column half ``half`` owns: whole 32-column words of the pass, the first
-// half's ceil(words / 2), the second's the rest.
+// half's ceil(words / 2), the second's the rest.  (dense_tile's widths are
+// multiples of 8; the delta pass's last n-tile may hang past n_out.)
 struct PassCols {
-  int np;          // columns in the pass (a multiple of 8)
+  int np;          // columns in the pass
   int wb, we;      // the warp's words [wb, we) of the pass
   int col0;        // its first column, from the pass's first
   int nt_n;        // its n-tiles of 8 columns
@@ -348,7 +376,7 @@ __device__ __forceinline__ PassCols pass_cols(int n_out, int c0, int half) {
   pc.we = half ? words : wsplit;
   pc.col0 = 32 * pc.wb;
   const int cend = 32 * pc.we < pc.np ? 32 * pc.we : pc.np;
-  pc.nt_n = cend > pc.col0 ? (cend - pc.col0) >> 3 : 0;
+  pc.nt_n = cend > pc.col0 ? (cend - pc.col0 + 7) >> 3 : 0;
   return pc;
 }
 
@@ -545,24 +573,13 @@ __device__ void dense_tile(const T* a0, int k0, const T* __restrict__ w0,
                                    out, gout, row0, n, mbits);
 }
 
-// delta = mask(act) (a @ W^T [+ gs[row] * wcol[c]]) for the whole tile, where
-// W is the layer's (n_out, k_dim) = (in, out) forward matrix, a the next
-// layer's (TM, k_dim) delta in shared memory, act the stored (n, n_out)
-// activation in device memory (null: no ReLU), and gs/wcol an optional K = 1
-// outer-product term added in f32 before the mask.  With MBITS the mask is
-// read from the tile's bit mask mbits (dense_tile's MASK) instead of act.
-// With ADD the product is first rounded to T and added to what ``out`` holds
-// (a sum of T-valued pullbacks that rounds after each add).  The result goes
-// to shared memory in T (the operand of the next product) and, when gout is
-// not null, its valid rows to gout, in OutT (T, or f32).  ``stage`` is the
-// shared-memory stage of accumulate_t; every thread of the block must call
-// this.
-template <bool ADD = false, typename T, typename OutT, bool MBITS = false>
-__device__ void delta_tile(const T* a, int k_dim, const T* __restrict__ w,
-                           int n_out, const T* __restrict__ act,
-                           const T* gs, const T* __restrict__ wcol, T* out,
-                           OutT* __restrict__ gout, int64_t row0, int64_t n,
-                           T* stage, const uint32_t* mbits = nullptr) {
+// The f32 body of delta_tile, on the CUDA cores (see delta_tile).
+template <bool ADD, typename T, typename OutT, bool MBITS>
+__device__ void delta_tile_fma(const T* a, int k_dim, const T* __restrict__ w,
+                               int n_out, const T* __restrict__ act,
+                               const T* gs, const T* __restrict__ wcol,
+                               T* out, OutT* __restrict__ gout, int64_t row0,
+                               int64_t n, T* stage, const uint32_t* mbits) {
   const int lane = threadIdx.x & 31;
   const int r0 = (threadIdx.x >> 5) * RPT;
   for (int c0 = 0; c0 < n_out; c0 += CHUNK) {
@@ -594,6 +611,262 @@ __device__ void delta_tile(const T* a, int k_dim, const T* __restrict__ w,
   }
 }
 
+// Columns [kb, kb + TK) of rows [c0, c0 + npad) of w (n_out, k_dim) into a
+// slot of the delta ring: each row's two 16-byte halves by cp.async
+// (element loads where w is not 16-byte aligned or k_dim is not a multiple
+// of 8, zeros past k_dim), rows at or past n_out as zeros.  Neighbouring
+// threads take the two halves of a row, so a warp reads 16 rows' 32-byte
+// spans.
+__device__ __forceinline__ void stage_wt(bf16_t* slot,
+                                         const bf16_t* __restrict__ w,
+                                         int k_dim, int kb, int n_out, int c0,
+                                         int npad, bool vec) {
+  for (int idx = threadIdx.x; idx < 2 * npad; idx += THREADS) {
+    const int rr = idx >> 1, half = idx & 1;
+    const int c = c0 + rr, k = kb + 8 * half;
+    bf16_t* d = slot + tslot_off(rr, half);
+    const bf16_t* src = w + (size_t)c * k_dim + k;
+    if (c >= n_out || k >= k_dim) {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    } else if (vec) {
+      cp_async16(d, src);
+    } else {
+      const bf16_t z = __float2bfloat16_rn(0.f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d[e] = k + e < k_dim ? src[e] : z;
+    }
+  }
+}
+
+// One k-step's products of the delta pass into the warp's first nt_n
+// n-tiles: the A fragment af and the B fragments of the slot's rows from pb
+// on (16 rows of the slot, a non-transposing ldmatrix, per pair of n-tiles).
+__device__ __forceinline__ void kstep_mma_t(float (&acc)[16][4],
+                                            const uint32_t (&af)[4],
+                                            const bf16_t* pb, int nt_n) {
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    if (p * 2 >= nt_n) break;
+    uint32_t b[2][2];
+    ldsm_x4(b[0][0], b[0][1], b[1][0], b[1][1], pb + p * 16 * TK);
+    step_mma(acc[2 * p], af, b[0]);
+    if (p * 2 + 1 < nt_n) step_mma(acc[2 * p + 1], af, b[1]);
+  }
+}
+
+// The transposed products of one pass on the tensor cores: acc[t] = the
+// 16 x 8 block of n-tile t of a @ W^T at the warp's rows m0 .. m0 + 15 and
+// the columns of ``pc``, from column c0 of the pass on; a (TM, k_dim) in
+// shared memory, w the layer's (n_out, k_dim) forward matrix.  The warps
+// split the tile as mma_pass does, each k-step's product is added to acc in
+// f32 (step_mma) in the order of k, and W's rows are staged by cp.async into
+// the ring one slot ahead.  k_dim may be anything: A and B past k_dim are
+// zeros (load_a, stage_wt), so a head of 2, 3 or 9 is one zero-padded
+// k-step, and k_dim = 0 multiplies nothing.  Opens with a barrier, so the
+// ring is free whatever ran before; every thread of the block must call
+// this.
+__device__ __forceinline__ void mma_pass_t(float (&acc)[16][4],
+                                           const bf16_t* a, int k_dim,
+                                           const bf16_t* __restrict__ w,
+                                           int n_out, int c0,
+                                           const PassCols& pc,
+                                           bf16_t* stage) {
+  const int lane = threadIdx.x & 31;
+  const int m0 = ((threadIdx.x >> 5) & 3) * 16;
+  const bool al = (uintptr_t)a % 16 == 0 && k_dim % 8 == 0;
+  const bool vec = (uintptr_t)w % 16 == 0 && k_dim % 8 == 0;
+  const int npad = (pc.np + 7) & ~7;
+  const int slots = (k_dim + TK - 1) / TK;
+#pragma unroll
+  for (int t = 0; t < 16; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+  if (slots == 0) return;
+  __syncthreads();                          // the ring's last reader is done
+#pragma unroll
+  for (int j = 0; j < TSTAGES - 1; ++j) {
+    if (j < slots)
+      stage_wt(stage + j * TSLOT, w, k_dim, j * TK, n_out, c0, npad, vec);
+    cp_async_commit();
+  }
+  // lane l reads row (l & 7) + 8 (l >> 4) of a pair, half (l >> 3) & 1:
+  // the B fragments b0 b1 of n-tiles 2 p and 2 p + 1
+  const int boff =
+      tslot_off(pc.col0 + (lane & 7) + (lane >> 4) * 8, (lane >> 3) & 1);
+  for (int s = 0; s < slots; ++s) {
+    cp_async_wait<TSTAGES - 2>();           // this thread's copies of slot s
+    __syncthreads();                        // everyone's; slot s - 1 is done
+    const int next = s + TSTAGES - 1;
+    if (next < slots)
+      stage_wt(stage + (next % TSTAGES) * TSLOT, w, k_dim, next * TK, n_out,
+               c0, npad, vec);
+    cp_async_commit();
+    uint32_t af[4];
+    load_a(af, a, k_dim, m0, s * TK, al);
+    kstep_mma_t(acc, af, stage + (s % TSTAGES) * TSLOT + boff, pc.nt_n);
+  }
+}
+
+// The bf16 body of delta_tile (see there), on the tensor cores (mma_pass_t).
+// The epilogue works in the mma's fragment layout: a thread holds columns
+// 2 q, 2 q + 1 of rows g and g + 8 of each n-tile, taken as a pair where
+// n_out is even (4-byte loads and stores) and one by one where it is odd
+// (167, 63: a pair would straddle two rows).  T rows then go on to gout from
+// shared memory after a __syncwarp, 16 bytes at a time where the width
+// allows; f32 rows go straight from the registers, unrounded.
+template <bool ADD, typename OutT, bool MBITS>
+__device__ __forceinline__ void delta_tile_mma(
+    const bf16_t* a, int k_dim, const bf16_t* __restrict__ w, int n_out,
+    const bf16_t* __restrict__ act, const bf16_t* gs,
+    const bf16_t* __restrict__ wcol, bf16_t* out, OutT* __restrict__ gout,
+    int64_t row0, int64_t n, bf16_t* stage, const uint32_t* mbits) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = (warp & 3) * 16;           // the warp's rows
+  const int g = lane >> 2, q = lane & 3;
+  const int mw = mask_words(n_out);
+  const bool even = n_out % 2 == 0;
+  const bool opair = even && (uintptr_t)out % 4 == 0;
+  const bool apair = even && (uintptr_t)act % 4 == 0;
+  const bool gpair = even && (uintptr_t)gout % 8 == 0;
+  const bool gvec = n_out % 8 == 0 && (uintptr_t)gout % 16 == 0
+      && (uintptr_t)out % 16 == 0;
+  for (int c0 = 0; c0 < n_out; c0 += DPASS) {
+    const PassCols pc = pass_cols(n_out, c0, warp >> 2);
+    float acc[16][4];
+    mma_pass_t(acc, a, k_dim, w, n_out, c0, pc, stage);
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      if (t >= pc.nt_n) break;
+      const int c = c0 + pc.col0 + 8 * t + 2 * q;
+      if (c >= n_out) continue;
+      const bool two = c + 1 < n_out;
+      float wc0 = 0.f, wc1 = 0.f;
+      if (wcol != nullptr) {
+        wc0 = to_f(wcol[c]);
+        if (two) wc1 = to_f(wcol[c + 1]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + g + 8 * h;
+        const int64_t row = row0 + r;
+        bf16_t* o = out + r * n_out + c;
+        float v0 = acc[t][2 * h], v1 = acc[t][2 * h + 1];
+        if (wcol != nullptr) {
+          const float gv = to_f(gs[r]);
+          v0 += gv * wc0;
+          v1 += gv * wc1;
+        }
+        if (ADD) {
+          float p0, p1 = 0.f;
+          if (opair) {
+            const __nv_bfloat162 pv =
+                *reinterpret_cast<const __nv_bfloat162*>(o);
+            p0 = __low2float(pv);
+            p1 = __high2float(pv);
+          } else {
+            p0 = to_f(o[0]);
+            if (two) p1 = to_f(o[1]);
+          }
+          v0 = to_f(from_f<bf16_t>(v0)) + p0;
+          v1 = to_f(from_f<bf16_t>(v1)) + p1;
+        }
+        if (MBITS) {
+          const uint32_t word = mbits[r * mw + (c >> 5)];
+          if (row >= n || !((word >> (c & 31)) & 1u)) v0 = 0.f;
+          if (row >= n || !((word >> ((c + 1) & 31)) & 1u)) v1 = 0.f;
+        } else if (act != nullptr) {
+          bool on0 = false, on1 = false;
+          if (row < n) {
+            const bf16_t* ar = act + row * n_out + c;
+            if (apair) {
+              const __nv_bfloat162 av =
+                  *reinterpret_cast<const __nv_bfloat162*>(ar);
+              on0 = __low2float(av) > 0.f;
+              on1 = __high2float(av) > 0.f;
+            } else {
+              on0 = to_f(ar[0]) > 0.f;
+              on1 = two && to_f(ar[1]) > 0.f;
+            }
+          }
+          if (!on0) v0 = 0.f;
+          if (!on1) v1 = 0.f;
+        }
+        if (opair) {
+          *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          o[0] = from_f<bf16_t>(v0);
+          if (two) o[1] = from_f<bf16_t>(v1);
+        }
+        if constexpr (std::is_same<OutT, float>::value) {
+          if (gout != nullptr && row < n) {
+            float* gd = gout + row * n_out + c;
+            if (gpair) {
+              *reinterpret_cast<float2*>(gd) = make_float2(v0, v1);
+            } else {
+              gd[0] = v0;
+              if (two) gd[1] = v1;
+            }
+          }
+        }
+      }
+    }
+    if constexpr (std::is_same<OutT, bf16_t>::value) {
+      // the warp's 16 rows x its columns of the pass, which its own lanes
+      // wrote, on to gout
+      const int cb = c0 + pc.col0;
+      const int ncol = min(8 * pc.nt_n, n_out - cb);
+      if (gout != nullptr && ncol > 0) {
+        __syncwarp();
+        if (gvec) {
+          for (int idx = lane; idx < 16 * pc.nt_n; idx += 32) {
+            const int rr = idx / pc.nt_n;
+            const int c = cb + 8 * (idx - rr * pc.nt_n);
+            const int64_t row = row0 + m0 + rr;
+            if (row < n)
+              *reinterpret_cast<uint4*>(gout + row * n_out + c) =
+                  *reinterpret_cast<const uint4*>(out + (m0 + rr) * n_out + c);
+          }
+        } else {
+          for (int idx = lane; idx < 16 * ncol; idx += 32) {
+            const int rr = idx / ncol;
+            const int c = cb + idx - rr * ncol;
+            const int64_t row = row0 + m0 + rr;
+            if (row < n) gout[row * n_out + c] = out[(m0 + rr) * n_out + c];
+          }
+        }
+      }
+    }
+  }
+}
+
+// delta = mask(act) (a @ W^T [+ gs[row] * wcol[c]]) for the whole tile, where
+// W is the layer's (n_out, k_dim) = (in, out) forward matrix, a the next
+// layer's (TM, k_dim) delta in shared memory, act the stored (n, n_out)
+// activation in device memory (null: no ReLU), and gs/wcol an optional K = 1
+// outer-product term added in f32 before the mask.  With MBITS the mask is
+// read from the tile's bit mask mbits (dense_tile's MASK) instead of act.
+// With ADD the product is first rounded to T and added to what ``out`` holds
+// (a sum of T-valued pullbacks that rounds after each add).  The result goes
+// to shared memory in T (the operand of the next product) and, when gout is
+// not null, its valid rows to gout, in OutT (T, or f32).  bf16 multiplies on
+// the tensor cores (delta_tile_mma), staging W in ``stage``
+// (delta_stage_bytes<T>() bytes, 16-byte aligned), f32 on the CUDA cores in
+// full f32 (delta_tile_fma, accumulate_t's stage).  Opens with a barrier
+// wherever it stages W (k_dim > 0); every thread of the block must call this.
+template <bool ADD = false, typename T, typename OutT, bool MBITS = false>
+__device__ void delta_tile(const T* a, int k_dim, const T* __restrict__ w,
+                           int n_out, const T* __restrict__ act,
+                           const T* gs, const T* __restrict__ wcol, T* out,
+                           OutT* __restrict__ gout, int64_t row0, int64_t n,
+                           T* stage, const uint32_t* mbits = nullptr) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    delta_tile_mma<ADD, OutT, MBITS>(a, k_dim, w, n_out, act, gs, wcol, out,
+                                     gout, row0, n, stage, mbits);
+  else
+    delta_tile_fma<ADD, T, OutT, MBITS>(a, k_dim, w, n_out, act, gs, wcol,
+                                        out, gout, row0, n, stage, mbits);
+}
+
 // Rows [row0, row0 + TM) of a (n, width) row-major array into shared
 // memory; rows past n are zero.
 template <typename T>
@@ -603,6 +876,30 @@ __device__ void load_rows(const T* __restrict__ src, int width, int64_t row0,
   const T* base = src + row0 * width;
   for (int idx = threadIdx.x; idx < TM * width; idx += THREADS)
     dst[idx] = idx < valid * width ? base[idx] : from_f<T>(0.f);
+}
+
+// Rows [row0, row0 + TM) of an (n, width) array into shared memory, rows
+// past n as zeros, for the tiles' own entries (dense.cu, delta.cu).  The
+// tile's rows are one span of memory: copied by 16-byte cp.async where it
+// is 16-byte aligned (always, for an aligned array and an even width), so
+// that the entry's own loads do not hide the tile's time.
+template <typename T>
+__device__ void load_tile(const T* __restrict__ src, int width, int64_t row0,
+                          int64_t n, T* dst) {
+  constexpr int PER = 16 / sizeof(T);
+  const int64_t valid = n - row0 < TM ? n - row0 : TM;
+  const T* base = src + row0 * width;
+  const int count = (int)valid * width;
+  int done = 0;
+  if ((uintptr_t)base % 16 == 0) {
+    for (int j = threadIdx.x; j < count / PER; j += THREADS)
+      cp_async16(dst + j * PER, base + j * PER);
+    cp_async_commit();
+    done = count / PER * PER;
+  }
+  for (int idx = done + threadIdx.x; idx < TM * width; idx += THREADS)
+    dst[idx] = idx < count ? base[idx] : from_f<T>(0.f);
+  cp_async_wait<0>();
 }
 
 template <typename T>

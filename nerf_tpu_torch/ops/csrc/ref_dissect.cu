@@ -25,8 +25,8 @@
 // Bound on an H100 SXM (700 W): every stage and mode is dominated by the
 // trunk's products (545,024 MACs per point forward, twice that and a
 // rebuild backward), bound by operations like the kernels it takes apart;
-// their trunks and rebuilds run through the same dense_tile (tensor cores
-// in bf16), their delta passes on the CUDA cores.
+// their trunks and rebuilds run through the same dense_tile and their delta
+// passes through the same delta_tile (tensor cores in bf16).
 
 #include "ref_dir_fwd.cuh"
 #include "ref_dir_recompute.cuh"

@@ -58,10 +58,11 @@
 // shuffle reduction; the bottleneck head is a register-tiled product like the
 // hidden layers.  The density gradient of ref_spa_fwd_res runs in the same
 // block after the forward, its ReLU masks read back from the activations the
-// block just stored, its transposed products staged as in the backwards
-// (accumulate_t).  The positional encoding's cosines use cosf, whose range
-// reduction holds at the 2^9 |x| of the top frequency.  The ragged last tile
-// is masked: rows past N load as zero and are not stored.
+// block just stored, its transposed products taken as in the backwards
+// (delta_tile, and enc_pull into the encoding).  The positional encoding's
+// cosines use cosf, whose range reduction holds at the 2^9 |x| of the top
+// frequency.  The ragged last tile is masked: rows past N load as zero and
+// are not stored.
 //
 // Bound on an H100 SXM (700 W): at H = O = 256 the spatial net costs 526,592
 // MACs per point and the directional 545,024 (+ 171 for the IDE's
@@ -76,9 +77,9 @@
 // SM; the
 // training forwards share the ring with the W^T stage of the density
 // gradient, which never runs at the same time), in f32 on the CUDA cores.
-// The bottleneck head (wide_head) takes the same tensor-core product; the
-// narrow heads and the density gradient's transposed products stay on the
-// CUDA cores.  wgmma and TMA are later work.
+// The bottleneck head (wide_head) and the density gradient's transposed
+// products (delta_tile, enc_pull) take the tensor cores too; the narrow
+// heads stay on the CUDA cores.  wgmma and TMA are later work.
 
 #include "ref_common.cuh"
 #include "ref_dir_fwd.cuh"
@@ -123,27 +124,64 @@ ref_spa_fwd_kernel(const T* __restrict__ x, RefSpaWeights<T> p, int64_t n,
   wide_head(buf_b, o, p.wbn, p.bbn, nb, heads, hw, HEAD_FIXED, row0, n, st);
 }
 
+// The bf16 body of enc_pull, on the tensor cores (mlp_tile.cuh's
+// mma_pass_t, with its leading barrier): the fragments' values rounded to
+// bf16, then added in f32, one by one (n_out = 63 is odd).
+template <bool ADD>
+__device__ __forceinline__ void enc_pull_mma(const bf16_t* a, int k_dim,
+                                             const bf16_t* __restrict__ w,
+                                             int n_out, float* enc_grad,
+                                             bf16_t* stage) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = (warp & 3) * 16;
+  const int g = lane >> 2, q = lane & 3;
+  for (int c0 = 0; c0 < n_out; c0 += DPASS) {
+    const PassCols pc = pass_cols(n_out, c0, warp >> 2);
+    float acc[16][4];
+    mma_pass_t(acc, a, k_dim, w, n_out, c0, pc, stage);
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      if (t >= pc.nt_n) break;
+      const int c = c0 + pc.col0 + 8 * t + 2 * q;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ce = c + (e & 1);
+        if (ce >= n_out) continue;
+        float* d = enc_grad + (m0 + g + 8 * (e >> 1)) * n_out + ce;
+        const float v = to_f(from_f<bf16_t>(acc[t][e]));
+        *d = ADD ? *d + v : v;
+      }
+    }
+  }
+}
+
 // enc_grad = [enc_grad +] (a @ W^T rounded to T), f32, for the whole tile:
 // a pullback into the encoding, W the layer's (n_out = dx, k_dim) forward
-// matrix.  Every thread of the block must call this.
+// matrix.  bf16 multiplies on the tensor cores (enc_pull_mma), f32 on the
+// CUDA cores in full f32 (accumulate_t).  Every thread of the block must
+// call this.
 template <bool ADD, typename T>
 __device__ void enc_pull(const T* a, int k_dim, const T* __restrict__ w,
                          int n_out, float* enc_grad, T* stage) {
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * RPT;
-  for (int c0 = 0; c0 < n_out; c0 += CHUNK) {
-    float acc[RPT][CPT];
-    zero(acc);
-    accumulate_t(acc, a, k_dim, w, n_out, c0, stage);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    enc_pull_mma<ADD>(a, k_dim, w, n_out, enc_grad, stage);
+  } else {
+    const int lane = threadIdx.x & 31;
+    const int r0 = (threadIdx.x >> 5) * RPT;
+    for (int c0 = 0; c0 < n_out; c0 += CHUNK) {
+      float acc[RPT][CPT];
+      zero(acc);
+      accumulate_t(acc, a, k_dim, w, n_out, c0, stage);
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = c0 + lane + 32 * j;
-      if (c >= n_out) continue;
+      for (int j = 0; j < CPT; ++j) {
+        const int c = c0 + lane + 32 * j;
+        if (c >= n_out) continue;
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        float* e = enc_grad + (r0 + i) * n_out + c;
-        const float v = to_f(from_f<T>(acc[i][j]));
-        *e = ADD ? *e + v : v;
+        for (int i = 0; i < RPT; ++i) {
+          float* e = enc_grad + (r0 + i) * n_out + c;
+          const float v = to_f(from_f<T>(acc[i][j]));
+          *e = ADD ? *e + v : v;
+        }
       }
     }
   }

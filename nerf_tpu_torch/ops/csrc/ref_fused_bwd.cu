@@ -45,9 +45,10 @@
 // Bound on an H100 SXM (700 W), bf16 tensor-core peak 989 TFLOP/s: at
 // H = O = 256 the spatial backward costs 526,592 weight-grad MACs and about
 // 494,000 delta MACs per point, the directional 545,024 and about 545,000;
-// both are bound by operations (about 0.41 and 0.43 ms at N = 196,608).  This
-// first version multiplies on the CUDA cores in f32 and pays the delta round
-// trip through device memory.
+// both are bound by operations (about 0.41 and 0.43 ms at N = 196,608).  The
+// delta pass runs through delta_tile (mlp_tile.cuh: in bf16 on the tensor
+// cores, in f32 on the CUDA cores) and pays the delta round trip through
+// device memory.
 
 #include "ref_common.cuh"
 #include "wgrad.cuh"
@@ -262,7 +263,7 @@ int launch_spa_bwd(const void* x, const float* g, const uint64_t* acts,
   const int dx = dims[0], h = dims[1], o = dims[2], nb = dims[3];
   const int maxw = h > o ? h : o;
   const size_t smem =
-      ((size_t)TM * (11 + nb + 2 * maxw) + KC * stage_ld<T>()) * sizeof(T);
+      (size_t)TM * (11 + nb + 2 * maxw) * sizeof(T) + delta_stage_bytes<T>();
   int err = set_smem(ref_spa_delta_kernel<T>, smem);
   if (err != 0) return err;
   if (n > 0) {
@@ -316,8 +317,8 @@ int launch_dir_bwd(const void* heads, const void* noise, const void* dirs,
   const DirDims d = dir_dims(dims);
   const int nf = ((d.l_max + 1) * d.n_ch + d.n_ch + 15 * TM + 3) & ~3;
   const size_t smem = (size_t)nf * sizeof(float)
-      + ((size_t)TM * (d.dd + 2 * d.maxw + 4) + KC * stage_ld<T>())
-      * sizeof(T);
+      + (size_t)TM * (d.dd + 2 * d.maxw + 4) * sizeof(T)
+      + delta_stage_bytes<T>();
   int err = set_smem(ref_dir_delta_kernel<T>, smem);
   if (err != 0) return err;
   if (n > 0) {

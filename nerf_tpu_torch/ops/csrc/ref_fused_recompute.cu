@@ -45,8 +45,9 @@
 // N = 196,608, bound by operations.  The rebuild runs through dense_tile
 // (mlp_tile.cuh), as the forwards do: in bf16 on the tensor cores, its
 // weight ring in the W^T stage ``st`` (grown to the ring's 16.5 KB).  The
-// delta pass multiplies on the CUDA cores in f32, as the residual forms do;
-// the weight-grad pass is wgrad.cuh's.
+// delta pass runs through delta_tile as the residual forms' does (tensor
+// cores in bf16, through the same stage); the weight-grad pass is
+// wgrad.cuh's.
 
 #include "ref_common.cuh"
 #include "ref_dir_recompute.cuh"

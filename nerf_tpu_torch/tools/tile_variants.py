@@ -104,7 +104,7 @@ VARIANTS = {
          "const bf16_t* src = out + (m0 + rr) * pld(n_out) + c;"),
         (TILE, "to_f(out[r * n_out + c]) > 0.f",
          "to_f(out[r * pld(n_out) + c]) > 0.f"),
-        (ENTRY, "  int done = 0;\n", """  int done = 0;
+        (TILE, "  int done = 0;\n", """  int done = 0;
   if (width % 8 == 0) {                 // padded rows, 16 bytes a piece
     const int pieces = width / 8;
     for (int j = threadIdx.x; j < TM * pieces; j += THREADS) {

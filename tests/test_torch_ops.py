@@ -122,7 +122,7 @@ def test_cpu_dispatch_counts_no_launch(nets):
                                  "ref_dir_bwd_recompute", "prop_mlp_fwd_res",
                                  "prop_mlp_bwd_res", "ref_dir_fwd_dissect",
                                  "ref_dir_bwd_dissect", "wgrad_reduce",
-                                 "dense_layer"}
+                                 "dense_layer", "delta_layer"}
     assert not any(ops.LAUNCHES.values())
 
 
