@@ -97,7 +97,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                its peak memory as a third form
  13. batch_scaling - nerf_tpu_torch.tools.batch_scaling's measure with 10
                steps a run: vanilla at 1024, 4096 and 16384 rays in three
-               backward forms, Ref-NeRF at 1024 and 4096 in two; rays/s
+               backward forms, Ref-NeRF at 1024 and 4096 in two, Mip-NeRF
+               (--model mip) at 1024, 4096 and 16384 in its two; rays/s
                and peak device memory per row
  14. dissect - `python -m nerf_tpu_torch.tools.bench_ref_kernels --dissect
                --dissect_fwd` (N = 197,632, bf16 and f32): the directional
@@ -132,7 +133,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
                product's yardstick (no mask) and the bound; the same
                shapes in f32 at 131,072 rows (the CUDA-core body); the card
                tests' narrow widths at 1, 70 and 4099 rows, untimed
- 18. the kernels line, then the last line {"ok": true, "device": {...}}
+ 18. mip     - true Mip-NeRF (-m) and the IPE mode (--use_ipe), which run
+               the vanilla kernels on IPE features: the vanilla training
+               kernels and the plain forward (the recompute form's) at a
+               default step's coarse and fine pass (65,536 and 131,072
+               points) and the eval forward at a default chunk's two
+               passes (262,144 and 524,288), on IPE operands
+               of camera rays, bf16 and f32, held as in phase 3 with the
+               planted faults (mip_kernels); one f32 -m step, kernels vs
+               nn.Module, two launches a step of each training kernel
+               (mip_step); `-m --epochs 5 -s -w` vs `--no_pallas`
+               (mip_train); `-m -r -e -s -w` of its checkpoint, one f32
+               frame kernels vs nn.Module, one warm bf16 frame timed and
+               traced (mip_path); its trainer loop timed and profiled
+               (mip_train_profile); a 40-step `--use_ipe` run and its
+               render (ipe_train, ipe_render_trained); the peak memory and
+               ms a step of both forms (step_memory)
+ 19. the kernels line, then the last line {"ok": true, "device": {...}}
 
 Imports nothing of JAX or nerf_tpu.
 """
@@ -158,8 +175,12 @@ from nerf_tpu_torch import ops
 from nerf_tpu_torch.cli.entry import main as entry_main
 from nerf_tpu_torch.cli.flags import get_parser
 from nerf_tpu_torch.cli.trainer import Trainer
-from nerf_tpu_torch.core.encoding import cat_pos_pe, ide_tables
-from nerf_tpu_torch.core.rays import fov_to_focal, pose_spherical
+from nerf_tpu_torch.cli.flags import finalize_config
+from nerf_tpu_torch.core import sampling
+from nerf_tpu_torch.core.encoding import cat_pos_pe, ide_tables, ipe_feature
+from nerf_tpu_torch.core.rays import (
+    fov_to_focal, full_image_rays, pose_spherical,
+)
 from nerf_tpu_torch.ops import build, fused_mlp, ref_fused
 from nerf_tpu_torch.ops import dense as dense_lib
 from nerf_tpu_torch.ops.wgrad import grad_shapes
@@ -267,8 +288,12 @@ STEP_GRAD_REL = 2e-3
 # bias in f32, the nn.Modules in bf16), so their trajectories part step by
 # step; each epoch's mean loss and mean image MSE must agree within these
 # relative bands.  Measured on an H100 80GB HBM3: 6.9e-2 (loss, mostly the
-# proposal loss, on its epoch of lowest mean) and 6.3e-3 (image MSE).  A
-# trainer that stops learning reads above 1 on both.
+# proposal loss, on its epoch of lowest mean) and 6.3e-3 (image MSE); a later
+# run 3.0e-2 and 9.7e-4.  Mip-NeRF (-m) is held to the same band: 6.7e-4 or
+# less on both through its fourth epoch, then 2.7e-2 (loss) and 2.8e-2
+# (image MSE) on its fifth, the epoch in which both routes' image MSE rises
+# (two runs, the same to every digit).  A trainer that stops learning reads
+# above 1 on both.
 TRAIN_BAND = {"loss": 0.25, "img_mse": 0.05}
 # the Ref-NeRF training kernels round each TILE_ROWS rows' weight grad to
 # the compute dtype (cfg.pallas_tile, the TPU kernels' grid tile)
@@ -400,7 +425,30 @@ STEP_KERNELS = {
                               "vanilla_mlp_bwd", "prop_mlp_bwd_res"),
     ("ref", "prop_res"): ("prop_mlp_fwd_res", "ref_spa_fwd_res",
                           "ref_dir_fwd_res", "ref_spa_bwd", "ref_dir_bwd",
-                          "prop_mlp_bwd_res")}
+                          "prop_mlp_bwd_res"),
+    # Mip-NeRF (-m): no proposal net, its one net run twice a step
+    ("mip", True): ("vanilla_mlp_fwd_res", "vanilla_mlp_bwd"),
+    ("mip", False): ("vanilla_mlp_fwd", "vanilla_mlp_bwd_recompute")}
+# the vanilla kernels of the Mip-NeRF path at its shapes (mip_kernels): each
+# training kernel at a default step's coarse and fine pass (1024 rays of 64
+# and of 128 frustums), the plain forward there too (the recompute form's
+# step runs it) and at a default eval chunk's two passes
+MIP_KERNELS = (
+    [(k, (RAYS, p)) for k in ("vanilla_mlp_fwd_res", "vanilla_mlp_bwd",
+                              "vanilla_mlp_bwd_recompute", "vanilla_mlp_fwd")
+     for p in (N_COARSE, N_FINE)]
+    + [("vanilla_mlp_fwd", (CHUNK, p)) for p in (N_COARSE, N_FINE)])
+# the least peak-memory saving of the recompute form at a default bf16
+# Mip-NeRF step: the residual form holds 9 activations of both passes'
+# 196,608 points, 196,608 x 2,176 in bf16 (0.86 GB)
+MIP_MEMORY_SAVING = 0.6e9
+
+
+def per_step(model: str, form=True) -> dict:
+    """Launches of each kernel in one step of ``model`` in ``form``
+    (STEP_KERNELS' keys): one each, two for Mip-NeRF's two passes."""
+    return dict.fromkeys(STEP_KERNELS[(model, form)],
+                         2 if model == "mip" else 1)
 # steps of the memory and time phase: 20 back to back, median of 3 runs
 MEMORY_STEPS, MEMORY_RUNS = 20, 3
 
@@ -551,10 +599,57 @@ def _encodings(gen, dtype, n, dd=True):
     return x.to(dtype), (d.to(dtype) if dd else None)
 
 
-def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
+def ipe_encodings(gen, dtype, n_rays, n_frustums):
+    """The Mip-NeRF path's kernel operands for ``n_rays`` camera rays of a
+    400x400 lego view (random pixels of three poses) with ``n_frustums``
+    frustums each between jittered stratified edges in [2, 6]: enc_x =
+    [mu, IPE] (rays x frustums, 63) at the 400x400 pixel radius, and the
+    per-ray direction encoding broadcast (rays x frustums, 27), as
+    ``pipeline._mip_pass`` builds them, cast to ``dtype``."""
+    focal = fov_to_focal(LEGO_FOV, (400, 400))
+    per = -(-n_rays // 3)
+    rays = torch.cat([full_image_rays(400, 400, torch.tensor(
+        pose_spherical(az, -30.0, 4.0)[:3], device="cuda"), focal)[
+            torch.randint(0, 400 * 400, (per,), generator=gen,
+                          device="cuda")] for az in (0.0, 120.0, 240.0)])
+    rays = rays[:n_rays]
+    jitter = torch.rand((n_rays, n_frustums + 1), generator=gen,
+                        device="cuda")
+    edges = sampling.stratified_samples(n_rays, n_frustums + 1, 2.0, 6.0,
+                                        jitter=jitter)
+    feat, mu, _ = ipe_feature(edges, rays, 10,
+                              2.0 / math.sqrt(12.0) / focal[0])
+    n = n_rays * n_frustums
+    x = torch.cat([mu, feat], dim=-1).reshape(n, 63).to(dtype).contiguous()
+    d = rays[:, 3:] / torch.linalg.vector_norm(rays[:, 3:], dim=-1,
+                                               keepdim=True)
+    d = cat_pos_pe(d, 4)[:, None, :].expand(n_rays, n_frustums, 27)
+    return x, d.reshape(n, 27).to(dtype).contiguous()
+
+
+def centre_sigma(ws, x, d):
+    """Shift the opacity head's bias ws[16] by the median raw sigma of the
+    plain forward on (x, d), so that about half the points pass the
+    density's ReLU downstream.  The IPE operands vary little next to a
+    bias drawn N(0, 0.5^2) (the raw sigma's spread is about 0.16 at these
+    weights), so without it a draw can leave every sigma on one side,
+    which the forwards' check refuses as degenerate."""
+    ws[16] = ws[16] - ops.vanilla_mlp_plain(ws, x, d)[1].median()
+
+
+def vanilla_encodings(gen, dtype, n, ipe=None):
+    """A vanilla kernel's (enc_x, enc_d): uniform in [-1, 1] at ``n``
+    points, or with ``ipe`` = (rays, frustums) ``ipe_encodings``."""
+    return _encodings(gen, dtype, n) if ipe is None else \
+        ipe_encodings(gen, dtype, *ipe)
+
+
+def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False, ipe=None):
     """(arguments, kernel call, plain call, held call, bytes moved, FLOPs,
     points) of ``name`` at its main-path shapes; ``ide_level`` and
-    ``use_srgb`` pick the case of ref_dir_fwd.  The held call is what the
+    ``use_srgb`` pick the case of ref_dir_fwd, ``ipe`` = (rays, frustums a
+    ray) gives a vanilla kernel the Mip-NeRF path's encodings at that many
+    points (``ipe_encodings``) instead of its own.  The held call is what the
     kernel's output is held against: the plain version, except for the
     backwards that rebuild their forward (the recompute backwards and
     prop_mlp_bwd), whose plain version runs on the forward kernel's
@@ -572,7 +667,10 @@ def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
     elif name == "vanilla_mlp_fwd":
         shapes, n = vanilla_shapes(), CHUNK * N_FINE
         ws = random_weights(shapes, gen, dtype, gain=VANILLA_GAIN)
-        x, d = _encodings(gen, dtype, n)
+        x, d = vanilla_encodings(gen, dtype, n, ipe)
+        n = x.shape[0]
+        if ipe is not None:
+            centre_sigma(ws, x, d)
         args = (ws, x, d)
         kernel, plain = ops.vanilla_mlp_fwd, ops.vanilla_mlp_plain
         moved = _nbytes(x, d, *ws) + n * 4 * 4
@@ -580,7 +678,10 @@ def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
     elif name == "vanilla_mlp_fwd_res":
         shapes, n = vanilla_shapes(), RAYS * N_FINE
         ws = random_weights(shapes, gen, dtype, gain=VANILLA_GAIN)
-        x, d = _encodings(gen, dtype, n)
+        x, d = vanilla_encodings(gen, dtype, n, ipe)
+        n = x.shape[0]
+        if ipe is not None:
+            centre_sigma(ws, x, d)
         args = (ws, x, d)
         kernel, plain = ops.vanilla_mlp_fwd_res, ops.vanilla_mlp_fwd_res_plain
         elem = torch.empty((), dtype=dtype).element_size()
@@ -589,7 +690,8 @@ def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
     elif name == "vanilla_mlp_bwd":
         shapes, n = vanilla_shapes(), RAYS * N_FINE
         ws = random_weights(shapes, gen, dtype)
-        x, d = _encodings(gen, dtype, n)
+        x, d = vanilla_encodings(gen, dtype, n, ipe)
+        n = x.shape[0]
         rgb3, _, acts = ops.vanilla_mlp_fwd_res(ws, x, d)
         g_rgb = torch.randn((3, n), generator=gen, device="cuda")
         g_sig = torch.randn((n,), generator=gen, device="cuda")
@@ -602,7 +704,8 @@ def kernel_case(name, dtype, gen, ide_level=4, use_srgb=False):
     elif name == "vanilla_mlp_bwd_recompute":
         shapes, n = vanilla_shapes(), RAYS * N_FINE
         ws = random_weights(shapes, gen, dtype)
-        x, d = _encodings(gen, dtype, n)
+        x, d = vanilla_encodings(gen, dtype, n, ipe)
+        n = x.shape[0]
         g_rgb = torch.randn((3, n), generator=gen, device="cuda")
         g_sig = torch.randn((n,), generator=gen, device="cuda")
         args = (ws, x, d, g_rgb, g_sig)
@@ -1178,6 +1281,8 @@ def seeded_models(cfg: PipelineConfig, seed: int):
     models = make_models(cfg, "cuda", gen)
     with torch.no_grad():
         for m in models:
+            if m is None:       # Mip-NeRF has no proposal net
+                continue
             for name, p in m.named_parameters():
                 std = 0.5 if name.endswith("bias") else p.shape[1] ** -0.5
                 p.copy_(torch.randn(p.shape, generator=gen) * std)
@@ -1241,12 +1346,15 @@ def run_path(tmp: str, model: str = "vanilla"):
     return launches, wall / N_FRAMES, normal_std
 
 
-def frame_inputs():
+def frame_inputs(model: str = "vanilla"):
+    """A 400x400 frame's pose, focal and noise (Mip-NeRF: one more
+    stratified edge a ray)."""
     focal = fov_to_focal(LEGO_FOV, (400, 400))
     pose = pose_spherical(30.0, -30.0, 4.0)
     g = torch.Generator(device="cuda").manual_seed(1)
     n = 400 * 400
-    jitter = torch.rand((n, N_COARSE), generator=g, device="cuda")
+    jitter = torch.rand((n, N_COARSE + (model == "mip")), generator=g,
+                        device="cuda")
     u = torch.sort(torch.rand((n, N_FINE + 1), generator=g, device="cuda"),
                    dim=-1).values
     return pose, focal, (jitter, u)
@@ -1257,9 +1365,11 @@ def frame_check(model: str = "vanilla"):
     same weights, same injected noise: max abs diff of rgb (and of the
     Ref-NeRF normal map), and the depth's spread."""
     ref = model == "ref"
-    cfg = PipelineConfig(model=model, white_bkg=True)
+    cfg = finalize_config(PipelineConfig(model=model, white_bkg=True,
+                                         use_ipe=model == "mip"),
+                          fov_to_focal(LEGO_FOV, (400, 400)))
     models = seeded_models(cfg, 3 if ref else 0)
-    pose, focal, noise = frame_inputs()
+    pose, focal, noise = frame_inputs(model)
     frames = {}
     for use_kernels in (True, False):
         ops.reset_launches()
@@ -1295,9 +1405,12 @@ def profile_frame(model: str = "vanilla"):
     from torch.profiler import ProfilerActivity, profile
 
     ref = model == "ref"
-    cfg = PipelineConfig(model=model, white_bkg=True, use_bf16=True)
+    cfg = finalize_config(PipelineConfig(model=model, white_bkg=True,
+                                         use_bf16=True,
+                                         use_ipe=model == "mip"),
+                          fov_to_focal(LEGO_FOV, (400, 400)))
     models = seeded_models(cfg, 3 if ref else 0)
-    pose, focal, noise = frame_inputs()
+    pose, focal, noise = frame_inputs(model)
 
     def frame():
         render_image(models, pose, (400, 400), focal, cfg, noise=noise,
@@ -1469,9 +1582,10 @@ def calls_held_against_plain(record: dict):
             setattr(mod, k, orig[k])
 
 
-def step_batch(seed: int = 2):
+def step_batch(seed: int = 2, n_strat: int = N_COARSE):
     """One default step's rays (1024 of a 400x400 view), ground truth and
-    injected noise (jitter, sorted uniforms), from ``seed``."""
+    injected noise (jitter (1024, n_strat), sorted uniforms), from
+    ``seed``."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     focal = fov_to_focal(LEGO_FOV, (400, 400))
     pose = torch.tensor(pose_spherical(30.0, -30.0, 4.0)[:3],
@@ -1479,7 +1593,7 @@ def step_batch(seed: int = 2):
     pool = torch.rand((1, 400 * 400, 3), generator=g, device="cuda")
     rays, gt = sample_train_rays(pool, pose[None], 0, (400, 400), focal,
                                  RAYS, generator=g)
-    jitter = torch.rand((RAYS, N_COARSE), generator=g, device="cuda")
+    jitter = torch.rand((RAYS, n_strat), generator=g, device="cuda")
     u = torch.sort(torch.rand((RAYS, N_FINE + 1), generator=g,
                               device="cuda"), dim=-1).values
     return rays, gt, jitter, u
@@ -1494,17 +1608,19 @@ def step_check(model: str = "vanilla", store_residuals: bool = True,
     nn.Module path, same weights, rays and injected noise; each kernel call
     of the step held against its plain version on its own operands (a
     recompute backward on its forward kernel's activations, which it
-    rebuilds bit for bit), and the step's launch set checked."""
-    ref = model == "ref"
-    cfg = PipelineConfig(model=model, bottleneck_noise=0.0,
-                         store_residuals=store_residuals,
-                         prop_store_residuals=prop_res)
-    kernels = STEP_KERNELS[(model, "prop_res" if prop_res
-                            else store_residuals)]
+    rebuilds bit for bit), and the step's launch set checked.  Mip-NeRF
+    (``model="mip"``, the IPE at the 400x400 pixel radius) runs its one net
+    through the vanilla kernels twice."""
+    ref, mip = model == "ref", model == "mip"
+    cfg = finalize_config(PipelineConfig(
+        model=model, bottleneck_noise=0.0, store_residuals=store_residuals,
+        prop_store_residuals=prop_res, use_ipe=mip),
+        fov_to_focal(LEGO_FOV, (400, 400)))
+    kernels = per_step(model, "prop_res" if prop_res else store_residuals)
     loss_rtol, grad_rel = ((REF_STEP_LOSS_RTOL, REF_STEP_GRAD_REL) if ref
                            else (STEP_LOSS_RTOL, STEP_GRAD_REL))
     models = seeded_models(cfg, 4 if ref else 1)
-    rays, gt, jitter, u = step_batch()
+    rays, gt, jitter, u = step_batch(n_strat=N_COARSE + mip)
     params = train_parameters(models)
     out, per_call = {}, {}
     for use_kernels in (True, False):
@@ -1517,7 +1633,7 @@ def step_check(model: str = "vanilla", store_residuals: bool = True,
         torch.cuda.synchronize()
         out[use_kernels] = (loss, metrics, grads, dict(ops.LAUNCHES))
     launches = out[True][3]
-    if any(launches[k] != (k in kernels) for k in launches) or any(
+    if any(launches[k] != kernels.get(k, 0) for k in launches) or any(
             out[False][3].values()):
         fail(f"{model} step check: unexpected launches {launches} / "
              f"{out[False][3]}")
@@ -1537,7 +1653,8 @@ def step_check(model: str = "vanilla", store_residuals: bool = True,
         fail(f"{model} step check: grad relative errors {rels} beyond "
              f"{grad_rel}")
     metrics = {k: float(v.detach()) for k, v in out[False][1].items()}
-    if metrics["prop_loss"] <= 0.0 or (ref and metrics["normal_loss"] <= 0.0):
+    if metrics["coarse_loss" if mip else "prop_loss"] <= 0.0 or (
+            ref and metrics["normal_loss"] <= 0.0):
         fail(f"{model} step check: a loss term is zero (degenerate "
              f"weights): {metrics}")
     return dict(loss_kernels=loss_k, loss_plain=loss_p, loss_rtol=loss_rtol,
@@ -1633,7 +1750,8 @@ def step_memory(model: str):
     """The peak device memory and the time of one default bf16 step (1024
     rays, -s, bottleneck noise 0.02) through ``train_step`` in the residual
     and the recompute form, and in the residual form with the proposal
-    net's residual pair (``prop_res``), same seeded weights and rays.  Memory:
+    net's residual pair (``prop_res``; not for Mip-NeRF, which has no
+    proposal net), same seeded weights and rays.  Memory:
     ``max_memory_allocated`` after ``reset_peak_memory_stats`` around one
     warm step (forward, backward, Adam), and its excess over what was
     allocated before the step.  Time: ms per step over MEMORY_STEPS
@@ -1641,13 +1759,16 @@ def step_memory(model: str):
     launches of those steps, one per step of each kernel of the form and
     none of the other form's."""
     out = {}
-    for form in ("res", "recompute", "prop_res"):
+    mip = model == "mip"
+    for form in ("res", "recompute") + (() if mip else ("prop_res",)):
         res = form != "recompute"
-        cfg = PipelineConfig(model=model, use_bf16=True, store_residuals=res,
-                             prop_store_residuals=form == "prop_res")
+        cfg = finalize_config(PipelineConfig(
+            model=model, use_bf16=True, store_residuals=res,
+            prop_store_residuals=form == "prop_res", use_ipe=mip),
+            fov_to_focal(LEGO_FOV, (400, 400)))
         models = seeded_models(cfg, 8)
         opt = make_optimizer(models)
-        rays, gt, _, _ = step_batch(9)
+        rays, gt, _, _ = step_batch(9, N_COARSE + mip)
         gen = torch.Generator(device="cuda").manual_seed(10)
 
         def step():
@@ -1671,10 +1792,9 @@ def step_memory(model: str):
             times.append((time.perf_counter() - t0) / MEMORY_STEPS)
         launches = dict(ops.LAUNCHES)
         steps = MEMORY_STEPS * MEMORY_RUNS
-        want = dict(dict.fromkeys(launches, 0),
-                    **dict.fromkeys(STEP_KERNELS[
-                        (model, "prop_res" if form == "prop_res" else res)],
-                        steps))
+        want = dict(dict.fromkeys(launches, 0), **{
+            k: c * steps for k, c in per_step(
+                model, "prop_res" if form == "prop_res" else res).items()})
         if launches != want:
             fail(f"{model} {form} steps launched {launches}, expected {want}")
         ms = statistics.median(times) * 1e3
@@ -1686,11 +1806,11 @@ def step_memory(model: str):
         del models, opt
         torch.cuda.empty_cache()
     saving = out["res"]["peak_bytes"] - out["recompute"]["peak_bytes"]
-    if saving < MEMORY_SAVING[model]:
+    least = MIP_MEMORY_SAVING if mip else MEMORY_SAVING[model]
+    if saving < least:
         fail(f"{model}: the recompute form saves {saving} bytes of peak "
-             f"memory, less than {MEMORY_SAVING[model]}: {out}")
-    return dict(out, peak_saving_bytes=saving,
-                peak_saving_min=MEMORY_SAVING[model])
+             f"memory, less than {least}: {out}")
+    return dict(out, peak_saving_bytes=saving, peak_saving_min=least)
 
 
 # ---------------------------------------------------------------------------
@@ -1708,12 +1828,18 @@ SCALING_FORMS = {
     "fine_recompute_prop_recompute": dict(store_residuals=False,
                                           prop_store_residuals=False),
 }
+# Mip-NeRF's forms (batch_scaling's residuals axis): it has no proposal net
+MIP_SCALING_FORMS = {"fine_res": dict(store_residuals=True),
+                     "fine_recompute": dict(store_residuals=False)}
 # vanilla at three ray batches in all three forms; Ref-NeRF, whose residual
-# step holds about 3 GB at 1024 rays, at two, on the prop_res axis
+# step holds about 3 GB at 1024 rays, at two, on the prop_res axis;
+# Mip-NeRF (--model mip) at three in both of its forms
 SCALING_ROWS = (
     [("vanilla", r, f) for r in (1024, 4096, 16384) for f in SCALING_FORMS]
     + [("ref", r, f) for r in (1024, 4096)
-       for f in ("fine_res_prop_res", "fine_res_prop_recompute")])
+       for f in ("fine_res_prop_res", "fine_res_prop_recompute")]
+    + [("mip", r, f) for r in (1024, 4096, 16384)
+       for f in MIP_SCALING_FORMS])
 SCALING_STEPS = 10
 
 
@@ -1729,8 +1855,8 @@ def batch_scaling_rows():
                                  n_samples=64, device="cuda")[0]
     rows = []
     for model, r, form in SCALING_ROWS:
-        cfg = batch_scaling.config(model, r, use_pallas=True,
-                                   **SCALING_FORMS[form])
+        cfg = batch_scaling.config(model, r, use_pallas=True, **(
+            MIP_SCALING_FORMS if model == "mip" else SCALING_FORMS)[form])
         t0 = time.perf_counter()
         m = batch_scaling.measure(cfg, SCALING_STEPS, "cuda", scene)
         rows.append(dict(model=model, R=r, form=form, **m,
@@ -2303,20 +2429,22 @@ def delta_phase(gen):
 # phase 6: the train path, then render-only on its checkpoint
 # ---------------------------------------------------------------------------
 
-def train_argv(tmp: str, *extra: str):
+def train_argv(tmp: str, *extra: str, epochs: int = TRAIN_EPOCHS):
     """The train phase's command line (after ``python -m nerf_tpu_torch``)."""
-    return ["--epochs", str(TRAIN_EPOCHS), "-s", "-w", "--dataset_root",
+    return ["--epochs", str(epochs), "-s", "-w", "--dataset_root",
             os.path.join(tmp, "data"), "--dataset_name", "lego",
             "--warmup_step", "20", "--eval_time", "1", "--no_tensorboard",
             "--output_dir", os.path.join(tmp, "output"), *extra]
 
 
-def train_once(tmp: str, route: str, *extra: str):
-    """One run of the entry with the train phase's flags and ``extra``:
-    (launches, per-step losses, per-step image MSEs, seconds); under ``-t``
-    the normal and back-face losses must be logged and finite too."""
+def train_once(tmp: str, route: str, *extra: str,
+               epochs: int = TRAIN_EPOCHS):
+    """One run of the entry with the train phase's flags and ``extra`` for
+    ``epochs`` epochs: (launches, per-step losses, per-step image MSEs,
+    seconds); under ``-t`` the normal and back-face losses, under ``-m``
+    the coarse loss must be logged and finite too."""
     log_dir = os.path.join(tmp, "logs", route)
-    argv = train_argv(tmp, "--log_dir", log_dir, *extra)
+    argv = train_argv(tmp, "--log_dir", log_dir, *extra, epochs=epochs)
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2331,9 +2459,11 @@ def train_once(tmp: str, route: str, *extra: str):
            for f in fs if f == "metrics.jsonl"][0]
     losses = [v for _, v in read_scalars(log, "Train Loss")]
     mses = [10.0 ** (-v / 10.0) for _, v in read_scalars(log, "PSNR")]
-    steps = TRAIN_VIEWS * TRAIN_EPOCHS
-    if "-t" in extra:
-        for tag in ("Normal Loss", "Backface Loss"):
+    steps = TRAIN_VIEWS * epochs
+    tags = (("Normal Loss", "Backface Loss") if "-t" in extra
+            else ("Coarse Loss",) if "-m" in extra else ())
+    if tags:
+        for tag in tags:
             vals = [v for _, v in read_scalars(log, tag)]
             if len(vals) != steps or not all(map(math.isfinite, vals)):
                 fail(f"train path ({route}): {len(vals)} logged {tag} "
@@ -2356,37 +2486,53 @@ def write_train_split(tmp: str):
     write_split(tmp, "test", 1, rng)
 
 
-# the train phases' routes: (flags, kernels of a step, band of the epoch
-# means against --no_pallas, kernels of an eval render)
+# the train phases' routes: (flags, launches of each kernel a step, band of
+# the epoch means against --no_pallas, launches of each kernel a chunk of
+# an eval render)
+_VANILLA_EVAL = dict.fromkeys(("prop_mlp_fwd", "vanilla_mlp_fwd"), 1)
 ROUTES = {
-    "vanilla": ((), TRAIN_KERNELS, TRAIN_BAND,
-                ("prop_mlp_fwd", "vanilla_mlp_fwd")),
-    "ref": (("-t", "--name", "ref_1"), REF_TRAIN_KERNELS, REF_TRAIN_BAND,
-            REF_KERNELS),
+    "vanilla": ((), per_step("vanilla"), TRAIN_BAND, _VANILLA_EVAL),
+    "ref": (("-t", "--name", "ref_1"), per_step("ref"), REF_TRAIN_BAND,
+            dict.fromkeys(REF_KERNELS, 1)),
     "hybrid": (("-t", "--ref_kernels", "hybrid", "--name", "hybrid_1"),
-               STEP_KERNELS[("hybrid", True)], REF_TRAIN_BAND,
-               ("prop_mlp_fwd", "ref_spa_fwd"))}
+               per_step("hybrid"), REF_TRAIN_BAND,
+               dict.fromkeys(("prop_mlp_fwd", "ref_spa_fwd"), 1)),
+    # Mip-NeRF: the coarse and the fine pass of one net, no proposal net
+    "mip": (("-m", "--name", "mip_1"), per_step("mip"), TRAIN_BAND,
+            {"vanilla_mlp_fwd": 2}),
+    # the vanilla model with the IPE fine net: the vanilla launches
+    "ipe": (("--use_ipe", "--name", "ipe_1"), per_step("vanilla"),
+            TRAIN_BAND, _VANILLA_EVAL)}
+
+
+def route_launches(model: str, steps: int, chunks: int) -> dict:
+    """Every kernel's launches in a train run of ``model``'s route of
+    ``steps`` steps and an eval render of ``chunks`` chunks."""
+    _, step, _, chunk = ROUTES[model]
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    for counts, times in ((step, steps), (chunk, chunks)):
+        for k, c in counts.items():
+            want[k] += c * times
+    return want
 
 
 def run_train(tmp: str, model: str = "vanilla"):
-    """``python -m nerf_tpu_torch [-t [--ref_kernels hybrid]] --epochs 5 -s
-    -w`` on the 20-view train split, through the kernels and through the
-    nn.Module route (``--no_pallas``, its checkpoint under another name):
-    launches per step of each training kernel, and the two routes' loss
-    curves."""
-    flags, kernels, band_lim, eval_kernels = ROUTES[model]
+    """``python -m nerf_tpu_torch [-t [--ref_kernels hybrid] | -m] --epochs
+    5 -s -w`` on the 20-view train split, through the kernels and through
+    the nn.Module route (``--no_pallas``, its checkpoint under another
+    name): launches per step of each training kernel, and the two routes'
+    loss curves."""
+    flags, kernels, band_lim, _ = ROUTES[model]
     steps = TRAIN_VIEWS * TRAIN_EPOCHS
     eval_chunks = math.ceil(400 * 400 / CHUNK)   # one test view, at the end
     runs = {"plain": train_once(tmp, f"{model}_plain", *flags, "--no_pallas",
                                 "--name", f"{model}_plain_route"),
             "kernels": train_once(tmp, f"{model}_kernels", *flags)}
-    want = dict(dict.fromkeys(ops.LAUNCHES, 0),
-                **dict.fromkeys(eval_kernels, eval_chunks))
+    want = route_launches(model, 0, eval_chunks)
     if runs["plain"][0] != want:
         fail(f"{model} train path --no_pallas launches {runs['plain'][0]}, "
              f"expected {want}")
-    want = dict(want, prop_mlp_fwd=steps + eval_chunks,
-                **{k: steps for k in kernels[1:]})
+    want = route_launches(model, steps, eval_chunks)
     launches, losses, mses, wall = runs["kernels"]
     if launches != want:
         fail(f"{model} train path launches {launches}, expected {want}")
@@ -2400,6 +2546,10 @@ def run_train(tmp: str, model: str = "vanilla"):
     if any(max(band[k]) > band_lim[k] for k in band):
         fail(f"{model} train path: the kernel route's epoch means part from "
              f"the nn.Module route's by {band}, beyond {band_lim}: {curves}")
+    # a reading: where the per-step image MSEs of the two routes part
+    step_rel = [abs(k / p - 1.0) for k, p in zip(runs["kernels"][2],
+                                                 runs["plain"][2])]
+    parting = next((i for i, r in enumerate(step_rel) if r > 1e-2), None)
     first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
     if not last < first:
         fail(f"{model} train path: loss did not fall ({first} -> {last})")
@@ -2412,29 +2562,38 @@ def run_train(tmp: str, model: str = "vanilla"):
         steps=steps, launches=launches,
         launches_per_step={k: launches[k] / steps for k in kernels},
         loss_first10=first, loss_last10=last, epoch_means=curves,
-        kernels_vs_plain_rel=band, band=band_lim, s_entry=wall,
+        kernels_vs_plain_rel=band, band=band_lim,
+        img_mse_step_rel_max=[max(step_rel[i:i + TRAIN_VIEWS])
+                              for i in range(0, steps, TRAIN_VIEWS)],
+        first_step_over_1pct=parting, img_mse_steps={
+            route: r[2][parting:parting + 5] for route, r in runs.items()}
+        if parting is not None else None, s_entry=wall,
         s_entry_plain=runs["plain"][3])
 
 
 def render_trained(tmp: str, model: str = "vanilla"):
     """``-r -e -s -w`` (Ref-NeRF: ``-t ... --render_normal``, the hybrid
-    route with ``--ref_kernels hybrid``) on the checkpoint the train phase
-    wrote: each eval kernel of the route launches once per chunk, no other
-    kernel."""
-    ref = model != "vanilla"
-    flags, _, _, eval_kernels = ROUTES[model]
+    route with ``--ref_kernels hybrid``, Mip-NeRF ``-m``, IPE
+    ``--use_ipe``) on the checkpoint the train phase wrote: each eval kernel
+    of the route launches once per chunk (Mip-NeRF's twice), no other
+    kernel; the seconds of the entry (one 400x400 frame, the data and the
+    model loaded)."""
+    ref = model in ("ref", "hybrid")
+    flags = ROUTES[model][0]
     argv = list(flags) + ["-r", "-e", "-s", "-w", "--dataset_root",
                     os.path.join(tmp, "data"), "--dataset_name", "lego",
                     "--output_dir", os.path.join(tmp, "output")] \
         + (["--render_normal"] if ref else [])
     ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with cwd(tmp):
         rc = entry_main(argv)
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     n_chunks = math.ceil(400 * 400 / CHUNK)
-    want = dict(dict.fromkeys(launches, 0),
-                **dict.fromkeys(eval_kernels, n_chunks))
+    want = route_launches(model, 0, n_chunks)
     if rc != 0 or launches != want:
         fail(f"render of the trained {model} checkpoint: rc {rc}, launches "
              f"{launches}, expected {want}")
@@ -2448,7 +2607,7 @@ def render_trained(tmp: str, model: str = "vanilla"):
         fail("render of the trained ref checkpoint: blank normal panel")
     return dict(command="python -m nerf_tpu_torch " + " ".join(
         a if "/" not in a else "<tmp>" for a in argv), launches=launches,
-        normal_panel_std=normal_std)
+        normal_panel_std=normal_std, s_entry=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -2501,6 +2660,47 @@ def profile_trainer(tmp: str, epochs: int = 5, *extra: str):
                 device_busy_share=(device_ms / (wall * 1e3)
                                    if device_ms is not None else None),
                 top_device_ms_per_step=[[k, v / steps] for k, v in top])
+
+
+# ---------------------------------------------------------------------------
+# phase 18: Mip-NeRF (-m) and the IPE mode (--use_ipe)
+# ---------------------------------------------------------------------------
+
+IPE_EPOCHS = 2    # 40 steps and the eval render at the end
+
+
+def ipe_train(tmp: str):
+    """A short ``python -m nerf_tpu_torch --use_ipe --epochs 2 -s -w`` run
+    on the train split (the proposal net and the IPE fine net): one launch
+    a step of each vanilla training kernel, one a chunk of each eval
+    forward, finite logged losses."""
+    flags = ROUTES["ipe"][0]
+    steps = TRAIN_VIEWS * IPE_EPOCHS
+    launches, losses, mses, wall = train_once(tmp, "ipe_kernels", *flags,
+                                              epochs=IPE_EPOCHS)
+    want = route_launches("ipe", steps, math.ceil(400 * 400 / CHUNK))
+    if launches != want:
+        fail(f"--use_ipe train run launches {launches}, expected {want}")
+    return dict(command="python -m nerf_tpu_torch " + " ".join(
+        a if "/" not in a else "<tmp>" for a in train_argv(
+            tmp, *flags, epochs=IPE_EPOCHS)), steps=steps, launches=launches,
+        loss_first10=statistics.mean(losses[:10]),
+        loss_last10=statistics.mean(losses[-10:]),
+        img_mse_epoch_means=epoch_means(mses), s_entry=wall)
+
+
+def mip_kernel_checks():
+    """The vanilla kernels on the Mip-NeRF path's own operands (MIP_KERNELS,
+    ``ipe_encodings``; a generator of their own), bf16 and f32, held as
+    phase 3 holds them, the bf16 backwards with their planted faults."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = []
+    for name, ipe in MIP_KERNELS:
+        for dtype in (torch.bfloat16, torch.float32):
+            out.append(check_kernel(name, dtype, gen, ipe=ipe))
+            emit("mip_kernels", **out[-1])
+            torch.cuda.empty_cache()
+    return out
 
 
 def dissect_entry(name, meta, launches, per, n):
@@ -2933,7 +3133,26 @@ def main() -> int:
     delta = delta_phase(gen)
     emit("delta", seconds=time.perf_counter() - t0, **delta)
 
-    # phase 18: the kernels line, then the last line.  ``launches`` is each
+    # phase 18: Mip-NeRF and the IPE mode, on a train split of their own
+    mip_checks = mip_kernel_checks()
+    emit("mip_step", **step_check("mip"))
+    with tempfile.TemporaryDirectory() as tmp:
+        write_train_split(tmp)
+        mip_train = run_train(tmp, "mip")
+        emit("mip_train", **mip_train)
+        diffs, depth_std = frame_check("mip")
+        emit("mip_path", trained=render_trained(tmp, "mip"),
+             f32_kernels_vs_plain_max_abs=diffs["rgb"], atol=FRAME_ATOL,
+             depth_std=depth_std, profile=profile_frame("mip"))
+        emit("mip_train_profile", **profile_trainer(tmp, 5, "-m", "--name",
+                                                    "mip_1"))
+        ipe = ipe_train(tmp)
+        emit("ipe_train", **ipe)
+        emit("ipe_render_trained", **render_trained(tmp, "ipe"))
+    memory["mip"] = step_memory("mip")
+    emit("step_memory", model="mip", **memory["mip"])
+
+    # phase 19: the kernels line, then the last line.  ``launches`` is each
     # kernel's count in its path's run: the vanilla train path (training
     # steps and the final eval render) for the vanilla kernels, the Ref-NeRF
     # render path for the Ref-NeRF eval forwards, the Ref-NeRF train path
@@ -2945,8 +3164,10 @@ def main() -> int:
     # walks of phase 15 for the weight-grad pass's own entry, the calls
     # of phase 16 for the layer tile's and of phase 17 for the delta pass's;
     # ``launches_render``, ``launches_ref``, ``launches_ref_train``,
-    # ``launches_recompute_steps``, ``launches_hybrid_train`` and
-    # ``launches_batch_scaling`` its count in each of those runs.
+    # ``launches_recompute_steps``, ``launches_hybrid_train``,
+    # ``launches_batch_scaling``, ``launches_mip_train`` and
+    # ``launches_ipe_train`` its count in each of those runs; ``mip`` the
+    # vanilla kernels' readings on the Mip-NeRF path's operands (phase 18).
     recompute_steps = {k: memory["vanilla"]["recompute"]["launches"][k]
                        + memory["ref"]["recompute"]["launches"][k]
                        for k in ops.LAUNCHES}
@@ -2984,6 +3205,12 @@ def main() -> int:
             launches_recompute_steps=recompute_steps[name],
             launches_hybrid_train=hybrid["launches"][name],
             launches_batch_scaling=scaling_launches[name],
+            launches_mip_train=mip_train["launches"][name],
+            launches_ipe_train=ipe["launches"][name],
+            mip=[{k: c.get(k) for k in (
+                "n", "dtype", "max_abs_err", "grad_rel_err", "act_rel_err",
+                "tol", "ms", "plain_ms", "bound_ms")}
+                for c in mip_checks if c["name"] == name],
             max_abs_err=res["max_abs_err"],
             rel_err=res.get("grad_rel_err", res.get("act_rel_err")),
             tol=res["tol"], n=res["n"], ms=res["ms"],

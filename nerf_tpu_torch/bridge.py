@@ -87,8 +87,13 @@ def state_dict_to_flax(sd: dict, net: str) -> dict:
 
 def load_flax_variables(models, variables: dict) -> None:
     """Copy {"nerf": params, "prop": params} into (nerf, prop) modules; the
-    fine net's params are a VanillaNeRF's or a RefNeRF's."""
+    fine net's params are a VanillaNeRF's or a RefNeRF's.  Mip-NeRF's
+    {"nerf": params} goes into (nerf, None)."""
     nerf, prop = models
     net = "ref" if "spa_block1" in variables["nerf"] else "nerf"
     nerf.load_state_dict(flax_to_state_dict(variables["nerf"], net))
-    prop.load_state_dict(flax_to_state_dict(variables["prop"], "prop"))
+    if (prop is None) != ("prop" not in variables):
+        raise ValueError("the variables and the models disagree on the "
+                         "proposal net: one has it, the other not")
+    if prop is not None:
+        prop.load_state_dict(flax_to_state_dict(variables["prop"], "prop"))

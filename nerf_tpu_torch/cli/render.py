@@ -1,7 +1,8 @@
 """Render-only mode (-r): test-pose evaluation or the orbit (port of
 nerf_tpu/cli/render.py:68-134).
 
-Loads ``model/<name>_mip.pt`` and ``model/<name>_prop.pt``; renders the test
+Loads ``model/<name>_mip.pt`` and ``model/<name>_prop.pt`` (under ``-m``,
+Mip-NeRF's ``model/<name>_mip.pt`` alone); renders the test
 poses (-e) with per-frame MSE and PSNR against the ground truth, or the
 120-pose orbit; writes ``output/{given|sphere}/result_%03d.png`` grids with
 nrow = 1 + render_depth + render_normal (+ the ground-truth panel under -e),
@@ -20,7 +21,7 @@ from nerf_tpu_torch.core.rays import orbit_poses
 from nerf_tpu_torch.data.blender import BlenderDataset, pillow
 from nerf_tpu_torch.device import resolve_device
 from nerf_tpu_torch.train.renderer import render_image
-from nerf_tpu_torch.utils.checkpoint import load_models
+from nerf_tpu_torch.utils.checkpoint import load_models, model_files
 from nerf_tpu_torch.utils.image import save_image_grid, to_uint8
 
 MODEL_DIR = "model"
@@ -45,7 +46,8 @@ def render_only(args, device=None):
     focal = testset.focal(legacy_square=args.legacy_focal)
     cfg = finalize_config(cfg, focal)
     models, step, epoch = load_models(MODEL_DIR, args.name, cfg, dev)
-    print(f"Loaded {MODEL_DIR}/{args.name}_{{mip,prop}}.pt (step {step}, "
+    paths = ", ".join(p for _, p in model_files(MODEL_DIR, args.name, models))
+    print(f"Loaded {paths} (step {step}, "
           f"epoch {epoch}) on {dev.type}")
 
     if args.eval_poses:

@@ -1,9 +1,11 @@
 """The single-device trainer (port of the single mode of
 nerf_tpu/cli/trainer.py:46-650).
 
-``python -m nerf_tpu_torch [-t] [-s] [-w] --epochs E ...`` trains the vanilla
-model (Ref-NeRF under ``-t``) with proposal distillation on one CUDA
-device:
+``python -m nerf_tpu_torch [-t|-m] [--use_ipe] [-s] [-w] --epochs E ...``
+trains the vanilla model (Ref-NeRF under ``-t``; IPE features for its fine
+net under ``--use_ipe``) with proposal distillation, or true Mip-NeRF
+(``-m``: one net, coarse and fine IPE passes, no proposal net), on one
+CUDA device:
 
 - the train split's pixels (an (N, H*W, 3) pool) and poses stay on the
   device; every step picks ``--sample_ray_num`` pixels of one image, in a
@@ -14,13 +16,14 @@ device:
 - the step's metrics stay on the device and are read back once per epoch,
   for the console line (loss, PSNR, learning rate, rays/s, ETA) and the
   metrics log (``--log_dir``, every ``--eval_time`` steps; Ref-NeRF's
-  normal and back-face losses too);
+  normal and back-face losses and Mip-NeRF's coarse loss too);
 - every ``--output_time`` epochs and at the end it renders test views 1 and
   4 with their test loss and saves the image grid (with the normal map
   under ``--render_normal`` and the depth under ``--render_depth``) to
   ``--output_dir``;
-- at the end it writes ``model/<name>_{mip,prop}.pt``, which
-  ``python -m nerf_tpu_torch -r`` loads.
+- at the end it writes ``model/<name>_{mip,prop}.pt`` (``-m``:
+  ``model/<name>_mip.pt`` alone), which ``python -m nerf_tpu_torch -r``
+  loads with the same model flags.
 
 The JAX package's MFU against a TPU peak is not printed: the port's own
 FLOP count comes with its bench (ROADMAP.md A4).  Flags of parts that are
@@ -72,10 +75,6 @@ def check_trainer_flags(args) -> None:
         raise _not_ported("-b/--debug (per-module NaN attribution)", "A10")
     if args.trace is not None:
         raise _not_ported("--trace (a profiler trace of one epoch)", "A4")
-    if args.mip_nerf:
-        raise _not_ported("-m/--mip_nerf (Mip-NeRF)", "A5")
-    if args.use_ipe:
-        raise _not_ported("--use_ipe (integrated positional encoding)", "A5")
 
 
 class Trainer:
@@ -149,7 +148,8 @@ class Trainer:
                                    step_base + i)
             self.writer.add_scalar("PSNR", metrics["psnr"][i], step_base + i)
             for key, tag in (("normal_loss", "Normal Loss"),
-                             ("bf_loss", "Backface Loss")):
+                             ("bf_loss", "Backface Loss"),
+                             ("coarse_loss", "Coarse Loss")):
                 if key in metrics:
                     self.writer.add_scalar(tag, metrics[key][i],
                                            step_base + i)
@@ -208,7 +208,8 @@ class Trainer:
             use_tensorboard=not args.no_tensorboard)
         print(f"Training: device={self.dev} images={len(self.train_set)} "
               f"hw={self.hw} focal=({self.focal[0]:.2f},{self.focal[1]:.2f}) "
-              f"model={self.cfg.model} bf16={self.cfg.use_bf16} "
+              f"model={self.cfg.model} ipe={self.cfg.use_ipe} "
+              f"bf16={self.cfg.use_bf16} "
               f"kernels={self.cfg.use_pallas is not False}", flush=True)
         mark = time.perf_counter()
         for ep in range(args.epochs):
@@ -226,10 +227,10 @@ class Trainer:
                 self.evaluate(ep)
                 mark = time.perf_counter()   # eval time is not train time
         self.writer.close()
-        save_models(MODEL_DIR, args.name, self.models, train_cnt=self.step,
-                    epoch=args.epochs)
-        print(f"Training completed. Final model -> {MODEL_DIR}/{args.name}"
-              f"_{{mip,prop}}.pt", flush=True)
+        paths = save_models(MODEL_DIR, args.name, self.models,
+                            train_cnt=self.step, epoch=args.epochs)
+        print(f"Training completed. Final model -> {', '.join(paths)}",
+              flush=True)
         return self
 
 

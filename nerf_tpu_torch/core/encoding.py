@@ -1,6 +1,7 @@
-"""Encodings: the frequency positional encoding, Ref-NeRF's integrated
+"""Encodings: the frequency positional encoding, Mip-NeRF's integrated
+positional encoding (IPE) of conical frustums, Ref-NeRF's integrated
 directional encoding (IDE) and the sRGB curve (port of
-nerf_tpu/core/encoding.py:31-53, :121-242).
+nerf_tpu/core/encoding.py:31-53, :60-113, :121-242).
 
 Level-major PE layout: for each level l, sin(2^l x) over the D input dims,
 then cos(2^l x) over the D dims.  The JAX package evaluates cos(v) as
@@ -8,6 +9,11 @@ sin(v + pi/2) in f32 (its matmul-and-one-sin form); the port keeps those
 values: ``x * 2**l`` elementwise in f32 (exact, one power of two), the f32
 phase added, one sin.  Never a TF32 or bf16 product: at 2^9 the rounding of x
 would become an O(1) phase error.
+
+The IPE keeps the JAX package's diagonal covariance with the Mip-NeRF
+paper's projector diag(I - d d^T / |d|^2) and its per-level (sin, cos)
+interleave: for each level l, sin(2^l mu) * exp(-0.5 4^l var) over the 3
+dims, then the cos part over the 3 dims.  All f32.
 
 The IDE tables are the port's own numpy copy of ``ide_tables``; the encoding
 evaluates (x + iy)^m by the complex-power recurrence and z^i as ``z**i`` does
@@ -38,6 +44,61 @@ def positional_encoding(x: torch.Tensor, levels: int) -> torch.Tensor:
 def cat_pos_pe(x: torch.Tensor, levels: int, dtype=torch.float32) -> torch.Tensor:
     """[x, PE(x)] cast to ``dtype``: the fused kernels' encoding operand."""
     return torch.cat([x, positional_encoding(x, levels)], dim=-1).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Integrated positional encoding (Mip-NeRF cone math)
+# --------------------------------------------------------------------------
+
+def cone_parameters(zvals: torch.Tensor, r: float):
+    """Gaussian approximation (mu_t, sigma_t^2, sigma_r^2) of the conical
+    frustums between consecutive depths zvals (..., n + 1), each (..., n),
+    for a cone of base radius ``r`` at unit distance."""
+    mid = 0.5 * (zvals[..., 1:] + zvals[..., :-1])
+    diff = (0.5 * (zvals[..., 1:] - zvals[..., :-1])) ** 2
+    tmp = 3.0 * mid ** 2 + diff
+    mu_t = mid + 2.0 * mid * diff / tmp
+    sigma_t2 = (diff / 3.0
+                - 4.0 * diff ** 2 * (12.0 * mid ** 2 - diff) / 15.0 / tmp ** 2)
+    sigma_r2 = r ** 2 * (0.25 * mid ** 2 + 5.0 / 12.0 * diff
+                         - 4.0 * diff ** 2 / (15.0 * tmp))
+    return mu_t, sigma_t2, sigma_r2
+
+
+def cone_mean_diagcov(rays: torch.Tensor, mu_t: torch.Tensor,
+                      sigma_t2: torch.Tensor, sigma_r2: torch.Tensor):
+    """Mean (R, n, 3) and diagonal covariance (R, n, 3) of each frustum's
+    Gaussian along rays (R, 6) = (origin | direction): sigma_t^2 d^2 +
+    sigma_r^2 diag(I - d d^T / |d|^2), the paper's projector (in [0, 1] for
+    any |d|)."""
+    o, d = rays[..., :3], rays[..., 3:]
+    mu = o[..., None, :] + mu_t[..., :, None] * d[..., None, :]
+    dd = d * d
+    d_norm2 = torch.sum(dd, dim=-1, keepdim=True)
+    i_m_ddt = 1.0 - dd / torch.clamp_min(d_norm2, 1e-10)
+    diag_sigma = (sigma_t2[..., :, None] * dd[..., None, :]
+                  + sigma_r2[..., :, None] * i_m_ddt[..., None, :])
+    return mu, diag_sigma
+
+
+def ipe_feature(zvals: torch.Tensor, rays: torch.Tensor, levels: int,
+                r: float):
+    """The IPE of the frustums between depths zvals (R, n + 1) along rays
+    (R, 6): (features (R, n, 6 * levels), mu (R, n, 3), mu_t (R, n)), f32.
+
+    Level l's six entries are sin(2^l mu) * a, then cos(2^l mu) * a, with
+    a = exp(-0.5 * 4^l * var) per dim."""
+    mu_t, sigma_t2, sigma_r2 = cone_parameters(zvals.to(torch.float32), r)
+    mu, diag_sigma = cone_mean_diagcov(rays.to(torch.float32), mu_t,
+                                       sigma_t2, sigma_r2)
+    freqs = 2.0 ** torch.arange(levels, dtype=torch.float32,
+                                device=mu.device)
+    mu_r = mu[..., None, :] * freqs[:, None]                     # (.., L, 3)
+    var_r = diag_sigma[..., None, :] * (freqs ** 2)[:, None]     # (.., L, 3)
+    atten = torch.exp(-0.5 * var_r)
+    feat = torch.cat([torch.sin(mu_r) * atten, torch.cos(mu_r) * atten],
+                     dim=-1)                                     # (.., L, 6)
+    return feat.reshape(*mu.shape[:-1], 6 * levels), mu, mu_t
 
 
 # --------------------------------------------------------------------------

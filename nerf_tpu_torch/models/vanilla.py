@@ -41,15 +41,19 @@ class VanillaNeRF(nn.Module):
         return cat_pos_pe(d, self.dir_levels)
 
     def forward(self, pos: torch.Tensor, dirs: torch.Tensor,
+                enc_x: torch.Tensor | None = None,
                 enc_d: torch.Tensor | None = None):
         """pos, dirs (..., 3) -> (rgb (..., 3), raw sigma (...)), both f32.
 
-        ``enc_d`` replaces the direction encoding of ``dirs`` (callers whose
-        dirs are per ray encode once per ray and broadcast).
+        ``enc_x`` (..., 63) replaces the position encoding [pos, PE(pos)]
+        (the IPE paths pass [mu, IPE]); ``enc_d`` replaces the direction
+        encoding of ``dirs`` (callers whose dirs are per ray encode once per
+        ray and broadcast).
         """
         if enc_d is None:
             enc_d = self.encode_dirs(dirs)
-        x = cat_pos_pe(pos, self.pos_levels, self.dtype)
+        x = (cat_pos_pe(pos, self.pos_levels, self.dtype) if enc_x is None
+             else enc_x.to(self.dtype))
         h = self.lin_block1(x)
         h = self.lin_block2(torch.cat([x, h], dim=-1))
         sigma = self.opacity_head(h)[..., 0]

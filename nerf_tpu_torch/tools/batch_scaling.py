@@ -1,13 +1,14 @@
 """Ray-batch scaling of the full training step (port of
 tools/batch_scaling.py).
 
-    python -m nerf_tpu_torch.tools.batch_scaling [--model vanilla|ref]
+    python -m nerf_tpu_torch.tools.batch_scaling [--model vanilla|ref|mip]
         [--batches 1024 4096 16384] [--axis pallas|residuals|prop_res]
 
 For each ray batch R and each variant of the axis, ``measure`` trains on
 the procedural scene (8 views at 400x400, ground truth from 64 samples a
 ray) at the default step (64 coarse + 128 fine samples, 256-wide nets,
-bf16, white background, the scaled base rate and the decay schedule):
+bf16, white background, the scaled base rate and the decay schedule;
+``--model mip`` is true Mip-NeRF with its IPE, as the JAX tool means it):
 ``n_scan`` ``train_step`` calls issued back to back, then one
 synchronize; the best of 3 such runs after a warm one, in rays/s, and the
 peak device memory of the whole measurement.  A variant that runs out of
@@ -21,12 +22,12 @@ Axes:
   (``prop_store_residuals=False``): a fine-net-only A/B, as the JAX tool's
   axis has been since that default changed;
 - ``prop_res``: the proposal net's residual against its recompute pair,
-  with the fine net held residual.
+  with the fine net held residual (the default; Mip-NeRF, which has no
+  proposal net, defaults to ``residuals`` and refuses ``prop_res``).
 
 ``select``, ``tile``, ``pe`` and ``bufs`` were XLA and Mosaic knobs of the
 JAX package (one-hot selection matmuls, the Pallas tile, angle-doubling PE,
-pipeline buffer counts) with no counterpart here: they raise, as does
-``--model mip`` (Mip-NeRF is not ported, ROADMAP.md A5).
+pipeline buffer counts) with no counterpart here: they raise.
 """
 
 from __future__ import annotations
@@ -71,10 +72,12 @@ JAX_ONLY_AXES = {
 
 
 def config(model: str, ray_batch: int, **kw) -> PipelineConfig:
-    """The default step's configuration at ``ray_batch`` rays."""
+    """The default step's configuration at ``ray_batch`` rays (Mip-NeRF
+    with its IPE)."""
     return PipelineConfig(ray_batch=ray_batch, n_coarse=64, n_fine=128,
                           nerf_width=256, prop_width=256, white_bkg=True,
-                          use_bf16=True, model=model, **kw)
+                          use_bf16=True, model=model,
+                          use_ipe=model == "mip", **kw)
 
 
 def measure(cfg: PipelineConfig, n_scan: int = 100, device=None,
@@ -138,32 +141,41 @@ def get_parser() -> argparse.ArgumentParser:
     ap.add_argument("--model", default="vanilla",
                     choices=["vanilla", "ref", "mip"])
     ap.add_argument("--batches", type=int, nargs="+", default=list(BATCHES))
-    ap.add_argument("--axis", default="prop_res",
+    ap.add_argument("--axis", default=None,
                     choices=list(AXES) + list(JAX_ONLY_AXES),
                     help="'pallas': the fused kernels vs the nn.Module "
                          "route; 'residuals': the FINE net's residual vs "
                          "recompute backward, the proposal net held in its "
                          "default recompute form; 'prop_res': the proposal "
                          "net's residual vs recompute pair, the fine net "
-                         "held residual.  'select', 'tile', 'pe' and "
+                         "held residual (the default, 'residuals' for "
+                         "mip).  'select', 'tile', 'pe' and "
                          "'bufs' were XLA/Mosaic knobs of the JAX package "
                          "and raise here")
     return ap
 
 
-def main(argv=None, device=None) -> list:
-    """Run the sweep; returns its rows as dicts (R, variant and
-    ``measure``'s readings, or ``"oom": True``)."""
+def parse_args(argv=None) -> argparse.Namespace:
+    """The sweep's arguments, with the model's default axis filled in;
+    raises for an axis the model or the port does not have."""
     args = get_parser().parse_args(argv)
-    if args.model == "mip":
-        raise NotImplementedError(
-            "Mip-NeRF (-m) is not ported to nerf_tpu_torch yet; see "
-            "ROADMAP.md A5")
+    if args.axis is None:
+        args.axis = "residuals" if args.model == "mip" else "prop_res"
+    if args.model == "mip" and args.axis == "prop_res":
+        raise ValueError("--axis prop_res swings the proposal net, which "
+                         "Mip-NeRF (--model mip) does not have")
     if args.axis in JAX_ONLY_AXES:
         raise NotImplementedError(
             f"--axis {args.axis} swept {JAX_ONLY_AXES[args.axis]}, an XLA or "
             f"Mosaic knob of the JAX package with no counterpart in "
             f"nerf_tpu_torch")
+    return args
+
+
+def main(argv=None, device=None) -> list:
+    """Run the sweep; returns its rows as dicts (R, variant and
+    ``measure``'s readings, or ``"oom": True``)."""
+    args = parse_args(argv)
     dev = resolve_device(device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"device: {name}  model={args.model} axis={args.axis}",

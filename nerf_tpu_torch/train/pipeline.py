@@ -1,8 +1,19 @@
 """The render pipeline, train and eval: proposal -> importance sampling ->
-fine model (port of nerf_tpu/train/pipeline.py: the vanilla and Ref-NeRF
-branches of ``render_rays_train`` :483-577 and ``render_rays_eval``
-:580-671, ``_proposal_weights`` :202-242 and ``_ref_fine_forward`` with its
+fine model (port of nerf_tpu/train/pipeline.py: ``render_rays_train``
+:483-577 and ``render_rays_eval`` :580-671 with their vanilla, IPE,
+Mip-NeRF and Ref-NeRF branches, ``_vanilla_inputs`` :89-103, ``_mip_pass``
+:454-480, ``_proposal_weights`` :202-242 and ``_ref_fine_forward`` with its
 all-kernel and hybrid routes :263-390, :393-451).
+
+True Mip-NeRF (``model="mip"``) has no proposal net: one ``VanillaNeRF``
+runs twice, on the IPE features of the coarse frustums (stratified edges)
+and of the fine ones (edges drawn from the detached, max-blurred coarse
+weights), and composites at the frustum centres.  ``use_ipe`` gives the
+vanilla model's fine net the IPE features of the frustums between its
+inverse-CDF depths instead of the PE of its points.  Both run the vanilla
+kernels with the features as their ``enc_x`` operand: the features are
+functions of detached depths and of the rays, so the kernels' zero input
+cotangents are exact.
 
 Models are ``nn.Module``s holding their weights, so where the JAX functions
 take ``(models, variables, ..., key)`` these take ``(models, ...)`` and an
@@ -38,7 +49,7 @@ import torch
 
 from nerf_tpu_torch.core import render as render_lib
 from nerf_tpu_torch.core import sampling
-from nerf_tpu_torch.core.encoding import cat_pos_pe
+from nerf_tpu_torch.core.encoding import cat_pos_pe, ipe_feature
 from nerf_tpu_torch.device import check_device, resolve_device
 from nerf_tpu_torch.models import ProposalNetwork, RefNeRF, VanillaNeRF
 from nerf_tpu_torch.models.mlp import init_flax_
@@ -50,28 +61,18 @@ from nerf_tpu_torch.ops import (
 from nerf_tpu_torch.ops.ref_fused import normal_target, softplus
 from nerf_tpu_torch.train.config import PipelineConfig
 
-_NOT_PORTED = ("the {} path is not ported to nerf_tpu_torch yet; see "
-               "ROADMAP.md (section A) for the order of the remaining slices")
-
-
-def _require_ported(cfg: PipelineConfig) -> None:
-    """Raise for the paths not ported yet: Mip-NeRF and IPE."""
-    if cfg.model == "mip":
-        raise NotImplementedError(_NOT_PORTED.format(
-            "Mip-NeRF (-m, _mip_pass; ROADMAP.md A5)"))
-    if cfg.model not in ("vanilla", "ref"):
+def _check_model(cfg: PipelineConfig) -> None:
+    if cfg.model not in ("vanilla", "ref", "mip"):
         raise ValueError(f"unknown model {cfg.model!r}")
-    if cfg.use_ipe:
-        raise NotImplementedError(_NOT_PORTED.format(
-            "IPE (--use_ipe; ROADMAP.md A5)"))
 
 
 def make_models(cfg: PipelineConfig, device=None,
                 generator: Optional[torch.Generator] = None):
     """(VanillaNeRF or RefNeRF, ProposalNetwork) on ``device`` with
     flax-initialized weights drawn from ``generator`` (a CPU generator;
-    seed 0 if None)."""
-    _require_ported(cfg)
+    seed 0 if None); (VanillaNeRF, None) for Mip-NeRF, which has no
+    proposal net."""
+    _check_model(cfg)
     dev = resolve_device(device)
     dtype = torch.bfloat16 if cfg.use_bf16 else torch.float32
     if generator is None:
@@ -82,17 +83,21 @@ def make_models(cfg: PipelineConfig, device=None,
                        perturb_bottleneck=cfg.bottleneck_noise, dtype=dtype)
     else:
         nerf = VanillaNeRF(hidden=cfg.nerf_width, dtype=dtype)
-    nerf = init_flax_(nerf, generator)
+    nerf = init_flax_(nerf, generator).to(dev).eval()
+    if cfg.model == "mip":
+        return nerf, None
     prop = init_flax_(ProposalNetwork(hidden=cfg.prop_width, dtype=dtype),
                       generator)
-    return nerf.to(dev).eval(), prop.to(dev).eval()
+    return nerf, prop.to(dev).eval()
 
 
 def init_variables(cfg: PipelineConfig,
                    generator: Optional[torch.Generator] = None):
     """{"nerf": state_dict, "prop": state_dict} of freshly initialized
-    models, on the CPU."""
+    models, on the CPU; {"nerf": state_dict} for Mip-NeRF."""
     nerf, prop = make_models(cfg, "cpu", generator)
+    if prop is None:
+        return {"nerf": nerf.state_dict()}
     return {"nerf": nerf.state_dict(), "prop": prop.state_dict()}
 
 
@@ -112,21 +117,49 @@ def _ray_dir_encoding(nerf: VanillaNeRF, ray_dirs: torch.Tensor,
     return enc[:, None, :].expand(-1, n_samples, -1)
 
 
+def _vanilla_inputs(nerf: VanillaNeRF, rays: torch.Tensor,
+                    f_z: torch.Tensor, cfg: PipelineConfig):
+    """(points (R, P, 3), depths (R, P), enc_x) of the vanilla fine net at
+    the sorted depths f_z (R, P + 1).  PE: the first P depths and
+    ``enc_x=None`` (the net encodes its points).  IPE (``cfg.use_ipe``):
+    the P frustums between the depths, their means mu, their centres mu_t
+    and [mu, IPE] (R, P, 63)."""
+    if not cfg.use_ipe:
+        z_fine = f_z[..., :-1]
+        return render_lib.lengths_to_points(rays, z_fine), z_fine, None
+    return _ipe_inputs(nerf, rays, f_z, cfg)
+
+
+def _ipe_inputs(nerf: VanillaNeRF, rays: torch.Tensor, edges: torch.Tensor,
+                cfg: PipelineConfig):
+    """(mu (R, P, 3), mu_t (R, P), enc_x = [mu, IPE] (R, P, 63)) of the P
+    frustums between the edges (R, P + 1)."""
+    feat, mu, mu_t = ipe_feature(edges, rays, nerf.pos_levels,
+                                 cfg.ipe_radius)
+    return mu, mu_t, torch.cat([mu, feat], dim=-1)
+
+
 def _apply_vanilla(nerf: VanillaNeRF, pos: torch.Tensor,
                    ray_dirs: torch.Tensor, cfg: PipelineConfig, dev,
-                   train: bool = False):
+                   train: bool = False, enc_x: Optional[torch.Tensor] = None):
     """Fine net on points (R, P, 3) -> (rgb3 (3, R, P), raw sigma (R, P)).
 
-    In training the kernel route is ``VanillaMLP`` (``VanillaMLPRecompute``
-    with ``store_residuals=False``) over the f32 parameters; the points
-    carry no gradient (their depths come from detached weights)."""
+    ``enc_x`` (R, P, 63), f32, replaces the PE of the points (the IPE
+    features).  In training the kernel route is ``VanillaMLP``
+    (``VanillaMLPRecompute`` with ``store_residuals=False``) over the f32
+    parameters; the encodings carry no gradient (their depths come from
+    detached weights) and are cast once to the compute dtype."""
     r, p = pos.shape[:2]
     enc_d = _ray_dir_encoding(nerf, ray_dirs, p)
     if not _use_kernels(cfg, train):
-        rgb, sigma = nerf(pos, None, enc_d=enc_d)
+        rgb, sigma = nerf(pos, None, enc_x=enc_x, enc_d=enc_d)
         return rgb.permute(2, 0, 1), sigma
     cd = nerf.dtype
-    enc_x = cat_pos_pe(pos.detach().reshape(r * p, 3), nerf.pos_levels, cd)
+    if enc_x is None:
+        enc_x = cat_pos_pe(pos.detach().reshape(r * p, 3), nerf.pos_levels,
+                           cd)
+    else:
+        enc_x = enc_x.detach().reshape(r * p, -1).to(cd).contiguous()
     enc_d = enc_d.reshape(r * p, -1).to(cd).contiguous()
     if train:
         fn = VanillaMLP if cfg.store_residuals else VanillaMLPRecompute
@@ -324,29 +357,83 @@ def _proposal_weights(prop: ProposalNetwork, rays: torch.Tensor,
     return sampling.max_blur_filter(w_raw, cfg.max_blur_alpha), coarse_grad
 
 
+def _mip_pass(nerf: VanillaNeRF, rays: torch.Tensor, edges: torch.Tensor,
+              cfg: PipelineConfig, dev, train: bool = False,
+              white_bkg: bool = False, render_depth: bool = False):
+    """One Mip-NeRF level: the frustums between edges (R, P + 1) -> IPE ->
+    the shared net -> the composite at the frustum centres mu_t.  Returns
+    (rgb (R, 3), weights (R, P), extras, mu_t (R, P)).  Training composites
+    row-land and gives no extras."""
+    mu, mu_t, enc_x = _ipe_inputs(nerf, rays, edges, cfg)
+    rgb3, sigma = _apply_vanilla(nerf, mu, rays[:, 3:], cfg, dev, train,
+                                 enc_x=enc_x)
+    if train:
+        rgb_out, weights = render_lib.composite_rl(
+            rgb3, sigma, mu_t, rays[:, 3:], white_bkg=white_bkg)
+        return rgb_out, weights, {}, mu_t
+    rgb_out, weights, extras = render_lib.composite(
+        rgb3.permute(1, 2, 0), sigma, mu_t, rays[:, 3:], white_bkg=white_bkg,
+        depth_bounds=(cfg.near, cfg.far) if render_depth else None)
+    return rgb_out, weights, extras, mu_t
+
+
+def _render_mip(nerf: VanillaNeRF, rays: torch.Tensor, cfg: PipelineConfig,
+                dev, n_edges: int, jitter, u, generator, train: bool = False,
+                render_depth: bool = False):
+    """Mip-NeRF's two levels (nerf_tpu/train/pipeline.py:503-525,
+    :618-632): the coarse pass over n_coarse + 1 stratified edges, then the
+    fine pass over ``n_edges`` edges drawn by inverse CDF from the
+    detached, max-blurred coarse weights at sorted uniforms ``u`` (drawn
+    from ``generator`` if None).  Returns (coarse rgb, the fine pass's
+    ``_mip_pass`` tuple); the fine eval pass composites on the white
+    background under ``white_bkg``, training never does."""
+    c_edges = sampling.stratified_samples(
+        rays.shape[0], cfg.n_coarse + 1, cfg.near, cfg.far, jitter=jitter,
+        generator=generator, device=rays.device)
+    coarse_rgb, w_c, _, _ = _mip_pass(nerf, rays, c_edges, cfg, dev, train)
+    w_blur = sampling.max_blur_filter(w_c.detach(), cfg.max_blur_alpha)
+    if u is None:
+        u = sampling.sorted_uniforms((rays.shape[0], n_edges), generator,
+                                     device=rays.device)
+    f_edges = sampling.sample_pdf(c_edges, w_blur, n_edges, u=u)[0]
+    return coarse_rgb, _mip_pass(nerf, rays, f_edges, cfg, dev, train,
+                                 white_bkg=cfg.white_bkg and not train,
+                                 render_depth=render_depth)
+
+
 def render_rays_train(models, rays: torch.Tensor, cfg: PipelineConfig,
                       noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                       generator: Optional[torch.Generator] = None,
                       device=None):
     """Training forward for a ray batch rays (R, 6): a dict with fine_rgb
     (R, 3), weights (R, P), prop_weights (R, n_coarse), bounds (R, P) and
-    bounds_idx (R, P + 1).  Vanilla: z_fine (R, P), P = n_fine.  Ref-NeRF
+    bounds_idx (R, P + 1).  Vanilla: z_fine (R, P), P = n_fine (under
+    ``use_ipe`` the frustum centres).  Mip-NeRF: only fine_rgb,
+    coarse_rgb (R, 3), weights and z_fine (R, n_fine).  Ref-NeRF
     (P = n_coarse + n_fine - 1 merged samples): pred_normal and
     density_grad (R, P, 3), fine_dirs (R, 3), coarse_pos (R, n_coarse),
     z_merged (R, P), and under ``--prop_normal`` coarse_grad (R, n_coarse,
     3) and last_fine_pos (R,).
 
-    ``noise`` = (stratified jitter (R, n_coarse), sorted inverse-CDF uniforms
-    (R, n_fine + 1)) replaces the draws from ``generator``, which also draws
-    the bottleneck noise.  ``device`` defaults to ``cuda``; ``rays`` must lie
-    there.
+    ``noise`` = (stratified jitter (R, n_coarse), or (R, n_coarse + 1) for
+    Mip-NeRF, sorted inverse-CDF uniforms (R, n_fine + 1)) replaces the
+    draws from ``generator``, which also draws the bottleneck noise.
+    ``device`` defaults to ``cuda``; ``rays`` must lie there.
     """
-    _require_ported(cfg)
+    _check_model(cfg)
     dev = resolve_device(device)
     check_device(rays, dev, "rays")
     nerf, prop = models
     ref = cfg.model == "ref"
     jitter, u = (None, None) if noise is None else noise
+    if cfg.model == "mip":
+        coarse_rgb, (fine_rgb, weights, _, mu_t) = _render_mip(
+            nerf, rays, cfg, dev, cfg.n_fine + 1, jitter, u, generator,
+            train=True)
+        # z_fine = the frustum centres, where the weights apply (read by
+        # the distortion and entropy regularizers)
+        return {"fine_rgb": fine_rgb, "coarse_rgb": coarse_rgb,
+                "weights": weights, "z_fine": mu_t}
     c_z = sampling.stratified_samples(rays.shape[0], cfg.n_coarse, cfg.near,
                                       cfg.far, jitter=jitter,
                                       generator=generator, device=rays.device)
@@ -377,10 +464,9 @@ def render_rays_train(models, rays: torch.Tensor, cfg: PipelineConfig,
             out["last_fine_pos"] = cfg.n_fine + sampling.count_lt(
                 c_z, f_z[:, -1:])[:, 0]
     else:
-        z_fine = f_z[..., :-1]
-        pos = render_lib.lengths_to_points(rays, z_fine)
+        pos, z_fine, enc_x = _vanilla_inputs(nerf, rays, f_z, cfg)
         rgb3, sigma = _apply_vanilla(nerf, pos, rays[:, 3:], cfg, dev,
-                                     train=True)
+                                     train=True, enc_x=enc_x)
         fine_rgb, weights = render_lib.composite_rl(rgb3, sigma, z_fine,
                                                     rays[:, 3:])
         out.update(fine_rgb=fine_rgb, weights=weights, bounds_idx=below,
@@ -401,18 +487,25 @@ def render_rays_eval(models, rays: torch.Tensor, cfg: PipelineConfig,
 
     Ref-NeRF composites the merged coarse and fine depths with
     softplus(raw + 0.5) as the density; ``normal_cam_dir`` (3,) adds its
-    normal map extra (ignored for the vanilla model).  ``noise`` =
-    (stratified jitter (R, n_coarse), sorted inverse-CDF uniforms
-    (R, sample_num + 1)) replaces the draws from ``generator``.  ``device``
-    defaults to ``cuda``; ``rays`` must lie there.
+    normal map extra (ignored for the other models).  Mip-NeRF composites
+    its fine pass at the frustum centres.  ``noise`` = (stratified jitter
+    (R, n_coarse), or (R, n_coarse + 1) for Mip-NeRF, sorted inverse-CDF
+    uniforms (R, sample_num + 1)) replaces the draws from ``generator``.
+    ``device`` defaults to ``cuda``; ``rays`` must lie there.
     """
-    _require_ported(cfg)
+    _check_model(cfg)
     dev = resolve_device(device)
     check_device(rays, dev, "rays")
     nerf, prop = models
     sample_num = cfg.n_fine if sample_num is None else sample_num
     jitter, u = (None, None) if noise is None else noise
     n_rays = rays.shape[0]
+
+    if cfg.model == "mip":
+        _, (rgb_out, _, extras, _) = _render_mip(
+            nerf, rays, cfg, dev, sample_num + 1, jitter, u, generator,
+            render_depth=render_depth)
+        return rgb_out, extras
 
     c_z = sampling.stratified_samples(n_rays, cfg.n_coarse, cfg.near, cfg.far,
                                       jitter=jitter, generator=generator,
@@ -431,9 +524,9 @@ def render_rays_eval(models, rays: torch.Tensor, cfg: PipelineConfig,
         if normal_cam_dir is not None:
             normal_info = (normal, normal_cam_dir)
     else:
-        z_vals = f_z[..., :-1]
-        pos = render_lib.lengths_to_points(rays, z_vals)
-        rgb3, density = _apply_vanilla(nerf, pos, rays[:, 3:], cfg, dev)
+        pos, z_vals, enc_x = _vanilla_inputs(nerf, rays, f_z, cfg)
+        rgb3, density = _apply_vanilla(nerf, pos, rays[:, 3:], cfg, dev,
+                                       enc_x=enc_x)
         rgb, act = rgb3.permute(1, 2, 0), torch.relu
     rgb_out, _, extras = render_lib.composite(
         rgb, density, z_vals, rays[:, 3:], white_bkg=cfg.white_bkg,

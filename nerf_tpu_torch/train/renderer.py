@@ -37,8 +37,9 @@ def render_image(models, c2w, hw, focal, cfg: PipelineConfig,
     """Render a full frame; returns numpy images in [0, 1].
 
     ``c2w`` is a (3, 4) or (4, 4) camera-to-world pose.  ``noise`` =
-    (jitter (H*W, n_coarse), sorted uniforms (H*W, sample_num + 1)) replaces
-    the draws from ``generator`` (a generator on ``device``).
+    (jitter (H*W, n_coarse), or (H*W, n_coarse + 1) for Mip-NeRF's coarse
+    edges, sorted uniforms (H*W, sample_num + 1)) replaces the draws from
+    ``generator`` (a generator on ``device``).
     ``render_normal`` adds the normal map along the camera axis c2w[:, 2];
     it is honoured only for the ref model.
     """
@@ -52,7 +53,8 @@ def render_image(models, c2w, hw, focal, cfg: PipelineConfig,
     pad = (-n_pix) % chunk
     rays = torch.cat([rays, rays.new_ones((pad, 6))])
     if noise is None:
-        jitter = torch.rand((n_pix, cfg.n_coarse), generator=generator,
+        n_strat = cfg.n_coarse + (1 if cfg.model == "mip" else 0)
+        jitter = torch.rand((n_pix, n_strat), generator=generator,
                             device=dev)
         u = sorted_uniforms((n_pix, sample_num + 1), generator, device=dev)
     else:

@@ -8,7 +8,9 @@ PyTorch on the device, with the same arithmetic:
   crop window while it is active, and one flat gather from the on-device
   pixel pool;
 - ``compute_loss``: MSE of the fine render plus the proposal loss over the
-  detached fine weights; for Ref-NeRF also the weighted normal loss against
+  detached fine weights (Mip-NeRF, which has no proposal net:
+  ``mip_coarse_loss_w`` times the coarse pass's MSE instead); for Ref-NeRF
+  also the weighted normal loss against
   the detached density-gradient normals, the back-face loss and, under
   ``--prop_normal``, the proposal net's normal loss at the coarse samples;
   the distortion and ray-entropy regularizers under their weights;
@@ -106,21 +108,28 @@ def compute_loss(models, rays: torch.Tensor, rgb_gt: torch.Tensor,
                  cfg: PipelineConfig, noise=None,
                  generator: Optional[torch.Generator] = None, device=None):
     """(loss, metrics) for one ray batch: the proposal loss over the
-    detached fine weights plus the MSE of the fine render, and for Ref-NeRF
+    detached fine weights (Mip-NeRF: ``mip_coarse_loss_w`` times the coarse
+    pass's MSE) plus the MSE of the fine render, and for Ref-NeRF
     ``normal_loss_w`` (normal loss + ``coarse_normal_rel_w`` coarse normal
     loss) + ``backface_w`` back-face loss; ``distortion_w`` times the
     reference's distortion loss over the fine weights and depths (Ref-NeRF:
     the merged ones) and ``entropy_w`` times the ray-entropy loss, where
     they are positive.  ``metrics`` holds img_loss,
-    prop_loss, psnr and loss (Ref-NeRF: also normal_loss and bf_loss), as
-    device tensors."""
+    prop_loss (Mip-NeRF: coarse_loss), psnr and loss (Ref-NeRF: also
+    normal_loss and bf_loss), as device tensors."""
     out = render_rays_train(models, rays, cfg, noise=noise,
                             generator=generator, device=device)
     img_loss = losses.mse(out["fine_rgb"], rgb_gt)
-    prop_loss = losses.proposal_loss(out["bounds"], out["weights"].detach())
-    loss = prop_loss + img_loss
-    metrics = {"img_loss": img_loss, "prop_loss": prop_loss,
-               "psnr": losses.mse_to_psnr(img_loss)}
+    if cfg.model == "mip":
+        coarse_loss = losses.mse(out["coarse_rgb"], rgb_gt)
+        loss = img_loss + cfg.mip_coarse_loss_w * coarse_loss
+        metrics = {"img_loss": img_loss, "coarse_loss": coarse_loss}
+    else:
+        prop_loss = losses.proposal_loss(out["bounds"],
+                                         out["weights"].detach())
+        loss = prop_loss + img_loss
+        metrics = {"img_loss": img_loss, "prop_loss": prop_loss}
+    metrics["psnr"] = losses.mse_to_psnr(img_loss)
     if cfg.model == "ref":
         normal_loss = losses.weighted_normal_loss(
             out["weights"], out["density_grad"], out["pred_normal"])
@@ -144,12 +153,13 @@ def compute_loss(models, rays: torch.Tensor, rgb_gt: torch.Tensor,
 
 
 def train_parameters(models) -> list:
-    """The trained parameters: the fine net's, then the proposal net's."""
-    return [p for m in models for p in m.parameters()]
+    """The trained parameters: the fine net's, then the proposal net's
+    (Mip-NeRF has none)."""
+    return [p for m in models if m is not None for p in m.parameters()]
 
 
 def make_optimizer(models, lr: float = 0.0) -> torch.optim.Adam:
-    """Adam(0.9, 0.999, eps 1e-8) over both nets (train.py:118-121 of the
+    """Adam(0.9, 0.999, eps 1e-8) over the nets (train.py:118-121 of the
     reference); ``train_step`` sets the rate before every update."""
     return torch.optim.Adam(train_parameters(models), lr=lr,
                             betas=ADAM_BETAS, eps=ADAM_EPS)
@@ -174,7 +184,7 @@ def train_step(models, optimizer: torch.optim.Optimizer, rays: torch.Tensor,
                grad_clip: float = -1.0, noise=None,
                generator: Optional[torch.Generator] = None,
                device=None) -> Dict[str, torch.Tensor]:
-    """One update of both nets: loss, grads, optional clipping, Adam at
+    """One update of the nets: loss, grads, optional clipping, Adam at
     rate ``lr``.  Returns the step's metrics, detached, on the device."""
     dev = resolve_device(device)
     check_device(rays, dev, "rays")

@@ -66,16 +66,40 @@ def test_render_rays_eval_matches_jax(variables, use_kernels):
 
 
 def test_render_rays_eval_rejects_unported_paths(variables):
+    """Only an unknown model is refused now: Mip-NeRF (-m) and the IPE
+    mode (--use_ipe), once refused here, render, held against nerf_tpu's
+    XLA route (tests/test_torch_mip.py holds every route)."""
     _, cfg = configs()
     models = port_models(cfg, variables)
-    rays = torch.ones(4, 6)
+    with pytest.raises(ValueError, match="unknown model"):
+        render_rays_eval(models, torch.ones(4, 6),
+                         cfg.replace(model="nerfacto"), device="cpu")
+    pose = jrays.pose_spherical(30.0, -30.0, 4.0)
+    focal = jrays.fov_to_focal(FOV, (8, 8))
+    rays = rays_for(8, 8, pose, focal)
+    radius = 2.0 / np.sqrt(12.0) / float(focal[0])
     for kw in (dict(model="mip"), dict(use_ipe=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            render_rays_eval(models, rays, cfg.replace(**kw), device="cpu")
+        jcfg, pcfg = configs(ipe_radius=radius, **kw)
+        v = ({"nerf": variables["nerf"]} if pcfg.model == "mip"
+             else variables)
+        n_strat = pcfg.n_coarse + (pcfg.model == "mip")
+        jit, u = eval_noise(np.random.default_rng(2), 64, n_strat,
+                            pcfg.n_fine)
+        jrgb, _ = jax_render_rays_eval(
+            jax_make_models(jcfg), v, jnp.asarray(rays), None, jcfg,
+            noise=(jnp.asarray(jit), jnp.asarray(u)))
+        rgb, _ = render_rays_eval(
+            port_models(pcfg, v), torch.from_numpy(rays.copy()), pcfg,
+            noise=(torch.from_numpy(jit), torch.from_numpy(u)),
+            device="cpu")
+        assert torch.isfinite(rgb).all(), kw
+        np.testing.assert_allclose(rgb.numpy(), np.asarray(jrgb), **RGB_TOL,
+                                   err_msg=str(kw))
     # Ref-NeRF trains through the recompute forms of its backwards too
     # (tests/test_torch_recompute.py holds them against nerf_tpu)
     ref = cfg.replace(model="ref", store_residuals=False)
-    out = render_rays_train(make_models(ref, "cpu"), rays, ref, device="cpu")
+    out = render_rays_train(make_models(ref, "cpu"), torch.ones(4, 6), ref,
+                            device="cpu")
     assert torch.isfinite(out["fine_rgb"]).all()
 
 

@@ -88,15 +88,42 @@ def test_batch_scaling_ref_prop_res_on_cpu(small_scene):
     assert out["rays_per_s"] > 0
 
 
-@pytest.mark.parametrize("argv, match", [
-    (["--axis", "select"], "no counterpart"),
-    (["--axis", "tile"], "no counterpart"),
-    (["--axis", "pe"], "no counterpart"),
-    (["--axis", "bufs"], "no counterpart"),
-    (["--model", "mip"], "A5")])
-def test_batch_scaling_refuses_what_is_not_ported(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("argv, exc, match", [
+    (["--axis", "select"], NotImplementedError, "no counterpart"),
+    (["--axis", "tile"], NotImplementedError, "no counterpart"),
+    (["--axis", "pe"], NotImplementedError, "no counterpart"),
+    (["--axis", "bufs"], NotImplementedError, "no counterpart"),
+    (["--model", "mip", "--axis", "prop_res"], ValueError, "proposal")])
+def test_batch_scaling_refuses_what_is_not_ported(argv, exc, match):
+    """The JAX package's XLA/Mosaic axes have no counterpart; Mip-NeRF
+    (ported now) has no proposal net for the prop_res axis to swing."""
+    with pytest.raises(exc, match=match):
         batch_scaling.main(argv, device="cpu")
+
+
+@pytest.mark.parametrize("variant", list(batch_scaling.AXES["residuals"]))
+def test_batch_scaling_mip_rows_on_cpu(small_scene, variant):
+    """``--model mip``'s rows (refused before Mip-NeRF was ported): each
+    variant of its default axis, ``residuals``, measured at narrow widths
+    on the CPU with the IPE config of the JAX tool; rays/s, no device peak,
+    no launch."""
+    cfg = batch_scaling.config("mip", 4, **batch_scaling.AXES["residuals"][
+        variant]).replace(n_coarse=8, n_fine=16, nerf_width=32)
+    assert cfg.use_ipe and cfg.model == "mip"
+    ops.reset_launches()
+    out = batch_scaling.measure(cfg, n_scan=2, device="cpu",
+                                train_set=small_scene)
+    assert out["rays_per_s"] > 0 and out["peak_bytes"] is None
+    assert not any(ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("model, axis", [("vanilla", "prop_res"),
+                                         ("ref", "prop_res"),
+                                         ("mip", "residuals")])
+def test_batch_scaling_default_axis(model, axis):
+    """The sweep's axis when none is given: Mip-NeRF, with no proposal net
+    to swing, sweeps the fine net's backward form."""
+    assert batch_scaling.parse_args(["--model", model]).axis == axis
 
 
 def test_tools_run_on_the_card_only_when_asked():

@@ -344,14 +344,32 @@ def test_sample_train_rays_draws_inside_the_crop(scene):
 
 
 def test_unported_training_variants_raise():
-    """Mip-NeRF raises, naming its item; the proposal net's residual pair
-    (prop_store_residuals=True, or None with store_residuals=True) runs
-    (tests/test_torch_prop_res.py holds it against nerf_tpu)."""
-    _, cfg = configs()
-    models = port_models(cfg, jax_variables(configs()[0], seed=0))
-    r = torch.ones(4, 6)
-    with pytest.raises(NotImplementedError, match="section A"):
-        render_rays_train(models, r, cfg.replace(model="mip"), device="cpu")
+    """Only an unknown model raises now.  Mip-NeRF, which raised here
+    before it was ported, trains: its forward (fine and coarse rgb, fine
+    weights) held against nerf_tpu's XLA route on the same noise
+    (tests/test_torch_mip.py holds its step).  The proposal net's residual
+    pair (prop_store_residuals=True, or None with store_residuals=True)
+    runs (tests/test_torch_prop_res.py holds it against nerf_tpu)."""
+    jcfg, cfg = configs()
+    models = port_models(cfg, jax_variables(jcfg, seed=0))
+    with pytest.raises(ValueError, match="unknown model"):
+        render_rays_train(models, torch.ones(4, 6),
+                          cfg.replace(model="nerfacto"), device="cpu")
+    mip = dict(model="mip", ipe_radius=0.02, white_bkg=False)
+    jmip, pmip = configs(**mip)
+    v = jax_variables(jmip, seed=0)
+    rays, _, jit, u = two_camera_batch(3, 4, cfg.n_coarse + 1, cfg.n_fine)
+    from nerf_tpu.train.pipeline import render_rays_train as jax_train
+
+    jout = jax_train(jax_make_models(jmip), v, jnp.asarray(rays), None, jmip,
+                     noise=(jnp.asarray(jit), jnp.asarray(u)))
+    out = render_rays_train(port_models(pmip, v), _t(rays), pmip,
+                            noise=(_t(jit), _t(u)), device="cpu")
+    for k in ("fine_rgb", "coarse_rgb", "weights", "z_fine"):
+        assert torch.isfinite(out[k]).all(), k
+        np.testing.assert_allclose(out[k].detach().numpy(),
+                                   np.asarray(jout[k]), rtol=1e-4,
+                                   atol=2e-5, err_msg=k)
     rays, _, jit, u = two_camera_batch(3, 4, cfg.n_coarse, cfg.n_fine)
     for kw in (dict(prop_store_residuals=True),
                dict(prop_store_residuals=None)):
@@ -423,11 +441,68 @@ def test_trainer_end_to_end_on_cpu(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["-l"], "A8"), (["--ckpt_dir", "ck"], "A8"), (["-b"], "A10"),
-    (["--trace", "tr"], "A4"), (["-m"], "A5"), (["--use_ipe"], "A5")])
+    (["--trace", "tr"], "A4")])
 def test_trainer_rejects_unported_flags(tmp_path, flag, item):
     args = get_parser().parse_args(_train_argv(tmp_path, *flag))
     with pytest.raises(NotImplementedError, match=item):
         train(args, device="cpu")
+
+
+@pytest.mark.parametrize("flag", [["-m"], ["--use_ipe"]])
+def test_trainer_runs_mip_and_ipe_flags(tmp_path, monkeypatch, flag):
+    """-m and --use_ipe, once refused by the trainer, train one epoch; the
+    first step's loss equals nerf_tpu's compute_loss (XLA route) on the
+    same rays, noise and initial weights, within LOSS_RTOL.  The first
+    step's rays and noise are recorded by wrapping train_step."""
+    import nerf_tpu_torch.cli.trainer as trainer_mod
+
+    monkeypatch.chdir(tmp_path)
+    seen = []
+    step = trainer_mod.train_step
+
+    def recording_step(models, opt, rays_, gt, cfg, lr, **kw):
+        if not seen:
+            gen = kw["generator"]
+            state = gen.get_state()
+            n_strat = cfg.n_coarse + (cfg.model == "mip")
+            jit = torch.rand((rays_.shape[0], n_strat), generator=gen)
+            u = sampling.sorted_uniforms((rays_.shape[0], cfg.n_fine + 1),
+                                         gen)
+            gen.set_state(state)
+            sd = {k: v.detach().clone()
+                  for m in models if m is not None
+                  for k, v in m.state_dict().items()}
+            seen.append((rays_.clone(), gt.clone(), jit, u, sd, cfg))
+        return step(models, opt, rays_, gt, cfg, lr, **kw)
+
+    monkeypatch.setattr(trainer_mod, "train_step", recording_step)
+    args = get_parser().parse_args(_train_argv(
+        tmp_path, *flag, "--epochs", "1", "--output_time", "5"))
+    trainer = train(args, device="cpu")
+    assert trainer.cfg.use_ipe and trainer.cfg.ipe_radius > 0.0
+    assert trainer.step == 7 and np.isfinite(trainer.losses).all()
+    assert (trainer.models[1] is None) == (flag == ["-m"])
+    rays_, gt, jit, u, _, cfg = seen[0]
+    nerf = trainer.models[0]
+    params = {"nerf": bridge.state_dict_to_flax(
+        {k: v for k, v in seen[0][4].items() if k in nerf.state_dict()},
+        "nerf")}
+    if trainer.models[1] is not None:
+        params["prop"] = bridge.state_dict_to_flax(
+            {k: v for k, v in seen[0][4].items()
+             if k in trainer.models[1].state_dict()}, "prop")
+    from nerf_tpu.train.config import PipelineConfig as JaxConfig
+
+    jcfg = JaxConfig(**{f: getattr(cfg, f) for f in (
+        "model", "near", "far", "n_coarse", "n_fine", "ray_batch",
+        "white_bkg", "nerf_width", "prop_width", "use_ipe", "ipe_radius")},
+        use_pallas=False)
+    jloss, _ = jax_compute_loss(
+        jax_make_models(jcfg), jax.tree.map(jnp.asarray, params),
+        jnp.asarray(rays_.numpy()), jnp.asarray(gt.numpy()), None, jcfg,
+        noise=(jnp.asarray(jit.numpy()), jnp.asarray(u.numpy())))
+    np.testing.assert_allclose(trainer.losses[0], float(jloss),
+                               rtol=LOSS_RTOL)
 
 
 def test_entry_trains_ref_nerf_on_cpu(tmp_path, monkeypatch):

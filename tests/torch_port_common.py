@@ -142,12 +142,14 @@ def step_variables(model: str):
     return _STEP_VARIABLES[model]
 
 
-def step_loss_and_grads(model: str, **kw):
+def step_loss_and_grads(model: str, jax_kw=None, **kw):
     """compute_loss of nerf_tpu (Pallas in interpret mode) and of the port
     (plain versions, no launch) on one seeded batch with the config
-    overrides ``kw``: the loss and its terms are held within
+    overrides ``kw`` (``jax_kw`` overrides the JAX config's further, e.g.
+    its XLA route): the loss and its terms are held within
     STEP_LOSS_RTOL (each term live, above 0), and (port grads, JAX grads)
-    are returned as flax trees."""
+    are returned as flax trees.  Mip-NeRF ("mip") has no proposal net: its
+    terms are the fine and coarse MSE, its jitter n_coarse + 1 wide."""
     import jax
     import jax.numpy as jnp
 
@@ -157,9 +159,10 @@ def step_loss_and_grads(model: str, **kw):
     from nerf_tpu_torch.train.step import compute_loss
 
     jcfg, cfg = step_configs(model, **kw)
+    jcfg = jcfg.replace(**(jax_kw or {}))
     v = step_variables(model)
-    rays, gt, jit, u = two_camera_batch(1, STEP_RAYS, cfg.n_coarse,
-                                        cfg.n_fine)
+    rays, gt, jit, u = two_camera_batch(
+        1, STEP_RAYS, cfg.n_coarse + (model == "mip"), cfg.n_fine)
     (jloss, jm), jg = jax.value_and_grad(
         lambda prm: jax_compute_loss(jax_make_models(jcfg), prm,
                                      jnp.asarray(rays), jnp.asarray(gt),
@@ -173,7 +176,8 @@ def step_loss_and_grads(model: str, **kw):
                            device="cpu")
     loss.backward()
     assert not any(ops.LAUNCHES.values())
-    keys = ("loss", "img_loss", "prop_loss") + (
+    keys = ("loss", "img_loss") + (
+        ("coarse_loss",) if model == "mip" else ("prop_loss",)) + (
         ("normal_loss", "bf_loss") if model == "ref" else ())
     for k in keys:
         np.testing.assert_allclose(float(m[k].detach()), float(jm[k]),
@@ -183,10 +187,11 @@ def step_loss_and_grads(model: str, **kw):
                                rtol=STEP_LOSS_RTOL)
     nerf, prop = models
     got = {"nerf": bridge.state_dict_to_flax(
-               {k: p.grad for k, p in nerf.named_parameters()},
-               "ref" if model == "ref" else "nerf"),
-           "prop": bridge.state_dict_to_flax(
-               {k: p.grad for k, p in prop.named_parameters()}, "prop")}
+        {k: p.grad for k, p in nerf.named_parameters()},
+        "ref" if model == "ref" else "nerf")}
+    if prop is not None:
+        got["prop"] = bridge.state_dict_to_flax(
+            {k: p.grad for k, p in prop.named_parameters()}, "prop")
     return got, jax.tree.map(np.asarray, jg)
 
 
@@ -199,9 +204,11 @@ def assert_step_grads_close(model: str, got, want):
         prop_weights_from_params, vanilla_weights_from_params,
     )
 
-    if model == "vanilla":
-        for net, fn in (("nerf", vanilla_weights_from_params),
-                        ("prop", prop_weights_from_params)):
+    assert set(got) == set(want)
+    if model in ("vanilla", "mip"):
+        nets = (("nerf", vanilla_weights_from_params),
+                ("prop", prop_weights_from_params))
+        for net, fn in nets[:len(want)]:
             for i, (a, b) in enumerate(zip(fn(got[net]), fn(want[net]))):
                 a, b = np.asarray(a), np.asarray(b)
                 rel = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
