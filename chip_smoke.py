@@ -149,19 +149,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
                (mip_train_profile); a 40-step `--use_ipe` run and its
                render (ipe_train, ipe_render_trained); the peak memory and
                ms a step of both forms (step_memory)
- 19. the kernels line, then the last line {"ok": true, "device": {...}}
+ 19. ops_shell - the trainer's operations shell at the default full width,
+               bf16, through the kernels: for vanilla, Ref-NeRF and -m, 6
+               steps straight (twice) against 3 steps, a save through
+               CheckpointManager, a load into fresh modules, optimizer and
+               generator and 3 more, equal bit for bit, with the slot's MB
+               and its save and load ms (resume_step); `python -m
+               nerf_tpu_torch -s -w --epochs 5 --ckpt_dir D --max_save 2` in
+               a subprocess, SIGTERM after the first epoch's line: exit
+               143, the index's step and epoch, the seconds from the signal
+               to the exit, then `-l` runs the remaining epochs with each
+               kernel's launches a step times the steps (sigterm); `-r -e -s
+               -w` from the run's .pt and, with those moved away, from the
+               newest slot: equal frames (render_fallback); a `-b` run with
+               no kernel launched and a planted NaN named by its module
+               (debug); loop_ab.py's readings of the trainer's loop: the
+               device's idle ms at each of three epoch boundaries with the
+               one-epoch-deep read-back, and rays/s (epoch_gap)
+ 20. the kernels line, then the last line {"ok": true, "device": {...}}
 
+Every line carries ``elapsed_s``, the seconds since the script started.
 Imports nothing of JAX or nerf_tpu.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -191,9 +211,18 @@ from nerf_tpu_torch.train.step import (
     compute_loss, make_optimizer, sample_train_rays, train_parameters,
     train_step,
 )
-from nerf_tpu_torch.utils.checkpoint import save_models
+from nerf_tpu_torch.train import schedule as schedule_lib
+from nerf_tpu_torch.utils.checkpoint import (
+    NETS, CheckpointManager, checkpoint_paths, load_checkpoint, save_models,
+)
+from nerf_tpu_torch.utils.debug import nan_attribution
 from nerf_tpu_torch.utils.metrics import read_scalars
 from nerf_tpu_torch.utils.png import read_png, write_png
+
+import loop_ab
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 LEGO_FOV = 0.6911112070083618       # lego's camera_angle_x
 CHUNK = 4096                        # --eval_chunk default
@@ -454,7 +483,10 @@ MEMORY_STEPS, MEMORY_RUNS = 20, 3
 
 
 def emit(phase: str, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw,
+                      "elapsed_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def fail(msg: str):
@@ -2350,11 +2382,17 @@ def delta_operands(gen, n, k, n_out, form, dtype):
     return kw
 
 
+# timings of each delta case, whose median is read: each sleeps the card
+# SLEEP_CYCLES first, and at 20 the phase's 48 timed cases took 95 s
+DELTA_REPS = 10
+
+
 def delta_check(gen, n, k, n_out, form, dtype, timed=True):
     """One delta shape and form: the pass against its plain version (max
     abs error of its output and its stored rows, within TOLS), its stored
     rows against its output and a second launch, bit for bit; with
-    ``timed`` the device ms (cuda_device_ms) of the pass, of the plain
+    ``timed`` the device ms (cuda_device_ms, median of DELTA_REPS) of the
+    pass, of the plain
     version and of torch.mm(a, W^T) on the same operands (the product's
     yardstick: no mask, no store), and the bound: 2 n k n_out FLOPs (plus
     the K = 1 term's 2 n n_out) against each operand read once and the
@@ -2385,10 +2423,11 @@ def delta_check(gen, n, k, n_out, form, dtype, timed=True):
     # also writes its copy in the compute dtype, which the bound leaves out)
     if form != "f32":
         kw["store"] = None
-    ms = cuda_device_ms(lambda: ops.delta_layer(**kw), 20)
-    plain_ms = cuda_device_ms(lambda: ops.delta_layer_plain(**kw), 20)
+    ms = cuda_device_ms(lambda: ops.delta_layer(**kw), DELTA_REPS)
+    plain_ms = cuda_device_ms(lambda: ops.delta_layer_plain(**kw),
+                              DELTA_REPS)
     a, wt = kw["a"], kw["w"].t()
-    library_ms = cuda_device_ms(lambda: torch.mm(a, wt), 20)
+    library_ms = cuda_device_ms(lambda: torch.mm(a, wt), DELTA_REPS)
     moved = _nbytes(*[v for v in kw.values() if torch.is_tensor(v)]) \
         + n * n_out * (4 if form == "f32" else a.element_size())
     flops = 2.0 * n * n_out * (k + (1 if form == "gs" else 0))
@@ -2660,6 +2699,265 @@ def profile_trainer(tmp: str, epochs: int = 5, *extra: str):
                 device_busy_share=(device_ms / (wall * 1e3)
                                    if device_ms is not None else None),
                 top_device_ms_per_step=[[k, v / steps] for k, v in top])
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the trainer's operations shell (resume, the rotating window, the
+# SIGTERM save, render-only's fallback, -b, the one-epoch-deep read-back)
+# ---------------------------------------------------------------------------
+
+RESUME_STEPS = 3        # N: 2N steps straight against N, save, load, N
+SHELL_EPOCHS = 5        # the SIGTERM drill's run
+
+
+def _params(models) -> list:
+    return [(f"{net}.{k}", p) for net, m in zip(NETS, models)
+            if m is not None for k, p in m.named_parameters()]
+
+
+@torch.no_grad()
+def _max_abs(a_models, b_models) -> dict:
+    """{parameter: max |a - b|} of the parameters that differ."""
+    out = {}
+    for (name, p), (_, q) in zip(_params(a_models), _params(b_models)):
+        d = float((p - q).abs().max())
+        if d != 0.0 or not torch.equal(p, q):
+            out[name] = d
+    return out
+
+
+def resume_step(tmp: str, model: str):
+    """A default bf16 step of ``model`` through the kernels, 2N steps
+    straight (twice: is the straight run itself repeatable?) against N
+    steps, a save through CheckpointManager, a load into fresh modules,
+    optimizer and generator, and N more: the params must be equal bit for
+    bit.  Pixels and noise are drawn from the generator, as in the trainer,
+    on a 4-view 400x400 pool drawn from a seed.  Also the slot's size and
+    its save and load ms (median of 3, each ending in a synchronize)."""
+    focal = fov_to_focal(LEGO_FOV, (400, 400))
+    cfg = finalize_config(PipelineConfig(model=model, use_bf16=True), focal)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    pool = torch.rand((4, 400 * 400, 3), generator=g, device="cuda")
+    poses = torch.tensor(np.stack([pose_spherical(a, -30.0, 4.0)[:3]
+                                   for a in (0.0, 90.0, 180.0, 270.0)]),
+                         dtype=torch.float32, device="cuda")
+    lr = schedule_lib.decay_schedule(5e-4, warmup_step=0)
+
+    def fresh(seed):
+        models = make_models(cfg, "cuda", torch.Generator().manual_seed(seed))
+        return (models, make_optimizer(models),
+                torch.Generator(device="cuda").manual_seed(seed))
+
+    def run(state, i0, i1):
+        models, opt, gen = state
+        for i in range(i0, i1):
+            rays, gt = sample_train_rays(pool, poses, i % 4, (400, 400),
+                                         focal, RAYS, generator=gen)
+            train_step(models, opt, rays, gt, cfg, lr(i), generator=gen,
+                       device="cuda")
+        torch.cuda.synchronize()
+
+    ops.reset_launches()
+    straight, repeat = fresh(0), fresh(0)
+    run(straight, 0, 2 * RESUME_STEPS)
+    run(repeat, 0, 2 * RESUME_STEPS)
+    first = fresh(0)
+    run(first, 0, RESUME_STEPS)
+    mgr = CheckpointManager(os.path.join(tmp, "resume", model),
+                            prefix=f"{model}_chkpt")
+    save_ms, load_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = mgr.save(*first, step=RESUME_STEPS, epoch=0)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+    resumed = fresh(7)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_checkpoint(mgr.latest_path(), *resumed)
+        torch.cuda.synchronize()
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+    run(resumed, RESUME_STEPS, 2 * RESUME_STEPS)
+    launches = dict(ops.LAUNCHES)
+    steps = 6 * RESUME_STEPS
+    want = {k: c * steps for k, c in per_step(model).items()}
+    if {k: launches[k] for k in want} != want:
+        fail(f"resume_step {model}: launches {launches}, expected {want}")
+    repeat_diff = _max_abs(straight[0], repeat[0])
+    resume_diff = _max_abs(straight[0], resumed[0])
+    res = dict(model=model, steps=2 * RESUME_STEPS, launches=launches,
+               straight_repeat_equal=not repeat_diff,
+               straight_repeat_max_abs=repeat_diff,
+               resume_equal=not resume_diff, resume_max_abs=resume_diff,
+               slot_mb=os.path.getsize(path) / 1e6,
+               param_mb=sum(p.numel() * 4 for _, p in _params(first[0]))
+               / 1e6, save_ms=statistics.median(save_ms),
+               load_ms=statistics.median(load_ms), save_ms_all=save_ms,
+               load_ms_all=load_ms)
+    if resume_diff:
+        fail(f"resume_step {model}: the resumed params part from the "
+             f"straight run's: {res}")
+    return res
+
+
+def sigterm_drill(tmp: str):
+    """``python -m nerf_tpu_torch -s -w --epochs 5 --ckpt_dir D --max_save
+    2`` in a subprocess on the card, SIGTERM once the first epoch's line is
+    printed: exit 143, a slot whose index holds step (epoch + 1) x 20 of an
+    epoch before the last, and the seconds from the signal to the exit.
+    Then ``-l`` in this process runs the saved epoch again and the rest
+    through the kernels: each training kernel launches its count a step
+    times the steps, each eval forward once a chunk of the final render."""
+    ckpt = os.path.join(tmp, "ckpt_drill")
+    argv = train_argv(tmp, "--log_dir", os.path.join(tmp, "logs", "drill"),
+                      "--ckpt_dir", ckpt, "--max_save", "2", "--name",
+                      "drill_1", "--output_time", "100000",
+                      epochs=SHELL_EPOCHS)
+    with open(os.path.join(tmp, "drill.err"), "w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "nerf_tpu_torch", *argv], cwd=tmp,
+            env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.PIPE,
+            stderr=err, text=True)
+        lines = []
+        try:
+            for line in proc.stdout:
+                lines.append(line)
+                if line.startswith("Epoch    0 /"):
+                    break
+            t_sig = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            lines.append(proc.communicate(timeout=600)[0])
+            exit_s = time.perf_counter() - t_sig
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        stderr = err.read()
+    stdout = "".join(lines)
+    idx_path = os.path.join(ckpt, "lego", "drill_1_chkpt_index.json")
+    if proc.returncode != 128 + signal.SIGTERM or not os.path.exists(
+            idx_path):
+        fail(f"SIGTERM drill: rc {proc.returncode}, stdout {stdout[-2000:]}"
+             f", stderr {stderr[-2000:]}")
+    with open(idx_path) as f:
+        idx = json.load(f)
+    if not (idx["step"] == (idx["epoch"] + 1) * TRAIN_VIEWS
+            and idx["epoch"] < SHELL_EPOCHS - 1 and idx["count"] == 1
+            and f"checkpointed step {idx['step']}, epoch {idx['epoch']}"
+            in stdout):
+        fail(f"SIGTERM drill: index {idx}, stdout {stdout[-2000:]}")
+    ops.reset_launches()
+    with cwd(tmp):
+        rc = entry_main(argv + ["-l"])
+    launches = dict(ops.LAUNCHES)
+    steps = (SHELL_EPOCHS - idx["epoch"]) * TRAIN_VIEWS
+    want = route_launches("vanilla", steps, math.ceil(400 * 400 / CHUNK))
+    final = torch.load(os.path.join(tmp, "model", "drill_1_mip.pt"),
+                       weights_only=True)
+    # the saved epoch runs again, as in nerf_tpu
+    if rc != 0 or launches != want or \
+            final["train_cnt"] != idx["step"] + steps:
+        fail(f"-l after the SIGTERM drill: rc {rc}, launches {launches}, "
+             f"expected {want}, train_cnt {final['train_cnt']}")
+    return dict(command="python -m nerf_tpu_torch " + " ".join(
+        a if "/" not in a else "<tmp>" for a in argv), rc=proc.returncode,
+        index=idx, signal_to_exit_s=exit_s, resumed_steps=steps,
+        resumed_launches=launches)
+
+
+def render_fallback(tmp: str):
+    """``-r -e -s -w`` of the drill's run twice: from its
+    ``model/drill_1_{mip,prop}.pt``, then with those moved away, from the
+    newest slot under ``--ckpt_dir`` (the same weights: the last eval's
+    slot and the final save follow the same step).  The frames are equal
+    bit for bit, and each eval forward launches once a chunk."""
+    import nerf_tpu_torch.cli.render as render_cli
+
+    argv = ["-r", "-e", "-s", "-w", "--dataset_root",
+            os.path.join(tmp, "data"), "--dataset_name", "lego", "--name",
+            "drill_1", "--ckpt_dir", os.path.join(tmp, "ckpt_drill"),
+            "--output_dir", os.path.join(tmp, "output")]
+    render = render_cli.render_image
+    frames, loaded = {}, {}
+
+    def recording(*a, **kw):
+        out = render(*a, **kw)
+        frames[source].append(out["rgb"])
+        return out
+
+    render_cli.render_image = recording
+    try:
+        for source in ("pt", "slot"):
+            if source == "slot":
+                for path in checkpoint_paths("model", "drill_1"):
+                    os.replace(os.path.join(tmp, path),
+                               os.path.join(tmp, path + ".away"))
+            frames[source] = []
+            ops.reset_launches()
+            with cwd(tmp), contextlib.redirect_stdout(io.StringIO()) as out:
+                entry_main(argv)
+            loaded[source] = next(ln for ln in out.getvalue().splitlines()
+                                  if ln.startswith("Loaded ")
+                                  and "(step " in ln)
+            want = route_launches("vanilla", 0, math.ceil(400 * 400 / CHUNK))
+            if dict(ops.LAUNCHES) != want:
+                fail(f"render_fallback ({source}): launches "
+                     f"{dict(ops.LAUNCHES)}, expected {want}")
+    finally:
+        render_cli.render_image = render
+    equal = len(frames["pt"]) == len(frames["slot"]) == 1 and all(
+        np.array_equal(a, b) for a, b in zip(frames["pt"], frames["slot"]))
+    if not equal or "chkpt" not in loaded["slot"]:
+        fail(f"render_fallback: frames equal {equal}, loaded {loaded}")
+    return dict(loaded=loaded, frames_equal=equal,
+                max_abs=float(np.abs(frames["pt"][0]
+                                     - frames["slot"][0]).max()))
+
+
+def debug_run(tmp: str):
+    """``-b`` through the entry (2 epochs, an eval at the second): no kernel
+    launches; then a NaN planted in one weight of a full-width fine net: a
+    default f32 step's loss raises FloatingPointError naming its module."""
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with cwd(tmp):
+        rc = entry_main(train_argv(tmp, "-b", "--name", "debug_1",
+                                   "--log_dir", os.path.join(tmp, "logs",
+                                                             "debug"),
+                                   "--output_time", "1", epochs=2))
+    wall = time.perf_counter() - t0
+    if rc != 0 or any(ops.LAUNCHES.values()):
+        fail(f"-b run: rc {rc}, launches {dict(ops.LAUNCHES)}")
+    cfg = PipelineConfig(use_pallas=False)
+    models = seeded_models(cfg, 5)
+    with torch.no_grad():
+        models[0].lin_block2[2].weight[7, 3] = float("nan")
+    rays, gt, jitter, u = step_batch()
+    try:
+        with nan_attribution(models):
+            compute_loss(models, rays, gt, cfg, noise=(jitter, u),
+                         device="cuda")
+        message = None
+    except FloatingPointError as e:
+        message = str(e)
+    if message is None or "of nerf.lin_block2.2 (Dense)" not in message \
+            or any(ops.LAUNCHES.values()):
+        fail(f"-b planted NaN: {message}, launches {dict(ops.LAUNCHES)}")
+    return dict(steps=2 * TRAIN_VIEWS, s_entry=wall, launches=0,
+                planted_nan=message)
+
+
+def epoch_gap(tmp: str):
+    """``loop_ab.turn`` on this checkout: the device's idle ms at each of
+    three epoch boundaries of ``Trainer.train()`` with the one-epoch-deep
+    read-back, the epochs' device periods as rays/s, and the rays/s of
+    ``Trainer.run_epoch`` as PERF.md §2 measures them.  ``python3
+    loop_ab.py --other <checkout>`` takes the same readings of another
+    checkout in turns with this one."""
+    return loop_ab.turn(ROOT, loop_ab.loop_argv(sys.modules[__name__], tmp),
+                        tmp)
 
 
 # ---------------------------------------------------------------------------
@@ -3152,7 +3450,18 @@ def main() -> int:
     memory["mip"] = step_memory("mip")
     emit("step_memory", model="mip", **memory["mip"])
 
-    # phase 19: the kernels line, then the last line.  ``launches`` is each
+    # phase 19: the trainer's operations shell
+    for model in ("vanilla", "ref", "mip"):
+        with tempfile.TemporaryDirectory() as tmp:
+            emit("resume_step", **resume_step(tmp, model))
+    with tempfile.TemporaryDirectory() as tmp:
+        write_train_split(tmp)
+        emit("sigterm", **sigterm_drill(tmp))
+        emit("render_fallback", **render_fallback(tmp))
+        emit("debug", **debug_run(tmp))
+        emit("epoch_gap", **epoch_gap(tmp))
+
+    # phase 20: the kernels line, then the last line.  ``launches`` is each
     # kernel's count in its path's run: the vanilla train path (training
     # steps and the final eval render) for the vanilla kernels, the Ref-NeRF
     # render path for the Ref-NeRF eval forwards, the Ref-NeRF train path

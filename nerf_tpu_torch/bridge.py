@@ -1,12 +1,16 @@
 """Weights across the two packages: flax parameter trees <-> the port's
-``state_dict``s.
+``state_dict``s, and ``nerf_tpu``'s optax Adam state -> torch's Adam.
 
 A flax tree here is a nested dict of numpy arrays (``np.asarray`` of each
-leaf of ``nerf_tpu``'s params).  A flax ``Dense`` kernel is (in, out) and a
-torch ``Linear`` weight is (out, in).  The state-dict keys are the reference
-torch layout, the same as ``tools/export_torch_checkpoint.py`` writes, so the
-port's own copy of that mapping lives here.  Both directions are exact
-(transposes and f32 copies only).
+leaf of ``nerf_tpu``'s params, or a tree read from its checkpoint by
+``utils/checkpoint.load_nerf_tpu_checkpoint``).  A flax ``Dense`` kernel is
+(in, out) and a torch ``Linear`` weight is (out, in).  The state-dict keys
+are the reference torch layout, the same as
+``tools/export_torch_checkpoint.py`` writes, so the port's own copy of that
+mapping lives here.  Both directions are exact (transposes and f32 copies
+only).  A leading replica axis, which ``nerf_tpu``'s ddp and ma modes leave
+on every leaf, is dropped (its first replica is read, as
+nerf_tpu/cli/render.py:54-65 does).
 """
 
 from __future__ import annotations
@@ -56,18 +60,29 @@ def _layers(net: str):
     raise ValueError(f"unknown net {net!r}; expected 'nerf', 'ref' or 'prop'")
 
 
+def _first_replica(a, ndim: int) -> np.ndarray:
+    """``a`` as f32, its leading replica axis dropped where it has one more
+    dimension than ``ndim``."""
+    a = np.asarray(a, np.float32)
+    return a[0] if a.ndim == ndim + 1 else a
+
+
 def flax_to_state_dict(params: dict, net: str) -> dict:
     """flax params of ``net`` ("nerf" = VanillaNeRF, "ref" = RefNeRF,
-    "prop") -> state_dict."""
+    "prop") -> state_dict.  Also maps a tree of the same layout (Adam's
+    moments)."""
     sd = {}
     for prefix, path in _layers(net):
         layer = params
         for k in path:
             layer = layer[k]
+        # np.array copies: a leaf read from a checkpoint is a read-only
+        # view of the file's bytes, and the optimizer updates its moments
+        # in place
         sd[f"{prefix}.weight"] = torch.from_numpy(
-            np.ascontiguousarray(np.asarray(layer["kernel"], np.float32).T))
+            np.array(_first_replica(layer["kernel"], 2).T, order="C"))
         sd[f"{prefix}.bias"] = torch.from_numpy(
-            np.array(layer["bias"], np.float32).reshape(-1))
+            np.array(_first_replica(layer["bias"], 1)).reshape(-1))
     return sd
 
 
@@ -79,7 +94,7 @@ def state_dict_to_flax(sd: dict, net: str) -> dict:
         for k in path:
             node = node.setdefault(k, {})
         w = sd[f"{prefix}.weight"].detach().cpu().to(torch.float32).numpy()
-        node["kernel"] = np.ascontiguousarray(w.T)
+        node["kernel"] = np.array(w.T, order="C")    # a copy, not a view
         node["bias"] = sd[f"{prefix}.bias"].detach().cpu().to(
             torch.float32).numpy().copy()
     return params
@@ -89,11 +104,62 @@ def load_flax_variables(models, variables: dict) -> None:
     """Copy {"nerf": params, "prop": params} into (nerf, prop) modules; the
     fine net's params are a VanillaNeRF's or a RefNeRF's.  Mip-NeRF's
     {"nerf": params} goes into (nerf, None)."""
+    for module, key, net in _nets(models, variables):
+        module.load_state_dict(flax_to_state_dict(variables[key], net))
+
+
+def _nets(models, variables: dict):
+    """(module, key of ``variables``, bridge net name) for each module of
+    (nerf, prop)."""
     nerf, prop = models
-    net = "ref" if "spa_block1" in variables["nerf"] else "nerf"
-    nerf.load_state_dict(flax_to_state_dict(variables["nerf"], net))
     if (prop is None) != ("prop" not in variables):
         raise ValueError("the variables and the models disagree on the "
                          "proposal net: one has it, the other not")
+    out = [(nerf, "nerf",
+            "ref" if "spa_block1" in variables["nerf"] else "nerf")]
     if prop is not None:
-        prop.load_state_dict(flax_to_state_dict(variables["prop"], "prop"))
+        out.append((prop, "prop", "prop"))
+    return out
+
+
+def adam_state(opt_state: dict) -> dict:
+    """optax's ``ScaleByAdamState`` ({"count", "mu", "nu"}) in
+    ``nerf_tpu``'s optimizer state: at ``["0"]["0"]``, or at ``["1"]["0"]``
+    when ``--grad_clip`` put ``clip_by_global_norm`` (an empty state)
+    first (nerf_tpu/train/step.py:241-247)."""
+    for key in ("0", "1"):
+        adam = opt_state.get(key, {}).get("0", {})
+        if {"count", "mu", "nu"} <= set(adam):
+            return adam
+    raise ValueError("no Adam state (count, mu, nu) at opt_state['0']['0'] "
+                     "or opt_state['1']['0']")
+
+
+def load_flax_train_state(models, optimizer: torch.optim.Optimizer,
+                          state: dict) -> None:
+    """Load ``nerf_tpu``'s train state (a ``TrainState`` as a tree: params,
+    opt_state, step) into (nerf, prop) and torch's Adam over them: optax's
+    ``mu``/``nu``/``count`` become each parameter's ``exp_avg``/
+    ``exp_avg_sq``/``step``, with the kernels' transposes.  Both Adams
+    take the rate at the update's own count and correct the moments' bias
+    by ``count + 1``, so the next update is the same."""
+    params = state["params"]
+    load_flax_variables(models, params)
+    adam = adam_state(state["opt_state"])
+    count = float(_first_replica(adam["count"], 0))
+    slot = {id(p): i for i, p in enumerate(
+        p for g in optimizer.param_groups for p in g["params"])}
+    moments = {}
+    for module, key, net in _nets(models, params):
+        mu = flax_to_state_dict(adam["mu"][key], net)
+        nu = flax_to_state_dict(adam["nu"][key], net)
+        for name, p in module.named_parameters():
+            moments[slot[id(p)]] = {
+                "step": torch.tensor(count, dtype=torch.float32),
+                "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+    if len(moments) != len(slot):
+        raise ValueError(f"the Adam state covers {len(moments)} of the "
+                         f"optimizer's {len(slot)} parameters")
+    sd = optimizer.state_dict()
+    sd["state"] = moments
+    optimizer.load_state_dict(sd)

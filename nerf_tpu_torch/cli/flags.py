@@ -53,7 +53,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("-s", "--use_scaler", default=False, action="store_true", help="bf16 mixed-precision compute")
     p.add_argument("-b", "--debug", default=False, action="store_true",
                    help="Code debugging: module-attributed NaN detection "
-                        "(training; not ported yet). Also forces f32 compute")
+                        "(a NaN hook on every submodule and autograd's "
+                        "anomaly mode, on the nn.Module route). Also forces "
+                        "f32 compute")
     p.add_argument("-v", "--visualize", default=False, action="store_true", help="[dead in reference; accepted and ignored]")
     p.add_argument("-r", "--do_render", default=False, action="store_true", help="Only render the result")
     p.add_argument("-w", "--white_bkg", default=False, action="store_true", help="Output white background")

@@ -1,13 +1,23 @@
 """Render-only mode (-r): test-pose evaluation or the orbit (port of
-nerf_tpu/cli/render.py:68-134).
+nerf_tpu/cli/render.py:31-134).
 
-Loads ``model/<name>_mip.pt`` and ``model/<name>_prop.pt`` (under ``-m``,
-Mip-NeRF's ``model/<name>_mip.pt`` alone); renders the test
-poses (-e) with per-frame MSE and PSNR against the ground truth, or the
-120-pose orbit; writes ``output/{given|sphere}/result_%03d.png`` grids with
-nrow = 1 + render_depth + render_normal (+ the ground-truth panel under -e),
-the normal panel (--render_normal) for Ref-NeRF (-t) only.  The orbit GIF is
-written only when Pillow imports.
+Loads the model from the first of these that exists
+(nerf_tpu/cli/render.py:31-51, with the port's own files first):
+1. ``model/<name>_mip.pt`` and ``model/<name>_prop.pt`` (under ``-m``,
+   Mip-NeRF's ``model/<name>_mip.pt`` alone); one of them without the
+   other raises, naming the missing file;
+2. ``nerf_tpu``'s final ``model/<name>.ckpt``;
+3. the newest slot of the rotating window under
+   ``--ckpt_dir``/<dataset_name>, the port's ``.pt`` or ``nerf_tpu``'s
+   ``.ckpt``.
+``nerf_tpu``'s msgpack checkpoints are read by the port's own reader
+(utils/msgpack.py), their leading replica axis (ddp, ma) dropped; with
+none of the three it raises ``FileNotFoundError`` naming them.  Renders the
+test poses (-e) with per-frame MSE and PSNR against the ground truth, or
+the 120-pose orbit; writes ``output/{given|sphere}/result_%03d.png`` grids
+with nrow = 1 + render_depth + render_normal (+ the ground-truth panel under
+-e), the normal panel (--render_normal) for Ref-NeRF (-t) only.  The orbit
+GIF is written only when Pillow imports.
 """
 
 from __future__ import annotations
@@ -16,12 +26,17 @@ import os
 import numpy as np
 import torch
 
+from nerf_tpu_torch.bridge import load_flax_variables
 from nerf_tpu_torch.cli.flags import config_from_args, finalize_config
 from nerf_tpu_torch.core.rays import orbit_poses
 from nerf_tpu_torch.data.blender import BlenderDataset, pillow
 from nerf_tpu_torch.device import resolve_device
+from nerf_tpu_torch.train.pipeline import make_models
 from nerf_tpu_torch.train.renderer import render_image
-from nerf_tpu_torch.utils.checkpoint import load_models, model_files
+from nerf_tpu_torch.utils.checkpoint import (
+    CheckpointManager, is_nerf_tpu_checkpoint, load_checkpoint,
+    load_model_files, load_nerf_tpu_checkpoint, model_files,
+)
 from nerf_tpu_torch.utils.image import save_image_grid, to_uint8
 
 MODEL_DIR = "model"
@@ -31,6 +46,34 @@ def frame_generator(seed: int, index: int, device) -> torch.Generator:
     """The generator of frame ``index``'s noise, on ``device``."""
     state = np.random.SeedSequence([seed, index]).generate_state(1)[0]
     return torch.Generator(device=device).manual_seed(int(state))
+
+
+def load_trained_models(args, cfg, device):
+    """(models, path(s) loaded, step, epoch) from the first source that
+    exists: the port's ``.pt`` files, ``nerf_tpu``'s final ``.ckpt``, the
+    newest rotating slot."""
+    models = make_models(cfg, device)
+    files = model_files(MODEL_DIR, args.name, models)
+    if any(os.path.exists(path) for _, path in files):
+        step, epoch = load_model_files(files)
+        return models, ", ".join(path for _, path in files), step, epoch
+    final = os.path.join(MODEL_DIR, f"{args.name}.ckpt")
+    mgr = CheckpointManager(os.path.join(args.ckpt_dir, args.dataset_name),
+                            max_save=args.max_save,
+                            prefix=f"{args.name}_chkpt")
+    path = final if os.path.exists(final) else mgr.latest_path()
+    if path is None:
+        raise FileNotFoundError(
+            f"no trained model: none of {', '.join(p for _, p in files)}, "
+            f"{final} or a checkpoint under {mgr.directory}")
+    if not is_nerf_tpu_checkpoint(path):
+        step, epoch = load_checkpoint(path, models)
+        return models, path, step, epoch
+    ckpt = load_nerf_tpu_checkpoint(path)
+    state = ckpt["state"]
+    load_flax_variables(models, state["params"] if "params" in state
+                        else state)
+    return models, path, ckpt["step"], ckpt["epoch"]
 
 
 def render_only(args, device=None):
@@ -45,10 +88,8 @@ def render_only(args, device=None):
     hw = testset.image_hw
     focal = testset.focal(legacy_square=args.legacy_focal)
     cfg = finalize_config(cfg, focal)
-    models, step, epoch = load_models(MODEL_DIR, args.name, cfg, dev)
-    paths = ", ".join(p for _, p in model_files(MODEL_DIR, args.name, models))
-    print(f"Loaded {paths} (step {step}, "
-          f"epoch {epoch}) on {dev.type}")
+    models, paths, step, epoch = load_trained_models(args, cfg, dev)
+    print(f"Loaded {paths} (step {step}, epoch {epoch}) on {dev.type}")
 
     if args.eval_poses:
         poses = testset.poses

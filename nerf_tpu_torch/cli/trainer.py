@@ -13,32 +13,56 @@ CUDA device:
   ``--center_crop_iter`` steps;
 - the models start from flax's initialization drawn from ``--seed``; Adam
   runs at the scaled base rate under the warmup-and-decay schedule;
-- the step's metrics stay on the device and are read back once per epoch,
-  for the console line (loss, PSNR, learning rate, rays/s, ETA) and the
-  metrics log (``--log_dir``, every ``--eval_time`` steps; Ref-NeRF's
-  normal and back-face losses and Mip-NeRF's coarse loss too);
+- the step's metrics stay on the device; at the end of each epoch they
+  are copied, without waiting, into pinned host memory behind a CUDA event,
+  and read back one epoch late, after the next epoch is issued
+  (nerf_tpu/cli/trainer.py:525-634), for the console line (loss, PSNR,
+  learning rate, rays/s, ETA; ``Time/epoch`` runs from one epoch's
+  read-back to the next) and the metrics log (``--log_dir``, every
+  ``--eval_time`` steps; Ref-NeRF's normal and back-face losses and
+  Mip-NeRF's coarse loss too); epochs that evaluate or stop are read back
+  at once;
 - every ``--output_time`` epochs and at the end it renders test views 1 and
-  4 with their test loss and saves the image grid (with the normal map
-  under ``--render_normal`` and the depth under ``--render_depth``) to
-  ``--output_dir``;
+  4 with their test loss, saves the image grid (with the normal map under
+  ``--render_normal`` and the depth under ``--render_depth``) to
+  ``--output_dir``, and writes the train state (nets, Adam, the generator,
+  step and epoch) to the next slot of the rotating window under
+  ``--ckpt_dir``/<dataset_name> (``--max_save`` slots,
+  ``<name>_chkpt_<slot>.pt`` and ``<name>_chkpt_index.json``);
+- ``-l`` resumes from the newest slot, the port's or ``nerf_tpu``'s
+  (``.ckpt``, read through utils/msgpack.py): the nets, Adam's moments and
+  step, the step counter, the generator (a ``nerf_tpu`` checkpoint has
+  none: the generator is seeded from ``--seed`` and the step) and the
+  epoch, which runs again, as in ``nerf_tpu``; with no checkpoint it says
+  "Not loading" and starts afresh;
+- SIGTERM or SIGINT is recorded by its handler, which touches neither the
+  device nor a file; the loop finishes the epoch in flight, writes a slot
+  with its step and epoch and exits with 128 + the signal number.  A
+  second signal goes to the handler that was there before;
+- ``-b`` trains and evaluates through the ``nn.Module`` route, f32, with
+  a NaN hook on every submodule and autograd's anomaly mode
+  (utils/debug.py): the first NaN raises ``FloatingPointError`` naming its
+  module;
 - at the end it writes ``model/<name>_{mip,prop}.pt`` (``-m``:
   ``model/<name>_mip.pt`` alone), which ``python -m nerf_tpu_torch -r``
   loads with the same model flags.
 
 The JAX package's MFU against a TPU peak is not printed: the port's own
-FLOP count comes with its bench (ROADMAP.md A4).  Flags of parts that are
-not ported raise ``NotImplementedError`` naming their ROADMAP.md item.
+FLOP count comes with its bench (ROADMAP.md A4), and so does ``--trace``,
+which raises ``NotImplementedError`` naming that item.
 """
 
 from __future__ import annotations
 
 import os
+import signal
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from nerf_tpu_torch.bridge import load_flax_train_state
 from nerf_tpu_torch.cli.flags import config_from_args, finalize_config
 from nerf_tpu_torch.cli.render import MODEL_DIR, frame_generator
 from nerf_tpu_torch.core.rays import crop_bounds
@@ -51,30 +75,31 @@ from nerf_tpu_torch.train.renderer import render_image
 from nerf_tpu_torch.train.step import (
     make_optimizer, sample_train_rays, train_step,
 )
-from nerf_tpu_torch.utils.checkpoint import save_models
+from nerf_tpu_torch.utils.checkpoint import (
+    CheckpointManager, is_nerf_tpu_checkpoint, load_checkpoint,
+    load_nerf_tpu_checkpoint, save_models,
+)
+from nerf_tpu_torch.utils.debug import check_finite, nan_attribution
 from nerf_tpu_torch.utils.image import save_image_grid
 from nerf_tpu_torch.utils.metrics import MetricsWriter
 from nerf_tpu_torch.utils.timer import Timer
 
-DEFAULT_CKPT_DIR = "./check_points"
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to nerf_tpu_torch yet; see ROADMAP.md {item}")
+STOP_SIGNALS = (signal.SIGTERM, signal.SIGINT)
 
 
 def check_trainer_flags(args) -> None:
     """Raise for every flag whose part of the trainer is not ported."""
-    if args.load:
-        raise _not_ported("-l/--load (resume from --ckpt_dir)", "A8")
-    if args.ckpt_dir != DEFAULT_CKPT_DIR:
-        raise _not_ported("the rotating --ckpt_dir checkpoints "
-                          "(and the SIGTERM save)", "A8")
-    if args.debug:
-        raise _not_ported("-b/--debug (per-module NaN attribution)", "A10")
     if args.trace is not None:
-        raise _not_ported("--trace (a profiler trace of one epoch)", "A4")
+        raise NotImplementedError(
+            "--trace (a profiler trace of one epoch) is not ported to "
+            "nerf_tpu_torch yet; see ROADMAP.md A4")
+
+
+def resume_seed(seed: int, step: int) -> int:
+    """The generator's seed for a run resumed at ``step`` from a checkpoint
+    without a generator state (``nerf_tpu`` keys its draws on the
+    step)."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
 
 
 class Trainer:
@@ -99,6 +124,10 @@ class Trainer:
         self.hw = self.train_set.image_hw
         self.focal = self.train_set.focal(legacy_square=args.legacy_focal)
         self.cfg = finalize_config(config_from_args(args), self.focal)
+        if args.debug:
+            # the eval renders go through the modules too: a NaN hook cannot
+            # see inside a kernel
+            self.cfg = self.cfg.replace(eval_use_pallas=self.cfg.use_pallas)
         # the reference evaluates test views 1 and 4 only (train.py:135-137)
         n_test = len(self.test_set)
         self.test_view_ids = [i for i in (1, 4) if i < n_test] or [0]
@@ -117,6 +146,36 @@ class Trainer:
         self.step = 0          # host mirror of the optimizer's step count
         self.losses = []       # per-step loss, fetched once per epoch
         self.train_timer, self.eval_timer = Timer(5), Timer(5)
+        self.ckpt = CheckpointManager(
+            os.path.join(args.ckpt_dir, args.dataset_name),
+            max_save=args.max_save, prefix=f"{args.name}_chkpt")
+        self.epoch_start = 0
+        self._stop_signal = None
+        if args.load:
+            path = self.ckpt.latest_path()
+            if path is None:
+                print(f"Not loading: no checkpoint under "
+                      f"{self.ckpt.directory}")
+            else:
+                self.step, self.epoch_start = self.restore(path)
+                print(f"Resumed from {path}: step {self.step}, epoch "
+                      f"{self.epoch_start}.", flush=True)
+
+    def restore(self, path: str):
+        """Load the train state of a slot, the port's or ``nerf_tpu``'s;
+        returns (step, epoch)."""
+        if not is_nerf_tpu_checkpoint(path):
+            return load_checkpoint(path, self.models, self.optimizer,
+                                   self.generator)
+        ckpt = load_nerf_tpu_checkpoint(path)
+        load_flax_train_state(self.models, self.optimizer, ckpt["state"])
+        self.generator.manual_seed(resume_seed(self.args.seed, ckpt["step"]))
+        return ckpt["step"], ckpt["epoch"]
+
+    def save(self, ep: int) -> str:
+        """Write the train state after epoch ``ep`` to the next slot."""
+        return self.ckpt.save(self.models, self.optimizer, self.generator,
+                              step=self.step, epoch=ep)
 
     def run_epoch(self, ep: int):
         """One epoch of steps; returns its metrics stacked per step, still
@@ -137,6 +196,36 @@ class Trainer:
             self.step += 1
         return {k: torch.stack([m[k] for m in collected])
                 for k in collected[0]}
+
+    def _stage(self, metrics) -> tuple:
+        """Start the copy of an epoch's stacked metrics to the host: into
+        pinned memory, without waiting, behind a CUDA event (on the CPU
+        they are there already).  Returns (keys, host tensor, event)."""
+        keys = list(metrics)
+        stacked = torch.stack([metrics[k] for k in keys])
+        if stacked.device.type != "cuda":
+            return keys, stacked, None
+        host = torch.empty(stacked.shape, dtype=stacked.dtype,
+                           pin_memory=True)
+        host.copy_(stacked, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return keys, host, event
+
+    def _finish(self, ep: int, step_base: int, staged: tuple) -> None:
+        """Wait for an epoch's metrics copy, then its console line and
+        metrics log; the epoch's time runs from the previous read-back."""
+        keys, host, event = staged
+        if event is not None:
+            event.synchronize()
+        metrics = dict(zip(keys, host.numpy()))
+        now = time.perf_counter()
+        dt, self._epoch_mark = now - self._epoch_mark, now
+        self.train_timer.record(dt)
+        if self.args.debug:
+            check_finite(metrics, f"the metrics of epoch {ep}")
+        self.losses.extend(metrics["loss"].tolist())
+        self._log_epoch(ep, metrics, step_base, dt)
 
     def _log_epoch(self, ep: int, metrics, step_base: int, dt: float):
         """Console line and metrics log of one finished epoch; ``metrics``
@@ -200,6 +289,20 @@ class Trainer:
               f"{img_path}", flush=True)
         return test_loss
 
+    def _on_signal(self, signum, frame):
+        """Record the first stop signal; the loop acts on it between
+        epochs.  The second goes to the handler that was there before."""
+        if self._stop_signal is None:
+            self._stop_signal = signum
+            return
+        self._restore_handlers()
+        os.kill(os.getpid(), signum)
+
+    def _restore_handlers(self):
+        for sig, handler in self._old_handlers.items():
+            signal.signal(sig, handler)
+        self._old_handlers = {}
+
     def train(self):
         args = self.args
         os.makedirs(args.output_dir, exist_ok=True)
@@ -211,27 +314,55 @@ class Trainer:
               f"model={self.cfg.model} ipe={self.cfg.use_ipe} "
               f"bf16={self.cfg.use_bf16} "
               f"kernels={self.cfg.use_pallas is not False}", flush=True)
-        mark = time.perf_counter()
-        for ep in range(args.epochs):
-            step_base = self.step
-            metrics = self.run_epoch(ep)
-            # the one read-back of the epoch; it waits for its last step
-            metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
-            now = time.perf_counter()
-            dt, mark = now - mark, now
-            self.train_timer.record(dt)
-            self.losses.extend(metrics["loss"].tolist())
-            self._log_epoch(ep, metrics, step_base, dt)
-            if ((ep % args.output_time == 0) or ep == args.epochs - 1) \
-                    and ep > 0:
-                self.evaluate(ep)
-                mark = time.perf_counter()   # eval time is not train time
-        self.writer.close()
+        self._old_handlers = {}
+        for sig in STOP_SIGNALS:
+            try:
+                self._old_handlers[sig] = signal.signal(sig, self._on_signal)
+            except ValueError:
+                pass    # not the main thread
+        try:
+            with nan_attribution(self.models, enable=args.debug):
+                self._epochs()
+        finally:
+            self._restore_handlers()
+            self.writer.close()
         paths = save_models(MODEL_DIR, args.name, self.models,
                             train_cnt=self.step, epoch=args.epochs)
         print(f"Training completed. Final model -> {', '.join(paths)}",
               flush=True)
+        if self._stop_signal is not None:     # came after the last epoch
+            raise SystemExit(128 + self._stop_signal)
         return self
+
+    def _epochs(self):
+        """The epoch loop, one epoch deep: epoch N's metrics are read back
+        after epoch N + 1 is issued, so the host's read-back, logging and
+        printing overlap the device's work."""
+        args = self.args
+        pending = None        # (ep, step_base, staged) not read back yet
+        self._epoch_mark = time.perf_counter()
+        for ep in range(self.epoch_start, args.epochs):
+            step_base = self.step
+            staged = self._stage(self.run_epoch(ep))
+            if pending is not None:
+                self._finish(*pending)
+                pending = None
+            if self._stop_signal is not None:
+                self._finish(ep, step_base, staged)
+                path = self.save(ep)
+                print(f"signal {self._stop_signal}: checkpointed step "
+                      f"{self.step}, epoch {ep} -> {path}", flush=True)
+                raise SystemExit(128 + self._stop_signal)
+            if ((ep % args.output_time == 0) or ep == args.epochs - 1) \
+                    and ep > self.epoch_start:
+                self._finish(ep, step_base, staged)
+                self.evaluate(ep)
+                self.save(ep)
+                self._epoch_mark = time.perf_counter()  # not train time
+            else:
+                pending = (ep, step_base, staged)
+        if pending is not None:
+            self._finish(*pending)
 
 
 def train(args, device=None) -> Trainer:

@@ -29,7 +29,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_imports_no_jax():
     """Import every module of the package (and chip_smoke.py) in a fresh
-    interpreter: neither jax nor nerf_tpu may be loaded."""
+    interpreter: neither jax, flax, msgpack nor nerf_tpu may be loaded
+    (the port reads nerf_tpu's checkpoints with its own reader,
+    nerf_tpu_torch.utils.msgpack)."""
     mods = sorted(m.name for m in pkgutil.walk_packages(
         nerf_tpu_torch.__path__, "nerf_tpu_torch."))
     assert {"nerf_tpu_torch.ops.fused_mlp", "nerf_tpu_torch.ops.ref_fused",
@@ -40,7 +42,7 @@ def test_port_imports_no_jax():
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'nerf_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'msgpack', 'nerf_tpu')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -100,7 +102,8 @@ def test_entry_points_never_run_quietly_on_cpu(no_card, tmp_path):
 @pytest.mark.parametrize("argv", [
     [], ["-r", "-e", "-s", "-w"], ["-r", "-b", "-s", "--opt_mode", "none"],
     ["-t", "--nerf_net_width", "64", "--pallas", "--use_ipe"],
-    ["-m", "--eval_chunk", "512", "--legacy_focal", "--no_pallas"]])
+    ["-m", "--eval_chunk", "512", "--legacy_focal", "--no_pallas"],
+    ["-l", "--ckpt_dir", "ck", "--max_save", "5", "-b", "-s"]])
 def test_flags_match_the_jax_package(argv):
     """Flag for flag: the same command line parses to the same arguments and
     the same pipeline configuration in both packages."""

@@ -17,6 +17,7 @@ Tolerances of the steps, f32 throughout:
   element lies within half the summed learning rates.
 """
 
+import json
 import os
 
 import jax
@@ -442,10 +443,42 @@ def test_trainer_end_to_end_on_cpu(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("flag,item", [
     (["-l"], "A8"), (["--ckpt_dir", "ck"], "A8"), (["-b"], "A10"),
     (["--trace", "tr"], "A4")])
-def test_trainer_rejects_unported_flags(tmp_path, flag, item):
+def test_trainer_rejects_unported_flags(tmp_path, monkeypatch, flag, item):
+    """Only --trace (ROADMAP A4) still raises.  The flags of A8 and A10,
+    which raised here before they were ported, train one epoch and leave
+    their result: -l resumes from the slot that an earlier run wrote at
+    its eval; --ckpt_dir holds the rotating slot and its index; -b trains
+    through the nn.Module route with no kernel launched
+    (tests/test_torch_checkpoint.py and tests/test_torch_debug.py hold
+    them against nerf_tpu)."""
+    monkeypatch.chdir(tmp_path)
     args = get_parser().parse_args(_train_argv(tmp_path, *flag))
-    with pytest.raises(NotImplementedError, match=item):
-        train(args, device="cpu")
+    if item == "A4":
+        with pytest.raises(NotImplementedError, match=item):
+            train(args, device="cpu")
+        return
+    common = ("--epochs", "2", "--output_time", "1")
+    if flag == ["-l"]:
+        train(get_parser().parse_args(_train_argv(tmp_path, *common)),
+              device="cpu")
+    ops.reset_launches()
+    trainer = train(get_parser().parse_args(_train_argv(
+        tmp_path, *flag, *common[:1], "3" if flag == ["-l"] else "2",
+        *common[2:])), device="cpu")
+    assert np.isfinite(trainer.losses).all()
+    ckdir = tmp_path / (flag[1] if flag[0] == "--ckpt_dir"
+                        else "check_points") / "lego_mini"
+    idx = json.load(open(ckdir / "model_1_chkpt_index.json"))
+    if flag == ["-l"]:      # the slot of epoch 1 (step 14): epochs 1 and 2
+        assert (trainer.epoch_start, trainer.step) == (1, 28)
+        assert len(trainer.losses) == 14
+        assert (idx["count"], idx["step"], idx["epoch"]) == (2, 28, 2)
+    else:
+        assert (trainer.epoch_start, trainer.step) == (0, 14)
+        assert (idx["count"], idx["step"], idx["epoch"]) == (1, 14, 1)
+        assert os.path.exists(ckdir / idx["file"])
+    assert not any(ops.LAUNCHES.values())
+    assert (trainer.cfg.use_pallas is False) == (flag == ["-b"])
 
 
 @pytest.mark.parametrize("flag", [["-m"], ["--use_ipe"]])
