@@ -166,7 +166,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
                (debug); loop_ab.py's readings of the trainer's loop: the
                device's idle ms at each of three epoch boundaries with the
                one-epoch-deep read-back, and rays/s (epoch_gap)
- 20. the kernels line, then the last line {"ok": true, "device": {...}}
+ 20. distributed - the distributed modes (ddp, ma): at world size 1 through
+               the CLI under torchrun with NCCL, `python -m
+               torch.distributed.run --standalone --nproc_per_node=1 -m
+               nerf_tpu_torch.ddp_train` with the train phase's flags, `-m
+               nerf_tpu_torch.model_average --ma_epoch 2` under each
+               --ma_method and `ddp_train -t`, all started together, their
+               final nets equal to phases 7's and 9's bit for bit
+               (ddp_world1); two gloo ranks on cuda:0 (`python3
+               chip_smoke.py --rank SPEC`, the card has one GPU and NCCL
+               takes one rank a GPU): ddp on a 6-view split with SIGTERM to
+               rank 1 alone after epoch 0, both ranks exit 143 after it and
+               rank 0 writes one slot, whose -l resume (3 + 3 steps a rank)
+               equals 6 straight bit for bit (ddp_sigterm); a 400x400 bf16
+               frame sharded over both ranks equal to the single frame bit
+               for bit (sharded_render); one ddp epoch equal to a
+               one-process oracle (both ranks' backwards, (a + b) / 2, clip,
+               Adam) bit for bit, --no_sync_prop parting the ranks in the
+               proposal net only, the rays/s of a rank and its grad sync
+               alone, traced and timed (ddp_two_ranks); ma over two
+               replicas, each equal to w0 p0 + w1 p1 after the averaging,
+               p2p unless gloo's TCP pair refuses CUDA memory, the one
+               failure recorded and let pass (ma_two_ranks); in this
+               process at world size 1 (NCCL), where no grads are synced:
+               single and ddp trainers' loops in turns (ms a step, host
+               issue, rays/s), one ddp epoch traced, a one-rank NCCL grad
+               sync alone traced and timed, the averaging ms of each
+               method (dist_readings)
+ 21. the kernels line, then the last line {"ok": true, "device": {...}}
 
 Every line carries ``elapsed_s``, the seconds since the script started.
 Imports nothing of JAX or nerf_tpu.
@@ -190,11 +217,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from nerf_tpu_torch import ops
+from nerf_tpu_torch import ops, parallel
+from nerf_tpu_torch.cli.entry import ddp_parser, ma_parser
 from nerf_tpu_torch.cli.entry import main as entry_main
 from nerf_tpu_torch.cli.flags import get_parser
-from nerf_tpu_torch.cli.trainer import Trainer
+from nerf_tpu_torch.cli.trainer import Trainer, epoch_indices
 from nerf_tpu_torch.cli.flags import finalize_config
 from nerf_tpu_torch.core import sampling
 from nerf_tpu_torch.core.encoding import cat_pos_pe, ide_tables, ipe_feature
@@ -207,16 +236,17 @@ from nerf_tpu_torch.ops.wgrad import grad_shapes
 from nerf_tpu_torch.train.config import PipelineConfig
 from nerf_tpu_torch.train.pipeline import make_models
 from nerf_tpu_torch.train.renderer import render_image
+from nerf_tpu_torch.data.blender import BlenderDataset
 from nerf_tpu_torch.train.step import (
-    compute_loss, make_optimizer, sample_train_rays, train_parameters,
-    train_step,
+    clip_by_global_norm_, compute_loss, make_optimizer, sample_train_rays,
+    train_parameters, train_step,
 )
 from nerf_tpu_torch.train import schedule as schedule_lib
 from nerf_tpu_torch.utils.checkpoint import (
     NETS, CheckpointManager, checkpoint_paths, load_checkpoint, save_models,
 )
 from nerf_tpu_torch.utils.debug import nan_attribution
-from nerf_tpu_torch.utils.metrics import read_scalars
+from nerf_tpu_torch.utils.metrics import MetricsWriter, read_scalars
 from nerf_tpu_torch.utils.png import read_png, write_png
 
 import loop_ab
@@ -3265,6 +3295,571 @@ def check_tile_mma(mma):
                  f"{before} of the tile alone")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the distributed modes (ddp and ma) on torch.distributed
+# ---------------------------------------------------------------------------
+
+DIST_TIMEOUT = 300        # seconds a process of phase 20 may take
+TERM_VIEWS = 6            # the SIGTERM drill's split: 3 steps a rank an epoch
+MA_METHODS = ("all_reduce", "broadcast", "p2p")
+DIST_EPOCHS = 3           # epochs timed in each turn of the readings
+SYNC_CALLS = 20           # grad syncs traced and timed alone
+
+
+def nets_of(models) -> list:
+    """The nets' state dicts, on the CPU."""
+    return [{k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+            for m in models if m is not None]
+
+
+def saved_nets(tmp: str, name: str) -> list:
+    """The state dicts of ``model/<name>_{mip,prop}.pt`` under ``tmp``."""
+    return [torch.load(p, weights_only=True)["model"]
+            for p in checkpoint_paths(os.path.join(tmp, "model"), name)
+            if os.path.exists(p)]
+
+
+def nets_diff(a: list, b: list) -> dict:
+    """{tensor: max |a - b|} of the tensors that differ ({"nets": ...} when
+    the lists differ in length)."""
+    if len(a) != len(b):
+        return {"nets": [len(a), len(b)]}
+    out = {}
+    for net, x, y in zip(NETS, a, b):
+        for k in x:
+            if not torch.equal(x[k], y[k]):
+                out[f"{net}.{k}"] = float((x[k] - y[k]).abs().max())
+    return out
+
+
+def start_torchrun(tmp: str, module: str, name: str, *extra: str):
+    """``python -m torch.distributed.run --standalone --nproc_per_node=1 -m
+    <module>`` with the train phase's flags, ``--name <name>`` and
+    ``extra``, started in the background; returns (process, log file)."""
+    argv = train_argv(tmp, "--log_dir", os.path.join(tmp, "logs", name),
+                      "--name", name, *extra)
+    log = open(os.path.join(tmp, f"{name}.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", "-m", module, *argv], cwd=tmp,
+        env=dict(os.environ, PYTHONPATH=ROOT), stdout=log,
+        stderr=subprocess.STDOUT, text=True)
+    return proc, log
+
+
+def start_ranks(tmp: str, drills, tag: str):
+    """Two gloo ranks on cuda:0, ``python3 chip_smoke.py --rank <spec>``,
+    each running ``drills`` (RANK_DRILLS) in order; returns [(process, log
+    file, results path)]."""
+    store = os.path.join(tmp, f"store_{tag}")
+    out = []
+    for rank in range(2):
+        spec = os.path.join(tmp, f"{tag}_{rank}.json")
+        result = os.path.join(tmp, f"{tag}_{rank}.pt")
+        with open(spec, "w") as f:
+            json.dump(dict(rank=rank, store=store, tmp=tmp, drills=drills,
+                           out=result), f)
+        log = open(os.path.join(tmp, f"{tag}_{rank}.log"), "w+")
+        out.append((subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rank",
+             spec], cwd=tmp, env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=log, stderr=subprocess.STDOUT, text=True), log, result))
+    return out
+
+
+def wait_all(procs, what: str) -> list:
+    """Wait for (process, log, ...) tuples within DIST_TIMEOUT; kill every
+    process still running then, which fails the phase.  Returns
+    [(returncode, log text)]."""
+    deadline = time.perf_counter() + DIST_TIMEOUT
+    out = []
+    try:
+        for proc, log, *_ in procs:
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                fail(f"{what}: a process ran past {DIST_TIMEOUT} s")
+    finally:
+        for proc, log, *_ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.seek(0)
+            out.append((proc.returncode, log.read()))
+            log.close()
+    return out
+
+
+# --- the ranks' drills (run in ``python3 chip_smoke.py --rank SPEC``) ------
+
+_RANK_DATA = {}
+
+
+def rank_trainer(spec, mode: str, *extra: str, epochs: int,
+                 root: str = "data"):
+    """A Trainer of ``mode`` on cuda:0 with the train phase's flags and
+    ``extra``, on the split under ``tmp/<root>`` (loaded once a process)."""
+    tmp = spec["tmp"]
+    parser = ma_parser() if mode == "ma" else ddp_parser()
+    args = parser.parse_args(train_argv(
+        tmp, "--log_dir", os.path.join(tmp, "logs", f"rank{spec['rank']}"),
+        "--dataset_root", os.path.join(tmp, root), *extra, epochs=epochs))
+    if root not in _RANK_DATA:
+        lego = os.path.join(tmp, root, "lego")
+        _RANK_DATA[root] = tuple(BlenderDataset.load(
+            lego, split, img_scale=args.img_scale,
+            white_bkg=args.white_bkg) for split in ("train", "test"))
+    return Trainer(args, "cuda:0", *_RANK_DATA[root], mode=mode)
+
+
+def drill_sigterm(spec, rank):
+    """ddp on the 6-view split; rank 1 alone signals itself after epoch 0:
+    both ranks must leave train() with exit 143 after that epoch."""
+    t = rank_trainer(spec, "ddp", "--name", "term", "--ckpt_dir",
+                     os.path.join(spec["tmp"], "ckpt_term"),
+                     "--output_time", "100000", epochs=4, root="term/data")
+    if rank == 1:
+        run_epoch = t.run_epoch
+
+        def signalled(ep):
+            out = run_epoch(ep)
+            if ep == 0:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+
+        t.run_epoch = signalled
+    t.train()
+    return {}
+
+
+def drill_resume(spec, rank):
+    """2 straight epochs on the 6-view split against the SIGTERM drill's
+    slot (after epoch 0) resumed by -l for epoch 1: 3 + 3 steps a rank."""
+    straight = rank_trainer(spec, "ddp", "--name", "straight",
+                            "--output_time", "100000", epochs=2,
+                            root="term/data")
+    straight.train()
+    resumed = rank_trainer(spec, "ddp", "--name", "term", "--ckpt_dir",
+                           os.path.join(spec["tmp"], "ckpt_term"), "-l",
+                           "--output_time", "100000", epochs=2,
+                           root="term/data")
+    restored = [resumed.step, resumed.epoch_start]
+    resumed.epoch_start += 1      # -l itself runs the saved epoch again
+    resumed.train()
+    return dict(straight=nets_of(straight.models),
+                resumed=nets_of(resumed.models), restored=restored,
+                steps=[straight.step, resumed.step])
+
+
+def sharded_frame(group=None) -> np.ndarray:
+    """The 400x400 bf16 frame of ``profile_frame`` (seeded weights and
+    noise), sharded over ``group`` when given."""
+    cfg = finalize_config(PipelineConfig(white_bkg=True, use_bf16=True),
+                          fov_to_focal(LEGO_FOV, (400, 400)))
+    models = seeded_models(cfg, 0)
+    pose, focal, noise = frame_inputs()
+    return render_image(models, pose, (400, 400), focal, cfg, noise=noise,
+                        device="cuda", group=group)["rgb"]
+
+
+def drill_sharded_render(spec, rank):
+    """The frame of ``sharded_frame`` over both ranks (a chunk grid of
+    2 x 4096 rays), its launches, and its seconds, warm."""
+    grid = parallel.make_grid(1, 2, torch.device("cuda", 0))
+    ops.reset_launches()
+
+    def frame():
+        return sharded_frame(grid.grid_group)
+
+    out = frame()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame()
+    return dict(rgb=torch.from_numpy(out), launches=launches,
+                frame_s=time.perf_counter() - t0)
+
+
+def timed_epochs(trainer, first_ep: int, epochs: int = DIST_EPOCHS):
+    """ms a step of ``epochs`` epochs of ``trainer.run_epoch`` (each ending
+    in a synchronize), median, and the host's issue ms a step."""
+    times, issue = [], []
+    for ep in range(first_ep, first_ep + epochs):
+        steps = len(trainer.epoch_order(ep))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run_epoch(ep)
+        issue.append((time.perf_counter() - t0) / steps)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / steps)
+    return statistics.median(times) * 1e3, statistics.median(issue) * 1e3
+
+
+def drill_ddp(spec, rank, *extra):
+    """One epoch of ddp on the 20-view split (10 steps a rank), the eval at
+    its end sharded over both ranks; the nets, the launches, then the
+    rays/s of a rank over DIST_EPOCHS more epochs and the grad sync alone
+    on the grads the last step left, SYNC_CALLS calls traced (device ms a
+    call, by kernel: gloo stages CUDA tensors through the host) and timed
+    on the host's clock to the end of its device work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t = rank_trainer(spec, "ddp", "--name", "ddp2_nsp" if extra else "ddp2",
+                     *extra, epochs=1)
+    ops.reset_launches()
+    t.train()
+    res = dict(nets=nets_of(t.models), steps=t.step, launches={
+        k: v for k, v in ops.LAUNCHES.items() if v})
+    if not extra:
+        ms, issue = timed_epochs(t, 1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(SYNC_CALLS):
+                t.grad_sync()
+            torch.cuda.synchronize()
+        sync_ms, sync_top = device_times(prof, 6)
+        wall = []
+        for _ in range(SYNC_CALLS):
+            t0 = time.perf_counter()
+            t.grad_sync()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        res.update(step_ms=ms, host_issue_ms=issue,
+                   rays_per_s_rank=RAYS / (ms * 1e-3),
+                   grad_sync_device_ms=(sync_ms / SYNC_CALLS if sync_ms
+                                        else None),
+                   grad_sync_kernels=[[k, v / SYNC_CALLS]
+                                      for k, v in sync_top],
+                   grad_sync_wall_ms=statistics.median(wall))
+    return res
+
+
+def drill_ma(spec, rank, method):
+    """One epoch of ma over two replicas (10 images each), then the
+    averaging (weights 1/2 each) and the eval: the nets before and after
+    the averaging, and its seconds."""
+    t = rank_trainer(spec, "ma", "--name", f"ma2_{method}", "--ma_epoch",
+                     "1", "--ma_method", method, epochs=1)
+    seen = {}
+    average = t.average
+
+    def recorded(ep):
+        seen["before"] = nets_of(t.models)
+        seen["seconds"] = average(ep)
+        return seen["seconds"]
+
+    t.average = recorded
+    t.train()
+    return dict(nets=nets_of(t.models), before=seen["before"],
+                average_ms=seen["seconds"] * 1e3, weights=[
+                    float(w) for w in t.ma_weights])
+
+
+RANK_DRILLS = {
+    "sigterm": drill_sigterm, "resume": drill_resume,
+    "sharded_render": drill_sharded_render, "ddp": drill_ddp,
+    "ddp_no_sync_prop": lambda spec, rank: drill_ddp(spec, rank,
+                                                     "--no_sync_prop"),
+    **{f"ma_{m}": (lambda m: lambda spec, rank: drill_ma(spec, rank, m))(m)
+       for m in MA_METHODS}}
+
+
+def rank_main(spec_path: str) -> int:
+    """One gloo rank of phase 20 on cuda:0; its results after each drill
+    to the spec's ``out``."""
+    import datetime
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method="file://" + spec["store"], rank=spec["rank"],
+        world_size=2, timeout=datetime.timedelta(seconds=120))
+    results = {}
+    with cwd(spec["tmp"]):
+        for drill in spec["drills"]:
+            results[drill] = RANK_DRILLS[drill](spec, spec["rank"])
+            torch.save(results, spec["out"])
+    dist.destroy_process_group()
+    return 0
+
+
+# --- the phase, in this process -------------------------------------------
+
+def gloo_refusal(done) -> list:
+    """The p2p pair's ends, where a rank failed: gloo's TCP pair refusing
+    the send/recv of CUDA memory (an error raised in its ``pair.cc``, a
+    ``gloo::IoException``, "Bad address" on one rank at least; its peer may
+    see the pair close) is recorded and left out; any other failure fails
+    the phase.  Returns each rank's line from ``pair.cc``."""
+    lines = [[x.strip() for x in log.splitlines() if "pair.cc" in x]
+             for _, log in done]
+    if not all(lines[i] for i, (rc, _) in enumerate(done) if rc) or not any(
+            "Bad address" in x for found in lines for x in found):
+        fail(f"ma p2p: rcs {[rc for rc, _ in done]}, not gloo's refusal of "
+             f"CUDA memory: {done[0][1][-2000:]} {done[1][1][-2000:]}")
+    return [found[0][:300] if found else "" for found in lines]
+
+
+def ddp_oracle(tmp: str) -> list:
+    """One process: both ranks' rays from their generators (rank_seed) on
+    the epoch's images, both backwards through the kernels, (a + b) / 2,
+    the clip and Adam, for the 10 steps of the 2-rank ddp drill."""
+    args = get_parser().parse_args(train_argv(tmp, epochs=1))
+    with cwd(tmp):
+        t = Trainer(args, "cuda")
+    gens = [torch.Generator(device="cuda").manual_seed(
+        parallel.rank_seed(args.seed, r)) for r in range(2)]
+    order = epoch_indices("ddp", len(t.train_set), 0, args.seed, 2)
+    params = train_parameters(t.models)
+    for i in range(order.shape[0]):
+        grads = []
+        for r in range(2):
+            rays, gt = sample_train_rays(
+                t.pool, t.poses, int(order[i, 0, r]), t.hw, t.focal,
+                t.cfg.ray_batch, crop_window=(
+                    t.crop_window if i < args.center_crop_iter else None),
+                generator=gens[r])
+            t.optimizer.zero_grad(set_to_none=True)
+            compute_loss(t.models, rays, gt, t.cfg, generator=gens[r],
+                         device="cuda")[0].backward()
+            grads.append([p.grad for p in params])
+        for p, a, b in zip(params, *grads):
+            p.grad = (a + b) / 2
+        if args.grad_clip > 0:
+            clip_by_global_norm_([p.grad for p in params], args.grad_clip)
+        for group in t.optimizer.param_groups:
+            group["lr"] = t.schedule(i)
+        t.optimizer.step()
+    return nets_of(t.models)
+
+
+def world1_readings(tmp: str) -> dict:
+    """NCCL at world size 1 in this process, on the train split: the
+    single-device trainer and a ddp trainer in turns (single, ddp, ddp,
+    single; DIST_EPOCHS epochs each, ms a step of ``run_epoch`` and host
+    issue ms, as PERF.md §2 reads them), neither of which syncs grads (one
+    data rank); one ddp epoch traced with torch.profiler; a grad sync over
+    the one-rank NCCL data group, built here and called alone, SYNC_CALLS
+    calls traced (device ms a call, by kernel) and timed by CUDA events:
+    the cost a step would pay for it; the averaging ms of each method
+    (median of 5 calls, Time/communication)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = get_parser().parse_args(train_argv(tmp))
+    with cwd(tmp):
+        single = Trainer(args, "cuda")
+        data = (single.train_set, single.test_set)
+        ddp = Trainer(args, "cuda", *data, mode="ddp")
+        ma_args = ma_parser().parse_args(train_argv(tmp) + ["--ma_epoch",
+                                                            "1"])
+        ma = Trainer(ma_args, "cuda", *data, mode="ma")
+    backend = dist.get_backend()
+    if ddp.grad_sync is not None or ma.grad_sync is not None:
+        fail("world-1 ddp and ma built a grad sync over one data rank")
+    turns = {"single": [], "ddp": []}
+    for tr in (single, ddp):
+        tr.run_epoch(0)
+    ep = 1
+    for name in ("single", "ddp", "ddp", "single"):
+        turns[name].append(timed_epochs(single if name == "single" else ddp,
+                                        ep))
+        ep += DIST_EPOCHS
+    steps = len(ddp.epoch_order(ep))
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ddp.run_epoch(ep)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    device_ms, top = device_times(prof, 12)
+    # a grad sync alone, on the grads the last step left: its kernels
+    # (the cat of each net's grads, NCCL's all_reduce, the division)
+    sync = parallel.GradSync(ddp.models, ddp.grid.data_group, 1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(SYNC_CALLS):
+            sync()
+        torch.cuda.synchronize()
+    sync_ms, sync_top = device_times(prof, 6)
+    sync_events_ms = cuda_ms(sync, SYNC_CALLS)
+    ma.writer = MetricsWriter(enabled=False)
+    average_ms = {}
+    for method in MA_METHODS:
+        ma.ma_method = method
+        average_ms[method] = statistics.median(
+            ma.average(0) * 1e3 for _ in range(5))
+    parallel.destroy_process_group()
+    med = {k: [statistics.median(x[0] for x in v),
+               statistics.median(x[1] for x in v)] for k, v in turns.items()}
+    return dict(
+        backend=backend, turns={k: [list(x) for x in v]
+                                for k, v in turns.items()},
+        step_ms={k: v[0] for k, v in med.items()},
+        host_issue_ms={k: v[1] for k, v in med.items()},
+        rays_per_s={k: RAYS / (v[0] * 1e-3) for k, v in med.items()},
+        ddp_vs_single=med["single"][0] / med["ddp"][0],
+        profiled_steps=steps, launches=launches,
+        device_ms_per_step=(device_ms / steps if device_ms else None),
+        device_busy_share=(device_ms / (wall * 1e3) if device_ms else None),
+        nccl_sync_alone_device_ms=(sync_ms / SYNC_CALLS if sync_ms
+                                   else None),
+        nccl_sync_alone_kernels=[[k, v / SYNC_CALLS] for k, v in sync_top],
+        nccl_sync_alone_ms_cuda_events=sync_events_ms,
+        grad_bytes=4 * sum(p.numel() for p in train_parameters(ddp.models)),
+        average_ms=average_ms,
+        top_device_ms_per_step=[[k, v / steps] for k, v in top])
+
+
+def distributed_phase(train_nets: list, ref_nets: list, card: str):
+    """Phase 20.  World size 1 through the CLI under torchrun, NCCL, with
+    the train phases' flags: ddp, ma --ma_epoch 2 under each method and
+    ddp -t, their final nets against the train phases' bit for bit
+    (started together with the SIGTERM drill's two gloo ranks); the
+    2-rank drills on cuda:0 over gloo (the resume after the SIGTERM drill,
+    the sharded frame, ddp and --no_sync_prop against the one-process
+    oracle, ma with each method against w0 p0 + w1 p1); the world-1
+    readings.  Emits one line a part, each with ``card``, nvidia-smi's
+    name and power limit."""
+    with tempfile.TemporaryDirectory() as tmp:
+        write_train_split(tmp)
+        rng = np.random.default_rng(5)
+        write_split(os.path.join(tmp, "term"), "train", TERM_VIEWS, rng)
+        write_split(os.path.join(tmp, "term"), "test", 1, rng)
+        t0 = time.perf_counter()
+        runs = {"ddp_1": start_torchrun(tmp, "nerf_tpu_torch.ddp_train",
+                                        "ddp_1"),
+                "ddp_ref_1": start_torchrun(tmp, "nerf_tpu_torch.ddp_train",
+                                            "ddp_ref_1", "-t")}
+        for m in MA_METHODS:
+            runs[f"ma_{m}"] = start_torchrun(
+                tmp, "nerf_tpu_torch.model_average", f"ma_{m}",
+                "--ma_epoch", "2", "--ma_method", m)
+        term = start_ranks(tmp, ["sigterm"], "term")
+        # gloo's send/recv of CUDA memory may fail in its own thread and
+        # abort the process: the p2p ring runs in a pair of its own
+        p2p = start_ranks(tmp, ["ma_p2p"], "p2p")
+        done = dict(zip(runs, wait_all(list(runs.values()), "torchrun")))
+        term_done = wait_all(term, "the SIGTERM drill")
+        p2p_done = wait_all(p2p, "the p2p averaging")
+        world1_s = time.perf_counter() - t0
+        world1 = {}
+        for name, (rc, log) in done.items():
+            want = ref_nets if name == "ddp_ref_1" else train_nets
+            diff = nets_diff(saved_nets(tmp, name), want)
+            world1[name] = dict(rc=rc, equal=not diff, max_abs=diff,
+                                nccl="backend=nccl" in log)
+            if rc != 0 or diff or "backend=nccl" not in log:
+                fail(f"world-1 {name}: rc {rc}, differs from the single "
+                     f"run by {diff}: {log[-3000:]}")
+        emit("ddp_world1", card=card, runs=world1, seconds=world1_s,
+             commands=["python -m torch.distributed.run --standalone "
+                       "--nproc_per_node=1 -m nerf_tpu_torch.ddp_train "
+                       "<train flags> [-t]",
+                       "... -m nerf_tpu_torch.model_average <train flags> "
+                       "--ma_epoch 2 --ma_method {all_reduce,broadcast,p2p}"])
+        idx_path = os.path.join(tmp, "ckpt_term", "lego",
+                                "term_chkpt_index.json")
+        idx = None
+        if os.path.exists(idx_path):
+            with open(idx_path) as f:
+                idx = json.load(f)
+        rcs = [rc for rc, _ in term_done]
+        if rcs != [128 + signal.SIGTERM] * 2 or idx is None or (
+                idx["step"], idx["epoch"], idx["count"]) != (3, 0, 1) \
+                or "signal 15: checkpointed step 3, epoch 0" \
+                not in term_done[0][1]:
+            fail(f"ddp SIGTERM drill: rcs {rcs}, index {idx}: "
+                 f"{term_done[0][1][-2000:]} {term_done[1][1][-2000:]}")
+
+        t0 = time.perf_counter()
+        drills = ["resume", "sharded_render", "ddp", "ddp_no_sync_prop",
+                  "ma_all_reduce", "ma_broadcast"]
+        suite = start_ranks(tmp, drills, "suite")
+        suite_done = wait_all(suite, "the 2-rank drills")
+        suite_s = time.perf_counter() - t0
+        got = [torch.load(res, weights_only=False) if os.path.exists(res)
+               else {} for _, _, res in suite]
+        if any(rc != 0 for rc, _ in suite_done) or any(
+                d not in got[r] for r in range(2) for d in drills):
+            fail(f"2-rank drills: rcs {[rc for rc, _ in suite_done]}: "
+                 f"{suite_done[0][1][-3000:]} {suite_done[1][1][-3000:]}")
+
+        resume = [got[r]["resume"] for r in range(2)]
+        resume_diff = [nets_diff(x["resumed"], x["straight"]) for x in resume]
+        if any(resume_diff) or [x["restored"] for x in resume] != [[3, 0]] * 2:
+            fail(f"ddp SIGTERM resume: restored "
+                 f"{[x['restored'] for x in resume]}, 3 + 3 steps part "
+                 f"from 6 straight by {resume_diff}")
+        emit("ddp_sigterm", card=card, rcs=rcs, index=idx, restored=resume[0][
+            "restored"], steps=[x["steps"] for x in resume],
+            resume_equal=True)
+
+        frame = sharded_frame()
+        render = [got[r]["sharded_render"] for r in range(2)]
+        equal = all(np.array_equal(x["rgb"].numpy(), frame) for x in render)
+        if not equal or not any(render[0]["launches"].values()):
+            fail(f"sharded frame: equal {equal}, launches "
+                 f"{render[0]['launches']}")
+        emit("sharded_render", card=card, equal=equal, hw=[400, 400], ranks=2,
+             launches_rank0=render[0]["launches"],
+             frame_s=[x["frame_s"] for x in render])
+
+        oracle = ddp_oracle(tmp)
+        ddp = [got[r]["ddp"] for r in range(2)]
+        ddp_diff = [nets_diff(x["nets"], oracle) for x in ddp]
+        nsp = [got[r]["ddp_no_sync_prop"]["nets"] for r in range(2)]
+        nsp_diff = nets_diff(nsp[0], nsp[1])
+        prop_only = bool(nsp_diff) and all(k.startswith("prop.")
+                                           for k in nsp_diff)
+        if any(ddp_diff) or not prop_only or not all(
+                ddp[r]["launches"].get("vanilla_mlp_bwd") == 10
+                for r in range(2)):
+            fail(f"2-rank ddp: against the oracle {ddp_diff}; "
+                 f"--no_sync_prop ranks part in {sorted(nsp_diff)}; "
+                 f"launches {[x['launches'] for x in ddp]}")
+        emit("ddp_two_ranks", card=card, equal_to_oracle=True,
+             steps=ddp[0]["steps"],
+             launches_rank0=ddp[0]["launches"],
+             no_sync_prop_differ=sorted(nsp_diff)[:4] + ["..."],
+             no_sync_prop_only_prop=prop_only,
+             step_ms=[x["step_ms"] for x in ddp],
+             host_issue_ms=[x["host_issue_ms"] for x in ddp],
+             rays_per_s_rank=[x["rays_per_s_rank"] for x in ddp],
+             grad_sync_device_ms=[x["grad_sync_device_ms"] for x in ddp],
+             grad_sync_wall_ms=[x["grad_sync_wall_ms"] for x in ddp],
+             grad_sync_kernels_rank0=ddp[0]["grad_sync_kernels"],
+             seconds=suite_s)
+
+        ma_res = {}
+        p2p_got = [torch.load(res, weights_only=False).get("ma_p2p")
+                   if os.path.exists(res) else None for _, _, res in p2p]
+        for m in MA_METHODS:
+            res = (p2p_got if m == "p2p"
+                   else [got[r][f"ma_{m}"] for r in range(2)])
+            if m == "p2p" and any(rc for rc, _ in p2p_done):
+                ma_res[m] = dict(rcs=[rc for rc, _ in p2p_done],
+                                 refused=gloo_refusal(p2p_done))
+                continue
+            w = res[0]["weights"]
+            want = [{k: x[k].cuda() * w[0] + y[k].cuda() * w[1] for k in x}
+                    for x, y in zip(res[0]["before"], res[1]["before"])]
+            want = [{k: v.cpu() for k, v in n.items()} for n in want]
+            diff = [nets_diff(x["nets"], want) for x in res]
+            if any(diff):
+                fail(f"ma {m}: the averaged nets part from w0 p0 + w1 p1 "
+                     f"by {diff}")
+            ma_res[m] = dict(equal=True, weights=w,
+                             average_ms=[x["average_ms"] for x in res])
+        emit("ma_two_ranks", card=card, methods=ma_res)
+
+        emit("dist_readings", card=card, **world1_readings(tmp))
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -3354,10 +3949,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         write_train_split(tmp)
         train = run_train(tmp)
+        train_nets = saved_nets(tmp, "model_1")
         emit("train", **train)
         emit("render_trained", **render_trained(tmp))
         emit("train_profile", **profile_trainer(tmp))
         ref_train = run_train(tmp, "ref")
+        ref_nets = saved_nets(tmp, "ref_1")
         emit("ref_train", **ref_train)
         emit("ref_render_trained", **render_trained(tmp, "ref"))
         emit("ref_train_profile", **profile_trainer(tmp, 3, "-t"))
@@ -3461,7 +4058,11 @@ def main() -> int:
         emit("debug", **debug_run(tmp))
         emit("epoch_gap", **epoch_gap(tmp))
 
-    # phase 20: the kernels line, then the last line.  ``launches`` is each
+    # phase 20: the distributed modes, world size 1 through the CLI (NCCL)
+    # and two gloo ranks on the card
+    distributed_phase(train_nets, ref_nets, smi)
+
+    # phase 21: the kernels line, then the last line.  ``launches`` is each
     # kernel's count in its path's run: the vanilla train path (training
     # steps and the final eval render) for the vanilla kernels, the Ref-NeRF
     # render path for the Ref-NeRF eval forwards, the Ref-NeRF train path
@@ -3536,4 +4137,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:       # a rank of phase 20's drills
+        sys.exit(rank_main(sys.argv[2]))
     sys.exit(main())

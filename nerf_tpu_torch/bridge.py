@@ -9,8 +9,9 @@ are the reference torch layout, the same as
 ``tools/export_torch_checkpoint.py`` writes, so the port's own copy of that
 mapping lives here.  Both directions are exact (transposes and f32 copies
 only).  A leading replica axis, which ``nerf_tpu``'s ddp and ma modes leave
-on every leaf, is dropped (its first replica is read, as
-nerf_tpu/cli/render.py:54-65 does).
+on every leaf, is dropped: one replica's row is read (by default the first,
+as nerf_tpu/cli/render.py:54-65 does; each rank of the port's ``ma`` mode
+reads its own).
 """
 
 from __future__ import annotations
@@ -60,17 +61,22 @@ def _layers(net: str):
     raise ValueError(f"unknown net {net!r}; expected 'nerf', 'ref' or 'prop'")
 
 
-def _first_replica(a, ndim: int) -> np.ndarray:
-    """``a`` as f32, its leading replica axis dropped where it has one more
-    dimension than ``ndim``."""
+def _replica_row(a, ndim: int, replica: int = 0) -> np.ndarray:
+    """``a`` as f32, row ``replica`` of its leading replica axis where it has
+    one more dimension than ``ndim``."""
     a = np.asarray(a, np.float32)
-    return a[0] if a.ndim == ndim + 1 else a
+    if a.ndim != ndim + 1:
+        return a
+    if not 0 <= replica < a.shape[0]:
+        raise ValueError(f"replica {replica} of a checkpoint with "
+                         f"{a.shape[0]} replicas")
+    return a[replica]
 
 
-def flax_to_state_dict(params: dict, net: str) -> dict:
+def flax_to_state_dict(params: dict, net: str, replica: int = 0) -> dict:
     """flax params of ``net`` ("nerf" = VanillaNeRF, "ref" = RefNeRF,
-    "prop") -> state_dict.  Also maps a tree of the same layout (Adam's
-    moments)."""
+    "prop") -> state_dict, row ``replica`` of a stacked tree.  Also maps a
+    tree of the same layout (Adam's moments)."""
     sd = {}
     for prefix, path in _layers(net):
         layer = params
@@ -80,9 +86,9 @@ def flax_to_state_dict(params: dict, net: str) -> dict:
         # view of the file's bytes, and the optimizer updates its moments
         # in place
         sd[f"{prefix}.weight"] = torch.from_numpy(
-            np.array(_first_replica(layer["kernel"], 2).T, order="C"))
+            np.array(_replica_row(layer["kernel"], 2, replica).T, order="C"))
         sd[f"{prefix}.bias"] = torch.from_numpy(
-            np.array(_first_replica(layer["bias"], 1)).reshape(-1))
+            np.array(_replica_row(layer["bias"], 1, replica)).reshape(-1))
     return sd
 
 
@@ -100,12 +106,14 @@ def state_dict_to_flax(sd: dict, net: str) -> dict:
     return params
 
 
-def load_flax_variables(models, variables: dict) -> None:
-    """Copy {"nerf": params, "prop": params} into (nerf, prop) modules; the
-    fine net's params are a VanillaNeRF's or a RefNeRF's.  Mip-NeRF's
-    {"nerf": params} goes into (nerf, None)."""
+def load_flax_variables(models, variables: dict, replica: int = 0) -> None:
+    """Copy {"nerf": params, "prop": params} (row ``replica`` of a stacked
+    tree) into (nerf, prop) modules; the fine net's params are a
+    VanillaNeRF's or a RefNeRF's.  Mip-NeRF's {"nerf": params} goes into
+    (nerf, None)."""
     for module, key, net in _nets(models, variables):
-        module.load_state_dict(flax_to_state_dict(variables[key], net))
+        module.load_state_dict(flax_to_state_dict(variables[key], net,
+                                                  replica))
 
 
 def _nets(models, variables: dict):
@@ -136,23 +144,24 @@ def adam_state(opt_state: dict) -> dict:
 
 
 def load_flax_train_state(models, optimizer: torch.optim.Optimizer,
-                          state: dict) -> None:
+                          state: dict, replica: int = 0) -> None:
     """Load ``nerf_tpu``'s train state (a ``TrainState`` as a tree: params,
-    opt_state, step) into (nerf, prop) and torch's Adam over them: optax's
+    opt_state, step; row ``replica`` of a stacked one, as the ddp and ma
+    modes write it) into (nerf, prop) and torch's Adam over them: optax's
     ``mu``/``nu``/``count`` become each parameter's ``exp_avg``/
     ``exp_avg_sq``/``step``, with the kernels' transposes.  Both Adams
     take the rate at the update's own count and correct the moments' bias
     by ``count + 1``, so the next update is the same."""
     params = state["params"]
-    load_flax_variables(models, params)
+    load_flax_variables(models, params, replica)
     adam = adam_state(state["opt_state"])
-    count = float(_first_replica(adam["count"], 0))
+    count = float(_replica_row(adam["count"], 0, replica))
     slot = {id(p): i for i, p in enumerate(
         p for g in optimizer.param_groups for p in g["params"])}
     moments = {}
     for module, key, net in _nets(models, params):
-        mu = flax_to_state_dict(adam["mu"][key], net)
-        nu = flax_to_state_dict(adam["nu"][key], net)
+        mu = flax_to_state_dict(adam["mu"][key], net, replica)
+        nu = flax_to_state_dict(adam["nu"][key], net, replica)
         for name, p in module.named_parameters():
             moments[slot[id(p)]] = {
                 "step": torch.tensor(count, dtype=torch.float32),

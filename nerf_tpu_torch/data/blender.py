@@ -1,12 +1,14 @@
 """Blender-synthetic dataset loader, train and test splits (port of
-nerf_tpu/data/blender.py, without the native decoder and the pose-division
-variant).
+nerf_tpu/data/blender.py, without the native decoder).
 
 ``transforms_<split>.json`` gives ``camera_angle_x`` (optionally ``_y``) and
 a 4x4 ``transform_matrix`` per frame; the PNGs of ``<split>/`` are listed in
 natural order without the ``*normal*``/``*alpha*`` files.  Images are
 resized by ``img_scale`` (bilinear with Pillow's antialiasing), composited
 onto white under ``white_bkg``, and ``scene_scale`` scales the translation.
+Under ``use_div`` (the model-averaging mode's ``-div``) the split comes from
+``transforms_<split>_div.json``, which tools/pose_division.py writes, with
+its ``division`` (a replica per image) and ``weights`` (one per division).
 
 Pillow decodes and resizes when it imports, as in the JAX package.  Without
 it the loader decodes with ``utils/png.py`` and resizes in numpy with the
@@ -19,6 +21,7 @@ import json
 import os
 import re
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
@@ -104,6 +107,8 @@ class BlenderDataset:
     poses: np.ndarray
     fov: object  # float or (fov_x, fov_y)
     decoder: str = ""
+    division: Optional[list] = None
+    weights: Optional[list] = None
 
     @property
     def image_hw(self):
@@ -123,19 +128,26 @@ class BlenderDataset:
 
     @classmethod
     def load(cls, root: str, split: str = "test", img_scale: float = 1.0,
-             scene_scale: float = 1.0,
-             white_bkg: bool = False) -> "BlenderDataset":
-        json_path = os.path.join(root, f"transforms_{split}.json")
+             scene_scale: float = 1.0, white_bkg: bool = False,
+             use_div: bool = False) -> "BlenderDataset":
+        json_name = (f"transforms_{split}_div.json" if use_div
+                     else f"transforms_{split}.json")
+        json_path = os.path.join(root, json_name)
         if not os.path.exists(json_path):
+            hint = (" (run tools/pose_division.py to create the _div "
+                    "variant)" if use_div else "")
             raise FileNotFoundError(
                 f"dataset not found: {json_path} - expected a Blender-"
                 f"synthetic layout <dataset_root>/<dataset_name>/"
-                f"transforms_{split}.json; check --dataset_root/--dataset_name")
+                f"transforms_{split}.json; check --dataset_root/--dataset_name"
+                f"{hint}")
         with open(json_path) as f:
             meta = json.load(f)
         fov = meta["camera_angle_x"]
         if "camera_angle_y" in meta:
             fov = (fov, meta["camera_angle_y"])
+        division = meta.get("division") if use_div else None
+        weights = meta.get("weights") if use_div else None
 
         img_dir = os.path.join(root, split)
         names = natural_sorted(
@@ -145,6 +157,13 @@ class BlenderDataset:
         # pair images and poses even when the listing and the frames differ
         n = min(len(names), len(frames))
         names, frames = names[:n], frames[:n]
+        if division is not None and len(division) != n:
+            # a division that does not line up with the images would give
+            # each replica other images than its own
+            raise ValueError(
+                f"{json_name} has {len(division)} division entries but the "
+                f"dataset resolves to {n} image/pose pairs; re-run "
+                f"tools/pose_division.py on the current dataset")
 
         mode = "RGBA" if white_bkg else "RGB"
         pil = pillow()
@@ -165,4 +184,5 @@ class BlenderDataset:
         return cls(images=np.stack(images).astype(np.float32),
                    poses=np.stack(poses).astype(np.float32), fov=fov,
                    decoder="Pillow" if pil is not None
-                   else "built-in zlib PNG decoder (Pillow not installed)")
+                   else "built-in zlib PNG decoder (Pillow not installed)",
+                   division=division, weights=weights)

@@ -17,7 +17,9 @@ PyTorch on the device, with the same arithmetic:
 - Adam(0.9, 0.999, eps 1e-8), its rate set to ``schedule(step)`` before each
   update (optax evaluates its schedule at the update's own count, so the
   first update uses ``schedule(0)``), after optax's global-norm clipping
-  when ``grad_clip > 0``.
+  when ``grad_clip > 0``; in the distributed modes a grad-sync hook
+  (parallel/dp.py) takes the grads' mean over the ranks before both, as
+  ``nerf_tpu`` clips the pmean'd grads.
 
 ``train_step`` reads no value back from the device: the metrics it returns
 stay there until the caller fetches a whole epoch of them at once.
@@ -25,7 +27,7 @@ stay there until the caller fetches a whole epoch of them at once.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -183,15 +185,20 @@ def train_step(models, optimizer: torch.optim.Optimizer, rays: torch.Tensor,
                rgb_gt: torch.Tensor, cfg: PipelineConfig, lr: float,
                grad_clip: float = -1.0, noise=None,
                generator: Optional[torch.Generator] = None,
-               device=None) -> Dict[str, torch.Tensor]:
-    """One update of the nets: loss, grads, optional clipping, Adam at
-    rate ``lr``.  Returns the step's metrics, detached, on the device."""
+               device=None,
+               grad_sync: Optional[Callable[[], None]] = None
+               ) -> Dict[str, torch.Tensor]:
+    """One update of the nets: loss, grads, ``grad_sync()`` (the mean over
+    the data group) when given, optional clipping, Adam at rate ``lr``.
+    Returns the step's metrics, detached, on the device."""
     dev = resolve_device(device)
     check_device(rays, dev, "rays")
     optimizer.zero_grad(set_to_none=True)
     loss, metrics = compute_loss(models, rays, rgb_gt, cfg, noise=noise,
                                  generator=generator, device=dev)
     loss.backward()
+    if grad_sync is not None:
+        grad_sync()
     if grad_clip > 0.0:
         clip_by_global_norm_([p.grad for g in optimizer.param_groups
                               for p in g["params"]], grad_clip)

@@ -15,6 +15,15 @@ where ``nerf_tpu`` keys them on the step, so a resume that did not restore it
 would train on other rays), ``step`` and ``epoch``.  The write is atomic:
 a temporary file, then ``os.replace`` (nerf_tpu/utils/checkpoint.py:36-47).
 
+A slot of the distributed modes also holds every rank's generator state
+(``generators``, in rank order) and the run's ``layout`` (mode, n_replica,
+n_data).  A ``ddp`` slot holds rank 0's nets and Adam (under
+``--no_sync_prop`` the proposal nets differ per rank and rank 0's are
+kept, as ``nerf_tpu`` keeps device 0's); an ``ma`` slot holds every
+replica's, stacked on a leading axis as ``nerf_tpu``'s stacked
+``TrainState`` (nerf_tpu/parallel/dp.py:30-61).  ``load_checkpoint`` reads
+one replica's row and one rank's generator.
+
 ``CheckpointManager`` keeps ``nerf_tpu``'s rotating window
 (nerf_tpu/utils/checkpoint.py:64-119): slot ``(count % max_save) + 1``,
 named ``<prefix>_<slot>``, and an index ``<prefix>_index.json`` with
@@ -100,17 +109,46 @@ def _to_cpu(tree):
     return tree
 
 
-def save_checkpoint(path: str, models, optimizer: torch.optim.Optimizer,
-                    generator: torch.Generator, step: int = 0,
-                    epoch: int = 0) -> str:
-    """Write the train state to ``path`` atomically; returns the path."""
-    payload = {
-        "models": {net: _to_cpu(m.state_dict())
-                   for net, m in zip(NETS, models) if m is not None},
-        "optimizer": _to_cpu(optimizer.state_dict()),
-        "generator": generator.get_state(),
-        "generator_device": generator.device.type,
-        "step": int(step), "epoch": int(epoch)}
+def train_state(models, optimizer: torch.optim.Optimizer) -> dict:
+    """The nets' and Adam's state dicts, on the CPU."""
+    return {"models": {net: _to_cpu(m.state_dict())
+                       for net, m in zip(NETS, models) if m is not None},
+            "optimizer": _to_cpu(optimizer.state_dict())}
+
+
+def stack_states(states: list) -> dict:
+    """``train_state``s of the replicas, each tensor stacked on a leading
+    replica axis (the rest taken from the first)."""
+    def stack(first, *rest):
+        if isinstance(first, torch.Tensor):
+            return torch.stack([first, *rest])
+        if isinstance(first, dict):
+            return {k: stack(first[k], *(r[k] for r in rest)) for k in first}
+        return first
+    return stack(*states)
+
+
+def state_row(state, row: int):
+    """Replica ``row`` of a ``stack_states`` tree."""
+    if isinstance(state, torch.Tensor):
+        return state[row]
+    if isinstance(state, dict):
+        return {k: state_row(v, row) for k, v in state.items()}
+    return state
+
+
+def checkpoint_payload(models, optimizer: torch.optim.Optimizer,
+                       generator: torch.Generator, step: int = 0,
+                       epoch: int = 0) -> dict:
+    return {**train_state(models, optimizer),
+            "generator": generator.get_state(),
+            "generator_device": generator.device.type,
+            "step": int(step), "epoch": int(epoch)}
+
+
+def write_checkpoint(path: str, payload: dict) -> str:
+    """Write a slot's ``payload`` to ``path`` atomically; returns the
+    path."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     torch.save(payload, tmp)
@@ -118,15 +156,44 @@ def save_checkpoint(path: str, models, optimizer: torch.optim.Optimizer,
     return path
 
 
+def save_checkpoint(path: str, models, optimizer: torch.optim.Optimizer,
+                    generator: torch.Generator, step: int = 0,
+                    epoch: int = 0) -> str:
+    """Write the train state to ``path`` atomically; returns the path."""
+    return write_checkpoint(path, checkpoint_payload(
+        models, optimizer, generator, step, epoch))
+
+
+def layout_of(ckpt: dict) -> tuple:
+    """(n_replica, n_data) of the run that wrote a slot: (1, 1) for the
+    single-device trainer."""
+    layout = ckpt.get("layout") or {"n_replica": 1, "n_data": 1}
+    return int(layout["n_replica"]), int(layout["n_data"])
+
+
 def load_checkpoint(path: str, models,
                     optimizer: Optional[torch.optim.Optimizer] = None,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    replica: int = 0, rank: int = 0,
+                    layout: Optional[tuple] = None):
     """Load a ``save_checkpoint`` file into ``models`` (and the optimizer
-    and generator, when given); returns (step, epoch).  Raises when the
-    file's nets are not the models' or its generator state was taken on
-    another device type (a CUDA generator's state is a Philox seed and
-    offset, a CPU one's a Mersenne Twister)."""
+    and generator, when given); returns (step, epoch).  A distributed slot
+    gives replica ``replica``'s nets and Adam and rank ``rank``'s generator.
+    Raises when the file's nets are not the models', when ``layout``
+    ((n_replica, n_data) of the loading run) is not the writer's, or when
+    its generator state was taken on another device type (a CUDA
+    generator's state is a Philox seed and offset, a CPU one's a Mersenne
+    Twister)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if layout is not None and layout_of(ckpt) != tuple(layout):
+        raise ValueError(
+            f"{path} was written by a {layout_of(ckpt)} (replica x data) "
+            f"run; this run is {tuple(layout)}: resume at the same layout")
+    if (ckpt.get("layout") or {}).get("mode") == "ma":
+        ckpt.update(state_row({k: ckpt[k] for k in ("models", "optimizer")},
+                              replica))
+    if "generators" in ckpt:
+        ckpt["generator"] = ckpt["generators"][rank]
     nets = {net: m for net, m in zip(NETS, models) if m is not None}
     if set(ckpt["models"]) != set(nets):
         raise ValueError(f"{path} holds the nets {sorted(ckpt['models'])}, "
@@ -188,9 +255,13 @@ class CheckpointManager:
 
     def save(self, models, optimizer, generator, step: int = 0,
              epoch: int = 0) -> str:
+        return self.write(checkpoint_payload(models, optimizer, generator,
+                                             step, epoch), step, epoch)
+
+    def write(self, payload: dict, step: int = 0, epoch: int = 0) -> str:
+        """Write ``payload`` to the next slot, then the index."""
         slot = (self._count % self.max_save) + 1
-        path = save_checkpoint(self.slot_path(slot), models, optimizer,
-                               generator, step, epoch)
+        path = write_checkpoint(self.slot_path(slot), payload)
         self._count += 1
         tmp = self._index_path() + ".tmp"
         with open(tmp, "w") as f:

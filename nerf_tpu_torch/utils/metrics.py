@@ -3,6 +3,8 @@
 A timestamped run directory ``<base>/<date>/<time>-epoch<N>/``, optionally
 emptied first (``-d``).  Every scalar goes to ``metrics.jsonl`` there; to
 tensorboard too when ``torch.utils.tensorboard`` imports and it is wanted.
+A writer that is not ``enabled`` (a rank other than 0 of the distributed
+modes) makes no directory and writes nothing.
 """
 
 from __future__ import annotations
@@ -28,7 +30,11 @@ class MetricsWriter:
     """Scalar metrics sink: JSONL always, tensorboard if available."""
 
     def __init__(self, base_dir: str = "./logs", epochs: int = 0,
-                 del_dir: bool = False, use_tensorboard: bool = True):
+                 del_dir: bool = False, use_tensorboard: bool = True,
+                 enabled: bool = True):
+        self.enabled = enabled
+        if not enabled:
+            return
         self.run_dir = _make_run_dir(base_dir, epochs, del_dir)
         self._jsonl = open(os.path.join(self.run_dir, "metrics.jsonl"), "a")
         self._tb = None
@@ -41,6 +47,8 @@ class MetricsWriter:
                 self._tb = None
 
     def add_scalar(self, tag: str, value, step: int) -> None:
+        if not self.enabled:
+            return
         value = float(value)
         self._jsonl.write(json.dumps(
             {"tag": tag, "value": value, "step": int(step), "ts": time.time()}
@@ -49,6 +57,8 @@ class MetricsWriter:
             self._tb.add_scalar(tag, value, step)
 
     def close(self) -> None:
+        if not self.enabled:
+            return
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

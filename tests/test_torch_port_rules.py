@@ -14,7 +14,7 @@ import torch
 
 import torch_port_common  # noqa: F401  (one thread per worker)
 import nerf_tpu_torch
-from nerf_tpu_torch.cli.entry import main
+from nerf_tpu_torch.cli.entry import ddp_main, ma_main, main
 from nerf_tpu_torch.cli.flags import get_parser
 from nerf_tpu_torch.cli.render import render_only
 from nerf_tpu_torch.data import blender
@@ -97,6 +97,16 @@ def test_entry_points_never_run_quietly_on_cpu(no_card, tmp_path):
                                         str(tmp_path), *flags])
         with pytest.raises(RuntimeError, match="device='cpu'"):
             render_only(args)
+    # the distributed entries: training and -r, before any data or
+    # process group
+    for entry, argv in ((ddp_main, []), (ma_main, ["--ma_epoch", "1"])):
+        for extra in ([], ["-r", "-e"]):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                entry(["--epochs", "1", "--dataset_root", str(tmp_path),
+                       *argv, *extra])
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("argv", [
@@ -119,6 +129,44 @@ def test_flags_match_the_jax_package(argv):
     cfg = flags.finalize_config(flags.config_from_args(args), focal)
     jcfg = jflags.finalize_config(jflags.config_from_args(jargs), focal)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+
+
+@pytest.mark.parametrize("mode,argv", [
+    ("ddp", []), ("ddp", ["--no_sync_prop", "-s", "--epochs", "3"]),
+    ("ddp", ["--coordinator", "10.0.0.1:1234", "--num_processes", "4",
+             "--process_id", "2", "-r", "-e"]),
+    ("ma", ["--ma_epoch", "2"]),
+    ("ma", ["--ma_epoch", "1", "--ma_method", "p2p", "-div",
+            "--allow_imbalanced", "--num_replicas", "4", "-t"]),
+    ("ma", ["--ma_epoch", "3", "--ma_method", "broadcast", "--coordinator",
+            "h:1", "--num_processes", "2", "--process_id", "0"])])
+def test_distributed_flags_match_the_jax_package(monkeypatch, mode, argv):
+    """ddp_main's and ma_main's command lines parse to the same arguments in
+    both packages (nerf_tpu's parsers are read through its entries, with
+    its trainer, render and rendezvous stubbed)."""
+    import nerf_tpu.cli as jcli
+    import nerf_tpu.parallel as jparallel
+    from nerf_tpu.cli import entry as jentry
+    from nerf_tpu_torch.cli.entry import ddp_parser, ma_parser
+
+    seen = {}
+
+    class Captured(Exception):
+        pass
+
+    def capture(args, *a, **kw):
+        seen["args"] = args
+        raise Captured
+
+    monkeypatch.setattr(jcli, "Trainer", capture)
+    monkeypatch.setattr(jcli, "render_only", capture)
+    monkeypatch.setattr(jparallel, "initialize_distributed",
+                        lambda *a: None)
+    monkeypatch.setattr(sys, "argv", ["prog", *argv])
+    with pytest.raises(Captured):
+        (jentry.ddp_main if mode == "ddp" else jentry.ma_main)()
+    parser = ddp_parser() if mode == "ddp" else ma_parser()
+    assert vars(parser.parse_args(argv)) == vars(seen["args"])
 
 
 def test_entry_without_render_exits_nonzero(no_card, tmp_path):

@@ -6,6 +6,10 @@ Imported by the tests/test_torch_*.py files (not collected itself).
 
 from __future__ import annotations
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import torch
 
@@ -219,3 +223,70 @@ def assert_step_grads_close(model: str, got, want):
     flat_want, _ = jax.flatten_util.ravel_pytree(want)
     np.testing.assert_allclose(np.asarray(flat_got), np.asarray(flat_want),
                                **STEP_REF_GRAD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# processes of the distributed tests: gloo ranks on the CPU that meet through
+# a FileStore (no TCP port, so parallel test workers never collide)
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RANK_TIMEOUT = 120     # seconds a rank may take before it counts as hung
+
+# the head of a rank's script: RANK, WORLD and a gloo process group through
+# the FileStore at TEST_STORE
+RANK_PROLOGUE = """
+import os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+RANK, WORLD = int(os.environ["TEST_RANK"]), int(os.environ["TEST_WORLD"])
+STORE = os.environ["TEST_STORE"]
+"""
+INIT_GLOO = """
+dist.init_process_group("gloo", init_method="file://" + STORE, rank=RANK,
+                        world_size=WORLD)
+"""
+# every rank leaves together and takes its gloo pairs down before the
+# interpreter exits (a pair's thread still running then aborts the process)
+RANK_EPILOGUE = """
+if dist.is_initialized():
+    dist.barrier()
+    dist.destroy_process_group()
+"""
+
+
+def run_ranks(code: str, world: int, workdir, args=(), store=None,
+              timeout: float = RANK_TIMEOUT, env=None):
+    """Run ``code`` (between RANK_PROLOGUE and RANK_EPILOGUE) in ``world``
+    CPU processes at once, in ``workdir``, each with ``args`` as its argv;
+    returns their (returncode, stdout, stderr) in rank order.  A rank still running after
+    ``timeout`` seconds is killed and the test fails."""
+    store = str(store or os.path.join(str(workdir), "store"))
+    base = dict(os.environ, OMP_NUM_THREADS="1", TEST_WORLD=str(world),
+                TEST_STORE=store, PYTHONPATH=REPO + os.pathsep
+                + os.environ.get("PYTHONPATH", ""), **(env or {}))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_PROLOGUE + code + RANK_EPILOGUE,
+         *map(str, args)],
+        cwd=str(workdir), env=dict(base, TEST_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    out, hung = [], []
+    for r, p in enumerate(procs):
+        try:
+            so, se = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            hung.append(r)
+            for q in procs:
+                q.kill()
+            so, se = p.communicate()
+        out.append((p.returncode, so, se))
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    assert not hung, f"ranks {hung} hung: " + "".join(
+        f"\n--- rank {r}\n{o[2][-2000:]}" for r, o in enumerate(out))
+    return out
