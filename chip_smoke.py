@@ -193,7 +193,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                issue, rays/s), one ddp epoch traced, a one-rank NCCL grad
                sync alone traced and timed, the averaging ms of each
                method (dist_readings)
- 21. the kernels line, then the last line {"ok": true, "device": {...}}
+ 21. data_observability - the native image decoder on 100 seeded 800x800
+               RGBA views whose rows cycle through the five PNG filters,
+               loaded at img_scale 0.5 with -w: the split's seconds, one
+               view's, four views against the built-in decoder within 1e-6
+               and its seconds (data_load); `python -m nerf_tpu_torch -s -w
+               --epochs 3 --trace DIR` on 20 of them: one Chrome trace of
+               the second epoch whose kernel events name the device
+               functions of vanilla_mlp_fwd_res, vanilla_mlp_bwd,
+               prop_mlp_fwd and prop_mlp_bwd once a step or more (trace);
+               the MFU of every epoch line and of the metrics log of that
+               run and of phases 7, 8, 11 and 18's kernel routes against
+               the formula (mfu); `-r -s -w --img_scale 0.125` of its
+               checkpoint: 120 orbit frames of 100x100 and orbit.gif read
+               block by block, 120 frames of 5 hundredths of a second,
+               looped, its write timed (orbit_gif)
+ 22. the kernels line, then the last line {"ok": true, "device": {...}}
 
 Every line carries ``elapsed_s``, the seconds since the script started.
 Imports nothing of JAX or nerf_tpu.
@@ -210,21 +225,24 @@ import re
 import shutil
 import signal
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from nerf_tpu_torch import ops, parallel
+from nerf_tpu_torch import native, ops, parallel
+from nerf_tpu_torch.cli import render as render_mod
 from nerf_tpu_torch.cli.entry import ddp_parser, ma_parser
 from nerf_tpu_torch.cli.entry import main as entry_main
 from nerf_tpu_torch.cli.flags import get_parser
 from nerf_tpu_torch.cli.trainer import Trainer, epoch_indices
-from nerf_tpu_torch.cli.flags import finalize_config
+from nerf_tpu_torch.cli.flags import config_from_args, finalize_config
 from nerf_tpu_torch.core import sampling
 from nerf_tpu_torch.core.encoding import cat_pos_pe, ide_tables, ipe_feature
 from nerf_tpu_torch.core.rays import (
@@ -236,6 +254,7 @@ from nerf_tpu_torch.ops.wgrad import grad_shapes
 from nerf_tpu_torch.train.config import PipelineConfig
 from nerf_tpu_torch.train.pipeline import make_models
 from nerf_tpu_torch.train.renderer import render_image
+from nerf_tpu_torch.data import blender
 from nerf_tpu_torch.data.blender import BlenderDataset
 from nerf_tpu_torch.train.step import (
     clip_by_global_norm_, compute_loss, make_optimizer, sample_train_rays,
@@ -246,6 +265,7 @@ from nerf_tpu_torch.utils.checkpoint import (
     NETS, CheckpointManager, checkpoint_paths, load_checkpoint, save_models,
 )
 from nerf_tpu_torch.utils.debug import nan_attribution
+from nerf_tpu_torch.utils.flops import H100_BF16_PEAK, train_step_flops
 from nerf_tpu_torch.utils.metrics import MetricsWriter, read_scalars
 from nerf_tpu_torch.utils.png import read_png, write_png
 
@@ -259,6 +279,7 @@ CHUNK = 4096                        # --eval_chunk default
 N_COARSE, N_FINE = 64, 128          # sample defaults
 N_MERGED = N_COARSE + N_FINE        # Ref-NeRF's merged samples per ray
 RAYS = 1024                         # --sample_ray_num default
+VIEW_HW = 800                       # the seeded views' size, lego's
 N_FRAMES = 2
 TRAIN_VIEWS, TRAIN_EPOCHS = 20, 5   # 100 steps of the train phase
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM
@@ -517,6 +538,20 @@ def emit(phase: str, **kw):
     print(json.dumps({"phase": phase, **kw,
                       "elapsed_s": time.perf_counter() - T_START}),
           flush=True)
+
+
+class Tee(io.TextIOBase):
+    """A text stream that writes through to ``out`` and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
 
 
 def fail(msg: str):
@@ -1313,24 +1348,32 @@ def check_kernel(name, dtype, gen, timed=True, **case):
 # ---------------------------------------------------------------------------
 
 def write_split(root: str, split: str, n_views: int,
-                gen: np.random.Generator):
+                gen: np.random.Generator, filters=0):
     """``n_views`` 800x800 RGBA views of ``split`` in the Blender layout
-    under root/data/lego, lego's field of view, poses on the orbit."""
+    under root/data/lego, lego's field of view, poses on the orbit; their
+    rows under the PNG ``filters`` (``utils.png.filter_rows``), written on
+    a thread pool."""
     scene = os.path.join(root, "data", "lego")
     os.makedirs(os.path.join(scene, split))
-    yy, xx = np.mgrid[0:800, 0:800] / 800.0
+    yy, xx = np.mgrid[0:VIEW_HW, 0:VIEW_HW] / VIEW_HW
     frames = []
-    for i in range(n_views):
-        pose = pose_spherical(-180.0 + 360.0 * i / max(n_views, 4), -30.0,
-                              4.0)
-        frames.append({"file_path": f"./{split}/r_{i}",
-                       "transform_matrix": pose.tolist()})
-        phase = gen.uniform(0, 2 * np.pi, 3)
-        rgb = 0.5 + 0.5 * np.sin(6 * xx[..., None] + 4 * yy[..., None] + phase)
-        alpha = ((xx - 0.5) ** 2 + (yy - 0.5) ** 2 < 0.1)[..., None]
-        img = np.concatenate([rgb, alpha], -1) * 255.0 + 0.5
-        write_png(os.path.join(scene, split, f"r_{i}.png"),
-                  img.astype(np.uint8))
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        jobs = []
+        for i in range(n_views):
+            pose = pose_spherical(-180.0 + 360.0 * i / max(n_views, 4),
+                                  -30.0, 4.0)
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": pose.tolist()})
+            phase = gen.uniform(0, 2 * np.pi, 3)
+            rgb = 0.5 + 0.5 * np.sin(6 * xx[..., None] + 4 * yy[..., None]
+                                     + phase)
+            alpha = ((xx - 0.5) ** 2 + (yy - 0.5) ** 2 < 0.1)[..., None]
+            img = np.concatenate([rgb, alpha], -1) * 255.0 + 0.5
+            jobs.append(pool.submit(
+                write_png, os.path.join(scene, split, f"r_{i}.png"),
+                img.astype(np.uint8), filters))
+        for job in jobs:
+            job.result()
     with open(os.path.join(scene, f"transforms_{split}.json"), "w") as f:
         json.dump({"camera_angle_x": LEGO_FOV, "frames": frames}, f)
 
@@ -2516,8 +2559,9 @@ def train_once(tmp: str, route: str, *extra: str,
     argv = train_argv(tmp, "--log_dir", log_dir, *extra, epochs=epochs)
     ops.reset_launches()
     torch.cuda.synchronize()
+    tee = Tee(sys.stdout)
     t0 = time.perf_counter()
-    with cwd(tmp):
+    with cwd(tmp), contextlib.redirect_stdout(tee):
         rc = entry_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2526,6 +2570,10 @@ def train_once(tmp: str, route: str, *extra: str,
         fail(f"train entry ({route}) returned {rc}")
     log = [os.path.join(d, f) for d, _, fs in os.walk(log_dir)
            for f in fs if f == "metrics.jsonl"][0]
+    # phase 21 holds each run's MFU against the formula
+    EPOCH_RUNS[route] = dict(
+        flags=list(extra), epochs=epochs, output="".join(tee.parts),
+        mfu=read_scalars(log, "MFU"), time=read_scalars(log, "Time/epoch"))
     losses = [v for _, v in read_scalars(log, "Train Loss")]
     mses = [10.0 ** (-v / 10.0) for _, v in read_scalars(log, "PSNR")]
     steps = TRAIN_VIEWS * epochs
@@ -2729,6 +2777,293 @@ def profile_trainer(tmp: str, epochs: int = 5, *extra: str):
                 device_busy_share=(device_ms / (wall * 1e3)
                                    if device_ms is not None else None),
                 top_device_ms_per_step=[[k, v / steps] for k, v in top])
+
+
+# ---------------------------------------------------------------------------
+# phase 21: data and observability (the native image decoder, --trace, the
+# trainer's MFU, the orbit GIF)
+# ---------------------------------------------------------------------------
+
+DATA_VIEWS = 100                 # lego's train split has 100 800x800 views
+PNG_FILTERS = (0, 1, 2, 3, 4)    # every view's rows cycle through all five
+BUILTIN_CHECKS = 4               # views also decoded by the built-in decoder
+TRACE_EPOCHS = 3                 # --trace records the second
+ORBIT_SCALE = 0.125              # 800 -> 100: the 120-frame orbit's size
+ORBIT_FRAMES = 120
+# the device function that each training kernel's wrapper launches, as the
+# trace names it
+TRACE_FUNCTIONS = {"vanilla_mlp_fwd_res": "vanilla_mlp_fwd_kernel",
+                   "vanilla_mlp_bwd": "vanilla_delta_kernel",
+                   "prop_mlp_fwd": "prop_mlp_fwd_kernel",
+                   "prop_mlp_bwd": "prop_delta_kernel"}
+# train_once's console output and logged MFU and epoch times, per route
+EPOCH_RUNS = {}
+# the runs whose MFU phase 21 holds against the formula: the trace run and
+# the kernel routes of phases 7, 8, 11 and 18
+MFU_ROUTES = ("trace", "vanilla_kernels", "ref_kernels", "hybrid_kernels",
+              "mip_kernels")
+
+
+def _median_s(fn, reps: int = 3) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def data_load(tmp: str) -> dict:
+    """100 seeded 800x800 RGBA views whose rows cycle through the five PNG
+    filters, loaded as the trainer loads lego (img_scale 0.5, -w) by the
+    native decoder: the split's seconds, one view's alone on one thread,
+    and BUILTIN_CHECKS views through the built-in decoder (utils/png.py and
+    the numpy resize, no Pillow), which the native decoder must equal within
+    1e-6; where Pillow imports, its seconds and its distance from the native
+    decoder (both compute Pillow's resize) as readings."""
+    t0 = time.perf_counter()
+    write_split(tmp, "train", DATA_VIEWS, np.random.default_rng(21),
+                PNG_FILTERS)
+    write_split(tmp, "test", 1, np.random.default_rng(22), PNG_FILTERS)
+    write_s = time.perf_counter() - t0
+    root = os.path.join(tmp, "data", "lego")
+    paths = [os.path.join(root, "train", f"r_{i}.png")
+             for i in range(DATA_VIEWS)]
+    t0 = time.perf_counter()
+    data = BlenderDataset.load(root, "train", img_scale=0.5, white_bkg=True)
+    split_s = time.perf_counter() - t0
+    half = VIEW_HW // 2
+    if data.decoder != "native" or data.images.shape != (DATA_VIEWS, half,
+                                                         half, 3):
+        fail(f"native load: decoder {data.decoder!r}, images "
+             f"{data.images.shape}")
+    if not (np.isfinite(data.images).all() and data.images.min() >= 0.0
+            and data.images.max() <= 1.0):
+        fail("native load: pixels outside [0, 1]")
+    one_s = _median_s(lambda: native.decode_images(paths[:1], 0.5, True,
+                                                   n_threads=1))
+    full_s = _median_s(lambda: native.decode_images(paths[:1], 1.0, True,
+                                                    n_threads=1))
+    pillow = blender.pillow
+    blender.pillow = lambda: None
+    try:
+        t0 = time.perf_counter()
+        plain, decoder = blender._load_plain(paths[:BUILTIN_CHECKS], 0.5,
+                                             True)
+        builtin_s = (time.perf_counter() - t0) / BUILTIN_CHECKS
+    finally:
+        blender.pillow = pillow
+    err = float(np.abs(data.images[:BUILTIN_CHECKS] - plain).max())
+    if "built-in" not in decoder or not err <= 1e-6:
+        fail(f"native load against the built-in decoder ({decoder}): max "
+             f"abs err {err}, limit 1e-6")
+    # a reading where Pillow imports: the loader it stands in for
+    pillow_s = pillow_err = None
+    if blender.pillow() is not None:
+        t0 = time.perf_counter()
+        with_pil, _ = blender._load_plain(paths[:BUILTIN_CHECKS], 0.5, True)
+        pillow_s = (time.perf_counter() - t0) / BUILTIN_CHECKS
+        pillow_err = float(np.abs(data.images[:BUILTIN_CHECKS]
+                                  - with_pil).max())
+    return dict(views=DATA_VIEWS, hw=[VIEW_HW, VIEW_HW], img_scale=0.5,
+                filters=list(PNG_FILTERS), host_cpus=os.cpu_count(),
+                write_s=write_s, native_split_s=split_s,
+                native_s_per_view_in_split=split_s / DATA_VIEWS,
+                native_s_one_view_one_thread=one_s,
+                native_s_one_view_full_size=full_s,
+                builtin_s_per_view=builtin_s,
+                builtin_over_native_one_thread=builtin_s / one_s,
+                builtin_views_checked=BUILTIN_CHECKS,
+                native_vs_builtin_max_abs=err, tol=1e-6,
+                pillow_s_per_view=pillow_s,
+                native_vs_pillow_max_abs=pillow_err)
+
+
+def trace_run(tmp: str) -> dict:
+    """``python -m nerf_tpu_torch -s -w --epochs 3 --trace DIR`` on 20 of
+    the 100 views: one Chrome trace of the second epoch, whose kernel
+    events must name each training kernel's device function once a step or
+    more; the run's launches as the train phase's."""
+    src = os.path.join(tmp, "data", "lego")
+    sub = os.path.join(tmp, "trace")
+    scene = os.path.join(sub, "data", "lego")
+    os.makedirs(os.path.join(scene, "train"))
+    shutil.copytree(os.path.join(src, "test"), os.path.join(scene, "test"))
+    shutil.copy(os.path.join(src, "transforms_test.json"), scene)
+    with open(os.path.join(src, "transforms_train.json")) as f:
+        meta = json.load(f)
+    meta["frames"] = meta["frames"][:TRAIN_VIEWS]
+    with open(os.path.join(scene, "transforms_train.json"), "w") as f:
+        json.dump(meta, f)
+    for i in range(TRAIN_VIEWS):
+        os.link(os.path.join(src, "train", f"r_{i}.png"),
+                os.path.join(scene, "train", f"r_{i}.png"))
+    trace_dir = os.path.join(sub, "trace")
+    launches, _, _, wall = train_once(sub, "trace", "--trace", trace_dir,
+                                      "--name", "trace_1",
+                                      epochs=TRACE_EPOCHS)
+    want = route_launches("vanilla", TRAIN_VIEWS * TRACE_EPOCHS,
+                          math.ceil((VIEW_HW // 2) ** 2 / CHUNK))
+    if launches != want:
+        fail(f"--trace run launches {launches}, expected {want}")
+    if f"profiler trace written to {trace_dir}" not in \
+            EPOCH_RUNS["trace"]["output"]:
+        fail("--trace run: no 'profiler trace written to' line")
+    files = sorted(os.listdir(trace_dir))
+    if files != ["rank0.pt.trace.json"]:
+        fail(f"--trace wrote {files}, expected rank0.pt.trace.json")
+    path = os.path.join(trace_dir, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    counts = {k: sum(fn in e.get("name", "") for e in kernels)
+              for k, fn in TRACE_FUNCTIONS.items()}
+    if any(c < TRAIN_VIEWS for c in counts.values()):
+        fail(f"--trace: kernel events per device function {counts}, "
+             f"expected {TRAIN_VIEWS} (one a step) or more each")
+    steps = [e for e in events if e.get("name") == "Optimizer.step#Adam.step"
+             and e.get("ph") == "X"]
+    span_us = (max(e["ts"] + e.get("dur", 0) for e in kernels)
+               - min(e["ts"] for e in kernels))
+    kernel_us = sum(e.get("dur", 0) for e in kernels)
+    return dict(command="python -m nerf_tpu_torch -s -w --epochs "
+                f"{TRACE_EPOCHS} --trace <dir>", steps=TRAIN_VIEWS *
+                TRACE_EPOCHS, traced_steps=len(steps), launches=launches,
+                trace_mb=os.path.getsize(path) / 1e6, events=len(events),
+                kernel_events=len(kernels), kernel_events_named=counts,
+                functions=TRACE_FUNCTIONS, kernel_ms=kernel_us / 1e3,
+                kernel_span_ms=span_us / 1e3,
+                kernel_busy_share=kernel_us / max(span_us, 1),
+                s_entry=wall)
+
+
+EPOCH_LINE = re.compile(r"Epoch +(\d+) / +\d+\t.*\t([\d,]+) rays/s\t"
+                        r"MFU: ([\d.]+)%\tETA")
+
+
+def mfu_check(route: str) -> dict:
+    """The MFU of each epoch line and of the metrics log of a train run
+    against the formula: rays/s / ray_batch x the step's FLOPs (counted on
+    the route's models) / the H100's dense bf16 peak.  The printed one must
+    be the formula on the printed rays/s to its one decimal, the logged one
+    steps / Time/epoch x FLOPs / peak."""
+    run = EPOCH_RUNS.get(route)
+    if run is None:
+        fail(f"MFU: no train run of route {route}")
+    cfg = config_from_args(get_parser().parse_args(
+        train_argv("/data", *run["flags"], epochs=run["epochs"])))
+    step_flops = train_step_flops(cfg, make_models(cfg, "cpu"))
+    lines = EPOCH_LINE.findall(run["output"])
+    if [int(ep) for ep, _, _ in lines] != list(range(run["epochs"])) or \
+            len(run["mfu"]) != run["epochs"]:
+        fail(f"MFU of {route}: epoch lines {lines}, logged {run['mfu']}")
+    printed, logged, rays = [], [], []
+    for (_, r, p), (_, m), (_, dt) in zip(lines, run["mfu"], run["time"]):
+        r, p = int(r.replace(",", "")), float(p)
+        want = r / cfg.ray_batch * step_flops / H100_BF16_PEAK * 100.0
+        want_log = TRAIN_VIEWS / dt * step_flops / H100_BF16_PEAK
+        if not (abs(p - want) <= 0.05 + 1e-9 and want > 0.0
+                and abs(m - want_log) <= 1e-9 * want_log):
+            fail(f"MFU of {route}: printed {p}% at {r} rays/s, formula "
+                 f"{want}%; logged {m}, formula {want_log}")
+        printed.append(p)
+        logged.append(m * 100.0)
+        rays.append(r)
+    return dict(route=route, model=cfg.model, flops_per_step=step_flops,
+                peak_flops=H100_BF16_PEAK, rays_per_s=rays,
+                mfu_pct_printed=printed, mfu_pct_logged=logged)
+
+
+def gif_blocks(data: bytes) -> dict:
+    """The frames, delays (hundredths of a second) and loop count of a
+    GIF89a, read block by block."""
+    if data[:6] != b"GIF89a":
+        fail(f"orbit.gif: header {data[:6]!r}")
+    w, h, packed = struct.unpack("<HHB", data[6:11])
+    pos = 13 + (3 * 2 ** ((packed & 7) + 1) if packed & 0x80 else 0)
+    frames, delays, loop, sizes = 0, [], None, set()
+
+    def sub_blocks(pos):
+        blocks = []
+        while data[pos]:
+            blocks.append(data[pos + 1:pos + 1 + data[pos]])
+            pos += 1 + data[pos]
+        return blocks, pos + 1
+
+    while data[pos] != 0x3B:
+        kind = data[pos]
+        if kind == 0x21:
+            label = data[pos + 1]
+            blocks, pos = sub_blocks(pos + 2)
+            if label == 0xF9:
+                delays.append(struct.unpack("<H", blocks[0][1:3])[0])
+            elif label == 0xFF and blocks[0] == b"NETSCAPE2.0":
+                loop = struct.unpack("<H", blocks[1][1:3])[0]
+        elif kind == 0x2C:
+            _, _, fw, fh, packed = struct.unpack("<HHHHB",
+                                                 data[pos + 1:pos + 10])
+            sizes.add((fw, fh))
+            pos += 10 + (3 * 2 ** ((packed & 7) + 1) if packed & 0x80 else 0)
+            _, pos = sub_blocks(pos + 1)     # after the LZW code size
+            frames += 1
+        else:
+            fail(f"orbit.gif: unknown block 0x{kind:02x} at byte {pos}")
+    return dict(width=w, height=h, frames=frames, delays_cs=delays,
+                loop=loop, frame_sizes=sorted(sizes), bytes=len(data))
+
+
+def orbit_gif(tmp: str) -> dict:
+    """``-r -s -w --img_scale 0.125`` on the trace run's checkpoint: the
+    120 orbit frames at 100x100, each chunk through the eval kernels, and
+    ``orbit.gif`` with 120 frames of 5 hundredths of a second, looped; the
+    GIF write timed (quantizer and LZW)."""
+    sub = os.path.join(tmp, "trace")
+    argv = ["-r", "-s", "-w", "--dataset_root", os.path.join(sub, "data"),
+            "--dataset_name", "lego", "--img_scale", str(ORBIT_SCALE),
+            "--name", "trace_1", "--output_dir", os.path.join(sub, "output")]
+    write_gif, gif_s = render_mod.write_gif, []
+
+    def timed_write_gif(*args, **kw):
+        t0 = time.perf_counter()
+        out = write_gif(*args, **kw)
+        gif_s.append(time.perf_counter() - t0)
+        return out
+
+    render_mod.write_gif = timed_write_gif
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with cwd(sub):
+            rc = entry_main(argv)
+    finally:
+        render_mod.write_gif = write_gif
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    side = int(VIEW_HW * ORBIT_SCALE)
+    want = route_launches("vanilla", 0, ORBIT_FRAMES * math.ceil(
+        side * side / CHUNK))
+    if rc != 0 or launches != want or len(gif_s) != 1:
+        fail(f"orbit render: rc {rc}, launches {launches}, expected {want}, "
+             f"GIF writes {len(gif_s)}")
+    path = os.path.join(sub, "output", "sphere", "orbit.gif")
+    with open(path, "rb") as f:
+        blocks = gif_blocks(f.read())
+    if (blocks["frames"] != ORBIT_FRAMES or blocks["loop"] != 0
+            or blocks["delays_cs"] != [5] * ORBIT_FRAMES
+            or blocks["frame_sizes"] != [(side, side)]
+            or (blocks["width"], blocks["height"]) != (side, side)):
+        fail(f"orbit.gif: {blocks['frames']} frames of "
+             f"{blocks['frame_sizes']}, delays "
+             f"{sorted(set(blocks['delays_cs']))}, loop {blocks['loop']}")
+    return dict(command="python -m nerf_tpu_torch -r -s -w --img_scale "
+                f"{ORBIT_SCALE}", launches=launches, frames=blocks["frames"],
+                hw=[side, side], delays_cs=sorted(set(blocks["delays_cs"])),
+                loop=blocks["loop"], gif_bytes=blocks["bytes"],
+                gif_write_s=gif_s[0],
+                gif_write_ms_per_frame=gif_s[0] * 1e3 / ORBIT_FRAMES,
+                s_entry=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -3879,6 +4214,9 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = build.build()
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.load()          # the image loader's and the GIF coder's library
+    native_build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for log in reports.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     mma = sass_mma_counts()
@@ -3886,7 +4224,8 @@ def main() -> int:
         if not mma["wgrad"]["wgrad_mma_kernel"]["HMMA"]:
             fail(f"no HMMA in wgrad_mma_kernel's SASS: {mma['wgrad']}")
         check_tile_mma(mma)
-    emit("build", seconds=build_s, sources=list(build.SOURCES), ptxas=ptxas,
+    emit("build", seconds=build_s, native_seconds=native_build_s,
+         sources=list(build.SOURCES), ptxas=ptxas,
          ptxas_wgrad=wgrad_ptxas(reports), ptxas_tile=tile_ptxas(reports),
          sass_mma=mma)
 
@@ -4062,7 +4401,19 @@ def main() -> int:
     # and two gloo ranks on the card
     distributed_phase(train_nets, ref_nets, smi)
 
-    # phase 21: the kernels line, then the last line.  ``launches`` is each
+    # phase 21: data and observability: the native image decoder on a
+    # 100-view split, a --trace run on 20 of its views, the MFU of the train
+    # runs, the orbit GIF
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        emit("data_load", **data_load(tmp))
+        emit("trace", **trace_run(tmp))
+        for route in MFU_ROUTES:
+            emit("mfu", **mfu_check(route))
+        emit("orbit_gif", **orbit_gif(tmp))
+    emit("data_observability_done", seconds=time.perf_counter() - t_phase)
+
+    # phase 22: the kernels line, then the last line.  ``launches`` is each
     # kernel's count in its path's run: the vanilla train path (training
     # steps and the final eval render) for the vanilla kernels, the Ref-NeRF
     # render path for the Ref-NeRF eval forwards, the Ref-NeRF train path

@@ -107,8 +107,8 @@ def get_parser() -> argparse.ArgumentParser:
                         "spatial kernels (the recompute pair in training), "
                         "the directional net as the nn.Module")
     p.add_argument("--trace", type=str, default=None, metavar="DIR",
-                   help="capture a profiler trace of one epoch into DIR "
-                        "(training; not ported yet)")
+                   help="capture a profiler trace of the second training "
+                        "epoch into DIR (one Chrome trace JSON per rank)")
     p.add_argument("--use_ipe", default=False, action="store_true",
                    help="Mip-NeRF integrated positional encoding for the "
                         "vanilla fine net (live version of the reference's "

@@ -16,8 +16,9 @@ none of the three it raises ``FileNotFoundError`` naming them.  Renders the
 test poses (-e) with per-frame MSE and PSNR against the ground truth, or
 the 120-pose orbit; writes ``output/{given|sphere}/result_%03d.png`` grids
 with nrow = 1 + render_depth + render_normal (+ the ground-truth panel under
--e), the normal panel (--render_normal) for Ref-NeRF (-t) only.  The orbit
-GIF is written only when Pillow imports.
+-e), the normal panel (--render_normal) for Ref-NeRF (-t) only, and the
+orbit's frames as ``output/sphere/orbit.gif`` (50 ms a frame, looped;
+utils/gif.py, no Pillow).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 from nerf_tpu_torch.bridge import load_flax_variables
 from nerf_tpu_torch.cli.flags import config_from_args, finalize_config
 from nerf_tpu_torch.core.rays import orbit_poses
-from nerf_tpu_torch.data.blender import BlenderDataset, pillow
+from nerf_tpu_torch.data.blender import BlenderDataset
 from nerf_tpu_torch.device import resolve_device
 from nerf_tpu_torch.train.pipeline import make_models
 from nerf_tpu_torch.train.renderer import render_image
@@ -37,6 +38,7 @@ from nerf_tpu_torch.utils.checkpoint import (
     CheckpointManager, is_nerf_tpu_checkpoint, load_checkpoint,
     load_model_files, load_nerf_tpu_checkpoint, model_files,
 )
+from nerf_tpu_torch.utils.gif import write_gif
 from nerf_tpu_torch.utils.image import save_image_grid, to_uint8
 
 MODEL_DIR = "model"
@@ -125,16 +127,9 @@ def render_only(args, device=None):
         if not args.eval_poses:
             frames.append(to_uint8(out["rgb"]))
     if frames:
-        pil = pillow()
-        if pil is None:
-            print("Orbit animation skipped: Pillow is not installed "
-                  "(the PNG frames are written)")
-        else:
-            gif = os.path.join(out_dir, "orbit.gif")
-            imgs = [pil.fromarray(f) for f in frames]
-            imgs[0].save(gif, save_all=True, append_images=imgs[1:],
-                         duration=50, loop=0)
-            print(f"Orbit animation -> {gif}")
+        gif = write_gif(os.path.join(out_dir, "orbit.gif"), frames,
+                        duration_ms=50, loop=0)
+        print(f"Orbit animation -> {gif}")
     if psnrs:
         print(f"Mean PSNR over {len(psnrs)} test poses: {np.mean(psnrs):.4f}")
     print(f"Output completed -> {out_dir}")

@@ -18,11 +18,11 @@ CUDA device:
   are copied, without waiting, into pinned host memory behind a CUDA event,
   and read back one epoch late, after the next epoch is issued
   (nerf_tpu/cli/trainer.py:525-634), for the console line (loss, PSNR,
-  learning rate, rays/s, ETA; ``Time/epoch`` runs from one epoch's
-  read-back to the next) and the metrics log (``--log_dir``, every
-  ``--eval_time`` steps; Ref-NeRF's normal and back-face losses and
-  Mip-NeRF's coarse loss too); epochs that evaluate, average or stop are
-  read back at once;
+  learning rate, rays/s, MFU, ETA; ``Time/epoch`` runs from one epoch's
+  completion on the device to the next's, timed by CUDA events) and the
+  metrics log (``--log_dir``, every ``--eval_time`` steps; Ref-NeRF's
+  normal and back-face losses and Mip-NeRF's coarse loss too); epochs
+  that evaluate, average or stop are read back at once;
 - every ``--output_time`` epochs and at the end it renders test views 1 and
   4 with their test loss, saves the image grid (with the normal map under
   ``--render_normal`` and the depth under ``--render_depth``) to
@@ -75,9 +75,13 @@ own device with its own generator (parallel/dp.py ``rank_seed``):
   that does not wait for the device, so a signal to one rank stops every
   rank after the same epoch, with one collective save.
 
-The JAX package's MFU against a TPU peak is not printed: the port's own
-FLOP count comes with its bench (ROADMAP.md A4), and so does ``--trace``,
-which raises ``NotImplementedError`` naming that item.
+Each epoch line and the metrics log (``MFU``) carry the model FLOPs
+utilization of one device: its rays/s over the analytic FLOP count of a
+step (utils/flops.py) against the H100's dense bf16 peak
+(nerf_tpu/cli/trainer.py:294-316).  ``--trace DIR`` records the run's second
+epoch with torch.profiler (CPU and CUDA activities on the card) and writes
+one Chrome trace, ``DIR/rank<r>.pt.trace.json``, per rank
+(nerf_tpu/cli/trainer.py:579-588); a one-epoch run traces nothing.
 """
 
 from __future__ import annotations
@@ -110,20 +114,13 @@ from nerf_tpu_torch.utils.checkpoint import (
     load_nerf_tpu_checkpoint, save_models, stack_states, train_state,
 )
 from nerf_tpu_torch.utils.debug import check_finite, nan_attribution
+from nerf_tpu_torch.utils.flops import H100_BF16_PEAK, train_step_flops
 from nerf_tpu_torch.utils.image import save_image_grid
 from nerf_tpu_torch.utils.metrics import MetricsWriter
 from nerf_tpu_torch.utils.timer import Timer
 
 STOP_SIGNALS = (signal.SIGTERM, signal.SIGINT)
 MODES = ("single", "ddp", "ma")
-
-
-def check_trainer_flags(args) -> None:
-    """Raise for every flag whose part of the trainer is not ported."""
-    if args.trace is not None:
-        raise NotImplementedError(
-            "--trace (a profiler trace of one epoch) is not ported to "
-            "nerf_tpu_torch yet; see ROADMAP.md A4")
 
 
 def resume_seed(seed: int, step: int) -> int:
@@ -208,7 +205,6 @@ class Trainer:
                 self.dev, backend, getattr(args, "coordinator", None),
                 getattr(args, "num_processes", None),
                 getattr(args, "process_id", None))
-        check_trainer_flags(args)
         self.args = args
         root = os.path.join(args.dataset_root, args.dataset_name)
         load = dict(img_scale=args.img_scale, scene_scale=args.scene_scale,
@@ -252,6 +248,7 @@ class Trainer:
             self.models, self.grid.data_group, self.grid.n_data,
             sync_prop=not getattr(args, "no_sync_prop", False))
         self._eval_nets = None
+        self._flops_per_step = None
         self.step = 0          # host mirror of the optimizer's step count
         self.losses = []       # per-step loss, fetched once per epoch
         self.train_timer, self.eval_timer = Timer(5), Timer(5)
@@ -385,35 +382,67 @@ class Trainer:
         return {k: torch.stack([m[k] for m in collected])
                 for k in collected[0]}
 
+    def _traced_epoch(self, ep: int):
+        """``run_epoch`` under torch.profiler, its device work waited for
+        inside the profiled block; writes this rank's Chrome trace into
+        ``--trace``."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.dev.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            metrics = self.run_epoch(ep)
+            if self.dev.type == "cuda":
+                torch.cuda.synchronize(self.dev)
+        os.makedirs(self.args.trace, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            self.args.trace, f"rank{self.rank}.pt.trace.json"))
+        self._print(f"profiler trace written to {self.args.trace}")
+        return metrics
+
     def _stage(self, metrics) -> tuple:
         """Start the copy of an epoch's stacked metrics to the host: into
         pinned memory, without waiting, behind a CUDA event (on the CPU
         they are there already).  A grid of more than one rank first
         averages them over its ranks, on the device.  Returns (keys, host
-        tensor, event)."""
+        tensor, the epoch's end on the clock of ``_mark``)."""
         keys = list(metrics)
         stacked = torch.stack([metrics[k] for k in keys])
         if self.grid.size > 1:
             dist.all_reduce(stacked, group=self.grid.grid_group)
             stacked.div_(self.grid.size)
         if stacked.device.type != "cuda":
-            return keys, stacked, None
+            return keys, stacked, self._mark()
         host = torch.empty(stacked.shape, dtype=stacked.dtype,
                            pin_memory=True)
         host.copy_(stacked, non_blocking=True)
-        event = torch.cuda.Event()
+        return keys, host, self._mark()
+
+    def _mark(self):
+        """A point of the epoch clock: on the card a timed CUDA event, which
+        completes when the work issued before it does; on the CPU, where
+        the work is done once it is issued, the host's clock."""
+        if self.dev.type != "cuda":
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
         event.record()
-        return keys, host, event
+        return event
 
     def _finish(self, ep: int, step_base: int, staged: tuple) -> None:
         """Wait for an epoch's metrics copy, then its console line and
-        metrics log; the epoch's time runs from the previous read-back."""
-        keys, host, event = staged
-        if event is not None:
-            event.synchronize()
+        metrics log.  The epoch's time runs from the previous epoch's
+        completion (or the end of a pause: an eval, an averaging) to its
+        own, on the device's clock: the host that issues the next epoch
+        before this read-back does not move it."""
+        keys, host, end = staged
+        if isinstance(end, float):
+            dt = end - self._epoch_mark
+        else:
+            end.synchronize()
+            dt = self._epoch_mark.elapsed_time(end) / 1e3
+        self._epoch_mark = end
         metrics = dict(zip(keys, host.numpy()))
-        now = time.perf_counter()
-        dt, self._epoch_mark = now - self._epoch_mark, now
         self.train_timer.record(dt)
         if self.args.debug:
             check_finite(metrics, f"the metrics of epoch {ep}")
@@ -440,13 +469,32 @@ class Trainer:
                                    step_base + i)
         # every rank trains ray_batch rays a step (:563-565)
         rays_s = steps * self.grid.size * self.cfg.ray_batch / max(dt, 1e-9)
+        mfu = self._mfu(rays_s / self.grid.size)
         self.writer.add_scalar("Time/epoch", dt, ep)
+        self.writer.add_scalar("MFU", mfu, ep)
         self._print(f"Epoch {ep:4d} / {args.epochs:4d}\t"
                     f"loss: {float(metrics['loss'][-1]):.4f}\t"
                     f"PSNR: {float(metrics['psnr'][-1]):.3f}\t"
                     f"lr: {self.schedule(step_base + steps):.7f}\t"
                     f"{rays_s:,.0f} rays/s\t"
+                    f"MFU: {mfu * 100:.1f}%\t"
                     f"ETA: {self.train_timer.eta_str(args.epochs - ep - 1)}")
+
+    def _mfu(self, rays_per_sec: float) -> float:
+        """Model FLOPs utilization of one device at ``rays_per_sec``; the
+        step's FLOP count is taken once, from the weights' shapes."""
+        if self._flops_per_step is None:
+            try:
+                self._flops_per_step = train_step_flops(self.cfg, self.models)
+            except (AttributeError, TypeError, ValueError) as e:
+                # a model the count does not know: say so once instead of
+                # reporting 0.0% without a word
+                self._print(f"warning: FLOPs model failed "
+                            f"({type(e).__name__}: {e}); MFU will report "
+                            f"0.0%")
+                self._flops_per_step = 0.0
+        steps_s = rays_per_sec / self.cfg.ray_batch
+        return steps_s * self._flops_per_step / H100_BF16_PEAK
 
     @torch.no_grad()
     def eval_models(self):
@@ -598,10 +646,17 @@ class Trainer:
         printing overlap the device's work."""
         args = self.args
         pending = None        # (ep, step_base, staged) not read back yet
-        self._epoch_mark = time.perf_counter()
+        self._epoch_mark = self._mark()
         for ep in range(self.epoch_start, args.epochs):
             step_base = self.step
-            staged = self._stage(self.run_epoch(ep))
+            if args.trace is not None and ep == self.epoch_start + 1:
+                # the second epoch, past the first launches' set-up
+                if pending is not None:
+                    self._finish(*pending)
+                    pending = None
+                staged = self._stage(self._traced_epoch(ep))
+            else:
+                staged = self._stage(self.run_epoch(ep))
             if pending is not None:
                 self._finish(*pending)
                 pending = None
@@ -622,7 +677,7 @@ class Trainer:
                 if is_eval:
                     self.evaluate(ep)
                     self.save(ep)
-                self._epoch_mark = time.perf_counter()  # not train time
+                self._epoch_mark = self._mark()  # not train time
             else:
                 pending = (ep, step_base, staged)
         if pending is not None:

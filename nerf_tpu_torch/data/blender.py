@@ -1,18 +1,22 @@
 """Blender-synthetic dataset loader, train and test splits (port of
-nerf_tpu/data/blender.py, without the native decoder).
+nerf_tpu/data/blender.py).
 
 ``transforms_<split>.json`` gives ``camera_angle_x`` (optionally ``_y``) and
 a 4x4 ``transform_matrix`` per frame; the PNGs of ``<split>/`` are listed in
 natural order without the ``*normal*``/``*alpha*`` files.  Images are
-resized by ``img_scale`` (bilinear with Pillow's antialiasing), composited
-onto white under ``white_bkg``, and ``scene_scale`` scales the translation.
-Under ``use_div`` (the model-averaging mode's ``-div``) the split comes from
+resized by ``img_scale`` (Pillow's bilinear resampling, RGBA premultiplied,
+bit for bit), composited onto white under ``white_bkg``, and
+``scene_scale`` scales the translation.  Under ``use_div`` (the
+model-averaging mode's ``-div``) the split comes from
 ``transforms_<split>_div.json``, which tools/pose_division.py writes, with
 its ``division`` (a replica per image) and ``weights`` (one per division).
 
-Pillow decodes and resizes when it imports, as in the JAX package.  Without
-it the loader decodes with ``utils/png.py`` and resizes in numpy with the
-same filter; ``BlenderDataset.decoder`` says which path ran.
+By default (``use_native=True``, as in the JAX package) the native loader
+(nerf_tpu_torch/native) decodes, resizes and composites the whole split on
+a thread pool.  ``use_native=False`` takes the plain path, the native
+loader's oracle: Pillow when it imports, else ``utils/png.py`` and the
+numpy resize below, which the native loader equals bit for bit.
+``BlenderDataset.decoder`` says which path ran.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ from typing import Optional
 
 import numpy as np
 
+from nerf_tpu_torch import native
 from nerf_tpu_torch.core.rays import fov_to_focal
+from nerf_tpu_torch.utils.image import PRECISION_BITS, resize_taps
 from nerf_tpu_torch.utils.png import read_png
 
 
@@ -45,38 +51,49 @@ def natural_sorted(names):
     return sorted(names, key=key)
 
 
-def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
-    """(n_out, n_in) bilinear (triangle) resampling matrix with Pillow's
-    support scaling when shrinking and its edge renormalization."""
-    scale = n_in / n_out
-    fscale = max(scale, 1.0)
-    m = np.zeros((n_out, n_in), np.float64)
-    for i in range(n_out):
-        center = (i + 0.5) * scale
-        lo = max(int(center - fscale + 0.5), 0)
-        hi = min(int(center + fscale + 0.5), n_in)
-        x = (np.arange(lo, hi) - center + 0.5) / fscale
-        w = np.clip(1.0 - np.abs(x), 0.0, None)
-        m[i, lo:hi] = w / w.sum()
-    return m
+def _resample(x: np.ndarray, axis: int, n_out: int) -> np.ndarray:
+    """uint8 ``x`` resampled to ``n_out`` along ``axis`` (0 or 1) by
+    ``resize_taps``: integer sums from half a unit up, shifted down and
+    clamped to 8 bits, as Pillow's 8-bit passes (exact in any order)."""
+    lo, weights = resize_taps(x.shape[axis], n_out)
+    shape = (-1,) + (1,) * (x.ndim - 1 - axis)
+    acc = 1 << (PRECISION_BITS - 1)
+    for k in range(weights.shape[1]):
+        idx = np.minimum(lo + k, x.shape[axis] - 1)
+        acc = acc + weights[:, k].astype(np.int64).reshape(shape) * np.take(
+            x, idx, axis=axis)
+    return np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
 def _resize_numpy(img: np.ndarray, ratio: float) -> np.ndarray:
-    """uint8 (H, W, C) resize by ``ratio``; RGBA is resampled premultiplied,
-    as Pillow does."""
+    """uint8 (H, W, C) resize by ``ratio`` as Pillow's ``Image.resize(...,
+    BILINEAR)`` computes it, bit for bit: RGBA premultiplied to 8 bits
+    first (``(t + (t >> 8)) >> 8`` of ``t = c a + 128``), the horizontal
+    pass then the vertical one, each to 8 bits and skipped where the size
+    is unchanged, then divided back by alpha (truncating); an unchanged
+    size returns the image as it is."""
     h, w = img.shape[:2]
     new_h, new_w = int(h * ratio), int(w * ratio)
-    x = img.astype(np.float64)
+    if (new_h, new_w) == (h, w):
+        return img
+    x = img.astype(np.int64)
     rgba = x.shape[-1] == 4
     if rgba:
-        x[..., :3] *= x[..., 3:] / 255.0
-    x = np.einsum("oh,hwc->owc", _resize_weights(h, new_h), x)
-    x = np.einsum("pw,owc->opc", _resize_weights(w, new_w), x)
+        t = x[..., :3] * x[..., 3:] + 128
+        x[..., :3] = ((t >> 8) + t) >> 8
+    x = x.astype(np.uint8)
+    if new_w != w:
+        x = _resample(x, 1, new_w)
+    if new_h != h:
+        x = _resample(x, 0, new_h)
     if rgba:
-        a = x[..., 3:]
-        x[..., :3] = np.where(a > 0, x[..., :3] * 255.0 / np.maximum(a, 1e-12),
-                              0.0)
-    return np.clip(np.rint(x), 0, 255).astype(np.uint8)
+        y = x.astype(np.int64)
+        a = y[..., 3:]
+        keep = (a == 0) | (a == 255)
+        y[..., :3] = np.where(keep, y[..., :3], np.minimum(
+            255 * y[..., :3] // np.maximum(a, 1), 255))
+        x = y.astype(np.uint8)
+    return x
 
 
 def _load_pillow(path: str, mode: str, ratio: float, image_mod) -> np.ndarray:
@@ -96,6 +113,23 @@ def _load_builtin(path: str, mode: str, ratio: float) -> np.ndarray:
     if ratio != 1.0:
         img = _resize_numpy(img, ratio)
     return img.astype(np.float32) / 255.0
+
+
+def _load_plain(paths, ratio: float, white_bkg: bool):
+    """(images (N, H, W, 3) float32, decoder) of the plain path: Pillow, or
+    the built-in decoder without it."""
+    mode = "RGBA" if white_bkg else "RGB"
+    pil = pillow()
+    images = []
+    for path in paths:
+        arr = (_load_pillow(path, mode, ratio, pil) if pil is not None
+               else _load_builtin(path, mode, ratio))
+        if white_bkg:
+            arr = arr[..., :3] * arr[..., 3:] + (1.0 - arr[..., 3:])
+        images.append(arr[..., :3])
+    decoder = ("Pillow" if pil is not None
+               else "built-in zlib PNG decoder (Pillow not installed)")
+    return np.stack(images).astype(np.float32), decoder
 
 
 @dataclass
@@ -129,7 +163,8 @@ class BlenderDataset:
     @classmethod
     def load(cls, root: str, split: str = "test", img_scale: float = 1.0,
              scene_scale: float = 1.0, white_bkg: bool = False,
-             use_div: bool = False) -> "BlenderDataset":
+             use_div: bool = False,
+             use_native: bool = True) -> "BlenderDataset":
         json_name = (f"transforms_{split}_div.json" if use_div
                      else f"transforms_{split}.json")
         json_path = os.path.join(root, json_name)
@@ -165,24 +200,18 @@ class BlenderDataset:
                 f"dataset resolves to {n} image/pose pairs; re-run "
                 f"tools/pose_division.py on the current dataset")
 
-        mode = "RGBA" if white_bkg else "RGB"
-        pil = pillow()
-        images = []
-        for name in names:
-            path = os.path.join(img_dir, name)
-            arr = (_load_pillow(path, mode, img_scale, pil) if pil is not None
-                   else _load_builtin(path, mode, img_scale))
-            if white_bkg:
-                arr = arr[..., :3] * arr[..., 3:] + (1.0 - arr[..., 3:])
-            images.append(arr[..., :3])
+        paths = [os.path.join(img_dir, name) for name in names]
+        if use_native:
+            images = native.decode_images(paths, img_scale, white_bkg)
+            decoder = "native"
+        else:
+            images, decoder = _load_plain(paths, img_scale, white_bkg)
 
         poses = []
         for frame in frames:
             tf = np.asarray(frame["transform_matrix"], np.float32)[:3, :]
             tf[:, 3] *= scene_scale
             poses.append(tf)
-        return cls(images=np.stack(images).astype(np.float32),
-                   poses=np.stack(poses).astype(np.float32), fov=fov,
-                   decoder="Pillow" if pil is not None
-                   else "built-in zlib PNG decoder (Pillow not installed)",
-                   division=division, weights=weights)
+        return cls(images=images, poses=np.stack(poses).astype(np.float32),
+                   fov=fov, decoder=decoder, division=division,
+                   weights=weights)

@@ -147,7 +147,7 @@ def test_render_only_end_to_end_on_cpu(variables, tmp_path, monkeypatch,
     out = capsys.readouterr().out
     assert out.count("Image loss:") == 2 and "PSNR:" in out
     assert "Mean PSNR over 2 test poses" in out and np.isfinite(psnr)
-    assert "test images with Pillow" in out
+    assert "test images with native" in out
     for i in range(2):
         assert os.path.getsize(tmp_path / "out" / "given" / f"result_{i:03d}.png")
 

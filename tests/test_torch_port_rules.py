@@ -28,21 +28,24 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_no_jax():
-    """Import every module of the package (and chip_smoke.py) in a fresh
-    interpreter: neither jax, flax, msgpack nor nerf_tpu may be loaded
-    (the port reads nerf_tpu's checkpoints with its own reader,
-    nerf_tpu_torch.utils.msgpack)."""
+    """Import every module of the package (native/ included) and
+    chip_smoke.py in a fresh interpreter: neither jax, flax, msgpack,
+    nerf_tpu nor Pillow may be loaded (the port reads nerf_tpu's checkpoints
+    with its own reader, nerf_tpu_torch.utils.msgpack, and its images with
+    its own decoders)."""
     mods = sorted(m.name for m in pkgutil.walk_packages(
         nerf_tpu_torch.__path__, "nerf_tpu_torch."))
     assert {"nerf_tpu_torch.ops.fused_mlp", "nerf_tpu_torch.ops.ref_fused",
             "nerf_tpu_torch.ops.launch",
-            "nerf_tpu_torch.models.refnerf"} <= set(mods)
+            "nerf_tpu_torch.models.refnerf", "nerf_tpu_torch.native",
+            "nerf_tpu_torch.utils.gif",
+            "nerf_tpu_torch.utils.flops"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'msgpack', 'nerf_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'msgpack', 'nerf_tpu', 'PIL')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -236,10 +239,10 @@ def test_builtin_loader_matches_pillow(tmp_path, monkeypatch, scale):
     (tmp_path / "transforms_test.json").write_text(
         json.dumps({"camera_angle_x": 0.69, "frames": frames}))
     with_pil = blender.BlenderDataset.load(str(tmp_path), "test", scale,
-                                           white_bkg=True)
+                                           white_bkg=True, use_native=False)
     monkeypatch.setattr(blender, "pillow", lambda: None)
     builtin = blender.BlenderDataset.load(str(tmp_path), "test", scale,
-                                          white_bkg=True)
+                                          white_bkg=True, use_native=False)
     assert with_pil.decoder == "Pillow" and "built-in" in builtin.decoder
     assert builtin.images.shape == with_pil.images.shape
     # Pillow resamples in fixed point with a uint8 round per pass

@@ -444,18 +444,29 @@ def test_trainer_end_to_end_on_cpu(tmp_path, monkeypatch, capsys):
     (["-l"], "A8"), (["--ckpt_dir", "ck"], "A8"), (["-b"], "A10"),
     (["--trace", "tr"], "A4")])
 def test_trainer_rejects_unported_flags(tmp_path, monkeypatch, flag, item):
-    """Only --trace (ROADMAP A4) still raises.  The flags of A8 and A10,
-    which raised here before they were ported, train one epoch and leave
-    their result: -l resumes from the slot that an earlier run wrote at
-    its eval; --ckpt_dir holds the rotating slot and its index; -b trains
-    through the nn.Module route with no kernel launched
-    (tests/test_torch_checkpoint.py and tests/test_torch_debug.py hold
-    them against nerf_tpu)."""
+    """None of these flags raises any more.  The flags of A4, A8 and A10,
+    which raised here before they were ported, train and leave their
+    result: --trace writes one Chrome trace of the second epoch that holds
+    the step's operations, and none in a one-epoch run; -l resumes from the
+    slot that an earlier run wrote at its eval; --ckpt_dir holds the
+    rotating slot and its index; -b trains through the nn.Module route with
+    no kernel launched (tests/test_torch_checkpoint.py and
+    tests/test_torch_debug.py hold them against nerf_tpu)."""
     monkeypatch.chdir(tmp_path)
-    args = get_parser().parse_args(_train_argv(tmp_path, *flag))
     if item == "A4":
-        with pytest.raises(NotImplementedError, match=item):
-            train(args, device="cpu")
+        train(get_parser().parse_args(_train_argv(
+            tmp_path, *flag, "--epochs", "1")), device="cpu")
+        assert not os.path.exists(tmp_path / "tr")
+        trainer = train(get_parser().parse_args(_train_argv(
+            tmp_path, *flag, "--epochs", "2")), device="cpu")
+        assert np.isfinite(trainer.losses).all()
+        (trace,) = (tmp_path / "tr").iterdir()
+        assert trace.name == "rank0.pt.trace.json"
+        names = [e.get("name", "") for e in json.load(open(trace))[
+            "traceEvents"]]
+        # one epoch of 7 steps: the Adam update and the nets' products
+        assert names.count("Optimizer.step#Adam.step") == 7
+        assert any(n in ("aten::mm", "aten::addmm") for n in names)
         return
     common = ("--epochs", "2", "--output_time", "1")
     if flag == ["-l"]:
