@@ -9,11 +9,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                per source, all started together; ptxas's registers, shared
                memory and spills of the weight-grad kernels and of every
                kernel that runs the layer tile (dense_tile) or the delta
-               pass (delta_tile), and the tensor-core instructions (HMMA) in
-               each library's SASS and in each such kernel:
-               wgrad_mma_kernel and every bf16 instantiation of a tile or
-               delta kernel must have them, no f32 one may, and the kernels
-               that run both must hold more than with the tile alone
+               pass (delta_tile), and the tensor-core instructions (HGMMA
+               for wgmma, HMMA for mma.sync) in each library's SASS and in
+               each such kernel: wgrad_mma_kernel must hold HMMA, every
+               bf16 tile kernel HGMMA, every bf16 delta kernel HMMA, only
+               the kernels that run both (TILE_AND_DELTA) both, and no f32
+               one either
   3. kernels - each kernel against its plain PyTorch version, bf16 and f32,
                with timings and bounds: the eval forwards at the shapes of
                one default 4096-ray chunk, the training kernels at those of
@@ -121,7 +122,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                a second launch bit for bit, its time, the plain version's,
                torch.addmm's as a yardstick and the bound; the same shapes in
                f32 (the CUDA-core body); the card tests' narrow widths and
-               ragged row counts, untimed
+               ragged row counts, untimed; the rounding gate: at 256 -> 256
+               and 167 + 256 -> 256 on 131,072 seeded rows, the share of
+               the tile's bf16 outputs off the layer summed in f64 may be
+               at most DENSE_GATE_FACTOR times the in-order f32 sum's
  17. delta   - the delta pass alone (ops.delta_layer) at every delta shape
                and form of the main paths (k_dim 0, 2, 3, 9, 128 and 256
                into 63, 128, 167 or 256 columns; masked by stored
@@ -2379,12 +2383,56 @@ def dense_check(gen, n, ks, n_out, dtype, timed=True):
                 weight_stage_tb_per_s=staged / (ms * 1e-3) / 1e12)
 
 
+# the tile's rounding gate: the 256 -> 256 layer and the longest chain of
+# the main paths (167 + 256 -> 256, 27 k-steps) on their own seeded rows
+DENSE_GATE_SHAPES = (((256,), 256), ((167, 256), 256))
+DENSE_GATE_N = 131_072
+DENSE_GATE_SEED = 16
+# the most bf16 outputs of the tile that may differ from the layer summed in
+# f64 and rounded, as a multiple of the share of the f32 sum in the order
+# of k (dense.dense_layer_in_order): a tile that chains its k-steps through
+# the tensor cores' truncating accumulator reads above it
+DENSE_GATE_FACTOR = 1.0
+
+
+def rounding_gate():
+    """At each shape of DENSE_GATE_SHAPES: the share of the tile's bf16
+    outputs that differ from the layer summed in f64 and then rounded, the
+    in-order f32 sum's share and the plain version's (cuBLAS) beside it;
+    fails where the tile's share is above DENSE_GATE_FACTOR times the
+    in-order sum's."""
+    gen = torch.Generator(device="cuda").manual_seed(DENSE_GATE_SEED)
+    out = []
+    for ks, n_out in DENSE_GATE_SHAPES:
+        acts, ws, b = dense_operands(gen, DENSE_GATE_N, ks, n_out,
+                                     torch.bfloat16)
+        exact = dense_call(dense_lib.dense_layer_f64, acts, ws, b)
+        shares = {
+            key: dense_lib.rounding_share(got, exact) for key, got in (
+                ("tile", dense_call(ops.dense_layer, acts, ws, b)[0]),
+                ("in_order_f32", dense_call(dense_lib.dense_layer_in_order,
+                                            acts, ws, b)),
+                ("plain", dense_call(ops.dense_layer_plain, acts, ws,
+                                     b)[0]))}
+        limit = DENSE_GATE_FACTOR * shares["in_order_f32"]
+        label = f"{'+'.join(map(str, ks))}->{n_out}"
+        if shares["tile"] > limit:
+            fail(f"dense_layer[{label}]: {shares['tile']} of its bf16 "
+                 f"outputs differ from the f64 layer, above {limit} "
+                 f"({DENSE_GATE_FACTOR} x the in-order f32 sum's)")
+        out.append(dict(shape=label, n=DENSE_GATE_N, limit=limit,
+                        ratio=shares["tile"] / shares["in_order_f32"],
+                        **shares))
+        del acts, ws, exact
+    return out
+
+
 def dense_phase(gen):
     """ops.dense_layer at every layer shape of the main paths (DENSE_SHAPES)
     and both row counts of DENSE_N in bf16, timed; the same shapes in f32
     at a step's rows (the CUDA-core body, within TOLS); the narrow widths
-    and ragged row counts untimed.  The launches are counted over the
-    phase's own calls."""
+    and ragged row counts untimed; the rounding gate (rounding_gate).  The
+    launches are counted over the phase's own calls."""
     ops.reset_launches()
     timed, f32, narrow = [], [], []
     for n in DENSE_N:
@@ -2397,10 +2445,12 @@ def dense_phase(gen):
         for n in DENSE_RAGGED_N:
             for ks, n_out in DENSE_NARROW + DENSE_SHAPES:
                 narrow.append(dense_check(gen, n, ks, n_out, dtype, False))
+    gate = rounding_gate()
     launches = ops.LAUNCHES["dense_layer"]
     if launches == 0:
         fail("the dense phase launched dense_layer no time")
-    return dict(timed=timed, f32=f32, untimed_cases=len(narrow),
+    return dict(timed=timed, f32=f32, rounding_gate=gate,
+                untimed_cases=len(narrow),
                 untimed_max_abs_err=max(r["max_abs_err"] for r in narrow),
                 launches=launches)
 
@@ -3466,23 +3516,23 @@ TILE_KERNELS = ("prop_mlp_fwd_kernel", "vanilla_mlp_fwd_kernel",
 DELTA_KERNELS = ("vanilla_delta_kernel", "prop_delta_kernelILb0E",
                  "ref_spa_delta_kernel", "ref_dir_delta_kernel",
                  "delta_layer_kernel")
-# HMMA in the SASS of each bf16 kernel that runs dense_tile and the delta
-# pass, as built while the delta pass multiplied on the CUDA cores (nvcc
-# 12.9 on an H100 host); each must hold more now:
-# (library, demangled kernel name) -> count.  (The dissection's
-# recompute-only stage, mode 0, runs no delta pass.)
-TILE_ONLY_HMMA = {
-    ("fused_mlp_bwd", "prop_delta_kernel<(bool)1, __nv_bfloat16>"): 64,
-    ("fused_mlp_recompute", "vanilla_recompute_kernel<__nv_bfloat16>"): 144,
-    ("ref_fused", "ref_spa_fwd_res_kernel<(bool)0, __nv_bfloat16>"): 144,
-    ("ref_fused", "ref_spa_fwd_res_kernel<(bool)1, __nv_bfloat16>"): 144,
-    ("ref_fused_recompute", "ref_spa_recompute_kernel<__nv_bfloat16>"): 128,
+# the bf16 kernels that run dense_tile and the delta pass (the rebuilding
+# backwards, the density gradient), by library and demangled name: their
+# SASS holds HGMMA (the tile's wgmma) and HMMA (the delta pass's mma.sync);
+# every other bf16 kernel of TILE_KERNELS holds HGMMA and no HMMA.  (The
+# dissection's recompute-only stage, mode 0, runs no delta pass.)
+TILE_AND_DELTA = (
+    ("fused_mlp_bwd", "prop_delta_kernel<(bool)1, __nv_bfloat16>"),
+    ("fused_mlp_recompute", "vanilla_recompute_kernel<__nv_bfloat16>"),
+    ("ref_fused", "ref_spa_fwd_res_kernel<(bool)0, __nv_bfloat16>"),
+    ("ref_fused", "ref_spa_fwd_res_kernel<(bool)1, __nv_bfloat16>"),
+    ("ref_fused_recompute", "ref_spa_recompute_kernel<__nv_bfloat16>"),
     ("ref_fused_recompute",
-     "ref_dir_recompute_kernel<(int)3, __nv_bfloat16>"): 128,
-    ("ref_dissect", "ref_dir_recompute_kernel<(int)1, __nv_bfloat16>"): 128,
-    ("ref_dissect", "ref_dir_recompute_kernel<(int)2, __nv_bfloat16>"): 128,
-    ("ref_dissect", "ref_dir_recompute_kernel<(int)3, __nv_bfloat16>"): 128,
-}
+     "ref_dir_recompute_kernel<(int)3, __nv_bfloat16>"),
+    ("ref_dissect", "ref_dir_recompute_kernel<(int)1, __nv_bfloat16>"),
+    ("ref_dissect", "ref_dir_recompute_kernel<(int)2, __nv_bfloat16>"),
+    ("ref_dissect", "ref_dir_recompute_kernel<(int)3, __nv_bfloat16>"),
+)
 
 
 def short_name(demangled: str) -> str:
@@ -3565,8 +3615,9 @@ def sass_mma_counts():
     each built library's SASS (``cuobjdump -sass``): in all, in the
     weight-grad kernels (wgrad_mma_kernel, wgrad_kernel), and in every
     kernel that runs dense_tile or delta_tile: ``tiles`` ("name<dtype>" ->
-    the HMMA count of each of its instantiations) and ``functions`` (its
-    short_name -> HMMA count); None when the toolkit has no cuobjdump."""
+    [HGMMA, HMMA] of each of its instantiations) and ``functions`` (its
+    short_name -> {"HGMMA": n, "HMMA": m}); None when the toolkit has no
+    cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -3588,16 +3639,16 @@ def sass_mma_counts():
                 name = ln.split("Function :", 1)[1].strip()
                 if tile is not None:
                     counts["tiles"].setdefault(
-                        f"{tile[0]}<{tile[1]}>", []).append(0)
-                    counts["functions"][name] = 0
-            for op in ("HGMMA", "HMMA"):
+                        f"{tile[0]}<{tile[1]}>", []).append([0, 0])
+                    counts["functions"][name] = {"HGMMA": 0, "HMMA": 0}
+            for i, op in enumerate(("HGMMA", "HMMA")):
                 if re.search(rf"\b{op}\.", ln):
                     counts[func][op] += 1
                     if func != "all":
                         counts["all"][op] += 1
-                    if tile is not None and op == "HMMA":
-                        counts["tiles"][f"{tile[0]}<{tile[1]}>"][-1] += 1
-                        counts["functions"][name] += 1
+                    if tile is not None:
+                        counts["tiles"][f"{tile[0]}<{tile[1]}>"][-1][i] += 1
+                        counts["functions"][name][op] += 1
                     break
         names = demangle(list(counts["functions"]))
         counts["functions"] = {short_name(names.get(f, f)): c
@@ -3608,26 +3659,41 @@ def sass_mma_counts():
 
 def check_tile_mma(mma):
     """Fail unless every bf16 instantiation of a kernel that runs dense_tile
-    or delta_tile holds HMMA and no f32 one does, every such kernel was
-    found, and each kernel of TILE_ONLY_HMMA holds more HMMA than its
-    count there."""
+    holds HGMMA (the tile's wgmma), every bf16 one that runs delta_tile
+    holds HMMA (the delta pass's mma.sync), no bf16 kernel outside
+    TILE_AND_DELTA holds both, no f32 one holds either, and every such
+    kernel was found: no mma.sync path is left for the tile."""
     seen = set()
+    tile_names = {kernel_label(k) for k in TILE_KERNELS}
     for lib, counts in mma.items():
         for key, per in counts["tiles"].items():
             seen.add(key)
-            if key.endswith("<bf16>") and min(per) == 0:
-                fail(f"{lib}: a bf16 {key} has no HMMA in its SASS: {per}")
-            if key.endswith("<f32>") and max(per) > 0:
-                fail(f"{lib}: an f32 {key} has HMMA in its SASS: {per}")
+            base = key.rsplit("<", 1)[0]
+            if key.endswith("<f32>") and any(sum(c) for c in per):
+                fail(f"{lib}: an f32 {key} has HGMMA or HMMA in its SASS: "
+                     f"{per}")
+            if not key.endswith("<bf16>"):
+                continue
+            want = 0 if base in tile_names else 1   # HGMMA, HMMA
+            if min(c[want] for c in per) == 0:
+                fail(f"{lib}: a bf16 {key} has no "
+                     f"{('HGMMA', 'HMMA')[want]} in its SASS: {per}")
+            if base not in tile_names and max(c[0] for c in per) > 0:
+                fail(f"{lib}: a bf16 {key} (delta pass only) has HGMMA: "
+                     f"{per}")
+        for func, c in counts["functions"].items():
+            if "__nv_bfloat16" not in func or (lib, func) in TILE_AND_DELTA:
+                continue
+            if c["HGMMA"] and c["HMMA"]:
+                fail(f"{lib}: {func} runs the tile and holds HMMA: {c}")
     want = {f"{kernel_label(k)}<{d}>" for k in TILE_KERNELS + DELTA_KERNELS
             for d in ("bf16", "f32")}
     if want - seen:
         fail(f"no SASS found for {sorted(want - seen)}")
-    for (lib, func), before in TILE_ONLY_HMMA.items():
-        now = mma[lib]["functions"].get(func)
-        if now is None or now <= before:
-            fail(f"{lib}: {func} holds {now} HMMA, not more than the "
-                 f"{before} of the tile alone")
+    for lib, func in TILE_AND_DELTA:
+        c = mma[lib]["functions"].get(func)
+        if c is None or not (c["HGMMA"] and c["HMMA"]):
+            fail(f"{lib}: {func} should hold HGMMA and HMMA: {c}")
 
 
 # ---------------------------------------------------------------------------

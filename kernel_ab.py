@@ -1,6 +1,6 @@
 """Time the fused kernels of two checkouts in turns on one card.
 
-    python3 kernel_ab.py --other DIR [--steps] > ab.json
+    python3 kernel_ab.py --other DIR [--steps] [--tile] > ab.json
 
 DIR is another checkout of this repository (for example ``git archive`` of
 an earlier commit unpacked under ``build/``).  Each turn is one process
@@ -10,16 +10,29 @@ checkout's own ``chip_smoke.py`` (``kernel_case``: the main-path shapes and
 seeded operands of its kernel checks; ``cuda_ms``: the median of 20
 CUDA-event timings after a warm-up), and ``ref_dir_bwd_dissect`` with its
 own ``nerf_tpu_torch.tools.bench_ref_kernels --dissect`` (the "full" mode).
-The
-turns run other, this, this, other, so that a drift of the card's clocks
+The turns run other, this, this, other, so that a drift of the card's clocks
 shows as a difference between the two turns of one checkout.  With
 ``--steps`` each turn also takes ``chip_smoke.step_check``'s readings of
 the six f32 training steps (both models; residual, recompute and proposal
 residual forms): the kernels' loss and their grads' errors against the
 nn.Module path, which two checkouts whose f32 kernels are the same code
-read to the last digit.  Prints one JSON object: each turn's ms by
-"kernel/dtype" (and its step readings), and the card's name and power
-limit.  Needs a card.
+read to the last digit.
+
+With ``--tile`` the turns time instead what runs the forward layer tile
+(``dense_tile``), in bf16: the layer alone (``ops.dense_layer``, every
+layer shape of ``chip_smoke.DENSE_SHAPES`` at an eval chunk's 786,432 rows,
+with ``torch.addmm`` beside it), the forwards and the backwards that
+rebuild their forward (``TILE_KERNELS``, ``ref_dir_fwd_dissect``'s "full"
+stage), a warm 400x400 frame of each model (``chip_smoke.profile_frame``:
+wall seconds, device ms, busy share) and the trainer's default step of
+each model (``chip_smoke.profile_trainer``: ms a step, host issue ms,
+device ms, busy share); ptxas's registers and spills of each kernel that
+runs the tile, from the turn's own build; and, where the checkout has it,
+the host's microseconds for one encoding of a 256 x 256 weight's tensor
+map (``ops.dense.map_encode_us``), which every bf16 launch of a tile
+kernel pays once for each weight that its tiles read.  Prints one JSON
+object: each turn's readings by "kernel/dtype" (and its step readings),
+and the card's name and power limit.  Needs a card.
 """
 
 from __future__ import annotations
@@ -38,6 +51,70 @@ DELTA_PASS_KERNELS = ("vanilla_mlp_bwd", "vanilla_mlp_bwd_recompute",
                       "ref_spa_fwd_grad", "ref_spa_bwd",
                       "ref_spa_bwd_recompute", "ref_dir_bwd",
                       "ref_dir_bwd_recompute", "ref_dir_bwd_dissect")
+
+# the kernels that run the forward layer tile: the forwards (PERF.md's rows
+# 1, 3, 5, 7 and 10) and the backwards that rebuild their forward
+TILE_KERNELS = ("vanilla_mlp_fwd", "vanilla_mlp_fwd_res", "prop_mlp_fwd",
+                "prop_mlp_fwd_res", "ref_spa_fwd", "ref_spa_fwd_res",
+                "ref_spa_fwd_grad", "ref_dir_fwd", "ref_dir_fwd_res",
+                "ref_dir_fwd_dissect", "vanilla_mlp_bwd_recompute",
+                "prop_mlp_bwd", "ref_spa_bwd_recompute",
+                "ref_dir_bwd_recompute")
+
+# one turn of --tile, run with the checkout's root as the working directory
+TILE_TURN = r"""
+import json, sys, tempfile
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as cs
+from nerf_tpu_torch import ops
+from nerf_tpu_torch.ops import build
+from nerf_tpu_torch.tools import bench_ref_kernels
+names = json.loads(sys.argv[1])
+reports = build.build()
+out = {"ptxas": {k: v for k, v in cs.tile_ptxas(reports).items()
+                 if "bfloat16" in k}}
+gen = torch.Generator(device="cuda").manual_seed(0)
+bf16 = torch.bfloat16
+from nerf_tpu_torch.ops import dense as dense_lib
+if hasattr(dense_lib, "map_encode_us"):
+    w = torch.randn((256, 256), generator=gen, device="cuda").to(bf16)
+    out["map_encode_us"] = [dense_lib.map_encode_us(w) for _ in range(3)]
+for ks, n_out in cs.DENSE_SHAPES:
+    acts, ws, b = cs.dense_operands(gen, cs.DENSE_N[0], ks, n_out, bf16)
+    cat_a = torch.cat(acts, 1) if len(acts) > 1 else acts[0]
+    cat_w = torch.cat(ws, 0) if len(ws) > 1 else ws[0]
+    bias = b.to(bf16).reshape(1, -1)
+    key = "dense_layer[%s->%d]/bf16" % ("+".join(map(str, ks)), n_out)
+    out[key] = cs.cuda_ms(lambda: cs.dense_call(ops.dense_layer, acts, ws,
+                                                b), 20)
+    out[key.replace("dense_layer", "addmm")] = cs.cuda_ms(
+        lambda: torch.addmm(bias, cat_a, cat_w), 20)
+    del acts, ws, cat_a, cat_w
+    torch.cuda.empty_cache()
+for name in names:
+    if name == "ref_dir_fwd_dissect":
+        res = bench_ref_kernels.main(["--dissect_fwd", "--dtype", "bf16"])
+        out[name + "/bf16"] = res["fwd_stages"]["full"]
+        continue
+    args, kernel = cs.kernel_case(name, bf16, gen)[:2]
+    out[name + "/bf16"] = cs.cuda_ms(lambda: kernel(*args), 20)
+    del args
+    torch.cuda.empty_cache()
+for model in ("vanilla", "ref"):
+    r = cs.profile_frame(model)
+    out["frame/" + model] = {k: r[k] for k in ("frame_s", "device_ms",
+                                                "device_busy_share")}
+with tempfile.TemporaryDirectory() as tmp:
+    cs.write_train_split(tmp)
+    for model, extra in (("vanilla", ()), ("ref", ("-t",))):
+        r = cs.profile_trainer(tmp, 5 if model == "vanilla" else 3, *extra)
+        out["step/" + model] = {k: r[k] for k in (
+            "step_ms_median", "host_issue_ms_per_step", "device_ms_per_step",
+            "device_busy_share", "rays_per_s")}
+print(json.dumps(out))
+"""
 
 # one turn, run with the checkout's root as the working directory
 TURN = r"""
@@ -76,13 +153,15 @@ print(json.dumps(out))
 """
 
 
-def turn(root: Path, steps: bool) -> dict:
+def turn(root: Path, steps: bool, tile: bool = False) -> dict:
     """One checkout's timings (and step readings), in a process of its
     own."""
-    proc = subprocess.run(
-        [sys.executable, "-c", TURN, json.dumps(DELTA_PASS_KERNELS),
-         "1" if steps else "0"], cwd=root,
-        capture_output=True, text=True, check=False)
+    cmd = ([sys.executable, "-c", TILE_TURN, json.dumps(TILE_KERNELS)]
+           if tile else
+           [sys.executable, "-c", TURN, json.dumps(DELTA_PASS_KERNELS),
+            "1" if steps else "0"])
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"the turn in {root} failed:\n{proc.stderr}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -96,6 +175,8 @@ def main(argv=None) -> dict:
                     help="the root of the other checkout")
     ap.add_argument("--steps", action="store_true",
                     help="also read the six f32 training steps")
+    ap.add_argument("--tile", action="store_true",
+                    help="time what runs the forward layer tile instead")
     args = ap.parse_args(argv)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -106,7 +187,7 @@ def main(argv=None) -> dict:
     turns = []
     for label, root in order:
         turns.append(dict(tree=label, root=str(root),
-                          ms=turn(root, args.steps)))
+                          ms=turn(root, args.steps, args.tile)))
         print(json.dumps(turns[-1]), file=sys.stderr, flush=True)
     res = dict(nvidia_smi=smi, turns=turns)
     print(json.dumps(res))

@@ -17,6 +17,8 @@
 // words a row.  Bound by operations on an H100 at widths of 128 and more
 // (2 n n_out (k0 + k1) FLOPs against 2 (k0 + k1 + n_out) bytes a row).
 
+#include <chrono>
+
 #include "mlp_tile.cuh"
 
 namespace {
@@ -29,8 +31,9 @@ dense_layer_kernel(const T* __restrict__ a0, int k0, const T* __restrict__ w0,
                    const T* __restrict__ a1, int k1,
                    const T* __restrict__ w1, const float* __restrict__ bias,
                    int64_t n, int n_out, bool relu, T* __restrict__ out,
-                   T* __restrict__ stored, uint32_t* __restrict__ mbits) {
-  extern __shared__ __align__(16) unsigned char smem[];
+                   T* __restrict__ stored, uint32_t* __restrict__ mbits,
+                   const __grid_constant__ TileMaps maps) {
+  extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   T* xs0 = reinterpret_cast<T*>(smem);
   T* xs1 = xs0 + TM * k0;
   T* ys = xs1 + TM * k1;
@@ -43,7 +46,7 @@ dense_layer_kernel(const T* __restrict__ a0, int k0, const T* __restrict__ w0,
   __syncthreads();
   dense_tile<STORE, T, MASK>(xs0, k0, w0, a1 != nullptr ? xs1 : nullptr, k1,
                              w1, bias, n_out, relu, ys, stored, row0, n, st,
-                             mb);
+                             &maps.map[0], mb);
   __syncthreads();
   // the valid rows, one span of out: 16 bytes a store (out is aligned, and
   // so is each tile's span of it)
@@ -70,20 +73,23 @@ int run_dense_layer(const T* a0, int k0, const T* w0, const T* a1, int k1,
   if (a1 == nullptr) k1 = 0;
   if (k0 < 1 || k1 < 0 || n_out < 1 || n < 0 || !tile_widths_ok<T>({n_out}))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)TM * (k0 + k1 + n_out) * sizeof(T)
-      + (size_t)TM * mask_words(n_out) * sizeof(uint32_t)
-      + dense_stage_bytes<T>();
+  const size_t at = (size_t)TM * (k0 + k1 + n_out) * sizeof(T)
+      + (size_t)TM * mask_words(n_out) * sizeof(uint32_t);
+  const size_t smem = at + dense_stage_bytes<T>(at);
   const bool store = stored != nullptr, mask = mbits != nullptr;
   auto kernel = store ? (mask ? dense_layer_kernel<true, true, T>
                               : dense_layer_kernel<true, false, T>)
                       : (mask ? dense_layer_kernel<false, true, T>
                               : dense_layer_kernel<false, false, T>);
-  int err = set_smem(kernel, smem);
+  TileMaps maps;
+  int err = tile_maps<T>(&maps, {{w0, k0, n_out},
+                                 {a1 != nullptr ? w1 : nullptr, k1, n_out}});
+  if (err == 0) err = set_smem(kernel, smem);
   if (err != 0 || n == 0) return err;
   const unsigned grid = (unsigned)((n + TM - 1) / TM);
   kernel<<<grid, THREADS, smem, stream>>>(a0, k0, w0, a1, k1, w1, bias, n,
                                           n_out, relu != 0, out, stored,
-                                          mbits);
+                                          mbits, maps);
   return (int)cudaGetLastError();
 }
 
@@ -105,6 +111,20 @@ extern "C" {
 
 DENSE(f32, float)
 DENSE(bf16, __nv_bfloat16)
+
+// The host's microseconds for one encoding of the tensor map of a (k_dim,
+// n_out) bf16 weight at ``w`` (the mean of ``reps``), as each bf16 launch of
+// every tile kernel encodes one for each weight its tiles read; negative if
+// an encoding fails.
+double dense_map_encode_us(const void* w, int k_dim, int n_out, int reps) {
+  CUtensorMap map;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i)
+    if (weight_map(&map, w, k_dim, n_out) != 0) return -1.0;
+  const std::chrono::duration<double, std::micro> dt =
+      std::chrono::steady_clock::now() - t0;
+  return dt.count() / (reps > 0 ? reps : 1);
+}
 
 const char* dense_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

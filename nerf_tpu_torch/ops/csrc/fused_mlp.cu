@@ -49,11 +49,11 @@
 // by bytes; the proposal res variant writes 1,024 (2 KB in bf16), 0.04 ms at
 // one step's N = 65,536 against 0.03 ms of work, bound by bytes as well.
 // The hidden layers run through dense_tile (mlp_tile.cuh): in bf16 on the
-// tensor cores (mma.sync, each layer's weights staged through a 16.5 KB
-// ring of shared memory after the two activation buffers: 93,952 bytes a
-// block for the vanilla net and 90,496 for the proposal net at width 256,
+// tensor cores (wgmma, each layer's weights brought by TMA into a 24 KB
+// ring of shared memory after the two activation buffers: 102,400 bytes a
+// block for the vanilla net and 98,304 for the proposal net at width 256,
 // so two blocks share an SM), in f32 on the CUDA cores.  The narrow heads
-// stay on the CUDA cores (head_tile).  wgmma and TMA are later work.
+// stay on the CUDA cores (head_tile).
 
 #include "mlp_tile.cuh"
 
@@ -96,8 +96,9 @@ struct PropActs {
 template <bool STORE, typename T>
 __global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
 prop_mlp_fwd_kernel(const T* __restrict__ x, PropWeights<T> p, PropActs<T> s,
-                    int64_t n, int dx, int h, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
+                    int64_t n, int dx, int h, float* __restrict__ out,
+                    const __grid_constant__ TileMaps maps) {
+  extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);
   T* buf_a = xs + TM * dx;
   T* buf_b = buf_a + TM * h;
@@ -106,13 +107,13 @@ prop_mlp_fwd_kernel(const T* __restrict__ x, PropWeights<T> p, PropActs<T> s,
   const int64_t row0 = (int64_t)blockIdx.x * TM;
   load_rows(x, dx, row0, n, xs);
   __syncthreads();
-  dense_tile<STORE>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.h1, row0, n, st);    // h1
+  dense_tile<STORE>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.h1, row0, n, st, &maps.map[0]);    // h1
   __syncthreads();
-  dense_tile<STORE>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.h2, row0, n, st);  // h2
+  dense_tile<STORE>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.h2, row0, n, st, &maps.map[1]);  // h2
   __syncthreads();
-  dense_tile<STORE>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.h3, row0, n, st);  // h3
+  dense_tile<STORE>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.h3, row0, n, st, &maps.map[2]);  // h3
   __syncthreads();
-  dense_tile<STORE>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.h4, row0, n, st);  // h4
+  dense_tile<STORE>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.h4, row0, n, st, &maps.map[3]);  // h4
   __syncthreads();
   head_tile(buf_b, h, p.wo, p.bo, 1, false, out, n, row0, n);
 }
@@ -128,8 +129,9 @@ __global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
 vanilla_mlp_fwd_kernel(const T* __restrict__ x, const T* __restrict__ d,
                        VanillaWeights<T> p, VanillaActs<T> s, int64_t n,
                        int dx, int dd, int h, int bn, int r, int maxw,
-                       float* __restrict__ rgb3, float* __restrict__ sigma) {
-  extern __shared__ __align__(16) unsigned char smem[];
+                       float* __restrict__ rgb3, float* __restrict__ sigma,
+                       const __grid_constant__ TileMaps maps) {
+  extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);
   T* ds = xs + TM * dx;
   T* buf_a = ds + TM * dd;
@@ -140,24 +142,24 @@ vanilla_mlp_fwd_kernel(const T* __restrict__ x, const T* __restrict__ d,
   load_rows(x, dx, row0, n, xs);
   load_rows(d, dd, row0, n, ds);
   __syncthreads();
-  dense_tile<STORE>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.h1, row0, n, st);
+  dense_tile<STORE>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.h1, row0, n, st, &maps.map[0]);
   __syncthreads();
-  dense_tile<STORE>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.h2, row0, n, st);
+  dense_tile<STORE>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.h2, row0, n, st, &maps.map[1]);
   __syncthreads();
-  dense_tile<STORE>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.h3, row0, n, st);
+  dense_tile<STORE>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.h3, row0, n, st, &maps.map[2]);
   __syncthreads();
-  dense_tile<STORE>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.h4, row0, n, st);
+  dense_tile<STORE>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.h4, row0, n, st, &maps.map[3]);
   __syncthreads();
-  dense_tile<STORE>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.z5, row0, n, st);
+  dense_tile<STORE>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.z5, row0, n, st, &maps.map[4]);
   __syncthreads();
-  dense_tile<STORE>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.z6, row0, n, st);
+  dense_tile<STORE>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.z6, row0, n, st, &maps.map[6]);
   __syncthreads();
-  dense_tile<STORE>(buf_b, h, p.w6, none, 0, none, p.b6, bn, true, buf_a, s.z7, row0, n, st);
+  dense_tile<STORE>(buf_b, h, p.w6, none, 0, none, p.b6, bn, true, buf_a, s.z7, row0, n, st, &maps.map[7]);
   __syncthreads();
   head_tile(buf_a, bn, p.wsig, p.bsig, 1, false, sigma, n, row0, n);   // sigma
-  dense_tile<STORE>(buf_a, bn, p.wb, none, 0, none, p.bb, bn, false, buf_b, s.bvec, row0, n, st);
+  dense_tile<STORE>(buf_a, bn, p.wb, none, 0, none, p.bb, bn, false, buf_b, s.bvec, row0, n, st, &maps.map[8]);
   __syncthreads();
-  dense_tile<STORE>(buf_b, bn, p.wr1a, ds, dd, p.wr1b, p.br1, r, true, buf_a, s.r1, row0, n, st);
+  dense_tile<STORE>(buf_b, bn, p.wr1a, ds, dd, p.wr1b, p.br1, r, true, buf_a, s.r1, row0, n, st, &maps.map[9]);
   __syncthreads();
   head_tile(buf_a, r, p.wr2, p.br2, 3, true, rgb3, n, row0, n);        // rgb
 }
@@ -174,13 +176,15 @@ int launch_prop(const void* x, const uint64_t* ptrs, int64_t n, int dx, int h,
     s.h3 = (T*)acts[2]; s.h4 = (T*)acts[3];
   }
   if (!tile_widths_ok<T>({h})) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)TM * (dx + 2 * h) * sizeof(T) + dense_stage_bytes<T>();
-  int err = set_smem(prop_mlp_fwd_kernel<STORE, T>, smem);
+  const size_t at = (size_t)TM * (dx + 2 * h) * sizeof(T);
+  const size_t smem = at + dense_stage_bytes<T>(at);
+  TileMaps maps;
+  int err = prop_maps<T>(&maps, p, dx, h);
+  if (err == 0) err = set_smem(prop_mlp_fwd_kernel<STORE, T>, smem);
   if (err != 0 || n == 0) return err;
   const unsigned grid = (unsigned)((n + TM - 1) / TM);
   prop_mlp_fwd_kernel<STORE, T><<<grid, THREADS, smem, stream>>>(
-      (const T*)x, p, s, n, dx, h, out);
+      (const T*)x, p, s, n, dx, h, out, maps);
   return (int)cudaGetLastError();
 }
 
@@ -201,13 +205,16 @@ int launch_vanilla(const void* x, const void* d, const uint64_t* ptrs,
   int maxw = h > bn ? h : bn;
   maxw = maxw > r ? maxw : r;
   if (!tile_widths_ok<T>({h, bn, r})) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)TM * (dx + dd + 2 * maxw) * sizeof(T)
-      + dense_stage_bytes<T>();
-  int err = set_smem(vanilla_mlp_fwd_kernel<STORE, T>, smem);
+  const size_t at = (size_t)TM * (dx + dd + 2 * maxw) * sizeof(T);
+  const size_t smem = at + dense_stage_bytes<T>(at);
+  TileMaps maps;
+  int err = vanilla_maps<T>(&maps, p, dx, dd, h, bn, r);
+  if (err == 0) err = set_smem(vanilla_mlp_fwd_kernel<STORE, T>, smem);
   if (err != 0 || n == 0) return err;
   const unsigned grid = (unsigned)((n + TM - 1) / TM);
   vanilla_mlp_fwd_kernel<STORE, T><<<grid, THREADS, smem, stream>>>(
-      (const T*)x, (const T*)d, p, s, n, dx, dd, h, bn, r, maxw, rgb3, sigma);
+      (const T*)x, (const T*)d, p, s, n, dx, dd, h, bn, r, maxw, rgb3, sigma,
+      maps);
   return (int)cudaGetLastError();
 }
 

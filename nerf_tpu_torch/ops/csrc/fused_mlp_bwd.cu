@@ -77,7 +77,7 @@ vanilla_delta_kernel(VanillaWeights<T> p, VanillaActs<T> s,
                      const float* __restrict__ gsig,
                      const float* __restrict__ rgb3, VanillaDeltas<T> o,
                      int64_t n, int h, int bn, int r, int maxw) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   T* dl = reinterpret_cast<T*>(smem);     // (TM, 3) dlogit
   T* gs = dl + TM * 4;                    // (TM,) g_sigma in T
   T* buf_a = gs + TM * 4;
@@ -139,8 +139,9 @@ template <bool REBUILD, typename T>
 __global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
 prop_delta_kernel(const T* __restrict__ x, PropWeights<T> p,
                   const float* __restrict__ g, int64_t n, int dx, int h,
-                  PropHs<T> hs, T* __restrict__ go, PropHs<T> dhs) {
-  extern __shared__ __align__(16) unsigned char smem[];
+                  PropHs<T> hs, T* __restrict__ go, PropHs<T> dhs,
+                  const __grid_constant__ TileMaps maps) {
+  extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   T* gs = reinterpret_cast<T*>(smem);     // (TM,) g in T
   T* xs = gs + TM * 4;                    // (TM, dx), REBUILD only
   T* buf_a = xs + (REBUILD ? TM * dx : 0);
@@ -156,13 +157,13 @@ prop_delta_kernel(const T* __restrict__ x, PropWeights<T> p,
   }
   __syncthreads();
   if (REBUILD) {
-    dense_tile<true>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, hs.a[0], row0, n, st);
+    dense_tile<true>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, hs.a[0], row0, n, st, &maps.map[0]);
     __syncthreads();
-    dense_tile<true>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, hs.a[1], row0, n, st);
+    dense_tile<true>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, hs.a[1], row0, n, st, &maps.map[1]);
     __syncthreads();
-    dense_tile<true>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, hs.a[2], row0, n, st);
+    dense_tile<true>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, hs.a[2], row0, n, st, &maps.map[2]);
     __syncthreads();
-    dense_tile<true>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, hs.a[3], row0, n, st);
+    dense_tile<true>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, hs.a[3], row0, n, st, &maps.map[3]);
     __syncthreads();   // also makes the stored h1..h4 visible to the block
   }
   // dh4 = mask(h4) (go (x) wo): a K = 1 product, no delta operand
@@ -254,10 +255,12 @@ int launch_prop_bwd(const void* x, const float* g_out, const uint64_t* ptrs,
                     const uint64_t* grads, cudaStream_t stream) {
   const PropWeights<T> p = prop_weights<T>(ptrs);
   if (REBUILD && !tile_widths_ok<T>({h})) return (int)cudaErrorInvalidValue;
+  const size_t at = (size_t)TM * (4 + (REBUILD ? dx : 0) + 2 * h) * sizeof(T);
   const size_t smem =
-      (size_t)TM * (4 + (REBUILD ? dx : 0) + 2 * h) * sizeof(T)
-      + (REBUILD ? stage_bytes<T>() : delta_stage_bytes<T>());
-  int err = set_smem(prop_delta_kernel<REBUILD, T>, smem);
+      at + (REBUILD ? stage_bytes<T>(at) : delta_stage_bytes<T>());
+  TileMaps maps;
+  int err = REBUILD ? prop_maps<T>(&maps, p, dx, h) : tile_maps<T>(&maps, {});
+  if (err == 0) err = set_smem(prop_delta_kernel<REBUILD, T>, smem);
   if (err != 0) return err;
   const int64_t sizes[10] = {(int64_t)dx * h, h, (int64_t)h * h, h,
                              (int64_t)h * h, h, (int64_t)h * h, h, h, 1};
@@ -272,7 +275,7 @@ int launch_prop_bwd(const void* x, const float* g_out, const uint64_t* ptrs,
     if (nc > 0) {
       const unsigned grid = (unsigned)((nc + TM - 1) / TM);
       prop_delta_kernel<REBUILD, T><<<grid, THREADS, smem, stream>>>(
-          xc, p, g_out + c0, nc, dx, h, a, (T*)go, d);
+          xc, p, g_out + c0, nc, dx, h, a, (T*)go, d, maps);
       const int e = (int)cudaGetLastError();
       if (e != 0) return e;
     }

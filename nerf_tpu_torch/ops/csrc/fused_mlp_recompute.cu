@@ -33,7 +33,9 @@
 // plus one forward (527,872): 0.41 ms at N = 131,072, bound by operations.
 // The rebuild runs through dense_tile (mlp_tile.cuh), as the forward does:
 // in bf16 on the tensor cores, its weight ring in the W^T stage ``st``
-// (grown to the ring's 16.5 KB).  The delta pass (delta_tile) multiplies on
+// (grown to the ring's 24 KB), in passes of 128 columns (NCOLS: the
+// kernel's other state leaves too few registers for 256).  The delta pass
+// (delta_tile) multiplies on
 // the tensor cores in bf16 too, through the same stage, and on the CUDA
 // cores in f32; the weight-grad pass is wgrad.cuh's.
 
@@ -67,8 +69,8 @@ vanilla_recompute_kernel(const T* __restrict__ x, const T* __restrict__ d,
                          const float* __restrict__ gsig, int64_t row_base,
                          int64_t n_all, ChunkActs<T> s, ChunkDeltas<T> o,
                          int64_t n, int dx, int dd, int h, int bn, int r,
-                         int maxw) {
-  extern __shared__ __align__(16) unsigned char smem[];
+                         int maxw, const __grid_constant__ TileMaps maps) {
+  extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   float* rgb_s = reinterpret_cast<float*>(smem);   // (TM, 3) sigmoid(logit)
   T* xs = reinterpret_cast<T*>(rgb_s + TM * 4);
   T* ds = xs + TM * dx;
@@ -83,23 +85,23 @@ vanilla_recompute_kernel(const T* __restrict__ x, const T* __restrict__ d,
   load_rows(d, dd, row0, n, ds);
   __syncthreads();
   // the forward, as vanilla_mlp_fwd_kernel<true> runs it, into the scratch
-  dense_tile<true>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.h1, row0, n, st);
+  dense_tile<true, T, false, DSTAGES, NCOLS>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.h1, row0, n, st, &maps.map[0]);
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.h2, row0, n, st);
+  dense_tile<true, T, false, DSTAGES, NCOLS>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.h2, row0, n, st, &maps.map[1]);
   __syncthreads();
-  dense_tile<true>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.h3, row0, n, st);
+  dense_tile<true, T, false, DSTAGES, NCOLS>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.h3, row0, n, st, &maps.map[2]);
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.h4, row0, n, st);
+  dense_tile<true, T, false, DSTAGES, NCOLS>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.h4, row0, n, st, &maps.map[3]);
   __syncthreads();
-  dense_tile<true>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.z5, row0, n, st);
+  dense_tile<true, T, false, DSTAGES, NCOLS>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.z5, row0, n, st, &maps.map[4]);
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.z6, row0, n, st);
+  dense_tile<true, T, false, DSTAGES, NCOLS>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.z6, row0, n, st, &maps.map[6]);
   __syncthreads();
-  dense_tile<true>(buf_b, h, p.w6, none, 0, none, p.b6, bn, true, buf_a, s.z7, row0, n, st);
+  dense_tile<true, T, false, DSTAGES, NCOLS>(buf_b, h, p.w6, none, 0, none, p.b6, bn, true, buf_a, s.z7, row0, n, st, &maps.map[7]);
   __syncthreads();
-  dense_tile<true>(buf_a, bn, p.wb, none, 0, none, p.bb, bn, false, buf_b, s.bvec, row0, n, st);
+  dense_tile<true, T, false, DSTAGES, NCOLS>(buf_a, bn, p.wb, none, 0, none, p.bb, bn, false, buf_b, s.bvec, row0, n, st, &maps.map[8]);
   __syncthreads();
-  dense_tile<true>(buf_b, bn, p.wr1a, ds, dd, p.wr1b, p.br1, r, true, buf_a, s.r1, row0, n, st);
+  dense_tile<true, T, false, DSTAGES, NCOLS>(buf_b, bn, p.wr1a, ds, dd, p.wr1b, p.br1, r, true, buf_a, s.r1, row0, n, st, &maps.map[9]);
   __syncthreads();
   narrow_head(buf_a, r, p.wr2, p.br2, 3, true, rgb_s, 3, 0, 0, TM);   // rgb
   __syncthreads();   // also makes the stored activations visible to the block
@@ -166,9 +168,12 @@ int launch_vanilla_bwd_recompute(const void* x, const void* d,
   int maxw = h > bn ? h : bn;
   maxw = maxw > r ? maxw : r;
   if (!tile_widths_ok<T>({h, bn, r})) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)TM * 4 * sizeof(float)
-      + (size_t)TM * (dx + dd + 8 + 2 * maxw) * sizeof(T) + stage_bytes<T>();
-  int err = set_smem(vanilla_recompute_kernel<T>, smem);
+  const size_t at = (size_t)TM * 4 * sizeof(float)
+      + (size_t)TM * (dx + dd + 8 + 2 * maxw) * sizeof(T);
+  const size_t smem = at + stage_bytes<T>(at);
+  TileMaps maps;
+  int err = vanilla_maps<T>(&maps, p, dx, dd, h, bn, r);
+  if (err == 0) err = set_smem(vanilla_recompute_kernel<T>, smem);
   if (err != 0) return err;
   const int64_t sizes[24] = {
       (int64_t)dx * h, h, (int64_t)h * h, h, (int64_t)h * h, h,
@@ -182,7 +187,8 @@ int launch_vanilla_bwd_recompute(const void* x, const void* d,
     if (nc > 0) {
       const unsigned grid = (unsigned)((nc + TM - 1) / TM);
       vanilla_recompute_kernel<T><<<grid, THREADS, smem, stream>>>(
-          xc, dc, p, grgb, gsig, c0, n, s, o, nc, dx, dd, h, bn, r, maxw);
+          xc, dc, p, grgb, gsig, c0, n, s, o, nc, dx, dd, h, bn, r, maxw,
+          maps);
       const int e = (int)cudaGetLastError();
       if (e != 0) return e;
     }

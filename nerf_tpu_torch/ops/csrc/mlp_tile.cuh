@@ -3,19 +3,23 @@
 // One block of THREADS threads owns a tile of TM points.  Activations of the
 // tile live in shared memory as (TM, width) row-major arrays in the compute
 // dtype T (float or __nv_bfloat16).  Products accumulate in f32.  The hidden
-// layers (dense_tile) and the transposed products of the backwards
-// (delta_tile) multiply bf16 operands on the tensor cores (mma.sync
-// m16n8k16, the weights staged in shared memory) and f32 operands on the
-// CUDA cores in full f32.  The other products (the narrow heads) and the f32
-// bodies run on the CUDA cores: each thread holds an RPT x CPT register tile
-// (its warp's RPT rows, CPT columns strided by 32), and a layer wider than
-// CHUNK columns is done in passes of CHUNK.
+// layers (dense_tile) multiply bf16 operands on the tensor cores with
+// Hopper's wgmma (m64n32k16, the weights in a swizzled ring in shared
+// memory), the transposed products of the backwards (delta_tile) with
+// mma.sync m16n8k16; f32 operands on the CUDA cores in full f32.  The other
+// products (the narrow heads) and the f32 bodies run on the CUDA cores: each
+// thread holds an RPT x CPT register tile (its warp's RPT rows, CPT columns
+// strided by 32), and a layer wider than CHUNK columns is done in passes of
+// CHUNK.  Kernels that hold dense_tile's ring align their dynamic shared
+// memory to 1024 bytes (the ring's swizzle).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <cuda.h>
 
 #include <initializer_list>
 #include <type_traits>
@@ -169,24 +173,42 @@ __host__ __device__ constexpr int mask_words(int width) {
   return (width + 31) >> 5;
 }
 
-// The bf16 layer tile's weight stage: a ring of DSTAGES slots, each DK rows
-// of W (one k-step of the mma) of DPASS output columns, the rows padded
-// to DLD elements (528 bytes) so that the 8 rows an ldmatrix reads start in
-// 8 different bank quads.  The backwards share it with the delta pass's
-// stage, which never runs at the same time (stage_bytes).  Two slots of one
-// k-step keep every caller at two blocks an SM: three slots ran no faster
-// on an H100, and slots of two k-steps cost ref_dir_fwd its second block
-// (PERF.md; nerf_tpu_torch.tools.tile_variants measures both).
+// The bf16 layer tile's weight ring: STAGES slots, each one k-step of W
+// (DK rows) by DCOLS output columns, filled by TMA in the 128-byte swizzle
+// that wgmma's MN-major B descriptor reads: a slot is DCOLS / DATOM atoms
+// of DATOM columns, each DK rows of 128 bytes, the 16-byte piece u of row r
+// of an atom at piece u ^ (r % 8) of the row.  A slot is 8 KB and starts on
+// a 1024-byte boundary (the swizzle's period); the ring starts at the first
+// boundary at least RING_BARS bytes into the stage, and those bytes below
+// it hold the ring's mbarriers and its loader's state.  So the stage's
+// bytes depend on where it lies in the block's shared memory (``at``, from
+// its 1024-byte-aligned base).  DSTAGES slots keep every forward at two
+// blocks an SM; the rebuilds of the Ref-NeRF recompute backwards, whose
+// other buffers leave less room, take RSTAGES.  The backwards share the
+// stage with the delta pass's ring, which never runs at the same time
+// (stage_bytes).
 constexpr int DK = 16;                    // a slot is one k-step
-constexpr int DSTAGES = 2;
-constexpr int DPASS = 256;                // output columns a pass
-constexpr int DLD = DPASS + 8;
-constexpr int DSLOT = DK * DLD;           // elements of a slot
+constexpr int DSTAGES = 3;
+constexpr int RSTAGES = 2;
+constexpr int DCOLS = 256;                // output columns a pass
+constexpr int NCOLS = 128;                // ... in the narrow tile
+constexpr int DATOM = 64;                 // columns of a swizzle atom
+constexpr int DSLOT = DK * DCOLS;         // elements of a slot
+constexpr int RING_ALIGN = 1024;
+constexpr int RING_BARS = 128;            // bytes kept below the ring
+constexpr int DPASS = 256;                // output columns a delta pass
 
-// Shared-memory bytes of dense_tile's stage: the ring in bf16, none in f32.
-template <typename T>
-__host__ __device__ constexpr size_t dense_stage_bytes() {
-  return sizeof(T) == 2 ? (size_t)DSTAGES * DSLOT * sizeof(T) : 0;
+__host__ __device__ constexpr size_t ring_at(size_t at) {
+  return (at + RING_BARS + RING_ALIGN - 1) & ~(size_t)(RING_ALIGN - 1);
+}
+
+// Shared-memory bytes of dense_tile's stage at byte ``at`` of the block's
+// dynamic shared memory: the ring and the bytes below it in bf16, none in
+// f32.
+template <typename T, int STAGES = DSTAGES>
+__host__ __device__ constexpr size_t dense_stage_bytes(size_t at) {
+  return sizeof(T) == 2
+      ? ring_at(at) - at + (size_t)STAGES * DSLOT * sizeof(T) : 0;
 }
 
 // The bf16 delta pass's weight stage (delta_tile, enc_pull): a ring of
@@ -214,12 +236,13 @@ __host__ __device__ constexpr size_t delta_stage_bytes() {
                         : (size_t)KC * stage_ld<T>() * sizeof(T);
 }
 
-// Shared-memory bytes of a stage ``st`` that the delta pass and dense_tile
-// take in turn (the rebuilding backwards, the density gradient).
-template <typename T>
-__host__ __device__ constexpr size_t stage_bytes() {
-  return delta_stage_bytes<T>() > dense_stage_bytes<T>()
-      ? delta_stage_bytes<T>() : dense_stage_bytes<T>();
+// Shared-memory bytes of a stage ``st`` at byte ``at`` that the delta pass
+// and dense_tile take in turn (the rebuilding backwards, the density
+// gradient).
+template <typename T, int STAGES = DSTAGES>
+__host__ __device__ constexpr size_t stage_bytes(size_t at) {
+  return delta_stage_bytes<T>() > dense_stage_bytes<T, STAGES>(at)
+      ? delta_stage_bytes<T>() : dense_stage_bytes<T, STAGES>(at);
 }
 
 // Whether every width that a bf16 dense_tile writes is a multiple of 8 (the
@@ -281,43 +304,88 @@ __device__ void dense_tile_fma(const T* a0, int k0, const T* __restrict__ w0,
 
 typedef __nv_bfloat16 bf16_t;
 
-// The 16-byte pieces of a stage slot that a thread copies: rows r0, r0 +
-// rstep, ... < DK, columns c .. c + 7 of the pass (r0 >= DK: none).  Set
-// once a pass, so that the k-loop divides nothing.
-struct StageMap {
-  int r0, rstep, c;
-};
-
-__device__ __forceinline__ StageMap stage_map(int np) {
-  const int pieces = np >> 3;               // 16-byte pieces of a row
-  StageMap m;
-  m.r0 = threadIdx.x / pieces;
-  m.rstep = THREADS / pieces;
-  m.c = (threadIdx.x - m.r0 * pieces) * 8;
-  if (m.r0 >= m.rstep) m.r0 = DK;          // past the last whole row group
-  return m;
+// The ring in a stage: its first 1024-byte boundary at least RING_BARS
+// bytes in (dense_stage_bytes).
+__device__ __forceinline__ bf16_t* ring_of(bf16_t* stage) {
+  const uint32_t at = smem_addr(stage);
+  return stage + (ring_at(at) - at) / sizeof(bf16_t);
 }
 
-// Rows [kb, kb + DK) of columns [c0, c0 + np) of w (k_dim, n_out) into a
-// stage slot: 16-byte cp.async copies (element loads where w is not 16-byte
-// aligned), rows at or past k_dim as zeros.  n_out and np are multiples of 8.
-__device__ __forceinline__ void stage_w(bf16_t* slot, const bf16_t* w,
-                                        int k_dim, int kb, int n_out, int c0,
-                                        const StageMap& m) {
-  const bool vec = (uintptr_t)w % 16 == 0;
-  for (int r = m.r0; r < DK; r += m.rstep) {
-    bf16_t* d = slot + r * DLD + m.c;
-    const int k = kb + r;
-    const bf16_t* src = w + (size_t)k * n_out + c0 + m.c;
-    if (k >= k_dim) {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-    } else if (vec) {
-      cp_async16(d, src);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) d[e] = src[e];
+// The TMA tensor maps of the bf16 weights that a kernel's tiles read, in the
+// order of its map list (prop_maps, vanilla_maps, spa_maps, dir_maps, the
+// tile's own pair): one kernel parameter (__grid_constant__).  A call site
+// passes its layer's entry, &maps.map[i], and a layer of two products has
+// w1's map in the entry after w0's.
+constexpr int MAX_MAPS = 12;
+
+struct TileMaps {
+  CUtensorMap map[MAX_MAPS];
+};
+
+// cuTensorMapEncodeTiled, looked up once through the runtime's entry-point
+// query (the libraries link no libcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+        ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a (k_dim, n_out) row-major bf16 weight for the ring:
+// boxes of DK rows by DATOM columns in the 128-byte swizzle, rows and
+// columns past the matrix read as zeros.  Encoded on the host at every
+// launch (the wrappers hand the kernels fresh bf16 copies of the weights,
+// so a pointer says nothing of a matrix's contents from one step to the
+// next; what an encoding costs: ops.dense.map_encode_us).  Returns 0 or a
+// CUDA error code.
+inline int weight_map(CUtensorMap* out, const void* w, int k_dim, int n_out) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)n_out, (cuuint64_t)k_dim};
+  const cuuint64_t strides[1] = {(cuuint64_t)n_out * sizeof(bf16_t)};
+  const cuuint32_t box[2] = {DATOM, DK};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+      ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A weight that a kernel's tiles read: its pointer and (k_dim, n_out).
+struct WeightShape {
+  const void* w;
+  int k_dim, n_out;
+};
+
+// The maps of ``weights`` for a bf16 kernel, map i of the i-th (a null
+// pointer leaves its entry unset); an f32 kernel reads none and gets an
+// unset set.  Returns 0 or a CUDA error code.
+template <typename T>
+int tile_maps(TileMaps* maps, std::initializer_list<WeightShape> weights) {
+  if (sizeof(T) != 2) return 0;
+  if (weights.size() > MAX_MAPS) return (int)cudaErrorInvalidValue;
+  int i = 0;
+  for (const WeightShape& ws : weights) {
+    if (ws.w != nullptr) {
+      const int err = weight_map(&maps->map[i], ws.w, ws.k_dim, ws.n_out);
+      if (err != 0) return err;
     }
+    ++i;
   }
+  return 0;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(bf16_t lo, bf16_t hi) {
@@ -381,10 +449,10 @@ __device__ __forceinline__ PassCols pass_cols(int n_out, int c0, int half) {
 }
 
 // acc += one k-step's 16-term products, summed by the tensor cores from
-// zero and added to acc in f32 (round to nearest).  The tensor cores'
-// accumulation truncates; chaining the k-steps through it set 1.8 times as
-// many bf16 outputs off the correctly rounded layer as an f32 sum in order
-// does, this 0.8 times, for 3-4% of the eval forwards' time
+// zero and added to acc in f32 (round to nearest): the delta pass's
+// products (mma.sync).  The tensor cores' accumulation truncates; chaining
+// the k-steps through it set 1.8 times as many bf16 outputs off the
+// correctly rounded layer as an f32 sum in order does, this 0.8 times
 // (tools/tile_variants, PERF.md).
 __device__ __forceinline__ void step_mma(float (&acc)[4],
                                          const uint32_t (&a)[4],
@@ -395,112 +463,236 @@ __device__ __forceinline__ void step_mma(float (&acc)[4],
   for (int e = 0; e < 4; ++e) acc[e] += part[e];
 }
 
-// One k-step's products into the warp's first nt_n n-tiles: the A fragment
-// af and the B fragments of the slot's rows from pb on.  (A second copy for
-// nt_n = 16 without the tests ran the eval forwards 10-13% faster on an
-// H100, but its registers spilled in ref_dir_fwd, which spills none here:
-// tools/tile_variants.)
-__device__ __forceinline__ void kstep_mma(float (&acc)[16][4],
-                                          const uint32_t (&af)[4],
-                                          const bf16_t* pb, int nt_n) {
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    if (2 * p < nt_n) {
-      uint32_t b[2][2];
-      ldsm_x4_t(b[0][0], b[0][1], b[1][0], b[1][1], pb + p * 16);
-      step_mma(acc[2 * p], af, b[0]);
-      if (2 * p + 1 < nt_n) step_mma(acc[2 * p + 1], af, b[1]);
-    }
-  }
+// The columns of one pass of up to PASS output columns that warpgroup
+// ``half`` of the layer tile owns: whole 64-column atoms of the ring, the
+// first warpgroup's ceil(atoms / 2), the second's the rest, so that each
+// warpgroup's B operand starts on an atom.  (Which warpgroup computes a
+// column changes none of its sums.)
+template <int PASS>
+__device__ __forceinline__ PassCols wg_cols(int n_out, int c0, int half) {
+  PassCols pc;
+  pc.np = n_out - c0 < PASS ? n_out - c0 : PASS;
+  const int split = DATOM * ((pc.np + 2 * DATOM - 1) / (2 * DATOM));
+  const int cb = half ? split : 0;
+  const int ce = half ? pc.np : (pc.np < split ? pc.np : split);
+  pc.col0 = cb;
+  pc.nt_n = ce > cb ? (ce - cb) >> 3 : 0;
+  pc.wb = cb >> 5;
+  pc.we = ce > cb ? (ce + 31) >> 5 : pc.wb;
+  return pc;
 }
 
-// The products of one pass on the tensor cores: acc[t] = the 16 x 8 block of
-// n-tile t of a0 @ w0 [+ a1 @ w1] at the warp's rows m0 .. m0 + 15 and the
-// columns of ``pc``, from column c0 of the pass on.  The 8 warps cover the
-// tile's 64 rows x the pass as 4 row groups of 16 x 2 column halves (at
-// width 256: 16 x 128 a warp, 16 n-tiles, 64 f32 accumulators a thread).
-// The k-steps of a0 then of a1 run into one f32 sum (step_mma); W is staged
-// by cp.async into the ring, DSTAGES - 1 slots ahead of the products.  The
-// order of the sums does not depend on the block, the caller or the pass's
-// width, so a rebuild gives the forward's values bit for bit.  Every thread
-// of the block must call this (it holds __syncthreads()), with the ring
-// free.
-__device__ __forceinline__ void mma_pass(float (&acc)[16][4],
+// The weight ring of one dense_tile (or wide head) call, passes of PASS
+// columns, as every thread holds it: the shared-memory address of its
+// slots, and the k-steps of w0 (s0) and of a pass (per).  The k-steps of
+// all the call's passes form one stream: k-step g is k-step g % per of pass
+// g / per, lies in slot g % STAGES, and is the (g / STAGES)-th use of that
+// slot's barriers.  Slot j completes on full[j] (the TMA copies' bytes) and
+// is released on empty[j] = full[STAGES + j] by one arrival of each warp
+// once its products are done, so no block-wide barrier runs a k-step, and
+// the next pass's first k-steps load while this one's finish.  The
+// barriers live just below the ring, and below them what only thread 0,
+// which loads the ring, reads (RingLoader), so that the other threads keep
+// no register for it.  Both serve one call: ring_open sets them up,
+// ring_close invalidates the barriers (the backwards' delta pass writes
+// that memory).
+template <int STAGES, int PASS>
+struct WRing {
+  uint32_t ring;                            // shared-memory address
+  int s0, per;
+  static constexpr int SLOT = DK * PASS;    // elements of a slot
+
+  __device__ uint32_t slot(int g) const {
+    return ring + (g % STAGES) * SLOT * (uint32_t)sizeof(bf16_t);
+  }
+  __device__ uint32_t full_bar(int g) const {
+    return ring - 2 * STAGES * 8 + (g % STAGES) * 8;
+  }
+  __device__ uint32_t empty_bar(int g) const {
+    return ring - STAGES * 8 + (g % STAGES) * 8;
+  }
+};
+
+// The loader's part of a ring, at the foot of its RING_BARS bytes: w0's
+// map (w1's the next), the call's k-steps and its output width.
+struct RingLoader {
+  const CUtensorMap* map;
+  int total, n_out;
+};
+
+template <int STAGES, int PASS>
+__device__ __forceinline__ RingLoader* loader_of(const WRing<STAGES, PASS>& R) {
+  static_assert(sizeof(RingLoader) + 2 * STAGES * 8 <= RING_BARS,
+                "the ring's barriers and loader do not fit below it");
+  return reinterpret_cast<RingLoader*>(
+      __cvta_shared_to_generic(R.ring - RING_BARS));
+}
+
+// Thread 0: k-step g's boxes (one a 64-column atom of its pass) into its
+// slot, W's rows past k_dim and columns past n_out as zeros.
+template <int STAGES, int PASS>
+__device__ __forceinline__ void ring_load(const WRing<STAGES, PASS>& R,
+                                          const RingLoader& L, int g) {
+  const int pass = g / R.per, j = g - pass * R.per;
+  const int c0 = pass * PASS;
+  const int np = L.n_out - c0 < PASS ? L.n_out - c0 : PASS;
+  const int boxes = (np + DATOM - 1) / DATOM;
+  const bool second = j >= R.s0;
+  const CUtensorMap* map = second ? L.map + 1 : L.map;
+  mbar_expect_tx(R.full_bar(g), boxes * DK * DATOM * sizeof(bf16_t));
+  for (int b = 0; b < boxes; ++b)
+    tma_load_2d(R.slot(g) + b * DK * DATOM * sizeof(bf16_t), map,
+                R.full_bar(g), c0 + b * DATOM, (second ? j - R.s0 : j) * DK);
+}
+
+// Every thread: the ring of ``stage`` for w0 (k0, n_out) [and w1 (k1,
+// n_out); k1 = 0 for none], their maps from ``wmap`` on, its barriers set
+// up and its first STAGES k-steps loading.  The ring must be free.
+template <int STAGES, int PASS>
+__device__ __forceinline__ WRing<STAGES, PASS> ring_open(
+    bf16_t* stage, const CUtensorMap* wmap, int k0, int k1, int n_out) {
+  static_assert(PASS <= DCOLS, "a slot holds at most DCOLS columns");
+  WRing<STAGES, PASS> R;
+  R.ring = smem_addr(ring_of(stage));
+  R.s0 = (k0 + DK - 1) / DK;
+  R.per = R.s0 + (k1 + DK - 1) / DK;
+  fence_proxy_async();                      // earlier writes to the stage
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(R.full_bar(i), 1);
+      mbar_init(R.empty_bar(i), WARPS);
+    }
+    fence_mbar_init();
+    RingLoader& L = *loader_of(R);
+    L.map = wmap;
+    L.total = R.per * ((n_out + PASS - 1) / PASS);
+    L.n_out = n_out;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const RingLoader L = *loader_of(R);
+    for (int g = 0; g < STAGES && g < L.total; ++g) ring_load(R, L, g);
+  }
+  return R;
+}
+
+// Every thread, once every k-step is consumed: the barriers invalidated.
+template <int STAGES, int PASS>
+__device__ __forceinline__ void ring_close(const WRing<STAGES, PASS>& R) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_inval(R.full_bar(i));
+      mbar_inval(R.empty_bar(i));
+    }
+}
+
+// The products of pass ``pass`` on the tensor cores: acc[t] = the 16 x 8
+// block of n-tile t of a0 @ w0 [+ a1 @ w1] at the warp's rows m0 .. m0 + 15
+// and the columns of ``pc`` (wg_cols: at width 256, two atoms of 64 columns
+// a warpgroup, 16 n-tiles, 64 f32 accumulators a thread).  The warpgroups'
+// four warps are the tile's row groups of 16, and each warp's A fragment
+// (load_a) is wgmma's register operand as it stands.
+//
+// The pass's k-steps, a0's then a1's, in order: for each half-atom of 32
+// columns of the warpgroup in turn, a k-step's product is summed from zero
+// by the tensor cores (wgmma m64n32k16 into ``part``, scale-d 0) and then
+// added to acc in f32, so the f32 sum takes one rounding a k-step (the
+// contract's G = 1; tools/tile_variants' g2 and g4 chain 2 and 4 k-steps
+// in the tensor cores before each add).  Half-atoms keep the partial at 16
+// registers beside acc's 64, which the 128 a thread of two blocks an SM
+// leave room for.  Chaining every k-step through the tensor cores'
+// truncating accumulator sets more outputs off the correctly rounded layer
+// (the dense phase's rounding gate, tools/tile_variants' chain).  The order
+// of the sums does not depend on the block, the caller or the pass's width,
+// so a rebuild gives the forward's values bit for bit.  Once a warp has
+// added k-step g it releases g's slot, and thread 0 loads k-step g - 1 +
+// STAGES when every warp has released k-step g - 1.  Every thread of the
+// block must call this.
+template <int STAGES, int PASS>
+__device__ __forceinline__ void mma_pass(float (&acc)[PASS / 16][4],
+                                         const WRing<STAGES, PASS>& R,
+                                         int pass,
                                          const bf16_t* a0, int k0,
-                                         const bf16_t* __restrict__ w0,
                                          const bf16_t* a1, int k1,
-                                         const bf16_t* __restrict__ w1,
-                                         int n_out, int c0,
-                                         const PassCols& pc,
-                                         bf16_t* stage) {
+                                         const PassCols& pc) {
   const int lane = threadIdx.x & 31;
   const int m0 = ((threadIdx.x >> 5) & 3) * 16;
   const bool al0 = (uintptr_t)a0 % 16 == 0 && k0 % 8 == 0;
   const bool al1 = (uintptr_t)a1 % 16 == 0 && k1 % 8 == 0;
-  const StageMap sm = stage_map(pc.np);
-  // slot j: k-step j, rows [DK j, DK j + DK) of w0 for j < s0, then of w1
-  const int s0 = (k0 + DK - 1) / DK;
-  const int slots = s0 + (a1 != nullptr ? (k1 + DK - 1) / DK : 0);
+  const int g0 = pass * R.per;              // the pass's first k-step
+  const int nsub = (pc.nt_n + 3) >> 2;      // the warpgroup's half-atoms
+  const uint32_t boff = (pc.col0 / DATOM) * DK * DATOM * sizeof(bf16_t);
+  float part[4][4];
 #pragma unroll
-  for (int t = 0; t < 16; ++t)
+  for (int t = 0; t < PASS / 16; ++t)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
-#pragma unroll
-  for (int j = 0; j < DSTAGES - 1; ++j) {
-    if (j < slots)
-      stage_w(stage + j * DSLOT, j >= s0 ? w1 : w0, j >= s0 ? k1 : k0,
-              (j >= s0 ? j - s0 : j) * DK, n_out, c0, sm);
-    cp_async_commit();
-  }
-  // lane l reads rows (l & 7) + 8 ((l >> 3) & 1) of the slot, columns
-  // + 8 (l >> 4): the B fragments of n-tiles 2 p and 2 p + 1
-  const int boff = ((lane & 7) + ((lane >> 3) & 1) * 8) * DLD + pc.col0
-      + (lane >> 4) * 8;
-  for (int s = 0; s < slots; ++s) {
-    cp_async_wait<DSTAGES - 2>();           // this thread's copies of slot s
-    __syncthreads();                        // everyone's; slot s - 1 is done
-    const int next = s + DSTAGES - 1;
-    if (next < slots)
-      stage_w(stage + (next % DSTAGES) * DSLOT, next >= s0 ? w1 : w0,
-              next >= s0 ? k1 : k0, (next >= s0 ? next - s0 : next) * DK,
-              n_out, c0, sm);
-    cp_async_commit();
-    const bool on1 = s >= s0;
-    const bf16_t* a = on1 ? a1 : a0;
-    const int k_dim = on1 ? k1 : k0;
-    const int kb = (on1 ? s - s0 : s) * DK;
-    const bool al = on1 ? al1 : al0;
+    for (int e = 0; e < 4; ++e) acc[t][e] = part[t & 3][e] = 0.f;
+  for (int k = 0; k < R.per; ++k) {
+    const int g = g0 + k;
+    const bool on1 = k >= R.s0;
     uint32_t af[4];
-    load_a(af, a, k_dim, m0, kb, al);
-    kstep_mma(acc, af, stage + (s % DSTAGES) * DSLOT + boff, pc.nt_n);
+    load_a(af, on1 ? a1 : a0, on1 ? k1 : k0, m0,
+           (on1 ? k - R.s0 : k) * DK, on1 ? al1 : al0);
+    mbar_wait(R.full_bar(g), (g / STAGES) & 1);
+#pragma unroll
+    for (int sub = 0; sub < PASS / 64; ++sub) {
+      if (sub < nsub) {
+        wgmma_fence();
+        wgmma_m64n32k16(part, af,
+                        wgmma_desc_sw128(R.slot(g) + boff
+                                         + (sub >> 1) * DK * DATOM * 2
+                                         + (sub & 1) * DATOM,
+                                         DK * DATOM * 2, 8 * DATOM * 2),
+                        0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_hold(part);
+        wgmma_hold(af);
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[4 * sub + t][e] += part[t][e];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(R.empty_bar(g));
+    if (threadIdx.x == 0 && g >= 1) {
+      const RingLoader L = *loader_of(R);
+      if (g - 1 + STAGES < L.total) {
+        mbar_wait(R.empty_bar(g - 1), ((g - 1) / STAGES) & 1);
+        ring_load(R, L, g - 1 + STAGES);
+      }
+    }
   }
 }
 
-// The bf16 body of dense_tile (see there), on the tensor cores (mma_pass).
-// The epilogue adds the bias in f32, applies the ReLU and rounds to bf16
-// into ``out``; then the warp's own rows and columns go on to gout (STORE)
-// and its own 32-column words to the mask (MASK), after a __syncwarp.
-template <bool STORE, bool MASK>
-__device__ void dense_tile_mma(const bf16_t* a0, int k0,
-                               const bf16_t* __restrict__ w0,
-                               const bf16_t* a1, int k1,
-                               const bf16_t* __restrict__ w1,
-                               const float* __restrict__ bias, int n_out,
-                               bool relu, bf16_t* out,
+// The bf16 body of dense_tile (see there), on the tensor cores (mma_pass),
+// in passes of PASS columns over one weight ring.  The epilogue adds the
+// bias in f32, applies the ReLU and rounds to bf16 into ``out``; then the
+// warp's own rows and columns go on to gout (STORE) and its own 32-column
+// words to the mask (MASK), after a __syncwarp.
+template <bool STORE, bool MASK, int STAGES, int PASS>
+__device__ void dense_tile_mma(const bf16_t* a0, int k0, const bf16_t* a1,
+                               int k1, const float* __restrict__ bias,
+                               int n_out, bool relu, bf16_t* out,
                                bf16_t* __restrict__ gout, int64_t row0,
-                               int64_t n, bf16_t* stage, uint32_t* mbits) {
+                               int64_t n, bf16_t* stage,
+                               const CUtensorMap* wmap, uint32_t* mbits) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int m0 = (warp & 3) * 16;           // the warp's rows
   const int g = lane >> 2, q = lane & 3;
   const bool gvec = (uintptr_t)gout % 16 == 0;
-  for (int c0 = 0; c0 < n_out; c0 += DPASS) {
-    if (c0 > 0) __syncthreads();            // the ring is free again
-    const PassCols pc = pass_cols(n_out, c0, warp >> 2);
-    float acc[16][4];
-    mma_pass(acc, a0, k0, w0, a1, k1, w1, n_out, c0, pc, stage);
+  const WRing<STAGES, PASS> R = ring_open<STAGES, PASS>(
+      stage, wmap, k0, a1 != nullptr ? k1 : 0, n_out);
+  for (int c0 = 0, pass = 0; c0 < n_out; c0 += PASS, ++pass) {
+    const PassCols pc = wg_cols<PASS>(n_out, c0, warp >> 2);
+    float acc[PASS / 16][4];
+    mma_pass(acc, R, pass, a0, k0, a1, k1, pc);
     // c0 c1 of an n-tile: row g, columns 2 q, 2 q + 1; c2 c3: row g + 8
 #pragma unroll
-    for (int t = 0; t < 16; ++t) {
+    for (int t = 0; t < PASS / 16; ++t) {
       if (t >= pc.nt_n) break;
       const int c = c0 + pc.col0 + 8 * t + 2 * q;
       const float b0 = bias[c], b1 = bias[c + 1];
@@ -547,6 +739,7 @@ __device__ void dense_tile_mma(const bf16_t* a0, int k0,
       }
     }
   }
+  ring_close(R);
 }
 
 // out = act(a0 @ w0 [+ a1 @ w1] + bias) for the whole tile, cast to T.
@@ -554,20 +747,27 @@ __device__ void dense_tile_mma(const bf16_t* a0, int k0,
 // tile's valid rows are also written to gout, an (n, n_out) array in device
 // memory (rows row0 .. row0 + TM).  With MASK the ReLU mask (out > 0) of
 // every row goes to mbits, (TM, mask_words(n_out)) words in shared memory.
-// bf16 multiplies on the tensor cores (dense_tile_mma), staging W in
-// ``stage`` (dense_stage_bytes<T>() bytes, 16-byte aligned; n_out a multiple
-// of 8); f32 on the CUDA cores in full f32 (dense_tile_fma, no stage).
-// Every thread of the block must call this.
-template <bool STORE, typename T, bool MASK = false>
+// bf16 multiplies on the tensor cores (dense_tile_mma), W brought by TMA
+// into a ring of STAGES slots in ``stage`` (dense_stage_bytes<T, STAGES>(at)
+// bytes at byte ``at`` of the block's 1024-byte-aligned shared memory)
+// through w0's tensor map ``wmap`` (and w1's, wmap[1]; TileMaps; n_out a
+// multiple of 8), in passes of PASS columns (DCOLS, or NCOLS where a
+// kernel's other state leaves too few registers: the accumulators are
+// PASS / 4 a thread); f32 on the CUDA cores in full f32 (dense_tile_fma, no
+// stage, no maps).  Every thread of the block must call this.
+template <bool STORE, typename T, bool MASK = false, int STAGES = DSTAGES,
+          int PASS = DCOLS>
 __device__ void dense_tile(const T* a0, int k0, const T* __restrict__ w0,
                            const T* a1, int k1, const T* __restrict__ w1,
                            const float* __restrict__ bias, int n_out,
                            bool relu, T* out, T* __restrict__ gout,
                            int64_t row0, int64_t n, T* stage,
+                           const CUtensorMap* wmap,
                            uint32_t* mbits = nullptr) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    dense_tile_mma<STORE, MASK>(a0, k0, w0, a1, k1, w1, bias, n_out, relu,
-                                out, gout, row0, n, stage, mbits);
+    dense_tile_mma<STORE, MASK, STAGES, PASS>(a0, k0, a1, k1, bias, n_out,
+                                              relu, out, gout, row0, n, stage,
+                                              wmap, mbits);
   else
     dense_tile_fma<STORE, T, MASK>(a0, k0, w0, a1, k1, w1, bias, n_out, relu,
                                    out, gout, row0, n, mbits);
@@ -947,6 +1147,25 @@ VanillaWeights<T> vanilla_weights(const uint64_t* ptrs) {
   p.br1 = (const float*)ptrs[21];
   p.wr2 = (const T*)ptrs[22];  p.br2 = (const float*)ptrs[23];
   return p;
+}
+
+// The tensor maps of the proposal net's trunk (its dense_tile layers), in
+// the order of the layers: map i is layer i's.
+template <typename T>
+int prop_maps(TileMaps* maps, const PropWeights<T>& p, int dx, int h) {
+  return tile_maps<T>(maps, {{p.w0, dx, h}, {p.w1, h, h}, {p.w2, h, h},
+                             {p.w3, h, h}});
+}
+
+// The tensor maps of the vanilla net's dense_tile layers: w0 .. w3 at 0 ..
+// 3, the skip's w4a w4b at 4 5, w5 6, w6 7, wb 8, wr1a wr1b at 9 10.
+template <typename T>
+int vanilla_maps(TileMaps* maps, const VanillaWeights<T>& p, int dx, int dd,
+                 int h, int bn, int r) {
+  return tile_maps<T>(maps, {{p.w0, dx, h}, {p.w1, h, h}, {p.w2, h, h},
+                             {p.w3, h, h}, {p.w4a, dx, h}, {p.w4b, h, h},
+                             {p.w5, h, h}, {p.w6, h, bn}, {p.wb, bn, bn},
+                             {p.wr1a, bn, r}, {p.wr1b, dd, r}});
 }
 
 // Allow `bytes` of dynamic shared memory for `kernel`; a request beyond the

@@ -1,7 +1,9 @@
 // PTX primitives of the tensor-core bodies: 16-byte asynchronous copies into
-// shared memory, ldmatrix and mma.sync m16n8k16 (bf16 in, f32 accumulate).
-// Shared by the weight-grad pass (wgrad.cuh) and the bf16 layer tile
-// (mlp_tile.cuh's dense_tile).
+// shared memory, ldmatrix and mma.sync m16n8k16 (bf16 in, f32 accumulate),
+// shared by the weight-grad pass (wgrad.cuh) and the delta pass; and
+// Hopper's warpgroup product wgmma.mma_async with its shared-memory matrix
+// descriptor, the proxy fence, mbarriers and the TMA tensor copy, for the
+// bf16 layer tile (mlp_tile.cuh's dense_tile).  sm_90a only.
 
 #pragma once
 
@@ -66,6 +68,130 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The shared-memory matrix descriptor of a wgmma operand in the 128-byte
+// swizzle (layout type 1): start address, leading and stride byte offsets,
+// each in 16-byte units.  For an MN-major (transposed) B operand the
+// leading offset steps from one 64-column atom to the next and the stride
+// offset from one group of 8 k rows to the next.  The start must lie in a
+// 1024-byte-aligned pattern (base offset 0).  ``addr``: a shared-memory
+// address (smem_addr).
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr, int lbo,
+                                                     int sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+      | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32)
+      | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Ties the registers of a wgmma's operands to this point of the program, so
+// that the compiler moves no read of an accumulator above the wait that
+// completes it (nor a write of an operand below the product that reads it).
+template <int N>
+__device__ __forceinline__ void wgmma_hold(float (&d)[N][4]) {
+#pragma unroll
+  for (int t = 0; t < N; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[t][e])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_hold(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[e])::"memory");
+}
+
+// d (the warpgroup's 64 x 32 f32 tile; this thread's 4 n-tiles of the
+// mma.sync fragment layout: rows g and g + 8 of its warp's 16, columns
+// 8 t + 2 q, + 1) = [d +] a @ b: a the warp's 16 x 16 bf16 rows in the
+// registers (the mma.sync A fragment), b 16 x 32 bf16 in shared memory,
+// MN-major (the transpose bit), through ``desc``.  scale_d 0 starts from
+// zero.  Asynchronous: complete it with wgmma_commit and wgmma_wait.
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[4][4],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// Makes this thread's earlier writes to shared memory (st.shared, cp.async)
+// visible to the async proxy that wgmma and TMA read and write through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// mbarriers in shared memory, each at shared-memory address ``bar``
+// (smem_addr of a uint64_t): init (count arrivals a phase), invalidate
+// (before the memory serves anything else), arrive, arrive while expecting
+// ``bytes`` of asynchronous copies, and wait for the completion of the
+// phase of parity ``parity`` (the n-th completion has parity n % 2).
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_inval(uint32_t bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// TMA: the box at element coordinates (c, r) (column, row) of the 2-d
+// tensor that the tensor map ``map`` describes (in kernel parameter,
+// constant or global memory) into shared memory at address ``dst``,
+// reported to the mbarrier at ``bar`` as complete transaction bytes.
+// Out-of-bounds elements arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c, int r) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c),
+        "r"(r) : "memory");
 }
 
 }  // namespace mlp

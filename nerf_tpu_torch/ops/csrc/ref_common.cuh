@@ -84,25 +84,28 @@ __device__ __forceinline__ float srgbf(float v) {
 // dst[(row0 + r) * ld + col0 + c] = a[r] @ w[:, c] + bias[c] in f32 for
 // c < n_out and the tile's valid rows: a wide linear head (the bottleneck),
 // written unrounded.  bf16 multiplies on the tensor cores as dense_tile does
-// (mma_pass, W staged in ``stage``; n_out a multiple of 8), f32 on the CUDA
-// cores, register-tiled (accumulate).  Every thread of the block must call
-// this, with the stage free.
-template <typename T>
+// (mma_pass, W by TMA through its map ``wmap`` into the ring of ``stage``;
+// n_out a multiple of 8; passes of PASS columns, as dense_tile's), f32 on
+// the CUDA cores, register-tiled (accumulate).  Every thread of the block
+// must call this, with the stage free.
+template <typename T, int PASS = DCOLS>
 __device__ void wide_head(const T* a, int k_dim, const T* __restrict__ w,
                           const float* __restrict__ bias, int n_out,
                           float* __restrict__ dst, int64_t ld, int col0,
-                          int64_t row0, int64_t n, T* stage) {
+                          int64_t row0, int64_t n, T* stage,
+                          const CUtensorMap* wmap) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int m0 = (warp & 3) * 16;
     const int g = lane >> 2, q = lane & 3;
-    for (int c0 = 0; c0 < n_out; c0 += DPASS) {
-      if (c0 > 0) __syncthreads();          // the ring is free again
-      const PassCols pc = pass_cols(n_out, c0, warp >> 2);
-      float acc[16][4];
-      mma_pass(acc, a, k_dim, w, nullptr, 0, nullptr, n_out, c0, pc, stage);
+    const WRing<DSTAGES, PASS> R = ring_open<DSTAGES, PASS>(
+        stage, wmap, k_dim, 0, n_out);
+    for (int c0 = 0, pass = 0; c0 < n_out; c0 += PASS, ++pass) {
+      const PassCols pc = wg_cols<PASS>(n_out, c0, warp >> 2);
+      float acc[PASS / 16][4];
+      mma_pass(acc, R, pass, a, k_dim, nullptr, 0, pc);
 #pragma unroll
-      for (int t = 0; t < 16; ++t) {
+      for (int t = 0; t < PASS / 16; ++t) {
         if (t >= pc.nt_n) break;
         const int c = c0 + pc.col0 + 8 * t + 2 * q;
         const float b0 = bias[c], b1 = bias[c + 1];
@@ -116,6 +119,7 @@ __device__ void wide_head(const T* a, int k_dim, const T* __restrict__ w,
         }
       }
     }
+    ring_close(R);
   } else {
     const int lane = threadIdx.x & 31;
     const int r0 = (threadIdx.x >> 5) * RPT;
@@ -138,6 +142,17 @@ __device__ void wide_head(const T* a, int k_dim, const T* __restrict__ w,
   }
 }
 
+// The tensor maps of the spatial net's dense_tile layers and its wide head:
+// w0 .. w3 at 0 .. 3, the skip's w4a w4b at 4 5, w5 6, w6 7, w7 8, wbn 9.
+template <typename T>
+int spa_maps(TileMaps* maps, const RefSpaWeights<T>& p, int dx, int h, int o,
+             int nb) {
+  return tile_maps<T>(maps, {{p.w0, dx, h}, {p.w1, h, h}, {p.w2, h, h},
+                             {p.w3, h, h}, {p.w4a, dx, h}, {p.w4b, h, h},
+                             {p.w5, h, h}, {p.w6, h, h}, {p.w7, h, o},
+                             {p.wbn, o, nb}});
+}
+
 // dims of the directional kernels: nb h o l_max n_ch use_srgb
 inline DirDims dir_dims(const int* dims) {
   DirDims d;
@@ -150,6 +165,17 @@ inline DirDims dir_dims(const int* dims) {
   d.dd = d.nb + 2 * d.n_ch + 1;
   d.maxw = d.h > d.o ? d.h : d.o;
   return d;
+}
+
+// The tensor maps of the directional net's dense_tile layers: w0 .. w3 at
+// 0 .. 3, the skip's w4a w4b at 4 5, w5 6, w6 7, w7 8.
+template <typename T>
+int dir_maps(TileMaps* maps, const RefDirWeights<T>& p, const DirDims& d) {
+  return tile_maps<T>(maps, {{p.w0, d.dd, d.h}, {p.w1, d.h, d.h},
+                             {p.w2, d.h, d.h}, {p.w3, d.h, d.h},
+                             {p.w4a, d.dd, d.h}, {p.w4b, d.h, d.h},
+                             {p.w5, d.h, d.h}, {p.w6, d.h, d.o},
+                             {p.w7, d.o, d.o}});
 }
 
 // The 8 stored activations of a trunk, (n, width) each in T.

@@ -26,14 +26,15 @@ ref_dir_fwd_kernel(const float* __restrict__ heads, const T* __restrict__ noise,
                    const float* __restrict__ sigma, RefDirWeights<T> p,
                    int64_t n, DirDims d, float* __restrict__ rgb,
                    float* __restrict__ normal, float* __restrict__ density,
-                   Acts<T> s) {
-  extern __shared__ __align__(16) unsigned char smem[];
+                   Acts<T> s, const __grid_constant__ TileMaps maps) {
+  extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);
   T* buf_a = xs + TM * d.dd;
   T* buf_b = buf_a + TM * d.maxw;
   T* st = buf_b + TM * d.maxw;         // dense_tile's weight stage
   float* mat_s = reinterpret_cast<float*>(
-      reinterpret_cast<unsigned char*>(st) + dense_stage_bytes<T>());
+      reinterpret_cast<unsigned char*>(st)
+      + dense_stage_bytes<T>(reinterpret_cast<unsigned char*>(st) - smem));
   float* sig_s = mat_s + (d.l_max + 1) * d.n_ch;
   float* tint_s = sig_s + d.n_ch;      // (TM, 3) sigmoid(tint)
   float* diff_s = tint_s + TM * 3;     // (TM, 3) sigmoid(diffuse [- ln 3])
@@ -71,21 +72,21 @@ ref_dir_fwd_kernel(const float* __restrict__ heads, const T* __restrict__ noise,
   }
   __syncthreads();
   const int h = d.h, o = d.o, dd = d.dd;
-  dense_tile<STORE>(xs, dd, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n, st);     // h1
+  dense_tile<STORE>(xs, dd, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n, st, &maps.map[0]);     // h1
   __syncthreads();
-  dense_tile<STORE>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n, st);   // h2
+  dense_tile<STORE>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n, st, &maps.map[1]);   // h2
   __syncthreads();
-  dense_tile<STORE>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n, st);   // h3
+  dense_tile<STORE>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n, st, &maps.map[2]);   // h3
   __syncthreads();
-  dense_tile<STORE>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n, st);   // h4
+  dense_tile<STORE>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n, st, &maps.map[3]);   // h4
   __syncthreads();
-  dense_tile<STORE>(xs, dd, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n, st); // z5
+  dense_tile<STORE>(xs, dd, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n, st, &maps.map[4]); // z5
   __syncthreads();
-  dense_tile<STORE>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n, st);   // z6
+  dense_tile<STORE>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n, st, &maps.map[6]);   // z6
   __syncthreads();
-  dense_tile<STORE>(buf_b, h, p.w6, none, 0, none, p.b6, o, true, buf_a, s.a[6], row0, n, st);   // z7
+  dense_tile<STORE>(buf_b, h, p.w6, none, 0, none, p.b6, o, true, buf_a, s.a[6], row0, n, st, &maps.map[7]);   // z7
   __syncthreads();
-  dense_tile<STORE>(buf_a, o, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n, st);   // z8
+  dense_tile<STORE>(buf_a, o, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n, st, &maps.map[8]);   // z8
   __syncthreads();
   narrow_head(buf_b, o, p.wh, p.bh, 3, true, spec_s, 3, 0, 0, TM);
   __syncthreads();
@@ -113,11 +114,13 @@ int launch_dir(const void* heads, const void* noise, const void* dirs,
   const RefDirWeights<T> p = dir_weights<T>(ptrs);
   const DirDims d = dir_dims(dims);
   if (!tile_widths_ok<T>({d.h, d.o})) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)TM * (d.dd + 2 * d.maxw) * sizeof(T)
-      + dense_stage_bytes<T>()
+  const size_t at = (size_t)TM * (d.dd + 2 * d.maxw) * sizeof(T);
+  const size_t smem = at + dense_stage_bytes<T>(at)
       + (size_t)((d.l_max + 1) * d.n_ch + d.n_ch + 9 * TM) * sizeof(float);
   auto kernel = ref_dir_fwd_kernel<STORE, STAGE, T>;
-  int err = set_smem(kernel, smem);
+  TileMaps maps;
+  int err = dir_maps<T>(&maps, p, d);
+  if (err == 0) err = set_smem(kernel, smem);
   if (err != 0 || n == 0) return err;
   if (STAGE <= DIR_REFLECT && rows == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -127,7 +130,7 @@ int launch_dir(const void* heads, const void* noise, const void* dirs,
   kernel<<<grid, THREADS, smem, stream>>>(
       (const float*)heads, (const T*)noise, (const float*)dirs, per_ray,
       (const float*)rows, (const float*)mat, (const float*)sigma, p, n, d,
-      rgb, normal, density, s);
+      rgb, normal, density, s, maps);
   return (int)cudaGetLastError();
 }
 

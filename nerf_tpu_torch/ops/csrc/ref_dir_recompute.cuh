@@ -59,8 +59,9 @@ ref_dir_recompute_kernel(const float* __restrict__ heads,
                          const float* __restrict__ gden, RefDirWeights<T> p,
                          int64_t n, DirDims d, T* __restrict__ xg, Acts<T> s,
                          Deltas<T> dl, float* __restrict__ dlog,
-                         float* __restrict__ dheads) {
-  extern __shared__ __align__(16) unsigned char smem[];
+                         float* __restrict__ dheads,
+                         const __grid_constant__ TileMaps maps) {
+  extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   float* mat_s = reinterpret_cast<float*>(smem);
   float* sig_s = mat_s + (d.l_max + 1) * d.n_ch;
   float* tint_s = sig_s + d.n_ch;     // (TM, 3) sigmoid(tint)
@@ -117,21 +118,21 @@ ref_dir_recompute_kernel(const float* __restrict__ heads,
   for (int idx = threadIdx.x; idx < valid * dd; idx += THREADS)
     xg[row0 * dd + idx] = xs[idx];
   // the trunk, as ref_dir_fwd_kernel<true> runs it, into the chunk's scratch
-  dense_tile<true>(xs, dd, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n, st);     // h1
+  dense_tile<true, T, false, RSTAGES>(xs, dd, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n, st, &maps.map[0]);     // h1
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n, st);   // h2
+  dense_tile<true, T, false, RSTAGES>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n, st, &maps.map[1]);   // h2
   __syncthreads();
-  dense_tile<true>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n, st);   // h3
+  dense_tile<true, T, false, RSTAGES>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n, st, &maps.map[2]);   // h3
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n, st);   // h4
+  dense_tile<true, T, false, RSTAGES>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n, st, &maps.map[3]);   // h4
   __syncthreads();
-  dense_tile<true>(xs, dd, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n, st); // z5
+  dense_tile<true, T, false, RSTAGES>(xs, dd, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n, st, &maps.map[4]); // z5
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n, st);   // z6
+  dense_tile<true, T, false, RSTAGES>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n, st, &maps.map[6]);   // z6
   __syncthreads();
-  dense_tile<true>(buf_b, h, p.w6, none, 0, none, p.b6, o, true, buf_a, s.a[6], row0, n, st);   // z7
+  dense_tile<true, T, false, RSTAGES>(buf_b, h, p.w6, none, 0, none, p.b6, o, true, buf_a, s.a[6], row0, n, st, &maps.map[7]);   // z7
   __syncthreads();
-  dense_tile<true>(buf_a, o, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n, st);   // z8
+  dense_tile<true, T, false, RSTAGES>(buf_a, o, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n, st, &maps.map[8]);   // z8
   __syncthreads();   // also makes the stored activations visible to the block
   narrow_head(buf_b, o, p.wh, p.bh, 3, true, spec_s, 3, 0, 0, TM);
   __syncthreads();
@@ -232,9 +233,12 @@ int launch_dir_bwd_recompute(
   const DirDims d = dir_dims(dims);
   const int nf = ((d.l_max + 1) * d.n_ch + d.n_ch + 15 * TM + 3) & ~3;
   if (!tile_widths_ok<T>({d.h, d.o})) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)nf * sizeof(float)
-      + (size_t)TM * (d.dd + 2 * d.maxw + 4) * sizeof(T) + stage_bytes<T>();
-  int err = set_smem(ref_dir_recompute_kernel<MODE, T>, smem);
+  const size_t at = (size_t)nf * sizeof(float)
+      + (size_t)TM * (d.dd + 2 * d.maxw + 4) * sizeof(T);
+  const size_t smem = at + stage_bytes<T, RSTAGES>(at);
+  TileMaps maps;
+  int err = dir_maps<T>(&maps, p, d);
+  if (err == 0) err = set_smem(ref_dir_recompute_kernel<MODE, T>, smem);
   if (err != 0) return err;
   const int h = d.h, o = d.o, dd = d.dd;
   const int64_t hw = HEAD_FIXED + d.nb;
@@ -260,7 +264,7 @@ int launch_dir_bwd_recompute(
           (const float*)dirs, per_ray, c0, (const float*)mat,
           (const float*)sigma, (const float*)grgb + c0 * 3,
           (const float*)gnrm + c0 * 3, (const float*)gden + c0, p, nc, d,
-          (T*)xg, s, dl, dlog, dheads + c0 * hw);
+          (T*)xg, s, dl, dlog, dheads + c0 * hw, maps);
       const int e = (int)cudaGetLastError();
       if (e != 0) return e;
     }

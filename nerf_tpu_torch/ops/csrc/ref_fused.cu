@@ -71,15 +71,15 @@
 // bound by operations: 0.84 and 0.87 ms per 4096-ray chunk (786,432 points)
 // at the 989 TFLOP/s bf16 peak.  The training forwards also write 4 KB of
 // activations per point in bf16.  The trunks run through dense_tile
-// (mlp_tile.cuh): in bf16 on the tensor cores (mma.sync, each layer's
-// weights staged through a 16.5 KB ring of shared memory: ref_spa_fwd
-// 90,496 bytes a block, ref_dir_fwd 106,872 at IDE level 4, two blocks an
-// SM; the
+// (mlp_tile.cuh): in bf16 on the tensor cores (wgmma, each layer's weights
+// brought by TMA into a 24 KB ring of shared memory: ref_spa_fwd 98,304
+// bytes a block, ref_dir_fwd 115,288 at IDE level 4, two blocks an SM; the
 // training forwards share the ring with the W^T stage of the density
-// gradient, which never runs at the same time), in f32 on the CUDA cores.
-// The bottleneck head (wide_head) and the density gradient's transposed
-// products (delta_tile, enc_pull) take the tensor cores too; the narrow
-// heads stay on the CUDA cores.  wgmma and TMA are later work.
+// gradient, which never runs at the same time, and both run it in passes
+// of 128 columns for want of registers: at 256, ptxas spilled in one or the
+// other), in f32 on the CUDA cores.  The bottleneck head (wide_head) and the density gradient's
+// transposed products (delta_tile, enc_pull) take the tensor cores too;
+// the narrow heads stay on the CUDA cores.
 
 #include "ref_common.cuh"
 #include "ref_dir_fwd.cuh"
@@ -92,8 +92,9 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
 ref_spa_fwd_kernel(const T* __restrict__ x, RefSpaWeights<T> p, int64_t n,
                    int dx, int h, int o, int nb, int maxw,
-                   float* __restrict__ heads) {
-  extern __shared__ __align__(16) unsigned char smem[];
+                   float* __restrict__ heads,
+                   const __grid_constant__ TileMaps maps) {
+  extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);
   T* buf_a = xs + TM * dx;
   T* buf_b = buf_a + TM * maxw;
@@ -103,25 +104,25 @@ ref_spa_fwd_kernel(const T* __restrict__ x, RefSpaWeights<T> p, int64_t n,
   const int64_t hw = HEAD_FIXED + nb;
   load_rows(x, dx, row0, n, xs);
   __syncthreads();
-  dense_tile<false>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, none, row0, n, st);     // h1
+  dense_tile<false>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, none, row0, n, st, &maps.map[0]);     // h1
   __syncthreads();
-  dense_tile<false>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, none, row0, n, st);   // h2
+  dense_tile<false>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, none, row0, n, st, &maps.map[1]);   // h2
   __syncthreads();
-  dense_tile<false>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, none, row0, n, st);   // h3
+  dense_tile<false>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, none, row0, n, st, &maps.map[2]);   // h3
   __syncthreads();
-  dense_tile<false>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, none, row0, n, st);   // h4
+  dense_tile<false>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, none, row0, n, st, &maps.map[3]);   // h4
   __syncthreads();
-  dense_tile<false>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, none, row0, n, st); // z5
+  dense_tile<false>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, none, row0, n, st, &maps.map[4]); // z5
   __syncthreads();
-  dense_tile<false>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, none, row0, n, st);   // z6
+  dense_tile<false>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, none, row0, n, st, &maps.map[6]);   // z6
   __syncthreads();
-  dense_tile<false>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, none, row0, n, st);   // z7
+  dense_tile<false>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, none, row0, n, st, &maps.map[7]);   // z7
   __syncthreads();
-  dense_tile<false>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, none, row0, n, st);   // inter
+  dense_tile<false>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, none, row0, n, st, &maps.map[8]);   // inter
   __syncthreads();
   narrow_head(buf_b, o, p.wrt, p.brt, 2, false, heads, hw, 0, row0, n);
   narrow_head(buf_b, o, p.wnct, p.bnct, 9, false, heads, hw, 2, row0, n);
-  wide_head(buf_b, o, p.wbn, p.bbn, nb, heads, hw, HEAD_FIXED, row0, n, st);
+  wide_head(buf_b, o, p.wbn, p.bbn, nb, heads, hw, HEAD_FIXED, row0, n, st, &maps.map[9]);
 }
 
 // The bf16 body of enc_pull, on the tensor cores (mlp_tile.cuh's
@@ -191,8 +192,8 @@ __device__ void enc_pull(const T* a, int k_dim, const T* __restrict__ w,
 // d(density)/d(enc) tile is laid over the masks of z5 z6 z7 inter and the
 // encoding tile, all dead once it is first written (after z5's pullback), so
 // the tile is padded where those are smaller than it.  At H = O = 256 in
-// bf16 that keeps the block at 107,136 bytes of shared memory (with the
-// shared stage grown to dense_tile's ring): two fit an SM.
+// bf16 that keeps the block at 115,712 bytes of shared memory (with the
+// shared stage grown to dense_tile's ring): two fit an SM, with none left.
 __host__ __device__ inline size_t grad_xs_bytes(int dx, int h, int o,
                                                 size_t t_size) {
   const size_t tail =
@@ -216,8 +217,9 @@ ref_spa_fwd_res_kernel(const T* __restrict__ x, const float* __restrict__ pos,
                        const float* __restrict__ pe_b, RefSpaWeights<T> p,
                        int64_t n, int dx, int h, int o, int nb, int maxw,
                        Acts<T> s, float* __restrict__ heads,
-                       float* __restrict__ dgrad) {
-  extern __shared__ __align__(16) unsigned char smem[];
+                       float* __restrict__ dgrad,
+                       const __grid_constant__ TileMaps maps) {
+  extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   const int hwd = TM * mask_words(h);             // mask words of an H layer
   uint32_t* mb = reinterpret_cast<uint32_t*>(smem);
   uint32_t* m[8];                                 // h1..h4 z5 z6 z7 inter
@@ -244,25 +246,25 @@ ref_spa_fwd_res_kernel(const T* __restrict__ x, const float* __restrict__ pos,
   }
   __syncthreads();
   constexpr bool MK = !STORE;
-  dense_tile<STORE, T, MK>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n, st, m[0]);     // h1
+  dense_tile<STORE, T, MK, DSTAGES, NCOLS>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n, st, &maps.map[0], m[0]);     // h1
   __syncthreads();
-  dense_tile<STORE, T, MK>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n, st, m[1]);   // h2
+  dense_tile<STORE, T, MK, DSTAGES, NCOLS>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n, st, &maps.map[1], m[1]);   // h2
   __syncthreads();
-  dense_tile<STORE, T, MK>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n, st, m[2]);   // h3
+  dense_tile<STORE, T, MK, DSTAGES, NCOLS>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n, st, &maps.map[2], m[2]);   // h3
   __syncthreads();
-  dense_tile<STORE, T, MK>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n, st, m[3]);   // h4
+  dense_tile<STORE, T, MK, DSTAGES, NCOLS>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n, st, &maps.map[3], m[3]);   // h4
   __syncthreads();
-  dense_tile<STORE, T, MK>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n, st, m[4]); // z5
+  dense_tile<STORE, T, MK, DSTAGES, NCOLS>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n, st, &maps.map[4], m[4]); // z5
   __syncthreads();
-  dense_tile<STORE, T, MK>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n, st, m[5]);   // z6
+  dense_tile<STORE, T, MK, DSTAGES, NCOLS>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n, st, &maps.map[6], m[5]);   // z6
   __syncthreads();
-  dense_tile<STORE, T, MK>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, s.a[6], row0, n, st, m[6]);   // z7
+  dense_tile<STORE, T, MK, DSTAGES, NCOLS>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, s.a[6], row0, n, st, &maps.map[7], m[6]);   // z7
   __syncthreads();
-  dense_tile<STORE, T, MK>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n, st, m[7]);   // inter
+  dense_tile<STORE, T, MK, DSTAGES, NCOLS>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n, st, &maps.map[8], m[7]);   // inter
   __syncthreads();
   narrow_head(buf_b, o, p.wrt, p.brt, 2, false, heads, hw, 0, row0, n);
   narrow_head(buf_b, o, p.wnct, p.bnct, 9, false, heads, hw, 2, row0, n);
-  wide_head(buf_b, o, p.wbn, p.bbn, nb, heads, hw, HEAD_FIXED, row0, n, st);
+  wide_head<T, NCOLS>(buf_b, o, p.wbn, p.bbn, nb, heads, hw, HEAD_FIXED, row0, n, st, &maps.map[9]);
   __syncthreads();   // also makes the stored activations visible to the block
   // the density column's pullback: [0, 1] @ wrt^T = wrt[:, 1], then the trunk
   delta_tile<false, T, T, MK>(unit, 2, p.wrt, o, s.a[7], none, none, buf_a, drop, row0, n, st, m[7]);    // inter
@@ -315,13 +317,15 @@ int launch_spa(const void* x, const uint64_t* ptrs, int64_t n,
   const int dx = dims[0], h = dims[1], o = dims[2], nb = dims[3];
   const int maxw = h > o ? h : o;
   if (!tile_widths_ok<T>({h, o, nb})) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)TM * (dx + 2 * maxw) * sizeof(T) + dense_stage_bytes<T>();
-  int err = set_smem(ref_spa_fwd_kernel<T>, smem);
+  const size_t at = (size_t)TM * (dx + 2 * maxw) * sizeof(T);
+  const size_t smem = at + dense_stage_bytes<T>(at);
+  TileMaps maps;
+  int err = spa_maps<T>(&maps, p, dx, h, o, nb);
+  if (err == 0) err = set_smem(ref_spa_fwd_kernel<T>, smem);
   if (err != 0 || n == 0) return err;
   const unsigned grid = (unsigned)((n + TM - 1) / TM);
   ref_spa_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
-      (const T*)x, p, n, dx, h, o, nb, maxw, heads);
+      (const T*)x, p, n, dx, h, o, nb, maxw, heads, maps);
   return (int)cudaGetLastError();
 }
 
@@ -337,22 +341,24 @@ int launch_spa_res(const void* x, const void* pos, const void* pe_w,
   const int maxw = h > o ? h : o;
   const bool store = acts != nullptr;
   if (!tile_widths_ok<T>({h, o, nb})) return (int)cudaErrorInvalidValue;
-  const size_t tail = (size_t)TM * (2 * maxw + 2) * sizeof(T)
-      + stage_bytes<T>();                         // buf_a buf_b unit stage
-  const size_t smem = store
-      ? (size_t)TM * dx * (sizeof(float) + sizeof(T)) + tail
+  const size_t at = (store
+      ? (size_t)TM * dx * (sizeof(float) + sizeof(T))
       : (size_t)TM * (7 * mask_words(h) + mask_words(o)) * sizeof(uint32_t)
-        + grad_xs_bytes(dx, h, o, sizeof(T)) + tail;
+        + grad_xs_bytes(dx, h, o, sizeof(T)))
+      + (size_t)TM * (2 * maxw + 2) * sizeof(T);  // buf_a buf_b unit
+  const size_t smem = at + stage_bytes<T>(at);
   auto kernel = store ? ref_spa_fwd_res_kernel<true, T>
                       : ref_spa_fwd_res_kernel<false, T>;
-  int err = set_smem(kernel, smem);
+  TileMaps maps;
+  int err = spa_maps<T>(&maps, p, dx, h, o, nb);
+  if (err == 0) err = set_smem(kernel, smem);
   if (err != 0 || n == 0) return err;
   Acts<T> s = {};
   if (store) s = acts_of<T>(acts);
   const unsigned grid = (unsigned)((n + TM - 1) / TM);
   kernel<<<grid, THREADS, smem, stream>>>(
       (const T*)x, (const float*)pos, (const float*)pe_w,
-      (const float*)pe_b, p, n, dx, h, o, nb, maxw, s, heads, dgrad);
+      (const float*)pe_b, p, n, dx, h, o, nb, maxw, s, heads, dgrad, maps);
   return (int)cudaGetLastError();
 }
 

@@ -44,7 +44,7 @@
 // one forward of its trunk (526,592 and 545,195): about 0.61 and 0.65 ms at
 // N = 196,608, bound by operations.  The rebuild runs through dense_tile
 // (mlp_tile.cuh), as the forwards do: in bf16 on the tensor cores, its
-// weight ring in the W^T stage ``st`` (grown to the ring's 16.5 KB).  The
+// two-slot weight ring (RSTAGES) in the W^T stage ``st``.  The
 // delta pass runs through delta_tile as the residual forms' does (tensor
 // cores in bf16, through the same stage); the weight-grad pass is
 // wgrad.cuh's.
@@ -64,8 +64,8 @@ __global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
 ref_spa_recompute_kernel(const T* __restrict__ x, RefSpaWeights<T> p,
                          const float* __restrict__ g, int64_t n, int dx,
                          int h, int o, int nb, int maxw, Acts<T> s,
-                         Deltas<T> dl) {
-  extern __shared__ __align__(16) unsigned char smem[];
+                         Deltas<T> dl, const __grid_constant__ TileMaps maps) {
+  extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);    // (TM, dx)
   T* grt = xs + TM * dx;                 // (TM, 2)
   T* gnct = grt + TM * 2;                // (TM, 9)
@@ -92,21 +92,21 @@ ref_spa_recompute_kernel(const T* __restrict__ x, RefSpaWeights<T> p,
   }
   __syncthreads();
   // the trunk, as ref_spa_fwd_kernel runs it, into the chunk's scratch
-  dense_tile<true>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n, st);     // h1
+  dense_tile<true, T, false, RSTAGES>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n, st, &maps.map[0]);     // h1
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n, st);   // h2
+  dense_tile<true, T, false, RSTAGES>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n, st, &maps.map[1]);   // h2
   __syncthreads();
-  dense_tile<true>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n, st);   // h3
+  dense_tile<true, T, false, RSTAGES>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n, st, &maps.map[2]);   // h3
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n, st);   // h4
+  dense_tile<true, T, false, RSTAGES>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n, st, &maps.map[3]);   // h4
   __syncthreads();
-  dense_tile<true>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n, st); // z5
+  dense_tile<true, T, false, RSTAGES>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n, st, &maps.map[4]); // z5
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n, st);   // z6
+  dense_tile<true, T, false, RSTAGES>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n, st, &maps.map[6]);   // z6
   __syncthreads();
-  dense_tile<true>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, s.a[6], row0, n, st);   // z7
+  dense_tile<true, T, false, RSTAGES>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, s.a[6], row0, n, st, &maps.map[7]);   // z7
   __syncthreads();
-  dense_tile<true>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n, st);   // inter
+  dense_tile<true, T, false, RSTAGES>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n, st, &maps.map[8]);   // inter
   __syncthreads();   // also makes the stored activations visible to the block
   // d(inter) = cd(cd(cd(g_bn wbn^T) + cd(g_nct wnct^T)) + cd(g_rt wrt^T)),
   // masked: jax.vjp adds the heads' cotangents last use first
@@ -148,9 +148,11 @@ int launch_spa_bwd_recompute(const void* x, const float* g,
   const int maxw = h > o ? h : o;
   const int hw = HEAD_FIXED + nb;
   if (!tile_widths_ok<T>({h, o})) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)TM * (dx + 11 + nb + 2 * maxw) * sizeof(T) + stage_bytes<T>();
-  int err = set_smem(ref_spa_recompute_kernel<T>, smem);
+  const size_t at = (size_t)TM * (dx + 11 + nb + 2 * maxw) * sizeof(T);
+  const size_t smem = at + stage_bytes<T, RSTAGES>(at);
+  TileMaps maps;
+  int err = spa_maps<T>(&maps, p, dx, h, o, nb);
+  if (err == 0) err = set_smem(ref_spa_recompute_kernel<T>, smem);
   if (err != 0) return err;
   const int64_t sizes[23] = {
       (int64_t)dx * h, h, (int64_t)h * h, h, (int64_t)h * h, h,
@@ -164,7 +166,7 @@ int launch_spa_bwd_recompute(const void* x, const float* g,
     if (nc > 0) {
       const unsigned grid = (unsigned)((nc + TM - 1) / TM);
       ref_spa_recompute_kernel<T><<<grid, THREADS, smem, stream>>>(
-          xc, p, gc, nc, dx, h, o, nb, maxw, s, dl);
+          xc, p, gc, nc, dx, h, o, nb, maxw, s, dl, maps);
       const int e = (int)cudaGetLastError();
       if (e != 0) return e;
     }

@@ -31,9 +31,12 @@ only, not the tiles inside the fused kernels.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from nerf_tpu_torch.device import check_device, resolve_device
+from nerf_tpu_torch.ops import build
 from nerf_tpu_torch.ops.launch import I64, INT, PTR, launch, register
 
 F32 = torch.float32
@@ -73,6 +76,56 @@ def dense_layer_plain(a0, w0, b, a1=None, w1=None, relu=True, store=False,
     out = (torch.relu(acc) if relu else acc).to(a0.dtype)
     return (out, out.clone() if store else None,
             pack_mask(out) if mask else None)
+
+
+def dense_layer_f64(a0, w0, b, a1=None, w1=None, relu=True):
+    """The layer summed in f64 (exact for bf16 operands up to a few
+    thousand terms) and then rounded: to f32, then to a0's dtype."""
+    acc = a0.double() @ w0.double()
+    if a1 is not None:
+        acc = acc + a1.double() @ w1.double()
+    acc = acc + b.double().reshape(1, -1)
+    return (torch.relu(acc) if relu else acc).float().to(a0.dtype)
+
+
+def dense_layer_in_order(a0, w0, b, a1=None, w1=None, relu=True):
+    """The layer with its products summed in f32 in the order of k, a0's
+    columns then a1's, one rounding per term (a product of two bf16 values
+    is exact in f32), then the f32 bias, the ReLU and the cast to a0's
+    dtype: the plain sum that the tile's rounding is held against."""
+    acc = torch.zeros((a0.shape[0], w0.shape[1]), dtype=F32,
+                      device=a0.device)
+    for a, w in ((a0, w0), (a1, w1)):
+        if a is None:
+            continue
+        a, w = a.to(F32), w.to(F32)
+        for k in range(a.shape[1]):
+            acc = acc + a[:, k:k + 1] * w[k:k + 1, :]
+    acc = acc + b.reshape(1, -1)
+    return (torch.relu(acc) if relu else acc).to(a0.dtype)
+
+
+def rounding_share(out, exact):
+    """The share of ``out``'s values that differ from ``exact``
+    (dense_layer_f64's rounded layer)."""
+    return float((out != exact).float().mean())
+
+
+def map_encode_us(w, reps: int = 10_000) -> float:
+    """The host's microseconds for one encoding of the TMA tensor map of
+    ``w``, a (k, n) bf16 CUDA matrix (the mean of ``reps``): each bf16
+    launch of a tile kernel encodes one for every weight that its tiles
+    read (``csrc/mlp_tile.cuh``'s ``tile_maps``)."""
+    if w.device.type != "cuda" or w.dtype != torch.bfloat16 \
+            or w.dim() != 2 or not w.is_contiguous():
+        raise ValueError("w must be a contiguous 2-D bf16 CUDA tensor")
+    fn = build.load("dense").dense_map_encode_us
+    fn.restype = ctypes.c_double
+    fn.argtypes = [PTR, INT, INT, INT]
+    us = fn(w.data_ptr(), w.shape[0], w.shape[1], reps)
+    if us < 0:
+        raise RuntimeError("cuTensorMapEncodeTiled refused the matrix")
+    return us
 
 
 def _check(a0, w0, b, a1, w1, dev):

@@ -2,18 +2,24 @@
 
     python -m nerf_tpu_torch.tools.tile_variants [--variants shipped chain ...]
 
-Each variant is the shipped tile (``ops/csrc/mlp_tile.cuh``'s dense_tile)
-with one change, made to a copy of the package under
+Each variant is the shipped tile (``ops/csrc/mlp_tile.cuh``'s dense_tile:
+wgmma m64n32k16 from a TMA-fed ring of weight slots, each k-step summed
+from zero by the tensor cores and then added to an f32 sum) with one
+change, made to a copy of the package under
 ``build/tile_variants/<variant>/``:
 
     shipped  the tile as it is
-    chain    the k-steps summed through the tensor cores' accumulator,
-             without the f32 add of each k-step's product
-    divide   the weight stage's pieces found by a division each k-step
-    ring3    three ring slots instead of two
-    slot32   slots of two k-steps (one barrier per 32 rows of W)
-    full     a second, unpredicated copy of the k-step for passes whose
-             warps hold all 16 n-tiles
+    chain    every k-step of a pass summed through the tensor cores'
+             accumulator, with no f32 add (the fault that the rounding
+             gate must catch)
+    g2, g4   groups of 2 and 4 k-steps chained in the tensor cores before
+             each f32 add (mma_pass's k-loop replaced by a grouped one; g4
+             with a ring of 5 slots: a group needs one slot more than its
+             k-steps, and a ring of fewer slots keeps groups of
+             STAGES - 1)
+    ring2,   a ring of 2 and 4 slots instead of DSTAGES (the forwards';
+    ring4    the Ref-NeRF rebuilds keep RSTAGES; 4 slots cost the largest
+             forwards their second block an SM)
     pad      activation rows padded by 16 bytes, so that an ldmatrix of
              the A operand meets no bank conflict (the tile's own entry
              only: the fused kernels' other readers are not changed)
@@ -25,10 +31,14 @@ spills of the patched bf16 kernels, the tile alone's ms (``ops.dense_layer``,
 median of 20 CUDA-event timings) at four layer shapes of an eval chunk
 (786,432 rows: 256 -> 256, 63 -> 256, 167 + 256 -> 256, 256 -> 128), the
 ms of ``ref_spa_fwd`` and ``ref_dir_fwd`` at one chunk
-(``bench_ref_kernels``' seeded operands), and the share of a 256 -> 256
-layer's bf16 outputs (131,072 rows) that differ from the layer summed in
-f64 and then rounded, beside the plain version's share.  One JSON line per
-variant.  Card only: the variants are compiled by nvcc.
+(``bench_ref_kernels``' seeded operands), and the rounding gate's reading at
+its two shapes (256 -> 256 and 167 + 256 -> 256, 131,072 rows): the share
+of the tile's bf16 outputs that differ from the layer summed in f64 and
+then rounded, beside the share of the f32 sum in the order of k
+(``ops.dense.dense_layer_in_order``) and of the plain version, and the
+ratio that the gate holds at 1.0.  One JSON line per variant (a variant
+that fails or runs over MEASURE_TIMEOUT reads as its error).  Card only:
+the variants are compiled by nvcc.
 """
 
 from __future__ import annotations
@@ -40,53 +50,134 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parents[1]
 WORK = PACKAGE.parent / "build" / "tile_variants"
 TILE, ENTRY = "ops/csrc/mlp_tile.cuh", "ops/csrc/dense.cu"
 
-_KSTEP = ("    kstep_mma(acc, af, stage + (s % DSTAGES) * DSLOT + boff, "
-          "pc.nt_n);")
+# mma_pass's k-loop as shipped: one k-step a partial
+LOOP = """  for (int k = 0; k < R.per; ++k) {
+    const int g = g0 + k;
+    const bool on1 = k >= R.s0;
+    uint32_t af[4];
+    load_a(af, on1 ? a1 : a0, on1 ? k1 : k0, m0,
+           (on1 ? k - R.s0 : k) * DK, on1 ? al1 : al0);
+    mbar_wait(R.full_bar(g), (g / STAGES) & 1);
+#pragma unroll
+    for (int sub = 0; sub < PASS / 64; ++sub) {
+      if (sub < nsub) {
+        wgmma_fence();
+        wgmma_m64n32k16(part, af,
+                        wgmma_desc_sw128(R.slot(g) + boff
+                                         + (sub >> 1) * DK * DATOM * 2
+                                         + (sub & 1) * DATOM,
+                                         DK * DATOM * 2, 8 * DATOM * 2),
+                        0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_hold(part);
+        wgmma_hold(af);
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[4 * sub + t][e] += part[t][e];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(R.empty_bar(g));
+    if (threadIdx.x == 0 && g >= 1) {
+      const RingLoader L = *loader_of(R);
+      if (g - 1 + STAGES < L.total) {
+        mbar_wait(R.empty_bar(g - 1), ((g - 1) / STAGES) & 1);
+        ring_load(R, L, g - 1 + STAGES);
+      }
+    }
+  }
+"""
+
+
+def grouped_loop(group: int) -> str:
+    """mma_pass's k-loop with groups of ``group`` k-steps (at most STAGES -
+    1) chained in the tensor cores (scale-d 0 on a group's first) before
+    each f32 add; a short last group multiplies zero A fragments by its
+    last k-step's slot."""
+    return """  constexpr int G = %d < STAGES - 1 ? %d : STAGES - 1;
+  for (int k = 0; k < R.per; k += G) {
+    const int n = R.per - k < G ? R.per - k : G;   // k-steps in the group
+    uint32_t af[G][4];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if (j < n) {
+        const bool on1 = k + j >= R.s0;
+        load_a(af[j], on1 ? a1 : a0, on1 ? k1 : k0, m0,
+               (on1 ? k + j - R.s0 : k + j) * DK, on1 ? al1 : al0);
+        const int g = g0 + k + j;
+        mbar_wait(R.full_bar(g), (g / STAGES) & 1);
+      } else {
+        af[j][0] = af[j][1] = af[j][2] = af[j][3] = 0u;
+      }
+    }
+#pragma unroll
+    for (int sub = 0; sub < PASS / 64; ++sub) {
+      if (sub < nsub) {
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const int g = g0 + k + (j < n ? j : n - 1);
+          wgmma_m64n32k16(part, af[j],
+                          wgmma_desc_sw128(R.slot(g) + boff
+                                           + (sub >> 1) * DK * DATOM * 2
+                                           + (sub & 1) * DATOM,
+                                           DK * DATOM * 2, 8 * DATOM * 2),
+                          j > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_hold(part);
+#pragma unroll
+        for (int j = 0; j < G; ++j) wgmma_hold(af[j]);
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[4 * sub + t][e] += part[t][e];
+      }
+    }
+    __syncwarp();
+    for (int j = 0; j < n; ++j) {
+      const int g = g0 + k + j;
+      if (lane == 0) mbar_arrive(R.empty_bar(g));
+      if (threadIdx.x == 0 && g >= 1) {
+        const RingLoader L = *loader_of(R);
+        if (g - 1 + STAGES < L.total) {
+          mbar_wait(R.empty_bar(g - 1), ((g - 1) / STAGES) & 1);
+          ring_load(R, L, g - 1 + STAGES);
+        }
+      }
+    }
+  }
+""" % (group, group)
+
+
 # variant -> (whether the fused kernels stay right, [(file, old, new)])
 VARIANTS = {
     "shipped": (True, []),
-    "chain": (True, [(TILE, """  float part[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_bf16(part, a, b);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += part[e];""", "  mma_bf16(acc, a, b);")]),
-    "divide": (True, [(TILE, """  for (int r = m.r0; r < DK; r += m.rstep) {
-    bf16_t* d = slot + r * DLD + m.c;
-    const int k = kb + r;
-    const bf16_t* src = w + (size_t)k * n_out + c0 + m.c;""", """  const int pieces = THREADS / m.rstep;
-  for (int idx = threadIdx.x; idx < DK * pieces; idx += THREADS) {
-    const int r = idx / pieces, cc = (idx - r * pieces) * 8;
-    bf16_t* d = slot + r * DLD + cc;
-    const int k = kb + r;
-    const bf16_t* src = w + (size_t)k * n_out + c0 + cc;""")]),
-    "ring3": (True, [(TILE, "constexpr int DSTAGES = 2;",
-                      "constexpr int DSTAGES = 3;")]),
-    "slot32": (True, [
-        (TILE, "constexpr int DK = 16; ", "constexpr int DK = 32; "),
-        (TILE, "    uint32_t af[4];\n    load_a(af, a, k_dim, m0, kb, al);\n"
-         + _KSTEP, """    for (int ks = 0; ks < DK; ks += 16) {
-      if (kb + ks >= k_dim) break;
-      uint32_t af[4];
-      load_a(af, a, k_dim, m0, kb + ks, al);
-      kstep_mma(acc, af, stage + (s % DSTAGES) * DSLOT + ks * DLD + boff,
-                pc.nt_n);
-    }""")]),
-    "full": (True, [
-        (TILE, "__device__ __forceinline__ void kstep_mma(",
-         "template <bool FULL>\n__device__ __forceinline__ void kstep_mma("),
-        (TILE, "    if (2 * p < nt_n) {", "    if (FULL || 2 * p < nt_n) {"),
-        (TILE, "      if (2 * p + 1 < nt_n) step_mma",
-         "      if (FULL || 2 * p + 1 < nt_n) step_mma"),
-        (TILE, _KSTEP, """    if (pc.nt_n == 16)
-      kstep_mma<true>(acc, af, stage + (s % DSTAGES) * DSLOT + boff, 16);
-    else
-      kstep_mma<false>(acc, af, stage + (s % DSTAGES) * DSLOT + boff,
-                       pc.nt_n);""")]),
+    "chain": (True, [
+        (TILE, "        wgmma_m64n32k16(part, af,",
+         "        wgmma_m64n32k16("
+         "*reinterpret_cast<float(*)[4][4]>(acc[4 * sub]), af,"),
+        (TILE, "DK * DATOM * 2, 8 * DATOM * 2),\n                        0);",
+         "DK * DATOM * 2, 8 * DATOM * 2),\n                        1);"),
+        (TILE, "acc[4 * sub + t][e] += part[t][e];", "(void)part[t][e];")]),
+    "g2": (True, [(TILE, LOOP, grouped_loop(2))]),
+    "g4": (True, [(TILE, LOOP, grouped_loop(4)),
+                  (TILE, "constexpr int DSTAGES = 3;",
+                   "constexpr int DSTAGES = 5;")]),
+    "ring2": (True, [(TILE, "constexpr int DSTAGES = 3;",
+                      "constexpr int DSTAGES = 2;")]),
+    "ring4": (True, [(TILE, "constexpr int DSTAGES = 3;",
+                      "constexpr int DSTAGES = 4;")]),
     "pad": (False, [
         (TILE, "template <typename T>\ninline bool tile_widths_ok(",
          "__host__ __device__ constexpr int pld(int w) {\n"
@@ -138,7 +229,10 @@ VARIANTS = {
 DENSE_SHAPES = (((256,), 256), ((63,), 256), ((167, 256), 256),
                 ((256,), 128))
 ROWS = 786_432            # one eval chunk of Ref-NeRF's merged points
-ROUNDING_ROWS = 131_072
+# the rounding gate of chip_smoke.py's dense phase: its shapes and rows
+GATE_SHAPES = (((256,), 256), ((167, 256), 256))
+GATE_ROWS = 131_072
+MEASURE_TIMEOUT = 300     # seconds; one variant's readings take about 11
 TILE_KERNELS = ("dense_layer_kernel", "ref_spa_fwd_kernel",
                 "ref_dir_fwd_kernel")
 
@@ -211,6 +305,7 @@ def measure(name: str) -> dict:
     import torch
 
     from nerf_tpu_torch import ops
+    from nerf_tpu_torch.ops import dense as dense_lib
     from nerf_tpu_torch.tools.bench_ref_kernels import make_case, time_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -226,7 +321,7 @@ def measure(name: str) -> dict:
                                      device="cuda") * 0.5
 
     def layer(fn, acts, ws, b):
-        return fn(acts[0], ws[0], b, *(acts[1:] + ws[1:]))[0]
+        return fn(acts[0], ws[0], b, *(acts[1:] + ws[1:]))
 
     out = {"variant": name, "device": torch.cuda.get_device_name(0),
            "ptxas": ptxas_summary(json.loads(
@@ -234,23 +329,28 @@ def measure(name: str) -> dict:
            "dense_ms": {}}
     for ks, n_out in DENSE_SHAPES:
         acts, ws, b = operands(ROWS, ks, n_out)
-        got = layer(ops.dense_layer, acts, ws, b)
-        want = layer(ops.dense_layer_plain, acts, ws, b)
+        got = layer(ops.dense_layer, acts, ws, b)[0]
+        want = layer(ops.dense_layer_plain, acts, ws, b)[0]
         err = float((got.float() - want.float()).abs().max())
         key = f"{'+'.join(map(str, ks))}->{n_out}"
         out["dense_ms"][key] = dict(
-            ms=time_ms(lambda: layer(ops.dense_layer, acts, ws, b)),
+            ms=time_ms(lambda: layer(ops.dense_layer, acts, ws, b)[0]),
             max_abs_err=err)
         del acts, ws, got, want
         torch.cuda.empty_cache()
-    acts, ws, b = operands(ROUNDING_ROWS, (256,), 256)
-    exact = torch.relu(acts[0].double() @ ws[0].double() + b.double())
-    rounded = exact.float().to(bf16)
-    out["rounding_share"] = {
-        "kernel": float((layer(ops.dense_layer, acts, ws, b) != rounded)
-                        .float().mean()),
-        "plain": float((layer(ops.dense_layer_plain, acts, ws, b)
-                        != rounded).float().mean())}
+    out["rounding_gate"] = {}
+    for ks, n_out in GATE_SHAPES:
+        acts, ws, b = operands(GATE_ROWS, ks, n_out)
+        exact = layer(dense_lib.dense_layer_f64, acts, ws, b)
+        got = {"kernel": layer(ops.dense_layer, acts, ws, b)[0],
+               "in_order": layer(dense_lib.dense_layer_in_order, acts, ws,
+                                 b),
+               "plain": layer(ops.dense_layer_plain, acts, ws, b)[0]}
+        shares = {key: dense_lib.rounding_share(v, exact)
+                  for key, v in got.items()}
+        shares["ratio"] = shares["kernel"] / shares["in_order"]
+        out["rounding_gate"][f"{'+'.join(map(str, ks))}->{n_out}"] = shares
+        del acts, ws, exact, got
     if VARIANTS[name][0]:
         case = make_case(ROWS)
         out["ref_spa_fwd_ms"] = time_ms(
@@ -283,17 +383,27 @@ def main(argv=None) -> list:
             [sys.executable, "-m", "nerf_tpu_torch.tools.tile_variants",
              flag, v], cwd=roots[v], env=dict(os.environ), **kw)
 
+    t0 = time.perf_counter()
     builds = {v: run(v, "--build") for v in args.variants}
     failed = [v for v, proc in builds.items() if proc.wait() != 0]
     if failed:
         raise RuntimeError(f"the build of {failed} failed")
+    print(f"built {len(builds)} variants in {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr, flush=True)
     results = []
     for v in args.variants:
+        t0 = time.perf_counter()
         proc = run(v, "--measure", stdout=subprocess.PIPE, text=True)
-        stdout = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"measuring {v} failed")
-        results.append(json.loads(stdout.strip().splitlines()[-1]))
+        try:
+            stdout = proc.communicate(timeout=MEASURE_TIMEOUT)[0]
+            res = (json.loads(stdout.strip().splitlines()[-1])
+                   if proc.returncode == 0
+                   else {"variant": v, "error": f"exit {proc.returncode}"})
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            res = {"variant": v, "error": f"over {MEASURE_TIMEOUT} s"}
+        results.append(dict(res, seconds=time.perf_counter() - t0))
         print(json.dumps(results[-1]), flush=True)
     return results
 

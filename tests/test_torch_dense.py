@@ -17,6 +17,7 @@ import torch
 import torch_port_common  # noqa: F401  (one thread per worker)
 from nerf_tpu.ops.fused_mlp import _dense, _relu
 from nerf_tpu_torch import ops
+from nerf_tpu_torch.ops import dense as dense_lib
 from nerf_tpu_torch.ops.dense import mask_words, pack_mask
 from nerf_tpu_torch.tools import tile_variants
 
@@ -208,6 +209,52 @@ def test_cpu_calls_count_no_launch():
     assert ops.LAUNCHES["dense_layer"] == 0
 
 
+def test_in_order_sum_is_the_sequential_f32_sum():
+    """dense_layer_in_order (the rounding gate's yardstick on the card) adds
+    the products to an f32 sum one k at a time, a0's columns then a1's, as
+    a numpy loop in float32 does; then the bias, ReLU and cast."""
+    acts, ws, b = _operands(5, [7, 9], 8, BF16, seed=3)
+    got = dense_lib.dense_layer_in_order(acts[0], ws[0], b, acts[1], ws[1])
+    a = np.concatenate([x.float().numpy() for x in acts], 1)
+    w = np.concatenate([x.float().numpy() for x in ws], 0)
+    acc = np.zeros((5, 8), np.float32)
+    for k in range(a.shape[1]):
+        acc = acc + a[:, k:k + 1] * w[k:k + 1]
+    want = torch.relu(torch.from_numpy(acc + b.numpy())).to(BF16)
+    assert acc.dtype == np.float32
+    assert torch.equal(got, want)
+
+
+def test_rounding_share_on_a_hand_built_layer():
+    """Column 0 sums 1, 2^-8, 2^-24, 2^-24 (every other column 1 alone).
+    Exactly it is 1 + 2^-8 + 2^-23, which rounds up to the bf16 value
+    1 + 2^-7; in order in f32 each 2^-24 is a tie that rounds back to 1 +
+    2^-8, which rounds to even, 1.  So the in-order sum differs from the
+    f64 layer in column 0 alone: a share of 1/8 of the outputs."""
+    a0 = torch.ones((2, 4), dtype=BF16)
+    w0 = torch.zeros((4, 8), dtype=F32)
+    w0[0] = 1.0
+    w0[1:, 0] = torch.tensor([2.0 ** -8, 2.0 ** -24, 2.0 ** -24])
+    w0, b = w0.to(BF16), torch.zeros(8)
+    exact = dense_lib.dense_layer_f64(a0, w0, b)
+    in_order = dense_lib.dense_layer_in_order(a0, w0, b)
+    assert exact[:, 0].float().tolist() == [1 + 2.0 ** -7] * 2
+    assert in_order[:, 0].float().tolist() == [1.0] * 2
+    assert torch.equal(exact[:, 1:], in_order[:, 1:])
+    assert dense_lib.rounding_share(in_order, exact) == 1 / 8
+    assert dense_lib.rounding_share(exact, exact) == 0.0
+
+
+def test_map_encode_timer_takes_bf16_card_matrices_only():
+    """ops.dense.map_encode_us times the host's tensor-map encoding of a
+    bf16 weight on the card; it refuses what no kernel reads as a ring's
+    weight before it loads the library."""
+    for w in (torch.zeros((16, 8), dtype=BF16), torch.zeros((16, 8)),
+              torch.zeros((16, 8), dtype=BF16).t()):
+        with pytest.raises(ValueError, match="bf16 CUDA"):
+            dense_lib.map_encode_us(w)
+
+
 @pytest.mark.parametrize("name", list(tile_variants.VARIANTS))
 def test_tile_variants_apply_to_the_shipped_sources(name, tmp_path):
     """Each design alternative that nerf_tpu_torch.tools.tile_variants
@@ -230,6 +277,6 @@ def test_tile_variants_refuse_a_change_that_no_longer_applies(tmp_path):
     root = tmp_path / "nerf_tpu_torch"
     shutil.copytree(tile_variants.PACKAGE / "ops" / "csrc",
                     root / "ops" / "csrc")
-    tile_variants.patched_sources("ring3", root)
+    tile_variants.patched_sources("ring4", root)
     with pytest.raises(ValueError, match="0 times"):
-        tile_variants.patched_sources("ring3", root)
+        tile_variants.patched_sources("ring4", root)

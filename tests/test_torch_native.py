@@ -21,6 +21,7 @@ import json
 import os
 import re
 import struct
+import subprocess
 import threading
 import zlib
 
@@ -130,12 +131,36 @@ def test_native_equals_pillow_path(tmp_path, kind, scale, white_bkg):
     np.testing.assert_array_equal(nat.images, pil.images)
 
 
+@pytest.fixture(scope="module")
+def jax_native_build(tmp_path_factory):
+    """nerf_tpu's native/dataio.cpp (read, not changed) built by this test
+    process into a path of its own, as nerf_tpu.native builds it; None where
+    it does not build (no g++ or libpng)."""
+    out = tmp_path_factory.mktemp("jax_native") / "libdataio.so"
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+           os.path.abspath(jnative._SRC), "-o", str(out), "-lpng", "-lz",
+           "-pthread"]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+    except (subprocess.SubprocessError, OSError):
+        return None
+    return str(out)
+
+
 @pytest.fixture
-def jax_native():
-    """nerf_tpu's native loader, or a skip where it does not build (its
-    build is asked for when the test runs, not when it is collected)."""
-    if not jnative.available():
+def jax_native(jax_native_build, monkeypatch):
+    """nerf_tpu's native loader on this process's own build of it, or a skip
+    where it does not build.  The JAX package keeps one library path for
+    every process, and a worker that lost a race to build it at collection
+    keeps its failure for the rest of its run: the comparisons below load
+    their own build instead, so that race cannot skip them."""
+    if jax_native_build is None:
         pytest.skip("nerf_tpu's native loader (libpng) does not build here")
+    monkeypatch.setattr(jnative, "_LIB", jax_native_build)
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_lib_failed", False)
+    if not jnative.available():
+        pytest.skip("nerf_tpu's native loader does not load here")
     return jnative
 
 
