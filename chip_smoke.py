@@ -12,9 +12,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                pass (delta_tile), and the tensor-core instructions (HGMMA
                for wgmma, HMMA for mma.sync) in each library's SASS and in
                each such kernel: wgrad_mma_kernel must hold HMMA, every
-               bf16 tile kernel HGMMA, every bf16 delta kernel HMMA, only
-               the kernels that run both (TILE_AND_DELTA) both, and no f32
-               one either
+               bf16 tile and delta kernel HGMMA, every bf16 kernel that
+               runs the delta pass also HMMA (its narrow heads), no kernel
+               that runs the tile alone HMMA, and no f32 one either; for
+               every bf16 kernel that runs the delta pass its registers,
+               spills, HGMMA and HMMA on one line (delta_build)
   3. kernels - each kernel against its plain PyTorch version, bf16 and f32,
                with timings and bounds: the eval forwards at the shapes of
                one default 4096-ray chunk, the training kernels at those of
@@ -221,6 +223,7 @@ Imports nothing of JAX or nerf_tpu.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import math
@@ -253,6 +256,7 @@ from nerf_tpu_torch.core.rays import (
     fov_to_focal, full_image_rays, pose_spherical,
 )
 from nerf_tpu_torch.ops import build, fused_mlp, ref_fused
+from nerf_tpu_torch.ops import delta as delta_lib
 from nerf_tpu_torch.ops import dense as dense_lib
 from nerf_tpu_torch.ops.wgrad import grad_shapes
 from nerf_tpu_torch.train.config import PipelineConfig
@@ -1260,19 +1264,19 @@ def _density_target(ws, enc, pos, acts):
             torch.linalg.vector_norm(g, dim=-1, keepdim=True))
 
 
-def backward_order_sensitivity():
-    """Over the draws of ORDER_SEEDS, each from a generator of its own (so
+def order_readings(seeds=ORDER_SEEDS):
+    """Over the draws of ``seeds``, each from a generator of its own (so
     that the other checks draw their operands as they would without it),
     every bf16 backward of ORDER_KERNELS at its main-path shapes: the plain
     chain (f32 sums) against the same with its delta products summed in
-    f64, the kernel against both, and the kernel's distance over the plain
-    chain's; each must meet the limit check_kernel holds it to.  For
-    ref_spa_fwd_res the same readings of the normal target (|g|-weighted,
-    as target_check; ref_spa_fwd_grad's equals it bit for bit), held to
-    DGRAD_REL."""
+    f64, the kernel against both, the kernel's distance over the plain
+    chain's (``ratio``), the limit check_kernel holds it to, and whether
+    it met it.  For ref_spa_fwd_res the same readings of the normal target
+    (|g|-weighted, as target_check; ref_spa_fwd_grad's equals it bit for
+    bit), held to DGRAD_REL."""
     bf16 = torch.bfloat16
     out = {}
-    for seed in ORDER_SEEDS:
+    for seed in seeds:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         for name in ORDER_KERNELS:
             args, kernel, _, held = kernel_case(name, bf16, gen)[:4]
@@ -1288,13 +1292,24 @@ def backward_order_sensitivity():
             else:
                 _, lim, r = order_reference(name, bf16, held, args, got,
                                             held(*args))
-            r.update(limit=lim, ratio=r["kernel_vs_plain_f64"]
-                     / max(r["plain_vs_plain_f64"], 1e-30))
-            if not r["kernel_vs_plain_f64"] <= lim:
-                fail(f"{name} bf16, seed {seed}: {r}")
+            r.update(seed=seed, limit=lim,
+                     ratio=r["kernel_vs_plain_f64"]
+                     / max(r["plain_vs_plain_f64"], 1e-30),
+                     met=r["kernel_vs_plain_f64"] <= lim)
             out.setdefault(name, []).append(r)
             del args, got
             torch.cuda.empty_cache()
+    return out
+
+
+def backward_order_sensitivity():
+    """order_readings over ORDER_SEEDS; each bf16 backward must meet the
+    limit check_kernel holds it to on every draw."""
+    out = order_readings(ORDER_SEEDS)
+    for name, rs in out.items():
+        for r in rs:
+            if not r["met"]:
+                fail(f"{name} bf16, seed {r['seed']}: {r}")
     return dict(seeds=list(ORDER_SEEDS), factor=BWD_ORDER_FACTOR,
                 max_ratio={k: max(r["ratio"] for r in v)
                            for k, v in out.items()}, draws=out)
@@ -2559,12 +2574,64 @@ def delta_check(gen, n, k, n_out, form, dtype, timed=True):
                 tflops=flops / (ms * 1e-3) / 1e12)
 
 
+# the delta pass's rounding gate: the 256 -> 256 trunk layer and the
+# directional net's pullback into its 167-wide input (16 k-steps, an odd
+# width), unmasked so that no output is a zero that hides its sum, on their
+# own seeded rows
+DELTA_GATE_SHAPES = ((256, 256, "none"), (256, 167, "none"))
+DELTA_GATE_N = 131_072
+DELTA_GATE_SEED = 17
+# the most bf16 outputs of the pass that may differ from the pass summed in
+# f64 and rounded, as a multiple of the share of the f32 sum in the order
+# of k (delta.delta_layer_in_order): a pass that chains its k-steps through
+# the tensor cores' truncating accumulator reads above it
+DELTA_GATE_FACTOR = 1.0
+
+
+def delta_gate_readings():
+    """At each shape of DELTA_GATE_SHAPES: the share of the pass's bf16
+    outputs that differ from the pass summed in f64 and then rounded
+    (delta.delta_layer_f64), beside the in-order f32 sum's share and the
+    plain version's (cuBLAS), the limit and the kernel's ratio to the
+    in-order share."""
+    gen = torch.Generator(device="cuda").manual_seed(DELTA_GATE_SEED)
+    out = []
+    for k, n_out, form in DELTA_GATE_SHAPES:
+        kw = delta_operands(gen, DELTA_GATE_N, k, n_out, form,
+                            torch.bfloat16)
+        kw.pop("store")
+        exact = delta_lib.delta_layer_f64(**kw)
+        shares = {key: dense_lib.rounding_share(got, exact) for key, got in (
+            ("kernel", ops.delta_layer(**kw)[0]),
+            ("in_order_f32", delta_lib.delta_layer_in_order(**kw)),
+            ("plain", ops.delta_layer_plain(**kw)[0]))}
+        out.append(dict(shape=f"{k}->{n_out} {form}", n=DELTA_GATE_N,
+                        limit=DELTA_GATE_FACTOR * shares["in_order_f32"],
+                        ratio=shares["kernel"] / shares["in_order_f32"],
+                        **shares))
+        del kw, exact
+    return out
+
+
+def delta_rounding_gate():
+    """delta_gate_readings; fails where the pass's share is above
+    DELTA_GATE_FACTOR times the in-order sum's."""
+    out = delta_gate_readings()
+    for r in out:
+        if r["kernel"] > r["limit"]:
+            fail(f"delta_layer[{r['shape']}]: {r['kernel']} of its bf16 "
+                 f"outputs differ from the f64 pass, above {r['limit']} "
+                 f"({DELTA_GATE_FACTOR} x the in-order f32 sum's)")
+    return out
+
+
 def delta_phase(gen):
     """ops.delta_layer at every delta shape and form of the main paths
     (DELTA_SHAPES) at both row counts of DELTA_N in bf16, timed; the same
     shapes in f32 at a vanilla step's rows (the CUDA-core body, within TOLS,
-    timed); the narrow widths at 1, 70 and 4099 rows untimed.  The
-    launches are counted over the phase's own calls."""
+    timed); the narrow widths at 1, 70 and 4099 rows untimed; the rounding
+    gate (delta_rounding_gate).  The launches are counted over the phase's
+    own calls."""
     ops.reset_launches()
     timed, f32, narrow = [], [], []
     for n in DELTA_N:
@@ -2579,12 +2646,59 @@ def delta_phase(gen):
             for k, n_out, form in DELTA_NARROW:
                 narrow.append(delta_check(gen, n, k, n_out, form, dtype,
                                           False))
+    gate = delta_rounding_gate()
     launches = ops.LAUNCHES["delta_layer"]
     if launches == 0:
         fail("the delta phase launched delta_layer no time")
-    return dict(timed=timed, f32=f32, untimed_cases=len(narrow),
+    return dict(timed=timed, f32=f32, rounding_gate=gate,
+                untimed_cases=len(narrow),
                 untimed_max_abs_err=max(r["max_abs_err"] for r in narrow),
                 launches=launches)
+
+
+# the libraries whose kernels run the delta pass, each with its
+# <lib>_occupancy entry (mlp_tile.cuh's OCCUPANCY_ENTRY), and the bf16
+# kernels that the phases before the occupancy line launch among them
+OCCUPANCY_LIBS = ("fused_mlp_bwd", "fused_mlp_recompute", "ref_fused",
+                  "ref_fused_bwd", "ref_fused_recompute", "ref_dissect",
+                  "delta")
+OCCUPANCY_BF16 = (
+    "vanilla_delta_kernel", "prop_delta_kernel<true>",
+    "prop_delta_kernel<false>", "vanilla_recompute_kernel",
+    "ref_spa_fwd_res_kernel<true>", "ref_spa_fwd_res_kernel<false>",
+    "ref_spa_delta_kernel", "ref_dir_delta_kernel",
+    "ref_spa_recompute_kernel", "ref_dir_recompute_kernel<1>",
+    "ref_dir_recompute_kernel<2>", "ref_dir_recompute_kernel<3>",
+    "delta_layer_kernel")
+
+
+def delta_occupancy():
+    """The runtime's occupancy query of every launch of a kernel that runs
+    the delta pass in this process so far, as each library noted it
+    (mlp_tile.cuh's note_occupancy): by "<lib> <name>/<bf16|f32>", the
+    shared memory and blocks an SM of each distinct launch.  Fails where a
+    launch ran below the blocks an SM its kernel was built for (two in
+    bf16), a query failed, or a bf16 kernel of OCCUPANCY_BF16 was never
+    launched."""
+    out = {}
+    for lib in OCCUPANCY_LIBS:
+        fn = getattr(build.load(lib), f"{lib}_occupancy")
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_char_p, ctypes.c_int]
+        buf = ctypes.create_string_buffer(fn(None, 0))
+        fn(buf, len(buf))
+        for ln in buf.value.decode().splitlines():
+            name, smem, blocks, want = ln.split()
+            key = f"{lib} {name}/{'bf16' if want == '2' else 'f32'}"
+            out.setdefault(key, []).append(dict(smem=int(smem),
+                                                blocks=int(blocks)))
+            if int(blocks) < int(want):
+                fail(f"{key} launched at {blocks} blocks an SM with {smem} "
+                     f"bytes of shared memory, below its {want}")
+    seen = {k.split(" ", 1)[1] for k in out}
+    missing = [n for n in OCCUPANCY_BF16 if f"{n}/bf16" not in seen]
+    if missing:
+        fail(f"no occupancy noted for the bf16 {missing}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3516,13 +3630,16 @@ TILE_KERNELS = ("prop_mlp_fwd_kernel", "vanilla_mlp_fwd_kernel",
 DELTA_KERNELS = ("vanilla_delta_kernel", "prop_delta_kernelILb0E",
                  "ref_spa_delta_kernel", "ref_dir_delta_kernel",
                  "delta_layer_kernel")
-# the bf16 kernels that run dense_tile and the delta pass (the rebuilding
-# backwards, the density gradient), by library and demangled name: their
-# SASS holds HGMMA (the tile's wgmma) and HMMA (the delta pass's mma.sync);
-# every other bf16 kernel of TILE_KERNELS holds HGMMA and no HMMA.  (The
-# dissection's recompute-only stage, mode 0, runs no delta pass.)
+# the bf16 kernels that run dense_tile and a delta pass with a narrow head
+# (the rebuilding backwards, the density gradient), by library and
+# demangled name.  Every bf16 kernel that runs the delta pass holds HGMMA
+# (its trunk passes' wgmma) and, but for the proposal net's (HEADLESS:
+# its only head, the K = 1 term, multiplies no delta), HMMA (its narrow
+# heads' mma.sync); every other bf16 kernel of TILE_KERNELS holds HGMMA and
+# no HMMA.  (The dissection's recompute-only stage, mode 0, runs no delta
+# pass.)
+HEADLESS = ("prop_delta_kernel<true>", "prop_delta_kernel<false>")
 TILE_AND_DELTA = (
-    ("fused_mlp_bwd", "prop_delta_kernel<(bool)1, __nv_bfloat16>"),
     ("fused_mlp_recompute", "vanilla_recompute_kernel<__nv_bfloat16>"),
     ("ref_fused", "ref_spa_fwd_res_kernel<(bool)0, __nv_bfloat16>"),
     ("ref_fused", "ref_spa_fwd_res_kernel<(bool)1, __nv_bfloat16>"),
@@ -3616,8 +3733,8 @@ def sass_mma_counts():
     weight-grad kernels (wgrad_mma_kernel, wgrad_kernel), and in every
     kernel that runs dense_tile or delta_tile: ``tiles`` ("name<dtype>" ->
     [HGMMA, HMMA] of each of its instantiations) and ``functions`` (its
-    short_name -> {"HGMMA": n, "HMMA": m}); None when the toolkit has no
-    cuobjdump."""
+    short_name -> {"HGMMA": n, "HMMA": m, "kernel": its label}); None when
+    the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -3640,7 +3757,8 @@ def sass_mma_counts():
                 if tile is not None:
                     counts["tiles"].setdefault(
                         f"{tile[0]}<{tile[1]}>", []).append([0, 0])
-                    counts["functions"][name] = {"HGMMA": 0, "HMMA": 0}
+                    counts["functions"][name] = {"HGMMA": 0, "HMMA": 0,
+                                                 "kernel": tile[0]}
             for i, op in enumerate(("HGMMA", "HMMA")):
                 if re.search(rf"\b{op}\.", ln):
                     counts[func][op] += 1
@@ -3657,12 +3775,47 @@ def sass_mma_counts():
     return out
 
 
+def delta_build(reports, mma):
+    """For every bf16 kernel that runs the delta pass, by "<lib> <short
+    demangled name>": ptxas's registers and spill bytes (stores, loads)
+    and the HGMMA (its trunk passes' wgmma) and HMMA (its heads' mma.sync)
+    in its SASS; fails where ptxas reports a spill."""
+    found = ptxas_by_function(reports, lambda f: tile_kernel(f) is not None
+                              and "__nv_bfloat16" in f)
+    names = demangle(sorted({f for v in found.values() for f in v}))
+    out = {}
+    for lib, funcs in found.items():
+        for f, lines in funcs.items():
+            name = short_name(names.get(f, f))
+            c = (mma or {}).get(lib, {}).get("functions", {}).get(name)
+            label = tile_kernel(f)[0]
+            delta = (label not in {kernel_label(k) for k in TILE_KERNELS}
+                     or label in HEADLESS or (lib, name) in TILE_AND_DELTA)
+            if not delta:
+                continue
+            text = " ".join(lines)
+            regs = re.search(r"Used (\d+) registers", text)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", text)
+            r = dict(registers=int(regs.group(1)) if regs else None,
+                     spill_bytes=[int(spill.group(1)), int(spill.group(2))]
+                     if spill else None,
+                     HGMMA=c["HGMMA"] if c else None,
+                     HMMA=c["HMMA"] if c else None)
+            out[f"{lib} {name}"] = r
+            if r["spill_bytes"] and sum(r["spill_bytes"]):
+                fail(f"{lib} {name} spills: {r}")
+    return out
+
+
 def check_tile_mma(mma):
     """Fail unless every bf16 instantiation of a kernel that runs dense_tile
-    holds HGMMA (the tile's wgmma), every bf16 one that runs delta_tile
-    holds HMMA (the delta pass's mma.sync), no bf16 kernel outside
-    TILE_AND_DELTA holds both, no f32 one holds either, and every such
-    kernel was found: no mma.sync path is left for the tile."""
+    or delta_tile holds HGMMA (the tile's and the delta pass's trunk
+    wgmma), every bf16 one that runs delta_tile but HEADLESS also HMMA
+    (its heads' mma.sync), no bf16 kernel that runs the tile alone
+    (outside TILE_AND_DELTA) holds HMMA, no f32 one holds either, and
+    every such kernel was found: no mma.sync path is left for the tile or
+    the delta pass's trunk."""
     seen = set()
     tile_names = {kernel_label(k) for k in TILE_KERNELS}
     for lib, counts in mma.items():
@@ -3674,18 +3827,18 @@ def check_tile_mma(mma):
                      f"{per}")
             if not key.endswith("<bf16>"):
                 continue
-            want = 0 if base in tile_names else 1   # HGMMA, HMMA
-            if min(c[want] for c in per) == 0:
-                fail(f"{lib}: a bf16 {key} has no "
-                     f"{('HGMMA', 'HMMA')[want]} in its SASS: {per}")
-            if base not in tile_names and max(c[0] for c in per) > 0:
-                fail(f"{lib}: a bf16 {key} (delta pass only) has HGMMA: "
-                     f"{per}")
+            wants = ((0,) if base in tile_names or base in HEADLESS
+                     else (0, 1))                      # HGMMA, HMMA
+            for want in wants:
+                if min(c[want] for c in per) == 0:
+                    fail(f"{lib}: a bf16 {key} has no "
+                         f"{('HGMMA', 'HMMA')[want]} in its SASS: {per}")
         for func, c in counts["functions"].items():
             if "__nv_bfloat16" not in func or (lib, func) in TILE_AND_DELTA:
                 continue
-            if c["HGMMA"] and c["HMMA"]:
-                fail(f"{lib}: {func} runs the tile and holds HMMA: {c}")
+            if c["kernel"] in tile_names and c["HMMA"]:
+                fail(f"{lib}: {func} runs the tile alone and holds HMMA: "
+                     f"{c}")
     want = {f"{kernel_label(k)}<{d}>" for k in TILE_KERNELS + DELTA_KERNELS
             for d in ("bf16", "f32")}
     if want - seen:
@@ -4293,7 +4446,7 @@ def main() -> int:
     emit("build", seconds=build_s, native_seconds=native_build_s,
          sources=list(build.SOURCES), ptxas=ptxas,
          ptxas_wgrad=wgrad_ptxas(reports), ptxas_tile=tile_ptxas(reports),
-         sass_mma=mma)
+         sass_mma=mma, delta_build=delta_build(reports, mma))
 
     # phase 3: kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4432,6 +4585,7 @@ def main() -> int:
     t0 = time.perf_counter()
     delta = delta_phase(gen)
     emit("delta", seconds=time.perf_counter() - t0, **delta)
+    emit("occupancy", kernels=delta_occupancy())
 
     # phase 18: Mip-NeRF and the IPE mode, on a train split of their own
     mip_checks = mip_kernel_checks()

@@ -5,13 +5,20 @@
 DIR is another checkout of this repository (for example ``git archive`` of
 an earlier commit unpacked under ``build/``).  Each turn is one process
 started in a checkout's root: it builds that checkout's kernels, then times
-each kernel whose delta pass runs ``delta_tile``, bf16 and f32, with that
-checkout's own ``chip_smoke.py`` (``kernel_case``: the main-path shapes and
-seeded operands of its kernel checks; ``cuda_ms``: the median of 20
-CUDA-event timings after a warm-up), and ``ref_dir_bwd_dissect`` with its
-own ``nerf_tpu_torch.tools.bench_ref_kernels --dissect`` (the "full" mode).
-The turns run other, this, this, other, so that a drift of the card's clocks
-shows as a difference between the two turns of one checkout.  With
+the delta pass alone (``ops.delta_layer`` at three delta shapes of a
+Ref-NeRF step's 196,608 rows, ``DELTA_AB_SHAPES``, with ``torch.mm`` of the
+same operands beside it), each kernel whose delta pass runs
+``delta_tile``, bf16 and f32, with that checkout's own ``chip_smoke.py``
+(``kernel_case``: the main-path shapes and seeded operands of its kernel
+checks; ``cuda_ms``: the median of 20 CUDA-event timings after a warm-up),
+and ``ref_dir_bwd_dissect`` with its own
+``nerf_tpu_torch.tools.bench_ref_kernels --dissect`` (the "full" mode), and
+the trainer's default step of each model (``chip_smoke.profile_trainer``:
+ms a step, host issue ms, device ms, busy share); with ptxas's registers
+and spills of every bf16 kernel that runs the tile or the delta pass, from
+the turn's own build.  The turns run other, this, this, other, so that a
+drift of the card's clocks shows as a difference between the two turns of
+one checkout.  With
 ``--steps`` each turn also takes ``chip_smoke.step_check``'s readings of
 the six f32 training steps (both models; residual, recompute and proposal
 residual forms): the kernels' loss and their grads' errors against the
@@ -116,19 +123,39 @@ with tempfile.TemporaryDirectory() as tmp:
 print(json.dumps(out))
 """
 
+# the delta pass alone in the default turn: (k_dim, n_out, form) of the
+# 256 -> 256 masked trunk layer, the pullback into the directional net's
+# 167-wide input and the vanilla dbvec-like 128 -> 256 pass with ADD
+DELTA_AB_SHAPES = ((256, 256, "act"), (256, 167, "none"),
+                   (128, 256, "add_act"))
+
 # one turn, run with the checkout's root as the working directory
 TURN = r"""
-import json, sys
+import json, sys, tempfile
 import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 import chip_smoke as cs
+from nerf_tpu_torch import ops
 from nerf_tpu_torch.ops import build
 from nerf_tpu_torch.tools import bench_ref_kernels
 names, steps = json.loads(sys.argv[1]), sys.argv[2] == "1"
-build.build()
+shapes = json.loads(sys.argv[3])
+reports = build.build()
+out = {"ptxas": {k: v for k, v in cs.tile_ptxas(reports).items()
+                 if "bfloat16" in k}}
 gen = torch.Generator(device="cuda").manual_seed(0)
-out = {}
+for k, n_out, form in shapes:
+    kw = cs.delta_operands(gen, cs.DELTA_N[1], k, n_out, form,
+                           torch.bfloat16)
+    kw["store"] = None
+    key = "delta_layer[%d->%d %s]/bf16" % (k, n_out, form)
+    out[key] = cs.cuda_ms(lambda: ops.delta_layer(**kw), 20)
+    a, wt = kw["a"], kw["w"].t()
+    out[key.replace("delta_layer", "mm")] = cs.cuda_ms(
+        lambda: torch.mm(a, wt), 20)
+    del kw, a, wt
+    torch.cuda.empty_cache()
 for name in names:
     for dt in ("bf16", "f32"):
         if name == "ref_dir_bwd_dissect":
@@ -149,6 +176,13 @@ if steps:
             out[f"step/{model}/{form}"] = {
                 k: r[k] for k in ("loss_kernels", "grad_rel_err_max",
                                   "grad_rel_err_median", "per_call_vs_plain")}
+with tempfile.TemporaryDirectory() as tmp:
+    cs.write_train_split(tmp)
+    for model, extra in (("vanilla", ()), ("ref", ("-t",))):
+        r = cs.profile_trainer(tmp, 5 if model == "vanilla" else 3, *extra)
+        out["step/" + model] = {k: r[k] for k in (
+            "step_ms_median", "host_issue_ms_per_step", "device_ms_per_step",
+            "device_busy_share", "rays_per_s")}
 print(json.dumps(out))
 """
 
@@ -159,7 +193,7 @@ def turn(root: Path, steps: bool, tile: bool = False) -> dict:
     cmd = ([sys.executable, "-c", TILE_TURN, json.dumps(TILE_KERNELS)]
            if tile else
            [sys.executable, "-c", TURN, json.dumps(DELTA_PASS_KERNELS),
-            "1" if steps else "0"])
+            "1" if steps else "0", json.dumps(DELTA_AB_SHAPES)])
     proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
                           check=False)
     if proc.returncode != 0:

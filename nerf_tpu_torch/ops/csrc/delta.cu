@@ -23,10 +23,12 @@
 // Bound on an H100 at widths of 128 and more: 2 n n_out k_dim FLOPs against
 // the bytes of a, act and gout (2 (k_dim + 2 n_out) a row in bf16), by
 // operations; the heads (k_dim <= 9) are bound by bytes.  The design keeps
-// the product on the tensor cores at any width: W's rows staged 256 x 16 at
-// a time (one k-step, zero-padded where k_dim is not a multiple of 16) in a
-// two-slot cp.async ring, every k-step one A fragment and sixteen mma.sync a
-// warp, the epilogue in the fragments' registers.
+// the product on the tensor cores at any width.  Where k_dim is a multiple
+// of 8 (every trunk layer), W's rows come 256 x 16 at a time (one k-step)
+// by TMA into a two-slot ring paced by mbarriers, and each warpgroup's
+// k-step is four wgmma m64n32k16 with B read from the swizzled slot; the
+// heads (k_dim 0, 2, 3, 9) stage one zero-padded k-step by cp.async and
+// multiply with mma.sync.  The epilogue works in the fragments' registers.
 
 #include "mlp_tile.cuh"
 
@@ -41,8 +43,9 @@ delta_layer_kernel(const T* __restrict__ a, int k_dim,
                    const T* __restrict__ act, const T* __restrict__ gs,
                    const T* __restrict__ wcol, const T* __restrict__ prev,
                    const uint32_t* __restrict__ mbits, int64_t n,
-                   T* __restrict__ out, OutT* __restrict__ stored) {
-  extern __shared__ __align__(16) unsigned char smem[];
+                   T* __restrict__ out, OutT* __restrict__ stored,
+                   const __grid_constant__ TileMaps dm) {
+  extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   T* as = reinterpret_cast<T*>(smem);             // (TM, k_dim)
   T* ys = as + TM * k_dim;                        // (TM, n_out)
   T* gss = ys + TM * n_out;                       // (TM,)
@@ -60,9 +63,11 @@ delta_layer_kernel(const T* __restrict__ a, int k_dim,
     for (int idx = threadIdx.x; idx < TM * mw; idx += THREADS)
       mb[idx] = idx < valid * mw ? mbits[row0 * mw + idx] : 0u;
   __syncthreads();
-  delta_tile<ADD, T, OutT, MBITS>(as, k_dim, w, n_out, act,
-                                  gs != nullptr ? gss : nullptr, wcol, ys,
-                                  stored, row0, n, st, mb);
+  // a pass that is no ring_ok (the heads) has no map and runs on mma.sync
+  const CUtensorMap* tmap = ring_ok(w, k_dim) ? &dm.map[0] : nullptr;
+  delta_tile<ADD, DPASS, T, OutT, MBITS>(as, k_dim, w, n_out, act,
+                                         gs != nullptr ? gss : nullptr, wcol,
+                                         ys, stored, row0, n, st, tmap, mb);
   __syncthreads();
   // the valid rows, one span of out: 16 bytes a store where the span is
   // 16-byte aligned
@@ -84,15 +89,18 @@ int launch_delta(const T* a, int k_dim, const T* w, int n_out, const T* act,
                  const T* gs, const T* wcol, const T* prev,
                  const uint32_t* mbits, int64_t n, T* out, OutT* stored,
                  cudaStream_t stream) {
-  const size_t smem = (size_t)TM * (k_dim + n_out + 1) * sizeof(T)
-      + (MBITS ? (size_t)TM * mask_words(n_out) * sizeof(uint32_t) : 0)
-      + delta_stage_bytes<T>();
+  const size_t at = (size_t)TM * (k_dim + n_out + 1) * sizeof(T)
+      + (MBITS ? (size_t)TM * mask_words(n_out) * sizeof(uint32_t) : 0);
+  const size_t smem = at + delta_stage_bytes<T>(at);
   auto kernel = delta_layer_kernel<ADD, MBITS, T, OutT>;
-  int err = set_smem(kernel, smem);
+  TileMaps dm;
+  int err = ring_ok(w, k_dim) ? tile_maps<T>(&dm, {{w, k_dim, n_out}}, true)
+                              : 0;
+  if (err == 0) err = set_smem(kernel, smem, "delta_layer_kernel", MinBlocks<T>::value);
   if (err != 0 || n == 0) return err;
   const unsigned grid = (unsigned)((n + TM - 1) / TM);
   kernel<<<grid, THREADS, smem, stream>>>(a, k_dim, w, n_out, act, gs, wcol,
-                                          prev, mbits, n, out, stored);
+                                          prev, mbits, n, out, stored, dm);
   return (int)cudaGetLastError();
 }
 
@@ -140,6 +148,8 @@ extern "C" {
 
 DELTA(f32, float)
 DELTA(bf16, __nv_bfloat16)
+
+OCCUPANCY_ENTRY(delta)
 
 const char* delta_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

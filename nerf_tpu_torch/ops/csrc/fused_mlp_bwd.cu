@@ -43,8 +43,11 @@
 // take scratch of one chunk, not of all N points.  prop_mlp_bwd's rebuild
 // runs through dense_tile (mlp_tile.cuh; in bf16 on the tensor cores, its
 // weight ring in the W^T stage ``st``).  The delta passes run through
-// delta_tile (mlp_tile.cuh): in bf16 on the tensor cores, W staged through
-// its own 16 KB ring in ``st``, in f32 on the CUDA cores; they pay the
+// delta_tile (mlp_tile.cuh): in bf16 on the tensor cores (the trunk passes
+// on wgmma, W brought by TMA into a two-slot ring in ``st`` through each
+// layer's delta map, vanilla_dmaps/prop_dmaps, the vanilla net's in passes
+// of NCOLS; the heads dr1 and dh4 on mma.sync), in f32 on the CUDA cores;
+// they pay the
 // delta round trip through device memory, and fusing the weight-grad
 // products into the delta pass is later work.
 
@@ -70,13 +73,18 @@ struct VanillaActs {
   const T *h1, *h2, *h3, *h4, *z5, *z6, *z7, *bvec, *r1;
 };
 
+// The vanilla delta pass's columns a pass: at DPASS the kernel spilled
+// registers (PERF.md), at NCOLS it does not.
+constexpr int VDP = NCOLS;
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
 vanilla_delta_kernel(VanillaWeights<T> p, VanillaActs<T> s,
                      const float* __restrict__ grgb,
                      const float* __restrict__ gsig,
                      const float* __restrict__ rgb3, VanillaDeltas<T> o,
-                     int64_t n, int h, int bn, int r, int maxw) {
+                     int64_t n, int h, int bn, int r, int maxw,
+                     const __grid_constant__ TileMaps dm) {
   extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   T* dl = reinterpret_cast<T*>(smem);     // (TM, 3) dlogit
   T* gs = dl + TM * 4;                    // (TM,) g_sigma in T
@@ -103,23 +111,23 @@ vanilla_delta_kernel(VanillaWeights<T> p, VanillaActs<T> s,
     if (row < n) o.gsig[row] = gs[t];
   }
   __syncthreads();
-  delta_tile(dl, 3, p.wr2, r, s.r1, none, none, buf_a, o.dr1, row0, n, st);        // dr1
+  delta_tile<false, VDP>(dl, 3, p.wr2, r, s.r1, none, none, buf_a, o.dr1, row0, n, st, nullptr);        // dr1
   __syncthreads();
-  delta_tile(buf_a, r, p.wr1a, bn, none, none, none, buf_b, o.dbvec, row0, n, st); // dbvec
+  delta_tile<false, VDP>(buf_a, r, p.wr1a, bn, none, none, none, buf_b, o.dbvec, row0, n, st, &dm.map[0]); // dbvec
   __syncthreads();
-  delta_tile(buf_b, bn, p.wb, bn, s.z7, gs, p.wsig, buf_a, o.dz7, row0, n, st);    // dz7
+  delta_tile<false, VDP>(buf_b, bn, p.wb, bn, s.z7, gs, p.wsig, buf_a, o.dz7, row0, n, st, &dm.map[1]);    // dz7
   __syncthreads();
-  delta_tile(buf_a, bn, p.w6, h, s.z6, none, none, buf_b, o.dz6, row0, n, st);     // dz6
+  delta_tile<false, VDP>(buf_a, bn, p.w6, h, s.z6, none, none, buf_b, o.dz6, row0, n, st, &dm.map[2]);     // dz6
   __syncthreads();
-  delta_tile(buf_b, h, p.w5, h, s.z5, none, none, buf_a, o.dz5, row0, n, st);      // dz5
+  delta_tile<false, VDP>(buf_b, h, p.w5, h, s.z5, none, none, buf_a, o.dz5, row0, n, st, &dm.map[3]);      // dz5
   __syncthreads();
-  delta_tile(buf_a, h, p.w4b, h, s.h4, none, none, buf_b, o.dh4, row0, n, st);     // dh4
+  delta_tile<false, VDP>(buf_a, h, p.w4b, h, s.h4, none, none, buf_b, o.dh4, row0, n, st, &dm.map[4]);     // dh4
   __syncthreads();
-  delta_tile(buf_b, h, p.w3, h, s.h3, none, none, buf_a, o.dh3, row0, n, st);      // dh3
+  delta_tile<false, VDP>(buf_b, h, p.w3, h, s.h3, none, none, buf_a, o.dh3, row0, n, st, &dm.map[5]);      // dh3
   __syncthreads();
-  delta_tile(buf_a, h, p.w2, h, s.h2, none, none, buf_b, o.dh2, row0, n, st);      // dh2
+  delta_tile<false, VDP>(buf_a, h, p.w2, h, s.h2, none, none, buf_b, o.dh2, row0, n, st, &dm.map[6]);      // dh2
   __syncthreads();
-  delta_tile(buf_b, h, p.w1, h, s.h1, none, none, buf_a, o.dh1, row0, n, st);      // dh1
+  delta_tile<false, VDP>(buf_b, h, p.w1, h, s.h1, none, none, buf_a, o.dh1, row0, n, st, &dm.map[7]);      // dh1
 }
 
 // The proposal net's h1..h4 (or their deltas), (n, h) each.
@@ -140,7 +148,8 @@ __global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
 prop_delta_kernel(const T* __restrict__ x, PropWeights<T> p,
                   const float* __restrict__ g, int64_t n, int dx, int h,
                   PropHs<T> hs, T* __restrict__ go, PropHs<T> dhs,
-                  const __grid_constant__ TileMaps maps) {
+                  const __grid_constant__ TileMaps maps,
+                  const __grid_constant__ TileMaps dm) {
   extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   T* gs = reinterpret_cast<T*>(smem);     // (TM,) g in T
   T* xs = gs + TM * 4;                    // (TM, dx), REBUILD only
@@ -167,13 +176,13 @@ prop_delta_kernel(const T* __restrict__ x, PropWeights<T> p,
     __syncthreads();   // also makes the stored h1..h4 visible to the block
   }
   // dh4 = mask(h4) (go (x) wo): a K = 1 product, no delta operand
-  delta_tile(none, 0, none, h, hs.a[3], gs, p.wo, buf_a, dhs.a[3], row0, n, st);
+  delta_tile(none, 0, none, h, hs.a[3], gs, p.wo, buf_a, dhs.a[3], row0, n, st, nullptr);
   __syncthreads();
-  delta_tile(buf_a, h, p.w3, h, hs.a[2], none, none, buf_b, dhs.a[2], row0, n, st);
+  delta_tile(buf_a, h, p.w3, h, hs.a[2], none, none, buf_b, dhs.a[2], row0, n, st, &dm.map[0]);
   __syncthreads();
-  delta_tile(buf_b, h, p.w2, h, hs.a[1], none, none, buf_a, dhs.a[1], row0, n, st);
+  delta_tile(buf_b, h, p.w2, h, hs.a[1], none, none, buf_a, dhs.a[1], row0, n, st, &dm.map[1]);
   __syncthreads();
-  delta_tile(buf_a, h, p.w1, h, hs.a[0], none, none, buf_b, dhs.a[0], row0, n, st);
+  delta_tile(buf_a, h, p.w1, h, hs.a[0], none, none, buf_b, dhs.a[0], row0, n, st, &dm.map[2]);
 }
 
 // vanilla: acts (9 pointers, h1 h2 h3 h4 z5 z6 z7 bvec r1), deltas (11
@@ -202,14 +211,17 @@ int launch_vanilla_bwd(const void* x, const void* d, const float* grgb,
   const int dx = dims[0], dd = dims[1], h = dims[2], bn = dims[3], r = dims[4];
   int maxw = h > bn ? h : bn;
   maxw = maxw > r ? maxw : r;
-  const size_t smem =
-      (size_t)TM * (8 + 2 * maxw) * sizeof(T) + delta_stage_bytes<T>();
-  int err = set_smem(vanilla_delta_kernel<T>, smem);
+  const size_t at = (size_t)TM * (8 + 2 * maxw) * sizeof(T);
+  const size_t smem = at + delta_stage_bytes<T>(at);
+  TileMaps dm;
+  int err = vanilla_dmaps<T>(&dm, p, h, bn, r, VDP);
+  if (err == 0)
+    err = set_smem(vanilla_delta_kernel<T>, smem, "vanilla_delta_kernel", MinBlocks<T>::value);
   if (err != 0) return err;
   const unsigned grid = (unsigned)((n + TM - 1) / TM);
   if (n > 0) {
     vanilla_delta_kernel<T><<<grid, THREADS, smem, stream>>>(
-        p, s, grgb, gsig, rgb3, o, n, h, bn, r, maxw);
+        p, s, grgb, gsig, rgb3, o, n, h, bn, r, maxw, dm);
     err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
@@ -257,10 +269,14 @@ int launch_prop_bwd(const void* x, const float* g_out, const uint64_t* ptrs,
   if (REBUILD && !tile_widths_ok<T>({h})) return (int)cudaErrorInvalidValue;
   const size_t at = (size_t)TM * (4 + (REBUILD ? dx : 0) + 2 * h) * sizeof(T);
   const size_t smem =
-      at + (REBUILD ? stage_bytes<T>(at) : delta_stage_bytes<T>());
-  TileMaps maps;
+      at + (REBUILD ? stage_bytes<T>(at) : delta_stage_bytes<T>(at));
+  TileMaps maps, dm;
   int err = REBUILD ? prop_maps<T>(&maps, p, dx, h) : tile_maps<T>(&maps, {});
-  if (err == 0) err = set_smem(prop_delta_kernel<REBUILD, T>, smem);
+  if (err == 0) err = prop_dmaps<T>(&dm, p, h);
+  if (err == 0)
+    err = set_smem(prop_delta_kernel<REBUILD, T>, smem,
+                   REBUILD ? "prop_delta_kernel<true>" : "prop_delta_kernel<false>",
+                   MinBlocks<T>::value);
   if (err != 0) return err;
   const int64_t sizes[10] = {(int64_t)dx * h, h, (int64_t)h * h, h,
                              (int64_t)h * h, h, (int64_t)h * h, h, h, 1};
@@ -275,7 +291,7 @@ int launch_prop_bwd(const void* x, const float* g_out, const uint64_t* ptrs,
     if (nc > 0) {
       const unsigned grid = (unsigned)((nc + TM - 1) / TM);
       prop_delta_kernel<REBUILD, T><<<grid, THREADS, smem, stream>>>(
-          xc, p, g_out + c0, nc, dx, h, a, (T*)go, d, maps);
+          xc, p, g_out + c0, nc, dx, h, a, (T*)go, d, maps, dm);
       const int e = (int)cudaGetLastError();
       if (e != 0) return e;
     }
@@ -332,6 +348,8 @@ VANILLA_BWD(f32, float)
 VANILLA_BWD(bf16, __nv_bfloat16)
 PROP_BWD(f32, float)
 PROP_BWD(bf16, __nv_bfloat16)
+
+OCCUPANCY_ENTRY(fused_mlp_bwd)
 
 const char* fused_mlp_bwd_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

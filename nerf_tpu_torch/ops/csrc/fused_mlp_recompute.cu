@@ -35,9 +35,10 @@
 // in bf16 on the tensor cores, its weight ring in the W^T stage ``st``
 // (grown to the ring's 24 KB), in passes of 128 columns (NCOLS: the
 // kernel's other state leaves too few registers for 256).  The delta pass
-// (delta_tile) multiplies on
-// the tensor cores in bf16 too, through the same stage, and on the CUDA
-// cores in f32; the weight-grad pass is wgrad.cuh's.
+// (delta_tile) multiplies on the tensor cores in bf16 too, through the same
+// stage (the trunk passes on wgmma from a TMA-fed ring, vanilla_dmaps; dr1
+// on mma.sync), and on the CUDA cores in f32; the weight-grad pass is
+// wgrad.cuh's.
 
 #include "mlp_tile.cuh"
 #include "wgrad.cuh"
@@ -60,6 +61,10 @@ struct ChunkDeltas {
   T *dz7, *dz6, *dz5, *dh4, *dh3, *dh2, *dh1;
 };
 
+// The delta pass's columns a pass: at DPASS the kernel spilled registers
+// (PERF.md), at NCOLS it does not.
+constexpr int VDP = NCOLS;
+
 // One chunk of n rows: x and d the chunk's encoding rows; grgb (3, n_all)
 // row-land and gsig the whole cotangents, read at column row_base + row.
 template <typename T>
@@ -69,7 +74,8 @@ vanilla_recompute_kernel(const T* __restrict__ x, const T* __restrict__ d,
                          const float* __restrict__ gsig, int64_t row_base,
                          int64_t n_all, ChunkActs<T> s, ChunkDeltas<T> o,
                          int64_t n, int dx, int dd, int h, int bn, int r,
-                         int maxw, const __grid_constant__ TileMaps maps) {
+                         int maxw, const __grid_constant__ TileMaps maps,
+                         const __grid_constant__ TileMaps dm) {
   extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   float* rgb_s = reinterpret_cast<float*>(smem);   // (TM, 3) sigmoid(logit)
   T* xs = reinterpret_cast<T*>(rgb_s + TM * 4);
@@ -123,23 +129,23 @@ vanilla_recompute_kernel(const T* __restrict__ x, const T* __restrict__ d,
     if (row < n) o.gsig[row] = gs[t];
   }
   __syncthreads();
-  delta_tile(dl, 3, p.wr2, r, s.r1, none, none, buf_a, o.dr1, row0, n, st);        // dr1
+  delta_tile<false, VDP>(dl, 3, p.wr2, r, s.r1, none, none, buf_a, o.dr1, row0, n, st, nullptr);        // dr1
   __syncthreads();
-  delta_tile(buf_a, r, p.wr1a, bn, none, none, none, buf_b, o.dbvec, row0, n, st); // dbvec
+  delta_tile<false, VDP>(buf_a, r, p.wr1a, bn, none, none, none, buf_b, o.dbvec, row0, n, st, &dm.map[0]); // dbvec
   __syncthreads();
-  delta_tile(buf_b, bn, p.wb, bn, s.z7, gs, p.wsig, buf_a, o.dz7, row0, n, st);    // dz7
+  delta_tile<false, VDP>(buf_b, bn, p.wb, bn, s.z7, gs, p.wsig, buf_a, o.dz7, row0, n, st, &dm.map[1]);    // dz7
   __syncthreads();
-  delta_tile(buf_a, bn, p.w6, h, s.z6, none, none, buf_b, o.dz6, row0, n, st);     // dz6
+  delta_tile<false, VDP>(buf_a, bn, p.w6, h, s.z6, none, none, buf_b, o.dz6, row0, n, st, &dm.map[2]);     // dz6
   __syncthreads();
-  delta_tile(buf_b, h, p.w5, h, s.z5, none, none, buf_a, o.dz5, row0, n, st);      // dz5
+  delta_tile<false, VDP>(buf_b, h, p.w5, h, s.z5, none, none, buf_a, o.dz5, row0, n, st, &dm.map[3]);      // dz5
   __syncthreads();
-  delta_tile(buf_a, h, p.w4b, h, s.h4, none, none, buf_b, o.dh4, row0, n, st);     // dh4
+  delta_tile<false, VDP>(buf_a, h, p.w4b, h, s.h4, none, none, buf_b, o.dh4, row0, n, st, &dm.map[4]);     // dh4
   __syncthreads();
-  delta_tile(buf_b, h, p.w3, h, s.h3, none, none, buf_a, o.dh3, row0, n, st);      // dh3
+  delta_tile<false, VDP>(buf_b, h, p.w3, h, s.h3, none, none, buf_a, o.dh3, row0, n, st, &dm.map[5]);      // dh3
   __syncthreads();
-  delta_tile(buf_a, h, p.w2, h, s.h2, none, none, buf_b, o.dh2, row0, n, st);      // dh2
+  delta_tile<false, VDP>(buf_a, h, p.w2, h, s.h2, none, none, buf_b, o.dh2, row0, n, st, &dm.map[6]);      // dh2
   __syncthreads();
-  delta_tile(buf_b, h, p.w1, h, s.h1, none, none, buf_a, o.dh1, row0, n, st);      // dh1
+  delta_tile<false, VDP>(buf_b, h, p.w1, h, s.h1, none, none, buf_a, o.dh1, row0, n, st, &dm.map[7]);      // dh1
 }
 
 // acts (9 pointers, h1 h2 h3 h4 z5 z6 z7 bvec r1) and deltas (11 pointers,
@@ -171,9 +177,12 @@ int launch_vanilla_bwd_recompute(const void* x, const void* d,
   const size_t at = (size_t)TM * 4 * sizeof(float)
       + (size_t)TM * (dx + dd + 8 + 2 * maxw) * sizeof(T);
   const size_t smem = at + stage_bytes<T>(at);
-  TileMaps maps;
+  TileMaps maps, dm;
   int err = vanilla_maps<T>(&maps, p, dx, dd, h, bn, r);
-  if (err == 0) err = set_smem(vanilla_recompute_kernel<T>, smem);
+  if (err == 0) err = vanilla_dmaps<T>(&dm, p, h, bn, r, VDP);
+  if (err == 0)
+    err = set_smem(vanilla_recompute_kernel<T>, smem, "vanilla_recompute_kernel",
+                   MinBlocks<T>::value);
   if (err != 0) return err;
   const int64_t sizes[24] = {
       (int64_t)dx * h, h, (int64_t)h * h, h, (int64_t)h * h, h,
@@ -188,7 +197,7 @@ int launch_vanilla_bwd_recompute(const void* x, const void* d,
       const unsigned grid = (unsigned)((nc + TM - 1) / TM);
       vanilla_recompute_kernel<T><<<grid, THREADS, smem, stream>>>(
           xc, dc, p, grgb, gsig, c0, n, s, o, nc, dx, dd, h, bn, r, maxw,
-          maps);
+          maps, dm);
       const int e = (int)cudaGetLastError();
       if (e != 0) return e;
     }
@@ -229,6 +238,8 @@ extern "C" {
 
 VANILLA_BWD_RECOMPUTE(f32, float)
 VANILLA_BWD_RECOMPUTE(bf16, __nv_bfloat16)
+
+OCCUPANCY_ENTRY(fused_mlp_recompute)
 
 const char* fused_mlp_recompute_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

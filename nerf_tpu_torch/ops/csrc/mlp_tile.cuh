@@ -3,10 +3,11 @@
 // One block of THREADS threads owns a tile of TM points.  Activations of the
 // tile live in shared memory as (TM, width) row-major arrays in the compute
 // dtype T (float or __nv_bfloat16).  Products accumulate in f32.  The hidden
-// layers (dense_tile) multiply bf16 operands on the tensor cores with
+// layers (dense_tile) and the transposed products of the backwards'
+// trunks (delta_tile) multiply bf16 operands on the tensor cores with
 // Hopper's wgmma (m64n32k16, the weights in a swizzled ring in shared
-// memory), the transposed products of the backwards (delta_tile) with
-// mma.sync m16n8k16; f32 operands on the CUDA cores in full f32.  The other
+// memory), the backwards' narrow heads with mma.sync m16n8k16; f32
+// operands on the CUDA cores in full f32.  The other
 // products (the narrow heads) and the f32 bodies run on the CUDA cores: each
 // thread holds an RPT x CPT register tile (its warp's RPT rows, CPT columns
 // strided by 32), and a layer wider than CHUNK columns is done in passes of
@@ -22,6 +23,8 @@
 #include <cuda.h>
 
 #include <initializer_list>
+#include <mutex>
+#include <stdio.h>
 #include <type_traits>
 
 #include "mma_sm90.cuh"
@@ -185,8 +188,8 @@ __host__ __device__ constexpr int mask_words(int width) {
 // its 1024-byte-aligned base).  DSTAGES slots keep every forward at two
 // blocks an SM; the rebuilds of the Ref-NeRF recompute backwards, whose
 // other buffers leave less room, take RSTAGES.  The backwards share the
-// stage with the delta pass's ring, which never runs at the same time
-// (stage_bytes).
+// stage with the delta pass's ring (TSTAGES slots of the same size, placed
+// the same way), which never runs at the same time (stage_bytes).
 constexpr int DK = 16;                    // a slot is one k-step
 constexpr int DSTAGES = 3;
 constexpr int RSTAGES = 2;
@@ -212,14 +215,24 @@ __host__ __device__ constexpr size_t dense_stage_bytes(size_t at) {
 }
 
 // The bf16 delta pass's weight stage (delta_tile, enc_pull): a ring of
-// TSTAGES slots, each DPASS rows of W (one output column each) by TK
-// columns (one k-step of the mma), 32 bytes a row.  W (n_out, k_dim) is
-// row-major, so k is contiguous for each output column: the B operand's
-// "col" layout, read by ldmatrix without .trans.  Rows 32 bytes apart
-// would put the 8 rows that an ldmatrix reads on 4 bank quads, a 2-way
-// conflict; the two 16-byte halves of rows 4-7 of every 8 swap places
-// (tslot_off), which spreads them over all 8 quads without padding
-// (48-byte rows would need 24 KB, beyond the backwards' 16.5 KB stage).
+// TSTAGES slots, each up to DPASS rows of W (one output column each) by TK
+// columns (one k-step), 32 bytes a row.  W (n_out, k_dim) is row-major, so
+// k is contiguous for each output column: wgmma's K-major B operand (the
+// transpose bit 0), and the B operand's "col" layout for the heads'
+// ldmatrix without .trans.  Rows 32 bytes apart would put the 8 rows that
+// one 16-byte read of each row reaches on 4 bank quads, a 2-way conflict;
+// the two 16-byte halves of rows 4-7 of every 8 swap places, which spreads
+// them over all 8 quads without padding: the 32-byte swizzle, in which TMA
+// writes a trunk pass's slots and wgmma reads them (wgmma_desc_sw32), and
+// which the heads' cp.async copies lay out by hand (tslot_off).  A box of
+// one k-step fills the swizzle's 32 bytes; a slot of W's 16 k by 256 rows is
+// 8 KB, the layer tile's slot size.  (The layer tile's map, 64 columns by
+// 16 rows in the 128-byte swizzle, is a K-major atom of this operand too,
+// but its slot would hold 64 k by 256 rows, 32 KB a slot, which the
+// backwards' stage cannot hold beside their other buffers.)  The ring
+// holds TSTAGES slots in every kernel: the stage that the Ref-NeRF
+// recompute backwards share with their rebuild's RSTAGES slots holds no
+// more.
 constexpr int TK = 16;                    // a slot is one k-step
 constexpr int TSTAGES = 2;
 constexpr int TSLOT = DPASS * TK;         // elements of a slot
@@ -228,12 +241,16 @@ __device__ __forceinline__ int tslot_off(int rr, int half) {
   return rr * TK + ((half ^ (rr >> 2)) & 1) * 8;
 }
 
-// Shared-memory bytes of the delta pass's stage: the ring in bf16 (16 KB),
-// accumulate_t's KC rows of W^T in f32.
+// Shared-memory bytes of the delta pass's stage at byte ``at`` of the
+// block's 1024-byte-aligned dynamic shared memory: in bf16 the ring and the
+// bytes below it, as dense_stage_bytes places them (the heads' cp.async
+// ring takes the stage's first 16 KB); accumulate_t's KC rows of W^T in
+// f32.
 template <typename T>
-__host__ __device__ constexpr size_t delta_stage_bytes() {
-  return sizeof(T) == 2 ? (size_t)TSTAGES * TSLOT * sizeof(T)
-                        : (size_t)KC * stage_ld<T>() * sizeof(T);
+__host__ __device__ constexpr size_t delta_stage_bytes(size_t at) {
+  return sizeof(T) == 2
+      ? ring_at(at) - at + (size_t)TSTAGES * TSLOT * sizeof(T)
+      : (size_t)KC * stage_ld<T>() * sizeof(T);
 }
 
 // Shared-memory bytes of a stage ``st`` at byte ``at`` that the delta pass
@@ -241,8 +258,8 @@ __host__ __device__ constexpr size_t delta_stage_bytes() {
 // gradient).
 template <typename T, int STAGES = DSTAGES>
 __host__ __device__ constexpr size_t stage_bytes(size_t at) {
-  return delta_stage_bytes<T>() > dense_stage_bytes<T, STAGES>(at)
-      ? delta_stage_bytes<T>() : dense_stage_bytes<T, STAGES>(at);
+  return delta_stage_bytes<T>(at) > dense_stage_bytes<T, STAGES>(at)
+      ? delta_stage_bytes<T>(at) : dense_stage_bytes<T, STAGES>(at);
 }
 
 // Whether every width that a bf16 dense_tile writes is a multiple of 8 (the
@@ -364,23 +381,69 @@ inline int weight_map(CUtensorMap* out, const void* w, int k_dim, int n_out) {
       ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// A weight that a kernel's tiles read: its pointer and (k_dim, n_out).
+// Rows of W in a box of the delta pass's map for passes of ``pass``
+// columns: a pass's columns, or n_out rounded up to the 32 columns of a
+// wgmma n-block, so that every row that a pass's products read arrives (as
+// zeros past n_out).
+__host__ __device__ constexpr int tbox_rows(int n_out, int pass) {
+  return n_out >= pass ? pass : (n_out + 31) & ~31;
+}
+
+// Whether a delta pass of w (n_out, k_dim) can run on the ring
+// (ring_pass_t): TMA reads rows whose stride is a multiple of 16 bytes from
+// a 16-byte aligned matrix.  Every trunk pass of the fused kernels is one
+// (tile_maps refuses a trunk weight that is not); the narrow heads (k_dim
+// 0, 2, 3 and 9), which are bound by bytes, keep mma_pass_t, one
+// zero-padded k-step staged by cp.async.
+__host__ __device__ inline bool ring_ok(const void* w, int k_dim) {
+  return k_dim > 0 && k_dim % 8 == 0 && (uintptr_t)w % 16 == 0;
+}
+
+// The tensor map of the delta pass's ring over w, the layer's (n_out,
+// k_dim) row-major bf16 forward matrix, for passes of ``pass`` columns:
+// boxes of TK columns (one k-step) by tbox_rows(n_out, pass) rows in the
+// 32-byte swizzle, rows and columns past the matrix read as zeros.
+// Encoded at every launch, as weight_map.  Returns 0 or a CUDA error code.
+inline int delta_map(CUtensorMap* out, const void* w, int k_dim, int n_out,
+                     int pass) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)k_dim, (cuuint64_t)n_out};
+  const cuuint64_t strides[1] = {(cuuint64_t)k_dim * sizeof(bf16_t)};
+  const cuuint32_t box[2] = {TK, (cuuint32_t)tbox_rows(n_out, pass)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+      ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A weight that a kernel's tiles read: its pointer and (k_dim, n_out), the
+// product's own (for the delta pass: the layer's output and input widths).
 struct WeightShape {
   const void* w;
   int k_dim, n_out;
 };
 
 // The maps of ``weights`` for a bf16 kernel, map i of the i-th (a null
-// pointer leaves its entry unset); an f32 kernel reads none and gets an
-// unset set.  Returns 0 or a CUDA error code.
+// pointer leaves its entry unset): the layer tile's (weight_map), or with
+// ``delta`` the delta pass's for passes of ``pass`` columns (delta_map; a
+// weight that is no ring_ok is refused); an f32 kernel reads none and gets
+// an unset set.  Returns 0 or a CUDA error code.
 template <typename T>
-int tile_maps(TileMaps* maps, std::initializer_list<WeightShape> weights) {
+int tile_maps(TileMaps* maps, std::initializer_list<WeightShape> weights,
+              bool delta = false, int pass = DPASS) {
   if (sizeof(T) != 2) return 0;
   if (weights.size() > MAX_MAPS) return (int)cudaErrorInvalidValue;
   int i = 0;
   for (const WeightShape& ws : weights) {
+    if (delta && ws.w != nullptr && !ring_ok(ws.w, ws.k_dim))
+      return (int)cudaErrorInvalidValue;
     if (ws.w != nullptr) {
-      const int err = weight_map(&maps->map[i], ws.w, ws.k_dim, ws.n_out);
+      const int err = delta
+          ? delta_map(&maps->map[i], ws.w, ws.k_dim, ws.n_out, pass)
+          : weight_map(&maps->map[i], ws.w, ws.k_dim, ws.n_out);
       if (err != 0) return err;
     }
     ++i;
@@ -424,10 +487,11 @@ __device__ __forceinline__ void load_a(uint32_t (&af)[4], const bf16_t* a,
                     c + 9 < k_dim ? rb[c + 9] : z);
 }
 
-// The columns of one pass of up to DPASS output columns that a warp of
-// column half ``half`` owns: whole 32-column words of the pass, the first
-// half's ceil(words / 2), the second's the rest.  (dense_tile's widths are
-// multiples of 8; the delta pass's last n-tile may hang past n_out.)
+// The columns of one pass of up to DP output columns (the delta pass's
+// DPASS, or NCOLS where a kernel's other state leaves too few registers)
+// that a warp of column half ``half`` owns: whole 32-column words of the
+// pass, the first half's ceil(words / 2), the second's the rest.  (The
+// delta pass's last n-tile may hang past n_out.)
 struct PassCols {
   int np;          // columns in the pass
   int wb, we;      // the warp's words [wb, we) of the pass
@@ -435,9 +499,10 @@ struct PassCols {
   int nt_n;        // its n-tiles of 8 columns
 };
 
+template <int DP>
 __device__ __forceinline__ PassCols pass_cols(int n_out, int c0, int half) {
   PassCols pc;
-  pc.np = n_out - c0 < DPASS ? n_out - c0 : DPASS;
+  pc.np = n_out - c0 < DP ? n_out - c0 : DP;
   const int words = (pc.np + 31) >> 5;
   const int wsplit = (words + 1) >> 1;
   pc.wb = half ? wsplit : 0;
@@ -449,11 +514,11 @@ __device__ __forceinline__ PassCols pass_cols(int n_out, int c0, int half) {
 }
 
 // acc += one k-step's 16-term products, summed by the tensor cores from
-// zero and added to acc in f32 (round to nearest): the delta pass's
+// zero and added to acc in f32 (round to nearest): the delta pass's heads'
 // products (mma.sync).  The tensor cores' accumulation truncates; chaining
-// the k-steps through it set 1.8 times as many bf16 outputs off the
-// correctly rounded layer as an f32 sum in order does, this 0.8 times
-// (tools/tile_variants, PERF.md).
+// the k-steps through it set 1.6 times as many bf16 outputs off the
+// correctly rounded pass as an f32 sum in order does, this 0.8 times (the
+// delta phase's rounding gate, tools/tile_variants' dchain, PERF.md).
 __device__ __forceinline__ void step_mma(float (&acc)[4],
                                          const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -545,10 +610,24 @@ __device__ __forceinline__ void ring_load(const WRing<STAGES, PASS>& R,
                 R.full_bar(g), c0 + b * DATOM, (second ? j - R.s0 : j) * DK);
 }
 
+// Thread 0: k-step g of the delta pass's ring (KMAJOR, ring_pass_t) into
+// its slot: one box of TK columns of W's rows from pass g / per's first
+// (delta_map), columns past k_dim and rows past n_out as zeros.
+template <int STAGES, int PASS>
+__device__ __forceinline__ void tring_load(const WRing<STAGES, PASS>& R,
+                                           const RingLoader& L, int g) {
+  const int pass = g / R.per, j = g - pass * R.per;
+  mbar_expect_tx(R.full_bar(g),
+                 TK * tbox_rows(L.n_out, PASS) * sizeof(bf16_t));
+  tma_load_2d(R.slot(g), L.map, R.full_bar(g), j * TK, pass * PASS);
+}
+
 // Every thread: the ring of ``stage`` for w0 (k0, n_out) [and w1 (k1,
 // n_out); k1 = 0 for none], their maps from ``wmap`` on, its barriers set
-// up and its first STAGES k-steps loading.  The ring must be free.
-template <int STAGES, int PASS>
+// up and its first STAGES k-steps loading: the layer tile's, or with
+// KMAJOR the delta pass's (w0 the layer's (n_out, k0) forward matrix, no
+// w1).  The ring must be free.
+template <int STAGES, int PASS, bool KMAJOR = false>
 __device__ __forceinline__ WRing<STAGES, PASS> ring_open(
     bf16_t* stage, const CUtensorMap* wmap, int k0, int k1, int n_out) {
   static_assert(PASS <= DCOLS, "a slot holds at most DCOLS columns");
@@ -572,7 +651,12 @@ __device__ __forceinline__ WRing<STAGES, PASS> ring_open(
   __syncthreads();
   if (threadIdx.x == 0) {
     const RingLoader L = *loader_of(R);
-    for (int g = 0; g < STAGES && g < L.total; ++g) ring_load(R, L, g);
+    for (int g = 0; g < STAGES && g < L.total; ++g) {
+      if constexpr (KMAJOR)
+        tring_load(R, L, g);
+      else
+        ring_load(R, L, g);
+    }
   }
   return R;
 }
@@ -841,11 +925,12 @@ __device__ __forceinline__ void stage_wt(bf16_t* slot,
 // One k-step's products of the delta pass into the warp's first nt_n
 // n-tiles: the A fragment af and the B fragments of the slot's rows from pb
 // on (16 rows of the slot, a non-transposing ldmatrix, per pair of n-tiles).
-__device__ __forceinline__ void kstep_mma_t(float (&acc)[16][4],
+template <int DP>
+__device__ __forceinline__ void kstep_mma_t(float (&acc)[DP / 16][4],
                                             const uint32_t (&af)[4],
                                             const bf16_t* pb, int nt_n) {
 #pragma unroll
-  for (int p = 0; p < 8; ++p) {
+  for (int p = 0; p < DP / 32; ++p) {
     if (p * 2 >= nt_n) break;
     uint32_t b[2][2];
     ldsm_x4(b[0][0], b[0][1], b[1][0], b[1][1], pb + p * 16 * TK);
@@ -854,18 +939,20 @@ __device__ __forceinline__ void kstep_mma_t(float (&acc)[16][4],
   }
 }
 
-// The transposed products of one pass on the tensor cores: acc[t] = the
-// 16 x 8 block of n-tile t of a @ W^T at the warp's rows m0 .. m0 + 15 and
-// the columns of ``pc``, from column c0 of the pass on; a (TM, k_dim) in
-// shared memory, w the layer's (n_out, k_dim) forward matrix.  The warps
-// split the tile as mma_pass does, each k-step's product is added to acc in
-// f32 (step_mma) in the order of k, and W's rows are staged by cp.async into
-// the ring one slot ahead.  k_dim may be anything: A and B past k_dim are
+// The transposed products of one pass on mma.sync, for the narrow heads
+// (and delta_layer's passes that are no ring_ok): acc[t] = the 16 x 8
+// block of n-tile t of a @ W^T at the warp's rows m0 .. m0 + 15 and the
+// columns of ``pc``, from column c0 of the pass on; a (TM, k_dim) in shared
+// memory, w the layer's (n_out, k_dim) forward matrix.  The warps split the tile as ring_pass_t
+// does, each k-step's product is added to acc in f32 (step_mma) in the
+// order of k, and W's rows are staged by cp.async into the stage's first
+// two slots, one slot ahead.  k_dim may be anything: A and B past k_dim are
 // zeros (load_a, stage_wt), so a head of 2, 3 or 9 is one zero-padded
 // k-step, and k_dim = 0 multiplies nothing.  Opens with a barrier, so the
-// ring is free whatever ran before; every thread of the block must call
+// stage is free whatever ran before; every thread of the block must call
 // this.
-__device__ __forceinline__ void mma_pass_t(float (&acc)[16][4],
+template <int DP>
+__device__ __forceinline__ void mma_pass_t(float (&acc)[DP / 16][4],
                                            const bf16_t* a, int k_dim,
                                            const bf16_t* __restrict__ w,
                                            int n_out, int c0,
@@ -878,7 +965,7 @@ __device__ __forceinline__ void mma_pass_t(float (&acc)[16][4],
   const int npad = (pc.np + 7) & ~7;
   const int slots = (k_dim + TK - 1) / TK;
 #pragma unroll
-  for (int t = 0; t < 16; ++t)
+  for (int t = 0; t < DP / 16; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
   if (slots == 0) return;
@@ -903,39 +990,123 @@ __device__ __forceinline__ void mma_pass_t(float (&acc)[16][4],
     cp_async_commit();
     uint32_t af[4];
     load_a(af, a, k_dim, m0, s * TK, al);
-    kstep_mma_t(acc, af, stage + (s % TSTAGES) * TSLOT + boff, pc.nt_n);
+    kstep_mma_t<DP>(acc, af, stage + (s % TSTAGES) * TSLOT + boff, pc.nt_n);
   }
 }
 
-// The bf16 body of delta_tile (see there), on the tensor cores (mma_pass_t).
+// The transposed products of pass ``pass`` on wgmma: acc[t] = the 16 x 8
+// block of n-tile t of a @ W^T at the warp's rows m0 .. m0 + 15 and the
+// columns of ``pc`` (pass_cols), from the pass's first column on, with W's
+// rows brought by TMA into the delta ring ``R`` (ring_open<..., true>:
+// slot rows are the pass's output columns, k contiguous, the 32-byte
+// swizzle).  The warpgroups' four warps are the tile's row groups of 16,
+// each warp's A fragment (load_a) wgmma's register operand, and B is
+// K-major (transpose bit 0), read straight from the slot (wgmma_desc_sw32,
+// 8 rows of 32 bytes a group).  The pass's k-steps in order: for each
+// 32-column block of the warpgroup in turn, a k-step's product is summed
+// from zero by the tensor cores (wgmma m64n32k16 into ``part``, scale-d 0)
+// and added to acc in f32, one rounding a k-step (the contract's G = 1, as
+// mma_pass and mma_pass_t take it; tools/tile_variants' dchain chains the
+// k-steps in the tensor cores instead, which the delta phase's rounding
+// gate catches).  The order of the sums depends neither on the block nor
+// on the caller.  Once a warp has added k-step g it releases g's slot, and
+// thread 0, before its products of k-step g, loads k-step g - 1 + STAGES
+// into g - 1's slot once every warp has released it: with the ring's two
+// slots a load then has a whole k-step to land (refilled after the
+// products, as mma_pass does, it had none).  No block-wide barrier runs
+// inside a pass.  Every thread of the block must call this.
+template <int STAGES, int DP>
+__device__ __forceinline__ void ring_pass_t(float (&acc)[DP / 16][4],
+                                            const WRing<STAGES, DP>& R,
+                                            int pass, const bf16_t* a,
+                                            int k_dim, const PassCols& pc) {
+  const int lane = threadIdx.x & 31;
+  const int m0 = ((threadIdx.x >> 5) & 3) * 16;
+  const bool al = (uintptr_t)a % 16 == 0;   // k_dim % 8 == 0 (ring_ok)
+  const int g0 = pass * R.per;              // the pass's first k-step
+  const int nblk = (pc.nt_n + 3) >> 2;      // the warpgroup's 32-column blocks
+  const uint32_t boff = pc.col0 * TK * sizeof(bf16_t);
+  float part[4][4];
+#pragma unroll
+  for (int t = 0; t < DP / 16; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = part[t & 3][e] = 0.f;
+  for (int k = 0; k < R.per; ++k) {
+    const int g = g0 + k;
+    if (threadIdx.x == 0 && g >= 1) {
+      const RingLoader L = *loader_of(R);
+      if (g - 1 + STAGES < L.total) {
+        mbar_wait(R.empty_bar(g - 1), ((g - 1) / STAGES) & 1);
+        tring_load(R, L, g - 1 + STAGES);
+      }
+    }
+    uint32_t af[4];
+    load_a(af, a, k_dim, m0, k * TK, al);
+    mbar_wait(R.full_bar(g), (g / STAGES) & 1);
+#pragma unroll
+    for (int blk = 0; blk < DP / 64; ++blk) {
+      if (blk < nblk) {
+        wgmma_fence();
+        wgmma_m64n32k16<0>(part, af,
+                           wgmma_desc_sw32(R.slot(g) + boff
+                                           + blk * 32 * TK * 2,
+                                           8 * TK * 2),
+                           0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_hold(part);
+        wgmma_hold(af);
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[4 * blk + t][e] += part[t][e];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(R.empty_bar(g));
+  }
+}
+
+// The bf16 body of delta_tile (see there), on the tensor cores: through the
+// TMA-fed ring on wgmma (ring_pass_t) where ``tmap`` is given, else on
+// mma.sync (mma_pass_t).  A call site passes its layer's map or a literal
+// null, so each inlined call holds one of the two bodies.  The ring serves
+// all of the call's passes and is closed at its end.
 // The epilogue works in the mma's fragment layout: a thread holds columns
 // 2 q, 2 q + 1 of rows g and g + 8 of each n-tile, taken as a pair where
 // n_out is even (4-byte loads and stores) and one by one where it is odd
 // (167, 63: a pair would straddle two rows).  T rows then go on to gout from
 // shared memory after a __syncwarp, 16 bytes at a time where the width
 // allows; f32 rows go straight from the registers, unrounded.
-template <bool ADD, typename OutT, bool MBITS>
+template <bool ADD, int DP, typename OutT, bool MBITS>
 __device__ __forceinline__ void delta_tile_mma(
     const bf16_t* a, int k_dim, const bf16_t* __restrict__ w, int n_out,
     const bf16_t* __restrict__ act, const bf16_t* gs,
     const bf16_t* __restrict__ wcol, bf16_t* out, OutT* __restrict__ gout,
-    int64_t row0, int64_t n, bf16_t* stage, const uint32_t* mbits) {
+    int64_t row0, int64_t n, bf16_t* stage, const CUtensorMap* tmap,
+    const uint32_t* mbits) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int m0 = (warp & 3) * 16;           // the warp's rows
   const int g = lane >> 2, q = lane & 3;
   const int mw = mask_words(n_out);
+  const bool ring = tmap != nullptr;
+  WRing<TSTAGES, DP> R{};
+  if (ring) R = ring_open<TSTAGES, DP, true>(stage, tmap, k_dim, 0, n_out);
   const bool even = n_out % 2 == 0;
   const bool opair = even && (uintptr_t)out % 4 == 0;
   const bool apair = even && (uintptr_t)act % 4 == 0;
   const bool gpair = even && (uintptr_t)gout % 8 == 0;
   const bool gvec = n_out % 8 == 0 && (uintptr_t)gout % 16 == 0
       && (uintptr_t)out % 16 == 0;
-  for (int c0 = 0; c0 < n_out; c0 += DPASS) {
-    const PassCols pc = pass_cols(n_out, c0, warp >> 2);
-    float acc[16][4];
-    mma_pass_t(acc, a, k_dim, w, n_out, c0, pc, stage);
+  for (int c0 = 0, pass = 0; c0 < n_out; c0 += DP, ++pass) {
+    const PassCols pc = pass_cols<DP>(n_out, c0, warp >> 2);
+    float acc[DP / 16][4];
+    if (ring)
+      ring_pass_t(acc, R, pass, a, k_dim, pc);
+    else
+      mma_pass_t<DP>(acc, a, k_dim, w, n_out, c0, pc, stage);
 #pragma unroll
-    for (int t = 0; t < 16; ++t) {
+    for (int t = 0; t < DP / 16; ++t) {
       if (t >= pc.nt_n) break;
       const int c = c0 + pc.col0 + 8 * t + 2 * q;
       if (c >= n_out) continue;
@@ -1037,6 +1208,7 @@ __device__ __forceinline__ void delta_tile_mma(
       }
     }
   }
+  if (ring) ring_close(R);
 }
 
 // delta = mask(act) (a @ W^T [+ gs[row] * wcol[c]]) for the whole tile, where
@@ -1049,19 +1221,30 @@ __device__ __forceinline__ void delta_tile_mma(
 // (a sum of T-valued pullbacks that rounds after each add).  The result goes
 // to shared memory in T (the operand of the next product) and, when gout is
 // not null, its valid rows to gout, in OutT (T, or f32).  bf16 multiplies on
-// the tensor cores (delta_tile_mma), staging W in ``stage``
-// (delta_stage_bytes<T>() bytes, 16-byte aligned), f32 on the CUDA cores in
-// full f32 (delta_tile_fma, accumulate_t's stage).  Opens with a barrier
-// wherever it stages W (k_dim > 0); every thread of the block must call this.
-template <bool ADD = false, typename T, typename OutT, bool MBITS = false>
+// the tensor cores (delta_tile_mma) in ``stage`` (delta_stage_bytes<T>(at)
+// bytes at byte ``at`` of the block's 1024-byte-aligned shared memory):
+// a trunk pass on wgmma with W brought by TMA through its layer's delta map
+// ``tmap`` (tile_maps with ``delta``, which refuses a weight that is no
+// ring_ok; the call site passes its layer's entry), a narrow head (tmap
+// null) on mma.sync; f32 on
+// the CUDA cores in full f32 (delta_tile_fma, accumulate_t's stage; no
+// map).  bf16 passes are DP columns wide (DPASS, or NCOLS where a kernel's
+// other state leaves too few registers for DPASS / 4 f32 accumulators a
+// thread; its delta maps are encoded for DP, tile_maps' ``pass``).  Opens
+// with a barrier wherever it stages W (k_dim > 0); every thread of the
+// block must call this.
+template <bool ADD = false, int DP = DPASS, typename T, typename OutT,
+          bool MBITS = false>
 __device__ void delta_tile(const T* a, int k_dim, const T* __restrict__ w,
                            int n_out, const T* __restrict__ act,
                            const T* gs, const T* __restrict__ wcol, T* out,
                            OutT* __restrict__ gout, int64_t row0, int64_t n,
-                           T* stage, const uint32_t* mbits = nullptr) {
+                           T* stage, const CUtensorMap* tmap,
+                           const uint32_t* mbits = nullptr) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    delta_tile_mma<ADD, OutT, MBITS>(a, k_dim, w, n_out, act, gs, wcol, out,
-                                     gout, row0, n, stage, mbits);
+    delta_tile_mma<ADD, DP, OutT, MBITS>(a, k_dim, w, n_out, act, gs, wcol,
+                                         out, gout, row0, n, stage, tmap,
+                                         mbits);
   else
     delta_tile_fma<ADD, T, OutT, MBITS>(a, k_dim, w, n_out, act, gs, wcol,
                                         out, gout, row0, n, stage, mbits);
@@ -1168,14 +1351,101 @@ int vanilla_maps(TileMaps* maps, const VanillaWeights<T>& p, int dx, int dd,
                              {p.wr1a, bn, r}, {p.wr1b, dd, r}});
 }
 
+// The delta maps of the proposal net's trunk passes (the pass's k_dim,
+// n_out): w3 w2 w1 at 0 1 2.
+template <typename T>
+int prop_dmaps(TileMaps* maps, const PropWeights<T>& p, int h) {
+  return tile_maps<T>(maps, {{p.w3, h, h}, {p.w2, h, h}, {p.w1, h, h}},
+                      true);
+}
+
+// The delta maps of the vanilla net's trunk passes: wr1a (dbvec) 0, wb
+// (dz7) 1, w6 2, w5 3, w4b 4, w3 5, w2 6, w1 7.
+template <typename T>
+int vanilla_dmaps(TileMaps* maps, const VanillaWeights<T>& p, int h, int bn,
+                  int r, int pass) {
+  return tile_maps<T>(maps, {{p.wr1a, r, bn}, {p.wb, bn, bn}, {p.w6, bn, h},
+                             {p.w5, h, h}, {p.w4b, h, h}, {p.w3, h, h},
+                             {p.w2, h, h}, {p.w1, h, h}}, true, pass);
+}
+
+// The occupancy of the kernels that run the delta pass, as this source
+// file launched them: for each (kernel, shared memory) pair its name, the
+// blocks an SM that the runtime's occupancy query gives at THREADS threads,
+// and the MinBlocks it was built for.  A pair is queried once; the
+// library's <lib>_occupancy entry (OCCUPANCY_ENTRY) reports them, one
+// "name smem blocks want" line each, and chip_smoke.py holds every bf16
+// backward at its two blocks an SM.  The log, and set_smem that writes it,
+// are static (one per source file): a function-local static of an inline
+// function would be one object for every library of the process.
+struct OccupancyEntry {
+  const void* kernel;
+  const char* name;
+  size_t smem;
+  int blocks, want;
+};
+
+struct OccupancyLog {
+  std::mutex lock;
+  int count = 0;
+  OccupancyEntry e[32];
+};
+
+static inline OccupancyLog& occupancy_log() {
+  static OccupancyLog log;
+  return log;
+}
+
+template <typename K>
+static void note_occupancy(K kernel, size_t smem, const char* name,
+                           int want) {
+  OccupancyLog& log = occupancy_log();
+  std::lock_guard<std::mutex> hold(log.lock);
+  for (int i = 0; i < log.count; ++i)
+    if (log.e[i].kernel == (const void*)kernel && log.e[i].smem == smem)
+      return;
+  if (log.count == 32) return;
+  int blocks = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS,
+                                                    smem) != cudaSuccess) {
+    cudaGetLastError();
+    blocks = -1;
+  }
+  log.e[log.count++] = {(const void*)kernel, name, smem, blocks, want};
+}
+
+// The log's lines into buf (len bytes, NUL-terminated); returns the bytes
+// the whole report needs.
+static inline int occupancy_report(char* buf, int len) {
+  OccupancyLog& log = occupancy_log();
+  std::lock_guard<std::mutex> hold(log.lock);
+  int used = 0;
+  for (int i = 0; i < log.count; ++i) {
+    const OccupancyEntry& e = log.e[i];
+    used += snprintf(buf + (used < len ? used : len),
+                     used < len ? (size_t)(len - used) : 0, "%s %zu %d %d\n",
+                     e.name, e.smem, e.blocks, e.want);
+  }
+  return used + 1;
+}
+
+#define OCCUPANCY_ENTRY(LIB)                                                  \
+  int LIB##_occupancy(char* buf, int len) {                                   \
+    return mlp::occupancy_report(buf, len);                                   \
+  }
+
 // Allow `bytes` of dynamic shared memory for `kernel`; a request beyond the
 // card's limit (at wide layers) returns its error code, which is then cleared
-// so that it does not surface at the next unrelated launch.
+// so that it does not surface at the next unrelated launch.  With a
+// ``name`` (the kernels that run the delta pass) the launch's occupancy is
+// noted (note_occupancy) beside ``want``, its MinBlocks.
 template <typename K>
-int set_smem(K kernel, size_t bytes) {
+static int set_smem(K kernel, size_t bytes, const char* name = nullptr,
+                    int want = 0) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) cudaGetLastError();
+  else if (name != nullptr) note_occupancy(kernel, bytes, name, want);
   return (int)err;
 }
 

@@ -1,9 +1,10 @@
 // PTX primitives of the tensor-core bodies: 16-byte asynchronous copies into
 // shared memory, ldmatrix and mma.sync m16n8k16 (bf16 in, f32 accumulate),
-// shared by the weight-grad pass (wgrad.cuh) and the delta pass; and
-// Hopper's warpgroup product wgmma.mma_async with its shared-memory matrix
-// descriptor, the proxy fence, mbarriers and the TMA tensor copy, for the
-// bf16 layer tile (mlp_tile.cuh's dense_tile).  sm_90a only.
+// shared by the weight-grad pass (wgrad.cuh) and the delta pass's narrow
+// heads; and Hopper's warpgroup product wgmma.mma_async with its
+// shared-memory matrix descriptors, the proxy fence, mbarriers and the TMA
+// tensor copy, for the bf16 layer tile (mlp_tile.cuh's dense_tile) and the
+// delta pass's trunk layers (delta_tile).  sm_90a only.
 
 #pragma once
 
@@ -70,6 +71,17 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The shared-memory matrix descriptor of a K-major wgmma operand in the
+// 32-byte swizzle (layout type 3): rows of one k-step (16 bf16 values, 32
+// bytes), the 16-byte halves of rows 4-7 of every 8 swapped, each group of
+// 8 rows ``sbo`` bytes after the last.  The k-step fills the swizzle's
+// width, so the leading offset is not read (1, as CUTLASS sets it).  The
+// start must lie on a 256-byte boundary (base offset 0).
+__device__ __forceinline__ uint64_t wgmma_desc_sw32(uint32_t addr, int sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16)
+      | ((uint64_t)(sbo >> 4) << 32) | (3ull << 62);
+}
+
 // The shared-memory matrix descriptor of a wgmma operand in the 128-byte
 // swizzle (layout type 1): start address, leading and stride byte offsets,
 // each in 16-byte units.  For an MN-major (transposed) B operand the
@@ -116,9 +128,11 @@ __device__ __forceinline__ void wgmma_hold(uint32_t (&a)[4]) {
 // d (the warpgroup's 64 x 32 f32 tile; this thread's 4 n-tiles of the
 // mma.sync fragment layout: rows g and g + 8 of its warp's 16, columns
 // 8 t + 2 q, + 1) = [d +] a @ b: a the warp's 16 x 16 bf16 rows in the
-// registers (the mma.sync A fragment), b 16 x 32 bf16 in shared memory,
-// MN-major (the transpose bit), through ``desc``.  scale_d 0 starts from
+// registers (the mma.sync A fragment), b 16 x 32 bf16 in shared memory
+// through ``desc``: MN-major with TRANS_B 1 (the transpose bit: the layer
+// tile's W), K-major with 0 (the delta pass's W^T).  scale_d 0 starts from
 // zero.  Asynchronous: complete it with wgmma_commit and wgmma_wait.
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[4][4],
                                                 const uint32_t (&a)[4],
                                                 uint64_t desc, int scale_d) {
@@ -126,12 +140,13 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[4][4],
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
         "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
+        "n"(TRANS_B));
 }
 
 // Makes this thread's earlier writes to shared memory (st.shared, cp.async)

@@ -153,6 +153,19 @@ int spa_maps(TileMaps* maps, const RefSpaWeights<T>& p, int dx, int h, int o,
                              {p.wbn, o, nb}});
 }
 
+// The delta maps of the spatial net's trunk passes (the pass's k_dim,
+// n_out): wbn (the bottleneck's pullback into inter) 0, w7 1, w6 2, w5 3,
+// w4b 4, w3 5, w2 6, w1 7; the density gradient's pullbacks into the
+// encoding (enc_pull) w4a 8 and w0 9.
+template <typename T>
+int spa_dmaps(TileMaps* maps, const RefSpaWeights<T>& p, int dx, int h, int o,
+              int nb, int pass) {
+  return tile_maps<T>(maps, {{p.wbn, nb, o}, {p.w7, o, h}, {p.w6, h, h},
+                             {p.w5, h, h}, {p.w4b, h, h}, {p.w3, h, h},
+                             {p.w2, h, h}, {p.w1, h, h}, {p.w4a, h, dx},
+                             {p.w0, h, dx}}, true, pass);
+}
+
 // dims of the directional kernels: nb h o l_max n_ch use_srgb
 inline DirDims dir_dims(const int* dims) {
   DirDims d;
@@ -176,6 +189,18 @@ int dir_maps(TileMaps* maps, const RefDirWeights<T>& p, const DirDims& d) {
                              {p.w4a, d.dd, d.h}, {p.w4b, d.h, d.h},
                              {p.w5, d.h, d.h}, {p.w6, d.h, d.o},
                              {p.w7, d.o, d.o}});
+}
+
+// The delta maps of the directional net's trunk passes: w7 0, w6 1, w5 2,
+// the pullbacks into its input w4a 3 and w0 8, w4b 4, w3 5, w2 6, w1 7.
+template <typename T>
+int dir_dmaps(TileMaps* maps, const RefDirWeights<T>& p, const DirDims& d,
+              int pass) {
+  return tile_maps<T>(maps, {{p.w7, d.o, d.o}, {p.w6, d.o, d.h},
+                             {p.w5, d.h, d.h}, {p.w4a, d.h, d.dd},
+                             {p.w4b, d.h, d.h}, {p.w3, d.h, d.h},
+                             {p.w2, d.h, d.h}, {p.w1, d.h, d.h},
+                             {p.w0, d.h, d.dd}}, true, pass);
 }
 
 // The 8 stored activations of a trunk, (n, width) each in T.

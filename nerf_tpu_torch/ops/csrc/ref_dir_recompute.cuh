@@ -47,6 +47,10 @@ Deltas<T> deltas_of(const uint64_t* ptrs) {
 // grgb, gnrm, gden and dheads point at the chunk's first row, dirs at the
 // whole (R, 3) array.  xg (n, dd), s (h1..h4 z5 z6 (H) z7 z8 (O)), dl (d1 ..
 // d6 (H), d7 d8 (O)) and dlog (n, 3) f32 are the chunk's scratch.
+// The delta pass's columns a pass: at DPASS the kernel spilled registers
+// (PERF.md), at NCOLS it does not.
+constexpr int DDP = NCOLS;
+
 template <int MODE, typename T>
 __global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
 ref_dir_recompute_kernel(const float* __restrict__ heads,
@@ -60,7 +64,8 @@ ref_dir_recompute_kernel(const float* __restrict__ heads,
                          int64_t n, DirDims d, T* __restrict__ xg, Acts<T> s,
                          Deltas<T> dl, float* __restrict__ dlog,
                          float* __restrict__ dheads,
-                         const __grid_constant__ TileMaps maps) {
+                         const __grid_constant__ TileMaps maps,
+                         const __grid_constant__ TileMaps dm) {
   extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   float* mat_s = reinterpret_cast<float*>(smem);
   float* sig_s = mat_s + (d.l_max + 1) * d.n_ch;
@@ -172,33 +177,33 @@ ref_dir_recompute_kernel(const float* __restrict__ heads,
   T* g2 = KEEP ? dl.d[2] : nullptr;
   T* g1 = KEEP ? dl.d[1] : nullptr;
   T* g0 = KEEP ? dl.d[0] : nullptr;
-  delta_tile(dlc, 3, p.wh, o, s.a[7], none, none, buf_b, g7, row0, n, st);   // z8
+  delta_tile<false, DDP>(dlc, 3, p.wh, o, s.a[7], none, none, buf_b, g7, row0, n, st, nullptr);   // z8
   __syncthreads();
-  delta_tile(buf_b, o, p.w7, o, s.a[6], none, none, buf_a, g6, row0, n, st); // z7
+  delta_tile<false, DDP>(buf_b, o, p.w7, o, s.a[6], none, none, buf_a, g6, row0, n, st, &dm.map[0]); // z7
   __syncthreads();
-  delta_tile(buf_a, o, p.w6, h, s.a[5], none, none, buf_b, g5, row0, n, st); // z6
+  delta_tile<false, DDP>(buf_a, o, p.w6, h, s.a[5], none, none, buf_b, g5, row0, n, st, &dm.map[1]); // z6
   __syncthreads();
-  delta_tile(buf_b, h, p.w5, h, s.a[4], none, none, buf_a, g4, row0, n, st); // z5
+  delta_tile<false, DDP>(buf_b, h, p.w5, h, s.a[4], none, none, buf_a, g4, row0, n, st, &dm.map[2]); // z5
   __syncthreads();
   // the pullback of x: cd(d5 w4a^T) + cd(d1 w0^T), rounded after the add
   if (MODE != BWD_WGRADS) {
-    delta_tile(buf_a, h, p.w4a, dd, none, none, none, xs, drop, row0, n, st);
+    delta_tile<false, DDP>(buf_a, h, p.w4a, dd, none, none, none, xs, drop, row0, n, st, &dm.map[3]);
     __syncthreads();
   }
-  delta_tile(buf_a, h, p.w4b, h, s.a[3], none, none, buf_b, g3, row0, n, st); // h4
+  delta_tile<false, DDP>(buf_a, h, p.w4b, h, s.a[3], none, none, buf_b, g3, row0, n, st, &dm.map[4]); // h4
   __syncthreads();
-  delta_tile(buf_b, h, p.w3, h, s.a[2], none, none, buf_a, g2, row0, n, st);  // h3
+  delta_tile<false, DDP>(buf_b, h, p.w3, h, s.a[2], none, none, buf_a, g2, row0, n, st, &dm.map[5]);  // h3
   __syncthreads();
-  delta_tile(buf_a, h, p.w2, h, s.a[1], none, none, buf_b, g1, row0, n, st);  // h2
+  delta_tile<false, DDP>(buf_a, h, p.w2, h, s.a[1], none, none, buf_b, g1, row0, n, st, &dm.map[6]);  // h2
   __syncthreads();
-  delta_tile(buf_b, h, p.w1, h, s.a[0], none, none, buf_a, g0, row0, n, st);  // h1
+  delta_tile<false, DDP>(buf_b, h, p.w1, h, s.a[0], none, none, buf_a, g0, row0, n, st, &dm.map[7]);  // h1
   __syncthreads();
   if (MODE == BWD_WGRADS) {
     for (int idx = threadIdx.x; idx < valid * hw; idx += THREADS)
       dheads[row0 * hw + idx] = 0.f;
     return;
   }
-  delta_tile<true>(buf_a, h, p.w0, dd, none, none, none, xs, drop, row0, n, st);
+  delta_tile<true, DDP>(buf_a, h, p.w0, dd, none, none, none, xs, drop, row0, n, st, &dm.map[8]);
   __syncthreads();
   // d(heads): the bottleneck's pullback passes through, the glue per point
   for (int idx = threadIdx.x; idx < valid * d.nb; idx += THREADS) {
@@ -236,9 +241,14 @@ int launch_dir_bwd_recompute(
   const size_t at = (size_t)nf * sizeof(float)
       + (size_t)TM * (d.dd + 2 * d.maxw + 4) * sizeof(T);
   const size_t smem = at + stage_bytes<T, RSTAGES>(at);
-  TileMaps maps;
+  TileMaps maps, dm;
   int err = dir_maps<T>(&maps, p, d);
-  if (err == 0) err = set_smem(ref_dir_recompute_kernel<MODE, T>, smem);
+  if (err == 0) err = dir_dmaps<T>(&dm, p, d, DDP);
+  static const char* const names[4] = {
+      "ref_dir_recompute_kernel<0>", "ref_dir_recompute_kernel<1>",
+      "ref_dir_recompute_kernel<2>", "ref_dir_recompute_kernel<3>"};
+  if (err == 0)
+    err = set_smem(ref_dir_recompute_kernel<MODE, T>, smem, names[MODE], MinBlocks<T>::value);
   if (err != 0) return err;
   const int h = d.h, o = d.o, dd = d.dd;
   const int64_t hw = HEAD_FIXED + d.nb;
@@ -264,7 +274,7 @@ int launch_dir_bwd_recompute(
           (const float*)dirs, per_ray, c0, (const float*)mat,
           (const float*)sigma, (const float*)grgb + c0 * 3,
           (const float*)gnrm + c0 * 3, (const float*)gden + c0, p, nc, d,
-          (T*)xg, s, dl, dlog, dheads + c0 * hw, maps);
+          (T*)xg, s, dl, dlog, dheads + c0 * hw, maps, dm);
       const int e = (int)cudaGetLastError();
       if (e != 0) return e;
     }

@@ -102,6 +102,8 @@ REF_DISSECT_BWD(f32, float)
 #endif
 #if IN_PART(3)
 REF_DISSECT_BWD(bf16, __nv_bfloat16)
+// the bf16 backward modes' occupancy (each part keeps its own log)
+OCCUPANCY_ENTRY(ref_dissect)
 #endif
 
 }  // extern "C"

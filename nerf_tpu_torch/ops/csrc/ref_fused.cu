@@ -77,9 +77,11 @@
 // training forwards share the ring with the W^T stage of the density
 // gradient, which never runs at the same time, and both run it in passes
 // of 128 columns for want of registers: at 256, ptxas spilled in one or the
-// other), in f32 on the CUDA cores.  The bottleneck head (wide_head) and the density gradient's
-// transposed products (delta_tile, enc_pull) take the tensor cores too;
-// the narrow heads stay on the CUDA cores.
+// other), in f32 on the CUDA cores.  The bottleneck head (wide_head) and the
+// density gradient's transposed products (delta_tile, enc_pull) take the
+// tensor cores too: its trunk passes and enc_pull on wgmma from the delta
+// ring (spa_dmaps), its first pass (k_dim 2) on mma.sync; the narrow heads
+// stay on the CUDA cores.
 
 #include "ref_common.cuh"
 #include "ref_dir_fwd.cuh"
@@ -125,21 +127,30 @@ ref_spa_fwd_kernel(const T* __restrict__ x, RefSpaWeights<T> p, int64_t n,
   wide_head(buf_b, o, p.wbn, p.bbn, nb, heads, hw, HEAD_FIXED, row0, n, st, &maps.map[9]);
 }
 
-// The bf16 body of enc_pull, on the tensor cores (mlp_tile.cuh's
-// mma_pass_t, with its leading barrier): the fragments' values rounded to
-// bf16, then added in f32, one by one (n_out = 63 is odd).
+// The bf16 body of enc_pull, on the tensor cores as delta_tile_mma takes
+// them (mlp_tile.cuh: ring_pass_t on wgmma through the delta ring where
+// ``tmap`` is given, else mma_pass_t): the
+// fragments' values rounded to bf16, then added in f32, one by one (n_out =
+// 63 is odd).
 template <bool ADD>
 __device__ __forceinline__ void enc_pull_mma(const bf16_t* a, int k_dim,
                                              const bf16_t* __restrict__ w,
                                              int n_out, float* enc_grad,
-                                             bf16_t* stage) {
+                                             bf16_t* stage,
+                                             const CUtensorMap* tmap) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int m0 = (warp & 3) * 16;
   const int g = lane >> 2, q = lane & 3;
-  for (int c0 = 0; c0 < n_out; c0 += DPASS) {
-    const PassCols pc = pass_cols(n_out, c0, warp >> 2);
+  const bool ring = tmap != nullptr;
+  WRing<TSTAGES, DPASS> R{};
+  if (ring) R = ring_open<TSTAGES, DPASS, true>(stage, tmap, k_dim, 0, n_out);
+  for (int c0 = 0, pass = 0; c0 < n_out; c0 += DPASS, ++pass) {
+    const PassCols pc = pass_cols<DPASS>(n_out, c0, warp >> 2);
     float acc[16][4];
-    mma_pass_t(acc, a, k_dim, w, n_out, c0, pc, stage);
+    if (ring)
+      ring_pass_t(acc, R, pass, a, k_dim, pc);
+    else
+      mma_pass_t<DPASS>(acc, a, k_dim, w, n_out, c0, pc, stage);
 #pragma unroll
     for (int t = 0; t < 16; ++t) {
       if (t >= pc.nt_n) break;
@@ -154,18 +165,20 @@ __device__ __forceinline__ void enc_pull_mma(const bf16_t* a, int k_dim,
       }
     }
   }
+  if (ring) ring_close(R);
 }
 
 // enc_grad = [enc_grad +] (a @ W^T rounded to T), f32, for the whole tile:
 // a pullback into the encoding, W the layer's (n_out = dx, k_dim) forward
-// matrix.  bf16 multiplies on the tensor cores (enc_pull_mma), f32 on the
-// CUDA cores in full f32 (accumulate_t).  Every thread of the block must
-// call this.
+// matrix.  bf16 multiplies on the tensor cores (enc_pull_mma, through W's
+// delta map ``tmap``), f32 on the CUDA cores in full f32 (accumulate_t).
+// Every thread of the block must call this.
 template <bool ADD, typename T>
 __device__ void enc_pull(const T* a, int k_dim, const T* __restrict__ w,
-                         int n_out, float* enc_grad, T* stage) {
+                         int n_out, float* enc_grad, T* stage,
+                         const CUtensorMap* tmap) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    enc_pull_mma<ADD>(a, k_dim, w, n_out, enc_grad, stage);
+    enc_pull_mma<ADD>(a, k_dim, w, n_out, enc_grad, stage, tmap);
   } else {
     const int lane = threadIdx.x & 31;
     const int r0 = (threadIdx.x >> 5) * RPT;
@@ -218,7 +231,8 @@ ref_spa_fwd_res_kernel(const T* __restrict__ x, const float* __restrict__ pos,
                        int64_t n, int dx, int h, int o, int nb, int maxw,
                        Acts<T> s, float* __restrict__ heads,
                        float* __restrict__ dgrad,
-                       const __grid_constant__ TileMaps maps) {
+                       const __grid_constant__ TileMaps maps,
+                       const __grid_constant__ TileMaps dm) {
   extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   const int hwd = TM * mask_words(h);             // mask words of an H layer
   uint32_t* mb = reinterpret_cast<uint32_t*>(smem);
@@ -267,24 +281,24 @@ ref_spa_fwd_res_kernel(const T* __restrict__ x, const float* __restrict__ pos,
   wide_head<T, NCOLS>(buf_b, o, p.wbn, p.bbn, nb, heads, hw, HEAD_FIXED, row0, n, st, &maps.map[9]);
   __syncthreads();   // also makes the stored activations visible to the block
   // the density column's pullback: [0, 1] @ wrt^T = wrt[:, 1], then the trunk
-  delta_tile<false, T, T, MK>(unit, 2, p.wrt, o, s.a[7], none, none, buf_a, drop, row0, n, st, m[7]);    // inter
+  delta_tile<false, DPASS, T, T, MK>(unit, 2, p.wrt, o, s.a[7], none, none, buf_a, drop, row0, n, st, nullptr, m[7]);      // inter
   __syncthreads();
-  delta_tile<false, T, T, MK>(buf_a, o, p.w7, h, s.a[6], none, none, buf_b, drop, row0, n, st, m[6]);    // z7
+  delta_tile<false, DPASS, T, T, MK>(buf_a, o, p.w7, h, s.a[6], none, none, buf_b, drop, row0, n, st, &dm.map[1], m[6]);   // z7
   __syncthreads();
-  delta_tile<false, T, T, MK>(buf_b, h, p.w6, h, s.a[5], none, none, buf_a, drop, row0, n, st, m[5]);    // z6
+  delta_tile<false, DPASS, T, T, MK>(buf_b, h, p.w6, h, s.a[5], none, none, buf_a, drop, row0, n, st, &dm.map[2], m[5]);   // z6
   __syncthreads();
-  delta_tile<false, T, T, MK>(buf_a, h, p.w5, h, s.a[4], none, none, buf_b, drop, row0, n, st, m[4]);    // z5
+  delta_tile<false, DPASS, T, T, MK>(buf_a, h, p.w5, h, s.a[4], none, none, buf_b, drop, row0, n, st, &dm.map[3], m[4]);   // z5
   __syncthreads();
-  enc_pull<false>(buf_b, h, p.w4a, dx, denc, st);
-  delta_tile<false, T, T, MK>(buf_b, h, p.w4b, h, s.a[3], none, none, buf_a, drop, row0, n, st, m[3]);   // h4
+  enc_pull<false>(buf_b, h, p.w4a, dx, denc, st, &dm.map[8]);
+  delta_tile<false, DPASS, T, T, MK>(buf_b, h, p.w4b, h, s.a[3], none, none, buf_a, drop, row0, n, st, &dm.map[4], m[3]);  // h4
   __syncthreads();
-  delta_tile<false, T, T, MK>(buf_a, h, p.w3, h, s.a[2], none, none, buf_b, drop, row0, n, st, m[2]);    // h3
+  delta_tile<false, DPASS, T, T, MK>(buf_a, h, p.w3, h, s.a[2], none, none, buf_b, drop, row0, n, st, &dm.map[5], m[2]);   // h3
   __syncthreads();
-  delta_tile<false, T, T, MK>(buf_b, h, p.w2, h, s.a[1], none, none, buf_a, drop, row0, n, st, m[1]);    // h2
+  delta_tile<false, DPASS, T, T, MK>(buf_b, h, p.w2, h, s.a[1], none, none, buf_a, drop, row0, n, st, &dm.map[6], m[1]);   // h2
   __syncthreads();
-  delta_tile<false, T, T, MK>(buf_a, h, p.w1, h, s.a[0], none, none, buf_b, drop, row0, n, st, m[0]);    // h1
+  delta_tile<false, DPASS, T, T, MK>(buf_a, h, p.w1, h, s.a[0], none, none, buf_b, drop, row0, n, st, &dm.map[7], m[0]);   // h1
   __syncthreads();
-  enc_pull<true>(buf_b, h, p.w0, dx, denc, st);
+  enc_pull<true>(buf_b, h, p.w0, dx, denc, st, &dm.map[9]);
   __syncthreads();
   // the encoding's transpose and the normalization, one thread per point;
   // pe_w is (3, pc) row-major, pc = dx - 3
@@ -349,16 +363,22 @@ int launch_spa_res(const void* x, const void* pos, const void* pe_w,
   const size_t smem = at + stage_bytes<T>(at);
   auto kernel = store ? ref_spa_fwd_res_kernel<true, T>
                       : ref_spa_fwd_res_kernel<false, T>;
-  TileMaps maps;
+  TileMaps maps, dm;
   int err = spa_maps<T>(&maps, p, dx, h, o, nb);
-  if (err == 0) err = set_smem(kernel, smem);
+  if (err == 0) err = spa_dmaps<T>(&dm, p, dx, h, o, nb, DPASS);
+  if (err == 0)
+    err = set_smem(kernel, smem,
+                   store ? "ref_spa_fwd_res_kernel<true>"
+                         : "ref_spa_fwd_res_kernel<false>",
+                   MinBlocks<T>::value);
   if (err != 0 || n == 0) return err;
   Acts<T> s = {};
   if (store) s = acts_of<T>(acts);
   const unsigned grid = (unsigned)((n + TM - 1) / TM);
   kernel<<<grid, THREADS, smem, stream>>>(
       (const T*)x, (const float*)pos, (const float*)pe_w,
-      (const float*)pe_b, p, n, dx, h, o, nb, maxw, s, heads, dgrad, maps);
+      (const float*)pe_b, p, n, dx, h, o, nb, maxw, s, heads, dgrad, maps,
+      dm);
   return (int)cudaGetLastError();
 }
 
@@ -413,6 +433,8 @@ extern "C" {
 
 REF_FWD(f32, float)
 REF_FWD(bf16, __nv_bfloat16)
+
+OCCUPANCY_ENTRY(ref_fused)
 
 const char* ref_fused_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

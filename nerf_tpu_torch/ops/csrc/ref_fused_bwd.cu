@@ -46,9 +46,10 @@
 // H = O = 256 the spatial backward costs 526,592 weight-grad MACs and about
 // 494,000 delta MACs per point, the directional 545,024 and about 545,000;
 // both are bound by operations (about 0.41 and 0.43 ms at N = 196,608).  The
-// delta pass runs through delta_tile (mlp_tile.cuh: in bf16 on the tensor
-// cores, in f32 on the CUDA cores) and pays the delta round trip through
-// device memory.
+// delta pass runs through delta_tile (mlp_tile.cuh: in bf16 the trunk
+// passes on wgmma, W brought by TMA into a ring through each layer's delta
+// map (spa_dmaps, dir_dmaps), the narrow heads on mma.sync; in f32 on the
+// CUDA cores) and pays the delta round trip through device memory.
 
 #include "ref_common.cuh"
 #include "wgrad.cuh"
@@ -75,8 +76,9 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
 ref_spa_delta_kernel(RefSpaWeights<T> p, Acts<T> s,
                      const float* __restrict__ g, int64_t n, int h, int o,
-                     int nb, int maxw, Deltas<T> dl) {
-  extern __shared__ __align__(16) unsigned char smem[];
+                     int nb, int maxw, Deltas<T> dl,
+                     const __grid_constant__ TileMaps dm) {
+  extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   T* grt = reinterpret_cast<T*>(smem);   // (TM, 2)
   T* gnct = grt + TM * 2;                // (TM, 9)
   T* gbn = gnct + TM * 9;                // (TM, NB)
@@ -106,25 +108,25 @@ ref_spa_delta_kernel(RefSpaWeights<T> p, Acts<T> s,
   }
   __syncthreads();
   // d(inter) = cd(cd(g_rt wrt^T) + cd(g_nct wnct^T)) + cd(g_bn wbn^T), masked
-  delta_tile(grt, 2, p.wrt, o, none, none, none, buf_a, drop, row0, n, st);
+  delta_tile(grt, 2, p.wrt, o, none, none, none, buf_a, drop, row0, n, st, nullptr);
   __syncthreads();
-  delta_tile<true>(gnct, 9, p.wnct, o, none, none, none, buf_a, drop, row0, n, st);
+  delta_tile<true>(gnct, 9, p.wnct, o, none, none, none, buf_a, drop, row0, n, st, nullptr);
   __syncthreads();
-  delta_tile<true>(gbn, nb, p.wbn, o, s.a[7], none, none, buf_a, dl.d[7], row0, n, st);
+  delta_tile<true>(gbn, nb, p.wbn, o, s.a[7], none, none, buf_a, dl.d[7], row0, n, st, &dm.map[0]);
   __syncthreads();
-  delta_tile(buf_a, o, p.w7, h, s.a[6], none, none, buf_b, dl.d[6], row0, n, st);    // z7
+  delta_tile(buf_a, o, p.w7, h, s.a[6], none, none, buf_b, dl.d[6], row0, n, st, &dm.map[1]);    // z7
   __syncthreads();
-  delta_tile(buf_b, h, p.w6, h, s.a[5], none, none, buf_a, dl.d[5], row0, n, st);    // z6
+  delta_tile(buf_b, h, p.w6, h, s.a[5], none, none, buf_a, dl.d[5], row0, n, st, &dm.map[2]);    // z6
   __syncthreads();
-  delta_tile(buf_a, h, p.w5, h, s.a[4], none, none, buf_b, dl.d[4], row0, n, st);    // z5
+  delta_tile(buf_a, h, p.w5, h, s.a[4], none, none, buf_b, dl.d[4], row0, n, st, &dm.map[3]);    // z5
   __syncthreads();
-  delta_tile(buf_b, h, p.w4b, h, s.a[3], none, none, buf_a, dl.d[3], row0, n, st);   // h4
+  delta_tile(buf_b, h, p.w4b, h, s.a[3], none, none, buf_a, dl.d[3], row0, n, st, &dm.map[4]);   // h4
   __syncthreads();
-  delta_tile(buf_a, h, p.w3, h, s.a[2], none, none, buf_b, dl.d[2], row0, n, st);    // h3
+  delta_tile(buf_a, h, p.w3, h, s.a[2], none, none, buf_b, dl.d[2], row0, n, st, &dm.map[5]);    // h3
   __syncthreads();
-  delta_tile(buf_b, h, p.w2, h, s.a[1], none, none, buf_a, dl.d[1], row0, n, st);    // h2
+  delta_tile(buf_b, h, p.w2, h, s.a[1], none, none, buf_a, dl.d[1], row0, n, st, &dm.map[6]);    // h2
   __syncthreads();
-  delta_tile(buf_a, h, p.w1, h, s.a[0], none, none, buf_b, dl.d[0], row0, n, st);    // h1
+  delta_tile(buf_a, h, p.w1, h, s.a[0], none, none, buf_b, dl.d[0], row0, n, st, &dm.map[7]);    // h1
 }
 
 // deltas: d1 .. d6 (H), d7 d8 (O) in T; xg (n, dd) the trunk input in T;
@@ -141,8 +143,9 @@ ref_dir_delta_kernel(const float* __restrict__ heads,
                      const float* __restrict__ gden, RefDirWeights<T> p,
                      Acts<T> s, int64_t n, DirDims d, T* __restrict__ xg,
                      Deltas<T> dl, float* __restrict__ dlog,
-                     float* __restrict__ dheads) {
-  extern __shared__ __align__(16) unsigned char smem[];
+                     float* __restrict__ dheads,
+                     const __grid_constant__ TileMaps dm) {
+  extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   float* mat_s = reinterpret_cast<float*>(smem);
   float* sig_s = mat_s + (d.l_max + 1) * d.n_ch;
   float* tint_s = sig_s + d.n_ch;     // (TM, 3) sigmoid(tint)
@@ -213,26 +216,26 @@ ref_dir_delta_kernel(const float* __restrict__ heads,
     dlc[idx] = from_f<T>(dlg);
   }
   __syncthreads();
-  delta_tile(dlc, 3, p.wh, o, s.a[7], none, none, buf_b, dl.d[7], row0, n, st);   // z8
+  delta_tile(dlc, 3, p.wh, o, s.a[7], none, none, buf_b, dl.d[7], row0, n, st, nullptr);   // z8
   __syncthreads();
-  delta_tile(buf_b, o, p.w7, o, s.a[6], none, none, buf_a, dl.d[6], row0, n, st); // z7
+  delta_tile(buf_b, o, p.w7, o, s.a[6], none, none, buf_a, dl.d[6], row0, n, st, &dm.map[0]); // z7
   __syncthreads();
-  delta_tile(buf_a, o, p.w6, h, s.a[5], none, none, buf_b, dl.d[5], row0, n, st); // z6
+  delta_tile(buf_a, o, p.w6, h, s.a[5], none, none, buf_b, dl.d[5], row0, n, st, &dm.map[1]); // z6
   __syncthreads();
-  delta_tile(buf_b, h, p.w5, h, s.a[4], none, none, buf_a, dl.d[4], row0, n, st); // z5
+  delta_tile(buf_b, h, p.w5, h, s.a[4], none, none, buf_a, dl.d[4], row0, n, st, &dm.map[2]); // z5
   __syncthreads();
   // the pullback of x: cd(d5 w4a^T) + cd(d1 w0^T), rounded after the add
-  delta_tile(buf_a, h, p.w4a, dd, none, none, none, xs, drop, row0, n, st);
+  delta_tile(buf_a, h, p.w4a, dd, none, none, none, xs, drop, row0, n, st, &dm.map[3]);
   __syncthreads();
-  delta_tile(buf_a, h, p.w4b, h, s.a[3], none, none, buf_b, dl.d[3], row0, n, st); // h4
+  delta_tile(buf_a, h, p.w4b, h, s.a[3], none, none, buf_b, dl.d[3], row0, n, st, &dm.map[4]); // h4
   __syncthreads();
-  delta_tile(buf_b, h, p.w3, h, s.a[2], none, none, buf_a, dl.d[2], row0, n, st);  // h3
+  delta_tile(buf_b, h, p.w3, h, s.a[2], none, none, buf_a, dl.d[2], row0, n, st, &dm.map[5]);  // h3
   __syncthreads();
-  delta_tile(buf_a, h, p.w2, h, s.a[1], none, none, buf_b, dl.d[1], row0, n, st);  // h2
+  delta_tile(buf_a, h, p.w2, h, s.a[1], none, none, buf_b, dl.d[1], row0, n, st, &dm.map[6]);  // h2
   __syncthreads();
-  delta_tile(buf_b, h, p.w1, h, s.a[0], none, none, buf_a, dl.d[0], row0, n, st);  // h1
+  delta_tile(buf_b, h, p.w1, h, s.a[0], none, none, buf_a, dl.d[0], row0, n, st, &dm.map[7]);  // h1
   __syncthreads();
-  delta_tile<true>(buf_a, h, p.w0, dd, none, none, none, xs, drop, row0, n, st);
+  delta_tile<true>(buf_a, h, p.w0, dd, none, none, none, xs, drop, row0, n, st, &dm.map[8]);
   __syncthreads();
   // d(heads): the bottleneck's pullback passes through, the glue per point
   for (int idx = threadIdx.x; idx < valid * d.nb; idx += THREADS) {
@@ -262,14 +265,17 @@ int launch_spa_bwd(const void* x, const float* g, const uint64_t* acts,
   const Deltas<T> dl = deltas_of<T>(deltas, 11);
   const int dx = dims[0], h = dims[1], o = dims[2], nb = dims[3];
   const int maxw = h > o ? h : o;
-  const size_t smem =
-      (size_t)TM * (11 + nb + 2 * maxw) * sizeof(T) + delta_stage_bytes<T>();
-  int err = set_smem(ref_spa_delta_kernel<T>, smem);
+  const size_t at = (size_t)TM * (11 + nb + 2 * maxw) * sizeof(T);
+  const size_t smem = at + delta_stage_bytes<T>(at);
+  TileMaps dm;
+  int err = spa_dmaps<T>(&dm, p, dx, h, o, nb, DPASS);
+  if (err == 0)
+    err = set_smem(ref_spa_delta_kernel<T>, smem, "ref_spa_delta_kernel", MinBlocks<T>::value);
   if (err != 0) return err;
   if (n > 0) {
     const unsigned grid = (unsigned)((n + TM - 1) / TM);
     ref_spa_delta_kernel<T><<<grid, THREADS, smem, stream>>>(
-        p, s, g, n, h, o, nb, maxw, dl);
+        p, s, g, n, h, o, nb, maxw, dl, dm);
     err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
@@ -316,10 +322,13 @@ int launch_dir_bwd(const void* heads, const void* noise, const void* dirs,
   const Deltas<T> dl = deltas_of<T>(deltas, 8);
   const DirDims d = dir_dims(dims);
   const int nf = ((d.l_max + 1) * d.n_ch + d.n_ch + 15 * TM + 3) & ~3;
-  const size_t smem = (size_t)nf * sizeof(float)
-      + (size_t)TM * (d.dd + 2 * d.maxw + 4) * sizeof(T)
-      + delta_stage_bytes<T>();
-  int err = set_smem(ref_dir_delta_kernel<T>, smem);
+  const size_t at = (size_t)nf * sizeof(float)
+      + (size_t)TM * (d.dd + 2 * d.maxw + 4) * sizeof(T);
+  const size_t smem = at + delta_stage_bytes<T>(at);
+  TileMaps dm;
+  int err = dir_dmaps<T>(&dm, p, d, DPASS);
+  if (err == 0)
+    err = set_smem(ref_dir_delta_kernel<T>, smem, "ref_dir_delta_kernel", MinBlocks<T>::value);
   if (err != 0) return err;
   if (n > 0) {
     const unsigned grid = (unsigned)((n + TM - 1) / TM);
@@ -327,7 +336,7 @@ int launch_dir_bwd(const void* heads, const void* noise, const void* dirs,
         (const float*)heads, (const T*)noise, (const float*)dirs, per_ray,
         (const float*)mat, (const float*)sigma, (const float*)grgb,
         (const float*)gnrm, (const float*)gden, p, s, n, d, (T*)xg, dl, dlog,
-        dheads);
+        dheads, dm);
     err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
@@ -387,6 +396,8 @@ extern "C" {
 
 REF_BWD(f32, float)
 REF_BWD(bf16, __nv_bfloat16)
+
+OCCUPANCY_ENTRY(ref_fused_bwd)
 
 const char* ref_fused_bwd_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -45,9 +45,9 @@
 // N = 196,608, bound by operations.  The rebuild runs through dense_tile
 // (mlp_tile.cuh), as the forwards do: in bf16 on the tensor cores, its
 // two-slot weight ring (RSTAGES) in the W^T stage ``st``.  The
-// delta pass runs through delta_tile as the residual forms' does (tensor
-// cores in bf16, through the same stage); the weight-grad pass is
-// wgrad.cuh's.
+// delta pass runs through delta_tile as the residual forms' does (in bf16
+// the trunk passes on wgmma from a TMA-fed ring in the same stage, the
+// heads on mma.sync); the weight-grad pass is wgrad.cuh's.
 
 #include "ref_common.cuh"
 #include "ref_dir_recompute.cuh"
@@ -64,7 +64,8 @@ __global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
 ref_spa_recompute_kernel(const T* __restrict__ x, RefSpaWeights<T> p,
                          const float* __restrict__ g, int64_t n, int dx,
                          int h, int o, int nb, int maxw, Acts<T> s,
-                         Deltas<T> dl, const __grid_constant__ TileMaps maps) {
+                         Deltas<T> dl, const __grid_constant__ TileMaps maps,
+                         const __grid_constant__ TileMaps dm) {
   extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);    // (TM, dx)
   T* grt = xs + TM * dx;                 // (TM, 2)
@@ -110,25 +111,25 @@ ref_spa_recompute_kernel(const T* __restrict__ x, RefSpaWeights<T> p,
   __syncthreads();   // also makes the stored activations visible to the block
   // d(inter) = cd(cd(cd(g_bn wbn^T) + cd(g_nct wnct^T)) + cd(g_rt wrt^T)),
   // masked: jax.vjp adds the heads' cotangents last use first
-  delta_tile(gbn, nb, p.wbn, o, none, none, none, buf_a, drop, row0, n, st);
+  delta_tile(gbn, nb, p.wbn, o, none, none, none, buf_a, drop, row0, n, st, &dm.map[0]);
   __syncthreads();
-  delta_tile<true>(gnct, 9, p.wnct, o, none, none, none, buf_a, drop, row0, n, st);
+  delta_tile<true>(gnct, 9, p.wnct, o, none, none, none, buf_a, drop, row0, n, st, nullptr);
   __syncthreads();
-  delta_tile<true>(grt, 2, p.wrt, o, s.a[7], none, none, buf_a, dl.d[7], row0, n, st);
+  delta_tile<true>(grt, 2, p.wrt, o, s.a[7], none, none, buf_a, dl.d[7], row0, n, st, nullptr);
   __syncthreads();
-  delta_tile(buf_a, o, p.w7, h, s.a[6], none, none, buf_b, dl.d[6], row0, n, st);    // z7
+  delta_tile(buf_a, o, p.w7, h, s.a[6], none, none, buf_b, dl.d[6], row0, n, st, &dm.map[1]);    // z7
   __syncthreads();
-  delta_tile(buf_b, h, p.w6, h, s.a[5], none, none, buf_a, dl.d[5], row0, n, st);    // z6
+  delta_tile(buf_b, h, p.w6, h, s.a[5], none, none, buf_a, dl.d[5], row0, n, st, &dm.map[2]);    // z6
   __syncthreads();
-  delta_tile(buf_a, h, p.w5, h, s.a[4], none, none, buf_b, dl.d[4], row0, n, st);    // z5
+  delta_tile(buf_a, h, p.w5, h, s.a[4], none, none, buf_b, dl.d[4], row0, n, st, &dm.map[3]);    // z5
   __syncthreads();
-  delta_tile(buf_b, h, p.w4b, h, s.a[3], none, none, buf_a, dl.d[3], row0, n, st);   // h4
+  delta_tile(buf_b, h, p.w4b, h, s.a[3], none, none, buf_a, dl.d[3], row0, n, st, &dm.map[4]);   // h4
   __syncthreads();
-  delta_tile(buf_a, h, p.w3, h, s.a[2], none, none, buf_b, dl.d[2], row0, n, st);    // h3
+  delta_tile(buf_a, h, p.w3, h, s.a[2], none, none, buf_b, dl.d[2], row0, n, st, &dm.map[5]);    // h3
   __syncthreads();
-  delta_tile(buf_b, h, p.w2, h, s.a[1], none, none, buf_a, dl.d[1], row0, n, st);    // h2
+  delta_tile(buf_b, h, p.w2, h, s.a[1], none, none, buf_a, dl.d[1], row0, n, st, &dm.map[6]);    // h2
   __syncthreads();
-  delta_tile(buf_a, h, p.w1, h, s.a[0], none, none, buf_b, dl.d[0], row0, n, st);    // h1
+  delta_tile(buf_a, h, p.w1, h, s.a[0], none, none, buf_b, dl.d[0], row0, n, st, &dm.map[7]);    // h1
 }
 
 // dims: dx h o nb; acts: h1..h4 z5 z6 z7 inter and deltas: d1..d7 d8, each
@@ -150,9 +151,12 @@ int launch_spa_bwd_recompute(const void* x, const float* g,
   if (!tile_widths_ok<T>({h, o})) return (int)cudaErrorInvalidValue;
   const size_t at = (size_t)TM * (dx + 11 + nb + 2 * maxw) * sizeof(T);
   const size_t smem = at + stage_bytes<T, RSTAGES>(at);
-  TileMaps maps;
+  TileMaps maps, dm;
   int err = spa_maps<T>(&maps, p, dx, h, o, nb);
-  if (err == 0) err = set_smem(ref_spa_recompute_kernel<T>, smem);
+  if (err == 0) err = spa_dmaps<T>(&dm, p, dx, h, o, nb, DPASS);
+  if (err == 0)
+    err = set_smem(ref_spa_recompute_kernel<T>, smem, "ref_spa_recompute_kernel",
+                   MinBlocks<T>::value);
   if (err != 0) return err;
   const int64_t sizes[23] = {
       (int64_t)dx * h, h, (int64_t)h * h, h, (int64_t)h * h, h,
@@ -166,7 +170,7 @@ int launch_spa_bwd_recompute(const void* x, const float* g,
     if (nc > 0) {
       const unsigned grid = (unsigned)((nc + TM - 1) / TM);
       ref_spa_recompute_kernel<T><<<grid, THREADS, smem, stream>>>(
-          xc, p, gc, nc, dx, h, o, nb, maxw, s, dl, maps);
+          xc, p, gc, nc, dx, h, o, nb, maxw, s, dl, maps, dm);
       const int e = (int)cudaGetLastError();
       if (e != 0) return e;
     }
@@ -223,6 +227,8 @@ extern "C" {
 
 REF_RECOMPUTE(f32, float)
 REF_RECOMPUTE(bf16, __nv_bfloat16)
+
+OCCUPANCY_ENTRY(ref_fused_recompute)
 
 const char* ref_fused_recompute_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -27,7 +27,13 @@ the compute dtype, or in f32 unrounded (vanilla dbvec).
 
 Bound on an H100 SXM at widths of 128 and more: 2 n n_out k_dim FLOPs
 against the bytes of a, act and the output, by operations; the heads
-(k_dim <= 9) by bytes.
+(k_dim <= 9) by bytes.  In bf16 the trunk passes (k_dim a multiple of 8)
+multiply on wgmma with W brought by TMA, the heads on mma.sync; each
+k-step's 16-term tensor-core sum is added to an f32 sum in the order of k.
+``delta_layer_f64`` (the pass summed in f64, then rounded) and
+``delta_layer_in_order`` (each term added to an f32 sum in the order of k)
+are the two yardsticks of the card's rounding gate: no more of the
+kernel's bf16 outputs may differ from the first than of the second's.
 
 Dispatch as in ``fused_mlp``: a CPU tensor takes ``delta_layer_plain``; a
 CUDA tensor launches the kernel or raises.  Any k_dim >= 0 and n_out >= 1
@@ -47,9 +53,7 @@ from nerf_tpu_torch.ops.launch import I64, INT, PTR, launch, register
 F32 = torch.float32
 TM = 64                       # rows a block (csrc/mlp_tile.cuh)
 SMEM_LIMIT = 232_448          # shared memory a block may use on an H100
-# the stage of the delta pass (mlp_tile.cuh's delta_stage_bytes): the bf16
-# ring of two 256 x 16 slots, the f32 path's 32 rows of W^T
-STAGE_BYTES = {torch.bfloat16: 2 * 256 * 16 * 2, F32: 32 * 257 * 4}
+RING_ALIGN, RING_BARS = 1024, 128   # mlp_tile.cuh's ring placement
 
 register({"delta_layer": ("delta", [PTR, INT, PTR, INT, PTR, PTR, PTR, PTR,
                                     PTR, I64, PTR, PTR, INT])})
@@ -62,11 +66,23 @@ def unpack_mask(bits: torch.Tensor, width: int) -> torch.Tensor:
     return on.reshape(bits.shape[0], -1)[:, :width].bool()
 
 
+def stage_bytes(at: int, dtype) -> int:
+    """The delta pass's stage at byte ``at`` of a block's shared memory
+    (mlp_tile.cuh's delta_stage_bytes): in bf16 the ring of two 256 x 16
+    slots on the first 1024-byte boundary at least RING_BARS bytes in, the
+    bytes below it included; the f32 path's 32 rows of W^T."""
+    if dtype == torch.bfloat16:
+        ring = -(-(at + RING_BARS) // RING_ALIGN) * RING_ALIGN
+        return ring - at + 2 * 256 * 16 * 2
+    return 32 * 257 * 4
+
+
 def block_bytes(k_dim: int, n_out: int, dtype, bits: bool = False) -> int:
     """Shared memory of one block of the entry (csrc/delta.cu)."""
     size = torch.finfo(dtype).bits // 8
-    return (TM * (k_dim + n_out + 1) * size
-            + (TM * mask_words(n_out) * 4 if bits else 0) + STAGE_BYTES[dtype])
+    at = (TM * (k_dim + n_out + 1) * size
+          + (TM * mask_words(n_out) * 4 if bits else 0))
+    return at + stage_bytes(at, dtype)
 
 
 def delta_layer_plain(a, w, act=None, gs=None, wcol=None, add=None,
@@ -90,6 +106,46 @@ def delta_layer_plain(a, w, act=None, gs=None, wcol=None, add=None,
     if store is None:
         return out, None
     return out, (acc.clone() if store == F32 else out.clone())
+
+
+def _finish(acc, cd, w, act, gs, wcol, add, bits):
+    """The rest of the pass after its products ``acc`` (f32 or f64): the
+    K = 1 term, the ADD, the mask, the cast to ``cd``; an f64 ``acc`` is
+    rounded to f32 first."""
+    if gs is not None:
+        acc = acc + (gs.to(acc.dtype).reshape(-1, 1)
+                     * wcol.to(acc.dtype).reshape(1, -1))
+    acc = acc.to(F32)
+    if add is not None:
+        acc = acc.to(cd).to(F32) + add.to(F32)
+    if act is not None:
+        acc = torch.where(act.to(F32) > 0, acc, 0.0)
+    elif bits is not None:
+        acc = torch.where(unpack_mask(bits, w.shape[0]), acc, 0.0)
+    return acc.to(cd)
+
+
+def delta_layer_f64(a, w, act=None, gs=None, wcol=None, add=None,
+                    bits=None):
+    """The pass with its products (and the K = 1 term) summed in f64, exact
+    for bf16 operands up to a few thousand terms, then rounded to f32 and
+    finished as the plain version does: the correctly rounded pass that
+    the rounding gate holds the kernel's outputs against."""
+    acc = a.double() @ w.double().t()
+    return _finish(acc, a.dtype, w, act, gs, wcol, add, bits)
+
+
+def delta_layer_in_order(a, w, act=None, gs=None, wcol=None, add=None,
+                         bits=None):
+    """The pass with each k term added to an f32 sum in the order of k, one
+    rounding per term (a product of two bf16 values is exact in f32), then
+    finished as the plain version does: the plain sum that the kernel's
+    rounding is held against."""
+    a32, w32 = a.to(F32), w.to(F32)
+    acc = torch.zeros((a.shape[0], w.shape[0]), dtype=F32, device=a.device)
+    for k in range(a.shape[1]):
+        acc = acc + a32[:, k:k + 1] * w32[:, k].reshape(1, -1)
+    return _finish(acc, a.dtype, w, act, gs, wcol, add, bits)
 
 
 def _check(a, w, act, gs, wcol, add, bits, store, dev):

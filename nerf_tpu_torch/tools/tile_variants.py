@@ -1,14 +1,16 @@
-"""The forward layer tile's design alternatives, measured on the card.
+"""The layer tile's and the delta pass's design alternatives, measured on
+the card.
 
     python -m nerf_tpu_torch.tools.tile_variants [--variants shipped chain ...]
 
-Each variant is the shipped tile (``ops/csrc/mlp_tile.cuh``'s dense_tile:
-wgmma m64n32k16 from a TMA-fed ring of weight slots, each k-step summed
-from zero by the tensor cores and then added to an f32 sum) with one
-change, made to a copy of the package under
-``build/tile_variants/<variant>/``:
+Each variant is the shipped code with one change, made to a copy of the
+package (and of ``chip_smoke.py`` and ``loop_ab.py``, whose checks it
+reads) under ``build/tile_variants/<variant>/``.  The forward layer tile
+(``ops/csrc/mlp_tile.cuh``'s dense_tile: wgmma m64n32k16 from a TMA-fed
+ring of weight slots, each k-step summed from zero by the tensor cores and
+then added to an f32 sum):
 
-    shipped  the tile as it is
+    shipped  the code as it is
     chain    every k-step of a pass summed through the tensor cores'
              accumulator, with no f32 add (the fault that the rounding
              gate must catch)
@@ -24,21 +26,44 @@ change, made to a copy of the package under
              the A operand meets no bank conflict (the tile's own entry
              only: the fused kernels' other readers are not changed)
 
-The copies build their libraries (``dense``, and ``ref_fused`` for the
-variants that keep the fused kernels right) in parallel; then, one variant
-at a time, a process run from the copy reports ptxas's registers and
-spills of the patched bf16 kernels, the tile alone's ms (``ops.dense_layer``,
-median of 20 CUDA-event timings) at four layer shapes of an eval chunk
-(786,432 rows: 256 -> 256, 63 -> 256, 167 + 256 -> 256, 256 -> 128), the
-ms of ``ref_spa_fwd`` and ``ref_dir_fwd`` at one chunk
-(``bench_ref_kernels``' seeded operands), and the rounding gate's reading at
-its two shapes (256 -> 256 and 167 + 256 -> 256, 131,072 rows): the share
-of the tile's bf16 outputs that differ from the layer summed in f64 and
-then rounded, beside the share of the f32 sum in the order of k
+The backwards' delta pass (delta_tile: each k-step's product summed from
+zero by the tensor cores and added to an f32 sum in the order of k):
+
+    dchain   every k-step of a pass summed through the tensor cores'
+             accumulator, with no f32 add, in the trunk passes (wgmma)
+             and the heads (mma.sync): the fault that the delta phase's
+             rounding gate must catch (the backwards' order limit,
+             BWD_ORDER_FACTOR, let it pass on the Ref-NeRF backwards)
+    dring3   a delta ring of 3 slots instead of TSTAGES' 2 (the Ref-NeRF
+             recompute backwards' stage grows by a slot)
+    dlate    the delta ring's slot refilled after the k-step's products
+             (as the layer tile's mma_pass does) instead of before them
+
+The copies build their libraries (``dense``, ``ref_fused`` for the
+variants that keep the fused kernels right, and for ``shipped`` and the
+delta variants every library but the dissection's) in parallel; then, one
+variant at a time, a process run from the copy reports ptxas's registers
+and spills of the patched bf16 kernels, the tile alone's ms
+(``ops.dense_layer``, median of 20 CUDA-event timings) at four layer shapes
+of an eval chunk (786,432 rows: 256 -> 256, 63 -> 256, 167 + 256 -> 256,
+256 -> 128), the ms of ``ref_spa_fwd`` and ``ref_dir_fwd`` at one chunk
+(``bench_ref_kernels``' seeded operands), and the rounding gate's reading
+at its two shapes (256 -> 256 and 167 + 256 -> 256, 131,072 rows): the
+share of the tile's bf16 outputs that differ from the layer summed in f64
+and then rounded, beside the share of the f32 sum in the order of k
 (``ops.dense.dense_layer_in_order``) and of the plain version, and the
-ratio that the gate holds at 1.0.  One JSON line per variant (a variant
-that fails or runs over MEASURE_TIMEOUT reads as its error).  Card only:
-the variants are compiled by nvcc.
+ratio that the gate holds at 1.0.  ``shipped`` and the delta variants also
+report the delta pass alone's ms (``ops.delta_layer`` 256 -> 256 masked at
+a Ref-NeRF step's 196,608 rows), the ms of each fused kernel that runs it
+(``DELTA_KERNELS``, bf16, ``chip_smoke.kernel_case``'s operands), the
+delta phase's rounding gate
+(``chip_smoke.delta_gate_readings``: 256 -> 256 and 256 -> 167, the
+ratio held at 1.0) and every bf16 backward's distance from its plain
+chain with f64 delta sums over the plain f32 chain's
+(``chip_smoke.order_readings`` over ``ORDER_SEEDS``: the ratio that
+``BWD_ORDER_FACTOR`` holds at 1.25).  One JSON line per variant (a
+variant that fails or runs over MEASURE_TIMEOUT reads as its error).
+Card only: the variants are compiled by nvcc.
 """
 
 from __future__ import annotations
@@ -55,6 +80,7 @@ from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parents[1]
 WORK = PACKAGE.parent / "build" / "tile_variants"
+ROOT = PACKAGE.parent
 TILE, ENTRY = "ops/csrc/mlp_tile.cuh", "ops/csrc/dense.cu"
 
 # mma_pass's k-loop as shipped: one k-step a partial
@@ -226,15 +252,66 @@ VARIANTS = {
         (ENTRY, "(size_t)TM * (k0 + k1 + n_out) * sizeof(T)",
          "(size_t)TM * (pld(k0) + pld(k1) + pld(n_out)) * sizeof(T)")]),
 }
+# the delta variants: dchain chains the tensor-core sums of the pass's
+# k-steps, on wgmma (the trunk passes, ring_pass_t) and on mma.sync (the
+# heads, step_mma)
+VARIANTS["dchain"] = (True, [
+    (TILE, "        wgmma_m64n32k16<0>(part, af,",
+     "        wgmma_m64n32k16<0>("
+     "*reinterpret_cast<float(*)[4][4]>(acc[4 * blk]), af,"),
+    (TILE, "8 * TK * 2),\n                           0);",
+     "8 * TK * 2),\n                           1);"),
+    (TILE, "acc[4 * blk + t][e] += part[t][e];", "(void)part[t][e];"),
+    (TILE, """  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(part, a, b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += part[e];""", "  mma_bf16(acc, a, b);")])
+# dring3: the delta pass's ring of 3 slots instead of TSTAGES (the Ref-NeRF
+# recompute backwards' stage grows with it)
+VARIANTS["dring3"] = (True, [(TILE, "constexpr int TSTAGES = 2;",
+                              "constexpr int TSTAGES = 3;")])
+# dlate: ring_pass_t's thread 0 refills a slot after its products of the
+# k-step, as the layer tile's mma_pass does, instead of before them
+DREFILL = """    if (threadIdx.x == 0 && g >= 1) {
+      const RingLoader L = *loader_of(R);
+      if (g - 1 + STAGES < L.total) {
+        mbar_wait(R.empty_bar(g - 1), ((g - 1) / STAGES) & 1);
+        tring_load(R, L, g - 1 + STAGES);
+      }
+    }
+"""
+VARIANTS["dlate"] = (True, [
+    (TILE, DREFILL + "    uint32_t af[4];\n    load_a(af, a, k_dim, m0, k * TK, al);",
+     "    uint32_t af[4];\n    load_a(af, a, k_dim, m0, k * TK, al);"),
+    (TILE, "    if (lane == 0) mbar_arrive(R.empty_bar(g));\n  }\n}\n\n// The bf16 body of delta_tile",
+     "    if (lane == 0) mbar_arrive(R.empty_bar(g));\n" + DREFILL
+     + "  }\n}\n\n// The bf16 body of delta_tile")])
+# the variants that report the delta pass's readings, and build every
+# library of the backwards
+DELTA_VARIANTS = ("shipped", "dchain", "dring3", "dlate")
+# the fused kernels whose ms the delta variants report (kernel_ab.py's
+# DELTA_PASS_KERNELS but the dissection)
+DELTA_KERNELS = ("vanilla_mlp_bwd", "vanilla_mlp_bwd_recompute",
+                 "prop_mlp_bwd", "prop_mlp_bwd_res", "ref_spa_fwd_res",
+                 "ref_spa_fwd_grad", "ref_spa_bwd", "ref_spa_bwd_recompute",
+                 "ref_dir_bwd", "ref_dir_bwd_recompute")
+DELTA_LIBRARIES = ("fused_mlp", "fused_mlp_bwd", "fused_mlp_recompute",
+                   "ref_fused", "ref_fused_bwd", "ref_fused_recompute",
+                   "wgrad", "dense", "delta")
+DELTA_ROWS = 196_608      # a Ref-NeRF step's merged points
 DENSE_SHAPES = (((256,), 256), ((63,), 256), ((167, 256), 256),
                 ((256,), 128))
 ROWS = 786_432            # one eval chunk of Ref-NeRF's merged points
 # the rounding gate of chip_smoke.py's dense phase: its shapes and rows
 GATE_SHAPES = (((256,), 256), ((167, 256), 256))
 GATE_ROWS = 131_072
-MEASURE_TIMEOUT = 300     # seconds; one variant's readings take about 11
+MEASURE_TIMEOUT = 600     # seconds; the tile's readings take about 11
 TILE_KERNELS = ("dense_layer_kernel", "ref_spa_fwd_kernel",
-                "ref_dir_fwd_kernel")
+                "ref_dir_fwd_kernel", "delta_layer_kernel",
+                "vanilla_delta_kernel", "prop_delta_kernel",
+                "vanilla_recompute_kernel", "ref_spa_fwd_res_kernel",
+                "ref_spa_delta_kernel", "ref_dir_delta_kernel",
+                "ref_spa_recompute_kernel", "ref_dir_recompute_kernel")
 
 
 def patched_sources(name: str, root: Path) -> None:
@@ -250,6 +327,8 @@ def patched_sources(name: str, root: Path) -> None:
 
 
 def libraries(name: str) -> tuple:
+    if name in DELTA_VARIANTS:
+        return DELTA_LIBRARIES
     return ("dense", "ref_fused") if VARIANTS[name][0] else ("dense",)
 
 
@@ -261,6 +340,8 @@ def prepare(name: str) -> Path:
     shutil.copytree(PACKAGE, root / "nerf_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     patched_sources(name, root / "nerf_tpu_torch")
+    for script in ("chip_smoke.py", "loop_ab.py"):
+        shutil.copy(ROOT / script, root / script)
     return root
 
 
@@ -359,6 +440,39 @@ def measure(name: str) -> dict:
             lambda: ops.ref_dir_fwd(case["dir_ws"], case["heads"],
                                     case["dirs"], 1, None,
                                     case["ide_level"]))
+        del case
+        torch.cuda.empty_cache()
+    if name in DELTA_VARIANTS:
+        out.update(delta_readings())
+    return out
+
+
+def delta_readings() -> dict:
+    """Run from the copy: the delta pass's readings of the module
+    docstring, through the copy's chip_smoke.py."""
+    import torch
+
+    import chip_smoke as cs
+    from nerf_tpu_torch import ops
+    from nerf_tpu_torch.tools.bench_ref_kernels import time_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kw = cs.delta_operands(gen, DELTA_ROWS, 256, 256, "act", torch.bfloat16)
+    kw["store"] = None
+    out = {"delta_ms": time_ms(lambda: ops.delta_layer(**kw)[0])}
+    del kw
+    out["kernel_ms"] = {}
+    for name in DELTA_KERNELS:
+        args, kernel = cs.kernel_case(name, torch.bfloat16, gen)[:2]
+        out["kernel_ms"][name] = time_ms(lambda: kernel(*args))
+        del args
+        torch.cuda.empty_cache()
+    out["delta_gate"] = cs.delta_gate_readings()
+    order = cs.order_readings(cs.ORDER_SEEDS)
+    out["order"] = {name: dict(max_ratio=max(r["ratio"] for r in rs),
+                               ratios=[r["ratio"] for r in rs],
+                               all_met=all(r["met"] for r in rs))
+                    for name, rs in order.items()}
     return out
 
 

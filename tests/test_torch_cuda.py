@@ -1246,3 +1246,66 @@ def test_delta_layer_matches_plain(cuda, k, n_out, form, dtype):
                                    **TOLS[dtype])
         assert torch.equal(out, again)
         assert torch.equal(stored.to(dtype), out)
+
+
+# the delta pass's rounding gate (chip_smoke.py's DELTA_GATE_*): the 256 ->
+# 256 trunk layer and the pullback into the 167-wide directional input,
+# unmasked, on 131,072 seeded rows; the share of the pass's bf16 outputs off
+# the pass summed in f64 and rounded may be at most the in-order f32 sum's
+DELTA_GATE_SHAPES = [(256, 256), (256, 167)]
+DELTA_GATE_FACTOR = 1.0
+
+
+@pytest.mark.parametrize("k, n_out", DELTA_GATE_SHAPES)
+def test_delta_rounding_gate(cuda, k, n_out):
+    """The bf16 pass adds each k-step's tensor-core sum to an f32 sum in
+    the order of k: at most as many of its outputs differ from the
+    correctly rounded pass (delta_layer_f64) as of the f32 sum taken term
+    by term in order (delta_layer_in_order).  A pass that chains its
+    k-steps through the tensor cores' truncating accumulator reads above
+    it (tools/tile_variants' dchain, PERF.md)."""
+    from nerf_tpu_torch.ops import delta as delta_lib
+    from nerf_tpu_torch.ops.dense import rounding_share
+
+    kw = _delta_operands(cuda, 131_072, k, n_out, "none", torch.bfloat16,
+                         seed=17)
+    kw.pop("store")
+    exact = delta_lib.delta_layer_f64(**kw)
+    got = rounding_share(ops.delta_layer(**kw)[0], exact)
+    in_order = rounding_share(delta_lib.delta_layer_in_order(**kw), exact)
+    assert 0 < in_order
+    assert got <= DELTA_GATE_FACTOR * in_order, (got, in_order)
+
+
+def test_delta_chain_of_head_and_trunk_passes(cuda):
+    """A directional backward's chain through ops.delta_layer in bf16, each
+    pass on the previous pass's output from the card: the z8 head (k_dim 3,
+    one zero-padded k-step on mma.sync), two masked 256 -> 256 trunk passes
+    (wgmma from the TMA ring), the pullback into the 167-wide input with the
+    K = 9 and K = 2 heads' pullbacks added to it (ADD), and a ragged row
+    count; every pass within TOLS of its plain version on the same
+    operands, and its stored rows equal its output."""
+    bf16, n = torch.bfloat16, 4099
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def g(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=cuda)
+                * scale).to(bf16)
+
+    a = g(n, 3)
+    steps = [dict(w=g(256, 3, scale=256 ** -0.5), act=g(n, 256)),
+             dict(w=g(256, 256, scale=256 ** -0.5), act=g(n, 256)),
+             dict(w=g(256, 256, scale=256 ** -0.5), act=g(n, 256)),
+             dict(w=g(167, 256, scale=167 ** -0.5))]
+    for i, kw in enumerate(steps):
+        kw = dict(kw, a=a, store=bf16)
+        if i == len(steps) - 1:
+            head9 = ops.delta_layer(g(n, 9), g(167, 9, scale=0.3))[0]
+            kw["add"] = ops.delta_layer(g(n, 2), g(167, 2, scale=0.3),
+                                        add=head9)[0]
+        out, stored = ops.delta_layer(**kw)
+        want, _ = ops.delta_layer_plain(**kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), want.float(), **TOLS[bf16])
+        assert torch.equal(stored, out)
+        a = out

@@ -269,3 +269,77 @@ def test_kernel_ab_times_kernels_that_chip_smoke_checks():
     assert set(kernel_ab.DELTA_PASS_KERNELS) <= set(chip_smoke.KERNELS)
     assert "ref_dir_bwd_dissect" in kernel_ab.DELTA_PASS_KERNELS
     compile(kernel_ab.TURN, "turn", "exec")
+
+
+@pytest.mark.parametrize("form", ["none", "act", "bits", "gs", "add",
+                                  "add_act"])
+def test_f64_pass_is_the_numpy_float64_pass_rounded(form):
+    """delta_layer_f64 (the rounding gate's exact pass on the card) is the
+    float64 product of the upcast operands (and the K = 1 term in float64),
+    rounded to f32, then ADD, mask and cast as the plain version takes
+    them: the same as numpy's float64 pass finished that way."""
+    kw, act = _operands(N, 40, 24, form, BF16, seed=7)
+    got = delta_lib.delta_layer_f64(**kw)
+    a = kw["a"].double().numpy()
+    w = kw["w"].double().numpy()
+    acc = a @ w.T
+    if "gs" in kw:
+        acc = acc + (kw["gs"].double().numpy()[:, None]
+                     * kw["wcol"].double().numpy()[None, :])
+    acc = torch.from_numpy(acc.astype(np.float32))
+    if "add" in kw:
+        acc = acc.to(BF16).float() + kw["add"].float()
+    if "act" in kw or "bits" in kw:
+        acc = torch.where(act.float() > 0, acc, 0.0)
+    assert got.dtype == BF16 and got.shape == (N, 24)
+    assert torch.equal(got, acc.to(BF16))
+
+
+@pytest.mark.parametrize("form", ["none", "act", "gs", "add_act"])
+def test_in_order_pass_is_the_sequential_f32_sum(form):
+    """delta_layer_in_order adds each k term to an f32 sum in the order of
+    k, as a numpy loop in float32 does; then the K = 1 term, ADD, mask and
+    cast as the plain version takes them."""
+    kw, act = _operands(5, 11, 9, form, BF16, seed=8)
+    got = delta_lib.delta_layer_in_order(**kw)
+    a, w = kw["a"].float().numpy(), kw["w"].float().numpy()
+    acc = np.zeros((5, 9), np.float32)
+    for k in range(a.shape[1]):
+        acc = acc + a[:, k:k + 1] * w[:, k][None, :]
+    assert acc.dtype == np.float32
+    acc = torch.from_numpy(acc)
+    if "gs" in kw:
+        acc = acc + kw["gs"].float().reshape(-1, 1) * kw["wcol"].float()
+    if "add" in kw:
+        acc = acc.to(BF16).float() + kw["add"].float()
+    if "act" in kw:
+        acc = torch.where(act.float() > 0, acc, 0.0)
+    assert torch.equal(got, acc.to(BF16))
+
+
+def test_delta_rounding_share_on_a_hand_built_pass():
+    """Output column 0 sums 1, 2^-8, 2^-24, 2^-24 over k (every other
+    column 1 alone).  Exactly it is 1 + 2^-8 + 2^-23, which rounds up to
+    the bf16 value 1 + 2^-7; in order in f32 each 2^-24 is a tie that
+    rounds back to 1 + 2^-8, which rounds to even, 1.  So the in-order
+    pass differs from the f64 pass in column 0 alone, a share of 1/8, and
+    the plain version (one f32 product) is held to the same yardstick."""
+    from nerf_tpu_torch.ops.dense import rounding_share
+
+    a = torch.ones((2, 4), dtype=BF16)
+    w = torch.zeros((8, 4), dtype=F32)
+    w[:, 0] = 1.0
+    w[0, 1:] = torch.tensor([2.0 ** -8, 2.0 ** -24, 2.0 ** -24])
+    w = w.to(BF16)
+    exact = delta_lib.delta_layer_f64(a, w)
+    in_order = delta_lib.delta_layer_in_order(a, w)
+    assert exact[:, 0].float().tolist() == [1 + 2.0 ** -7] * 2
+    assert in_order[:, 0].float().tolist() == [1.0] * 2
+    assert torch.equal(exact[:, 1:], in_order[:, 1:])
+    assert rounding_share(in_order, exact) == 1 / 8
+    assert rounding_share(exact, exact) == 0.0
+    # a mask that zeroes column 0 hides the difference
+    act = torch.ones((2, 8), dtype=BF16)
+    act[:, 0] = -1
+    assert rounding_share(delta_lib.delta_layer_in_order(a, w, act=act),
+                          delta_lib.delta_layer_f64(a, w, act=act)) == 0.0
