@@ -11,12 +11,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
                kernel that runs the layer tile (dense_tile) or the delta
                pass (delta_tile), and the tensor-core instructions (HGMMA
                for wgmma, HMMA for mma.sync) in each library's SASS and in
-               each such kernel: wgrad_mma_kernel must hold HMMA, every
-               bf16 tile and delta kernel HGMMA, every bf16 kernel that
-               runs the delta pass also HMMA (its narrow heads), no kernel
-               that runs the tile alone HMMA, and no f32 one either; for
-               every bf16 kernel that runs the delta pass its registers,
-               spills, HGMMA and HMMA on one line (delta_build)
+               each such kernel: wgrad_mma_kernel must hold HGMMA and no
+               HMMA in every library that launches it, every bf16 tile and
+               delta kernel HGMMA, every bf16 kernel that runs the delta
+               pass also HMMA (its narrow heads), no kernel that runs the
+               tile alone HMMA, and no f32 one either; for every bf16
+               kernel that runs the delta pass (delta_build) and every
+               library's wgrad_mma_kernel (wgrad_build) its registers,
+               spills, HGMMA and HMMA on one line, failing on a spill
   3. kernels - each kernel against its plain PyTorch version, bf16 and f32,
                with timings and bounds: the eval forwards at the shapes of
                one default 4096-ray chunk, the training kernels at those of
@@ -115,7 +117,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                recompute form walks it, directional), with the plain delta
                chains' deltas: against the plain version, two walks equal
                bit for bit, its time, the plain version's, torch.mm's as a
-               yardstick and the bound; the pass's ms per default step
+               yardstick and the bound, each job's staging path (TMA or
+               the threads); the pass's ms per default step; the rounding
+               gate: at the 256 x 256 trunk job and the 63 x 256 first-layer
+               job on 131,072 seeded points in splits of 4096, the weight
+               grad's relative error against the splits summed in f64 may
+               be at most WGRAD_GATE_FACTOR times the in-order f32 sum's
  16. dense   - the layer tile alone (ops.dense_layer) at every layer shape
                of the main paths (inputs 63, 27, 167, 128 and 256 wide to
                128 or 256, the three skip layers) at an eval chunk's
@@ -138,7 +145,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                device time, the plain version's, torch.mm(a, W^T)'s as the
                product's yardstick (no mask) and the bound; the same
                shapes in f32 at 131,072 rows (the CUDA-core body); the card
-               tests' narrow widths at 1, 70 and 4099 rows, untimed
+               tests' narrow widths at 1, 70 and 4099 rows, untimed; then
+               the occupancy line: every delta-pass kernel's launches and
+               each library's wgrad_mma_kernel through the runtime's
+               occupancy query
  18. mip     - true Mip-NeRF (-m) and the IPE mode (--use_ipe), which run
                the vanilla kernels on IPE features: the vanilla training
                kernels and the plain forward (the recompute form's) at a
@@ -258,6 +268,7 @@ from nerf_tpu_torch.core.rays import (
 from nerf_tpu_torch.ops import build, fused_mlp, ref_fused
 from nerf_tpu_torch.ops import delta as delta_lib
 from nerf_tpu_torch.ops import dense as dense_lib
+from nerf_tpu_torch.ops import wgrad as wgrad_lib
 from nerf_tpu_torch.ops.wgrad import grad_shapes
 from nerf_tpu_torch.train.config import PipelineConfig
 from nerf_tpu_torch.train.pipeline import make_models
@@ -2213,24 +2224,28 @@ def wgrad_walk(jobs, chunk):
             for c0 in range(0, n, step)]
 
 
-def stage_path(t, f32: bool):
-    """How csrc/wgrad.cuh's bf16 body stages an operand (stage_mode)."""
-    w, ld = t.shape[1], t.stride(0)
-    if f32:
-        return "f32 copy"
-    if t.data_ptr() % 16 == 0 and w % 8 == 0 and ld % 8 == 0:
-        return "cp.async"
-    return "span" if ld <= 256 else "elementwise"
+def stage_path(t, delta_path="tma"):
+    """How csrc/wgrad.cuh's bf16 body stages an operand (stage_mode): by TMA
+    where its rows are 16-byte aligned ("tma" into the slot, "f32 tma" into
+    a copy area), else by the producer threads from one bulk copy of the
+    chunk's span ("span"), from 4-byte copies of an f32 delta ("rows") or
+    from device memory ("elementwise": A where delta takes the copy
+    areas)."""
+    f32 = t.dtype == torch.float32
+    ld = t.stride(0)
+    if t.data_ptr() % 16 == 0 and ld % (4 if f32 else 8) == 0:
+        return "f32 tma" if f32 else "tma"
+    if delta_path not in ("tma", "elementwise"):
+        return "elementwise"
+    if ld <= (128 if f32 else 256):
+        return "span"
+    return "rows" if f32 else "elementwise"
 
 
 def stage_paths(a, d):
-    """(A's, delta's) staging paths; A is staged element by element when
-    delta takes the stage's copy area (add_job)."""
-    dp = stage_path(d, d.dtype == torch.float32)
-    ap = stage_path(a, False)
-    if ap == "span" and dp in ("span", "f32 copy"):
-        ap = "elementwise"
-    return ap, dp
+    """(A's, delta's) staging paths."""
+    dp = stage_path(d)
+    return stage_path(a, dp), dp
 
 
 def wgrad_call(pieces, rows, rnd, fn):
@@ -2240,6 +2255,72 @@ def wgrad_call(pieces, rows, rnd, fn):
     for jobs in pieces:
         grads = fn(jobs, rows, rnd, grads=grads)
     return grads
+
+
+# the weight-grad pass's rounding gate: the 256 x 256 trunk job (A and a
+# bf16 delta both read by TMA) and the 63 x 256 first-layer job (A = enc_x,
+# staged by the threads), each on its own seeded points in K-splits of
+# 4096 (ROWS_PER_SPLIT), partials unrounded
+WGRAD_GATE_SHAPES = ((256, 256), (63, 256))
+WGRAD_GATE_N = 131_072
+WGRAD_GATE_ROWS = 4096
+WGRAD_GATE_SEED = 18
+# the largest relative Frobenius error of the pass's weight grad against
+# the split summed in f64 and rounded (wgrad.wgrad_reduce_f64), as a
+# multiple of the error of the f32 sum in the order of the points
+# (wgrad.wgrad_reduce_in_order): a pass that chains its k-steps through the
+# tensor cores' truncating accumulator reads above it
+WGRAD_GATE_FACTOR = 1.0
+
+
+def wgrad_gate_readings():
+    """At each shape of WGRAD_GATE_SHAPES, one job with bias on A (ReLU'd
+    N(0, 1) activations, or U(-1, 1) encodings at width 63) and delta
+    U(-1, 1), bf16: the weight grad's relative Frobenius error and its
+    largest error in units in the last place against
+    wgrad.wgrad_reduce_f64, for the kernel, the in-order f32 sum and the
+    plain version (cuBLAS's f32 torch.mm a split), the limit and the
+    kernel's ratio to the in-order error; the bias's relative errors
+    beside them (f32 sums on the CUDA cores, not gated)."""
+    gen = torch.Generator(device="cuda").manual_seed(WGRAD_GATE_SEED)
+    out = []
+    for m, k in WGRAD_GATE_SHAPES:
+        a = torch.randn((WGRAD_GATE_N, m), generator=gen, device="cuda")
+        a = (a.relu() if m != 63 else torch.rand(
+            (WGRAD_GATE_N, m), generator=gen, device="cuda") * 2 - 1)
+        d = torch.rand((WGRAD_GATE_N, k), generator=gen, device="cuda") * 2 - 1
+        jobs = [(a.to(torch.bfloat16), d.to(torch.bfloat16), True)]
+        del a, d
+        exact = wgrad_lib.wgrad_reduce_f64(jobs, WGRAD_GATE_ROWS)
+        errs = {key: [wgrad_lib.summation_error(g, e)
+                      for g, e in zip(fn(jobs, WGRAD_GATE_ROWS), exact)]
+                for key, fn in (("kernel", ops.wgrad_reduce),
+                                ("in_order_f32",
+                                 wgrad_lib.wgrad_reduce_in_order),
+                                ("plain", ops.wgrad_reduce_plain))}
+        limit = WGRAD_GATE_FACTOR * errs["in_order_f32"][0]["rel"]
+        out.append(dict(
+            shape=f"{m}x{k}", n=WGRAD_GATE_N, rows_per_split=WGRAD_GATE_ROWS,
+            limit=limit, ratio=errs["kernel"][0]["rel"]
+            / errs["in_order_f32"][0]["rel"],
+            **{key: e[0]["rel"] for key, e in errs.items()},
+            ulps={key: e[0]["ulps"] for key, e in errs.items()},
+            bias_rel={key: e[1]["rel"] for key, e in errs.items()}))
+        del jobs, exact
+    return out
+
+
+def wgrad_rounding_gate():
+    """wgrad_gate_readings; fails where the pass's error is above
+    WGRAD_GATE_FACTOR times the in-order sum's."""
+    out = wgrad_gate_readings()
+    for r in out:
+        if r["kernel"] > r["limit"]:
+            fail(f"wgrad_reduce[{r['shape']}]: its weight grad's relative "
+                 f"error {r['kernel']} against the f64 splits is above "
+                 f"{r['limit']} ({WGRAD_GATE_FACTOR} x the in-order f32 "
+                 f"sum's)")
+    return out
 
 
 def wgrad_phase(gen):
@@ -2253,8 +2334,9 @@ def wgrad_phase(gen):
     bound: each operand read once (a delta that two jobs share counted
     once, a strided one by the columns read), each grad written once, 2 m k
     FLOPs a point and job and k for the bias sums.  Each job's staging
-    paths (stage_paths) are listed as csrc/wgrad.cuh picks them.  The
-    launches are counted over the lists' kernel walks alone."""
+    paths (stage_paths: TMA or the threads) are listed as csrc/wgrad.cuh
+    picks them.  The launches are counted over the lists' kernel walks
+    alone.  Then the rounding gate (wgrad_rounding_gate)."""
     out, launches = {}, 0
     for name, (jobs, rows, rnd, chunk) in wgrad_lists(gen):
         pieces = wgrad_walk(jobs, chunk)
@@ -2305,6 +2387,7 @@ def wgrad_phase(gen):
         torch.cuda.empty_cache()
     if launches == 0:
         fail("the wgrad phase launched wgrad_reduce no time")
+    gate = wgrad_rounding_gate()
     # the pass's share of each default bf16 step: the lists its backwards
     # walk (the hybrid route's directional net is the nn.Module's)
     steps = {"vanilla": ("vanilla", "prop"),
@@ -2313,7 +2396,8 @@ def wgrad_phase(gen):
     per_step = {k: {key: sum(out[x][key] for x in v)
                     for key in ("ms", "library_ms", "bound_ms")}
                 for k, v in steps.items()}
-    return dict(lists=out, per_step=per_step, launches=launches)
+    return dict(lists=out, per_step=per_step, launches=launches,
+                rounding_gate=gate)
 
 
 # ---------------------------------------------------------------------------
@@ -2656,12 +2740,16 @@ def delta_phase(gen):
                 launches=launches)
 
 
-# the libraries whose kernels run the delta pass, each with its
-# <lib>_occupancy entry (mlp_tile.cuh's OCCUPANCY_ENTRY), and the bf16
-# kernels that the phases before the occupancy line launch among them
+# the libraries whose kernels run the delta pass or the weight-grad pass,
+# each with its <lib>_occupancy entry (mlp_tile.cuh's OCCUPANCY_ENTRY), the
+# bf16 kernels that the phases before the occupancy line launch among them,
+# and the libraries whose bf16 weight-grad body (wgrad_mma_kernel, built
+# for one block an SM) those phases launch
 OCCUPANCY_LIBS = ("fused_mlp_bwd", "fused_mlp_recompute", "ref_fused",
                   "ref_fused_bwd", "ref_fused_recompute", "ref_dissect",
-                  "delta")
+                  "delta", "wgrad")
+WGRAD_LIBS = ("fused_mlp_bwd", "fused_mlp_recompute", "ref_fused_bwd",
+              "ref_fused_recompute", "ref_dissect", "wgrad")
 OCCUPANCY_BF16 = (
     "vanilla_delta_kernel", "prop_delta_kernel<true>",
     "prop_delta_kernel<false>", "vanilla_recompute_kernel",
@@ -2674,12 +2762,14 @@ OCCUPANCY_BF16 = (
 
 def delta_occupancy():
     """The runtime's occupancy query of every launch of a kernel that runs
-    the delta pass in this process so far, as each library noted it
-    (mlp_tile.cuh's note_occupancy): by "<lib> <name>/<bf16|f32>", the
-    shared memory and blocks an SM of each distinct launch.  Fails where a
-    launch ran below the blocks an SM its kernel was built for (two in
-    bf16), a query failed, or a bf16 kernel of OCCUPANCY_BF16 was never
-    launched."""
+    the delta pass, and of the bf16 weight-grad body, in this process so
+    far, as each library noted it (mlp_tile.cuh's note_occupancy): by
+    "<lib> <name>/<bf16|f32>", the shared memory and blocks an SM of each
+    distinct launch.  Fails where a launch ran below the blocks an SM its
+    kernel was built for (two for a bf16 delta-pass kernel, one for the
+    weight-grad body), a query failed, a bf16 kernel of OCCUPANCY_BF16 was
+    never launched, or a library of WGRAD_LIBS never launched
+    wgrad_mma_kernel."""
     out = {}
     for lib in OCCUPANCY_LIBS:
         fn = getattr(build.load(lib), f"{lib}_occupancy")
@@ -2688,7 +2778,8 @@ def delta_occupancy():
         fn(buf, len(buf))
         for ln in buf.value.decode().splitlines():
             name, smem, blocks, want = ln.split()
-            key = f"{lib} {name}/{'bf16' if want == '2' else 'f32'}"
+            bf16 = want == "2" or name == "wgrad_mma_kernel"
+            key = f"{lib} {name}/{'bf16' if bf16 else 'f32'}"
             out.setdefault(key, []).append(dict(smem=int(smem),
                                                 blocks=int(blocks)))
             if int(blocks) < int(want):
@@ -2696,6 +2787,8 @@ def delta_occupancy():
                      f"bytes of shared memory, below its {want}")
     seen = {k.split(" ", 1)[1] for k in out}
     missing = [n for n in OCCUPANCY_BF16 if f"{n}/bf16" not in seen]
+    missing += [f"{lib} wgrad_mma_kernel" for lib in WGRAD_LIBS
+                if f"{lib} wgrad_mma_kernel/bf16" not in out]
     if missing:
         fail(f"no occupancy noted for the bf16 {missing}")
     return out
@@ -3808,6 +3901,43 @@ def delta_build(reports, mma):
     return out
 
 
+def wgrad_build(reports, mma):
+    """For each library's bf16 weight-grad body (wgrad_mma_kernel) that this
+    process compiled: ptxas's registers and spill bytes (stores, loads) and
+    the HGMMA (its wgmma) and HMMA (mma.sync) in its SASS; fails where
+    ptxas reports a spill.  Every library of WGRAD_LIBS must hold the body
+    with HGMMA and no HMMA (check_wgrad_mma)."""
+    out = {}
+    for lib, funcs in ptxas_by_function(
+            reports, lambda f: "wgrad_mma_kernel" in f).items():
+        for lines in funcs.values():
+            text = " ".join(lines)
+            regs = re.search(r"Used (\d+) registers", text)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", text)
+            c = (mma or {}).get(lib, {}).get("wgrad_mma_kernel")
+            r = dict(registers=int(regs.group(1)) if regs else None,
+                     spill_bytes=[int(spill.group(1)), int(spill.group(2))]
+                     if spill else None,
+                     HGMMA=c["HGMMA"] if c else None,
+                     HMMA=c["HMMA"] if c else None)
+            out[lib] = r
+            if r["spill_bytes"] and sum(r["spill_bytes"]):
+                fail(f"{lib} wgrad_mma_kernel spills: {r}")
+    return out
+
+
+def check_wgrad_mma(mma):
+    """Fail unless the bf16 weight-grad body of every library of WGRAD_LIBS
+    holds HGMMA (its wgmma) and no HMMA: no mma.sync is left in the
+    pass."""
+    for lib in WGRAD_LIBS:
+        c = mma[lib]["wgrad_mma_kernel"]
+        if not c["HGMMA"] or c["HMMA"]:
+            fail(f"{lib}: wgrad_mma_kernel should hold HGMMA and no HMMA: "
+                 f"{c}")
+
+
 def check_tile_mma(mma):
     """Fail unless every bf16 instantiation of a kernel that runs dense_tile
     or delta_tile holds HGMMA (the tile's and the delta pass's trunk
@@ -4440,13 +4570,13 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     mma = sass_mma_counts()
     if mma is not None:
-        if not mma["wgrad"]["wgrad_mma_kernel"]["HMMA"]:
-            fail(f"no HMMA in wgrad_mma_kernel's SASS: {mma['wgrad']}")
+        check_wgrad_mma(mma)
         check_tile_mma(mma)
     emit("build", seconds=build_s, native_seconds=native_build_s,
          sources=list(build.SOURCES), ptxas=ptxas,
          ptxas_wgrad=wgrad_ptxas(reports), ptxas_tile=tile_ptxas(reports),
-         sass_mma=mma, delta_build=delta_build(reports, mma))
+         sass_mma=mma, delta_build=delta_build(reports, mma),
+         wgrad_build=wgrad_build(reports, mma))
 
     # phase 3: kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)

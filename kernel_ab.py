@@ -7,7 +7,11 @@ an earlier commit unpacked under ``build/``).  Each turn is one process
 started in a checkout's root: it builds that checkout's kernels, then times
 the delta pass alone (``ops.delta_layer`` at three delta shapes of a
 Ref-NeRF step's 196,608 rows, ``DELTA_AB_SHAPES``, with ``torch.mm`` of the
-same operands beside it), each kernel whose delta pass runs
+same operands beside it), the weight-grad pass alone (``ops.wgrad_reduce``
+at the five job lists of one default step's backwards,
+``chip_smoke.wgrad_lists``, walked as the backwards walk them, timed by
+``chip_smoke.cuda_device_ms``, with one ``torch.mm(A^T, delta)`` a job
+beside it), each kernel whose delta pass runs
 ``delta_tile``, bf16 and f32, with that checkout's own ``chip_smoke.py``
 (``kernel_case``: the main-path shapes and seeded operands of its kernel
 checks; ``cuda_ms``: the median of 20 CUDA-event timings after a warm-up),
@@ -143,8 +147,19 @@ names, steps = json.loads(sys.argv[1]), sys.argv[2] == "1"
 shapes = json.loads(sys.argv[3])
 reports = build.build()
 out = {"ptxas": {k: v for k, v in cs.tile_ptxas(reports).items()
-                 if "bfloat16" in k}}
+                 if "bfloat16" in k},
+       "ptxas_wgrad": cs.wgrad_ptxas(reports).get("wgrad")}
 gen = torch.Generator(device="cuda").manual_seed(0)
+for lst, (jobs, rows, rnd, chunk) in cs.wgrad_lists(gen):
+    pieces = cs.wgrad_walk(jobs, chunk)
+    key = "wgrad_reduce[%s]/bf16" % lst
+    out[key] = cs.cuda_device_ms(lambda: cs.wgrad_call(
+        pieces, rows, rnd, ops.wgrad_reduce), 20)
+    lib = [(a, d.to(torch.bfloat16)) for a, d, _ in jobs]
+    out[key.replace("wgrad_reduce", "mm")] = cs.cuda_device_ms(
+        lambda: [torch.mm(a.T, d) for a, d in lib], 20)
+    del jobs, pieces, lib
+    torch.cuda.empty_cache()
 for k, n_out, form in shapes:
     kw = cs.delta_operands(gen, cs.DELTA_N[1], k, n_out, form,
                            torch.bfloat16)

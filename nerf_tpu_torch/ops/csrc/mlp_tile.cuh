@@ -1369,13 +1369,14 @@ int vanilla_dmaps(TileMaps* maps, const VanillaWeights<T>& p, int h, int bn,
                              {p.w2, h, h}, {p.w1, h, h}}, true, pass);
 }
 
-// The occupancy of the kernels that run the delta pass, as this source
-// file launched them: for each (kernel, shared memory) pair its name, the
-// blocks an SM that the runtime's occupancy query gives at THREADS threads,
-// and the MinBlocks it was built for.  A pair is queried once; the
-// library's <lib>_occupancy entry (OCCUPANCY_ENTRY) reports them, one
-// "name smem blocks want" line each, and chip_smoke.py holds every bf16
-// backward at its two blocks an SM.  The log, and set_smem that writes it,
+// The occupancy of the kernels that run the delta pass and of the
+// weight-grad pass's bf16 body, as this source file launched them: for each
+// (kernel, shared memory) pair its name, the blocks an SM that the
+// runtime's occupancy query gives at the launch's threads, and the blocks
+// an SM it was built for (MinBlocks, or one for the weight-grad body).  A
+// pair is queried once; the library's <lib>_occupancy entry
+// (OCCUPANCY_ENTRY) reports them, one "name smem blocks want" line each,
+// and chip_smoke.py holds every bf16 backward at its two blocks an SM.  The log, and set_smem that writes it,
 // are static (one per source file): a function-local static of an inline
 // function would be one object for every library of the process.
 struct OccupancyEntry {
@@ -1398,7 +1399,7 @@ static inline OccupancyLog& occupancy_log() {
 
 template <typename K>
 static void note_occupancy(K kernel, size_t smem, const char* name,
-                           int want) {
+                           int want, int threads) {
   OccupancyLog& log = occupancy_log();
   std::lock_guard<std::mutex> hold(log.lock);
   for (int i = 0; i < log.count; ++i)
@@ -1406,7 +1407,7 @@ static void note_occupancy(K kernel, size_t smem, const char* name,
       return;
   if (log.count == 32) return;
   int blocks = -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
                                                     smem) != cudaSuccess) {
     cudaGetLastError();
     blocks = -1;
@@ -1437,15 +1438,17 @@ static inline int occupancy_report(char* buf, int len) {
 // Allow `bytes` of dynamic shared memory for `kernel`; a request beyond the
 // card's limit (at wide layers) returns its error code, which is then cleared
 // so that it does not surface at the next unrelated launch.  With a
-// ``name`` (the kernels that run the delta pass) the launch's occupancy is
-// noted (note_occupancy) beside ``want``, its MinBlocks.
+// ``name`` (the kernels that run the delta pass, the weight-grad pass's
+// bf16 body) the occupancy of a launch of ``threads`` threads is noted
+// (note_occupancy) beside ``want``, the blocks an SM it was built for.
 template <typename K>
 static int set_smem(K kernel, size_t bytes, const char* name = nullptr,
-                    int want = 0) {
+                    int want = 0, int threads = THREADS) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) cudaGetLastError();
-  else if (name != nullptr) note_occupancy(kernel, bytes, name, want);
+  else if (name != nullptr)
+    note_occupancy(kernel, bytes, name, want, threads);
   return (int)err;
 }
 

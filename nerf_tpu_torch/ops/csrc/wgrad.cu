@@ -74,4 +74,6 @@ const char* wgrad_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+OCCUPANCY_ENTRY(wgrad)
+
 }  // extern "C"

@@ -139,435 +139,541 @@ wgrad_kernel(WGradJobs jobs, int64_t n, int64_t rows_per_split,
 // backwards (nerf_tpu/ops/fused_mlp.py:228-237; nerf_tpu/ops/ref_fused.py:719,
 // :794, :896) as wgrad_kernel does, for bf16 operands.  Bound by bytes on an
 // H100: the pass reads every A and delta once and does 2 m k FLOPs per point
-// and job, far below the bf16 tensor cores' 295 FLOPs per byte.  So the
-// design keeps the copies in flight and the tensor cores fed:
+// and job, far below the bf16 tensor cores' 295 FLOPs per byte.  The
+// mma.sync body that this replaces had every thread issue cp.async copies
+// and met two block-wide barriers a chunk, read its operands by ldmatrix
+// from padded rows, and chained all 256 k-steps of a split in the tensor
+// cores, which read 7.5 times the error of the in-order f32 sum (the wgrad
+// phase's rounding gate, PERF.md).  This design:
 //   - an output tile of MT x MT = 128 x 128 a block: a 256-wide layer's
 //     chunk of A is read by two tiles and its delta by two, next to each
-//     other in the grid (the same split), so the second read is an L2 hit.
-//     A 64 x 64 tile read each 4 times; a 256 x 256 tile would need 256
-//     accumulators a thread.  The 8 warps hold 2 x 4 warp tiles of 64 x 32:
-//     4 x 4 mma tiles, 64 f32 accumulators a thread;
-//   - chunks of MR = 64 points in a ring of MSTAGES = 3 shared-memory stages
-//     (66 KB each: A's and delta's tiles and a copy area, see STAGE_*): the
-//     copies of chunks c + 1 and c + 2 are in flight while the tensor cores
-//     work on chunk c;
-//   - products by mma.sync m16n8k16 (bf16 in, f32 accumulate).  Both operands
-//     are stored point-major, A (n, m) and delta (n, k), and the product sums
-//     over points, so both are read from shared memory by ldmatrix .trans:
-//     an 8 x 8 block of 8 points x 8 columns arrives as the fragment of 8
-//     columns x 8 points.  Rows are padded to 136 elements (272 bytes), so
-//     the 8 rows an ldmatrix reads start in 8 different bank quads.  The
-//     next 16 points' fragments are read while the tensor cores work;
-//   - one block an SM (198 KB of shared memory, up to 255 registers: no
-//     spills).  On an H100 80GB HBM3 at 700 W (PERF.md), 2 blocks an
-//     SM under a 128-register cap (32-point chunks) ran the vanilla list in
-//     1.52 ms against this design's 1.09; a persistent grid (one block an
-//     SM walking the (tile, split) items in turn) ran slower: the items
-//     differ in cost and a fixed share leaves SMs idle at the end.
-// Rows past the split's end are staged as zeros.  Columns past an operand's
-// width are not staged: they reach only the output rows or columns past m
-// or k, which are not stored, and warps skip the mma tiles that lie wholly
-// there.
-// The bias sums the delta as stored: a bf16 delta from the staged chunk, an
-// f32 one from the unrounded values of the copy area.  Each sum runs in a
-// fixed order, and no atomics: two launches give the same bits.  The order
-// of the products within a split is the tensor cores' own; the splits are
-// summed in order by reduce_kernel.
+//     other in the grid (the same split), so the second read is an L2 hit;
+//   - a producer warpgroup and two consumer warpgroups.  Thread 0 keeps a
+//     ring of WSTAGES slots filled by TMA, each slot one chunk of MR = 64
+//     points of A's and delta's 128 columns, with full/empty mbarriers: no
+//     block-wide barrier runs in the point loop;
+//   - the chunks are stored as TMA writes them in the 128-byte swizzle
+//     (points as rows, 64-column atoms), which wgmma reads straight through
+//     its descriptors with both operands MN-major (A^T and delta, both
+//     transpose bits set, wgmma_ss): no padding, no ldmatrix, no registers
+//     for the operands;
+//   - each consumer owns 64 rows of the tile, its sum in 64 f32 registers a
+//     thread.  Each k-step of 16 points is summed from zero by the tensor
+//     cores (scale-d 0, a wgmma of 64 columns a half) into a partial and
+//     added to the f32 sum: G = 1, one rounding a k-step, which the rounding
+//     gate reads at 0.60-0.77 of the in-order sum's error (tools/
+//     tile_variants' wchain, the k-steps chained, reads above 1.0);
+//   - operands that TMA cannot read into the slot (the 63-, 27- and
+//     167-wide inputs, the 1- to 9-wide heads, the f32 deltas, the heads'
+//     strided cotangents) arrive in RSLOTS copy areas, RSLOTS chunks ahead,
+//     by one TMA box or bulk copy a chunk (STAGE_*), and the producer
+//     warpgroup rounds and scatters them into the slot's swizzled layout,
+//     16 bytes a store, then fences (fence_proxy_async) and arrives on the
+//     slot's full barrier once a warp;
+//   - the bias sums run on the producer warpgroup beside the products: a
+//     TMA-read delta's from the slot once it is full (a release of the
+//     slot that the empty barrier waits for), any other's from the
+//     unrounded values as they are staged;
+//   - one block an SM (WSMEM bytes of shared memory).
+// Rows past the split's end count as zeros: staging writes them as zeros,
+// and a TMA-read delta of a split whose last chunk reaches into the next is
+// read through a 3-d map of (columns, points of a split, splits), whose box
+// stops at the split's end; the rows of A there meet those zeros.  Columns
+// past an operand's width are not staged: they reach only the output rows
+// or columns past m or k, which are not stored, and a consumer skips a
+// product that lies wholly there.  Each bias sum runs in a fixed order, and
+// no atomics: two launches give the same bits.  The order of the products
+// within a k-step is the tensor cores' own; the k-steps are summed in
+// order, and the splits in order by reduce_kernel.
 constexpr int MT = 128;                 // output tile: MT x MT of dW (m x k)
-constexpr int MR = 64;                  // points per staged chunk
-constexpr int MSTAGES = 3;              // chunks in the ring
-constexpr int MLD = MT + 8;             // padded row of a staged chunk
-constexpr int TILE_ELEMS = MR * MLD;    // one operand's staged chunk (bf16)
-constexpr int RAW_BYTES = 32768;        // a stage's copy area (see below)
-constexpr int STAGE_BYTES = 2 * TILE_ELEMS * 2 + RAW_BYTES;
-constexpr size_t MSMEM = (size_t)MSTAGES * STAGE_BYTES;
+constexpr int MR = 64;                  // points per chunk
+constexpr int WATOM = 64;               // columns of a swizzle atom (128 B)
+constexpr int ATOM_BYTES = MR * WATOM * 2;          // one atom of a chunk
+constexpr int SLOT_BYTES = 4 * ATOM_BYTES;          // A's and delta's chunks
+constexpr int WSTAGES = 3;              // slots in the ring
+constexpr int PT = 128;                 // threads of a warpgroup
+constexpr int WTHREADS = 3 * PT;        // the producer and two consumers
+// a copy area: a chunk's span (MR - 1 rows of up to SPAN_LD bf16 or
+// SPAN_LD / 2 f32 and a row's MT values, from its first 16-byte word), its
+// MR x MT f32 values, or the 16-byte words of each of its MR rows of MT f32
+// values, RAW_ROW bytes apart
+constexpr int SPAN_LD = 256;
+constexpr int RAW_ROW = MT * 4 + 32;
+constexpr int RAW_BYTES = MR * RAW_ROW;
+constexpr int RSLOTS = 3;               // copy areas
+constexpr int RAW_AT = WSTAGES * SLOT_BYTES;
+constexpr int BARS_AT = RAW_AT + RSLOTS * RAW_BYTES;
+// and 1024 bytes to align the ring to the swizzle's period
+constexpr size_t WSMEM = 1024 + BARS_AT + (2 * WSTAGES + RSLOTS) * 8;
 
 typedef __nv_bfloat16 bf16;
 
 // How an operand is staged (WGradJob::a_mode, d_mode; stage_mode picks it).
-// The chunk is rows [row0, row0 + MR) of columns [c0, c0 + w) of an (n, ld)
-// array, rows at or past the split's end hi as zeros, in a tile of MR x MLD
-// bf16.
-//   STAGE_VEC   bf16 whose rows are 16-byte aligned and w a multiple of 8
-//               (every 256- and 128-wide operand of the backwards): 16-byte
-//               cp.async copies straight into the tile.
-//   STAGE_SPAN  other bf16 with ld <= SPAN_LD (the 63-, 27- and 167-wide
-//               trunk inputs, the 1- to 9-wide heads): the chunk's rows lie
-//               in one span of memory, copied by 16-byte cp.async of its
-//               aligned words into the stage's copy area (the words at the
-//               span's ends read whole: an aligned 16-byte word never
-//               crosses a page), then scattered into the tile.
-//   STAGE_F32   an f32 delta (dbvec, the logits' delta, the strided head
-//               cotangents at an offset): copied by cp.async into the copy
-//               area as MR x MT f32 (16 bytes at a time where the rows are
-//               aligned, else 4), then rounded into the tile; the unrounded
-//               values feed the bias.
-//   STAGE_ELEM  anything else, and A where delta takes the copy area: loaded
-//               element by element into the tile as the chunk is issued.
-// The copies of chunk j are issued MSTAGES - 1 chunks ahead; the scatter or
-// rounding from the copy area (finish_chunk) runs when chunk j is due,
-// before its products.
-constexpr int STAGE_VEC = 0, STAGE_SPAN = 1, STAGE_F32 = 2, STAGE_ELEM = 3;
-constexpr int SPAN_LD = 256;            // (MR - 1) SPAN_LD + MT bf16 fit
+// A chunk is rows [row0, row0 + MR) of columns [c0, c0 + w) of an (n, ld)
+// array, rows at or past the split's end as zeros, in a slot's operand of
+// two 64-column atoms in the 128-byte swizzle (sw).
+//   STAGE_TMA   bf16 whose rows are 16-byte aligned (every 256- and
+//               128-wide operand of the backwards): TMA boxes of 64 columns
+//               by MR points, straight into the slot.
+//   STAGE_F32   an f32 delta whose rows are 16-byte aligned (dbvec): a TMA
+//               box of MT columns by MR points into a copy area.
+//   STAGE_SPAN  any other operand whose chunk lies in one span of memory
+//               that a copy area holds (the 63-, 27- and 167-wide inputs,
+//               the 1- to 9-wide heads): one bulk copy of the span's
+//               16-byte words (an aligned word never crosses a page, so
+//               the words at its ends read whole).
+//   STAGE_ROWS  an f32 delta of longer rows (the heads' strided cotangents
+//               at an offset): 16-byte cp.async copies of the words of each
+//               row.
+//   STAGE_ELEM  bf16 of longer unaligned rows, and A where delta takes the
+//               copy areas: loaded by the producer threads as it is staged.
+// The producer warpgroup rounds and scatters a copy area into the slot.
+constexpr int STAGE_TMA = 0, STAGE_F32 = 1, STAGE_SPAN = 2, STAGE_ROWS = 3,
+              STAGE_ELEM = 4;
 
-struct Span {
-  const uint4* first;                   // the first aligned word
-  int words, rows;
+// The element offset of (row r, column c) of a chunk's operand: atom c / 64,
+// the 16-byte piece u of row r at piece u ^ (r % 8) (the 128-byte swizzle,
+// which TMA writes and wgmma_desc_sw128 reads).
+__device__ __forceinline__ int sw(int r, int c) {
+  return (c >> 6) * (MR * WATOM) + r * WATOM + ((((c >> 3) & 7) ^ (r & 7)) << 3)
+      + (c & 7);
+}
+
+// The block's shared memory, from the first 1024-byte boundary of its
+// dynamic shared memory: the ring's slots (A's chunk, then delta's), the
+// copy areas, the barriers (full[WSTAGES], empty[WSTAGES], the copy areas'
+// rfull[RSLOTS]).
+struct WRingMem {
+  unsigned char* base;
+
+  __device__ bf16* a_slot(int c) const {
+    return reinterpret_cast<bf16*>(base + (c % WSTAGES) * SLOT_BYTES);
+  }
+  __device__ bf16* d_slot(int c) const {
+    return a_slot(c) + 2 * MR * WATOM;
+  }
+  __device__ unsigned char* raw(int c) const {
+    return base + RAW_AT + (c % RSLOTS) * RAW_BYTES;
+  }
+  __device__ uint32_t full(int c) const {
+    return smem_addr(base + BARS_AT) + (c % WSTAGES) * 8;
+  }
+  __device__ uint32_t empty(int c) const {
+    return full(c) + WSTAGES * 8;
+  }
+  __device__ uint32_t rfull(int c) const {
+    return smem_addr(base + BARS_AT) + (2 * WSTAGES + c % RSLOTS) * 8;
+  }
 };
 
-__device__ __forceinline__ Span span_of(const bf16* src, int64_t ld,
-                                        int64_t row0, int64_t hi, int c0,
-                                        int w) {
-  Span s;
-  s.rows = (int)(hi - row0 < MR ? hi - row0 : MR);
-  const bf16* base = src + row0 * ld;
-  const uintptr_t first = (uintptr_t)(base + c0) & ~(uintptr_t)15;
-  const uintptr_t last = (uintptr_t)(base + (s.rows - 1) * ld + c0 + w);
-  s.first = reinterpret_cast<const uint4*>(first);
-  s.words = (int)((last - first + 15) >> 4);
-  return s;
+// An operand of a chunk: element (row0, c0), its row stride and value size
+// in bytes, its columns w and the chunk's rows in the split.
+struct Operand {
+  const unsigned char* p;
+  int64_t ld;
+  int w, es, rows;
+};
+
+// The TMA maps of the jobs' operands: map 3 j of job j's A (the (m, n)
+// array, boxes of 64 columns by MR points), 3 j + 1 of its delta as (k,
+// rows_per_split, whole splits) and 3 j + 2 as (k, n), both in boxes of 64
+// columns by MR points (bf16, 128-byte swizzle) or MT columns by MR points
+// (STAGE_F32), so that a chunk that reaches past a whole split's end reads
+// zeros there (the last split, which may be short, reads through the 2-d
+// map to the array's end).  Entries of operands that TMA does not read are
+// unset.  One kernel parameter (__grid_constant__), encoded at every launch
+// as the layer tile's maps are (mlp_tile.cuh's weight_map).
+struct WGradMaps {
+  CUtensorMap map[3 * MAX_JOBS];
+};
+
+// Thread 0: the TMA boxes of a delta's chunk ``c`` (split ``split``;
+// ``whole`` splits of rows_per_split points; ``row`` its first point) at
+// ``dst``, reported to ``bar``.
+__device__ __forceinline__ void tma_delta(uint32_t dst, const CUtensorMap* maps,
+                                          uint32_t bar, int col, int c,
+                                          int row, int split, int whole) {
+  if (split < whole)
+    tma_load_3d(dst, &maps[1], bar, col, c * MR, split);
+  else
+    tma_load_2d(dst, &maps[2], bar, col, row);
 }
 
-__device__ __forceinline__ void issue_vec(bf16* dst, const bf16* src,
-                                          int64_t ld, int64_t row0,
-                                          int64_t hi, int c0, int w) {
-#pragma unroll
-  for (int i = 0; i < MR * (MT / 8) / THREADS; ++i) {
-    const int q = threadIdx.x + i * THREADS;
-    const int r = q / (MT / 8), c = (q % (MT / 8)) * 8;
-    if (c >= w) continue;
-    bf16* d = dst + r * MLD + c;
-    const int64_t row = row0 + r;
-    if (row < hi)
-      cp_async16(d, src + row * ld + c0 + c);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+// Thread 0: chunk ``c``'s copy into copy area c of its staged operand
+// ``op``, reported to rfull(c): one TMA box (STAGE_F32) or one bulk copy of
+// the span's 16-byte words (STAGE_SPAN).
+__device__ __forceinline__ void issue_raw(const WRingMem& M, int c, int mode,
+                                          Operand op,
+                                          const CUtensorMap* maps, int k0,
+                                          int row, int split, int whole) {
+  unsigned char* raw = M.raw(c);
+  if (mode == STAGE_F32) {
+    mbar_expect_tx(M.rfull(c), MR * MT * 4);
+    tma_delta(smem_addr(raw), maps, M.rfull(c), k0, c, row, split, whole);
+  } else {
+    const uintptr_t first = (uintptr_t)op.p & ~(uintptr_t)15;
+    const uintptr_t last = (uintptr_t)(op.p + (op.rows - 1) * op.ld
+                                       + op.w * op.es);
+    const uint32_t bytes = (uint32_t)((last - first + 15) & ~(uintptr_t)15);
+    mbar_expect_tx(M.rfull(c), bytes);
+    bulk_load(smem_addr(raw), (const void*)first, bytes, M.rfull(c));
   }
 }
 
-__device__ __forceinline__ void issue_span(unsigned char* raw,
-                                           const bf16* src, int64_t ld,
-                                           int64_t row0, int64_t hi, int c0,
-                                           int w) {
-  const Span s = span_of(src, ld, row0, hi, c0, w);
-  for (int j = threadIdx.x; j < s.words; j += THREADS)
-    cp_async16(raw + 16 * j, s.first + j);
+// The producer threads (STAGE_ROWS): their 16-byte cp.async copies of the
+// words that hold each row of chunk ``c``'s f32 values, row r at RAW_ROW
+// r of copy area c, in one cp.async group (an empty one past the split's
+// chunks).
+__device__ __forceinline__ void copy_rows(const WRingMem& M, int c,
+                                          Operand op, bool go) {
+  if (go) {
+    constexpr int WORDS = RAW_ROW / 16;
+    for (int q = threadIdx.x; q < op.rows * WORDS; q += PT) {
+      const int r = q / WORDS, j = q % WORDS;
+      const uintptr_t at = (uintptr_t)(op.p + r * op.ld);
+      const uintptr_t first = at & ~(uintptr_t)15;
+      if (first + 16 * j < at + op.w * 4)
+        cp_async16(M.raw(c) + r * RAW_ROW + 16 * j,
+                   reinterpret_cast<const void*>(first + 16 * j));
+    }
+  }
+  cp_async_commit();
 }
 
-// the span's elements of columns [c0, c0 + w) from the copy area into the
-// tile; rows past the span's as zeros
-__device__ __forceinline__ void finish_span(bf16* dst,
-                                            const unsigned char* raw,
-                                            const bf16* src, int64_t ld,
-                                            int64_t row0, int64_t hi, int c0,
-                                            int w) {
-  const Span s = span_of(src, ld, row0, hi, c0, w);
-  const bf16* base = src + row0 * ld;
-  const int ldi = (int)ld;
-  for (int j = threadIdx.x; j < s.words; j += THREADS) {
-    // the word's first element, counted from element (row0, 0)
-    const int p = (int)(reinterpret_cast<const bf16*>(s.first + j) - base);
-    int r = p >= 0 ? p / ldi : -((ldi - 1 - p) / ldi);
-    int col = p - r * ldi;
-    const uint4 v = *reinterpret_cast<const uint4*>(raw + 16 * j);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
+// Two f32 values rounded to bf16 (to nearest even), packed low first.
+__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
+  return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+}
+
+// The column groups of 8 that a staged operand of width w takes, rounded up
+// to a power of two: thread t stages group t % groups(w) of rows
+// t / groups(w) + (PT / groups(w)) i, so that a narrow operand spreads its
+// rows over all the producer threads.
+__host__ __device__ constexpr int col_groups(int w) {
+  return w > 64 ? 16 : w > 32 ? 8 : w > 16 ? 4 : w > 8 ? 2 : 1;
+}
+
+// The producer warpgroup: a staged operand's chunk into the slot ``dst``, 8
+// columns (16 bytes) a store (col_groups), rows past the split's end as
+// zeros: from its copy area ``raw`` (STAGE_F32: MR x MT f32; STAGE_ROWS:
+// each row's words; STAGE_SPAN: the span from the first word of element
+// (row0, c0)) or, STAGE_ELEM, from device memory.  With BIAS it adds the unrounded values
+// to bsum[0..7] (a delta's bias).
+template <bool BIAS>
+__device__ __forceinline__ void stage_rows(bf16* dst, const unsigned char* raw,
+                                           int mode, Operand op,
+                                           float (&bsum)[8]) {
+  const int g = col_groups(op.w);
+  const int c = 8 * (threadIdx.x % g);
+  if (c >= op.w) return;
+  const bool grid = mode == STAGE_F32;
+  const bool rows = mode == STAGE_ROWS;
+  const unsigned char* src = mode == STAGE_ELEM ? op.p
+      : grid || rows ? raw : raw + ((uintptr_t)op.p & 15);
+  const int64_t ld = grid ? MT * 4 : rows ? RAW_ROW : op.ld;
+#pragma unroll 2
+  for (int r = threadIdx.x / g; r < MR; r += PT / g) {
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (r < op.rows) {
+      const unsigned char* s = src + r * ld + c * op.es
+          + (rows ? (uintptr_t)(op.p + r * op.ld) & 15 : 0);
+      if (grid) {
+        const float4 x = reinterpret_cast<const float4*>(s)[0];
+        const float4 y = reinterpret_cast<const float4*>(s)[1];
+        v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+        v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
+      } else if (op.es == 4) {
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      if (r >= 0 && r < s.rows && col >= c0 && col < c0 + w)
-        dst[r * MLD + col - c0] = e[q];
-      if (++col == ldi) {
-        col = 0;
-        ++r;
+        for (int j = 0; j < 8; ++j)
+          if (c + j < op.w) v[j] = reinterpret_cast<const float*>(s)[j];
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (c + j < op.w)
+            v[j] = __uint_as_float(
+                (uint32_t)reinterpret_cast<const unsigned short*>(s)[j] << 16);
       }
     }
-  }
-  for (int q = s.rows * MT + threadIdx.x; q < MR * MT; q += THREADS)
-    dst[(q / MT) * MLD + q % MT] = __float2bfloat16_rn(0.f);
-}
-
-__device__ __forceinline__ void issue_f32(unsigned char* raw,
-                                          const float* src, int64_t ld,
-                                          int64_t row0, int64_t hi, int c0,
-                                          int w) {
-  float* d = reinterpret_cast<float*>(raw);       // [MR][MT]
-  const int rows = (int)(hi - row0 < MR ? hi - row0 : MR);
-  const float* s = src + row0 * ld + c0;
-  if ((uintptr_t)s % 16 == 0 && ld % 4 == 0 && w % 4 == 0) {
-    for (int q = threadIdx.x; q < rows * (MT / 4); q += THREADS) {
-      const int r = q / (MT / 4), c = (q % (MT / 4)) * 4;
-      if (c < w) cp_async16(d + r * MT + c, s + r * ld + c);
-    }
-  } else {
-    for (int q = threadIdx.x; q < rows * MT; q += THREADS) {
-      const int r = q / MT, c = q % MT;
-      if (c < w) cp_async4(d + r * MT + c, s + r * ld + c);
+    // no local's address is taken: a local array would go to the stack
+    *reinterpret_cast<uint4*>(dst + sw(r, c)) =
+        make_uint4(pack_rn(v[0], v[1]), pack_rn(v[2], v[3]),
+                   pack_rn(v[4], v[5]), pack_rn(v[6], v[7]));
+    if (BIAS) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bsum[j] += v[j];
     }
   }
 }
 
-// the copy area's f32 values rounded into the tile: thread t takes columns
-// 4 (t % 32) .. +3 of rows t / 32 + 8 i and adds the unrounded values to
-// bsum[0..3]; rows past the chunk's as zeros
-__device__ __forceinline__ void finish_f32(bf16* dst,
-                                           const unsigned char* raw,
-                                           int64_t row0, int64_t hi, int w,
+// The producer warpgroup's bias part of a TMA-read delta's chunk ``c`` once
+// its slot is full: thread t adds columns 8 (t % 16) .. +7 of rows t / 16 +
+// 8 i to bsum, then each warp releases the slot.
+__device__ __forceinline__ void bias_chunk(const WRingMem& M, int c,
                                            float (&bsum)[8]) {
-  const float* s = reinterpret_cast<const float*>(raw);
-  const int rows = (int)(hi - row0 < MR ? hi - row0 : MR);
-  const int c = (threadIdx.x % 32) * 4;
-  if (c >= w) return;
+  mbar_wait(M.full(c), (c / WSTAGES) & 1);
+  const int u = threadIdx.x % 16, r0 = threadIdx.x / 16;   // r0 = row % 8
+  const bf16* p = M.d_slot(c) + (u >> 3) * (MR * WATOM) + r0 * WATOM
+      + (((u & 7) ^ r0) << 3);
 #pragma unroll
   for (int i = 0; i < MR / 8; ++i) {
-    const int r = threadIdx.x / 32 + 8 * i;
-    const float4 v = r < rows
-        ? *reinterpret_cast<const float4*>(s + r * MT + c)
-        : make_float4(0.f, 0.f, 0.f, 0.f);
-    __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst + r * MLD + c);
-    d[0] = __floats2bfloat162_rn(v.x, v.y);
-    d[1] = __floats2bfloat162_rn(v.z, v.w);
-    bsum[0] += v.x;
-    bsum[1] += v.y;
-    bsum[2] += v.z;
-    bsum[3] += v.w;
+    const uint4 v = *reinterpret_cast<const uint4*>(p + i * 8 * WATOM);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bsum[2 * j] += __uint_as_float(w[j] << 16);
+      bsum[2 * j + 1] += __uint_as_float(w[j] & 0xffff0000u);
+    }
+  }
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(M.empty(c));
+}
+
+// Chunk c's operands (a, d): element (row0, c0) of A and delta, their row
+// strides and value sizes, the widths of the tile and the chunk's rows.
+// Held and returned by value, so that they stay in registers.
+struct ChunkOps {
+  const unsigned char *pa, *pd;
+  int64_t lda, ldd;                     // bytes
+  int64_t lo, hi;
+  int wa, wd, des, m0, k0;
+
+  __device__ int rows(int c) const {
+    const int64_t row0 = lo + (int64_t)c * MR;
+    return (int)(hi - row0 < MR ? hi - row0 : MR);
+  }
+  __device__ Operand a(int c) const {
+    return Operand{pa + (lo + (int64_t)c * MR) * lda, lda, wa, 2, rows(c)};
+  }
+  __device__ Operand d(int c) const {
+    return Operand{pd + (lo + (int64_t)c * MR) * ldd, ldd, wd, des, rows(c)};
+  }
+};
+
+__device__ __forceinline__ ChunkOps chunk_ops(const WGradJob& jb, int64_t lo,
+                                              int64_t hi, int m0, int k0) {
+  const int des = jb.delta_f32 ? 4 : 2;
+  return ChunkOps{static_cast<const unsigned char*>(jb.a) + m0 * 2,
+                  static_cast<const unsigned char*>(jb.delta) + k0 * des,
+                  (int64_t)jb.m * 2, jb.ld * des, lo, hi,
+                  min(MT, jb.m - m0), min(MT, jb.k - k0), des, m0, k0};
+}
+
+// The producer warpgroup's loop over the split's chunks.  Thread 0 refills
+// each slot's TMA-read operands once the consumers (and the bias sums) have
+// released it.  With staged operands, once a chunk's copies have landed and
+// its slot is free, every producer thread stages them into it and fences,
+// and each warp arrives on the slot's full barrier; then, once everyone has
+// read the copy area (named barrier 1), the copies of the chunk RSLOTS on
+// go into it: thread 0's TMA box or bulk copy, or every thread's cp.async
+// copies (STAGE_ROWS).  With a TMA-read delta and a bias, every producer
+// thread sums each chunk's delta WSTAGES - 1 chunks behind the refills.
+__device__ __forceinline__ void wgrad_produce(const WRingMem& M,
+                                              const WGradJob& jb,
+                                              const CUtensorMap* maps,
+                                              const ChunkOps& ops, int chunks,
+                                              int split, int whole, bool bias,
+                                              float (&bsum)[8]) {
+  const bool tma_a = jb.a_mode == STAGE_TMA, tma_d = jb.d_mode == STAGE_TMA;
+  const bool staged = !tma_a || !tma_d;
+  const bool slot_bias = bias && tma_d;
+  const int na = tma_a ? (ops.wa + WATOM - 1) / WATOM : 0;
+  const int nd = tma_d ? (ops.wd + WATOM - 1) / WATOM : 0;
+  // the operand that the copy areas take, if one does: A's span, or delta
+  const bool raw_a = jb.a_mode == STAGE_SPAN;
+  const int rmode = raw_a ? jb.a_mode : jb.d_mode;
+  const bool raw = raw_a || (jb.d_mode != STAGE_TMA && jb.d_mode != STAGE_ELEM);
+  const bool rows = rmode == STAGE_ROWS;
+  const bool fills = staged || threadIdx.x == 0;
+  if (!fills && !slot_bias) return;
+  // chunk c's copies (STAGE_ROWS: one cp.async group a chunk, empty past
+  // the split's chunks)
+  auto issue = [&](int c) {
+    if (rows)
+      copy_rows(M, c, ops.d(c), c < chunks);
+    else if (threadIdx.x == 0 && c < chunks)
+      issue_raw(M, c, rmode, raw_a ? ops.a(c) : ops.d(c), maps, ops.k0,
+                (int)(ops.lo + (int64_t)c * MR), split, whole);
+  };
+  if (threadIdx.x == 0 && chunks > 0) {     // no maps without points
+    if (tma_a) prefetch_tensormap(&maps[0]);
+    if (tma_d || jb.d_mode == STAGE_F32) {
+      prefetch_tensormap(&maps[2]);
+      if (whole > 0) prefetch_tensormap(&maps[1]);
+    }
+  }
+  if (raw)
+    for (int c = 0; c < RSLOTS; ++c) issue(c);
+  for (int c = 0; c < chunks + WSTAGES - 1; ++c) {
+    if (c < chunks && fills) {
+      if (rows) {
+        cp_async_wait<RSLOTS - 1>();    // this thread's copies of chunk c
+        bar_sync(1, PT);                // everyone's
+      } else if (raw) {
+        mbar_wait(M.rfull(c), (c / RSLOTS) & 1);
+      }
+      if (c >= WSTAGES) mbar_wait(M.empty(c), (c / WSTAGES - 1) & 1);
+      if (threadIdx.x == 0 && na + nd > 0) {
+        const int row = (int)(ops.lo + (int64_t)c * MR);
+        mbar_expect_tx(M.full(c), (na + nd) * ATOM_BYTES);
+        const uint32_t as = smem_addr(M.a_slot(c)), ds = smem_addr(M.d_slot(c));
+        for (int b = 0; b < na; ++b)
+          tma_load_2d(as + b * ATOM_BYTES, &maps[0], M.full(c),
+                      ops.m0 + b * WATOM, row);
+        for (int b = 0; b < nd; ++b)
+          tma_delta(ds + b * ATOM_BYTES, maps, M.full(c), ops.k0 + b * WATOM,
+                    c, row, split, whole);
+      }
+      if (staged) {
+        if (!tma_a)
+          stage_rows<false>(M.a_slot(c), M.raw(c), jb.a_mode, ops.a(c), bsum);
+        if (!tma_d) {
+          if (bias)
+            stage_rows<true>(M.d_slot(c), M.raw(c), jb.d_mode, ops.d(c),
+                             bsum);
+          else
+            stage_rows<false>(M.d_slot(c), M.raw(c), jb.d_mode, ops.d(c),
+                              bsum);
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if ((threadIdx.x & 31) == 0) mbar_arrive(M.full(c));
+        if (raw) {
+          bar_sync(1, PT);              // copy area c is read
+          issue(c + RSLOTS);
+        }
+      }
+    }
+    if (slot_bias && c >= WSTAGES - 1) bias_chunk(M, c - (WSTAGES - 1), bsum);
   }
 }
 
-// STAGE_ELEM: thread t keeps column t % MT of rows t / MT + 2 i, its loads
-// all in flight at once
-__device__ __forceinline__ void stage_elem(bf16* dst, const bf16* src,
-                                           int64_t ld, int64_t row0,
-                                           int64_t hi, int c0, int w) {
-  const int c = threadIdx.x % MT;
-  if (c >= w) return;
-  bf16 v[MR * MT / THREADS];
+// A consumer warpgroup's part: the products of every chunk's k-steps, in
+// order, into its 64 rows (consumer wg: rows m0 + 64 wg ..) of the tile's
+// two halves of 64 columns, each warp releasing a slot once its products
+// are done; then the split's sums to the partial.  A k-step's product of
+// each half is summed from zero (scale-d 0) into ``part`` and added to acc
+// once it is done.
+__device__ __forceinline__ void wgrad_consume(const WRingMem& M,
+                                              const WGradJob& jb, int chunks,
+                                              int wg, int m0, int k0,
+                                              int split, bool round_partial) {
+  const bool on = jb.m - m0 > WATOM * wg;
+  const int halves = jb.k - k0 > WATOM ? 2 : 1;
+  float acc[2][32] = {};
+  float part[32];
+  for (int c = 0; c < chunks; ++c) {
+    mbar_wait(M.full(c), (c / WSTAGES) & 1);
+    if (on) {
+      const uint32_t a = smem_addr(M.a_slot(c)) + wg * ATOM_BYTES;
+      const uint32_t d = smem_addr(M.d_slot(c));
 #pragma unroll
-  for (int i = 0; i < MR * MT / THREADS; ++i) {
-    const int64_t row = row0 + threadIdx.x / MT + (THREADS / MT) * i;
-    v[i] = row < hi ? src[row * ld + c0 + c] : __float2bfloat16_rn(0.f);
+      for (int s = 0; s < MR / 16; ++s) {
+        const uint32_t ks = s * 16 * WATOM * 2;   // the k-step's 16 rows
+        const uint64_t da = wgmma_desc_sw128(a + ks, ATOM_BYTES,
+                                             8 * WATOM * 2);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h < halves) {
+            wgmma_fence();
+            wgmma_ss<1, 1>(part, da,
+                           wgmma_desc_sw128(d + ks + h * ATOM_BYTES,
+                                            ATOM_BYTES, 8 * WATOM * 2), 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            wgmma_hold(part);
+#pragma unroll
+            for (int e = 0; e < 32; ++e) acc[h][e] += part[e];
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(M.empty(c));
   }
+  if (!on) return;
+  // acc[h][4 t + e]: row g (e < 2) or g + 8 of the warp's 16, column
+  // 8 t + 2 q + (e & 1) of half h
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-  for (int i = 0; i < MR * MT / THREADS; ++i)
-    dst[(threadIdx.x / MT + (THREADS / MT) * i) * MLD + c] = v[i];
-}
-
-// The stages: A's tile, delta's tile, the copy area.
-__device__ __forceinline__ bf16* a_tile(unsigned char* smem, int slot) {
-  return reinterpret_cast<bf16*>(smem + (size_t)slot * STAGE_BYTES);
-}
-__device__ __forceinline__ bf16* d_tile(unsigned char* smem, int slot) {
-  return a_tile(smem, slot) + TILE_ELEMS;
-}
-__device__ __forceinline__ unsigned char* raw_area(unsigned char* smem,
-                                                   int slot) {
-  return smem + (size_t)slot * STAGE_BYTES + 2 * TILE_ELEMS * 2;
-}
-
-// Issue the copies of chunk rows [row0, row0 + MR) into stage ``slot``
-// (STAGE_ELEM loads at once).
-__device__ __forceinline__ void issue_chunk(unsigned char* smem, int slot,
-                                            const WGradJob& jb, int64_t row0,
-                                            int64_t hi, int m0, int k0) {
-  const int wa = min(MT, jb.m - m0), wd = min(MT, jb.k - k0);
-  const bf16* a = (const bf16*)jb.a;
-  if (jb.a_mode == STAGE_VEC)
-    issue_vec(a_tile(smem, slot), a, jb.m, row0, hi, m0, wa);
-  else if (jb.a_mode == STAGE_SPAN)
-    issue_span(raw_area(smem, slot), a, jb.m, row0, hi, m0, wa);
-  else
-    stage_elem(a_tile(smem, slot), a, jb.m, row0, hi, m0, wa);
-  if (jb.d_mode == STAGE_VEC)
-    issue_vec(d_tile(smem, slot), (const bf16*)jb.delta, jb.ld, row0, hi, k0,
-              wd);
-  else if (jb.d_mode == STAGE_SPAN)
-    issue_span(raw_area(smem, slot), (const bf16*)jb.delta, jb.ld, row0, hi,
-               k0, wd);
-  else if (jb.d_mode == STAGE_F32)
-    issue_f32(raw_area(smem, slot), (const float*)jb.delta, jb.ld, row0, hi,
-              k0, wd);
-  else
-    stage_elem(d_tile(smem, slot), (const bf16*)jb.delta, jb.ld, row0, hi,
-               k0, wd);
-}
-
-// Move the landed copy area of stage ``slot`` into its tile.
-__device__ __forceinline__ void finish_chunk(unsigned char* smem, int slot,
-                                             const WGradJob& jb, int64_t row0,
-                                             int64_t hi, int m0, int k0,
-                                             float (&bsum)[8]) {
-  const int wa = min(MT, jb.m - m0), wd = min(MT, jb.k - k0);
-  if (jb.a_mode == STAGE_SPAN)
-    finish_span(a_tile(smem, slot), raw_area(smem, slot), (const bf16*)jb.a,
-                jb.m, row0, hi, m0, wa);
-  if (jb.d_mode == STAGE_SPAN)
-    finish_span(d_tile(smem, slot), raw_area(smem, slot),
-                (const bf16*)jb.delta, jb.ld, row0, hi, k0, wd);
-  else if (jb.d_mode == STAGE_F32)
-    finish_f32(d_tile(smem, slot), raw_area(smem, slot), row0, hi, wd, bsum);
-}
-
-// The fragments of 16 points for the warp's 4 x 4 mma tiles: A's blocks
-// (columns +0 | +8) x (points +0..7 | +8..15) and delta's (points +0..7 |
-// +8..15) x (columns +0 | +8), from rows ``row`` of the staged chunk.
-__device__ __forceinline__ void load_frags(uint32_t (&a)[4][4],
-                                           uint32_t (&b)[4][2],
-                                           const bf16* pa, const bf16* pb,
-                                           int row) {
+  for (int h = 0; h < 2; ++h) {
+    if (h >= halves) continue;
 #pragma unroll
-  for (int np = 0; np < 2; ++np)
-    ldsm_x4_t(b[2 * np][0], b[2 * np][1], b[2 * np + 1][0], b[2 * np + 1][1],
-              pb + row * MLD + np * 16);
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-    ldsm_x4_t(a[mt][0], a[mt][1], a[mt][2], a[mt][3],
-              pa + row * MLD + mt * 16);
-}
-
-// One staged chunk's products into the warp's 4 x 4 mma tiles (rows wrow..,
-// columns wcol.. of the block's tile), 16 points a step; the next step's
-// fragments are read while the tensor cores work on this one's.  FULL:
-// every mma tile lies inside m x k, else only the first mt_n x nt_n count.
-template <bool FULL>
-__device__ __forceinline__ void mma_chunk(float (&acc)[4][4][4],
-                                          const bf16* as, const bf16* ds,
-                                          int wrow, int wcol, int mt_n,
-                                          int nt_n) {
-  const int lane = threadIdx.x & 31;
-  const bf16* pa = as + ((lane & 7) + ((lane >> 4) & 1) * 8) * MLD + wrow
-      + ((lane >> 3) & 1) * 8;
-  const bf16* pb = ds + ((lane & 7) + ((lane >> 3) & 1) * 8) * MLD + wcol
-      + ((lane >> 4) & 1) * 8;
-  uint32_t a[2][4][4], b[2][4][2];
-  load_frags(a[0], b[0], pa, pb, 0);
-#pragma unroll
-  for (int ks = 0; ks < MR / 16; ++ks) {
-    if (ks + 1 < MR / 16)
-      load_frags(a[(ks + 1) & 1], b[(ks + 1) & 1], pa, pb, (ks + 1) * 16);
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        if (FULL || (mt < mt_n && nt < nt_n))
-          mma_bf16(acc[mt][nt], a[ks & 1][mt], b[ks & 1][nt]);
+    for (int e = 0; e < 32; ++e) {
+      const int mm = m0 + WATOM * wg + 16 * w + g + ((e >> 1) & 1) * 8;
+      const int kk = k0 + WATOM * h + 8 * (e >> 2) + 2 * q + (e & 1);
+      if (mm < jb.m && kk < jb.k) {
+        const float v = acc[h][e];
+        jb.partial[((int64_t)split * jb.m + mm) * jb.k + kk] =
+            round_partial ? to_f(from_f<bf16>(v)) : v;
+      }
+    }
   }
 }
 
 // T is bf16: a template, so that only the libraries that launch it compile it
 template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
-wgrad_mma_kernel(WGradJobs jobs, int64_t n, int64_t rows_per_split,
-                 bool round_partial) {
+__global__ void __launch_bounds__(WTHREADS, 1)
+wgrad_mma_kernel(WGradJobs jobs, const __grid_constant__ WGradMaps maps,
+                 int64_t n, int64_t rows_per_split, bool round_partial) {
   static_assert(std::is_same<T, bf16>::value, "the tensor-core body is bf16");
-  extern __shared__ __align__(128) unsigned char wgrad_smem[];
+  extern __shared__ __align__(1024) unsigned char wgrad_smem[];
+  WRingMem M;
+  {
+    const uint32_t at = smem_addr(wgrad_smem);
+    M.base = wgrad_smem + (((at + 1023) & ~1023u) - at);
+  }
   int jx = 0;
   while (jx + 1 < jobs.n_jobs && (int)blockIdx.x >= jobs.job[jx + 1].tile_begin)
     ++jx;
-  const WGradJob& jb = jobs.job[jx];
+  const WGradJob jb = jobs.job[jx];      // in registers
   const int tile = blockIdx.x - jb.tile_begin;
   const int m0 = (tile / jb.tiles_k) * MT, k0 = (tile % jb.tiles_k) * MT;
   const int split = blockIdx.y;
   const int64_t lo = (int64_t)split * rows_per_split;
   const int64_t hi = lo + rows_per_split < n ? lo + rows_per_split : n;
   const int chunks = hi > lo ? (int)((hi - lo + MR - 1) / MR) : 0;
+  const int whole = (int)(n / rows_per_split);
   const bool bias = jb.bias_partial != nullptr && m0 == 0;
+  const bool tma = jb.a_mode == STAGE_TMA || jb.d_mode == STAGE_TMA;
+  const bool staged = jb.a_mode != STAGE_TMA || jb.d_mode != STAGE_TMA;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp & 1, wn = warp >> 1;        // 2 x 4 warps
-  const int wrow = wm * 64, wcol = wn * 32;       // the warp's 64 x 32 tile
-  // mma tiles of this warp that hold some row < m and column < k
-  const int mt_n = max(0, min(4, (jb.m - m0 - wrow + 15) / 16));
-  const int nt_n = max(0, min(4, (jb.k - k0 - wcol + 7) / 8));
-  const bool full = mt_n == 4 && nt_n == 4;
-  float acc[4][4][4] = {};
-  float bsum[8] = {};      // bias partials: 8 columns (bf16 delta) or 4 (f32)
-
-  const bool copied = jb.a_mode == STAGE_SPAN || jb.d_mode == STAGE_SPAN
-      || jb.d_mode == STAGE_F32;
-
-#pragma unroll
-  for (int s = 0; s < MSTAGES - 1; ++s) {
-    if (s < chunks)
-      issue_chunk(wgrad_smem, s, jb, lo + (int64_t)s * MR, hi, m0, k0);
-    cp_async_commit();
-  }
-  for (int c = 0; c < chunks; ++c) {
-    cp_async_wait<MSTAGES - 2>();   // this thread's copies of chunk c landed
-    __syncthreads();                // everyone's, and chunk c - 1 is done
-    const int next = c + MSTAGES - 1;
-    if (next < chunks)
-      issue_chunk(wgrad_smem, next % MSTAGES, jb, lo + (int64_t)next * MR, hi,
-                  m0, k0);
-    cp_async_commit();
-    if (copied) {
-      finish_chunk(wgrad_smem, c % MSTAGES, jb, lo + (int64_t)c * MR, hi, m0,
-                   k0, bsum);
-      __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WSTAGES; ++s) {
+      mbar_init(M.full(s), staged ? PT / 32 + (tma ? 1 : 0) : 1);
+      mbar_init(M.empty(s), 2 * PT / 32
+                + (bias && jb.d_mode == STAGE_TMA ? PT / 32 : 0));
     }
-    const bf16* as = a_tile(wgrad_smem, c % MSTAGES);
-    const bf16* ds = d_tile(wgrad_smem, c % MSTAGES);
-    if (full)
-      mma_chunk<true>(acc, as, ds, wrow, wcol, mt_n, nt_n);
-    else if (mt_n > 0 && nt_n > 0)
-      mma_chunk<false>(acc, as, ds, wrow, wcol, mt_n, nt_n);
-    if (bias && !jb.delta_f32) {
-      // thread t sums columns 8 (t % 16) .. +7 of its MR / 16 rows
-      constexpr int RPG = MR / (THREADS / (MT / 8));
-      const bf16* src = ds + (threadIdx.x / (MT / 8)) * RPG * MLD
-          + (threadIdx.x % (MT / 8)) * 8;
-#pragma unroll
-      for (int rr = 0; rr < RPG; ++rr) {
-        const uint4 v = *reinterpret_cast<const uint4*>(src + rr * MLD);
-        const __nv_bfloat162* h2 =
-            reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(h2[j]);
-          bsum[2 * j] += f.x;
-          bsum[2 * j + 1] += f.y;
-        }
-      }
-    }
+    for (int s = 0; s < RSLOTS; ++s) mbar_init(M.rfull(s), 1);
+    fence_mbar_init();
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  // c0 c1: row g, columns 2 q, 2 q + 1; c2 c3: row g + 8
-  const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      if (mt >= mt_n || nt >= nt_n) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int mm = m0 + wrow + mt * 16 + g + (e >> 1) * 8;
-        const int kk = k0 + wcol + nt * 8 + 2 * q + (e & 1);
-        if (mm < jb.m && kk < jb.k) {
-          const float v = acc[mt][nt][e];
-          jb.partial[((int64_t)split * jb.m + mm) * jb.k + kk] =
-              round_partial ? to_f(from_f<bf16>(v)) : v;
-        }
-      }
-    }
-  }
+  const ChunkOps ops = chunk_ops(jb, lo, hi, m0, k0);
+  float bsum[8] = {};      // the producer threads' bias partials
+  if (threadIdx.x < PT)
+    wgrad_produce(M, jb, &maps.map[3 * jx], ops, chunks, split, whole, bias,
+                  bsum);
+  else
+    wgrad_consume(M, jb, chunks, (int)(threadIdx.x / PT) - 1, m0, k0, split,
+                  round_partial);
   if (bias) {
-    // each thread's sums over its rows of the chunks: a bf16 delta's 8
-    // columns from the tiles (group t / 16), an f32 delta's 4 from
-    // finish_f32 (group t / 32); the groups added in a fixed order
+    // the producer threads' sums over their rows of the chunks (columns
+    // 8 (t % g) .. +7, group t / g: bias_chunk's 16 column groups, or the
+    // staged delta's col_groups), the groups added in a fixed order
     __syncthreads();                // the ring is free
-    float* red = reinterpret_cast<float*>(wgrad_smem);   // [groups][MT]
-    if (jb.delta_f32) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        red[(threadIdx.x / 32) * MT + (threadIdx.x % 32) * 4 + j] = bsum[j];
-    } else {
+    const int g = jb.d_mode == STAGE_TMA ? 16 : col_groups(ops.wd);
+    float* red = reinterpret_cast<float*>(M.base);   // [PT / g][MT]
+    if (threadIdx.x < PT && (int)(threadIdx.x % g) * 8 < MT) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        red[(threadIdx.x / 16) * MT + (threadIdx.x % 16) * 8 + j] = bsum[j];
+        red[(threadIdx.x / g) * MT + (threadIdx.x % g) * 8 + j] = bsum[j];
     }
     __syncthreads();
-    const int col = threadIdx.x, groups = jb.delta_f32 ? 8 : 16;
+    const int col = threadIdx.x;
     if (col < MT && k0 + col < jb.k) {
       float s = 0.f;
-      for (int i = 0; i < groups; ++i) s += red[i * MT + col];
+      for (int i = 0; i < PT / g; ++i) s += red[i * MT + col];
       jb.bias_partial[(int64_t)split * jb.k + k0 + col] = s;
     }
   }
@@ -623,20 +729,23 @@ inline GradPlan plan_grads(const int64_t* sizes, int n_grads, int splits) {
 }
 
 // How wgrad_mma_kernel stages an operand of width w whose rows are ld
-// elements apart (STAGE_*): bf16 by 16-byte copies where the rows are
-// 16-byte aligned and w is a multiple of 8, else as a span while ld <=
-// SPAN_LD, else element by element; f32 through the copy area.
-inline int stage_mode(const void* p, int w, int64_t ld, bool f32) {
-  if (f32) return STAGE_F32;
-  if ((uintptr_t)p % 16 == 0 && w % 8 == 0 && ld % 8 == 0) return STAGE_VEC;
-  return ld <= SPAN_LD ? STAGE_SPAN : STAGE_ELEM;
+// elements apart (STAGE_*), from its type, alignment and row stride; A
+// (``delta_mode``: delta's) is loaded as it is staged where delta takes the
+// copy areas.
+inline int stage_mode(const void* p, int64_t ld, bool f32,
+                      int delta_mode = STAGE_TMA) {
+  const bool rows16 = (uintptr_t)p % 16 == 0 && ld % (f32 ? 4 : 8) == 0;
+  if (rows16) return f32 ? STAGE_F32 : STAGE_TMA;
+  if (delta_mode != STAGE_TMA && delta_mode != STAGE_ELEM) return STAGE_ELEM;
+  if (ld <= (f32 ? SPAN_LD / 2 : SPAN_LD)) return STAGE_SPAN;
+  return f32 ? STAGE_ROWS : STAGE_ELEM;
 }
 
 // One weight-grad job: grad index wi = A^T delta (m x k), bias index bi
 // (-1: none); delta's rows are ld apart (0: k, a contiguous (n, k) array).
 // ``tiles`` counts the f32 body's WT x WT output tiles; the bf16 body plans
 // its own (plan_mma_tiles).  a_mode and d_mode: how the bf16 body stages
-// the operand, from its type, alignment, width and row stride.
+// the operand, from its type, alignment and row stride.
 inline void add_job(WGradJobs& jobs, int& tiles, const GradPlan& g,
                     float* partial,
              const void* a, int m, const void* delta, int k, bool delta_f32,
@@ -653,12 +762,8 @@ inline void add_job(WGradJobs& jobs, int& tiles, const GradPlan& g,
   j.tiles_k = (k + WT - 1) / WT;
   j.tile_begin = tiles;
   tiles += ((m + WT - 1) / WT) * j.tiles_k;
-  j.d_mode = stage_mode(delta, k, j.ld, delta_f32);
-  // one copy area a stage: delta's, if it takes it
-  j.a_mode = stage_mode(a, m, m, false);
-  if (j.a_mode == STAGE_SPAN
-      && (j.d_mode == STAGE_SPAN || j.d_mode == STAGE_F32))
-    j.a_mode = STAGE_ELEM;
+  j.d_mode = stage_mode(delta, j.ld, delta_f32);
+  j.a_mode = stage_mode(a, m, false, j.d_mode);
 }
 
 // The jobs with the bf16 body's MT x MT output tiles in place of the f32
@@ -672,6 +777,55 @@ inline int plan_mma_tiles(WGradJobs& jobs) {
     tiles += ((j.m + MT - 1) / MT) * j.tiles_k;
   }
   return tiles;
+}
+
+// An (cols, rows) array of row stride ld (elements) for TMA boxes of MR
+// rows: bf16 in boxes of 64 columns in the 128-byte swizzle, or f32 in
+// boxes of MT columns unswizzled; with ``splits`` > 0 the rows as
+// (rows_per_split, splits), ``rows`` = rows_per_split (the 3-d map).  Rows
+// and columns past the array read as zeros.  Returns 0 or a CUDA error
+// code.
+inline int chunk_map(CUtensorMap* out, const void* p, bool f32, int cols,
+                     int64_t rows, int64_t ld, int splits = 0) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const size_t es = f32 ? 4 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)splits};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * es,
+                                 (cuuint64_t)(ld * rows) * es};
+  const cuuint32_t box[3] = {f32 ? (cuuint32_t)MT : (cuuint32_t)WATOM, MR, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(out, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                splits > 0 ? 3 : 2, const_cast<void*>(p), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+      ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The maps of the jobs' TMA-read operands over n points (WGradMaps).
+inline int wgrad_maps(WGradMaps* maps, const WGradJobs& jobs, int64_t n,
+                      int64_t rows_per_split) {
+  if (n < 1) return 0;                  // no chunk reads them
+  const int64_t whole = n / rows_per_split;
+  for (int i = 0; i < jobs.n_jobs; ++i) {
+    const WGradJob& j = jobs.job[i];
+    CUtensorMap* m = &maps->map[3 * i];
+    int err = j.a_mode == STAGE_TMA
+        ? chunk_map(m, j.a, false, j.m, n, j.m) : 0;
+    if (err == 0 && (j.d_mode == STAGE_TMA || j.d_mode == STAGE_F32)) {
+      const bool f32 = j.d_mode == STAGE_F32;
+      err = chunk_map(m + 2, j.delta, f32, j.k, n, j.ld);
+      if (err == 0 && whole > 0)
+        err = chunk_map(m + 1, j.delta, f32, j.k, rows_per_split, j.ld,
+                        (int)whole);
+    }
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 // rows_per_split: the points of each K-split; round_partial: round each
@@ -689,10 +843,15 @@ int launch_wgrad_reduce(const WGradJobs& jobs, int tiles, const GradPlan& g,
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     WGradJobs mj = jobs;
     const int mtiles = plan_mma_tiles(mj);
-    err = set_smem(wgrad_mma_kernel<T>, MSMEM);
+    WGradMaps maps;
+    err = wgrad_maps(&maps, mj, n, rows_per_split);
     if (err != 0) return err;
-    wgrad_mma_kernel<T><<<dim3((unsigned)mtiles, (unsigned)splits), THREADS,
-                       MSMEM, stream>>>(mj, n, rows_per_split, round_partial);
+    err = set_smem(wgrad_mma_kernel<T>, WSMEM, "wgrad_mma_kernel", 1,
+                   WTHREADS);
+    if (err != 0) return err;
+    wgrad_mma_kernel<T><<<dim3((unsigned)mtiles, (unsigned)splits), WTHREADS,
+                          WSMEM, stream>>>(mj, maps, n, rows_per_split,
+                                           round_partial);
   } else {
     wgrad_kernel<T><<<dim3((unsigned)tiles, (unsigned)splits), THREADS, 0,
                       stream>>>(jobs, n, rows_per_split, round_partial);

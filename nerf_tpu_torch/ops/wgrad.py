@@ -15,7 +15,9 @@ nerf_tpu/ops/ref_fused.py:719, :794, :896.
 
 Numerics: A is in the compute dtype (f32 or bf16); delta in the compute
 dtype or in f32, then rounded to the compute dtype for the product and
-summed unrounded for the bias.  Products accumulate in f32, per split; with
+summed unrounded for the bias.  Products accumulate in f32, per split
+(``wgrad_reduce_f64`` and ``wgrad_reduce_in_order`` are the two sums that
+the bf16 kernel's summation is held between on the card); with
 ``round_partial`` each split's weight grad (not the bias) is rounded to the
 compute dtype first, as the TPU's per-tile ``.astype(cd)`` of the Ref-NeRF
 backwards; the splits are summed in order, onto ``grads`` when given (a
@@ -92,6 +94,87 @@ def wgrad_reduce_plain(jobs, rows_per_split: int, round_partial=False,
         if bias:
             out.append(b)
     return out
+
+
+def _by_split(jobs, rows_per_split, round_partial, grads, split_sums):
+    """The frame of the yardsticks below: ``split_sums(a, d, cd)`` gives
+    every split's f32 (dW, db) at once from A and delta cut into (splits,
+    rows, width) with the last split's missing rows as zeros; each dW is
+    rounded to A's dtype with ``round_partial`` and the splits are summed in
+    f32 in order from 0 or from ``grads``, as the plain version sums them."""
+    start = iter(grads if grads is not None else [
+        torch.zeros(s, dtype=F32, device=jobs[0][0].device)
+        for s in grad_shapes(jobs)])
+    out = []
+    for a, d, bias in jobs:
+        n = a.shape[0]
+        rows = min(rows_per_split, max(n, 1))
+        splits = _splits(n, rows_per_split)
+
+        def cut(t):
+            pad = t.new_zeros((splits * rows - n, t.shape[1]))
+            return torch.cat([t, pad]).reshape(splits, rows, t.shape[1])
+        pw, pb = split_sums(cut(a), cut(d), a.dtype)
+        w = next(start)
+        b = next(start) if bias else None
+        for s in range(splits):
+            w = w + (pw[s].to(a.dtype).to(F32) if round_partial else pw[s])
+            if bias:
+                b = b + pb[s]
+        out.append(w)
+        if bias:
+            out.append(b)
+    return out
+
+
+def _f64_sums(a, d, cd):
+    return (torch.bmm(a.double().transpose(1, 2), d.to(cd).double()).to(F32),
+            d.double().sum(1, keepdim=True).to(F32))
+
+
+def _in_order_sums(a, d, cd):
+    a32, d32, raw = a.to(F32), d.to(cd).to(F32), d.to(F32)
+    w = a32.new_zeros((a.shape[0], a.shape[2], d.shape[2]))
+    b = a32.new_zeros((a.shape[0], 1, d.shape[2]))
+    for r in range(a.shape[1]):
+        w = w + a32[:, r, :, None] * d32[:, r, None, :]
+        b = b + raw[:, r:r + 1]
+    return w, b
+
+
+def wgrad_reduce_f64(jobs, rows_per_split: int, round_partial=False,
+                     grads=None):
+    """The pass with each split's products (and bias sums) summed in f64
+    and rounded once to f32, then finished as the plain version: the
+    correctly rounded split that the kernel's summation is held against.
+    Same arguments and result as ``wgrad_reduce_plain``."""
+    return _by_split(jobs, rows_per_split, round_partial, grads, _f64_sums)
+
+
+def wgrad_reduce_in_order(jobs, rows_per_split: int, round_partial=False,
+                          grads=None):
+    """The pass with each point's product (exact in f32: two bf16 values)
+    added to an f32 sum in the order of the points within a split, one
+    rounding a point, then finished as the plain version: the plain sum
+    whose error the kernel's may not exceed.  Same arguments and result as
+    ``wgrad_reduce_plain``."""
+    return _by_split(jobs, rows_per_split, round_partial, grads,
+                     _in_order_sums)
+
+
+def summation_error(got, exact):
+    """How far an f32 grad ``got`` lies from ``exact`` (its
+    ``wgrad_reduce_f64`` value): the relative Frobenius error, which the
+    card's rounding gate reads, and the largest error in units in the last
+    place of the grad's largest value (an element's own ulp would read a
+    sum that cancels to near zero as millions of units)."""
+    diff = got.double() - exact.double()
+    top = exact.abs().max()
+    ulp = float(torch.nextafter(top, torch.full_like(top, math.inf)) - top)
+    return dict(rel=float(torch.linalg.vector_norm(diff)
+                          / torch.linalg.vector_norm(exact.double())
+                          .clamp_min(1e-300)),
+                ulps=float(diff.abs().max()) / max(ulp, 1e-45))
 
 
 def _check(jobs, rows_per_split, grads, dev):

@@ -39,9 +39,25 @@ zero by the tensor cores and added to an f32 sum in the order of k):
     dlate    the delta ring's slot refilled after the k-step's products
              (as the layer tile's mma_pass does) instead of before them
 
+The backwards' weight-grad pass (``ops/csrc/wgrad.cuh``'s
+wgrad_mma_kernel: wgmma with both operands from a TMA-fed ring, each
+k-step summed from zero by the tensor cores and added to an f32 sum):
+
+    wgrad    the pass as shipped, its readings alone
+    wchain   every k-step of a split summed through the tensor cores'
+             accumulator, with no f32 add: the fault that the wgrad
+             phase's rounding gate must catch (the mma.sync body that the
+             pass replaced did this)
+    wg2      groups of 2 k-steps chained in the tensor cores before each
+             f32 add
+    wn128    one wgmma of 128 columns a k-step in place of two of 64 (the
+             A operand read from shared memory once)
+    wring2   a ring of 2 slots instead of WSTAGES
+
 The copies build their libraries (``dense``, ``ref_fused`` for the
-variants that keep the fused kernels right, and for ``shipped`` and the
-delta variants every library but the dissection's) in parallel; then, one
+variants that keep the fused kernels right, ``wgrad`` alone for the
+weight-grad variants, and for ``shipped`` and the delta variants every
+library but the dissection's) in parallel; then, one
 variant at a time, a process run from the copy reports ptxas's registers
 and spills of the patched bf16 kernels, the tile alone's ms
 (``ops.dense_layer``, median of 20 CUDA-event timings) at four layer shapes
@@ -61,8 +77,14 @@ delta phase's rounding gate
 ratio held at 1.0) and every bf16 backward's distance from its plain
 chain with f64 delta sums over the plain f32 chain's
 (``chip_smoke.order_readings`` over ``ORDER_SEEDS``: the ratio that
-``BWD_ORDER_FACTOR`` holds at 1.25).  One JSON line per variant (a
-variant that fails or runs over MEASURE_TIMEOUT reads as its error).
+``BWD_ORDER_FACTOR`` holds at 1.25).  The weight-grad variants report
+instead ptxas's registers and spills of wgrad_mma_kernel, the wgrad
+phase's rounding gate (``chip_smoke.wgrad_gate_readings``: the 256 x 256
+and 63 x 256 jobs, the ratio held at 1.0) and the pass's ms
+(``chip_smoke.cuda_device_ms``) at each job list of
+``chip_smoke.wgrad_lists`` beside ``torch.mm``'s.  One JSON line per
+variant (a variant that fails or runs over MEASURE_TIMEOUT reads as its
+error).
 Card only: the variants are compiled by nvcc.
 """
 
@@ -82,6 +104,7 @@ PACKAGE = Path(__file__).resolve().parents[1]
 WORK = PACKAGE.parent / "build" / "tile_variants"
 ROOT = PACKAGE.parent
 TILE, ENTRY = "ops/csrc/mlp_tile.cuh", "ops/csrc/dense.cu"
+WGRAD = "ops/csrc/wgrad.cuh"
 
 # mma_pass's k-loop as shipped: one k-step a partial
 LOOP = """  for (int k = 0; k < R.per; ++k) {
@@ -286,6 +309,86 @@ VARIANTS["dlate"] = (True, [
     (TILE, "    if (lane == 0) mbar_arrive(R.empty_bar(g));\n  }\n}\n\n// The bf16 body of delta_tile",
      "    if (lane == 0) mbar_arrive(R.empty_bar(g));\n" + DREFILL
      + "  }\n}\n\n// The bf16 body of delta_tile")])
+# the weight-grad variants: the consumers' k-step as shipped (each half's
+# product summed from zero into ``part``, then added), chained (wchain),
+# grouped by two (wg2) or one wgmma of 128 columns (wn128)
+WPRODUCT = """            wgmma_fence();
+            wgmma_ss<1, 1>(part, da,
+                           wgmma_desc_sw128(d + ks + h * ATOM_BYTES,
+                                            ATOM_BYTES, 8 * WATOM * 2), 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            wgmma_hold(part);
+#pragma unroll
+            for (int e = 0; e < 32; ++e) acc[h][e] += part[e];
+"""
+WLOOP = """#pragma unroll
+      for (int s = 0; s < MR / 16; ++s) {
+        const uint32_t ks = s * 16 * WATOM * 2;   // the k-step's 16 rows
+        const uint64_t da = wgmma_desc_sw128(a + ks, ATOM_BYTES,
+                                             8 * WATOM * 2);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h < halves) {
+""" + WPRODUCT + """          }
+        }
+      }
+"""
+VARIANTS["wgrad"] = (True, [])
+VARIANTS["wchain"] = (True, [(WGRAD, WPRODUCT, """\
+            wgmma_fence();
+            wgmma_ss<1, 1>(acc[h], da,
+                           wgmma_desc_sw128(d + ks + h * ATOM_BYTES,
+                                            ATOM_BYTES, 8 * WATOM * 2), 1);
+            wgmma_commit();
+            wgmma_wait<0>();
+            wgmma_hold(acc[h]);
+            (void)part;
+""")])
+VARIANTS["wg2"] = (True, [(WGRAD, WLOOP, """#pragma unroll
+      for (int s = 0; s < MR / 16; s += 2) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h < halves) {
+            wgmma_fence();
+#pragma unroll
+            for (int t = 0; t < 2; ++t) {
+              const uint32_t ks = (s + t) * 16 * WATOM * 2;
+              wgmma_ss<1, 1>(part, wgmma_desc_sw128(a + ks, ATOM_BYTES,
+                                                    8 * WATOM * 2),
+                             wgmma_desc_sw128(d + ks + h * ATOM_BYTES,
+                                              ATOM_BYTES, 8 * WATOM * 2), t);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            wgmma_hold(part);
+#pragma unroll
+            for (int e = 0; e < 32; ++e) acc[h][e] += part[e];
+          }
+        }
+      }
+""")])
+VARIANTS["wn128"] = (True, [
+    (WGRAD, "  float part[32];\n  for (int c = 0; c < chunks; ++c) {",
+     "  float part[64];\n  for (int c = 0; c < chunks; ++c) {"),
+    (WGRAD, WLOOP, """#pragma unroll
+      for (int s = 0; s < MR / 16; ++s) {
+        const uint32_t ks = s * 16 * WATOM * 2;   // the k-step's 16 rows
+        wgmma_fence();
+        wgmma_ss<1, 1>(part, wgmma_desc_sw128(a + ks, ATOM_BYTES,
+                                              8 * WATOM * 2),
+                       wgmma_desc_sw128(d + ks, ATOM_BYTES, 8 * WATOM * 2),
+                       0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_hold(part);
+#pragma unroll
+        for (int e = 0; e < 64; ++e) acc[e / 32][e % 32] += part[e];
+      }
+""")])
+VARIANTS["wring2"] = (True, [(WGRAD, "constexpr int WSTAGES = 3;",
+                              "constexpr int WSTAGES = 2;")])
+WGRAD_VARIANTS = ("wgrad", "wchain", "wg2", "wn128", "wring2")
 # the variants that report the delta pass's readings, and build every
 # library of the backwards
 DELTA_VARIANTS = ("shipped", "dchain", "dring3", "dlate")
@@ -327,6 +430,8 @@ def patched_sources(name: str, root: Path) -> None:
 
 
 def libraries(name: str) -> tuple:
+    if name in WGRAD_VARIANTS:
+        return ("wgrad",)
     if name in DELTA_VARIANTS:
         return DELTA_LIBRARIES
     return ("dense", "ref_fused") if VARIANTS[name][0] else ("dense",)
@@ -390,6 +495,8 @@ def measure(name: str) -> dict:
     from nerf_tpu_torch.tools.bench_ref_kernels import make_case, time_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    if name in WGRAD_VARIANTS:
+        return wgrad_readings(name)
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -473,6 +580,32 @@ def delta_readings() -> dict:
                                ratios=[r["ratio"] for r in rs],
                                all_met=all(r["met"] for r in rs))
                     for name, rs in order.items()}
+    return out
+
+
+def wgrad_readings(name: str) -> dict:
+    """Run from the copy: the weight-grad variants' readings of the module
+    docstring, through the copy's chip_smoke.py."""
+    import torch
+
+    import chip_smoke as cs
+    from nerf_tpu_torch import ops
+
+    reports = json.loads(report_path(name).read_text())
+    out = {"variant": name, "device": torch.cuda.get_device_name(0),
+           "ptxas": cs.wgrad_build(reports, None),
+           "wgrad_gate": cs.wgrad_gate_readings(), "wgrad_ms": {}}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for lst, (jobs, rows, rnd, chunk) in cs.wgrad_lists(gen):
+        pieces = cs.wgrad_walk(jobs, chunk)
+        lib = [(a, d.to(torch.bfloat16)) for a, d, _ in jobs]
+        out["wgrad_ms"][lst] = dict(
+            ms=cs.cuda_device_ms(lambda: cs.wgrad_call(
+                pieces, rows, rnd, ops.wgrad_reduce), 20),
+            mm_ms=cs.cuda_device_ms(lambda: [torch.mm(a.T, d)
+                                             for a, d in lib], 20))
+        del jobs, pieces, lib
+        torch.cuda.empty_cache()
     return out
 
 

@@ -1086,6 +1086,81 @@ def test_wgrad_f32_body_matches_plain(cuda, m, k, layout):
     assert all(map(torch.equal, got, again))
 
 
+WGRAD_GATE_SHAPES = [(256, 256), (63, 256)]
+WGRAD_GATE_FACTOR = 1.0
+
+
+@pytest.mark.parametrize("m, k", WGRAD_GATE_SHAPES)
+def test_wgrad_rounding_gate(cuda, m, k):
+    """The bf16 pass adds each k-step's tensor-core sum of 16 points to an
+    f32 sum: its weight grad lies at most as far (relative Frobenius error)
+    from the splits summed in f64 (wgrad_reduce_f64) as the f32 sum taken
+    point by point in order (wgrad_reduce_in_order), at the trunk job (A
+    and delta read by TMA) and the 63-wide first-layer job (A staged by the
+    threads).  A pass that chains its k-steps through the tensor cores'
+    truncating accumulator reads above it (tools/tile_variants' wchain,
+    PERF.md)."""
+    from nerf_tpu_torch.ops import wgrad as wgrad_lib
+
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    a = torch.randn((131_072, m), generator=gen, device=cuda)
+    a = (a.relu() if m != 63 else torch.rand(
+        (131_072, m), generator=gen, device=cuda) * 2 - 1)
+    d = torch.rand((131_072, k), generator=gen, device=cuda) * 2 - 1
+    jobs = [(a.to(torch.bfloat16), d.to(torch.bfloat16), True)]
+    exact = wgrad_lib.wgrad_reduce_f64(jobs, 4096)[0]
+    got = wgrad_lib.summation_error(ops.wgrad_reduce(jobs, 4096)[0], exact)
+    in_order = wgrad_lib.summation_error(
+        wgrad_lib.wgrad_reduce_in_order(jobs, 4096)[0], exact)
+    assert 0 < in_order["rel"]
+    assert got["rel"] <= WGRAD_GATE_FACTOR * in_order["rel"], (got, in_order)
+
+
+@pytest.mark.parametrize("rows", [100, 4095, 1])
+def test_wgrad_ragged_splits_match_plain(cuda, rows):
+    """K-splits whose size is no multiple of the pass's 64-point chunks, so
+    that a chunk of the TMA-read operands reaches into the next split: the
+    rows past a split's end count as zeros.  The trunk job and a 63-wide
+    job, against wgrad_reduce_plain, two launches equal bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    n = 9_000 if rows > 1 else 70
+
+    def g(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    d = g(n, 256)
+    jobs = [(g(n, 256), d, True), (g(n, 63), d, False), (g(n, 128), g(n, 128),
+                                                        True)]
+    got = ops.wgrad_reduce(jobs, rows)
+    again = ops.wgrad_reduce(jobs, rows)
+    want = ops.wgrad_reduce_plain(jobs, rows)
+    torch.cuda.synchronize()
+    for i, (x, y) in enumerate(zip(got, want)):
+        assert _rel_err(x, y) < WGRAD_REL[False], (i, _rel_err(x, y))
+    assert all(map(torch.equal, got, again))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_wgrad_odd_stride_f32_delta_matches_plain(cuda, offset):
+    """An f32 delta read in place from a wider array of odd row stride (13
+    floats: no 16-byte rows) at an odd offset, as the heads' strided
+    cotangent is read, beside a bf16 delta of odd stride; the threads stage
+    both and round the f32 one.  Against wgrad_reduce_plain, the bias from
+    the unrounded values."""
+    gen = torch.Generator(device=cuda).manual_seed(offset)
+    n = 5_000
+    wide = torch.randn((n, 13), generator=gen, device=cuda)
+    wide16 = torch.randn((n, 13), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    a = torch.randn((n, 256), generator=gen, device=cuda).to(torch.bfloat16)
+    jobs = [(a, wide[:, offset:offset + 9], True),
+            (a, wide16[:, offset:offset + 3], True)]
+    got = ops.wgrad_reduce(jobs, 128)
+    want = ops.wgrad_reduce_plain(jobs, 128)
+    torch.cuda.synchronize()
+    for i, (x, y) in enumerate(zip(got, want)):
+        assert _rel_err(x, y) < WGRAD_REL[False], (i, _rel_err(x, y))
+
+
 def test_wgrad_rejects_cpu_jobs_on_the_card(cuda):
     (a, d, b), _ = _wgrad_jobs(cuda, 64, 64, "contiguous")
     with pytest.raises(ValueError, match="is on cpu"):

@@ -259,9 +259,10 @@ def test_map_encode_timer_takes_bf16_card_matrices_only():
 def test_tile_variants_apply_to_the_shipped_sources(name, tmp_path):
     """Each design alternative that nerf_tpu_torch.tools.tile_variants
     measures on the card still finds the text it changes exactly once in
-    the shipped csrc/mlp_tile.cuh and csrc/dense.cu (the tool copies the
-    package and patches the copy), and changes something unless it is the
-    shipped tile."""
+    the shipped csrc/mlp_tile.cuh and csrc/dense.cu, or for the weight-grad
+    pass's variants in csrc/wgrad.cuh alone (the tool copies the package
+    and patches the copy), and changes something unless it is the shipped
+    code (shipped, and wgrad: the shipped pass read alone)."""
     src = tile_variants.PACKAGE / "ops" / "csrc"
     root = tmp_path / "nerf_tpu_torch"
     shutil.copytree(src, root / "ops" / "csrc")
@@ -269,8 +270,10 @@ def test_tile_variants_apply_to_the_shipped_sources(name, tmp_path):
     tile_variants.patched_sources(name, root)
     after = {p.name: p.read_text() for p in (root / "ops" / "csrc").iterdir()}
     changed = [n for n in before if before[n] != after[n]]
-    assert bool(changed) == (name != "shipped")
-    assert set(changed) <= {"mlp_tile.cuh", "dense.cu"}
+    assert bool(changed) == (name not in ("shipped", "wgrad"))
+    assert set(changed) <= ({"wgrad.cuh"}
+                            if name in tile_variants.WGRAD_VARIANTS
+                            else {"mlp_tile.cuh", "dense.cu"})
 
 
 def test_tile_variants_refuse_a_change_that_no_longer_applies(tmp_path):

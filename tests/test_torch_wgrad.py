@@ -25,6 +25,7 @@ from nerf_tpu_torch import bridge, ops
 from nerf_tpu_torch.core.encoding import cat_pos_pe
 from nerf_tpu_torch.models import ProposalNetwork, VanillaNeRF
 from nerf_tpu_torch.ops import fused_mlp, ref_fused
+from nerf_tpu_torch.ops import wgrad as wgrad_lib
 
 BF16, F32 = torch.bfloat16, torch.float32
 JDT = {F32: jnp.float32, BF16: jnp.bfloat16}
@@ -112,6 +113,113 @@ def test_plain_pass_matches_float64(m, k, layout, round_partial):
             ROWS, round_partial, grads=walked, device="cpu")
     for g, w in zip(got, walked):
         assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# the rounding gate's two yardsticks (the card holds the bf16 kernel's
+# summation between them)
+# ---------------------------------------------------------------------------
+
+def _numpy_splits(jobs, rows, round_partial, grads, split):
+    """The frame of wgrad_reduce_plain in numpy: ``split(a, d)`` gives a
+    split's f32 (dW, db) from A (float32) and delta (its float32 values and
+    the values rounded to bf16), each dW rounded to bf16 with
+    round_partial, the splits summed in float32 in order."""
+    starts = iter([g.numpy() for g in grads] if grads is not None else [
+        np.zeros(s, np.float32) for s in wgrad_lib.grad_shapes(jobs)])
+    out = []
+    for a, d, bias in jobs:
+        a32 = a.float().numpy()
+        draw, dr = d.float().numpy(), d.to(a.dtype).float().numpy()
+        w = next(starts)
+        b = next(starts) if bias else None
+        for lo in range(0, max(a.shape[0], 1), rows):
+            pw, pb = split(a32[lo:lo + rows], draw[lo:lo + rows],
+                           dr[lo:lo + rows])
+            if round_partial:
+                pw = torch.from_numpy(pw).to(BF16).float().numpy()
+            w = (w + pw).astype(np.float32)
+            if bias:
+                b = (b + pb).astype(np.float32)
+        out.append(w)
+        if bias:
+            out.append(b)
+    return out
+
+
+def _numpy_f64(a, draw, dr):
+    return ((a.astype(np.float64).T @ dr.astype(np.float64))
+            .astype(np.float32),
+            draw.astype(np.float64).sum(0, keepdims=True).astype(np.float32))
+
+
+def _numpy_in_order(a, draw, dr):
+    w = np.zeros((a.shape[1], dr.shape[1]), np.float32)
+    b = np.zeros((1, dr.shape[1]), np.float32)
+    for p in range(a.shape[0]):
+        w = (w + np.outer(a[p], dr[p])).astype(np.float32)
+        b = (b + draw[p:p + 1]).astype(np.float32)
+    return w, b
+
+
+YARDSTICK_CASES = [(63, 256, "bf16"), (256, 3, "strided_f32"),
+                   (27, 128, "f32"), (128, 9, "strided_bf16")]
+
+
+@pytest.mark.parametrize("with_grads", [False, True])
+@pytest.mark.parametrize("round_partial", [False, True])
+@pytest.mark.parametrize("m, k, layout", YARDSTICK_CASES)
+def test_f64_yardstick_matches_numpy_float64(m, k, layout, round_partial,
+                                             with_grads):
+    """wgrad_reduce_f64: each split's products and bias sums in float64,
+    rounded once to float32 (then to bf16 with round_partial), the splits
+    summed in float32 in order from 0 or from given grads, equal to a
+    numpy float64 loop.  The products of bf16 values are exact in float64
+    and these sums span few enough binades to be exact in any order, so
+    the two agree to the bit."""
+    jobs = _grid_jobs(m, k, layout, seed=m + k)
+    grads = ([torch.randn(s, generator=torch.Generator().manual_seed(1))
+              for s in wgrad_lib.grad_shapes(jobs)] if with_grads else None)
+    got = wgrad_lib.wgrad_reduce_f64(jobs, ROWS, round_partial, grads)
+    want = _numpy_splits(jobs, ROWS, round_partial, grads, _numpy_f64)
+    assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    for g, w in zip(got, want):
+        assert torch.equal(g, torch.from_numpy(w))
+
+
+@pytest.mark.parametrize("round_partial", [False, True])
+@pytest.mark.parametrize("m, k, layout", YARDSTICK_CASES[:3])
+def test_in_order_yardstick_matches_numpy_float32(m, k, layout,
+                                                  round_partial):
+    """wgrad_reduce_in_order: each point's product added to a float32 sum
+    in point order within a split (one rounding a point), the bias of the
+    unrounded delta likewise, equal to numpy's float32 loop point by point,
+    on the ragged grid (the last split 101 points) with given grads."""
+    jobs = _grid_jobs(m, k, layout, seed=m * k)
+    grads = [torch.randn(s, generator=torch.Generator().manual_seed(2))
+             for s in wgrad_lib.grad_shapes(jobs)]
+    got = wgrad_lib.wgrad_reduce_in_order(jobs, ROWS, round_partial, grads)
+    want = _numpy_splits(jobs, ROWS, round_partial, grads, _numpy_in_order)
+    for g, w in zip(got, want):
+        assert torch.equal(g, torch.from_numpy(w))
+
+
+def test_gate_reading_of_a_hand_built_split():
+    """Points whose in-order f32 sum and f64 sum differ: 1 * 1, then four
+    products of 2^-24, each of which an f32 sum of 1 rounds away (a tie,
+    to even), while f64 keeps them: 1 + 2^-22, exact in f32.  The in-order
+    sum reads a relative error of 2^-22 / (1 + 2^-22), 2 units in the last
+    place; the f64 yardstick reads 0."""
+    tiny = 2.0 ** -12
+    a = torch.tensor([[1.0]] + [[tiny]] * 4, dtype=BF16)
+    d = torch.tensor([[1.0]] + [[tiny]] * 4, dtype=BF16)
+    jobs = [(a, d, False)]
+    exact = wgrad_lib.wgrad_reduce_f64(jobs, 16)[0]
+    assert float(exact) == 1.0 + 2.0 ** -22
+    in_order = wgrad_lib.summation_error(
+        wgrad_lib.wgrad_reduce_in_order(jobs, 16)[0], exact)
+    assert in_order == dict(rel=2.0 ** -22 / (1.0 + 2.0 ** -22), ulps=2.0)
+    assert wgrad_lib.summation_error(exact, exact) == dict(rel=0.0, ulps=0.0)
 
 
 # ---------------------------------------------------------------------------
