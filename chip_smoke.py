@@ -18,7 +18,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                tile alone HMMA, and no f32 one either; for every bf16
                kernel that runs the delta pass (delta_build) and every
                library's wgrad_mma_kernel (wgrad_build) its registers,
-               spills, HGMMA and HMMA on one line, failing on a spill
+               spills, HGMMA and HMMA on one line, failing on a spill; for
+               the bf16 spatial forwards' persistent frame (frame_build:
+               spa_frame_kernel's three forms) the same, and their ptxas
+               remarks of serialized wgmma, failing on a spill, on HMMA or
+               without HGMMA
   3. kernels - each kernel against its plain PyTorch version, bf16 and f32,
                with timings and bounds: the eval forwards at the shapes of
                one default 4096-ray chunk, the training kernels at those of
@@ -38,7 +42,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                points, the directional one also with sRGB on and at IDE
                level 2; the Ref-NeRF training kernels at one default step's
                196,608 merged points, the directional backward also with
-               sRGB on and at IDE level 2
+               sRGB on and at IDE level 2; the bf16 spatial frame's
+               identities (spa_frame: each of ref_spa_fwd_res's 8 stored
+               activations equal to ops.dense_layer of its stored inputs,
+               ref_spa_fwd's heads and ref_spa_fwd_grad's outputs equal to
+               ref_spa_fwd_res's, all bit for bit, at 1, 127, 129, 50,689,
+               196,608 and 786,432 points and the widths 256/256 and 48/80)
   4. path    - `python -m nerf_tpu_torch -r -e -s -w` on a two-view 800x800
                Blender-layout test split with seeded random weights (full
                width vanilla model), counting kernel launches; then one f32
@@ -146,8 +155,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                product's yardstick (no mask) and the bound; the same
                shapes in f32 at 131,072 rows (the CUDA-core body); the card
                tests' narrow widths at 1, 70 and 4099 rows, untimed; then
-               the occupancy line: every delta-pass kernel's launches and
-               each library's wgrad_mma_kernel through the runtime's
+               the occupancy line: every delta-pass kernel's launches,
+               each library's wgrad_mma_kernel and the spatial frame's
+               three forms (one block an SM) through the runtime's
                occupancy query
  18. mip     - true Mip-NeRF (-m) and the IPE mode (--use_ipe), which run
                the vanilla kernels on IPE features: the vanilla training
@@ -440,13 +450,13 @@ KERNELS = {
         source="nerf_tpu_torch/ops/csrc/fused_mlp_bwd.cu",
         replaces="nerf_tpu/ops/fused_mlp.py:493"),
     "ref_spa_fwd": dict(
-        source="nerf_tpu_torch/ops/csrc/ref_fused.cu",
+        source="nerf_tpu_torch/ops/csrc/spa_frame.cuh",
         replaces="nerf_tpu/ops/ref_fused.py:643"),
     "ref_dir_fwd": dict(
         source="nerf_tpu_torch/ops/csrc/ref_fused.cu",
         replaces="nerf_tpu/ops/ref_fused.py:841"),
     "ref_spa_fwd_res": dict(
-        source="nerf_tpu_torch/ops/csrc/ref_fused.cu",
+        source="nerf_tpu_torch/ops/csrc/spa_frame.cuh",
         replaces="nerf_tpu/ops/ref_fused.py:643"),
     "ref_dir_fwd_res": dict(
         source="nerf_tpu_torch/ops/csrc/ref_fused.cu",
@@ -461,7 +471,7 @@ KERNELS = {
         source="nerf_tpu_torch/ops/csrc/fused_mlp_recompute.cu",
         replaces="nerf_tpu/ops/fused_mlp.py:136"),
     "ref_spa_fwd_grad": dict(
-        source="nerf_tpu_torch/ops/csrc/ref_fused.cu",
+        source="nerf_tpu_torch/ops/csrc/spa_frame.cuh",
         replaces="nerf_tpu/ops/ref_fused.py:643"),
     "ref_spa_bwd_recompute": dict(
         source="nerf_tpu_torch/ops/csrc/ref_fused_recompute.cu",
@@ -1371,6 +1381,79 @@ def check_kernel(name, dtype, gen, timed=True, **case):
     plain_ms = cuda_ms(lambda: plain(*args), 20)
     return dict(res, ms=ms, plain_ms=plain_ms, **bound(moved, flops, dtype),
                 bytes=moved, flops=flops, tflops=flops / (ms * 1e-3) / 1e12)
+
+
+# The persistent frame of the bf16 spatial forwards (csrc/spa_frame.cuh):
+# the point counts at its edges (one point; one short of a 128-point tile
+# and one past it; more tiles than three for each block of an H100's 132,
+# so that every block walks at least three) and of the main paths (a
+# default step's merged points and an eval chunk's, at 256 wide only), at
+# the card tests' two width pairs (H, O) and at 512 wide, where every form
+# runs one consumer warpgroup on 64-point tiles and the training forms
+# read the narrow heads' weights from device memory.
+FRAME_NS = (1, 127, 129, 50_689, RAYS * N_MERGED, CHUNK * N_MERGED)
+FRAME_WIDTHS = ((256, 256), (48, 80), (512, 512))
+
+
+def frame_identities(ws, x, pos):
+    """The frame's identities on one case: each of ref_spa_fwd_res's 8
+    stored activations against ops.dense_layer (the layer tile alone, on
+    the 64-row frame) of its stored inputs (z5 through the two-operand
+    form), ref_spa_fwd's heads and ref_spa_fwd_grad's heads and normal
+    target against ref_spa_fwd_res's, each equal bit for bit or not; and
+    the heads' distance from the plain version's (tols_ratio, TOLS)."""
+    heads, dgrad, acts = ops.ref_spa_fwd_res(ws, x, pos)
+    (w0, b0, w1, b1, w2, b2, w3, b3, w4a, w4b, b4, w5, b5, w6, b6, w7,
+     b7) = ws[:17]
+    inputs = [(x, w0, b0), (acts[0], w1, b1), (acts[1], w2, b2),
+              (acts[2], w3, b3), (x, w4a, b4, acts[3], w4b),
+              (acts[4], w5, b5), (acts[5], w6, b6), (acts[6], w7, b7)]
+    layers = [bool(torch.equal(a, ops.dense_layer(*op)[0]))
+              for a, op in zip(acts, inputs)]
+    g_heads, g_dgrad = ops.ref_spa_fwd_grad(ws, x, pos)
+    return dict(
+        layers_equal_dense_layer=layers,
+        fwd_heads_equal_res=bool(torch.equal(ops.ref_spa_fwd(ws, x), heads)),
+        grad_equals_res=bool(torch.equal(g_heads, heads)
+                             and torch.equal(g_dgrad, dgrad)),
+        finite=bool(torch.isfinite(heads).all()
+                    and torch.isfinite(dgrad).all()),
+        heads_vs_plain=tols_ratio(heads, ops.ref_spa_plain(ws, x),
+                                  TOLS[x.dtype]))
+
+
+def tols_ratio(got, want, tol):
+    """max |got - want| / (atol + rtol |want|): allclose holds where it is
+    at most 1."""
+    return float(((got - want).abs() / (tol["atol"] + tol["rtol"]
+                                        * want.abs())).max())
+
+
+def frame_checks():
+    """frame_identities at FRAME_NS x FRAME_WIDTHS on seeded bf16 operands
+    (its own generator); fails where an identity does not hold, a value is
+    not finite or the heads part from the plain version beyond TOLS.  Its
+    launches are not the main path's."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    cases = []
+    for h, o in FRAME_WIDTHS:
+        ws = random_weights(ref_spa_shapes(h=h, o=o), gen, bf16,
+                            gain=REF_GAIN)
+        for n in FRAME_NS:
+            if n > RAYS * N_MERGED and (h, o) != (256, 256):
+                continue
+            pos, x = ref_points(gen, bf16, n)
+            r = dict(h=h, o=o, n=n, **frame_identities(ws, x, pos))
+            cases.append(r)
+            if not (all(r["layers_equal_dense_layer"])
+                    and r["fwd_heads_equal_res"] and r["grad_equals_res"]
+                    and r["finite"]
+                    and r["heads_vs_plain"] <= 1.0):
+                fail(f"the bf16 spatial frame fails an identity: {r}")
+            del pos, x
+            torch.cuda.empty_cache()
+    return dict(cases=cases, all_equal=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2753,8 +2836,8 @@ WGRAD_LIBS = ("fused_mlp_bwd", "fused_mlp_recompute", "ref_fused_bwd",
 OCCUPANCY_BF16 = (
     "vanilla_delta_kernel", "prop_delta_kernel<true>",
     "prop_delta_kernel<false>", "vanilla_recompute_kernel",
-    "ref_spa_fwd_res_kernel<true>", "ref_spa_fwd_res_kernel<false>",
-    "ref_spa_delta_kernel", "ref_dir_delta_kernel",
+    "spa_frame_kernel<eval>", "spa_frame_kernel<res>",
+    "spa_frame_kernel<grad>", "ref_spa_delta_kernel", "ref_dir_delta_kernel",
     "ref_spa_recompute_kernel", "ref_dir_recompute_kernel<1>",
     "ref_dir_recompute_kernel<2>", "ref_dir_recompute_kernel<3>",
     "delta_layer_kernel")
@@ -2767,7 +2850,8 @@ def delta_occupancy():
     "<lib> <name>/<bf16|f32>", the shared memory and blocks an SM of each
     distinct launch.  Fails where a launch ran below the blocks an SM its
     kernel was built for (two for a bf16 delta-pass kernel, one for the
-    weight-grad body), a query failed, a bf16 kernel of OCCUPANCY_BF16 was
+    weight-grad body and for the spatial frame's three forms), a query
+    failed, a bf16 kernel of OCCUPANCY_BF16 was
     never launched, or a library of WGRAD_LIBS never launched
     wgrad_mma_kernel."""
     out = {}
@@ -2778,7 +2862,8 @@ def delta_occupancy():
         fn(buf, len(buf))
         for ln in buf.value.decode().splitlines():
             name, smem, blocks, want = ln.split()
-            bf16 = want == "2" or name == "wgrad_mma_kernel"
+            bf16 = (want == "2" or name == "wgrad_mma_kernel"
+                    or name.startswith(FRAME_KERNELS))
             key = f"{lib} {name}/{'bf16' if bf16 else 'f32'}"
             out.setdefault(key, []).append(dict(smem=int(smem),
                                                 blocks=int(blocks)))
@@ -3732,10 +3817,14 @@ DELTA_KERNELS = ("vanilla_delta_kernel", "prop_delta_kernelILb0E",
 # no HMMA.  (The dissection's recompute-only stage, mode 0, runs no delta
 # pass.)
 HEADLESS = ("prop_delta_kernel<true>", "prop_delta_kernel<false>")
+# the bf16 spatial forwards' persistent frame (spa_frame.cuh; ref_fused.cu
+# launches it for bf16, ref_spa_fwd_kernel and ref_spa_fwd_res_kernel are
+# built in f32 alone): each instantiation holds HGMMA and no HMMA (the
+# density column's first pullback is no product there) and spills nothing
+FRAME_KERNELS = ("spa_frame_kernel",)
+F32_ONLY = ("ref_spa_fwd_kernel", "ref_spa_fwd_res_kernel")
 TILE_AND_DELTA = (
     ("fused_mlp_recompute", "vanilla_recompute_kernel<__nv_bfloat16>"),
-    ("ref_fused", "ref_spa_fwd_res_kernel<(bool)0, __nv_bfloat16>"),
-    ("ref_fused", "ref_spa_fwd_res_kernel<(bool)1, __nv_bfloat16>"),
     ("ref_fused_recompute", "ref_spa_recompute_kernel<__nv_bfloat16>"),
     ("ref_fused_recompute",
      "ref_dir_recompute_kernel<(int)3, __nv_bfloat16>"),
@@ -3769,7 +3858,8 @@ def tile_kernel(func: str):
     """(kernel label, "bf16" or "f32") of a mangled symbol that runs
     dense_tile or delta_tile, else None: the bf16 instantiations carry
     __nv_bfloat16."""
-    base = next((k for k in TILE_KERNELS + DELTA_KERNELS if k in func), None)
+    base = next((k for k in TILE_KERNELS + DELTA_KERNELS + FRAME_KERNELS
+                 if k in func), None)
     if base is None:
         return None
     return kernel_label(base), ("bf16" if "__nv_bfloat16" in func else "f32")
@@ -3882,6 +3972,8 @@ def delta_build(reports, mma):
             name = short_name(names.get(f, f))
             c = (mma or {}).get(lib, {}).get("functions", {}).get(name)
             label = tile_kernel(f)[0]
+            if label in FRAME_KERNELS:
+                continue
             delta = (label not in {kernel_label(k) for k in TILE_KERNELS}
                      or label in HEADLESS or (lib, name) in TILE_AND_DELTA)
             if not delta:
@@ -3955,7 +4047,7 @@ def check_tile_mma(mma):
             if key.endswith("<f32>") and any(sum(c) for c in per):
                 fail(f"{lib}: an f32 {key} has HGMMA or HMMA in its SASS: "
                      f"{per}")
-            if not key.endswith("<bf16>"):
+            if not key.endswith("<bf16>") or base in FRAME_KERNELS:
                 continue
             wants = ((0,) if base in tile_names or base in HEADLESS
                      else (0, 1))                      # HGMMA, HMMA
@@ -3970,13 +4062,59 @@ def check_tile_mma(mma):
                 fail(f"{lib}: {func} runs the tile alone and holds HMMA: "
                      f"{c}")
     want = {f"{kernel_label(k)}<{d}>" for k in TILE_KERNELS + DELTA_KERNELS
-            for d in ("bf16", "f32")}
+            for d in ("bf16", "f32")
+            if not (d == "bf16" and k in F32_ONLY)}
+    want |= {f"{k}<bf16>" for k in FRAME_KERNELS}
     if want - seen:
         fail(f"no SASS found for {sorted(want - seen)}")
     for lib, func in TILE_AND_DELTA:
         c = mma[lib]["functions"].get(func)
         if c is None or not (c["HGMMA"] and c["HMMA"]):
             fail(f"{lib}: {func} should hold HGMMA and HMMA: {c}")
+    for lib, counts in mma.items():
+        for key, per in counts["tiles"].items():
+            if key.endswith("<f32>") and key.rsplit("<", 1)[0] in \
+                    FRAME_KERNELS:
+                fail(f"{lib}: the frame has an f32 instantiation: {key}")
+
+
+def frame_build(reports, mma):
+    """For each instantiation of the bf16 spatial frame (FRAME_KERNELS: the
+    three forms; the consumer warpgroups, two or one, are chosen at
+    launch), by "<lib> <short demangled name>": ptxas's registers (the
+    launch's; the consumers run at setmaxnreg's 232), spill bytes (stores,
+    loads) and its remarks that wgmma instructions were serialized, and the
+    HGMMA and HMMA in its SASS.  Fails on a spill, on HMMA, without HGMMA,
+    or unless all three were built."""
+    found = ptxas_by_function(reports, lambda f: any(
+        k in f for k in FRAME_KERNELS))
+    names = demangle(sorted({f for v in found.values() for f in v}))
+    out = {}
+    for lib, funcs in found.items():
+        for f, lines in funcs.items():
+            name = short_name(names.get(f, f))
+            c = (mma or {}).get(lib, {}).get("functions", {}).get(name)
+            text = " ".join(lines)
+            regs = re.search(r"Used (\d+) registers", text)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", text)
+            r = dict(registers=int(regs.group(1)) if regs else None,
+                     spill_bytes=[int(spill.group(1)), int(spill.group(2))]
+                     if spill else None,
+                     wgmma_serialized=sum(
+                         "serialized" in ln and f in ln
+                         for ln in reports[lib].splitlines()),
+                     HGMMA=c["HGMMA"] if c else None,
+                     HMMA=c["HMMA"] if c else None)
+            out[f"{lib} {name}"] = r
+            if r["spill_bytes"] is None or sum(r["spill_bytes"]):
+                fail(f"{lib} {name} spills: {r}")
+            if mma is not None and (not r["HGMMA"] or r["HMMA"]):
+                fail(f"{lib} {name} should hold HGMMA and no HMMA: {r}")
+    if len(out) != 3:
+        fail(f"the frame's three instantiations were not all built: "
+             f"{sorted(out)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4576,6 +4714,7 @@ def main() -> int:
          sources=list(build.SOURCES), ptxas=ptxas,
          ptxas_wgrad=wgrad_ptxas(reports), ptxas_tile=tile_ptxas(reports),
          sass_mma=mma, delta_build=delta_build(reports, mma),
+         frame_build=frame_build(reports, mma),
          wgrad_build=wgrad_build(reports, mma))
 
     # phase 3: kernels against their plain versions
@@ -4591,6 +4730,7 @@ def main() -> int:
             checks[(name, dtype)] = res
             emit("ref_kernels" if name.startswith("ref") else "kernel", **res)
             torch.cuda.empty_cache()
+    emit("spa_frame", **frame_checks())
     emit("kernel_order_sensitivity", **order_sensitivity(gen))
     emit("backward_order_sensitivity", **backward_order_sensitivity())
     for dtype in (torch.bfloat16, torch.float32):

@@ -1,6 +1,6 @@
 """Time the fused kernels of two checkouts in turns on one card.
 
-    python3 kernel_ab.py --other DIR [--steps] [--tile] > ab.json
+    python3 kernel_ab.py --other DIR [--steps] [--tile | --spa] > ab.json
 
 DIR is another checkout of this repository (for example ``git archive`` of
 an earlier commit unpacked under ``build/``).  Each turn is one process
@@ -41,7 +41,21 @@ device ms, busy share); ptxas's registers and spills of each kernel that
 runs the tile, from the turn's own build; and, where the checkout has it,
 the host's microseconds for one encoding of a 256 x 256 weight's tensor
 map (``ops.dense.map_encode_us``), which every bf16 launch of a tile
-kernel pays once for each weight that its tiles read.  Prints one JSON
+kernel pays once for each weight that its tiles read.
+
+With ``--spa`` the turns time the Ref-NeRF spatial net's fused forwards in
+bf16 (``SPA_KERNELS``: ``ref_spa_fwd`` at an eval chunk's 786,432 points,
+``ref_spa_fwd_res`` and ``ref_spa_fwd_grad`` at a default step's 196,608,
+``chip_smoke.kernel_case``'s operands, ``cuda_ms``; and the sha1 of each
+kernel's outputs, which two checkouts whose kernels sum alike read alike),
+a warm 400x400
+Ref-NeRF frame (``chip_smoke.profile_frame``: wall seconds, device ms, busy
+share) and the trainer's default ``-t`` step (``profile_trainer``: ms a
+step, host issue ms, device ms, busy share, rays/s), and beside it the
+vanilla and ``-m`` steps, which do not run the spatial net, as a reading
+of the host's pace in each turn, with ptxas's registers
+and spills of every bf16 kernel that runs the tile, the delta pass or the
+spatial frame, from the turn's own build.  Prints one JSON
 object: each turn's readings by "kernel/dtype" (and its step readings),
 and the card's name and power limit.  Needs a card.
 """
@@ -71,6 +85,54 @@ TILE_KERNELS = ("vanilla_mlp_fwd", "vanilla_mlp_fwd_res", "prop_mlp_fwd",
                 "ref_dir_fwd_dissect", "vanilla_mlp_bwd_recompute",
                 "prop_mlp_bwd", "ref_spa_bwd_recompute",
                 "ref_dir_bwd_recompute")
+
+# the Ref-NeRF spatial net's fused forwards (PERF.md's row 5)
+SPA_KERNELS = ("ref_spa_fwd", "ref_spa_fwd_res", "ref_spa_fwd_grad")
+
+# one turn of --spa, run with the checkout's root as the working directory
+SPA_TURN = r"""
+import json, sys, tempfile
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import hashlib
+import chip_smoke as cs
+from nerf_tpu_torch.ops import build
+names = json.loads(sys.argv[1])
+reports = build.build()
+out = {"ptxas": {k: v for k, v in cs.tile_ptxas(reports).items()
+                 if "bfloat16" in k}}
+gen = torch.Generator(device="cuda").manual_seed(0)
+
+
+def digest(t, h):
+    if isinstance(t, (tuple, list)):
+        for u in t:
+            digest(u, h)
+    else:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h
+
+
+for name in names:
+    args, kernel = cs.kernel_case(name, torch.bfloat16, gen)[:2]
+    out[name + "/bf16"] = cs.cuda_ms(lambda: kernel(*args), 20)
+    out[name + "/sha1"] = digest(kernel(*args), hashlib.sha1()).hexdigest()
+    del args
+    torch.cuda.empty_cache()
+r = cs.profile_frame("ref")
+out["frame/ref"] = {k: r[k] for k in ("frame_s", "device_ms",
+                                      "device_busy_share")}
+with tempfile.TemporaryDirectory() as tmp:
+    cs.write_train_split(tmp)
+    for model, epochs, extra in (("ref", 3, ("-t",)), ("vanilla", 5, ()),
+                                 ("mip", 5, ("-m", "--name", "mip_1"))):
+        r = cs.profile_trainer(tmp, epochs, *extra)
+        out["step/" + model] = {k: r[k] for k in (
+            "step_ms_median", "host_issue_ms_per_step", "device_ms_per_step",
+            "device_busy_share", "rays_per_s")}
+print(json.dumps(out))
+"""
 
 # one turn of --tile, run with the checkout's root as the working directory
 TILE_TURN = r"""
@@ -202,11 +264,14 @@ print(json.dumps(out))
 """
 
 
-def turn(root: Path, steps: bool, tile: bool = False) -> dict:
+def turn(root: Path, steps: bool, tile: bool = False,
+         spa: bool = False) -> dict:
     """One checkout's timings (and step readings), in a process of its
     own."""
     cmd = ([sys.executable, "-c", TILE_TURN, json.dumps(TILE_KERNELS)]
            if tile else
+           [sys.executable, "-c", SPA_TURN, json.dumps(SPA_KERNELS)]
+           if spa else
            [sys.executable, "-c", TURN, json.dumps(DELTA_PASS_KERNELS),
             "1" if steps else "0", json.dumps(DELTA_AB_SHAPES)])
     proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
@@ -226,6 +291,9 @@ def main(argv=None) -> dict:
                     help="also read the six f32 training steps")
     ap.add_argument("--tile", action="store_true",
                     help="time what runs the forward layer tile instead")
+    ap.add_argument("--spa", action="store_true",
+                    help="time the spatial net's fused forwards, a Ref-NeRF "
+                         "frame and step instead")
     args = ap.parse_args(argv)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -236,7 +304,7 @@ def main(argv=None) -> dict:
     turns = []
     for label, root in order:
         turns.append(dict(tree=label, root=str(root),
-                          ms=turn(root, args.steps, args.tile)))
+                          ms=turn(root, args.steps, args.tile, args.spa)))
         print(json.dumps(turns[-1]), file=sys.stderr, flush=True)
     res = dict(nvidia_smi=smi, turns=turns)
     print(json.dumps(res))

@@ -1,7 +1,10 @@
 """Fused Ref-NeRF kernels, their plain versions, wrappers and autograd.
 
 Nine kernels, CUDA C++ for ``sm_90a``, each replacing a Pallas kernel of
-nerf_tpu/ops/ref_fused.py.  The forwards are in ``csrc/ref_fused.cu``:
+nerf_tpu/ops/ref_fused.py.  The forwards are in ``csrc/ref_fused.cu``; in
+bf16 the three spatial ones run the persistent frame of
+``csrc/spa_frame.cuh`` (tiles of 128 points, one block an SM, a producer
+that streams every layer's weights through one ring):
 
 ``ref_spa_fwd``
     ``_make_spa_fwd_kernel`` (:643) over ``_spa_pure`` (:192) in the eval
@@ -19,7 +22,7 @@ nerf_tpu/ops/ref_fused.py.  The forwards are in ``csrc/ref_fused.cu``:
     The training form of ``store_residuals=False`` (``need_grad=True,
     store_acts=False``): the heads and the normal target, and no
     activations; the density pullback reads its ReLU masks from bits the
-    block keeps in shared memory.
+    block keeps in shared memory (as ``ref_spa_fwd_res`` does in bf16).
 ``ref_dir_fwd`` / ``ref_dir_fwd_res``
     ``_make_dir_fwd_kernel`` (:841) over ``_dir_glue_pure_rowland`` (:575)
     with the recurrence IDE (``hand_vjp=True``), without and with the 8
@@ -83,8 +86,9 @@ the spatial net costs 526,592 MACs per point and the directional 545,024
 training forward of the spatial net adds about 491,500 MACs for the density
 gradient, and each backward costs about twice its forward.  The trunks'
 layers (``dense_tile``, ``ops.dense``) and the backwards' weight-grad pass
-(csrc/wgrad.cuh) multiply bf16 operands on the tensor cores; the heads, the
-glue and the delta passes run on the CUDA cores (PERF.md has their times).
+(csrc/wgrad.cuh) multiply bf16 operands on the tensor cores, and so do the
+bottleneck head and the delta passes' trunk layers; the narrow heads and
+the glue run on the CUDA cores (PERF.md has their times).
 The bf16 kernels take H and O that are multiples of 8 (the launch raises
 otherwise).
 

@@ -54,6 +54,32 @@ k-step summed from zero by the tensor cores and added to an f32 sum):
              A operand read from shared memory once)
     wring2   a ring of 2 slots instead of WSTAGES
 
+The bf16 spatial forwards' persistent frame (``ops/csrc/spa_frame.cuh``:
+128-point tiles, two consumer warpgroups, a producer that streams every
+layer's weights through one ring that is never drained):
+
+    frame    the frame as shipped, its readings alone
+    slayer   the ring drained at every layer, as the 64-row frame drained
+             its own: the producer starts a layer's loads only once every
+             slot filled so far is released
+    stm64    one consumer warpgroup and tiles of 64 points at every width
+             (each weight box feeds 64 rows, as in the 64-row frame; 256
+             threads, no setmaxnreg: the frame's own choice where two
+             activation buffers of 128 rows do not fit)
+    n32      ref_spa_fwd's products 32 columns a wgmma, as in the training
+             forms, instead of 64
+    fnoheads the narrow heads skipped, and
+    fnoepi   every epilogue skipped (the products' f32 sums then dead):
+             what the rest costs (their outputs are wrong by design)
+
+each with ptxas's registers and spills of the frame, the ms of
+``ref_spa_fwd`` (786,432 points), ``ref_spa_fwd_res`` and
+``ref_spa_fwd_grad`` (196,608; ``chip_smoke.kernel_case``'s operands) and
+the frame's identities at 129 and 50,689 points
+(``chip_smoke.frame_identities``), which every variant keeps: they change
+no sum.  ``--variants frame slayer stm64`` builds ``ref_fused`` and
+``dense`` alone.
+
 The copies build their libraries (``dense``, ``ref_fused`` for the
 variants that keep the fused kernels right, ``wgrad`` alone for the
 weight-grad variants, and for ``shipped`` and the delta variants every
@@ -105,6 +131,7 @@ WORK = PACKAGE.parent / "build" / "tile_variants"
 ROOT = PACKAGE.parent
 TILE, ENTRY = "ops/csrc/mlp_tile.cuh", "ops/csrc/dense.cu"
 WGRAD = "ops/csrc/wgrad.cuh"
+FRAME = "ops/csrc/spa_frame.cuh"
 
 # mma_pass's k-loop as shipped: one k-step a partial
 LOOP = """  for (int k = 0; k < R.per; ++k) {
@@ -389,6 +416,51 @@ VARIANTS["wn128"] = (True, [
 VARIANTS["wring2"] = (True, [(WGRAD, "constexpr int WSTAGES = 3;",
                               "constexpr int WSTAGES = 2;")])
 WGRAD_VARIANTS = ("wgrad", "wchain", "wg2", "wn128", "wring2")
+# the bf16 spatial forwards' persistent frame: as shipped (frame), its ring
+# drained at every layer as the 64-row frame drained its own (slayer: the
+# producer waits at a layer's start until every slot filled so far is
+# released), one consumer warpgroup and 64-row tiles at every width
+# (stm64: each weight box feeds 64 rows; the frame's own choice above 256
+# wide where two buffers of 128 rows do not fit)
+FRAME_DRAIN = """  {   // every slot filled so far released: the ring drained
+    const int prev = R.slot == 0 ? R.stages - 1 : R.slot - 1;
+    mbar_wait(R.bars + 8 * (R.stages + prev),
+              R.slot == 0 ? R.phase ^ 1u : R.phase);
+  }
+"""
+FWD_BEGIN = """  const int s0 = (k0 + DK - 1) / DK, per = s0 + (k1 + DK - 1) / DK;
+  for (int c0 = 0; c0 < n_out; c0 += FCOLS) {
+    const int np = n_out - c0 < FCOLS ? n_out - c0 : FCOLS;
+    const int boxes"""
+T_BEGIN = """  const int per = (k_dim + TK - 1) / TK;
+  const uint32_t bytes"""
+VARIANTS["frame"] = (True, [])
+VARIANTS["slayer"] = (True, [(FRAME, FWD_BEGIN, FRAME_DRAIN + FWD_BEGIN),
+                             (FRAME, T_BEGIN, FRAME_DRAIN + T_BEGIN)])
+VARIANTS["stm64"] = (True, [(FRAME, "  int cons = 2;   ", "  int cons = 1;   ")])
+# n32: ref_spa_fwd's products 32 columns a wgmma instead of FWG_EVAL's 64
+# (the sums stay the shipped frame's: the tensor cores' sum of a column
+# does not depend on the product's width, which the identities read)
+VARIANTS["n32"] = (True, [(FRAME, "constexpr int FWG_EVAL = 64;",
+                           "constexpr int FWG_EVAL = 32;")])
+# what paces the frame, read by taking a part out (their outputs are not
+# right, and the identities say so): fnoheads skips the narrow heads,
+# fnoepi every epilogue (the products' sums are then dead and dropped, so
+# it reads the products' issue and wgmma round trips alone)
+VARIANTS["fnoheads"] = (True, [(FRAME, (
+    "    spa_frame_narrow(cur, lda, o, HeadW{cb, C.whead, p.wrt, p.wnct},\n"
+    "                     cb + C.heads_b, heads, HEAD_FIXED + nb, r0, n);\n"),
+    "")])
+VARIANTS["fnoepi"] = (True, [
+    (FRAME, "      if (t >= nt) break;\n" + after,
+     "      if (t >= 0) break;\n" + after)
+    for after in ("      uint32_t u[4];",
+                  "      const int c = c0 + 8 * t + 2 * q;\n      const float2",
+                  "      if ((t & 3) == 0) {",
+                  "      const int c = c0 + 8 * t + 2 * q;\n#pragma unroll")])
+FRAME_VARIANTS = ("frame", "slayer", "stm64", "n32", "fnoheads", "fnoepi")
+# the kernels that run the frame, timed at their main-path shapes
+FRAME_TIMED = ("ref_spa_fwd", "ref_spa_fwd_res", "ref_spa_fwd_grad")
 # the variants that report the delta pass's readings, and build every
 # library of the backwards
 DELTA_VARIANTS = ("shipped", "dchain", "dring3", "dlate")
@@ -414,7 +486,8 @@ TILE_KERNELS = ("dense_layer_kernel", "ref_spa_fwd_kernel",
                 "vanilla_delta_kernel", "prop_delta_kernel",
                 "vanilla_recompute_kernel", "ref_spa_fwd_res_kernel",
                 "ref_spa_delta_kernel", "ref_dir_delta_kernel",
-                "ref_spa_recompute_kernel", "ref_dir_recompute_kernel")
+                "ref_spa_recompute_kernel", "ref_dir_recompute_kernel",
+                "spa_frame_kernel")
 
 
 def patched_sources(name: str, root: Path) -> None:
@@ -432,6 +505,8 @@ def patched_sources(name: str, root: Path) -> None:
 def libraries(name: str) -> tuple:
     if name in WGRAD_VARIANTS:
         return ("wgrad",)
+    if name in FRAME_VARIANTS:
+        return ("ref_fused", "dense")
     if name in DELTA_VARIANTS:
         return DELTA_LIBRARIES
     return ("dense", "ref_fused") if VARIANTS[name][0] else ("dense",)
@@ -497,6 +572,8 @@ def measure(name: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     if name in WGRAD_VARIANTS:
         return wgrad_readings(name)
+    if name in FRAME_VARIANTS:
+        return frame_readings(name)
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -606,6 +683,31 @@ def wgrad_readings(name: str) -> dict:
                                              for a, d in lib], 20))
         del jobs, pieces, lib
         torch.cuda.empty_cache()
+    return out
+
+
+def frame_readings(name: str) -> dict:
+    """Run from the copy: the frame variants' readings of the module
+    docstring, through the copy's chip_smoke.py."""
+    import torch
+
+    import chip_smoke as cs
+
+    bf16 = torch.bfloat16
+    out = {"variant": name, "device": torch.cuda.get_device_name(0),
+           "ptxas": ptxas_summary(json.loads(report_path(name).read_text())),
+           "ms": {}, "identities": {}}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for k in FRAME_TIMED:
+        args, kernel = cs.kernel_case(k, bf16, gen)[:2]
+        out["ms"][k] = cs.cuda_ms(lambda: kernel(*args), 20)
+        del args
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    ws = cs.random_weights(cs.ref_spa_shapes(), gen, bf16, gain=cs.REF_GAIN)
+    for n in (129, 50_689):
+        pos, x = cs.ref_points(gen, bf16, n)
+        out["identities"][n] = cs.frame_identities(ws, x, pos)
     return out
 
 

@@ -395,6 +395,65 @@ def test_ref_kernels_match_plain(cuda, dtype, n, per_ray, hidden,
                       output_dim=output_dim)
 
 
+def _assert_frame_identities(ws, enc, pos):
+    """Each of ref_spa_fwd_res's 8 stored activations equals
+    ops.dense_layer (the layer tile on its own 64-row frame) of its stored
+    inputs, z5 through the two-operand form; ref_spa_fwd's heads and
+    ref_spa_fwd_grad's heads and normal target equal ref_spa_fwd_res's, bit
+    for bit; the heads meet the plain version's.  Returns the heads and the
+    normal target."""
+    heads, dgrad, acts = ops.ref_spa_fwd_res(ws, enc, pos)
+    (w0, b0, w1, b1, w2, b2, w3, b3, w4a, w4b, b4, w5, b5, w6, b6, w7,
+     b7) = ws[:17]
+    inputs = [(enc, w0, b0), (acts[0], w1, b1), (acts[1], w2, b2),
+              (acts[2], w3, b3), (enc, w4a, b4, acts[3], w4b),
+              (acts[4], w5, b5), (acts[5], w6, b6), (acts[6], w7, b7)]
+    for i, (a, op) in enumerate(zip(acts, inputs)):
+        assert torch.equal(a, ops.dense_layer(*op)[0]), i
+    assert torch.equal(ops.ref_spa_fwd(ws, enc), heads)
+    g_heads, g_dgrad = ops.ref_spa_fwd_grad(ws, enc, pos)
+    assert torch.equal(g_heads, heads) and torch.equal(g_dgrad, dgrad)
+    assert bool(torch.isfinite(heads).all() and torch.isfinite(dgrad).all())
+    torch.testing.assert_close(heads, ops.ref_spa_plain(ws, enc),
+                               **TOLS[torch.bfloat16])
+    return heads, dgrad
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 50_689])
+@pytest.mark.parametrize("hidden, output_dim", [(256, 256), (48, 80)])
+def test_ref_spa_frame_identities(cuda, n, hidden, output_dim):
+    """The bf16 spatial forwards' persistent frame (csrc/spa_frame.cuh), bit
+    for bit (_assert_frame_identities).  At one point, either side of the
+    frame's 128-point tile and 50,689 points (more than three tiles for
+    each block of an H100's 132 SMs)."""
+    m, enc, _ = _ref_operands(cuda, torch.bfloat16, n, 1, n + 3,
+                              hidden=hidden, output_dim=output_dim)
+    _assert_frame_identities(m.kernel_weights()[0], enc,
+                             enc[:, :3].float().contiguous())
+
+
+def test_ref_spa_frame_wide_widths(cuda):
+    """Trunks wider than the frame's 256-column pass take two passes a
+    layer into a second activation buffer.  Two buffers of 128 rows do not
+    fit, so the frame runs one consumer warpgroup on 64-point tiles; at 512
+    wide the training forms also read the narrow heads' weights and the
+    encoding's tables from device memory.  Every form meets its plain
+    version and the identities hold bit for bit as at 256, ragged tiles
+    included."""
+    tol = TOLS[torch.bfloat16]
+    for seed, (hidden, output_dim) in enumerate(
+            ((320, 256), (512, 256), (512, 512))):
+        m, enc, _ = _ref_operands(cuda, torch.bfloat16, 4099, 1, 5 + seed,
+                                  hidden=hidden, output_dim=output_dim)
+        ws = m.kernel_weights()[0]
+        pos = enc[:, :3].float().contiguous()
+        _assert_frame_identities(ws, enc, pos)
+        acts = ops.ref_spa_fwd_res(ws, enc, pos)[2]
+        for a, pa in zip(acts, ops.ref_spa_fwd_res_plain(ws, enc, pos)[2]):
+            torch.testing.assert_close(a.float(), pa.float(), **tol)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("dtype", list(TOLS))
 @pytest.mark.parametrize("ide_level, use_srgb, bottleneck_dim",
                          [(1, False, 128), (2, True, 128), (5, False, 64)])

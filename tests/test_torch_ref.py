@@ -243,12 +243,15 @@ def _enc(rng, n):
         [pos, jenc.positional_encoding(jnp.asarray(pos), 10)], -1))
 
 
+@pytest.mark.parametrize("n", [70, 1, 127, 129])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ref_spa_plain_matches_pallas(variables, dtype):
+def test_ref_spa_plain_matches_pallas(variables, dtype, n):
+    """ref_spa_plain (the CPU side of ref_spa_fwd) against the Pallas eval
+    kernel in interpret mode; also at one point and either side of the
+    128-point tile of the bf16 frame that the card holds to it."""
     nerf, _ = port_models(configs(model="ref",
                                   use_bf16=dtype == torch.bfloat16)[1],
                           variables)
-    n = 70
     enc = _enc(np.random.default_rng(5), n)
     spa = jref_fused._make_spa_fused(_jdt(dtype), TILE, True, False)
     want, _ = spa(jops.ref_spatial_weights_from_params(variables["nerf"]),

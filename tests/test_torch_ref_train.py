@@ -256,15 +256,20 @@ def _assert_close(got, want, dtype, name):
     np.testing.assert_allclose(got, want, **KERNEL_TOLS[dtype], err_msg=name)
 
 
+@pytest.mark.parametrize("n", [None, 1, 127, 129])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_spatial_function_matches_pallas(dtype):
+def test_spatial_function_matches_pallas(dtype, n):
     """RefSpatialMLP (ref_spa_fwd_res_plain, ref_spa_bwd_plain) against the
     store_residuals spatial pair of make_ref_fused: heads, normal target,
-    the 8 activations and the 23 grads for a seeded heads cotangent."""
+    the 8 activations and the 23 grads for a seeded heads cotangent; on
+    the seeded points (None) and on their first 1, 127 and 129, either
+    side of the 128-point tile of the bf16 frame that the card holds to
+    the plain version."""
     cd = _jdt(dtype)
     v = _variables()
     nerf, _ = port_models(_cfgs(use_bf16=dtype == torch.bfloat16)[1], v)
     pos, _, _ = _points(np.random.default_rng(3))
+    pos = pos if n is None else pos[:n]
     n = pos.shape[0]
     enc = cat_pos_pe(_t(pos), 10, dtype)
     jenc = jnp.asarray(enc.float().numpy(), cd)
