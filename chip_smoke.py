@@ -19,10 +19,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                kernel that runs the delta pass (delta_build) and every
                library's wgrad_mma_kernel (wgrad_build) its registers,
                spills, HGMMA and HMMA on one line, failing on a spill; for
-               the bf16 spatial forwards' persistent frame (frame_build:
-               spa_frame_kernel's three forms) the same, and their ptxas
-               remarks of serialized wgmma, failing on a spill, on HMMA or
-               without HGMMA
+               the bf16 spatial and directional forwards' persistent frame
+               (frame_build: spa_frame_kernel's three forms,
+               dir_frame_kernel's two) the same, and their ptxas remarks of
+               serialized wgmma, failing on a spill, on HMMA or without
+               HGMMA
   3. kernels - each kernel against its plain PyTorch version, bf16 and f32,
                with timings and bounds: the eval forwards at the shapes of
                one default 4096-ray chunk, the training kernels at those of
@@ -47,7 +48,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
                activations equal to ops.dense_layer of its stored inputs,
                ref_spa_fwd's heads and ref_spa_fwd_grad's outputs equal to
                ref_spa_fwd_res's, all bit for bit, at 1, 127, 129, 50,689,
-               196,608 and 786,432 points and the widths 256/256 and 48/80)
+               196,608 and 786,432 points and the widths 256/256 and 48/80);
+               the bf16 directional frame's (dir_frame: ref_dir_fwd's
+               outputs equal to ref_dir_fwd_dissect's "full" stage, the
+               64-row tile, and to ref_dir_fwd_res's, the stored
+               activations h2 h3 h4 z6 z7 z8 equal to ops.dense_layer of
+               their stored inputs, all bit for bit, rgb within TOLS of the
+               plain version, at the same points and 256/256, 48/80,
+               512/512, IDE levels 2 and 5, sRGB on and off, with and
+               without noise, and at 704/704, where the 64-row tile runs;
+               then the widest H = O that runs the frame and that runs at
+               all at IDE levels 2, 4 and 5, failing on a hole)
   4. path    - `python -m nerf_tpu_torch -r -e -s -w` on a two-view 800x800
                Blender-layout test split with seeded random weights (full
                width vanilla model), counting kernel launches; then one f32
@@ -453,13 +464,13 @@ KERNELS = {
         source="nerf_tpu_torch/ops/csrc/spa_frame.cuh",
         replaces="nerf_tpu/ops/ref_fused.py:643"),
     "ref_dir_fwd": dict(
-        source="nerf_tpu_torch/ops/csrc/ref_fused.cu",
+        source="nerf_tpu_torch/ops/csrc/dir_frame.cuh",
         replaces="nerf_tpu/ops/ref_fused.py:841"),
     "ref_spa_fwd_res": dict(
         source="nerf_tpu_torch/ops/csrc/spa_frame.cuh",
         replaces="nerf_tpu/ops/ref_fused.py:643"),
     "ref_dir_fwd_res": dict(
-        source="nerf_tpu_torch/ops/csrc/ref_fused.cu",
+        source="nerf_tpu_torch/ops/csrc/dir_frame.cuh",
         replaces="nerf_tpu/ops/ref_fused.py:841"),
     "ref_spa_bwd": dict(
         source="nerf_tpu_torch/ops/csrc/ref_fused_bwd.cu",
@@ -1456,6 +1467,168 @@ def frame_checks():
     return dict(cases=cases, all_equal=True)
 
 
+# The bf16 directional forwards on the frame (csrc/dir_frame.cuh): FRAME_NS
+# (the main paths' two at 256 wide, N_MERGED points a ray, so that a ray's
+# points cross tiles; the others with a few points a ray, DIR_FRAME_PER_RAY),
+# at the card tests' two width pairs, at 512 wide (one consumer warpgroup
+# on 64-point tiles) and at a width above the frame's fit, where the
+# launcher runs the 64-row tile (DIR_FRAME_WIDE); the IDE levels, sRGB and
+# the noise cycle through DIR_FRAME_GLUE, the main paths' cases at the
+# default level 4, the render's without noise and the step's with.  Each
+# width with the frame's consumer warpgroups that its launches must report
+# (0: the 64-row tile; ref_fused.dir_body_name).
+DIR_FRAME_WIDTHS = {(256, 256): 2, (48, 80): 2, (512, 512): 1}
+DIR_FRAME_WIDE = (704, 704)
+DIR_FRAME_PER_RAY = {1: 1, 127: 127, 129: 3, 50_689: 173}
+# (IDE level, sRGB, noise)
+DIR_FRAME_GLUE = ((2, False, True), (5, True, False), (5, False, True),
+                  (2, True, False))
+
+
+def dir_frame_cases():
+    """(h, o, n, points a ray, IDE level, sRGB, noise) of the dir_frame
+    phase, the wide case last (at level 2, within the 64-row tile's
+    widths)."""
+    cases = []
+    for h, o in DIR_FRAME_WIDTHS:
+        for n in FRAME_NS:
+            if n >= RAYS * N_MERGED:
+                if (h, o) == (256, 256):
+                    cases.append((h, o, n, N_MERGED, 4, False,
+                                  n == RAYS * N_MERGED))
+                continue
+            glue = DIR_FRAME_GLUE[len(cases) % len(DIR_FRAME_GLUE)]
+            cases.append((h, o, n, DIR_FRAME_PER_RAY[n], *glue))
+    return cases + [(*DIR_FRAME_WIDE, 50_689, 173, 2, False, True)]
+
+
+def body_of(name: str, call):
+    """(what ``call`` returns, the body that its one launch of kernel
+    ``name`` reported, ops.BODIES)."""
+    before = dict(ops.BODIES.get(name, {}))
+    out = call()
+    ran = [b for b, c in ops.BODIES.get(name, {}).items()
+           if c != before.get(b, 0)]
+    if len(ran) != 1:
+        fail(f"one call of {name} counted the bodies {ran}")
+    return out, ran[0]
+
+
+def dir_frame_identities(ws, heads, dirs, per_ray, noise, level, srgb):
+    """The directional frame's identities on one case: ref_dir_fwd's rgb,
+    normal and density equal to ref_dir_fwd_dissect's "full" stage (the
+    64-row tile, whose sRGB is off: its rgb is held where sRGB is off) and
+    to ref_dir_fwd_res's, bit for bit; the stored activations h2, h3, h4,
+    z6, z7 and z8 equal to ops.dense_layer of their stored inputs; every
+    output finite; rgb's distance from the plain version's (tols_ratio,
+    TOLS); the body that each launch reported (ops.BODIES)."""
+    args = (ws, heads, dirs, per_ray, noise, level, srgb)
+    fwd, body = body_of("ref_dir_fwd", lambda: ops.ref_dir_fwd(*args))
+    res, body_res = body_of("ref_dir_fwd_res",
+                            lambda: ops.ref_dir_fwd_res(*args))
+    full = ops.ref_dir_fwd_dissect(ws, heads, dirs, per_ray, "full",
+                                   noise=noise, ide_level=level)
+    acts = res[3]
+    inputs = [(acts[i - 1], ws[2 * i], ws[2 * i + 1]) for i in (1, 2, 3)] \
+        + [(acts[i - 1], ws[2 * i + 1], ws[2 * i + 2]) for i in (5, 6, 7)]
+    return dict(
+        body=body, body_res=body_res,
+        equal_dissect_full=[bool(torch.equal(fwd[i], full[i]))
+                            for i in ((1, 2) if srgb else (0, 1, 2))],
+        fwd_equal_res=[bool(torch.equal(fwd[i], res[i])) for i in range(3)],
+        layers_equal_dense_layer=[
+            bool(torch.equal(acts[i], ops.dense_layer(*op)[0]))
+            for i, op in zip((1, 2, 3, 5, 6, 7), inputs)],
+        finite=bool(all(torch.isfinite(t).all()
+                        for t in list(fwd) + list(acts))),
+        rgb_vs_plain=tols_ratio(fwd[0], ops.ref_dir_plain(*args)[0],
+                                TOLS[ws[0].dtype]))
+
+
+# the width scan of the dir_frame phase: H = O from 600 to 752 in steps of
+# 8 (the frame's widest fit and the 64-row tile's lie between) at three IDE
+# levels, 300 points each
+DIR_WIDTH_SCAN = range(600, 760, 8)
+DIR_WIDTH_LEVELS = (2, 4, 5)
+
+
+def dir_frame_widths():
+    """For each IDE level of DIR_WIDTH_LEVELS and each form, the widest
+    H = O of DIR_WIDTH_SCAN whose bf16 directional forward runs the frame
+    and the widest that runs at all (the 64-row tile above the frame's
+    fit); fails where a width below one that runs raises, or where the
+    frame is chosen above a width that took the 64-row tile."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out = {}
+    for level in DIR_WIDTH_LEVELS:
+        n_ch = ide_tables(level)["n_ch"]
+        for res in (False, True):
+            bodies = []
+            for w in DIR_WIDTH_SCAN:
+                ws = random_weights(ref_dir_shapes(n_ch, h=w, o=w), gen,
+                                    bf16, gain=REF_GAIN)
+                heads = torch.randn((300, ref_fused.HEAD_FIXED + 128),
+                                    generator=gen, device="cuda")
+                fn = ops.ref_dir_fwd_res if res else ops.ref_dir_fwd
+                try:
+                    bodies.append(body_of(
+                        "ref_dir_fwd_res" if res else "ref_dir_fwd",
+                        lambda: fn(ws, heads, camera_dirs(gen, 300), 1,
+                                   None, level))[1])
+                    torch.cuda.synchronize()
+                except RuntimeError:
+                    bodies.append(None)
+                del ws, heads
+            runs = [w for w, b in zip(DIR_WIDTH_SCAN, bodies) if b]
+            frame = [w for w, b in zip(DIR_WIDTH_SCAN, bodies)
+                     if b and b.startswith("dir_frame_kernel")]
+            key = f"level {level} {'res' if res else 'eval'}"
+            out[key] = dict(frame_to=max(frame, default=None),
+                            runs_to=max(runs, default=None))
+            if (runs and runs != list(DIR_WIDTH_SCAN)[:len(runs)]) \
+                    or (frame and frame != runs[:len(frame)]):
+                fail(f"the directional forwards' widths have a hole "
+                     f"({key}): {dict(zip(DIR_WIDTH_SCAN, bodies))}")
+    return out
+
+
+def dir_frame_checks():
+    """dir_frame_identities on seeded bf16 operands (its own generator) at
+    each of dir_frame_cases; fails where an identity does not hold, a value
+    is not finite, rgb parts from the plain version beyond TOLS, or a
+    launch ran another body than its width's (DIR_FRAME_WIDTHS; the wide
+    case the 64-row tile); then the width scan (dir_frame_widths).  Its
+    launches are not the main path's."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    cases = []
+    for h, o, n, per_ray, level, srgb, noisy in dir_frame_cases():
+        n_ch = ide_tables(level)["n_ch"]
+        ws = random_weights(ref_dir_shapes(n_ch, h=h, o=o), gen, bf16,
+                            gain=REF_GAIN)
+        heads = torch.randn((n, ref_fused.HEAD_FIXED + 128), generator=gen,
+                            device="cuda")
+        dirs = camera_dirs(gen, n // per_ray)
+        noise = ((0.02 * torch.randn((n, 128), generator=gen,
+                                     device="cuda")).to(bf16)
+                 if noisy else None)
+        r = dict(h=h, o=o, n=n, per_ray=per_ray, ide_level=level, srgb=srgb,
+                 noise=noisy, **dir_frame_identities(
+                     ws, heads, dirs, per_ray, noise, level, srgb))
+        cases.append(r)
+        cons = DIR_FRAME_WIDTHS.get((h, o), 0)
+        if not (all(r["equal_dissect_full"]) and all(r["fwd_equal_res"])
+                and all(r["layers_equal_dense_layer"]) and r["finite"]
+                and r["rgb_vs_plain"] <= 1.0
+                and r["body"] == ref_fused.dir_body_name(cons, False)
+                and r["body_res"] == ref_fused.dir_body_name(cons, True)):
+            fail(f"the bf16 directional frame fails an identity: {r}")
+        del ws, heads, dirs, noise
+        torch.cuda.empty_cache()
+    return dict(cases=cases, all_equal=True, widths=dir_frame_widths())
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the render path
 # ---------------------------------------------------------------------------
@@ -1520,9 +1693,11 @@ def cwd(path):
 def run_path(tmp: str, model: str = "vanilla"):
     """``python -m nerf_tpu_torch -r -e -s -w`` (``model="ref"``: with ``-t
     --render_normal``) on a two-view test split with seeded random weights:
-    (launches, s per frame).  Each eval forward of the path launches once per
-    chunk, every other kernel never; the Ref-NeRF grids carry the normal
-    panel, which must not be blank."""
+    (launches, s per frame, the normal panels' spread, the launches by body
+    of the kernels that report one).  Each eval forward of the path launches
+    once per chunk, every other kernel never, ref_dir_fwd on the frame's two
+    consumer warpgroups; the Ref-NeRF grids carry the normal panel, which
+    must not be blank."""
     write_split(tmp, "test", N_FRAMES, np.random.default_rng(0))
     cfg = PipelineConfig(model=model)
     save_models(os.path.join(tmp, "model"), "model_1",
@@ -1541,6 +1716,7 @@ def run_path(tmp: str, model: str = "vanilla"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    bodies = launched_bodies(launches, ("ref_dir_fwd",) if ref else ())
     if rc != 0:
         fail(f"entry returned {rc}")
     n_chunks = math.ceil(400 * 400 / CHUNK)
@@ -1561,7 +1737,29 @@ def run_path(tmp: str, model: str = "vanilla"):
             normal_std.append(float(grid[:, 402:802].std()))
             if normal_std[-1] == 0.0:
                 fail(f"the normal panel of image {i} is blank")
-    return launches, wall / N_FRAMES, normal_std
+    return launches, wall / N_FRAMES, normal_std, bodies
+
+
+# the kernels whose C entry reports the body it launched (ops.BODIES), and
+# the body each runs at the main paths' default widths in bf16
+BODY_KERNELS = {"ref_dir_fwd": ref_fused.dir_body_name(2, False),
+                "ref_dir_fwd_res": ref_fused.dir_body_name(2, True)}
+
+
+def launched_bodies(launches: dict, frame=()) -> dict:
+    """The launches by body (ops.BODIES) of the run that counted
+    ``launches``: fails unless each kernel of BODY_KERNELS that launched has
+    them and they add up to its launches, or unless each kernel of ``frame``
+    ran its BODY_KERNELS body alone."""
+    bodies = {k: dict(v) for k, v in ops.BODIES.items()}
+    for k in BODY_KERNELS:
+        if sum(bodies.get(k, {}).values()) != launches[k]:
+            fail(f"{k}: launches by body {bodies.get(k)} do not add up to "
+                 f"its {launches[k]} launches")
+    for k in frame:
+        if bodies.get(k) != {BODY_KERNELS[k]: launches[k]}:
+            fail(f"{k} ran {bodies.get(k)}, not {BODY_KERNELS[k]} alone")
+    return bodies
 
 
 def frame_inputs(model: str = "vanilla"):
@@ -2837,7 +3035,8 @@ OCCUPANCY_BF16 = (
     "vanilla_delta_kernel", "prop_delta_kernel<true>",
     "prop_delta_kernel<false>", "vanilla_recompute_kernel",
     "spa_frame_kernel<eval>", "spa_frame_kernel<res>",
-    "spa_frame_kernel<grad>", "ref_spa_delta_kernel", "ref_dir_delta_kernel",
+    "spa_frame_kernel<grad>", "dir_frame_kernel<eval>",
+    "dir_frame_kernel<res>", "ref_spa_delta_kernel", "ref_dir_delta_kernel",
     "ref_spa_recompute_kernel", "ref_dir_recompute_kernel<1>",
     "ref_dir_recompute_kernel<2>", "ref_dir_recompute_kernel<3>",
     "delta_layer_kernel")
@@ -2850,7 +3049,7 @@ def delta_occupancy():
     "<lib> <name>/<bf16|f32>", the shared memory and blocks an SM of each
     distinct launch.  Fails where a launch ran below the blocks an SM its
     kernel was built for (two for a bf16 delta-pass kernel, one for the
-    weight-grad body and for the spatial frame's three forms), a query
+    weight-grad body and for the frame's five forms), a query
     failed, a bf16 kernel of OCCUPANCY_BF16 was
     never launched, or a library of WGRAD_LIBS never launched
     wgrad_mma_kernel."""
@@ -2908,6 +3107,7 @@ def train_once(tmp: str, route: str, *extra: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    bodies = launched_bodies(launches)
     if rc != 0:
         fail(f"train entry ({route}) returned {rc}")
     log = [os.path.join(d, f) for d, _, fs in os.walk(log_dir)
@@ -2915,6 +3115,7 @@ def train_once(tmp: str, route: str, *extra: str,
     # phase 21 holds each run's MFU against the formula
     EPOCH_RUNS[route] = dict(
         flags=list(extra), epochs=epochs, output="".join(tee.parts),
+        bodies=bodies,
         mfu=read_scalars(log, "MFU"), time=read_scalars(log, "Time/epoch"))
     losses = [v for _, v in read_scalars(log, "Train Loss")]
     mses = [10.0 ** (-v / 10.0) for _, v in read_scalars(log, "PSNR")]
@@ -2979,8 +3180,9 @@ def run_train(tmp: str, model: str = "vanilla"):
     """``python -m nerf_tpu_torch [-t [--ref_kernels hybrid] | -m] --epochs
     5 -s -w`` on the 20-view train split, through the kernels and through
     the nn.Module route (``--no_pallas``, its checkpoint under another
-    name): launches per step of each training kernel, and the two routes'
-    loss curves."""
+    name): launches per step of each training kernel (and by body, for the
+    kernels that report one; Ref-NeRF's directional forwards on the
+    frame's two consumer warpgroups), and the two routes' loss curves."""
     flags, kernels, band_lim, _ = ROUTES[model]
     steps = TRAIN_VIEWS * TRAIN_EPOCHS
     eval_chunks = math.ceil(400 * 400 / CHUNK)   # one test view, at the end
@@ -2995,6 +3197,11 @@ def run_train(tmp: str, model: str = "vanilla"):
     launches, losses, mses, wall = runs["kernels"]
     if launches != want:
         fail(f"{model} train path launches {launches}, expected {want}")
+    bodies = EPOCH_RUNS[f"{model}_kernels"]["bodies"]
+    for k in BODY_KERNELS if model == "ref" else ():
+        if bodies.get(k) != {BODY_KERNELS[k]: launches[k]}:
+            fail(f"{model} train path: {k} ran {bodies.get(k)}, not "
+                 f"{BODY_KERNELS[k]} alone")
     curves = {route: {"loss": epoch_means(r[1]), "img_mse": epoch_means(r[2])}
               for route, r in runs.items()}
     for route, c in curves.items():
@@ -3018,7 +3225,7 @@ def run_train(tmp: str, model: str = "vanilla"):
                  f"did not fall: {curves}")
     return dict(command="python -m nerf_tpu_torch " + " ".join(
         a if "/" not in a else "<tmp>" for a in train_argv(tmp, *flags)),
-        steps=steps, launches=launches,
+        steps=steps, launches=launches, bodies=bodies,
         launches_per_step={k: launches[k] / steps for k in kernels},
         loss_first10=first, loss_last10=last, epoch_means=curves,
         kernels_vs_plain_rel=band, band=band_lim,
@@ -3817,11 +4024,15 @@ DELTA_KERNELS = ("vanilla_delta_kernel", "prop_delta_kernelILb0E",
 # no HMMA.  (The dissection's recompute-only stage, mode 0, runs no delta
 # pass.)
 HEADLESS = ("prop_delta_kernel<true>", "prop_delta_kernel<false>")
-# the bf16 spatial forwards' persistent frame (spa_frame.cuh; ref_fused.cu
-# launches it for bf16, ref_spa_fwd_kernel and ref_spa_fwd_res_kernel are
-# built in f32 alone): each instantiation holds HGMMA and no HMMA (the
-# density column's first pullback is no product there) and spills nothing
-FRAME_KERNELS = ("spa_frame_kernel",)
+# the bf16 spatial and directional forwards' persistent frame (spa_frame.cuh,
+# dir_frame.cuh; ref_fused.cu launches it for bf16, ref_spa_fwd_kernel and
+# ref_spa_fwd_res_kernel are built in f32 alone, ref_dir_fwd_kernel in bf16
+# too, for the widths whose frame does not fit): each instantiation holds
+# HGMMA and no HMMA (the density column's first pullback is no product
+# there) and spills nothing; each kernel is built once for each of its
+# forms (FRAME_FORMS)
+FRAME_KERNELS = ("spa_frame_kernel", "dir_frame_kernel")
+FRAME_FORMS = {"spa_frame_kernel": 3, "dir_frame_kernel": 2}
 F32_ONLY = ("ref_spa_fwd_kernel", "ref_spa_fwd_res_kernel")
 TILE_AND_DELTA = (
     ("fused_mlp_recompute", "vanilla_recompute_kernel<__nv_bfloat16>"),
@@ -4079,13 +4290,14 @@ def check_tile_mma(mma):
 
 
 def frame_build(reports, mma):
-    """For each instantiation of the bf16 spatial frame (FRAME_KERNELS: the
-    three forms; the consumer warpgroups, two or one, are chosen at
-    launch), by "<lib> <short demangled name>": ptxas's registers (the
-    launch's; the consumers run at setmaxnreg's 232), spill bytes (stores,
-    loads) and its remarks that wgmma instructions were serialized, and the
-    HGMMA and HMMA in its SASS.  Fails on a spill, on HMMA, without HGMMA,
-    or unless all three were built."""
+    """For each instantiation of the bf16 frame (FRAME_KERNELS: the spatial
+    net's three forms, the directional net's two), by "<lib> <short
+    demangled name>": ptxas's registers (the launch's; the consumers run at
+    setmaxnreg's 232), stack frame and spill bytes (stores, loads) and its
+    remarks that wgmma instructions were serialized, and the HGMMA and HMMA
+    in its SASS.  Fails on a spill, on a stack frame in a directional form,
+    on HMMA, without HGMMA, or unless each kernel was built once for each of
+    its forms (FRAME_FORMS)."""
     found = ptxas_by_function(reports, lambda f: any(
         k in f for k in FRAME_KERNELS))
     names = demangle(sorted({f for v in found.values() for f in v}))
@@ -4098,7 +4310,9 @@ def frame_build(reports, mma):
             regs = re.search(r"Used (\d+) registers", text)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                               r"spill loads", text)
+            stack = re.search(r"(\d+) bytes stack frame", text)
             r = dict(registers=int(regs.group(1)) if regs else None,
+                     stack_bytes=int(stack.group(1)) if stack else None,
                      spill_bytes=[int(spill.group(1)), int(spill.group(2))]
                      if spill else None,
                      wgmma_serialized=sum(
@@ -4109,11 +4323,13 @@ def frame_build(reports, mma):
             out[f"{lib} {name}"] = r
             if r["spill_bytes"] is None or sum(r["spill_bytes"]):
                 fail(f"{lib} {name} spills: {r}")
+            if name.startswith("dir_frame_kernel") and r["stack_bytes"] != 0:
+                fail(f"{lib} {name} keeps a stack frame: {r}")
             if mma is not None and (not r["HGMMA"] or r["HMMA"]):
                 fail(f"{lib} {name} should hold HGMMA and no HMMA: {r}")
-    if len(out) != 3:
-        fail(f"the frame's three instantiations were not all built: "
-             f"{sorted(out)}")
+    if any(sum(n.split(" ", 1)[1].startswith(k + "<") for n in out)
+           != FRAME_FORMS[k] for k in FRAME_KERNELS):
+        fail(f"the frame's forms were not each built once: {sorted(out)}")
     return out
 
 
@@ -4731,6 +4947,7 @@ def main() -> int:
             emit("ref_kernels" if name.startswith("ref") else "kernel", **res)
             torch.cuda.empty_cache()
     emit("spa_frame", **frame_checks())
+    emit("dir_frame", **dir_frame_checks())
     emit("kernel_order_sensitivity", **order_sensitivity(gen))
     emit("backward_order_sensitivity", **backward_order_sensitivity())
     for dtype in (torch.bfloat16, torch.float32):
@@ -4743,7 +4960,7 @@ def main() -> int:
 
     # phase 4: the render path
     with tempfile.TemporaryDirectory() as tmp:
-        render_launches, s_per_frame, _ = run_path(tmp)
+        render_launches, s_per_frame, _, _ = run_path(tmp)
         emit("path", command="python -m nerf_tpu_torch -r -e -s -w",
              frames=N_FRAMES, hw=[400, 400], launches=render_launches,
              s_per_frame_entry=s_per_frame)
@@ -4754,7 +4971,8 @@ def main() -> int:
 
     # phase 5: the Ref-NeRF render path
     with tempfile.TemporaryDirectory() as tmp:
-        ref_launches, ref_s_per_frame, normal_std = run_path(tmp, "ref")
+        ref_launches, ref_s_per_frame, normal_std, ref_bodies = run_path(
+            tmp, "ref")
         emit("ref_path", command="python -m nerf_tpu_torch -t -r -e -s -w "
              "--render_normal", frames=N_FRAMES, hw=[400, 400],
              launches=ref_launches,
@@ -4918,7 +5136,10 @@ def main() -> int:
     # ``launches_recompute_steps``, ``launches_hybrid_train``,
     # ``launches_batch_scaling``, ``launches_mip_train`` and
     # ``launches_ipe_train`` its count in each of those runs; ``mip`` the
-    # vanilla kernels' readings on the Mip-NeRF path's operands (phase 18).
+    # vanilla kernels' readings on the Mip-NeRF path's operands (phase 18);
+    # ``bodies`` the launches by body that the bf16 directional forwards
+    # reported in the run that ``launches`` counts (ops.BODIES: the frame,
+    # or the 64-row tile where it does not fit).
     recompute_steps = {k: memory["vanilla"]["recompute"]["launches"][k]
                        + memory["ref"]["recompute"]["launches"][k]
                        for k in ops.LAUNCHES}
@@ -4967,6 +5188,9 @@ def main() -> int:
             tol=res["tol"], n=res["n"], ms=res["ms"],
             plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
             bound_by=res["bound_by"], library_ms=None,
+            **({"bodies": (ref_train["bodies"] if name in
+                           REF_TRAIN_KERNELS[1:-1] else ref_bodies)[name]}
+               if name in BODY_KERNELS else {}),
             f32=dict(rel_err=f32.get("grad_rel_err", f32.get("act_rel_err")),
                      **{k: f32[k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by")})))

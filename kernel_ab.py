@@ -1,6 +1,6 @@
 """Time the fused kernels of two checkouts in turns on one card.
 
-    python3 kernel_ab.py --other DIR [--steps] [--tile | --spa] > ab.json
+    python3 kernel_ab.py --other DIR [--steps] [--tile | --spa | --dir] > ab.json
 
 DIR is another checkout of this repository (for example ``git archive`` of
 an earlier commit unpacked under ``build/``).  Each turn is one process
@@ -55,9 +55,14 @@ step, host issue ms, device ms, busy share, rays/s), and beside it the
 vanilla and ``-m`` steps, which do not run the spatial net, as a reading
 of the host's pace in each turn, with ptxas's registers
 and spills of every bf16 kernel that runs the tile, the delta pass or the
-spatial frame, from the turn's own build.  Prints one JSON
-object: each turn's readings by "kernel/dtype" (and its step readings),
-and the card's name and power limit.  Needs a card.
+spatial frame, from the turn's own build.  With ``--dir`` the turns
+take the same readings of the directional net's fused forwards in bf16
+(``DIR_KERNELS``: ``ref_dir_fwd`` at an eval chunk's 786,432 points,
+``ref_dir_fwd_res`` at a default step's 196,608, and the sha1 of each
+one's outputs, and of a second case of each with sRGB on), with the same
+frame and steps beside them.  Prints one
+JSON object: each turn's readings by "kernel/dtype" (and its step
+readings), and the card's name and power limit.  Needs a card.
 """
 
 from __future__ import annotations
@@ -88,8 +93,11 @@ TILE_KERNELS = ("vanilla_mlp_fwd", "vanilla_mlp_fwd_res", "prop_mlp_fwd",
 
 # the Ref-NeRF spatial net's fused forwards (PERF.md's row 5)
 SPA_KERNELS = ("ref_spa_fwd", "ref_spa_fwd_res", "ref_spa_fwd_grad")
+# the Ref-NeRF directional net's fused forwards (PERF.md's row 7)
+DIR_KERNELS = ("ref_dir_fwd", "ref_dir_fwd_res")
 
-# one turn of --spa, run with the checkout's root as the working directory
+# one turn of --spa (and of --dir, with DIR_KERNELS), run with the
+# checkout's root as the working directory
 SPA_TURN = r"""
 import json, sys, tempfile
 import torch
@@ -119,6 +127,12 @@ for name in names:
     out[name + "/bf16"] = cs.cuda_ms(lambda: kernel(*args), 20)
     out[name + "/sha1"] = digest(kernel(*args), hashlib.sha1()).hexdigest()
     del args
+    if name.startswith("ref_dir"):   # and with sRGB on
+        args, kernel = cs.kernel_case(name, torch.bfloat16, gen,
+                                      use_srgb=True)[:2]
+        out[name + "/sha1_srgb"] = digest(kernel(*args),
+                                          hashlib.sha1()).hexdigest()
+        del args
     torch.cuda.empty_cache()
 r = cs.profile_frame("ref")
 out["frame/ref"] = {k: r[k] for k in ("frame_s", "device_ms",
@@ -265,13 +279,15 @@ print(json.dumps(out))
 
 
 def turn(root: Path, steps: bool, tile: bool = False,
-         spa: bool = False) -> dict:
+         spa: bool = False, dirs: bool = False) -> dict:
     """One checkout's timings (and step readings), in a process of its
     own."""
     cmd = ([sys.executable, "-c", TILE_TURN, json.dumps(TILE_KERNELS)]
            if tile else
            [sys.executable, "-c", SPA_TURN, json.dumps(SPA_KERNELS)]
            if spa else
+           [sys.executable, "-c", SPA_TURN, json.dumps(DIR_KERNELS)]
+           if dirs else
            [sys.executable, "-c", TURN, json.dumps(DELTA_PASS_KERNELS),
             "1" if steps else "0", json.dumps(DELTA_AB_SHAPES)])
     proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
@@ -294,6 +310,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--spa", action="store_true",
                     help="time the spatial net's fused forwards, a Ref-NeRF "
                          "frame and step instead")
+    ap.add_argument("--dir", action="store_true",
+                    help="time the directional net's fused forwards, a "
+                         "Ref-NeRF frame and step instead")
     args = ap.parse_args(argv)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -304,7 +323,8 @@ def main(argv=None) -> dict:
     turns = []
     for label, root in order:
         turns.append(dict(tree=label, root=str(root),
-                          ms=turn(root, args.steps, args.tile, args.spa)))
+                          ms=turn(root, args.steps, args.tile, args.spa,
+                                  args.dir)))
         print(json.dumps(turns[-1]), file=sys.stderr, flush=True)
     res = dict(nvidia_smi=smi, turns=turns)
     print(json.dumps(res))

@@ -12,7 +12,7 @@ from nerf_tpu_torch.ops.fused_mlp import (
     vanilla_mlp_bwd_recompute_plain, vanilla_mlp_fwd, vanilla_mlp_fwd_res,
     vanilla_mlp_fwd_res_plain, vanilla_mlp_plain,
 )
-from nerf_tpu_torch.ops.launch import LAUNCHES, reset_launches
+from nerf_tpu_torch.ops.launch import BODIES, LAUNCHES, reset_launches
 from nerf_tpu_torch.ops.ref_dissect import (
     ref_dir_bwd_dissect, ref_dir_bwd_dissect_plain, ref_dir_fwd_dissect,
     ref_dir_fwd_dissect_plain,
@@ -29,8 +29,9 @@ from nerf_tpu_torch.ops.ref_fused import (
 )
 from nerf_tpu_torch.ops.wgrad import wgrad_reduce, wgrad_reduce_plain
 
-__all__ = ["LAUNCHES", "reset_launches", "prep_weights", "PropMLP",
-           "PropMLPRes", "VanillaMLP", "VanillaMLPRecompute", "prop_mlp_fwd",
+__all__ = ["BODIES", "LAUNCHES", "reset_launches", "prep_weights",
+           "PropMLP", "PropMLPRes", "VanillaMLP", "VanillaMLPRecompute",
+           "prop_mlp_fwd",
            "prop_mlp_plain", "prop_mlp_fwd_res", "prop_mlp_fwd_res_plain",
            "prop_mlp_bwd", "prop_mlp_bwd_plain", "prop_mlp_bwd_res",
            "prop_mlp_bwd_res_plain",

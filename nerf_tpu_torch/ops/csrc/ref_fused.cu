@@ -50,7 +50,12 @@
 // Design.  The bf16 spatial forwards (ref_spa_fwd, ref_spa_fwd_res,
 // ref_spa_fwd_grad) run the persistent frame of spa_frame.cuh: 128-point
 // tiles, two consumer warpgroups and a producer warp that streams every
-// layer's weights through one TMA ring.  The rest here: one block of 256
+// layer's weights through one TMA ring.  The bf16 directional forwards
+// (ref_dir_fwd, ref_dir_fwd_res) run the same frame with the directional
+// net's input stage and tail (dir_frame.cuh), or, at widths whose frame
+// does not fit a block's shared memory, the 64-row tile of
+// ref_dir_fwd.cuh (dir_frame_body chooses by shape before the launch; the
+// entries report the body they launched).  The rest here: one block of 256
 // threads owns a tile of TM = 64 points (mlp_tile.cuh) and keeps its input
 // row and two ping-pong activation buffers in shared memory across all
 // layers; only the outputs (and the stored activations) are written.  The
@@ -74,15 +79,16 @@
 // encoding's transpose).  The eval forwards move about 0.7 KB per point in
 // bf16 and are bound by operations: 0.84 and 0.87 ms per 4096-ray chunk
 // (786,432 points) at the 989 TFLOP/s bf16 peak.  The training forwards
-// also write 4 KB of activations per point in bf16.  The directional
-// trunks run through dense_tile (mlp_tile.cuh): in bf16 on the tensor cores
-// (wgmma, each layer's weights brought by TMA into a 24 KB ring of shared
-// memory: ref_dir_fwd 115,288 bytes a block at IDE level 4, two blocks an
-// SM), in f32 on the CUDA cores, as do the f32 spatial forwards.
+// also write 4 KB of activations per point in bf16.  The f32 directional
+// trunks run through dense_tile (mlp_tile.cuh) on the CUDA cores, as do the
+// f32 spatial forwards; in bf16 the 64-row tile runs them on the tensor
+// cores (wgmma, each layer's weights brought by TMA into a 24 KB ring of
+// shared memory: 115,288 bytes a block at IDE level 4, two blocks an SM).
 
 #include "ref_common.cuh"
 #include "ref_dir_fwd.cuh"
 #include "spa_frame.cuh"
+#include "dir_frame.cuh"
 
 namespace {
 
@@ -341,6 +347,25 @@ int launch_spa_res(const void* x, const void* pos, const void* pe_w,
   }
 }
 
+// The directional forward at DIR_FULL: in bf16 the frame where it fits
+// (launch_dir_frame), in f32 the 64-row tile.  *body: the body launched,
+// the frame's consumer warpgroups (1 or 2) or 0 for the 64-row tile.
+template <bool STORE, typename T>
+int launch_dir_fwd(const void* heads, const void* noise, const void* dirs,
+                   int64_t per_ray, const void* mat, const void* sigma,
+                   const uint64_t* ptrs, int64_t n, const int* dims,
+                   float* rgb, float* normal, float* density,
+                   const uint64_t* acts, int* body, cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16_t>::value)
+    return launch_dir_frame<STORE>(heads, noise, dirs, per_ray, mat, sigma,
+                                   ptrs, n, dims, rgb, normal, density, acts,
+                                   body, stream);
+  *body = 0;
+  return launch_dir<STORE, DIR_FULL, T>(heads, noise, dirs, per_ray, nullptr,
+                                        mat, sigma, ptrs, n, dims, rgb,
+                                        normal, density, acts, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -373,21 +398,20 @@ extern "C" {
                            const void* dirs, int64_t per_ray, const void* mat, \
                            const void* sigma, const uint64_t* ptrs, int64_t n, \
                            const int* dims, void* rgb, void* normal,           \
-                           void* density, void* stream) {                      \
-    return launch_dir<false, DIR_FULL, T>(                                     \
-        heads, noise, dirs, per_ray, nullptr, mat, sigma, ptrs, n, dims,       \
-        (float*)rgb, (float*)normal, (float*)density, nullptr,                 \
+                           void* density, int* body, void* stream) {           \
+    return launch_dir_fwd<false, T>(                                           \
+        heads, noise, dirs, per_ray, mat, sigma, ptrs, n, dims, (float*)rgb,  \
+        (float*)normal, (float*)density, nullptr, body,                       \
         (cudaStream_t)stream);                                                 \
   }                                                                            \
   int ref_dir_fwd_res_##SUFFIX(                                                \
       const void* heads, const void* noise, const void* dirs, int64_t per_ray, \
       const void* mat, const void* sigma, const uint64_t* ptrs, int64_t n,     \
       const int* dims, void* rgb, void* normal, void* density,                 \
-      const uint64_t* acts, void* stream) {                                    \
-    return launch_dir<true, DIR_FULL, T>(                                      \
-        heads, noise, dirs, per_ray, nullptr, mat, sigma, ptrs, n, dims,       \
-        (float*)rgb, (float*)normal, (float*)density, acts,                    \
-        (cudaStream_t)stream);                                                 \
+      const uint64_t* acts, int* body, void* stream) {                         \
+    return launch_dir_fwd<true, T>(                                            \
+        heads, noise, dirs, per_ray, mat, sigma, ptrs, n, dims, (float*)rgb,  \
+        (float*)normal, (float*)density, acts, body, (cudaStream_t)stream);   \
   }
 
 REF_FWD(f32, float)

@@ -1,7 +1,11 @@
 // The Ref-NeRF spatial net's fused forwards in bf16, as a persistent frame
 // for Hopper: ref_spa_fwd (FORM_EVAL), ref_spa_fwd_res (FORM_RES) and
 // ref_spa_fwd_grad (FORM_GRAD).  ref_fused.cu launches these for a bf16
-// tensor; its f32 bodies keep the 64-row tile of mlp_tile.cuh.
+// tensor; its f32 bodies keep the 64-row tile of mlp_tile.cuh.  The frame's
+// parts (the ring, the producer, the products, a layer, the stores, the
+// layout and its search, the setmaxnreg split) also run the directional
+// net's forwards (FORM_DIR, FORM_DIR_RES), whose input stage and tail are
+// in dir_frame.cuh.
 //
 // Replaces: the bf16 bodies of ref_fused.cu's ref_spa_fwd_kernel and
 // ref_spa_fwd_res_kernel, which ported the Pallas kernel
@@ -91,6 +95,14 @@ constexpr int FSTAGES = 12;               // slots at most
 constexpr int FWG_EVAL = 64;
 constexpr int FWG_GRAD = 32;
 constexpr int FORM_EVAL = 0, FORM_RES = 1, FORM_GRAD = 2;
+// the directional net's forms (dir_frame.cuh): ref_dir_fwd and
+// ref_dir_fwd_res
+constexpr int FORM_DIR = 3, FORM_DIR_RES = 4;
+// the names under which set_smem notes each form's occupancy
+constexpr const char* FRAME_NAMES[5] = {
+    "spa_frame_kernel<eval>", "spa_frame_kernel<res>",
+    "spa_frame_kernel<grad>", "dir_frame_kernel<eval>",
+    "dir_frame_kernel<res>"};
 static_assert(FCOLS == DPASS && DK == TK && FSLOT == DSLOT * 2
               && FSLOT == TSLOT * 2, "a slot holds one k-step of a pass");
 
@@ -120,7 +132,8 @@ __host__ __device__ constexpr int frame_ld(int w) {
 // (Read from device memory in every epilogue, they missed the small L1
 // that the frame's shared memory leaves.)  Without ``staged`` only the
 // biases: whead, pe_w and pe_b are -1, and the kernel reads those from
-// device memory.
+// device memory.  The directional net's (dir_frame_consts) lie in the same
+// fields.
 struct FrameConsts {
   int bbn, heads_b, whead, pe_w, pe_b, floats;
 
@@ -139,6 +152,26 @@ struct FrameConsts {
     }
   }
 };
+
+// The directional net's constants: the biases b0 .. b5 (h each), b6 and b7
+// (o each) and bh (3, at heads_b); the specular head's weights wh as (o, 3)
+// f32 rows (whead); the IDE's tables mat ((l_max + 1) x C, at pe_w) and
+// sigma (C, at pe_b).  Without ``staged`` the biases alone.
+inline FrameConsts dir_frame_consts(int h, int o, int l_max, int n_ch,
+                                    bool staged) {
+  FrameConsts c;
+  c.bbn = -1;
+  c.heads_b = 6 * h + 2 * o;
+  c.whead = (c.heads_b + 3 + 3) & ~3;
+  c.pe_w = c.whead + 3 * o;
+  c.pe_b = c.pe_w + (l_max + 1) * n_ch;
+  c.floats = c.pe_b + n_ch;
+  if (!staged) {
+    c.floats = c.heads_b + 3;
+    c.whead = c.pe_w = c.pe_b = -1;
+  }
+  return c;
+}
 
 // The narrow heads' weights [wrt | wnct] as (o, 11) f32 rows: staged at
 // cb + off, or read from the bf16 weights where off is -1 (the same values:
@@ -159,36 +192,45 @@ struct HeadW {
 
 // Where the frame's pieces lie, in bytes from the first 1024-byte boundary
 // of the block's dynamic shared memory: the ring (slot s at s * FSLOT), the
-// activation buffer(s), the encoding tile, the 8 layers' masks, the f32
-// d(density)/d(enc) tile, the constants (frame_consts), the barriers
-// (full[stages], empty[stages]).
+// activation buffer(s), the input tile (rows of ldx), the 8 layers' masks,
+// the f32 row tile (frows: the density gradient's d(density)/d(enc), or the
+// directional net's sigmoid(tint) and sigmoid(diffuse), 6 a row), the
+// constants (FrameConsts), the barriers (full[stages], empty[stages]).
 struct FrameLayout {
-  int cons, stages, lda, mw, two;         // two: ping-pong buffers
-  int act, xs, masks, denc, consts, bars;
+  int cons, stages, lda, ldx, mw, two;    // two: ping-pong buffers
+  int act, xs, masks, frows, consts, bars;
   FrameConsts c;                          // (a kernel parameter: no register
 };                                        // holds its offsets)
 
 // Fills L for a kernel of form ``form`` with ``cons`` consumer warpgroups,
 // its constants ``staged`` or not (FrameConsts), and returns its dynamic
 // shared memory bytes (1024 of them to align the ring), or 0 where fewer
-// than two slots fit beside the rest in ``limit`` bytes.
+// than two slots fit beside the rest in ``limit`` bytes.  dx: the width of
+// the input rows (the spatial net's encoding, dense as its copy lands; the
+// directional net's x, at frame_ld's stride, which the glue writes);
+// l_max and n_ch: the directional net's IDE tables.
 inline size_t frame_layout(FrameLayout* L, int form, int cons, bool staged,
-                           int dx, int h, int o, int nb, int limit) {
+                           int dx, int h, int o, int nb, int limit,
+                           int l_max = 0, int n_ch = 0) {
   const int rows = 64 * cons;
   L->cons = cons;
   auto up16 = [](size_t b) { return (b + 15) & ~(size_t)15; };
   const int maxw = h > o ? h : o;
+  const bool dir = form >= FORM_DIR;
   L->lda = frame_ld(maxw);
+  L->ldx = dir ? frame_ld(dx) : dx;
   L->two = maxw > FCOLS;
   L->mw = mask_words(maxw);
-  const bool grad = form != FORM_EVAL;
+  const bool grad = form == FORM_RES || form == FORM_GRAD;
   const size_t act = (size_t)(L->two ? 2 : 1) * rows * L->lda * 2;
-  const size_t xs = up16((size_t)rows * dx * 2);
+  const size_t xs = up16((size_t)rows * L->ldx * 2);
   const size_t masks = grad ? (size_t)8 * rows * L->mw * 4 : 0;
-  const size_t denc = grad ? up16((size_t)rows * dx * 4) : 0;
-  L->c = FrameConsts(dx, h, o, nb, grad, staged);
+  const size_t frows = grad ? up16((size_t)rows * dx * 4)
+                            : dir ? (size_t)rows * 6 * 4 : 0;
+  L->c = dir ? dir_frame_consts(h, o, l_max, n_ch, staged)
+             : FrameConsts(dx, h, o, nb, grad, staged);
   const size_t consts = up16((size_t)L->c.floats * 4);
-  const size_t rest = act + xs + masks + denc + consts;
+  const size_t rest = act + xs + masks + frows + consts;
   const long room = (long)limit - 1024 - (long)rest;
   const long fit = room > 0 ? room / (FSLOT + 16) : 0;
   L->stages = fit < FSTAGES ? (int)fit : FSTAGES;
@@ -197,10 +239,36 @@ inline size_t frame_layout(FrameLayout* L, int form, int cons, bool staged,
   L->act = (int)at;
   L->xs = (int)(at += act);
   L->masks = (int)(at += xs);
-  L->denc = (int)(at += masks);
-  L->consts = (int)(at += denc);
+  L->frows = (int)(at += masks);
+  L->consts = (int)(at += frows);
   L->bars = (int)(at += consts);
   return 1024 + at + (size_t)16 * L->stages;
+}
+
+// The layout of form ``form`` at these widths on the current device (L,
+// its dynamic shared memory bytes at *smem, the device's SMs at *sms): two
+// consumer warpgroups on 128-point tiles, or one on 64-point tiles where
+// those do not fit (a width above FCOLS), each with its constants staged,
+// or not where even that leaves the ring no room.  *smem is 0 where no
+// layout fits.  Returns 0 or a CUDA error code.
+inline int frame_search(FrameLayout* L, size_t* smem, int* sms, int form,
+                        int dx, int h, int o, int nb, int l_max = 0,
+                        int n_ch = 0) {
+  int dev = 0, limit = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return (int)e;
+  *smem = 0;
+  int cons = 2;   // 128-point tiles first
+  for (; cons >= 1 && *smem == 0; --cons)
+    for (int staged = 1; staged >= 0 && *smem == 0; --staged)
+      *smem = frame_layout(L, form, cons, staged, dx, h, o, nb, limit, l_max,
+                           n_ch);
+  return 0;
 }
 
 // The ring as every thread of the block walks it: its slots and barriers
@@ -262,14 +330,18 @@ __device__ __forceinline__ void produce_t(FRing& R, const CUtensorMap* map,
 }
 
 // The producer's whole stream: the layers of each of the block's tiles in
-// the consumers' order (the map indices of spa_maps and spa_dmaps).
+// the consumers' order (the map indices of spa_maps and spa_dmaps, or of
+// dir_maps for the directional forms, whose trunk ends in two O-wide
+// layers; dx the input rows' width).
 template <int FORM>
 __device__ void frame_produce(FRing R, const TileMaps& maps,
                               const TileMaps& dm, int64_t tiles, int dx,
                               int h, int o, int nb) {
-  for (int i = 0; i < 10; ++i) {
+  constexpr bool DIR = FORM >= FORM_DIR;
+  constexpr bool GRAD = FORM == FORM_RES || FORM == FORM_GRAD;
+  for (int i = 0; i < (DIR ? 9 : 10); ++i) {
     prefetch_tensormap(&maps.map[i]);
-    if (FORM != FORM_EVAL) prefetch_tensormap(&dm.map[i]);
+    if (GRAD) prefetch_tensormap(&dm.map[i]);
   }
   for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
     produce_fwd(R, &maps.map[0], dx, 0, h);       // h1
@@ -278,10 +350,15 @@ __device__ void frame_produce(FRing R, const TileMaps& maps,
     produce_fwd(R, &maps.map[3], h, 0, h);        // h4
     produce_fwd(R, &maps.map[4], dx, h, h);       // z5: w4a, then w4b (5)
     produce_fwd(R, &maps.map[6], h, 0, h);        // z6
+    if constexpr (DIR) {
+      produce_fwd(R, &maps.map[7], h, 0, o);      // z7
+      produce_fwd(R, &maps.map[8], o, 0, o);      // z8
+      continue;
+    }
     produce_fwd(R, &maps.map[7], h, 0, h);        // z7
     produce_fwd(R, &maps.map[8], h, 0, o);        // inter
     produce_fwd(R, &maps.map[9], o, 0, nb);       // the bottleneck head
-    if (FORM != FORM_EVAL) {
+    if (GRAD) {
       produce_t(R, &dm.map[1], o, h);             // d z7
       produce_t(R, &dm.map[2], h, h);             // d z6
       produce_t(R, &dm.map[3], h, h);             // d z5
@@ -946,7 +1023,7 @@ spa_frame_kernel(const bf16_t* __restrict__ x, const float* __restrict__ pos,
   bf16_t* act = reinterpret_cast<bf16_t*>(base + L.act) + wr * lda;
   bf16_t* xs = reinterpret_cast<bf16_t*>(base + L.xs) + wr * dx;
   uint32_t* mk = reinterpret_cast<uint32_t*>(base + L.masks) + wr * L.mw;
-  float* denc = reinterpret_cast<float*>(base + L.denc) + wr * dx;
+  float* denc = reinterpret_cast<float*>(base + L.frows) + wr * dx;
   const FrameConsts& C = L.c;
   float* cb = reinterpret_cast<float*>(base + L.consts);
   frame_stage_consts<GRAD>(cb, C, p, dx, h, o, nb, pe_w, pe_b, 128 * cons);
@@ -1011,48 +1088,34 @@ spa_frame_kernel(const bf16_t* __restrict__ x, const float* __restrict__ pos,
 }
 
 // Launches form FORM of the frame on ``stream``: the maps of the weights
-// (spa_maps; spa_dmaps for the density gradient), the layout of two
-// consumer warpgroups, or of one where that does not fit the device's
-// shared memory (a width above FCOLS), each with its constants staged, or
-// not where even that leaves the ring no room; one block an SM,
-// min(tiles, SMs) blocks.  Returns 0 or a CUDA error code.
+// (spa_maps; spa_dmaps for the density gradient), the layout of
+// frame_search (an error where none fits), one block an SM, min(tiles,
+// SMs) blocks.  Returns 0 or a CUDA error code.
 template <int FORM>
 int launch_spa_frame(const bf16_t* x, const float* pos, const float* pe_w,
                      const float* pe_b, const RefSpaWeights<bf16_t>& p,
                      int64_t n, int dx, int h, int o, int nb,
                      float* heads, float* dgrad, const uint64_t* acts,
                      cudaStream_t stream) {
-  static const char* const names[3] = {
-      "spa_frame_kernel<eval>", "spa_frame_kernel<res>",
-      "spa_frame_kernel<grad>"};
-  int dev = 0, sms = 0, limit = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (e != cudaSuccess) return (int)e;
   FrameLayout L;
   size_t smem = 0;
-  int cons = 2;   // 128-point tiles first
-  for (; cons >= 1 && smem == 0; --cons)
-    for (int staged = 1; staged >= 0 && smem == 0; --staged)
-      smem = frame_layout(&L, FORM, cons, staged, dx, h, o, nb, limit);
+  int sms = 0;
+  int err = frame_search(&L, &smem, &sms, FORM, dx, h, o, nb);
+  if (err != 0) return err;
   if (smem == 0) return (int)cudaErrorInvalidValue;
   TileMaps maps, dm;
-  int err = spa_maps<bf16_t>(&maps, p, dx, h, o, nb);
+  err = spa_maps<bf16_t>(&maps, p, dx, h, o, nb);
   if (err == 0 && FORM != FORM_EVAL)
     err = spa_dmaps<bf16_t>(&dm, p, dx, h, o, nb, FCOLS);
-  if (err == 0)
-    err = set_smem(spa_frame_kernel<FORM>, smem, names[FORM], 1,
-                   128 * (L.cons + 1));
-  if (err != 0 || n == 0) return err;
+  if (err != 0) return err;
   Acts<bf16_t> s = {};
   if (acts != nullptr) s = acts_of<bf16_t>(acts);
   const int64_t tiles = (n + 64 * L.cons - 1) / (64 * L.cons);
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
-  spa_frame_kernel<FORM><<<grid, 128 * (L.cons + 1), smem, stream>>>(
+  const auto kernel = spa_frame_kernel<FORM>;
+  err = set_smem(kernel, smem, FRAME_NAMES[FORM], 1, 128 * (L.cons + 1));
+  if (err != 0 || n == 0) return err;
+  kernel<<<grid, 128 * (L.cons + 1), smem, stream>>>(
       x, pos, pe_w, pe_b, p, n, dx, h, o, nb, L, s, heads, dgrad, maps, dm);
   return (int)cudaGetLastError();
 }

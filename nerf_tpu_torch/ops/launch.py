@@ -4,7 +4,9 @@ Each kernel is a C entry ``<name>_<bf16|f32>`` of a library built from
 ``csrc/<library>.cu`` (``ops/build.py``), called through ``ctypes`` on the
 current stream of the operands' device.  ``LAUNCHES`` counts, per kernel,
 the wrapper calls that launched it (a call that runs several CUDA launches
-counts once), and nothing else increments it.  The operand checks are the
+counts once), and nothing else increments it.  ``BODIES`` counts, per
+kernel whose C entry reports which of its bodies it launched, those same
+launches by body.  The operand checks are the
 ones every wrapper runs before it picks the plain version (CPU tensors) or
 the kernel (CUDA tensors).
 """
@@ -24,6 +26,8 @@ U64P, INTP = ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int)
 # kernel name -> (library, C argument types without the trailing stream)
 SIGNATURES: dict[str, tuple[str, list]] = {}
 LAUNCHES: dict[str, int] = {}
+# kernel name -> {body name: launches}, for the entries that report a body
+BODIES: dict[str, dict[str, int]] = {}
 
 
 def register(signatures: dict) -> None:
@@ -36,6 +40,14 @@ def register(signatures: dict) -> None:
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    BODIES.clear()
+
+
+def count_body(fn_name: str, body: str) -> None:
+    """Count a launch of ``fn_name`` that its C entry reported as ``body``
+    (called by the wrapper right after ``launch``)."""
+    per = BODIES.setdefault(fn_name, {})
+    per[body] = per.get(body, 0) + 1
 
 
 def launch(fn_name: str, dtype, device, *args) -> None:

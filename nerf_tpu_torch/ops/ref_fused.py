@@ -4,7 +4,12 @@ Nine kernels, CUDA C++ for ``sm_90a``, each replacing a Pallas kernel of
 nerf_tpu/ops/ref_fused.py.  The forwards are in ``csrc/ref_fused.cu``; in
 bf16 the three spatial ones run the persistent frame of
 ``csrc/spa_frame.cuh`` (tiles of 128 points, one block an SM, a producer
-that streams every layer's weights through one ring):
+that streams every layer's weights through one ring), and the two
+directional ones the same frame with their glue and tail
+(``csrc/dir_frame.cuh``), or the 64-row tile of ``csrc/ref_dir_fwd.cuh``
+at widths whose frame does not fit a block (chosen by shape before the
+launch; each launch counts the body it ran in ``BODIES``, named by
+``dir_body_name``):
 
 ``ref_spa_fwd``
     ``_make_spa_fwd_kernel`` (:643) over ``_spa_pure`` (:192) in the eval
@@ -120,7 +125,7 @@ from nerf_tpu_torch.ops.fused_mlp import (
 )
 from nerf_tpu_torch.ops.launch import (
     I64, INT, INTP, PTR, U64P, check_operands, check_shapes, check_tensor,
-    check_weights, launch, pointers, prep_weights, register,
+    check_weights, count_body, launch, pointers, prep_weights, register,
 )
 
 F32 = torch.float32
@@ -543,11 +548,11 @@ def _pe_operands(levels: int, device: torch.device):
 register({
     "ref_spa_fwd": ("ref_fused", [PTR, U64P, I64, INTP, PTR]),
     "ref_dir_fwd": ("ref_fused", [PTR, PTR, PTR, I64, PTR, PTR, U64P, I64,
-                                  INTP, PTR, PTR, PTR]),
+                                  INTP, PTR, PTR, PTR, INTP]),
     "ref_spa_fwd_res": ("ref_fused", [PTR, PTR, PTR, PTR, U64P, I64, INTP,
                                       PTR, PTR, U64P]),
     "ref_dir_fwd_res": ("ref_fused", [PTR, PTR, PTR, I64, PTR, PTR, U64P,
-                                      I64, INTP, PTR, PTR, PTR, U64P]),
+                                      I64, INTP, PTR, PTR, PTR, U64P, INTP]),
     "ref_spa_bwd": ("ref_fused_bwd", [PTR, PTR, U64P, U64P, I64, INTP, U64P,
                                       PTR, INT, I64, U64P]),
     "ref_dir_bwd": ("ref_fused_bwd", [PTR, PTR, PTR, I64, PTR, PTR, PTR, PTR,
@@ -643,12 +648,27 @@ def _dir_fwd(ws, heads, dirs, per_ray, noise, ide_level, use_srgb, device,
         mat, sigma = _ide_operands(ide_level, heads.device)
         dims = (ctypes.c_int * 6)(nb, h, o, l_max, n_ch, int(use_srgb))
         extra = (pointers(acts),) if res else ()
-        launch("ref_dir_fwd_res" if res else "ref_dir_fwd", cd, heads.device,
-               heads.data_ptr(), None if noise is None else noise.data_ptr(),
-               dirs.data_ptr(), per_ray, mat.data_ptr(), sigma.data_ptr(),
-               pointers(ws), n, dims, rgb.data_ptr(), normal.data_ptr(),
-               density.data_ptr(), *extra)
+        body = ctypes.c_int(-1)
+        name = "ref_dir_fwd_res" if res else "ref_dir_fwd"
+        launch(name, cd, heads.device, heads.data_ptr(),
+               None if noise is None else noise.data_ptr(), dirs.data_ptr(),
+               per_ray, mat.data_ptr(), sigma.data_ptr(), pointers(ws), n,
+               dims, rgb.data_ptr(), normal.data_ptr(), density.data_ptr(),
+               *extra, ctypes.byref(body))
+        count_body(name, dir_body_name(body.value, res))
     return (rgb, normal, density, acts) if res else (rgb, normal, density)
+
+
+def dir_body_name(cons: int, res: bool) -> str:
+    """The name of the body that a ``ref_dir_fwd`` (``ref_dir_fwd_res``
+    with ``res``) launch ran, from what its C entry reports:
+    "dir_frame_kernel<eval|res> x2" (the frame, two consumer warpgroups,
+    128-point tiles), "x1" (one, 64-point tiles) or, for 0,
+    "ref_dir_fwd_kernel" (the 64-row tile: f32, and bf16 where no frame
+    fits)."""
+    if cons == 0:
+        return "ref_dir_fwd_kernel"
+    return f"dir_frame_kernel<{'res' if res else 'eval'}> x{cons}"
 
 
 def ref_dir_fwd(ws, heads: torch.Tensor, dirs: torch.Tensor, per_ray: int,

@@ -54,11 +54,15 @@ k-step summed from zero by the tensor cores and added to an f32 sum):
              A operand read from shared memory once)
     wring2   a ring of 2 slots instead of WSTAGES
 
-The bf16 spatial forwards' persistent frame (``ops/csrc/spa_frame.cuh``:
-128-point tiles, two consumer warpgroups, a producer that streams every
-layer's weights through one ring that is never drained):
+The bf16 spatial and directional forwards' persistent frame
+(``ops/csrc/spa_frame.cuh``, ``ops/csrc/dir_frame.cuh``: 128-point tiles,
+two consumer warpgroups, a producer that streams every layer's weights
+through one ring that is never drained):
 
     frame    the frame as shipped, its readings alone
+    fstatic  the consumer count (and so the tile height) a compile-time
+             constant, one instantiation of each form for each count, in
+             place of the count read from the layout at launch
     slayer   the ring drained at every layer, as the 64-row frame drained
              its own: the producer starts a layer's loads only once every
              slot filled so far is released
@@ -73,18 +77,21 @@ layer's weights through one ring that is never drained):
              what the rest costs (their outputs are wrong by design)
 
 each with ptxas's registers and spills of the frame, the ms of
-``ref_spa_fwd`` (786,432 points), ``ref_spa_fwd_res`` and
-``ref_spa_fwd_grad`` (196,608; ``chip_smoke.kernel_case``'s operands) and
-the frame's identities at 129 and 50,689 points
-(``chip_smoke.frame_identities``), which every variant keeps: they change
-no sum.  ``--variants frame slayer stm64`` builds ``ref_fused`` and
-``dense`` alone.
+``ref_spa_fwd`` and ``ref_dir_fwd`` (786,432 points), ``ref_spa_fwd_res``,
+``ref_spa_fwd_grad`` and ``ref_dir_fwd_res`` (196,608;
+``chip_smoke.kernel_case``'s operands), the sha1 of each one's outputs
+(equal digests, equal bits) and the frame's identities at 129 and 50,689
+points (``chip_smoke.frame_identities``, ``dir_frame_identities``), which
+every variant but fnoheads and fnoepi keeps: they change no sum.
+``--variants frame slayer stm64`` builds ``ref_fused``, ``ref_dissect``
+and ``dense`` alone.
 
 The copies build their libraries (``dense``, ``ref_fused`` for the
 variants that keep the fused kernels right, ``wgrad`` alone for the
 weight-grad variants, and for ``shipped`` and the delta variants every
 library but the dissection's) in parallel; then, one
-variant at a time, a process run from the copy reports ptxas's registers
+variant at a time (each variant's build seconds printed beside its
+readings), a process run from the copy reports ptxas's registers
 and spills of the patched bf16 kernels, the tile alone's ms
 (``ops.dense_layer``, median of 20 CUDA-event timings) at four layer shapes
 of an eval chunk (786,432 rows: 256 -> 256, 63 -> 256, 167 + 256 -> 256,
@@ -132,6 +139,7 @@ ROOT = PACKAGE.parent
 TILE, ENTRY = "ops/csrc/mlp_tile.cuh", "ops/csrc/dense.cu"
 WGRAD = "ops/csrc/wgrad.cuh"
 FRAME = "ops/csrc/spa_frame.cuh"
+DIR_FRAME = "ops/csrc/dir_frame.cuh"
 
 # mma_pass's k-loop as shipped: one k-step a partial
 LOOP = """  for (int k = 0; k < R.per; ++k) {
@@ -435,6 +443,20 @@ FWD_BEGIN = """  const int s0 = (k0 + DK - 1) / DK, per = s0 + (k1 + DK - 1) / D
 T_BEGIN = """  const int per = (k_dim + TK - 1) / TK;
   const uint32_t bytes"""
 VARIANTS["frame"] = (True, [])
+# fstatic: each frame kernel templated on its consumer count, one
+# instantiation of each form for each count, the launcher picking the one
+# of the layout's count
+VARIANTS["fstatic"] = (True, [
+    change for path, kernel in ((FRAME, "spa_frame_kernel"),
+                                (DIR_FRAME, "dir_frame_kernel"))
+    for change in (
+        (path, "template <int FORM>\n__global__ void __launch_bounds__(384, "
+         f"1)\n{kernel}(", "template <int FORM, int CONS>\n__global__ void "
+         f"__launch_bounds__(384, 1)\n{kernel}("),
+        (path, "cons = L.cons;\n", "cons = CONS;\n"),
+        (path, f"  const auto kernel = {kernel}<FORM>;\n",
+         f"  const auto kernel = L.cons == 2 ? {kernel}<FORM, 2>\n"
+         f"                                   : {kernel}<FORM, 1>;\n"))])
 VARIANTS["slayer"] = (True, [(FRAME, FWD_BEGIN, FRAME_DRAIN + FWD_BEGIN),
                              (FRAME, T_BEGIN, FRAME_DRAIN + T_BEGIN)])
 VARIANTS["stm64"] = (True, [(FRAME, "  int cons = 2;   ", "  int cons = 1;   ")])
@@ -458,9 +480,11 @@ VARIANTS["fnoepi"] = (True, [
                   "      const int c = c0 + 8 * t + 2 * q;\n      const float2",
                   "      if ((t & 3) == 0) {",
                   "      const int c = c0 + 8 * t + 2 * q;\n#pragma unroll")])
-FRAME_VARIANTS = ("frame", "slayer", "stm64", "n32", "fnoheads", "fnoepi")
+FRAME_VARIANTS = ("frame", "fstatic", "slayer", "stm64", "n32", "fnoheads",
+                  "fnoepi")
 # the kernels that run the frame, timed at their main-path shapes
-FRAME_TIMED = ("ref_spa_fwd", "ref_spa_fwd_res", "ref_spa_fwd_grad")
+FRAME_TIMED = ("ref_spa_fwd", "ref_spa_fwd_res", "ref_spa_fwd_grad",
+               "ref_dir_fwd", "ref_dir_fwd_res")
 # the variants that report the delta pass's readings, and build every
 # library of the backwards
 DELTA_VARIANTS = ("shipped", "dchain", "dring3", "dlate")
@@ -487,7 +511,7 @@ TILE_KERNELS = ("dense_layer_kernel", "ref_spa_fwd_kernel",
                 "vanilla_recompute_kernel", "ref_spa_fwd_res_kernel",
                 "ref_spa_delta_kernel", "ref_dir_delta_kernel",
                 "ref_spa_recompute_kernel", "ref_dir_recompute_kernel",
-                "spa_frame_kernel")
+                "spa_frame_kernel", "dir_frame_kernel")
 
 
 def patched_sources(name: str, root: Path) -> None:
@@ -506,7 +530,7 @@ def libraries(name: str) -> tuple:
     if name in WGRAD_VARIANTS:
         return ("wgrad",)
     if name in FRAME_VARIANTS:
-        return ("ref_fused", "dense")
+        return ("ref_fused", "ref_dissect", "dense")
     if name in DELTA_VARIANTS:
         return DELTA_LIBRARIES
     return ("dense", "ref_fused") if VARIANTS[name][0] else ("dense",)
@@ -689,18 +713,22 @@ def wgrad_readings(name: str) -> dict:
 def frame_readings(name: str) -> dict:
     """Run from the copy: the frame variants' readings of the module
     docstring, through the copy's chip_smoke.py."""
+    import hashlib
+
     import torch
 
     import chip_smoke as cs
+    from nerf_tpu_torch.core.encoding import ide_tables
 
     bf16 = torch.bfloat16
     out = {"variant": name, "device": torch.cuda.get_device_name(0),
            "ptxas": ptxas_summary(json.loads(report_path(name).read_text())),
-           "ms": {}, "identities": {}}
+           "ms": {}, "sha1": {}, "identities": {}, "dir_identities": {}}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for k in FRAME_TIMED:
         args, kernel = cs.kernel_case(k, bf16, gen)[:2]
         out["ms"][k] = cs.cuda_ms(lambda: kernel(*args), 20)
+        out["sha1"][k] = sha1_of(kernel(*args), hashlib.sha1()).hexdigest()
         del args
         torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(19)
@@ -708,7 +736,27 @@ def frame_readings(name: str) -> dict:
     for n in (129, 50_689):
         pos, x = cs.ref_points(gen, bf16, n)
         out["identities"][n] = cs.frame_identities(ws, x, pos)
+    n_ch = ide_tables(4)["n_ch"]
+    ws = cs.random_weights(cs.ref_dir_shapes(n_ch), gen, bf16,
+                           gain=cs.REF_GAIN)
+    for n, per_ray in ((129, 3), (50_689, 173)):
+        heads = torch.randn((n, 139), generator=gen, device="cuda")
+        dirs = cs.camera_dirs(gen, n // per_ray)
+        out["dir_identities"][n] = cs.dir_frame_identities(
+            ws, heads, dirs, per_ray, None, 4, False)
     return out
+
+
+def sha1_of(t, h):
+    """h updated with the bytes of every tensor in t (nested tuples)."""
+    import torch
+
+    if isinstance(t, (tuple, list)):
+        for u in t:
+            sha1_of(u, h)
+    else:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h
 
 
 def main(argv=None) -> list:
@@ -734,7 +782,13 @@ def main(argv=None) -> list:
 
     t0 = time.perf_counter()
     builds = {v: run(v, "--build") for v in args.variants}
-    failed = [v for v, proc in builds.items() if proc.wait() != 0]
+    build_s = {}
+    while len(build_s) < len(builds):
+        for v, proc in builds.items():
+            if v not in build_s and proc.poll() is not None:
+                build_s[v] = time.perf_counter() - t0
+        time.sleep(0.5)
+    failed = [v for v, proc in builds.items() if proc.returncode != 0]
     if failed:
         raise RuntimeError(f"the build of {failed} failed")
     print(f"built {len(builds)} variants in {time.perf_counter() - t0:.1f} s",
@@ -752,7 +806,8 @@ def main(argv=None) -> list:
             proc.kill()
             proc.communicate()
             res = {"variant": v, "error": f"over {MEASURE_TIMEOUT} s"}
-        results.append(dict(res, seconds=time.perf_counter() - t0))
+        results.append(dict(res, seconds=time.perf_counter() - t0,
+                            build_seconds=build_s[v]))
         print(json.dumps(results[-1]), flush=True)
     return results
 

@@ -454,6 +454,92 @@ def test_ref_spa_frame_wide_widths(cuda):
     torch.cuda.synchronize()
 
 
+def _assert_dir_frame_identities(ws, heads, dirs, per_ray, noise=None,
+                                 ide_level=4, use_srgb=False, cons=2):
+    """ref_dir_fwd's rgb, normal and density equal ref_dir_fwd_dissect's
+    "full" stage (the 64-row tile; its sRGB is off, so rgb is compared where
+    sRGB is off) and ref_dir_fwd_res's; the stored activations h2, h3, h4,
+    z6, z7 and z8 equal ops.dense_layer of their stored inputs, bit for bit;
+    every output is finite and rgb meets the plain version's; each launch
+    reports the body ``cons`` names (ops.BODIES: the frame's consumer
+    warpgroups, 0 for the 64-row tile)."""
+    args = (ws, heads, dirs, per_ray, noise, ide_level, use_srgb)
+    ops.reset_launches()
+    fwd = ops.ref_dir_fwd(*args)
+    rgb, normal, density, acts = ops.ref_dir_fwd_res(*args)
+    assert ops.BODIES == {
+        name: {ops.ref_fused.dir_body_name(cons, res): 1}
+        for name, res in (("ref_dir_fwd", False), ("ref_dir_fwd_res", True))}
+    full = ops.ref_dir_fwd_dissect(ws, heads, dirs, per_ray, "full",
+                                   noise=noise, ide_level=ide_level)
+    for i in ((1, 2) if use_srgb else (0, 1, 2)):
+        assert torch.equal(fwd[i], full[i]), i
+    for i, a in enumerate((rgb, normal, density)):
+        assert torch.equal(fwd[i], a), i
+    for i in (1, 2, 3, 5, 6, 7):
+        j = 2 * i if i < 4 else 2 * i + 1       # w_i's index in the tuple
+        assert torch.equal(acts[i], ops.dense_layer(acts[i - 1], ws[j],
+                                                    ws[j + 1])[0]), i
+    assert all(bool(torch.isfinite(t).all()) for t in list(fwd) + list(acts))
+    torch.testing.assert_close(
+        fwd[0], ops.ref_dir_plain(*args)[0], **TOLS[torch.bfloat16])
+
+
+def _dir_frame_operands(cuda, n, per_ray, seed, ide_level=4, noisy=False,
+                        **model):
+    """A randomized bf16 RefNeRF's directional weights, heads of n points
+    N(0, 1) (the spatial kernels run narrower trunks than the 64-row
+    directional tile does), the directions of n / per_ray rays and, with
+    ``noisy``, a bottleneck noise."""
+    m, _, dirs = _ref_operands(cuda, torch.bfloat16, n, per_ray, seed,
+                               ide_level=ide_level, **model)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    heads = torch.randn((n, 11 + 128), generator=gen, device=cuda)
+    noise = ((0.05 * torch.randn((n, 128), generator=gen,
+                                 device=cuda)).to(torch.bfloat16)
+             if noisy else None)
+    return m.kernel_weights()[1], heads, dirs, noise
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 50_689])
+@pytest.mark.parametrize("hidden, output_dim", [(256, 256), (48, 80)])
+def test_ref_dir_frame_identities(cuda, n, hidden, output_dim):
+    """The bf16 directional forwards' persistent frame (csrc/dir_frame.cuh),
+    bit for bit (_assert_dir_frame_identities): at one point, either side of
+    the frame's 128-point tile and 50,689 points, with a few points a ray,
+    at IDE levels 4 and 5, with and without noise and the sRGB curve."""
+    per_ray = {1: 1, 127: 127, 129: 3, 50_689: 173}[n]
+    level = 5 if n in (127, 50_689) else 4
+    srgb = n == 129
+    ws, heads, dirs, noise = _dir_frame_operands(
+        cuda, n, per_ray, n + 11, ide_level=level, noisy=n != 129,
+        hidden=hidden, output_dim=output_dim, use_srgb=srgb)
+    _assert_dir_frame_identities(ws, heads, dirs, per_ray, noise, level,
+                                 srgb, cons=2)
+
+
+def test_ref_dir_frame_wide_widths(cuda):
+    """Above 256 wide the frame takes two passes a layer and runs one
+    consumer warpgroup on 64-point tiles, bit for bit as at 256.  Above the
+    frame's widest fit (640 at IDE level 4) the launcher chooses the 64-row
+    tile by shape, up to the widest that tile ran before the frame (712 at
+    level 4); 720 raises, as it did."""
+    # (H, O, the frame's consumer warpgroups; 0: the 64-row tile)
+    cases = ((320, 256, 1), (512, 256, 1), (512, 512, 1), (640, 640, 1),
+             (704, 704, 0), (712, 712, 0))
+    for seed, (hidden, output_dim, cons) in enumerate(cases):
+        ws, heads, dirs, noise = _dir_frame_operands(
+            cuda, 4099, 1, 40 + seed, noisy=True, hidden=hidden,
+            output_dim=output_dim)
+        _assert_dir_frame_identities(ws, heads, dirs, 1, noise, cons=cons)
+    ws, heads, dirs, _ = _dir_frame_operands(cuda, 70, 7, 50, hidden=720,
+                                             output_dim=720)
+    for fn in (ops.ref_dir_fwd, ops.ref_dir_fwd_res):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fn(ws, heads, dirs, 7)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("dtype", list(TOLS))
 @pytest.mark.parametrize("ide_level, use_srgb, bottleneck_dim",
                          [(1, False, 128), (2, True, 128), (5, False, 64)])

@@ -260,10 +260,11 @@ def test_tile_variants_apply_to_the_shipped_sources(name, tmp_path):
     """Each design alternative that nerf_tpu_torch.tools.tile_variants
     measures on the card still finds the text it changes exactly once in
     the shipped csrc/mlp_tile.cuh and csrc/dense.cu, or for the weight-grad
-    pass's variants in csrc/wgrad.cuh alone and for the spatial frame's in
-    csrc/spa_frame.cuh alone (the tool copies the package and patches the
-    copy), and changes something unless it is the shipped code (shipped,
-    and wgrad and frame: the shipped pass or frame read alone)."""
+    pass's variants in csrc/wgrad.cuh alone and for the persistent frame's
+    in its two files alone, csrc/spa_frame.cuh and csrc/dir_frame.cuh (the
+    tool copies the package and patches the copy), and changes something
+    unless it is the shipped code (shipped, and wgrad and frame: the
+    shipped pass or frame read alone)."""
     src = tile_variants.PACKAGE / "ops" / "csrc"
     root = tmp_path / "nerf_tpu_torch"
     shutil.copytree(src, root / "ops" / "csrc")
@@ -274,7 +275,7 @@ def test_tile_variants_apply_to_the_shipped_sources(name, tmp_path):
     assert bool(changed) == (name not in ("shipped", "wgrad", "frame"))
     assert set(changed) <= ({"wgrad.cuh"}
                             if name in tile_variants.WGRAD_VARIANTS
-                            else {"spa_frame.cuh"}
+                            else {"spa_frame.cuh", "dir_frame.cuh"}
                             if name in tile_variants.FRAME_VARIANTS
                             else {"mlp_tile.cuh", "dense.cu"})
 

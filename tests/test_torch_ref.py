@@ -56,6 +56,7 @@ from nerf_tpu_torch.cli import render as cli_render
 from nerf_tpu_torch.cli.entry import main
 from nerf_tpu_torch.core import encoding, render, sampling
 from nerf_tpu_torch.models import RefNeRF
+from nerf_tpu_torch.ops import launch
 from nerf_tpu_torch.train.pipeline import render_rays_eval
 from nerf_tpu_torch.utils.checkpoint import load_models
 from nerf_tpu_torch.utils.png import read_png
@@ -262,25 +263,64 @@ def test_ref_spa_plain_matches_pallas(variables, dtype, n):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
 
 
+def _dir_weights(rng, ide_level, h, o, nb=128):
+    """A seeded f32 directional weight tuple of trunk width h and output
+    width o at ``ide_level``: matrices N(0, 1 / fan_in), biases N(0, 0.25)."""
+    dd = nb + 2 * encoding.ide_tables(ide_level)["n_ch"] + 1
+    mats = [(dd, h), (h, h), (h, h), (h, h), (dd, h), (h, h), (h, h),
+            (h, o), (o, o), (o, 3)]
+    out, k = [], 0
+    for i in range(19):
+        if i in ops.ref_fused.REF_DIR_BIASES:
+            out.append(rng.normal(0, 0.5, (1, out[-1].shape[1])))
+        else:
+            fan_in = mats[k][0]
+            out.append(rng.normal(0, 1 / np.sqrt(fan_in), mats[k]))
+            k += 1
+    return [w.astype(np.float32) for w in out]
+
+
+# (rays, points a ray, H, O) of the cases at the bf16 frame's edges (one
+# point, either side of its 128-point tile, the card tests' narrow widths);
+# None: the model's 5 rays of 14 points at its own widths
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("ide_level, use_srgb, noisy", [
-    (4, False, False), (4, True, False), (2, False, False),
-    (2, True, True)])
-def test_ref_dir_plain_matches_pallas(dtype, ide_level, use_srgb, noisy):
+@pytest.mark.parametrize("ide_level, use_srgb, noisy, shape", [
+    pytest.param(4, False, False, None, id="4-False-False"),
+    pytest.param(4, True, False, None, id="4-True-False"),
+    pytest.param(2, False, False, None, id="2-False-False"),
+    pytest.param(2, True, True, None, id="2-True-True"),
+    pytest.param(4, False, True, (1, 1, 48, 80), id="4-False-True-n1-48x80"),
+    pytest.param(2, True, False, (1, 127, 48, 80),
+                 id="2-True-False-n127-48x80"),
+    pytest.param(5, False, True, (3, 43, 48, 80), id="5-False-True-n129-48x80"),
+    pytest.param(5, True, True, (3, 43, None, None), id="5-True-True-n129")])
+def test_ref_dir_plain_matches_pallas(dtype, ide_level, use_srgb, noisy,
+                                      shape):
     """The directional kernel with its glue, at two IDE levels, with and
-    without the sRGB curve, and once with a bottleneck noise."""
+    without the sRGB curve, and once with a bottleneck noise; then at the
+    bf16 frame's edges (1, 127 and 129 points, the widths 48/80 of seeded
+    weights and heads, IDE level 5)."""
     jcfg, cfg = configs(model="ref", ide_level=ide_level, use_srgb=use_srgb,
                         use_bf16=dtype == torch.bfloat16)
     v = _level_variables(ide_level)
     nerf, _ = port_models(cfg, v)
     rng = np.random.default_rng(6)
-    r, p = 5, 14
+    r, p = (5, 14) if shape is None else shape[:2]
     n = r * p
-    spa = jref_fused._make_spa_fused(_jdt(dtype), TILE, True, False)
-    heads, _ = spa(jops.ref_spatial_weights_from_params(v["nerf"]),
-                   jnp.asarray(_enc(rng, n), _jdt(dtype)),
-                   jnp.zeros((n, 3)))
-    heads = np.array(heads)
+    if shape is None or shape[2] is None:
+        spa = jref_fused._make_spa_fused(_jdt(dtype), TILE, True, False)
+        heads, _ = spa(jops.ref_spatial_weights_from_params(v["nerf"]),
+                       jnp.asarray(_enc(rng, n), _jdt(dtype)),
+                       jnp.zeros((n, 3)))
+        heads = np.array(heads)
+        jws = jops.ref_directional_weights_from_params(v["nerf"])
+        ws = nerf.kernel_weights()[1]
+    else:
+        heads = rng.normal(size=(n, 139)).astype(np.float32)
+        wf = _dir_weights(rng, ide_level, *shape[2:])
+        jws = tuple(jnp.asarray(w) for w in wf)
+        ws = launch.prep_weights([torch.from_numpy(w) for w in wf],
+                                 ops.ref_fused.REF_DIR_BIASES, dtype)
     rays_d = rng.normal(size=(r, 3)).astype(np.float32)
     noise = (rng.normal(0, 0.1, (n, 128)).astype(np.float32) if noisy
              else np.zeros((n, 128), np.float32))
@@ -288,14 +328,15 @@ def test_ref_dir_plain_matches_pallas(dtype, ide_level, use_srgb, noisy):
     dr = jref_fused._make_dir_fused(_jdt(dtype), TILE, True, ide_level,
                                     use_srgb)
     jrgb3, jnormal3, jdens = dr(
-        jops.ref_directional_weights_from_params(v["nerf"]),
-        jnp.asarray(heads), jnp.asarray(noise_t.float().numpy(), _jdt(dtype)),
+        jws, jnp.asarray(heads),
+        jnp.asarray(noise_t.float().numpy(), _jdt(dtype)),
         jnp.asarray(np.repeat(rays_d, p, 0).T.copy()))
     rgb, normal, dens = ops.ref_dir_fwd(
-        nerf.kernel_weights()[1], torch.from_numpy(heads),
-        torch.from_numpy(rays_d), p, noise=noise_t if noisy else None,
-        ide_level=ide_level, use_srgb=use_srgb, device="cpu")
-    assert float(np.asarray(jrgb3).std()) > 0.01   # not saturated
+        ws, torch.from_numpy(heads), torch.from_numpy(rays_d), p,
+        noise=noise_t if noisy else None, ide_level=ide_level,
+        use_srgb=use_srgb, device="cpu")
+    if n > 1:
+        assert float(np.asarray(jrgb3).std()) > 0.01   # not saturated
     for name, a, b in (("rgb", rgb, np.asarray(jrgb3).T),
                        ("normal", normal, np.asarray(jnormal3).T),
                        ("density", dens, np.asarray(jdens).reshape(-1))):
@@ -327,6 +368,24 @@ def test_ref_wrappers_reject_bad_operands(variables):
         # without device="cpu" the wrappers want the card, and raise
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ops.ref_spa_fwd(spa_ws, enc)
+
+
+def test_ref_dir_fwd_on_cpu_counts_no_launch_and_no_body(variables):
+    """On the CPU the directional forwards run their plain versions: they
+    count no launch and no body (ops.BODIES holds the bodies that the C
+    entries report they launched, named by ref_fused.dir_body_name)."""
+    nerf, _ = port_models(configs(model="ref")[1], variables)
+    spa_ws, dir_ws = nerf.kernel_weights()
+    heads = ops.ref_spa_fwd(spa_ws, torch.zeros((14, 63)), device="cpu")
+    ops.reset_launches()
+    for fn in (ops.ref_dir_fwd, ops.ref_dir_fwd_res):
+        fn(dir_ws, heads, torch.ones((2, 3)), 7, device="cpu")
+    assert not any(ops.LAUNCHES.values()) and ops.BODIES == {}
+    name = ops.ref_fused.dir_body_name
+    assert [name(c, r) for c in (0, 1, 2) for r in (False, True)] == [
+        "ref_dir_fwd_kernel", "ref_dir_fwd_kernel",
+        "dir_frame_kernel<eval> x1", "dir_frame_kernel<res> x1",
+        "dir_frame_kernel<eval> x2", "dir_frame_kernel<res> x2"]
 
 
 # ---------------------------------------------------------------------------
