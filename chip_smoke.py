@@ -19,11 +19,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                kernel that runs the delta pass (delta_build) and every
                library's wgrad_mma_kernel (wgrad_build) its registers,
                spills, HGMMA and HMMA on one line, failing on a spill; for
-               the bf16 spatial and directional forwards' persistent frame
-               (frame_build: spa_frame_kernel's three forms,
-               dir_frame_kernel's two) the same, and their ptxas remarks of
-               serialized wgmma, failing on a spill, on HMMA or without
-               HGMMA
+               the bf16 spatial, directional and vanilla forwards'
+               persistent frame (frame_build: spa_frame_kernel's three
+               forms, dir_frame_kernel's two, vanilla_frame_kernel's two)
+               the same, and their ptxas remarks of serialized wgmma,
+               failing on a spill, on HMMA or without HGMMA
   3. kernels - each kernel against its plain PyTorch version, bf16 and f32,
                with timings and bounds: the eval forwards at the shapes of
                one default 4096-ray chunk, the training kernels at those of
@@ -48,7 +48,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                activations equal to ops.dense_layer of its stored inputs,
                ref_spa_fwd's heads and ref_spa_fwd_grad's outputs equal to
                ref_spa_fwd_res's, all bit for bit, at 1, 127, 129, 50,689,
-               196,608 and 786,432 points and the widths 256/256 and 48/80);
+               196,608 and 786,432 points and the widths 256/256, 48/80,
+               512/512 and 600/600, each launch's body; then the widest
+               H = O that runs the frame and that runs at all in each form,
+               failing on a hole or short of the 64-row tile's 776 / 712 /
+               616);
                the bf16 directional frame's (dir_frame: ref_dir_fwd's
                outputs equal to ref_dir_fwd_dissect's "full" stage, the
                64-row tile, and to ref_dir_fwd_res's, the stored
@@ -58,10 +62,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
                512/512, IDE levels 2 and 5, sRGB on and off, with and
                without noise, and at 704/704, where the 64-row tile runs;
                then the widest H = O that runs the frame and that runs at
-               all at IDE levels 2, 4 and 5, failing on a hole)
+               all at IDE levels 2, 4 and 5, failing on a hole); the bf16
+               vanilla frame's (vanilla_frame: vanilla_mlp_fwd's outputs
+               equal to vanilla_mlp_fwd_res's, its 9 stored activations to
+               ops.dense_layer of their stored inputs, all bit for bit,
+               rgb3 and sigma within TOLS of the plain version, each
+               launch's body, at 1, 127, 129, 50,689, 131,072 and 524,288
+               points and 256/256/128, 48/40/24, 64/64/32 and 512/512/256;
+               then the widest H = B that runs the frame and that runs at
+               all, failing on a hole or short of the 64-row tile's 760)
   4. path    - `python -m nerf_tpu_torch -r -e -s -w` on a two-view 800x800
                Blender-layout test split with seeded random weights (full
-               width vanilla model), counting kernel launches; then one f32
+               width vanilla model), counting kernel launches and each
+               frame kernel's launches by the body it ran; then one f32
                frame through the kernels against the plain nn.Module path,
                and one warm bf16 frame timed and traced with torch.profiler,
                beside the same frame through the nn.Module route
@@ -449,10 +462,10 @@ KERNELS = {
         source="nerf_tpu_torch/ops/csrc/fused_mlp.cu",
         replaces="nerf_tpu/ops/fused_mlp.py:478"),
     "vanilla_mlp_fwd": dict(
-        source="nerf_tpu_torch/ops/csrc/fused_mlp.cu",
+        source="nerf_tpu_torch/ops/csrc/vanilla_frame.cuh",
         replaces="nerf_tpu/ops/fused_mlp.py:128"),
     "vanilla_mlp_fwd_res": dict(
-        source="nerf_tpu_torch/ops/csrc/fused_mlp.cu",
+        source="nerf_tpu_torch/ops/csrc/vanilla_frame.cuh",
         replaces="nerf_tpu/ops/fused_mlp.py:150"),
     "vanilla_mlp_bwd": dict(
         source="nerf_tpu_torch/ops/csrc/fused_mlp_bwd.cu",
@@ -1399,11 +1412,15 @@ def check_kernel(name, dtype, gen, timed=True, **case):
 # and one past it; more tiles than three for each block of an H100's 132,
 # so that every block walks at least three) and of the main paths (a
 # default step's merged points and an eval chunk's, at 256 wide only), at
-# the card tests' two width pairs (H, O) and at 512 wide, where every form
+# the card tests' two width pairs (H, O), at 512 wide, where every form
 # runs one consumer warpgroup on 64-point tiles and the training forms
-# read the narrow heads' weights from device memory.
+# read the narrow heads' weights from device memory, and at 600 wide,
+# above the training forms' fit, where their launchers run the 64-row
+# tile; each with the frame's consumer warpgroups that the eval, res and
+# grad launches must report (0: the 64-row tile; ref_fused.spa_body_name).
 FRAME_NS = (1, 127, 129, 50_689, RAYS * N_MERGED, CHUNK * N_MERGED)
-FRAME_WIDTHS = ((256, 256), (48, 80), (512, 512))
+FRAME_WIDTHS = {(256, 256): (2, 2, 2), (48, 80): (2, 2, 2),
+                (512, 512): (1, 1, 1), (600, 600): (1, 0, 0)}
 
 
 def frame_identities(ws, x, pos):
@@ -1411,9 +1428,11 @@ def frame_identities(ws, x, pos):
     stored activations against ops.dense_layer (the layer tile alone, on
     the 64-row frame) of its stored inputs (z5 through the two-operand
     form), ref_spa_fwd's heads and ref_spa_fwd_grad's heads and normal
-    target against ref_spa_fwd_res's, each equal bit for bit or not; and
-    the heads' distance from the plain version's (tols_ratio, TOLS)."""
-    heads, dgrad, acts = ops.ref_spa_fwd_res(ws, x, pos)
+    target against ref_spa_fwd_res's, each equal bit for bit or not; the
+    heads' distance from the plain version's (tols_ratio, TOLS); the body
+    that each launch reported (ops.BODIES)."""
+    (heads, dgrad, acts), body_res = body_of(
+        "ref_spa_fwd_res", lambda: ops.ref_spa_fwd_res(ws, x, pos))
     (w0, b0, w1, b1, w2, b2, w3, b3, w4a, w4b, b4, w5, b5, w6, b6, w7,
      b7) = ws[:17]
     inputs = [(x, w0, b0), (acts[0], w1, b1), (acts[1], w2, b2),
@@ -1421,10 +1440,13 @@ def frame_identities(ws, x, pos):
               (acts[4], w5, b5), (acts[5], w6, b6), (acts[6], w7, b7)]
     layers = [bool(torch.equal(a, ops.dense_layer(*op)[0]))
               for a, op in zip(acts, inputs)]
-    g_heads, g_dgrad = ops.ref_spa_fwd_grad(ws, x, pos)
+    (g_heads, g_dgrad), body_grad = body_of(
+        "ref_spa_fwd_grad", lambda: ops.ref_spa_fwd_grad(ws, x, pos))
+    fwd, body = body_of("ref_spa_fwd", lambda: ops.ref_spa_fwd(ws, x))
     return dict(
+        body=body, body_res=body_res, body_grad=body_grad,
         layers_equal_dense_layer=layers,
-        fwd_heads_equal_res=bool(torch.equal(ops.ref_spa_fwd(ws, x), heads)),
+        fwd_heads_equal_res=bool(torch.equal(fwd, heads)),
         grad_equals_res=bool(torch.equal(g_heads, heads)
                              and torch.equal(g_dgrad, dgrad)),
         finite=bool(torch.isfinite(heads).all()
@@ -1443,12 +1465,13 @@ def tols_ratio(got, want, tol):
 def frame_checks():
     """frame_identities at FRAME_NS x FRAME_WIDTHS on seeded bf16 operands
     (its own generator); fails where an identity does not hold, a value is
-    not finite or the heads part from the plain version beyond TOLS.  Its
-    launches are not the main path's."""
+    not finite, the heads part from the plain version beyond TOLS or a
+    launch ran another body than its width's (FRAME_WIDTHS); then the
+    width scan (spa_frame_widths).  Its launches are not the main path's."""
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(19)
     cases = []
-    for h, o in FRAME_WIDTHS:
+    for (h, o), cons in FRAME_WIDTHS.items():
         ws = random_weights(ref_spa_shapes(h=h, o=o), gen, bf16,
                             gain=REF_GAIN)
         for n in FRAME_NS:
@@ -1457,14 +1480,76 @@ def frame_checks():
             pos, x = ref_points(gen, bf16, n)
             r = dict(h=h, o=o, n=n, **frame_identities(ws, x, pos))
             cases.append(r)
+            name = ref_fused.spa_body_name
             if not (all(r["layers_equal_dense_layer"])
                     and r["fwd_heads_equal_res"] and r["grad_equals_res"]
                     and r["finite"]
-                    and r["heads_vs_plain"] <= 1.0):
+                    and r["heads_vs_plain"] <= 1.0
+                    and r["body"] == name(cons[0], "eval")
+                    and r["body_res"] == name(cons[1], "res")
+                    and r["body_grad"] == name(cons[2], "grad")):
                 fail(f"the bf16 spatial frame fails an identity: {r}")
             del pos, x
             torch.cuda.empty_cache()
-    return dict(cases=cases, all_equal=True)
+    return dict(cases=cases, all_equal=True, widths=spa_frame_widths())
+
+
+# the width scan of the spa_frame phase: H = O from 504 to 776 in steps of
+# 8, 300 points each (the frame's widest fit in each form and the 64-row
+# tile's lie between), and the widest that the 64-row tile ran in each
+# form before the frame took the bf16 spatial forwards (ROADMAP B.6, C.2),
+# which each form must reach again
+SPA_WIDTH_SCAN = range(504, 784, 8)
+SPA_TILE_WIDEST = {"eval": 776, "res": 712, "grad": 616}
+
+
+def spa_frame_widths():
+    """For each form of the bf16 spatial forward, the widest H = O of
+    SPA_WIDTH_SCAN that runs the frame and the widest that runs at all
+    (the 64-row tile above the frame's fit), each launch's heads within
+    TOLS of the plain version's; fails where a width below one that runs
+    raises, where the frame is chosen above a width that took the 64-row
+    tile, where the widest that runs is short of SPA_TILE_WIDEST, or where
+    the heads part from the plain version."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    calls = {"eval": ("ref_spa_fwd", lambda ws, x, pos: ops.ref_spa_fwd(
+        ws, x)), "res": ("ref_spa_fwd_res", lambda ws, x, pos:
+                         ops.ref_spa_fwd_res(ws, x, pos)[0]),
+        "grad": ("ref_spa_fwd_grad", lambda ws, x, pos:
+                 ops.ref_spa_fwd_grad(ws, x, pos)[0])}
+    out = {}
+    for form, (name, call) in calls.items():
+        bodies, worst = [], 0.0
+        for w in SPA_WIDTH_SCAN:
+            ws = random_weights(ref_spa_shapes(h=w, o=w), gen, bf16,
+                                gain=REF_GAIN)
+            pos, x = ref_points(gen, bf16, 300)
+            try:
+                heads, body = body_of(name, lambda: call(ws, x, pos))
+                torch.cuda.synchronize()
+            except RuntimeError:
+                bodies.append(None)
+                continue
+            bodies.append(body)
+            worst = max(worst, tols_ratio(heads, ops.ref_spa_plain(ws, x),
+                                          TOLS[bf16]))
+            del ws, pos, x, heads
+        runs = [w for w, b in zip(SPA_WIDTH_SCAN, bodies) if b]
+        frame = [w for w, b in zip(SPA_WIDTH_SCAN, bodies)
+                 if b and b.startswith("spa_frame_kernel")]
+        out[form] = dict(frame_to=max(frame, default=None),
+                         runs_to=max(runs, default=None),
+                         heads_vs_plain=worst)
+        if (runs != list(SPA_WIDTH_SCAN)[:len(runs)]
+                or frame != runs[:len(frame)]
+                or max(runs, default=0) < SPA_TILE_WIDEST[form]
+                or worst > 1.0):
+            fail(f"the spatial forwards' widths ({form}): "
+                 f"{dict(zip(SPA_WIDTH_SCAN, bodies))}, heads vs plain "
+                 f"{worst}, widest before the frame "
+                 f"{SPA_TILE_WIDEST[form]}")
+    return out
 
 
 # The bf16 directional forwards on the frame (csrc/dir_frame.cuh): FRAME_NS
@@ -1629,6 +1714,142 @@ def dir_frame_checks():
     return dict(cases=cases, all_equal=True, widths=dir_frame_widths())
 
 
+# The bf16 vanilla forwards on the frame (csrc/vanilla_frame.cuh): the
+# frame's edge counts of FRAME_NS and the main paths' (a default step's
+# 131,072 fine points, an eval chunk's 524,288; at the model's widths only)
+# at the model's widths (H, B, R) = (256, 256, 128), the card tests' (48,
+# 40, 24) and (64, 64, 32), and at 512 wide, where the frame runs one
+# consumer warpgroup on 64-point tiles; each with the frame's consumer
+# warpgroups that its launches must report (fused_mlp.vanilla_body_name)
+VANILLA_FRAME_NS = (1, 127, 129, 50_689, RAYS * N_FINE, CHUNK * N_FINE)
+VANILLA_FRAME_WIDTHS = {(256, 256, 128): 2, (48, 40, 24): 2,
+                        (64, 64, 32): 2, (512, 512, 256): 1}
+
+
+def vanilla_frame_identities(ws, x, d):
+    """The vanilla frame's identities on one case: vanilla_mlp_fwd's rgb3
+    and sigma equal to vanilla_mlp_fwd_res's, bit for bit; each of the 9
+    stored activations equal to ops.dense_layer of its stored inputs (z5
+    and r1 through the two-operand form, bvec without the ReLU); every
+    output finite; rgb3's and sigma's distance from the plain version's
+    (tols_ratio, TOLS); the body that each launch reported (ops.BODIES)."""
+    fwd, body = body_of("vanilla_mlp_fwd",
+                        lambda: ops.vanilla_mlp_fwd(ws, x, d))
+    (rgb3, sigma, acts), body_res = body_of(
+        "vanilla_mlp_fwd_res", lambda: ops.vanilla_mlp_fwd_res(ws, x, d))
+    (w0, b0, w1, b1, w2, b2, w3, b3, w4a, w4b, b4, w5, b5, w6, b6, _, _, wb,
+     bb, wr1a, wr1b, br1) = ws[:22]
+    inputs = [(x, w0, b0), (acts[0], w1, b1), (acts[1], w2, b2),
+              (acts[2], w3, b3), (x, w4a, b4, acts[3], w4b),
+              (acts[4], w5, b5), (acts[5], w6, b6), (acts[6], wb, bb),
+              (acts[7], wr1a, br1, d, wr1b)]
+    plain = ops.vanilla_mlp_plain(ws, x, d)
+    return dict(
+        body=body, body_res=body_res,
+        fwd_equal_res=[bool(torch.equal(fwd[0], rgb3)),
+                       bool(torch.equal(fwd[1], sigma))],
+        layers_equal_dense_layer=[
+            bool(torch.equal(a, ops.dense_layer(*op, relu=i != 7)[0]))
+            for i, (a, op) in enumerate(zip(acts, inputs))],
+        finite=bool(all(torch.isfinite(t).all()
+                        for t in list(fwd) + list(acts))),
+        rgb_vs_plain=tols_ratio(fwd[0], plain[0], TOLS[x.dtype]),
+        sigma_vs_plain=tols_ratio(fwd[1], plain[1], TOLS[x.dtype]))
+
+
+# the width scan of the vanilla_frame phase: H = B from 400 to 768 in steps
+# of 8 and R = B / 2 rounded down to 8, 300 points each (the frame's widest
+# fit, 688 on an H100, and the 64-row tile's lie between), and the widest
+# that the 64-row tile ran before the frame took the bf16 vanilla forwards,
+# which both forms must reach again
+VANILLA_WIDTH_SCAN = range(400, 776, 8)
+VANILLA_TILE_WIDEST = 760
+
+
+def vanilla_frame_widths():
+    """For each vanilla form, the widest H = B of VANILLA_WIDTH_SCAN that
+    runs the frame and the widest that runs at all (the 64-row tile above
+    the frame's fit), each launch's rgb3 and sigma within TOLS of the plain
+    version's; fails where a width below one that runs raises, where the
+    frame is chosen above a width that took the 64-row tile, where the
+    widest that runs is short of VANILLA_TILE_WIDEST, or where the outputs
+    part from the plain version."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    out = {}
+    for res in (False, True):
+        name = "vanilla_mlp_fwd_res" if res else "vanilla_mlp_fwd"
+        fn = getattr(ops, name)
+        bodies, worst = [], 0.0
+        for w in VANILLA_WIDTH_SCAN:
+            ws = random_weights(vanilla_shapes(h=w, bn=w, r=w // 16 * 8),
+                                gen, bf16, gain=VANILLA_GAIN)
+            x, d = vanilla_encodings(gen, bf16, 300)
+            try:
+                got, body = body_of(name, lambda: fn(ws, x, d))
+                torch.cuda.synchronize()
+            except RuntimeError:
+                bodies.append(None)
+                continue
+            bodies.append(body)
+            plain = ops.vanilla_mlp_plain(ws, x, d)
+            worst = max(worst, *(tols_ratio(g, p, TOLS[bf16])
+                                 for g, p in zip(got[:2], plain)))
+            del ws, x, d, got, plain
+        runs = [w for w, b in zip(VANILLA_WIDTH_SCAN, bodies) if b]
+        frame = [w for w, b in zip(VANILLA_WIDTH_SCAN, bodies)
+                 if b and b.startswith("vanilla_frame_kernel")]
+        key = "res" if res else "eval"
+        out[key] = dict(frame_to=max(frame, default=None),
+                        runs_to=max(runs, default=None),
+                        outputs_vs_plain=worst)
+        if (runs != list(VANILLA_WIDTH_SCAN)[:len(runs)]
+                or frame != runs[:len(frame)]
+                or max(runs, default=0) < VANILLA_TILE_WIDEST
+                or worst > 1.0):
+            fail(f"the vanilla forwards' widths ({key}): "
+                 f"{dict(zip(VANILLA_WIDTH_SCAN, bodies))}, outputs vs "
+                 f"plain {worst}, widest before the frame "
+                 f"{VANILLA_TILE_WIDEST}")
+    return out
+
+
+def vanilla_frame_checks():
+    """vanilla_frame_identities on seeded bf16 operands (its own generator)
+    at VANILLA_FRAME_NS x VANILLA_FRAME_WIDTHS; fails where an identity
+    does not hold, a value is not finite, rgb3 or sigma part from the plain
+    version beyond TOLS, or a launch ran another body than its width's;
+    then the width scan (vanilla_frame_widths).  Its launches are not the
+    main path's."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    cases = []
+    t0 = time.perf_counter()
+    for (h, bn, r), cons in VANILLA_FRAME_WIDTHS.items():
+        ws = random_weights(vanilla_shapes(h=h, bn=bn, r=r), gen, bf16,
+                            gain=VANILLA_GAIN)
+        for n in VANILLA_FRAME_NS:
+            if n > FRAME_NS[3] and (h, bn, r) != (256, 256, 128):
+                continue
+            x, d = vanilla_encodings(gen, bf16, n)
+            c = dict(h=h, bn=bn, r=r, n=n,
+                     **vanilla_frame_identities(ws, x, d))
+            cases.append(c)
+            name = fused_mlp.vanilla_body_name
+            if not (all(c["fwd_equal_res"])
+                    and all(c["layers_equal_dense_layer"]) and c["finite"]
+                    and c["rgb_vs_plain"] <= 1.0
+                    and c["sigma_vs_plain"] <= 1.0
+                    and c["body"] == name(cons, False)
+                    and c["body_res"] == name(cons, True)):
+                fail(f"the bf16 vanilla frame fails an identity: {c}")
+            del x, d
+            torch.cuda.empty_cache()
+    checks_s = time.perf_counter() - t0
+    return dict(cases=cases, all_equal=True, seconds=checks_s,
+                widths=vanilla_frame_widths())
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the render path
 # ---------------------------------------------------------------------------
@@ -1695,9 +1916,9 @@ def run_path(tmp: str, model: str = "vanilla"):
     --render_normal``) on a two-view test split with seeded random weights:
     (launches, s per frame, the normal panels' spread, the launches by body
     of the kernels that report one).  Each eval forward of the path launches
-    once per chunk, every other kernel never, ref_dir_fwd on the frame's two
-    consumer warpgroups; the Ref-NeRF grids carry the normal panel, which
-    must not be blank."""
+    once per chunk, every other kernel never, each that reports a body on
+    the frame's two consumer warpgroups; the Ref-NeRF grids carry the
+    normal panel, which must not be blank."""
     write_split(tmp, "test", N_FRAMES, np.random.default_rng(0))
     cfg = PipelineConfig(model=model)
     save_models(os.path.join(tmp, "model"), "model_1",
@@ -1716,7 +1937,7 @@ def run_path(tmp: str, model: str = "vanilla"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    bodies = launched_bodies(launches, ("ref_dir_fwd",) if ref else ())
+    bodies = launched_bodies(launches, frame_launched(launches))
     if rc != 0:
         fail(f"entry returned {rc}")
     n_chunks = math.ceil(400 * 400 / CHUNK)
@@ -1741,9 +1962,22 @@ def run_path(tmp: str, model: str = "vanilla"):
 
 
 # the kernels whose C entry reports the body it launched (ops.BODIES), and
-# the body each runs at the main paths' default widths in bf16
-BODY_KERNELS = {"ref_dir_fwd": ref_fused.dir_body_name(2, False),
-                "ref_dir_fwd_res": ref_fused.dir_body_name(2, True)}
+# the body each runs at the main paths' default widths in bf16: the frame,
+# two consumer warpgroups
+BODY_KERNELS = {
+    "vanilla_mlp_fwd": fused_mlp.vanilla_body_name(2, False),
+    "vanilla_mlp_fwd_res": fused_mlp.vanilla_body_name(2, True),
+    "ref_spa_fwd": ref_fused.spa_body_name(2, "eval"),
+    "ref_spa_fwd_res": ref_fused.spa_body_name(2, "res"),
+    "ref_spa_fwd_grad": ref_fused.spa_body_name(2, "grad"),
+    "ref_dir_fwd": ref_fused.dir_body_name(2, False),
+    "ref_dir_fwd_res": ref_fused.dir_body_name(2, True)}
+
+
+def frame_launched(launches: dict) -> tuple:
+    """The kernels of BODY_KERNELS that a bf16 run which counted
+    ``launches`` launched: each must have run its frame alone."""
+    return tuple(k for k in BODY_KERNELS if launches.get(k))
 
 
 def launched_bodies(launches: dict, frame=()) -> dict:
@@ -3021,14 +3255,14 @@ def delta_phase(gen):
                 launches=launches)
 
 
-# the libraries whose kernels run the delta pass or the weight-grad pass,
-# each with its <lib>_occupancy entry (mlp_tile.cuh's OCCUPANCY_ENTRY), the
-# bf16 kernels that the phases before the occupancy line launch among them,
-# and the libraries whose bf16 weight-grad body (wgrad_mma_kernel, built
-# for one block an SM) those phases launch
-OCCUPANCY_LIBS = ("fused_mlp_bwd", "fused_mlp_recompute", "ref_fused",
-                  "ref_fused_bwd", "ref_fused_recompute", "ref_dissect",
-                  "delta", "wgrad")
+# the libraries whose kernels run the delta pass, the weight-grad pass or
+# the frame, each with its <lib>_occupancy entry (mlp_tile.cuh's
+# OCCUPANCY_ENTRY), the bf16 kernels that the phases before the occupancy
+# line launch among them, and the libraries whose bf16 weight-grad body
+# (wgrad_mma_kernel, built for one block an SM) those phases launch
+OCCUPANCY_LIBS = ("fused_mlp", "fused_mlp_bwd", "fused_mlp_recompute",
+                  "ref_fused", "ref_fused_bwd", "ref_fused_recompute",
+                  "ref_dissect", "delta", "wgrad")
 WGRAD_LIBS = ("fused_mlp_bwd", "fused_mlp_recompute", "ref_fused_bwd",
               "ref_fused_recompute", "ref_dissect", "wgrad")
 OCCUPANCY_BF16 = (
@@ -3036,7 +3270,9 @@ OCCUPANCY_BF16 = (
     "prop_delta_kernel<false>", "vanilla_recompute_kernel",
     "spa_frame_kernel<eval>", "spa_frame_kernel<res>",
     "spa_frame_kernel<grad>", "dir_frame_kernel<eval>",
-    "dir_frame_kernel<res>", "ref_spa_delta_kernel", "ref_dir_delta_kernel",
+    "dir_frame_kernel<res>", "vanilla_frame_kernel<eval>",
+    "vanilla_frame_kernel<res>", "ref_spa_delta_kernel",
+    "ref_dir_delta_kernel",
     "ref_spa_recompute_kernel", "ref_dir_recompute_kernel<1>",
     "ref_dir_recompute_kernel<2>", "ref_dir_recompute_kernel<3>",
     "delta_layer_kernel")
@@ -3049,7 +3285,7 @@ def delta_occupancy():
     "<lib> <name>/<bf16|f32>", the shared memory and blocks an SM of each
     distinct launch.  Fails where a launch ran below the blocks an SM its
     kernel was built for (two for a bf16 delta-pass kernel, one for the
-    weight-grad body and for the frame's five forms), a query
+    weight-grad body and for the frame's seven forms), a query
     failed, a bf16 kernel of OCCUPANCY_BF16 was
     never launched, or a library of WGRAD_LIBS never launched
     wgrad_mma_kernel."""
@@ -3181,8 +3417,8 @@ def run_train(tmp: str, model: str = "vanilla"):
     5 -s -w`` on the 20-view train split, through the kernels and through
     the nn.Module route (``--no_pallas``, its checkpoint under another
     name): launches per step of each training kernel (and by body, for the
-    kernels that report one; Ref-NeRF's directional forwards on the
-    frame's two consumer warpgroups), and the two routes' loss curves."""
+    kernels that report one, each on the frame's two consumer warpgroups),
+    and the two routes' loss curves."""
     flags, kernels, band_lim, _ = ROUTES[model]
     steps = TRAIN_VIEWS * TRAIN_EPOCHS
     eval_chunks = math.ceil(400 * 400 / CHUNK)   # one test view, at the end
@@ -3198,7 +3434,7 @@ def run_train(tmp: str, model: str = "vanilla"):
     if launches != want:
         fail(f"{model} train path launches {launches}, expected {want}")
     bodies = EPOCH_RUNS[f"{model}_kernels"]["bodies"]
-    for k in BODY_KERNELS if model == "ref" else ():
+    for k in frame_launched(launches):
         if bodies.get(k) != {BODY_KERNELS[k]: launches[k]}:
             fail(f"{model} train path: {k} ran {bodies.get(k)}, not "
                  f"{BODY_KERNELS[k]} alone")
@@ -3242,8 +3478,9 @@ def render_trained(tmp: str, model: str = "vanilla"):
     route with ``--ref_kernels hybrid``, Mip-NeRF ``-m``, IPE
     ``--use_ipe``) on the checkpoint the train phase wrote: each eval kernel
     of the route launches once per chunk (Mip-NeRF's twice), no other
-    kernel; the seconds of the entry (one 400x400 frame, the data and the
-    model loaded)."""
+    kernel, each that reports a body on the frame's two consumer
+    warpgroups (the launches by body); the seconds of the entry (one
+    400x400 frame, the data and the model loaded)."""
     ref = model in ("ref", "hybrid")
     flags = ROUTES[model][0]
     argv = list(flags) + ["-r", "-e", "-s", "-w", "--dataset_root",
@@ -3263,6 +3500,7 @@ def render_trained(tmp: str, model: str = "vanilla"):
     if rc != 0 or launches != want:
         fail(f"render of the trained {model} checkpoint: rc {rc}, launches "
              f"{launches}, expected {want}")
+    bodies = launched_bodies(launches, frame_launched(launches))
     grid = read_png(os.path.join(tmp, "output", "given", "result_000.png"))
     # panels of 400 columns, 2 apart: rgb[, normal], ground truth
     if grid.shape[1] != (3 if ref else 2) * 402 - 2:
@@ -3273,7 +3511,7 @@ def render_trained(tmp: str, model: str = "vanilla"):
         fail("render of the trained ref checkpoint: blank normal panel")
     return dict(command="python -m nerf_tpu_torch " + " ".join(
         a if "/" not in a else "<tmp>" for a in argv), launches=launches,
-        normal_panel_std=normal_std, s_entry=wall)
+        bodies=bodies, normal_panel_std=normal_std, s_entry=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -3341,7 +3579,7 @@ ORBIT_SCALE = 0.125              # 800 -> 100: the 120-frame orbit's size
 ORBIT_FRAMES = 120
 # the device function that each training kernel's wrapper launches, as the
 # trace names it
-TRACE_FUNCTIONS = {"vanilla_mlp_fwd_res": "vanilla_mlp_fwd_kernel",
+TRACE_FUNCTIONS = {"vanilla_mlp_fwd_res": "vanilla_frame_kernel",
                    "vanilla_mlp_bwd": "vanilla_delta_kernel",
                    "prop_mlp_fwd": "prop_mlp_fwd_kernel",
                    "prop_mlp_bwd": "prop_delta_kernel"}
@@ -4024,18 +4262,24 @@ DELTA_KERNELS = ("vanilla_delta_kernel", "prop_delta_kernelILb0E",
 # no HMMA.  (The dissection's recompute-only stage, mode 0, runs no delta
 # pass.)
 HEADLESS = ("prop_delta_kernel<true>", "prop_delta_kernel<false>")
-# the bf16 spatial and directional forwards' persistent frame (spa_frame.cuh,
-# dir_frame.cuh; ref_fused.cu launches it for bf16, ref_spa_fwd_kernel and
-# ref_spa_fwd_res_kernel are built in f32 alone, ref_dir_fwd_kernel in bf16
-# too, for the widths whose frame does not fit): each instantiation holds
-# HGMMA and no HMMA (the density column's first pullback is no product
-# there) and spills nothing; each kernel is built once for each of its
-# forms (FRAME_FORMS)
-FRAME_KERNELS = ("spa_frame_kernel", "dir_frame_kernel")
-FRAME_FORMS = {"spa_frame_kernel": 3, "dir_frame_kernel": 2}
-F32_ONLY = ("ref_spa_fwd_kernel", "ref_spa_fwd_res_kernel")
+# the bf16 persistent frame of the spatial, directional and vanilla forwards
+# (spa_frame.cuh, dir_frame.cuh, vanilla_frame.cuh; ref_fused.cu and
+# fused_mlp.cu launch it for bf16, and their 64-row tiles in bf16 too for
+# the widths whose frame does not fit): each instantiation holds HGMMA and
+# no HMMA (the density column's first pullback is no product there) and
+# spills nothing; each kernel is built once for each of its forms
+# (FRAME_FORMS)
+FRAME_KERNELS = ("spa_frame_kernel", "dir_frame_kernel",
+                 "vanilla_frame_kernel")
+FRAME_FORMS = {"spa_frame_kernel": 3, "dir_frame_kernel": 2,
+               "vanilla_frame_kernel": 2}
+# the frame's forms that must keep no stack frame (the spatial res and grad
+# forms keep 96 and 32 bytes)
+STACKLESS_FRAMES = ("dir_frame_kernel", "vanilla_frame_kernel")
 TILE_AND_DELTA = (
     ("fused_mlp_recompute", "vanilla_recompute_kernel<__nv_bfloat16>"),
+    ("ref_fused", "ref_spa_fwd_res_kernel<(bool)0, __nv_bfloat16>"),
+    ("ref_fused", "ref_spa_fwd_res_kernel<(bool)1, __nv_bfloat16>"),
     ("ref_fused_recompute", "ref_spa_recompute_kernel<__nv_bfloat16>"),
     ("ref_fused_recompute",
      "ref_dir_recompute_kernel<(int)3, __nv_bfloat16>"),
@@ -4273,8 +4517,7 @@ def check_tile_mma(mma):
                 fail(f"{lib}: {func} runs the tile alone and holds HMMA: "
                      f"{c}")
     want = {f"{kernel_label(k)}<{d}>" for k in TILE_KERNELS + DELTA_KERNELS
-            for d in ("bf16", "f32")
-            if not (d == "bf16" and k in F32_ONLY)}
+            for d in ("bf16", "f32")}
     want |= {f"{k}<bf16>" for k in FRAME_KERNELS}
     if want - seen:
         fail(f"no SASS found for {sorted(want - seen)}")
@@ -4291,13 +4534,14 @@ def check_tile_mma(mma):
 
 def frame_build(reports, mma):
     """For each instantiation of the bf16 frame (FRAME_KERNELS: the spatial
-    net's three forms, the directional net's two), by "<lib> <short
-    demangled name>": ptxas's registers (the launch's; the consumers run at
-    setmaxnreg's 232), stack frame and spill bytes (stores, loads) and its
-    remarks that wgmma instructions were serialized, and the HGMMA and HMMA
-    in its SASS.  Fails on a spill, on a stack frame in a directional form,
-    on HMMA, without HGMMA, or unless each kernel was built once for each of
-    its forms (FRAME_FORMS)."""
+    net's three forms, the directional net's two, the vanilla net's two),
+    by "<lib> <short demangled name>": ptxas's registers (the launch's; the
+    consumers run at setmaxnreg's 232), stack frame and spill bytes (stores,
+    loads) and its remarks that wgmma instructions were serialized, and the
+    HGMMA and HMMA in its SASS.  Fails on a spill, on a stack frame in a
+    directional or vanilla form (STACKLESS_FRAMES), on HMMA, without HGMMA,
+    or unless each kernel was built once for each of its forms
+    (FRAME_FORMS)."""
     found = ptxas_by_function(reports, lambda f: any(
         k in f for k in FRAME_KERNELS))
     names = demangle(sorted({f for v in found.values() for f in v}))
@@ -4323,7 +4567,7 @@ def frame_build(reports, mma):
             out[f"{lib} {name}"] = r
             if r["spill_bytes"] is None or sum(r["spill_bytes"]):
                 fail(f"{lib} {name} spills: {r}")
-            if name.startswith("dir_frame_kernel") and r["stack_bytes"] != 0:
+            if name.startswith(STACKLESS_FRAMES) and r["stack_bytes"] != 0:
                 fail(f"{lib} {name} keeps a stack frame: {r}")
             if mma is not None and (not r["HGMMA"] or r["HMMA"]):
                 fail(f"{lib} {name} should hold HGMMA and no HMMA: {r}")
@@ -4948,6 +5192,7 @@ def main() -> int:
             torch.cuda.empty_cache()
     emit("spa_frame", **frame_checks())
     emit("dir_frame", **dir_frame_checks())
+    emit("vanilla_frame", **vanilla_frame_checks())
     emit("kernel_order_sensitivity", **order_sensitivity(gen))
     emit("backward_order_sensitivity", **backward_order_sensitivity())
     for dtype in (torch.bfloat16, torch.float32):
@@ -4960,10 +5205,10 @@ def main() -> int:
 
     # phase 4: the render path
     with tempfile.TemporaryDirectory() as tmp:
-        render_launches, s_per_frame, _, _ = run_path(tmp)
+        render_launches, s_per_frame, _, render_bodies = run_path(tmp)
         emit("path", command="python -m nerf_tpu_torch -r -e -s -w",
              frames=N_FRAMES, hw=[400, 400], launches=render_launches,
-             s_per_frame_entry=s_per_frame)
+             bodies=render_bodies, s_per_frame_entry=s_per_frame)
     diffs, depth_std = frame_check()
     emit("frame", f32_kernels_vs_plain_max_abs=diffs["rgb"], atol=FRAME_ATOL,
          depth_std=depth_std)
@@ -4978,7 +5223,7 @@ def main() -> int:
              launches=ref_launches,
              launches_per_frame={k: ref_launches[k] / N_FRAMES
                                  for k in REF_KERNELS},
-             s_per_frame_entry=ref_s_per_frame,
+             bodies=ref_bodies, s_per_frame_entry=ref_s_per_frame,
              normal_panel_std=normal_std)
     diffs, depth_std = frame_check("ref")
     emit("ref_frame_check", f32_kernels_vs_plain_max_abs=diffs,
@@ -5161,13 +5406,15 @@ def main() -> int:
             continue
         res = checks[(name, torch.bfloat16)]   # -s trains and renders in bf16
         f32 = checks[(name, torch.float32)]
-        path = (scaling_launches if name in PROP_RES_KERNELS
-                else hybrid["launches"] if name in ("ref_spa_fwd_grad",
-                                                    "ref_spa_bwd_recompute")
-                else recompute_steps if name in RECOMPUTE_KERNELS
-                else ref_train["launches"] if name in REF_TRAIN_KERNELS[1:-1]
-                else ref_launches if name.startswith("ref")
-                else train["launches"])
+        path, bodies = (
+            (scaling_launches, None) if name in PROP_RES_KERNELS
+            else (hybrid["launches"], hybrid["bodies"])
+            if name in ("ref_spa_fwd_grad", "ref_spa_bwd_recompute")
+            else (recompute_steps, None) if name in RECOMPUTE_KERNELS
+            else (ref_train["launches"], ref_train["bodies"])
+            if name in REF_TRAIN_KERNELS[1:-1]
+            else (ref_launches, ref_bodies) if name.startswith("ref")
+            else (train["launches"], train["bodies"]))
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=path[name],
@@ -5188,9 +5435,7 @@ def main() -> int:
             tol=res["tol"], n=res["n"], ms=res["ms"],
             plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
             bound_by=res["bound_by"], library_ms=None,
-            **({"bodies": (ref_train["bodies"] if name in
-                           REF_TRAIN_KERNELS[1:-1] else ref_bodies)[name]}
-               if name in BODY_KERNELS else {}),
+            **({"bodies": bodies[name]} if name in BODY_KERNELS else {}),
             f32=dict(rel_err=f32.get("grad_rel_err", f32.get("act_rel_err")),
                      **{k: f32[k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by")})))

@@ -1,6 +1,7 @@
 """Time the fused kernels of two checkouts in turns on one card.
 
-    python3 kernel_ab.py --other DIR [--steps] [--tile | --spa | --dir] > ab.json
+    python3 kernel_ab.py --other DIR [--steps] [--tile | --spa | --dir |
+                                               --vanilla] > ab.json
 
 DIR is another checkout of this repository (for example ``git archive`` of
 an earlier commit unpacked under ``build/``).  Each turn is one process
@@ -60,7 +61,15 @@ take the same readings of the directional net's fused forwards in bf16
 (``DIR_KERNELS``: ``ref_dir_fwd`` at an eval chunk's 786,432 points,
 ``ref_dir_fwd_res`` at a default step's 196,608, and the sha1 of each
 one's outputs, and of a second case of each with sRGB on), with the same
-frame and steps beside them.  Prints one
+frame and steps beside them.  With ``--vanilla`` the turns time the
+vanilla net's two fused forwards in bf16 (``VANILLA_KERNELS``:
+``vanilla_mlp_fwd`` at an eval chunk's 524,288 points,
+``vanilla_mlp_fwd_res`` at a default step's 131,072, on the vanilla path's
+encodings and on the ``-m`` path's IPE encodings at the same points, each
+with the sha1 of its outputs), a warm 400x400 vanilla and ``-m`` frame
+(wall seconds, device ms, busy share) and the trainer's default vanilla,
+``-m`` and ``-t`` steps, with ptxas's registers and spills of every bf16
+kernel that runs the tile, the delta pass or the frame.  Prints one
 JSON object: each turn's readings by "kernel/dtype" (and its step
 readings), and the card's name and power limit.  Needs a card.
 """
@@ -95,6 +104,61 @@ TILE_KERNELS = ("vanilla_mlp_fwd", "vanilla_mlp_fwd_res", "prop_mlp_fwd",
 SPA_KERNELS = ("ref_spa_fwd", "ref_spa_fwd_res", "ref_spa_fwd_grad")
 # the Ref-NeRF directional net's fused forwards (PERF.md's row 7)
 DIR_KERNELS = ("ref_dir_fwd", "ref_dir_fwd_res")
+# the vanilla net's fused forwards (PERF.md's row 1)
+VANILLA_KERNELS = ("vanilla_mlp_fwd", "vanilla_mlp_fwd_res")
+
+# one turn of --vanilla, run with the checkout's root as the working
+# directory: each kernel on the vanilla path's encodings ("pe") and on the
+# -m path's IPE encodings at the same points ("ipe")
+VANILLA_TURN = r"""
+import json, sys, tempfile
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import hashlib
+import chip_smoke as cs
+from nerf_tpu_torch.ops import build
+names = json.loads(sys.argv[1])
+reports = build.build()
+out = {"ptxas": {k: v for k, v in cs.tile_ptxas(reports).items()
+                 if "bfloat16" in k}}
+gen = torch.Generator(device="cuda").manual_seed(0)
+
+
+def digest(t, h):
+    if isinstance(t, (tuple, list)):
+        for u in t:
+            digest(u, h)
+    else:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h
+
+
+for name in names:
+    rays = cs.CHUNK if name == "vanilla_mlp_fwd" else cs.RAYS
+    for label, ipe in (("pe", None), ("ipe", (rays, cs.N_FINE))):
+        args, kernel = cs.kernel_case(name, torch.bfloat16, gen,
+                                      ipe=ipe)[:2]
+        key = "%s/%s" % (name, label)
+        out[key + "/bf16"] = cs.cuda_ms(lambda: kernel(*args), 20)
+        out[key + "/sha1"] = digest(kernel(*args), hashlib.sha1()).hexdigest()
+        del args
+        torch.cuda.empty_cache()
+for model in ("vanilla", "mip"):
+    r = cs.profile_frame(model)
+    out["frame/" + model] = {k: r[k] for k in ("frame_s", "device_ms",
+                                                "device_busy_share")}
+with tempfile.TemporaryDirectory() as tmp:
+    cs.write_train_split(tmp)
+    for model, epochs, extra in (("vanilla", 5, ()),
+                                 ("mip", 5, ("-m", "--name", "mip_1")),
+                                 ("ref", 3, ("-t",))):
+        r = cs.profile_trainer(tmp, epochs, *extra)
+        out["step/" + model] = {k: r[k] for k in (
+            "step_ms_median", "host_issue_ms_per_step", "device_ms_per_step",
+            "device_busy_share", "rays_per_s")}
+print(json.dumps(out))
+"""
 
 # one turn of --spa (and of --dir, with DIR_KERNELS), run with the
 # checkout's root as the working directory
@@ -278,16 +342,18 @@ print(json.dumps(out))
 """
 
 
-def turn(root: Path, steps: bool, tile: bool = False,
-         spa: bool = False, dirs: bool = False) -> dict:
+def turn(root: Path, steps: bool, mode: str | None = None) -> dict:
     """One checkout's timings (and step readings), in a process of its
-    own."""
+    own; ``mode`` "tile", "spa", "dir" or "vanilla" picks another turn than
+    the default one."""
     cmd = ([sys.executable, "-c", TILE_TURN, json.dumps(TILE_KERNELS)]
-           if tile else
+           if mode == "tile" else
            [sys.executable, "-c", SPA_TURN, json.dumps(SPA_KERNELS)]
-           if spa else
+           if mode == "spa" else
            [sys.executable, "-c", SPA_TURN, json.dumps(DIR_KERNELS)]
-           if dirs else
+           if mode == "dir" else
+           [sys.executable, "-c", VANILLA_TURN, json.dumps(VANILLA_KERNELS)]
+           if mode == "vanilla" else
            [sys.executable, "-c", TURN, json.dumps(DELTA_PASS_KERNELS),
             "1" if steps else "0", json.dumps(DELTA_AB_SHAPES)])
     proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
@@ -313,7 +379,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--dir", action="store_true",
                     help="time the directional net's fused forwards, a "
                          "Ref-NeRF frame and step instead")
+    ap.add_argument("--vanilla", action="store_true",
+                    help="time the vanilla net's fused forwards, the "
+                         "vanilla and -m frames and steps instead")
     args = ap.parse_args(argv)
+    mode = next((m for m in ("tile", "spa", "dir", "vanilla")
+                 if getattr(args, m)), None)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -323,8 +394,7 @@ def main(argv=None) -> dict:
     turns = []
     for label, root in order:
         turns.append(dict(tree=label, root=str(root),
-                          ms=turn(root, args.steps, args.tile, args.spa,
-                                  args.dir)))
+                          ms=turn(root, args.steps, mode)))
         print(json.dumps(turns[-1]), file=sys.stderr, flush=True)
     res = dict(nvidia_smi=smi, turns=turns)
     print(json.dumps(res))

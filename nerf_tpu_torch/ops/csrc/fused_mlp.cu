@@ -53,9 +53,15 @@
 // ring of shared memory after the two activation buffers: 102,400 bytes a
 // block for the vanilla net and 98,304 for the proposal net at width 256,
 // so two blocks share an SM), in f32 on the CUDA cores.  The narrow heads
-// stay on the CUDA cores (head_tile).
+// stay on the CUDA cores (head_tile).  The bf16 vanilla forwards run the
+// persistent frame of vanilla_frame.cuh instead (128-point tiles, one block
+// an SM, a producer that streams every layer's weights through one ring),
+// or this 64-row tile at widths whose frame does not fit a block
+// (vanilla_frame_body chooses by shape before the launch; the entries
+// report the body they launched).
 
 #include "mlp_tile.cuh"
+#include "vanilla_frame.cuh"
 
 namespace {
 
@@ -218,6 +224,33 @@ int launch_vanilla(const void* x, const void* d, const uint64_t* ptrs,
   return (int)cudaGetLastError();
 }
 
+// The vanilla forward: in bf16 the frame where it fits
+// (vanilla_frame_body), else, and in f32, the 64-row tile.  *body: the body
+// launched, the frame's consumer warpgroups (1 or 2) or 0 for the 64-row
+// tile.
+template <bool STORE, typename T>
+int launch_vanilla_fwd(const void* x, const void* d, const uint64_t* ptrs,
+                       int64_t n, const int* dims, float* rgb3, float* sigma,
+                       const uint64_t* acts, int* body, cudaStream_t stream) {
+  *body = 0;
+  if constexpr (std::is_same<T, bf16_t>::value) {
+    if (!tile_widths_ok<T>({dims[2], dims[3], dims[4]}))
+      return (int)cudaErrorInvalidValue;
+    FrameLayout L;
+    size_t smem = 0;
+    int sms = 0;
+    const int err = vanilla_frame_body(dims, STORE, &L, &smem, &sms);
+    if (err != 0) return err;
+    if (smem != 0) {
+      *body = L.cons;
+      return launch_vanilla_frame<STORE>(x, d, ptrs, n, dims, rgb3, sigma,
+                                         acts, L, smem, sms, stream);
+    }
+  }
+  return launch_vanilla<STORE, T>(x, d, ptrs, n, dims, rgb3, sigma, acts,
+                                  stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -248,38 +281,29 @@ int prop_mlp_fwd_res_bf16(const void* x, const uint64_t* ptrs, int64_t n,
                                           acts, (cudaStream_t)stream);
 }
 
-int vanilla_mlp_fwd_f32(const void* x, const void* d, const uint64_t* ptrs,
-                        int64_t n, const int* dims, void* rgb3, void* sigma,
-                        void* stream) {
-  return launch_vanilla<false, float>(x, d, ptrs, n, dims, (float*)rgb3,
-                                      (float*)sigma, nullptr,
-                                      (cudaStream_t)stream);
-}
+#define VANILLA_FWD(SUFFIX, T)                                                 \
+  int vanilla_mlp_fwd_##SUFFIX(const void* x, const void* d,                   \
+                               const uint64_t* ptrs, int64_t n,                \
+                               const int* dims, void* rgb3, void* sigma,       \
+                               int* body, void* stream) {                      \
+    return launch_vanilla_fwd<false, T>(x, d, ptrs, n, dims, (float*)rgb3,     \
+                                        (float*)sigma, nullptr, body,          \
+                                        (cudaStream_t)stream);                 \
+  }                                                                            \
+  int vanilla_mlp_fwd_res_##SUFFIX(const void* x, const void* d,               \
+                                   const uint64_t* ptrs, int64_t n,            \
+                                   const int* dims, void* rgb3, void* sigma,   \
+                                   const uint64_t* acts, int* body,            \
+                                   void* stream) {                             \
+    return launch_vanilla_fwd<true, T>(x, d, ptrs, n, dims, (float*)rgb3,      \
+                                       (float*)sigma, acts, body,              \
+                                       (cudaStream_t)stream);                  \
+  }
 
-int vanilla_mlp_fwd_bf16(const void* x, const void* d, const uint64_t* ptrs,
-                         int64_t n, const int* dims, void* rgb3, void* sigma,
-                         void* stream) {
-  return launch_vanilla<false, __nv_bfloat16>(
-      x, d, ptrs, n, dims, (float*)rgb3, (float*)sigma, nullptr,
-      (cudaStream_t)stream);
-}
+VANILLA_FWD(f32, float)
+VANILLA_FWD(bf16, __nv_bfloat16)
 
-int vanilla_mlp_fwd_res_f32(const void* x, const void* d, const uint64_t* ptrs,
-                            int64_t n, const int* dims, void* rgb3,
-                            void* sigma, const uint64_t* acts, void* stream) {
-  return launch_vanilla<true, float>(x, d, ptrs, n, dims, (float*)rgb3,
-                                     (float*)sigma, acts,
-                                     (cudaStream_t)stream);
-}
-
-int vanilla_mlp_fwd_res_bf16(const void* x, const void* d,
-                             const uint64_t* ptrs, int64_t n, const int* dims,
-                             void* rgb3, void* sigma, const uint64_t* acts,
-                             void* stream) {
-  return launch_vanilla<true, __nv_bfloat16>(
-      x, d, ptrs, n, dims, (float*)rgb3, (float*)sigma, acts,
-      (cudaStream_t)stream);
-}
+OCCUPANCY_ENTRY(fused_mlp)
 
 const char* fused_mlp_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

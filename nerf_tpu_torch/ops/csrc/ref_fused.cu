@@ -52,10 +52,11 @@
 // tiles, two consumer warpgroups and a producer warp that streams every
 // layer's weights through one TMA ring.  The bf16 directional forwards
 // (ref_dir_fwd, ref_dir_fwd_res) run the same frame with the directional
-// net's input stage and tail (dir_frame.cuh), or, at widths whose frame
-// does not fit a block's shared memory, the 64-row tile of
-// ref_dir_fwd.cuh (dir_frame_body chooses by shape before the launch; the
-// entries report the body they launched).  The rest here: one block of 256
+// net's input stage and tail (dir_frame.cuh).  At widths whose frame does
+// not fit a block's shared memory each runs its 64-row tile instead (the
+// kernels below, ref_dir_fwd.cuh's): spa_frame_body and dir_frame_body
+// choose by shape before the launch, and every entry reports the body it
+// launched.  The 64-row tile: one block of 256
 // threads owns a tile of TM = 64 points (mlp_tile.cuh) and keeps its input
 // row and two ping-pong activation buffers in shared memory across all
 // layers; only the outputs (and the stored activations) are written.  The
@@ -65,10 +66,11 @@
 // P] for P samples per ray, so the (N, 3) broadcast never exists.  The
 // narrow heads are one warp per (point, output) with a shuffle reduction;
 // the bottleneck head is a register-tiled product like the hidden layers.
-// The density gradient of the f32 ref_spa_fwd_res runs in the same block
-// after the forward, its ReLU masks read back from the activations the
-// block just stored, its transposed products taken as in the backwards
-// (delta_tile, and enc_pull into the encoding).  The positional encoding's
+// The tile's density gradient runs in the same block after the forward,
+// its ReLU masks read back from the activations the block just stored (or
+// kept as bits: ref_spa_fwd_grad), its transposed products taken as in the
+// backwards (delta_tile, and enc_pull into the encoding; in bf16 in passes
+// of 128 columns, for want of registers).  The positional encoding's
 // cosines use cosf, whose range reduction holds at the 2^9 |x| of the top
 // frequency.  The ragged last tile is masked: rows past N load as zero and
 // are not stored.
@@ -79,11 +81,11 @@
 // encoding's transpose).  The eval forwards move about 0.7 KB per point in
 // bf16 and are bound by operations: 0.84 and 0.87 ms per 4096-ray chunk
 // (786,432 points) at the 989 TFLOP/s bf16 peak.  The training forwards
-// also write 4 KB of activations per point in bf16.  The f32 directional
-// trunks run through dense_tile (mlp_tile.cuh) on the CUDA cores, as do the
-// f32 spatial forwards; in bf16 the 64-row tile runs them on the tensor
-// cores (wgmma, each layer's weights brought by TMA into a 24 KB ring of
-// shared memory: 115,288 bytes a block at IDE level 4, two blocks an SM).
+// also write 4 KB of activations per point in bf16.  The 64-row tiles run
+// their trunks through dense_tile (mlp_tile.cuh): in f32 on the CUDA cores,
+// in bf16 on the tensor cores (wgmma, each layer's weights brought by TMA
+// into a 24 KB ring of shared memory: 115,288 bytes a block for the
+// directional net at IDE level 4, two blocks an SM).
 
 #include "ref_common.cuh"
 #include "ref_dir_fwd.cuh"
@@ -94,64 +96,114 @@ namespace {
 
 using namespace mlp;
 
-// The eval forward of the spatial net in f32 (bf16: spa_frame.cuh's
-// FORM_EVAL).
-__global__ void __launch_bounds__(THREADS, 1)
-ref_spa_fwd_kernel(const float* __restrict__ x, RefSpaWeights<float> p,
-                   int64_t n, int dx, int h, int o, int nb, int maxw,
-                   float* __restrict__ heads) {
-  extern __shared__ __align__(16) unsigned char f32_smem[];
-  float* xs = reinterpret_cast<float*>(f32_smem);
-  float* buf_a = xs + TM * dx;
-  float* buf_b = buf_a + TM * maxw;
-  float* none = nullptr;
+// The eval forward of the spatial net (bf16: spa_frame.cuh's FORM_EVAL
+// where its frame fits).
+template <typename T>
+__global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
+ref_spa_fwd_kernel(const T* __restrict__ x, RefSpaWeights<T> p, int64_t n,
+                   int dx, int h, int o, int nb, int maxw,
+                   float* __restrict__ heads,
+                   const __grid_constant__ TileMaps maps) {
+  extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);
+  T* buf_a = xs + TM * dx;
+  T* buf_b = buf_a + TM * maxw;
+  T* st = buf_b + TM * maxw;              // dense_tile's weight stage
+  T* none = nullptr;
   const int64_t row0 = (int64_t)blockIdx.x * TM;
   const int64_t hw = HEAD_FIXED + nb;
   load_rows(x, dx, row0, n, xs);
   __syncthreads();
-  dense_tile<false>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, none, row0, n, none, nullptr);     // h1
+  dense_tile<false>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, none, row0, n, st, &maps.map[0]);     // h1
   __syncthreads();
-  dense_tile<false>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, none, row0, n, none, nullptr);   // h2
+  dense_tile<false>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, none, row0, n, st, &maps.map[1]);   // h2
   __syncthreads();
-  dense_tile<false>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, none, row0, n, none, nullptr);   // h3
+  dense_tile<false>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, none, row0, n, st, &maps.map[2]);   // h3
   __syncthreads();
-  dense_tile<false>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, none, row0, n, none, nullptr);   // h4
+  dense_tile<false>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, none, row0, n, st, &maps.map[3]);   // h4
   __syncthreads();
-  dense_tile<false>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, none, row0, n, none, nullptr); // z5
+  dense_tile<false>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, none, row0, n, st, &maps.map[4]); // z5
   __syncthreads();
-  dense_tile<false>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, none, row0, n, none, nullptr);   // z6
+  dense_tile<false>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, none, row0, n, st, &maps.map[6]);   // z6
   __syncthreads();
-  dense_tile<false>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, none, row0, n, none, nullptr);   // z7
+  dense_tile<false>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, none, row0, n, st, &maps.map[7]);   // z7
   __syncthreads();
-  dense_tile<false>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, none, row0, n, none, nullptr);   // inter
+  dense_tile<false>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, none, row0, n, st, &maps.map[8]);   // inter
   __syncthreads();
   narrow_head(buf_b, o, p.wrt, p.brt, 2, false, heads, hw, 0, row0, n);
   narrow_head(buf_b, o, p.wnct, p.bnct, 9, false, heads, hw, 2, row0, n);
-  wide_head(buf_b, o, p.wbn, p.bbn, nb, heads, hw, HEAD_FIXED, row0, n, none, nullptr);
+  wide_head(buf_b, o, p.wbn, p.bbn, nb, heads, hw, HEAD_FIXED, row0, n, st, &maps.map[9]);
 }
 
-// enc_grad = [enc_grad +] (a @ W^T), f32, for the whole tile: a pullback
-// into the encoding, W the layer's (n_out = dx, k_dim) forward matrix, on
-// the CUDA cores in full f32 (accumulate_t; the bf16 frame's is
-// spa_frame_pull).  Every thread of the block must call this.
+// The bf16 body of enc_pull, on the tensor cores as delta_tile_mma takes
+// them (mlp_tile.cuh: ring_pass_t on wgmma through the delta ring where
+// ``tmap`` is given, else mma_pass_t): the
+// fragments' values rounded to bf16, then added in f32, one by one (n_out =
+// 63 is odd).
 template <bool ADD>
-__device__ void enc_pull(const float* a, int k_dim,
-                         const float* __restrict__ w, int n_out,
-                         float* enc_grad, float* stage) {
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * RPT;
-  for (int c0 = 0; c0 < n_out; c0 += CHUNK) {
-    float acc[RPT][CPT];
-    zero(acc);
-    accumulate_t(acc, a, k_dim, w, n_out, c0, stage);
+__device__ __forceinline__ void enc_pull_mma(const bf16_t* a, int k_dim,
+                                             const bf16_t* __restrict__ w,
+                                             int n_out, float* enc_grad,
+                                             bf16_t* stage,
+                                             const CUtensorMap* tmap) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = (warp & 3) * 16;
+  const int g = lane >> 2, q = lane & 3;
+  const bool ring = tmap != nullptr;
+  WRing<TSTAGES, DPASS> R{};
+  if (ring) R = ring_open<TSTAGES, DPASS, true>(stage, tmap, k_dim, 0, n_out);
+  for (int c0 = 0, pass = 0; c0 < n_out; c0 += DPASS, ++pass) {
+    const PassCols pc = pass_cols<DPASS>(n_out, c0, warp >> 2);
+    float acc[16][4];
+    if (ring)
+      ring_pass_t(acc, R, pass, a, k_dim, pc);
+    else
+      mma_pass_t<DPASS>(acc, a, k_dim, w, n_out, c0, pc, stage);
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = c0 + lane + 32 * j;
-      if (c >= n_out) continue;
+    for (int t = 0; t < 16; ++t) {
+      if (t >= pc.nt_n) break;
+      const int c = c0 + pc.col0 + 8 * t + 2 * q;
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        float* e = enc_grad + (r0 + i) * n_out + c;
-        *e = ADD ? *e + acc[i][j] : acc[i][j];
+      for (int e = 0; e < 4; ++e) {
+        const int ce = c + (e & 1);
+        if (ce >= n_out) continue;
+        float* d = enc_grad + (m0 + g + 8 * (e >> 1)) * n_out + ce;
+        const float v = to_f(from_f<bf16_t>(acc[t][e]));
+        *d = ADD ? *d + v : v;
+      }
+    }
+  }
+  if (ring) ring_close(R);
+}
+
+// enc_grad = [enc_grad +] (a @ W^T rounded to T), f32, for the whole tile:
+// a pullback into the encoding, W the layer's (n_out = dx, k_dim) forward
+// matrix.  bf16 multiplies on the tensor cores (enc_pull_mma, through W's
+// delta map ``tmap``), f32 on the CUDA cores in full f32 (accumulate_t).
+// Every thread of the block must call this.
+template <bool ADD, typename T>
+__device__ void enc_pull(const T* a, int k_dim, const T* __restrict__ w,
+                         int n_out, float* enc_grad, T* stage,
+                         const CUtensorMap* tmap) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    enc_pull_mma<ADD>(a, k_dim, w, n_out, enc_grad, stage, tmap);
+  } else {
+    const int lane = threadIdx.x & 31;
+    const int r0 = (threadIdx.x >> 5) * RPT;
+    for (int c0 = 0; c0 < n_out; c0 += CHUNK) {
+      float acc[RPT][CPT];
+      zero(acc);
+      accumulate_t(acc, a, k_dim, w, n_out, c0, stage);
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int c = c0 + lane + 32 * j;
+        if (c >= n_out) continue;
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          float* e = enc_grad + (r0 + i) * n_out + c;
+          const float v = to_f(from_f<T>(acc[i][j]));
+          *e = ADD ? *e + v : v;
+        }
       }
     }
   }
@@ -160,7 +212,9 @@ __device__ void enc_pull(const float* a, int k_dim,
 // Bytes of the encoding tile of ref_spa_fwd_res_kernel<false>: the f32
 // d(density)/d(enc) tile is laid over the masks of z5 z6 z7 inter and the
 // encoding tile, all dead once it is first written (after z5's pullback), so
-// the tile is padded where those are smaller than it.
+// the tile is padded where those are smaller than it.  At H = O = 256 in
+// bf16 that kept the block at 115,712 bytes of shared memory (with the
+// shared stage grown to dense_tile's ring): two fit an SM, with none left.
 __host__ __device__ inline size_t grad_xs_bytes(int dx, int h, int o,
                                                 size_t t_size) {
   const size_t tail =
@@ -171,90 +225,89 @@ __host__ __device__ inline size_t grad_xs_bytes(int dx, int h, int o,
   return (need + 15) & ~(size_t)15;
 }
 
-// The training forward of the spatial net in f32 (bf16: spa_frame.cuh's
-// FORM_RES and FORM_GRAD).  With STORE (ref_spa_fwd_res)
+// The training forward of the spatial net (bf16: spa_frame.cuh's FORM_RES
+// and FORM_GRAD where their frame fits).  With STORE (ref_spa_fwd_res)
 // the 8 activations go to s in device memory and the density pullback reads
 // its ReLU masks back from them; without (ref_spa_fwd_grad) nothing of the
 // trunk leaves the block: each layer's mask is kept as bits in shared
 // memory (dense_tile's MASK, 8 words a row at width 256), which is all the
 // pullback needs of an activation.
-template <bool STORE>
-__global__ void __launch_bounds__(THREADS, 1)
-ref_spa_fwd_res_kernel(const float* __restrict__ x,
-                       const float* __restrict__ pos,
+template <bool STORE, typename T>
+__global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
+ref_spa_fwd_res_kernel(const T* __restrict__ x, const float* __restrict__ pos,
                        const float* __restrict__ pe_w,
-                       const float* __restrict__ pe_b,
-                       RefSpaWeights<float> p, int64_t n, int dx, int h,
-                       int o, int nb, int maxw, Acts<float> s,
-                       float* __restrict__ heads,
-                       float* __restrict__ dgrad) {
-  extern __shared__ __align__(16) unsigned char f32_smem[];
+                       const float* __restrict__ pe_b, RefSpaWeights<T> p,
+                       int64_t n, int dx, int h, int o, int nb, int maxw,
+                       Acts<T> s, float* __restrict__ heads,
+                       float* __restrict__ dgrad,
+                       const __grid_constant__ TileMaps maps,
+                       const __grid_constant__ TileMaps dm) {
+  extern __shared__ __align__(RING_ALIGN) unsigned char smem[];
   const int hwd = TM * mask_words(h);             // mask words of an H layer
-  uint32_t* mb = reinterpret_cast<uint32_t*>(f32_smem);
+  uint32_t* mb = reinterpret_cast<uint32_t*>(smem);
   uint32_t* m[8];                                 // h1..h4 z5 z6 z7 inter
   for (int i = 0; i < 8; ++i) m[i] = STORE ? nullptr : mb + i * hwd;
   // (TM, dx) d(density)/d(enc): first in STORE, else over dead masks
-  float* denc = STORE ? reinterpret_cast<float*>(f32_smem)
+  float* denc = STORE ? reinterpret_cast<float*>(smem)
                       : reinterpret_cast<float*>(mb + 4 * hwd);
-  float* xs = STORE
-      ? denc + TM * dx
-      : reinterpret_cast<float*>(mb + 7 * hwd + TM * mask_words(o));
-  float* buf_a = STORE ? xs + TM * dx
-      : reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(xs)
-                                 + grad_xs_bytes(dx, h, o, sizeof(float)));
-  float* buf_b = buf_a + TM * maxw;
-  float* unit = buf_b + TM * maxw;                // (TM, 2) rows [0, 1]
-  float* st = unit + TM * 2;                      // accumulate_t's stage
-  const float* none = nullptr;
-  float* drop = nullptr;                          // deltas not stored
+  T* xs = STORE ? reinterpret_cast<T*>(denc + TM * dx)
+                : reinterpret_cast<T*>(mb + 7 * hwd + TM * mask_words(o));
+  T* buf_a = STORE ? xs + TM * dx
+      : reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(xs)
+                             + grad_xs_bytes(dx, h, o, sizeof(T)));
+  T* buf_b = buf_a + TM * maxw;
+  T* unit = buf_b + TM * maxw;                    // (TM, 2) rows [0, 1]
+  T* st = unit + TM * 2;                          // the W^T and weight stage
+  const T* none = nullptr;
+  T* drop = nullptr;                              // deltas not stored
   const int64_t row0 = (int64_t)blockIdx.x * TM;
   const int64_t hw = HEAD_FIXED + nb;
   load_rows(x, dx, row0, n, xs);
   for (int t = threadIdx.x; t < TM; t += THREADS) {
-    unit[2 * t] = 0.f;
-    unit[2 * t + 1] = 1.f;
+    unit[2 * t] = from_f<T>(0.f);
+    unit[2 * t + 1] = from_f<T>(1.f);
   }
   __syncthreads();
   constexpr bool MK = !STORE;
-  dense_tile<STORE, float, MK>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n, st, nullptr, m[0]);     // h1
+  dense_tile<STORE, T, MK, DSTAGES, NCOLS>(xs, dx, p.w0, none, 0, none, p.b0, h, true, buf_a, s.a[0], row0, n, st, &maps.map[0], m[0]);     // h1
   __syncthreads();
-  dense_tile<STORE, float, MK>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n, st, nullptr, m[1]);   // h2
+  dense_tile<STORE, T, MK, DSTAGES, NCOLS>(buf_a, h, p.w1, none, 0, none, p.b1, h, true, buf_b, s.a[1], row0, n, st, &maps.map[1], m[1]);   // h2
   __syncthreads();
-  dense_tile<STORE, float, MK>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n, st, nullptr, m[2]);   // h3
+  dense_tile<STORE, T, MK, DSTAGES, NCOLS>(buf_b, h, p.w2, none, 0, none, p.b2, h, true, buf_a, s.a[2], row0, n, st, &maps.map[2], m[2]);   // h3
   __syncthreads();
-  dense_tile<STORE, float, MK>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n, st, nullptr, m[3]);   // h4
+  dense_tile<STORE, T, MK, DSTAGES, NCOLS>(buf_a, h, p.w3, none, 0, none, p.b3, h, true, buf_b, s.a[3], row0, n, st, &maps.map[3], m[3]);   // h4
   __syncthreads();
-  dense_tile<STORE, float, MK>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n, st, nullptr, m[4]); // z5
+  dense_tile<STORE, T, MK, DSTAGES, NCOLS>(xs, dx, p.w4a, buf_b, h, p.w4b, p.b4, h, true, buf_a, s.a[4], row0, n, st, &maps.map[4], m[4]); // z5
   __syncthreads();
-  dense_tile<STORE, float, MK>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n, st, nullptr, m[5]);   // z6
+  dense_tile<STORE, T, MK, DSTAGES, NCOLS>(buf_a, h, p.w5, none, 0, none, p.b5, h, true, buf_b, s.a[5], row0, n, st, &maps.map[6], m[5]);   // z6
   __syncthreads();
-  dense_tile<STORE, float, MK>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, s.a[6], row0, n, st, nullptr, m[6]);   // z7
+  dense_tile<STORE, T, MK, DSTAGES, NCOLS>(buf_b, h, p.w6, none, 0, none, p.b6, h, true, buf_a, s.a[6], row0, n, st, &maps.map[7], m[6]);   // z7
   __syncthreads();
-  dense_tile<STORE, float, MK>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n, st, nullptr, m[7]);   // inter
+  dense_tile<STORE, T, MK, DSTAGES, NCOLS>(buf_a, h, p.w7, none, 0, none, p.b7, o, true, buf_b, s.a[7], row0, n, st, &maps.map[8], m[7]);   // inter
   __syncthreads();
   narrow_head(buf_b, o, p.wrt, p.brt, 2, false, heads, hw, 0, row0, n);
   narrow_head(buf_b, o, p.wnct, p.bnct, 9, false, heads, hw, 2, row0, n);
-  wide_head(buf_b, o, p.wbn, p.bbn, nb, heads, hw, HEAD_FIXED, row0, n, st, nullptr);
+  wide_head<T, NCOLS>(buf_b, o, p.wbn, p.bbn, nb, heads, hw, HEAD_FIXED, row0, n, st, &maps.map[9]);
   __syncthreads();   // also makes the stored activations visible to the block
-  // the density column's pullback: [0, 1] @ wrt^float = wrt[:, 1], then the trunk
-  delta_tile<false, DPASS, float, float, MK>(unit, 2, p.wrt, o, s.a[7], none, none, buf_a, drop, row0, n, st, nullptr, m[7]);      // inter
+  // the density column's pullback: [0, 1] @ wrt^T = wrt[:, 1], then the trunk
+  delta_tile<false, DPASS, T, T, MK>(unit, 2, p.wrt, o, s.a[7], none, none, buf_a, drop, row0, n, st, nullptr, m[7]);      // inter
   __syncthreads();
-  delta_tile<false, DPASS, float, float, MK>(buf_a, o, p.w7, h, s.a[6], none, none, buf_b, drop, row0, n, st, nullptr, m[6]);   // z7
+  delta_tile<false, DPASS, T, T, MK>(buf_a, o, p.w7, h, s.a[6], none, none, buf_b, drop, row0, n, st, &dm.map[1], m[6]);   // z7
   __syncthreads();
-  delta_tile<false, DPASS, float, float, MK>(buf_b, h, p.w6, h, s.a[5], none, none, buf_a, drop, row0, n, st, nullptr, m[5]);   // z6
+  delta_tile<false, DPASS, T, T, MK>(buf_b, h, p.w6, h, s.a[5], none, none, buf_a, drop, row0, n, st, &dm.map[2], m[5]);   // z6
   __syncthreads();
-  delta_tile<false, DPASS, float, float, MK>(buf_a, h, p.w5, h, s.a[4], none, none, buf_b, drop, row0, n, st, nullptr, m[4]);   // z5
+  delta_tile<false, DPASS, T, T, MK>(buf_a, h, p.w5, h, s.a[4], none, none, buf_b, drop, row0, n, st, &dm.map[3], m[4]);   // z5
   __syncthreads();
-  enc_pull<false>(buf_b, h, p.w4a, dx, denc, st);
-  delta_tile<false, DPASS, float, float, MK>(buf_b, h, p.w4b, h, s.a[3], none, none, buf_a, drop, row0, n, st, nullptr, m[3]);  // h4
+  enc_pull<false>(buf_b, h, p.w4a, dx, denc, st, &dm.map[8]);
+  delta_tile<false, DPASS, T, T, MK>(buf_b, h, p.w4b, h, s.a[3], none, none, buf_a, drop, row0, n, st, &dm.map[4], m[3]);  // h4
   __syncthreads();
-  delta_tile<false, DPASS, float, float, MK>(buf_a, h, p.w3, h, s.a[2], none, none, buf_b, drop, row0, n, st, nullptr, m[2]);   // h3
+  delta_tile<false, DPASS, T, T, MK>(buf_a, h, p.w3, h, s.a[2], none, none, buf_b, drop, row0, n, st, &dm.map[5], m[2]);   // h3
   __syncthreads();
-  delta_tile<false, DPASS, float, float, MK>(buf_b, h, p.w2, h, s.a[1], none, none, buf_a, drop, row0, n, st, nullptr, m[1]);   // h2
+  delta_tile<false, DPASS, T, T, MK>(buf_b, h, p.w2, h, s.a[1], none, none, buf_a, drop, row0, n, st, &dm.map[6], m[1]);   // h2
   __syncthreads();
-  delta_tile<false, DPASS, float, float, MK>(buf_a, h, p.w1, h, s.a[0], none, none, buf_b, drop, row0, n, st, nullptr, m[0]);   // h1
+  delta_tile<false, DPASS, T, T, MK>(buf_a, h, p.w1, h, s.a[0], none, none, buf_b, drop, row0, n, st, &dm.map[7], m[0]);   // h1
   __syncthreads();
-  enc_pull<true>(buf_b, h, p.w0, dx, denc, st);
+  enc_pull<true>(buf_b, h, p.w0, dx, denc, st, &dm.map[9]);
   __syncthreads();
   // the encoding's transpose and the normalization, one thread per point;
   // pe_w is (3, pc) row-major, pc = dx - 3
@@ -280,32 +333,32 @@ ref_spa_fwd_res_kernel(const float* __restrict__ x,
   }
 }
 
+
+// The 64-row tile of the spatial forwards: f32, and bf16 at widths whose
+// frame does not fit a block (spa_frame_body).
 template <typename T>
-int launch_spa(const void* x, const uint64_t* ptrs, int64_t n,
+int launch_spa_tile(const void* x, const uint64_t* ptrs, int64_t n,
                const int* dims, float* heads, cudaStream_t stream) {
   const RefSpaWeights<T> p = spa_weights<T>(ptrs);
   const int dx = dims[0], h = dims[1], o = dims[2], nb = dims[3];
   const int maxw = h > o ? h : o;
   if (!tile_widths_ok<T>({h, o, nb})) return (int)cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, bf16_t>::value) {
-    return launch_spa_frame<FORM_EVAL>((const bf16_t*)x, nullptr, nullptr,
-                                       nullptr, p, n, dx, h, o, nb, heads,
-                                       nullptr, nullptr, stream);
-  } else {
-    const size_t smem = (size_t)TM * (dx + 2 * maxw) * sizeof(float);
-    const int err = set_smem(ref_spa_fwd_kernel, smem);
-    if (err != 0 || n == 0) return err;
-    const unsigned grid = (unsigned)((n + TM - 1) / TM);
-    ref_spa_fwd_kernel<<<grid, THREADS, smem, stream>>>(
-        (const float*)x, p, n, dx, h, o, nb, maxw, heads);
-    return (int)cudaGetLastError();
-  }
+  const size_t at = (size_t)TM * (dx + 2 * maxw) * sizeof(T);
+  const size_t smem = at + dense_stage_bytes<T>(at);
+  TileMaps maps;
+  int err = spa_maps<T>(&maps, p, dx, h, o, nb);
+  if (err == 0) err = set_smem(ref_spa_fwd_kernel<T>, smem);
+  if (err != 0 || n == 0) return err;
+  const unsigned grid = (unsigned)((n + TM - 1) / TM);
+  ref_spa_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
+      (const T*)x, p, n, dx, h, o, nb, maxw, heads, maps);
+  return (int)cudaGetLastError();
 }
 
 // dims: dx h o nb; acts: the 8 (n, width) outputs h1..h4 z5 z6 z7 inter,
 // or null (ref_spa_fwd_grad: the masks stay on chip)
 template <typename T>
-int launch_spa_res(const void* x, const void* pos, const void* pe_w,
+int launch_spa_res_tile(const void* x, const void* pos, const void* pe_w,
                    const void* pe_b, const uint64_t* ptrs, int64_t n,
                    const int* dims, float* heads, float* dgrad,
                    const uint64_t* acts, cudaStream_t stream) {
@@ -314,37 +367,70 @@ int launch_spa_res(const void* x, const void* pos, const void* pe_w,
   const int maxw = h > o ? h : o;
   const bool store = acts != nullptr;
   if (!tile_widths_ok<T>({h, o, nb})) return (int)cudaErrorInvalidValue;
+  const size_t at = (store
+      ? (size_t)TM * dx * (sizeof(float) + sizeof(T))
+      : (size_t)TM * (7 * mask_words(h) + mask_words(o)) * sizeof(uint32_t)
+        + grad_xs_bytes(dx, h, o, sizeof(T)))
+      + (size_t)TM * (2 * maxw + 2) * sizeof(T);  // buf_a buf_b unit
+  const size_t smem = at + stage_bytes<T>(at);
+  auto kernel = store ? ref_spa_fwd_res_kernel<true, T>
+                      : ref_spa_fwd_res_kernel<false, T>;
+  TileMaps maps, dm;
+  int err = spa_maps<T>(&maps, p, dx, h, o, nb);
+  if (err == 0) err = spa_dmaps<T>(&dm, p, dx, h, o, nb, DPASS);
+  // the occupancy of the f32 body is noted; the bf16 one runs only where
+  // the frame does not fit a block, at one block an SM
+  const bool f32 = std::is_same<T, float>::value;
+  if (err == 0)
+    err = set_smem(kernel, smem,
+                   !f32 ? nullptr
+                   : store ? "ref_spa_fwd_res_kernel<true>"
+                           : "ref_spa_fwd_res_kernel<false>",
+                   1);
+  if (err != 0 || n == 0) return err;
+  Acts<T> s = {};
+  if (store) s = acts_of<T>(acts);
+  const unsigned grid = (unsigned)((n + TM - 1) / TM);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      (const T*)x, (const float*)pos, (const float*)pe_w,
+      (const float*)pe_b, p, n, dx, h, o, nb, maxw, s, heads, dgrad, maps,
+      dm);
+  return (int)cudaGetLastError();
+}
+
+
+// The spatial forward of form FORM (dims: dx h o nb; acts: the 8 (n, width)
+// outputs h1..h4 z5 z6 z7 inter of FORM_RES): in bf16 the frame where it
+// fits (spa_frame_body), else, and in f32, the 64-row tile.  *body: the
+// body launched, the frame's consumer warpgroups (1 or 2) or 0 for the
+// 64-row tile.
+template <int FORM, typename T>
+int launch_spa_fwd(const void* x, const void* pos, const void* pe_w,
+                   const void* pe_b, const uint64_t* ptrs, int64_t n,
+                   const int* dims, float* heads, float* dgrad,
+                   const uint64_t* acts, int* body, cudaStream_t stream) {
+  *body = 0;
   if constexpr (std::is_same<T, bf16_t>::value) {
-    const bf16_t* xb = (const bf16_t*)x;
-    const float *pf = (const float*)pos, *wf = (const float*)pe_w,
-                *bf = (const float*)pe_b;
-    return store ? launch_spa_frame<FORM_RES>(xb, pf, wf, bf, p, n, dx, h, o,
-                                              nb, heads, dgrad, acts, stream)
-                 : launch_spa_frame<FORM_GRAD>(xb, pf, wf, bf, p, n, dx, h, o,
-                                               nb, heads, dgrad, nullptr,
-                                               stream);
-  } else {
-    const size_t at = (store
-        ? (size_t)TM * dx * 2 * sizeof(float)
-        : (size_t)TM * (7 * mask_words(h) + mask_words(o)) * sizeof(uint32_t)
-          + grad_xs_bytes(dx, h, o, sizeof(float)))
-        + (size_t)TM * (2 * maxw + 2) * sizeof(float);  // buf_a buf_b unit
-    const size_t smem = at + stage_bytes<float>(at);
-    auto kernel = store ? ref_spa_fwd_res_kernel<true>
-                        : ref_spa_fwd_res_kernel<false>;
-    const int err = set_smem(kernel, smem,
-                             store ? "ref_spa_fwd_res_kernel<true>"
-                                   : "ref_spa_fwd_res_kernel<false>",
-                             1);
-    if (err != 0 || n == 0) return err;
-    Acts<float> s = {};
-    if (store) s = acts_of<float>(acts);
-    const unsigned grid = (unsigned)((n + TM - 1) / TM);
-    kernel<<<grid, THREADS, smem, stream>>>(
-        (const float*)x, (const float*)pos, (const float*)pe_w,
-        (const float*)pe_b, p, n, dx, h, o, nb, maxw, s, heads, dgrad);
-    return (int)cudaGetLastError();
+    if (!tile_widths_ok<T>({dims[1], dims[2], dims[3]}))
+      return (int)cudaErrorInvalidValue;
+    FrameLayout L;
+    size_t smem = 0;
+    int sms = 0;
+    const int err = spa_frame_body(dims, FORM, &L, &smem, &sms);
+    if (err != 0) return err;
+    if (smem != 0) {
+      *body = L.cons;
+      return launch_spa_frame<FORM>(
+          (const bf16_t*)x, (const float*)pos, (const float*)pe_w,
+          (const float*)pe_b, spa_weights<bf16_t>(ptrs), n, dims[0],
+          dims[1], dims[2], dims[3], heads, dgrad, acts, L, smem, sms,
+          stream);
+    }
   }
+  if (FORM == FORM_EVAL)
+    return launch_spa_tile<T>(x, ptrs, n, dims, heads, stream);
+  return launch_spa_res_tile<T>(x, pos, pe_w, pe_b, ptrs, n, dims, heads,
+                                dgrad, acts, stream);
 }
 
 // The directional forward at DIR_FULL: in bf16 the frame where it fits
@@ -372,27 +458,30 @@ extern "C" {
 
 #define REF_FWD(SUFFIX, T)                                                     \
   int ref_spa_fwd_##SUFFIX(const void* x, const uint64_t* ptrs, int64_t n,     \
-                           const int* dims, void* heads, void* stream) {       \
-    return launch_spa<T>(x, ptrs, n, dims, (float*)heads,                      \
-                         (cudaStream_t)stream);                                \
+                           const int* dims, void* heads, int* body,            \
+                           void* stream) {                                     \
+    return launch_spa_fwd<FORM_EVAL, T>(x, nullptr, nullptr, nullptr, ptrs, n, \
+                                        dims, (float*)heads, nullptr, nullptr, \
+                                        body, (cudaStream_t)stream);           \
   }                                                                            \
   int ref_spa_fwd_res_##SUFFIX(const void* x, const void* pos,                 \
                                const void* pe_w, const void* pe_b,             \
                                const uint64_t* ptrs, int64_t n,                \
                                const int* dims, void* heads, void* dgrad,      \
-                               const uint64_t* acts, void* stream) {           \
-    return launch_spa_res<T>(x, pos, pe_w, pe_b, ptrs, n, dims,                \
-                             (float*)heads, (float*)dgrad, acts,               \
-                             (cudaStream_t)stream);                            \
+                               const uint64_t* acts, int* body,                \
+                               void* stream) {                                 \
+    return launch_spa_fwd<FORM_RES, T>(x, pos, pe_w, pe_b, ptrs, n, dims,      \
+                                       (float*)heads, (float*)dgrad, acts,     \
+                                       body, (cudaStream_t)stream);            \
   }                                                                            \
   int ref_spa_fwd_grad_##SUFFIX(const void* x, const void* pos,                \
                                 const void* pe_w, const void* pe_b,            \
                                 const uint64_t* ptrs, int64_t n,               \
                                 const int* dims, void* heads, void* dgrad,     \
-                                void* stream) {                                \
-    return launch_spa_res<T>(x, pos, pe_w, pe_b, ptrs, n, dims,                \
-                             (float*)heads, (float*)dgrad, nullptr,            \
-                             (cudaStream_t)stream);                            \
+                                int* body, void* stream) {                     \
+    return launch_spa_fwd<FORM_GRAD, T>(x, pos, pe_w, pe_b, ptrs, n, dims,     \
+                                        (float*)heads, (float*)dgrad, nullptr, \
+                                        body, (cudaStream_t)stream);           \
   }                                                                            \
   int ref_dir_fwd_##SUFFIX(const void* heads, const void* noise,               \
                            const void* dirs, int64_t per_ray, const void* mat, \

@@ -1,11 +1,14 @@
 // The Ref-NeRF spatial net's fused forwards in bf16, as a persistent frame
 // for Hopper: ref_spa_fwd (FORM_EVAL), ref_spa_fwd_res (FORM_RES) and
 // ref_spa_fwd_grad (FORM_GRAD).  ref_fused.cu launches these for a bf16
-// tensor; its f32 bodies keep the 64-row tile of mlp_tile.cuh.  The frame's
+// tensor; its f32 bodies, and the bf16 ones at widths whose frame does not
+// fit a block's shared memory (spa_frame_body), keep the 64-row tile of
+// mlp_tile.cuh.  The frame's
 // parts (the ring, the producer, the products, a layer, the stores, the
 // layout and its search, the setmaxnreg split) also run the directional
 // net's forwards (FORM_DIR, FORM_DIR_RES), whose input stage and tail are
-// in dir_frame.cuh.
+// in dir_frame.cuh, and the vanilla net's (FORM_VANILLA, FORM_VANILLA_RES),
+// whose input tiles, heads and layer list are in vanilla_frame.cuh.
 //
 // Replaces: the bf16 bodies of ref_fused.cu's ref_spa_fwd_kernel and
 // ref_spa_fwd_res_kernel, which ported the Pallas kernel
@@ -98,11 +101,15 @@ constexpr int FORM_EVAL = 0, FORM_RES = 1, FORM_GRAD = 2;
 // the directional net's forms (dir_frame.cuh): ref_dir_fwd and
 // ref_dir_fwd_res
 constexpr int FORM_DIR = 3, FORM_DIR_RES = 4;
+// the vanilla net's (vanilla_frame.cuh): vanilla_mlp_fwd and
+// vanilla_mlp_fwd_res
+constexpr int FORM_VANILLA = 5, FORM_VANILLA_RES = 6;
 // the names under which set_smem notes each form's occupancy
-constexpr const char* FRAME_NAMES[5] = {
+constexpr const char* FRAME_NAMES[7] = {
     "spa_frame_kernel<eval>", "spa_frame_kernel<res>",
     "spa_frame_kernel<grad>", "dir_frame_kernel<eval>",
-    "dir_frame_kernel<res>"};
+    "dir_frame_kernel<res>", "vanilla_frame_kernel<eval>",
+    "vanilla_frame_kernel<res>"};
 static_assert(FCOLS == DPASS && DK == TK && FSLOT == DSLOT * 2
               && FSLOT == TSLOT * 2, "a slot holds one k-step of a pass");
 
@@ -173,6 +180,24 @@ inline FrameConsts dir_frame_consts(int h, int o, int l_max, int n_ch,
   return c;
 }
 
+// The vanilla net's constants: the biases b0 .. b5 (h each), b6 (bn), bb
+// (bn, at bbn), br1 (r), then bsig (1) and br2 (3) at heads_b; the heads'
+// weights as f32 (whead): wsig (bn), then wr2 as (r, 3) rows.  Without
+// ``staged`` the biases alone.
+inline FrameConsts vanilla_frame_consts(int h, int bn, int r, bool staged) {
+  FrameConsts c;
+  c.bbn = 6 * h + bn;
+  c.heads_b = 6 * h + 2 * bn + r;
+  c.whead = (c.heads_b + 4 + 3) & ~3;
+  c.pe_w = c.pe_b = -1;
+  c.floats = c.whead + bn + 3 * r;
+  if (!staged) {
+    c.floats = c.heads_b + 4;
+    c.whead = -1;
+  }
+  return c;
+}
+
 // The narrow heads' weights [wrt | wnct] as (o, 11) f32 rows: staged at
 // cb + off, or read from the bf16 weights where off is -1 (the same values:
 // a bf16 converts to f32 exactly).  Made where it is used from what the
@@ -192,13 +217,14 @@ struct HeadW {
 
 // Where the frame's pieces lie, in bytes from the first 1024-byte boundary
 // of the block's dynamic shared memory: the ring (slot s at s * FSLOT), the
-// activation buffer(s), the input tile (rows of ldx), the 8 layers' masks,
+// activation buffer(s), the input tile (rows of ldx), the vanilla net's
+// second input tile (ds: enc_d, dense rows of dd), the 8 layers' masks,
 // the f32 row tile (frows: the density gradient's d(density)/d(enc), or the
 // directional net's sigmoid(tint) and sigmoid(diffuse), 6 a row), the
 // constants (FrameConsts), the barriers (full[stages], empty[stages]).
 struct FrameLayout {
   int cons, stages, lda, ldx, mw, two;    // two: ping-pong buffers
-  int act, xs, masks, frows, consts, bars;
+  int act, xs, ds, masks, frows, consts, bars;
   FrameConsts c;                          // (a kernel parameter: no register
 };                                        // holds its offsets)
 
@@ -208,15 +234,18 @@ struct FrameLayout {
 // than two slots fit beside the rest in ``limit`` bytes.  dx: the width of
 // the input rows (the spatial net's encoding, dense as its copy lands; the
 // directional net's x, at frame_ld's stride, which the glue writes);
-// l_max and n_ch: the directional net's IDE tables.
+// l_max and n_ch: the directional net's IDE tables.  The vanilla forms read
+// o as bn and nb as r (vanilla_frame.cuh's widths) and dd, enc_d's width.
 inline size_t frame_layout(FrameLayout* L, int form, int cons, bool staged,
                            int dx, int h, int o, int nb, int limit,
-                           int l_max = 0, int n_ch = 0) {
+                           int l_max = 0, int n_ch = 0, int dd = 0) {
   const int rows = 64 * cons;
   L->cons = cons;
   auto up16 = [](size_t b) { return (b + 15) & ~(size_t)15; };
-  const int maxw = h > o ? h : o;
-  const bool dir = form >= FORM_DIR;
+  const bool dir = form == FORM_DIR || form == FORM_DIR_RES;
+  const bool van = form == FORM_VANILLA || form == FORM_VANILLA_RES;
+  int maxw = h > o ? h : o;
+  if (van && nb > maxw) maxw = nb;
   L->lda = frame_ld(maxw);
   L->ldx = dir ? frame_ld(dx) : dx;
   L->two = maxw > FCOLS;
@@ -224,13 +253,15 @@ inline size_t frame_layout(FrameLayout* L, int form, int cons, bool staged,
   const bool grad = form == FORM_RES || form == FORM_GRAD;
   const size_t act = (size_t)(L->two ? 2 : 1) * rows * L->lda * 2;
   const size_t xs = up16((size_t)rows * L->ldx * 2);
+  const size_t ds = van ? up16((size_t)rows * dd * 2) : 0;
   const size_t masks = grad ? (size_t)8 * rows * L->mw * 4 : 0;
   const size_t frows = grad ? up16((size_t)rows * dx * 4)
                             : dir ? (size_t)rows * 6 * 4 : 0;
   L->c = dir ? dir_frame_consts(h, o, l_max, n_ch, staged)
-             : FrameConsts(dx, h, o, nb, grad, staged);
+      : van ? vanilla_frame_consts(h, o, nb, staged)
+            : FrameConsts(dx, h, o, nb, grad, staged);
   const size_t consts = up16((size_t)L->c.floats * 4);
-  const size_t rest = act + xs + masks + frows + consts;
+  const size_t rest = act + xs + ds + masks + frows + consts;
   const long room = (long)limit - 1024 - (long)rest;
   const long fit = room > 0 ? room / (FSLOT + 16) : 0;
   L->stages = fit < FSTAGES ? (int)fit : FSTAGES;
@@ -238,7 +269,8 @@ inline size_t frame_layout(FrameLayout* L, int form, int cons, bool staged,
   size_t at = (size_t)L->stages * FSLOT;
   L->act = (int)at;
   L->xs = (int)(at += act);
-  L->masks = (int)(at += xs);
+  L->ds = (int)(at += xs);
+  L->masks = (int)(at += ds);
   L->frows = (int)(at += masks);
   L->consts = (int)(at += frows);
   L->bars = (int)(at += consts);
@@ -253,7 +285,7 @@ inline size_t frame_layout(FrameLayout* L, int form, int cons, bool staged,
 // layout fits.  Returns 0 or a CUDA error code.
 inline int frame_search(FrameLayout* L, size_t* smem, int* sms, int form,
                         int dx, int h, int o, int nb, int l_max = 0,
-                        int n_ch = 0) {
+                        int n_ch = 0, int dd = 0) {
   int dev = 0, limit = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -267,7 +299,7 @@ inline int frame_search(FrameLayout* L, size_t* smem, int* sms, int form,
   for (; cons >= 1 && *smem == 0; --cons)
     for (int staged = 1; staged >= 0 && *smem == 0; --staged)
       *smem = frame_layout(L, form, cons, staged, dx, h, o, nb, limit, l_max,
-                           n_ch);
+                           n_ch, dd);
   return 0;
 }
 
@@ -330,16 +362,18 @@ __device__ __forceinline__ void produce_t(FRing& R, const CUtensorMap* map,
 }
 
 // The producer's whole stream: the layers of each of the block's tiles in
-// the consumers' order (the map indices of spa_maps and spa_dmaps, or of
+// the consumers' order (the map indices of spa_maps and spa_dmaps, of
 // dir_maps for the directional forms, whose trunk ends in two O-wide
-// layers; dx the input rows' width).
+// layers, or of vanilla_maps for the vanilla forms, o = bn and nb = r; dx
+// the input rows' width, dd enc_d's).
 template <int FORM>
 __device__ void frame_produce(FRing R, const TileMaps& maps,
                               const TileMaps& dm, int64_t tiles, int dx,
-                              int h, int o, int nb) {
-  constexpr bool DIR = FORM >= FORM_DIR;
+                              int h, int o, int nb, int dd = 0) {
+  constexpr bool DIR = FORM == FORM_DIR || FORM == FORM_DIR_RES;
+  constexpr bool VAN = FORM == FORM_VANILLA || FORM == FORM_VANILLA_RES;
   constexpr bool GRAD = FORM == FORM_RES || FORM == FORM_GRAD;
-  for (int i = 0; i < (DIR ? 9 : 10); ++i) {
+  for (int i = 0; i < (VAN ? 11 : DIR ? 9 : 10); ++i) {
     prefetch_tensormap(&maps.map[i]);
     if (GRAD) prefetch_tensormap(&dm.map[i]);
   }
@@ -350,6 +384,12 @@ __device__ void frame_produce(FRing R, const TileMaps& maps,
     produce_fwd(R, &maps.map[3], h, 0, h);        // h4
     produce_fwd(R, &maps.map[4], dx, h, h);       // z5: w4a, then w4b (5)
     produce_fwd(R, &maps.map[6], h, 0, h);        // z6
+    if constexpr (VAN) {
+      produce_fwd(R, &maps.map[7], h, 0, o);      // z7 (w6)
+      produce_fwd(R, &maps.map[8], o, 0, o);      // bvec (wb)
+      produce_fwd(R, &maps.map[9], o, dd, nb);    // r1: wr1a, then wr1b (10)
+      continue;
+    }
     if constexpr (DIR) {
       produce_fwd(R, &maps.map[7], h, 0, o);      // z7
       produce_fwd(R, &maps.map[8], o, 0, o);      // z8
@@ -592,12 +632,13 @@ __device__ __forceinline__ FRing frame_products(
 // A forward layer of the warp's rows: out = relu(a0 @ w0 [+ a1 @ w1] +
 // bias) rounded to bf16 (rows of stride ldo, over the input where out is
 // a0's buffer and n_out <= FCOLS); with mbits the mask (out > 0) as bits,
-// mask_words(n_out) words a row.
+// mask_words(n_out) words a row.  Without ``relu`` (the vanilla net's
+// bottleneck) the sum is rounded as it stands.
 template <int FWG>
 __device__ __forceinline__ FRing spa_frame_layer(
     FRing R, const bf16_t* a0, int ld0, int k0, const bf16_t* a1, int ld1,
     int k1, const float* __restrict__ bias, int n_out, bf16_t* out, int ldo,
-    uint32_t* mbits) {
+    uint32_t* mbits, bool relu = true) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   const int mw = mask_words(n_out);
   for (int c0 = 0; c0 < n_out; c0 += FCOLS) {
@@ -618,9 +659,10 @@ __device__ __forceinline__ FRing spa_frame_layer(
         const int sh = 8 * ((t + d) & 3);   // + 2 q at the flush
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
+          const float v0 = acc[t + d][2 * hh] + bb.x;
+          const float v1 = acc[t + d][2 * hh + 1] + bb.y;
           const __nv_bfloat162 v = __floats2bfloat162_rn(
-              fmaxf(acc[t + d][2 * hh] + bb.x, 0.f),
-              fmaxf(acc[t + d][2 * hh + 1] + bb.y, 0.f));
+              relu ? fmaxf(v0, 0.f) : v0, relu ? fmaxf(v1, 0.f) : v1);
           u[2 * d + hh] = *reinterpret_cast<const uint32_t*>(&v);
           // bf16 > 0 after the ReLU: a magnitude (a -0 has none)
           bits[hh] |= ((uint32_t)((u[2 * d + hh] & 0x7fffu) != 0u) << sh)
@@ -1087,24 +1129,30 @@ spa_frame_kernel(const bf16_t* __restrict__ x, const float* __restrict__ pos,
   }
 }
 
-// Launches form FORM of the frame on ``stream``: the maps of the weights
-// (spa_maps; spa_dmaps for the density gradient), the layout of
-// frame_search (an error where none fits), one block an SM, min(tiles,
-// SMs) blocks.  Returns 0 or a CUDA error code.
+// The body that a bf16 spatial forward of form ``form`` at these dims
+// (dims: dx h o nb) runs on the current device: the frame's layout
+// (frame_search; *smem its bytes, *sms the device's SMs), or *smem 0 where
+// no layout fits and the 64-row tile of ref_fused.cu runs instead, chosen
+// by shape before any launch.  Returns 0 or a CUDA error code.
+inline int spa_frame_body(const int* dims, int form, FrameLayout* L,
+                          size_t* smem, int* sms) {
+  return frame_search(L, smem, sms, form, dims[0], dims[1], dims[2],
+                      dims[3]);
+}
+
+// Launches form FORM of the frame on ``stream`` at the layout L (smem
+// bytes, sms the device's SMs) that spa_frame_body found: the maps of the
+// weights (spa_maps; spa_dmaps for the density gradient), one block an SM,
+// min(tiles, SMs) blocks.  Returns 0 or a CUDA error code.
 template <int FORM>
 int launch_spa_frame(const bf16_t* x, const float* pos, const float* pe_w,
                      const float* pe_b, const RefSpaWeights<bf16_t>& p,
                      int64_t n, int dx, int h, int o, int nb,
                      float* heads, float* dgrad, const uint64_t* acts,
+                     const FrameLayout& L, size_t smem, int sms,
                      cudaStream_t stream) {
-  FrameLayout L;
-  size_t smem = 0;
-  int sms = 0;
-  int err = frame_search(&L, &smem, &sms, FORM, dx, h, o, nb);
-  if (err != 0) return err;
-  if (smem == 0) return (int)cudaErrorInvalidValue;
   TileMaps maps, dm;
-  err = spa_maps<bf16_t>(&maps, p, dx, h, o, nb);
+  int err = spa_maps<bf16_t>(&maps, p, dx, h, o, nb);
   if (err == 0 && FORM != FORM_EVAL)
     err = spa_dmaps<bf16_t>(&dm, p, dx, h, o, nb, FCOLS);
   if (err != 0) return err;

@@ -10,11 +10,11 @@ kernel of nerf_tpu/ops/fused_mlp.py:
     ``_prop_fwd_res_kernel`` (:483), the training forward of
     ``prop_store_residuals=True``: the same density, bit for bit, and the 4
     activations h1 h2 h3 h4, (N, width) each in the compute dtype.
-``vanilla_mlp_fwd`` (``fused_mlp.cu``)
+``vanilla_mlp_fwd`` (``fused_mlp.cu``; in bf16 ``vanilla_frame.cuh``)
     ``_vanilla_fwd_kernel`` (:128) over ``_vanilla_forward_tile`` (:96), the
     forward-only form.  enc_x (N, 63), enc_d (N, 27) -> rgb3 (3, N) f32 and
     raw sigma (N,) f32.
-``vanilla_mlp_fwd_res`` (``fused_mlp.cu``)
+``vanilla_mlp_fwd_res`` (``fused_mlp.cu``; in bf16 ``vanilla_frame.cuh``)
     ``_vanilla_fwd_res_kernel`` (:150), the training forward of
     ``store_residuals=True``: the same outputs, and the 9 activations h1 h2 h3
     h4 z5 z6 z7 bvec r1, (N, width) each in the compute dtype.
@@ -65,6 +65,13 @@ operands on the tensor cores; the heads and the backwards' delta passes
 multiply on the CUDA cores (PERF.md has their times).  The bf16 kernels take
 hidden widths that are multiples of 8 (the launch raises otherwise).
 
+The two bf16 vanilla forwards run the persistent frame of
+``csrc/vanilla_frame.cuh`` (tiles of 128 points, one block an SM, a
+producer that streams every layer's weights through one ring), or the
+64-row tile of ``csrc/fused_mlp.cu`` at widths whose frame does not fit a
+block (chosen by shape before the launch; each launch counts the body it
+ran in ``BODIES``, named by ``vanilla_body_name``).
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  There is no fallback from the kernel to the plain
 version.  ``LAUNCHES`` (``ops/launch.py``) counts the wrappers' kernel
@@ -91,7 +98,7 @@ from nerf_tpu_torch.device import resolve_device
 from nerf_tpu_torch.ops import launch as launch_lib
 from nerf_tpu_torch.ops.launch import (
     I64, INT, INTP, PTR, U64P, check_operands, check_shapes, check_tensor,
-    launch, pointers, register,
+    count_body, launch, pointers, register,
 )
 
 F32 = torch.float32
@@ -332,9 +339,10 @@ def _act_widths(h, bn, r):
 register({
     "prop_mlp_fwd": ("fused_mlp", [PTR, U64P, I64, INT, INT, PTR]),
     "prop_mlp_fwd_res": ("fused_mlp", [PTR, U64P, I64, INT, INT, PTR, U64P]),
-    "vanilla_mlp_fwd": ("fused_mlp", [PTR, PTR, U64P, I64, INTP, PTR, PTR]),
+    "vanilla_mlp_fwd": ("fused_mlp", [PTR, PTR, U64P, I64, INTP, PTR, PTR,
+                                      INTP]),
     "vanilla_mlp_fwd_res": ("fused_mlp", [PTR, PTR, U64P, I64, INTP, PTR,
-                                          PTR, U64P]),
+                                          PTR, U64P, INTP]),
     "vanilla_mlp_bwd": ("fused_mlp_bwd", [PTR, PTR, PTR, PTR, PTR, U64P,
                                           U64P, I64, INTP, U64P, PTR, INT,
                                           U64P]),
@@ -405,10 +413,24 @@ def _vanilla_fwd(ws, enc_x, enc_d, device, res: bool):
     if n > 0:
         dims = (ctypes.c_int * 5)(dx, dd, h, bn, r)
         extra = (pointers(acts),) if res else ()
+        body = ctypes.c_int(-1)
         launch(name, enc_x.dtype, enc_x.device, enc_x.data_ptr(),
                enc_d.data_ptr(), pointers(ws), n, dims, rgb3.data_ptr(),
-               sigma.data_ptr(), *extra)
+               sigma.data_ptr(), *extra, ctypes.byref(body))
+        count_body(name, vanilla_body_name(body.value, res))
     return (rgb3, sigma, acts) if res else (rgb3, sigma)
+
+
+def vanilla_body_name(cons: int, res: bool) -> str:
+    """The name of the body that a ``vanilla_mlp_fwd`` (``vanilla_mlp_fwd_res``
+    with ``res``) launch ran, from what its C entry reports:
+    "vanilla_frame_kernel<eval|res> x2" (the frame, two consumer
+    warpgroups, 128-point tiles), "x1" (one, 64-point tiles) or, for 0,
+    "vanilla_mlp_fwd_kernel" (the 64-row tile: f32, and bf16 where no frame
+    fits)."""
+    if cons == 0:
+        return "vanilla_mlp_fwd_kernel"
+    return f"vanilla_frame_kernel<{'res' if res else 'eval'}> x{cons}"
 
 
 def vanilla_mlp_fwd(ws, enc_x: torch.Tensor, enc_d: torch.Tensor,

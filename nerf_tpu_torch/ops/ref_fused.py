@@ -6,10 +6,10 @@ bf16 the three spatial ones run the persistent frame of
 ``csrc/spa_frame.cuh`` (tiles of 128 points, one block an SM, a producer
 that streams every layer's weights through one ring), and the two
 directional ones the same frame with their glue and tail
-(``csrc/dir_frame.cuh``), or the 64-row tile of ``csrc/ref_dir_fwd.cuh``
-at widths whose frame does not fit a block (chosen by shape before the
-launch; each launch counts the body it ran in ``BODIES``, named by
-``dir_body_name``):
+(``csrc/dir_frame.cuh``); each runs its 64-row tile (``csrc/ref_fused.cu``,
+``csrc/ref_dir_fwd.cuh``) at widths whose frame does not fit a block
+(chosen by shape before the launch; each launch counts the body it ran in
+``BODIES``, named by ``spa_body_name`` and ``dir_body_name``):
 
 ``ref_spa_fwd``
     ``_make_spa_fwd_kernel`` (:643) over ``_spa_pure`` (:192) in the eval
@@ -546,11 +546,11 @@ def _pe_operands(levels: int, device: torch.device):
 
 
 register({
-    "ref_spa_fwd": ("ref_fused", [PTR, U64P, I64, INTP, PTR]),
+    "ref_spa_fwd": ("ref_fused", [PTR, U64P, I64, INTP, PTR, INTP]),
     "ref_dir_fwd": ("ref_fused", [PTR, PTR, PTR, I64, PTR, PTR, U64P, I64,
                                   INTP, PTR, PTR, PTR, INTP]),
     "ref_spa_fwd_res": ("ref_fused", [PTR, PTR, PTR, PTR, U64P, I64, INTP,
-                                      PTR, PTR, U64P]),
+                                      PTR, PTR, U64P, INTP]),
     "ref_dir_fwd_res": ("ref_fused", [PTR, PTR, PTR, I64, PTR, PTR, U64P,
                                       I64, INTP, PTR, PTR, PTR, U64P, INTP]),
     "ref_spa_bwd": ("ref_fused_bwd", [PTR, PTR, U64P, U64P, I64, INTP, U64P,
@@ -559,7 +559,7 @@ register({
                                       PTR, U64P, U64P, I64, INTP, PTR, U64P,
                                       PTR, PTR, PTR, INT, I64, U64P]),
     "ref_spa_fwd_grad": ("ref_fused", [PTR, PTR, PTR, PTR, U64P, I64, INTP,
-                                       PTR, PTR]),
+                                       PTR, PTR, INTP]),
     "ref_spa_bwd_recompute": ("ref_fused_recompute", [
         PTR, PTR, U64P, I64, INTP, U64P, U64P, PTR, I64, I64, U64P]),
     "ref_dir_bwd_recompute": ("ref_fused_recompute", [
@@ -583,8 +583,10 @@ def ref_spa_fwd(ws, enc: torch.Tensor, device=None) -> torch.Tensor:
     heads = torch.empty((n, HEAD_FIXED + nb), dtype=F32, device=enc.device)
     if n > 0:
         dims = (ctypes.c_int * 4)(dx, h, o, nb)
+        body = ctypes.c_int(-1)
         launch("ref_spa_fwd", enc.dtype, enc.device, enc.data_ptr(),
-               pointers(ws), n, dims, heads.data_ptr())
+               pointers(ws), n, dims, heads.data_ptr(), ctypes.byref(body))
+        count_body("ref_spa_fwd", spa_body_name(body.value, "eval"))
     return heads
 
 
@@ -623,11 +625,30 @@ def _spa_train_fwd(ws, enc, pos, device, store: bool):
         pe_w, pe_b = _pe_operands((dx - 3) // 6, enc.device)
         dims = (ctypes.c_int * 4)(dx, h, o, nb)
         extra = (pointers(acts),) if store else ()
-        launch("ref_spa_fwd_res" if store else "ref_spa_fwd_grad", enc.dtype,
-               enc.device, enc.data_ptr(), pos.data_ptr(), pe_w.data_ptr(),
-               pe_b.data_ptr(), pointers(ws), n, dims, heads.data_ptr(),
-               dgrad.data_ptr(), *extra)
+        body = ctypes.c_int(-1)
+        name = "ref_spa_fwd_res" if store else "ref_spa_fwd_grad"
+        launch(name, enc.dtype, enc.device, enc.data_ptr(), pos.data_ptr(),
+               pe_w.data_ptr(), pe_b.data_ptr(), pointers(ws), n, dims,
+               heads.data_ptr(), dgrad.data_ptr(), *extra,
+               ctypes.byref(body))
+        count_body(name, spa_body_name(body.value,
+                                       "res" if store else "grad"))
     return (heads, dgrad, acts) if store else (heads, dgrad)
+
+
+def spa_body_name(cons: int, form: str) -> str:
+    """The name of the body that a spatial forward of ``form`` ("eval":
+    ``ref_spa_fwd``, "res": ``ref_spa_fwd_res``, "grad":
+    ``ref_spa_fwd_grad``) ran, from what its C entry reports:
+    "spa_frame_kernel<form> x2" (the frame, two consumer warpgroups,
+    128-point tiles), "x1" (one, 64-point tiles) or, for 0, the 64-row tile
+    (f32, and bf16 where no frame fits): "ref_spa_fwd_kernel",
+    "ref_spa_fwd_res_kernel<true>" (res) or "<false>" (grad)."""
+    if cons == 0:
+        return {"eval": "ref_spa_fwd_kernel",
+                "res": "ref_spa_fwd_res_kernel<true>",
+                "grad": "ref_spa_fwd_res_kernel<false>"}[form]
+    return f"spa_frame_kernel<{form}> x{cons}"
 
 
 def _dir_fwd(ws, heads, dirs, per_ray, noise, ide_level, use_srgb, device,

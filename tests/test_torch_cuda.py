@@ -434,23 +434,143 @@ def test_ref_spa_frame_identities(cuda, n, hidden, output_dim):
 
 def test_ref_spa_frame_wide_widths(cuda):
     """Trunks wider than the frame's 256-column pass take two passes a
-    layer into a second activation buffer.  Two buffers of 128 rows do not
-    fit, so the frame runs one consumer warpgroup on 64-point tiles; at 512
-    wide the training forms also read the narrow heads' weights and the
-    encoding's tables from device memory.  Every form meets its plain
-    version and the identities hold bit for bit as at 256, ragged tiles
-    included."""
+    layer into a second activation buffer.  Where two buffers of 128 rows
+    do not fit (the training forms above 256 wide, every form at 512), the
+    frame runs one consumer warpgroup on 64-point tiles; at 512 wide the
+    training forms also read the narrow heads' weights and the encoding's
+    tables from device memory.  Every form meets its plain version and the
+    identities hold bit for bit as at 256, ragged tiles included.  Above
+    the frame's widest fit (528 in the training forms, 704 in the eval
+    form) each launcher chooses the 64-row tile by shape, up to the widest
+    that tile ran before the frame (712, 616 and 776), and each launch
+    reports its body (ops.BODIES); one step wider raises, as it did."""
     tol = TOLS[torch.bfloat16]
-    for seed, (hidden, output_dim) in enumerate(
-            ((320, 256), (512, 256), (512, 512))):
+    name = ops.ref_fused.spa_body_name
+    # (H = O, the body of each form: the frame's consumer warpgroups, 0 for
+    # the 64-row tile, None where the width raises)
+    cases = (((320, 256), (2, 1, 1)), ((512, 256), (1, 1, 1)),
+             ((512, 512), (1, 1, 1)), ((528, 528), (1, 1, 1)),
+             ((536, 536), (1, 0, 0)), ((616, 616), (1, 0, 0)),
+             ((624, 624), (1, 0, None)), ((704, 704), (1, 0, None)),
+             ((712, 712), (0, 0, None)), ((720, 720), (0, None, None)),
+             ((776, 776), (0, None, None)), ((784, 784), (None,) * 3))
+    for seed, ((hidden, output_dim), cons) in enumerate(cases):
         m, enc, _ = _ref_operands(cuda, torch.bfloat16, 4099, 1, 5 + seed,
                                   hidden=hidden, output_dim=output_dim)
         ws = m.kernel_weights()[0]
         pos = enc[:, :3].float().contiguous()
-        _assert_frame_identities(ws, enc, pos)
-        acts = ops.ref_spa_fwd_res(ws, enc, pos)[2]
-        for a, pa in zip(acts, ops.ref_spa_fwd_res_plain(ws, enc, pos)[2]):
-            torch.testing.assert_close(a.float(), pa.float(), **tol)
+        if None not in cons:
+            _assert_frame_identities(ws, enc, pos)
+            acts = ops.ref_spa_fwd_res(ws, enc, pos)[2]
+            for a, pa in zip(acts,
+                             ops.ref_spa_fwd_res_plain(ws, enc, pos)[2]):
+                torch.testing.assert_close(a.float(), pa.float(), **tol)
+        plain = ops.ref_spa_plain(ws, enc)
+        for form, c in zip(("eval", "res", "grad"), cons):
+            fn = {"eval": lambda: ops.ref_spa_fwd(ws, enc),
+                  "res": lambda: ops.ref_spa_fwd_res(ws, enc, pos)[0],
+                  "grad": lambda: ops.ref_spa_fwd_grad(ws, enc, pos)[0]}[form]
+            kernel = "ref_spa_fwd" + ("" if form == "eval" else "_" + form)
+            if c is None:
+                with pytest.raises(RuntimeError, match="launch failed"):
+                    fn()
+                continue
+            ops.reset_launches()
+            torch.testing.assert_close(fn(), plain, **tol)
+            assert ops.BODIES == {kernel: {name(c, form): 1}}, (hidden, form)
+    torch.cuda.synchronize()
+
+
+def _vanilla_frame_operands(cuda, n, seed, h, bn, r):
+    """A seeded bf16 vanilla weight tuple at trunk width h, bottleneck bn
+    and rgb width r (weights N(0, 1 / fan_in), biases N(0, 0.25)), and the
+    encodings of n points, uniform in [-1, 1]."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    shapes = [(63, h), (1, h), (h, h), (1, h), (h, h), (1, h), (h, h),
+              (1, h), (63, h), (h, h), (1, h), (h, h), (1, h), (h, bn),
+              (1, bn), (bn, 1), (1, 1), (bn, bn), (1, bn), (bn, r), (27, r),
+              (1, r), (r, 3), (1, 3)]
+    ws = []
+    for i, shape in enumerate(shapes):
+        t = torch.randn(shape, generator=gen, device=cuda)
+        if i in ops.fused_mlp.VANILLA_BIASES:
+            ws.append(0.5 * t)
+        else:
+            ws.append((t / shape[0] ** 0.5).to(torch.bfloat16))
+    enc = [(torch.rand((n, k), generator=gen, device=cuda) * 2 - 1).to(
+        torch.bfloat16) for k in (63, 27)]
+    return ws, enc[0], enc[1]
+
+
+def _assert_vanilla_frame_identities(ws, x, d, cons=2, layers=True):
+    """vanilla_mlp_fwd's rgb3 and sigma equal vanilla_mlp_fwd_res's; with
+    ``layers`` each of the 9 stored activations equals ops.dense_layer of
+    its stored inputs (z5 and r1 through the two-operand form, bvec without
+    the ReLU), bit for bit; every output is finite and meets the plain
+    version's; each launch reports the body ``cons`` names (ops.BODIES: the
+    frame's consumer warpgroups, 0 for the 64-row tile)."""
+    ops.reset_launches()
+    rgb3, sigma = ops.vanilla_mlp_fwd(ws, x, d)
+    res = ops.vanilla_mlp_fwd_res(ws, x, d)
+    name = ops.fused_mlp.vanilla_body_name
+    assert ops.BODIES == {"vanilla_mlp_fwd": {name(cons, False): 1},
+                          "vanilla_mlp_fwd_res": {name(cons, True): 1}}
+    assert torch.equal(rgb3, res[0]) and torch.equal(sigma, res[1])
+    acts = res[2]
+    (w0, b0, w1, b1, w2, b2, w3, b3, w4a, w4b, b4, w5, b5, w6, b6, _, _, wb,
+     bb, wr1a, wr1b, br1) = ws[:22]
+    inputs = [(x, w0, b0), (acts[0], w1, b1), (acts[1], w2, b2),
+              (acts[2], w3, b3), (x, w4a, b4, acts[3], w4b),
+              (acts[4], w5, b5), (acts[5], w6, b6), (acts[6], wb, bb),
+              (acts[7], wr1a, br1, d, wr1b)]
+    for i, (a, op) in enumerate(zip(acts, inputs) if layers else ()):
+        assert torch.equal(a, ops.dense_layer(*op, relu=i != 7)[0]), i
+    assert all(bool(torch.isfinite(t).all())
+               for t in (rgb3, sigma) + tuple(acts))
+    prgb3, psigma = ops.vanilla_mlp_plain(ws, x, d)
+    torch.testing.assert_close(rgb3, prgb3, **TOLS[torch.bfloat16])
+    torch.testing.assert_close(sigma, psigma, **TOLS[torch.bfloat16])
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 50_689])
+@pytest.mark.parametrize("h, bn, r", [(256, 256, 128), (48, 40, 24),
+                                      (64, 64, 32)])
+def test_vanilla_frame_identities(cuda, n, h, bn, r):
+    """The bf16 vanilla forwards' persistent frame (csrc/vanilla_frame.cuh),
+    bit for bit (_assert_vanilla_frame_identities): at one point, either
+    side of the frame's 128-point tile and 50,689 points (more than three
+    tiles for each block of an H100's 132 SMs), at the model's widths and
+    two narrow ones."""
+    ws, x, d = _vanilla_frame_operands(cuda, n, n + h, h, bn, r)
+    _assert_vanilla_frame_identities(ws, x, d, cons=2)
+
+
+def test_vanilla_frame_wide_widths(cuda):
+    """Above 256 wide the frame takes two passes a layer into a second
+    activation buffer, on two consumer warpgroups while two buffers of 128
+    rows fit and on one on 64-point tiles above; above the frame's widest
+    fit (688) the launcher chooses the 64-row tile by shape, up to the
+    widest that tile ran before the frame (760); 768 raises, as it did.
+    At 760 ops.dense_layer's own block cannot hold the skip layer (its
+    mask words beside the 64-row tile's buffers), so the stored activations
+    are held there to the plain version's alone (ACT_REL, as at every
+    width)."""
+    # (H, B, R, the frame's consumer warpgroups; 0: the 64-row tile)
+    cases = ((320, 320, 160, 2), (512, 512, 256, 1), (688, 688, 344, 1),
+             (696, 696, 344, 0), (744, 744, 368, 0), (760, 760, 376, 0))
+    for seed, (h, bn, r, cons) in enumerate(cases):
+        ws, x, d = _vanilla_frame_operands(cuda, 4099, 60 + seed, h, bn, r)
+        _assert_vanilla_frame_identities(ws, x, d, cons=cons,
+                                         layers=h < 760)
+        acts = ops.vanilla_mlp_fwd_res(ws, x, d)[2]
+        plain = ops.vanilla_mlp_fwd_res_plain(ws, x, d)[2]
+        for i, (a, pa) in enumerate(zip(acts, plain)):
+            rel = _rel_err(a.float(), pa.float())
+            assert rel < ACT_REL[torch.bfloat16], (h, i, rel)
+    ws, x, d = _vanilla_frame_operands(cuda, 70, 70, 768, 768, 384)
+    for fn in (ops.vanilla_mlp_fwd, ops.vanilla_mlp_fwd_res):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fn(ws, x, d)
     torch.cuda.synchronize()
 
 
