@@ -19,9 +19,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                kernel that runs the delta pass (delta_build) and every
                library's wgrad_mma_kernel (wgrad_build) its registers,
                spills, HGMMA and HMMA on one line, failing on a spill; for
-               the bf16 spatial, directional and vanilla forwards'
-               persistent frame (frame_build: spa_frame_kernel's three
-               forms, dir_frame_kernel's two, vanilla_frame_kernel's two)
+               the bf16 spatial, directional, vanilla and proposal
+               forwards' persistent frame (frame_build: spa_frame_kernel's
+               three forms, dir_frame_kernel's two, vanilla_frame_kernel's
+               two, prop_frame_kernel's two)
                the same, and their ptxas remarks of serialized wgmma,
                failing on a spill, on HMMA or without HGMMA
   3. kernels - each kernel against its plain PyTorch version, bf16 and f32,
@@ -70,7 +71,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                launch's body, at 1, 127, 129, 50,689, 131,072 and 524,288
                points and 256/256/128, 48/40/24, 64/64/32 and 512/512/256;
                then the widest H = B that runs the frame and that runs at
-               all, failing on a hole or short of the 64-row tile's 760)
+               all, failing on a hole or short of the 64-row tile's 760);
+               the bf16 proposal frame's (prop_frame, run before
+               vanilla_frame: prop_mlp_fwd's density equal to
+               prop_mlp_fwd_res's, its stored h1 .. h4 to ops.dense_layer
+               of their stored inputs, all bit for bit, the density within
+               TOLS of the plain version, each launch's body, at 1, 127,
+               129, 50,689, 65,536 and 262,144 points and H = 256, 48, 64
+               and 512; then the widest H that runs the frame and that
+               runs at all, failing on a hole or short of the 64-row
+               tile's PROP_TILE_WIDEST)
   4. path    - `python -m nerf_tpu_torch -r -e -s -w` on a two-view 800x800
                Blender-layout test split with seeded random weights (full
                width vanilla model), counting kernel launches and each
@@ -130,14 +140,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                chunked grads equal to one chunk's (prop_res_kernels); one
                f32 step of each model with it, kernels vs nn.Module
                (step_prop_res, ref_step_prop_res); one bf16 step against
-               the same step with the proposal recompute pair
+               the same step with the proposal recompute pair, each
+               proposal launch on the frame's two consumer warpgroups
                (prop_res_vs_recompute); step_memory (phase 10) measures
                its peak memory as a third form
  13. batch_scaling - nerf_tpu_torch.tools.batch_scaling's measure with 10
                steps a run: vanilla at 1024, 4096 and 16384 rays in three
                backward forms, Ref-NeRF at 1024 and 4096 in two, Mip-NeRF
                (--model mip) at 1024, 4096 and 16384 in its two; rays/s
-               and peak device memory per row
+               and peak device memory per row; the sweep's launches by
+               body, each frame kernel on its two consumer warpgroups
  14. dissect - `python -m nerf_tpu_torch.tools.bench_ref_kernels --dissect
                --dissect_fwd` (N = 197,632, bf16 and f32): the directional
                forward's five stages and the backward's four modes timed
@@ -362,6 +374,13 @@ REF_GAIN = 1.0
 # A layer on the CUDA cores in f32 summed as cuBLAS does, bit for bit, and
 # so never showed it.
 VANILLA_GAIN = 1.0
+# The proposal frame's check (prop_frame) draws N(0, 1 / fan_in) as well.
+# At He's scale its density parted from the plain version by 1.024 x TOLS
+# at H = 64 on 50,689 points on an H100 80GB HBM3, while h1 .. h4 equalled
+# ops.dense_layer of their stored inputs bit for bit: the four bf16 layers
+# carry a one-ulp rounding difference as the vanilla net's do.  (The main
+# path's check of prop_mlp_fwd, phase 3, keeps He's scale at H = 256.)
+PROP_GAIN = 1.0
 # backward grads against the plain version, as the relative Frobenius error
 # of each grad tensor, on the same stored activations.  Both round the same
 # deltas to bf16 per layer; they part only where an f32 sum taken in another
@@ -459,7 +478,7 @@ REF_TRAIN_BAND = {"loss": 0.02, "img_mse": 0.02}
 
 KERNELS = {
     "prop_mlp_fwd": dict(
-        source="nerf_tpu_torch/ops/csrc/fused_mlp.cu",
+        source="nerf_tpu_torch/ops/csrc/prop_frame.cuh",
         replaces="nerf_tpu/ops/fused_mlp.py:478"),
     "vanilla_mlp_fwd": dict(
         source="nerf_tpu_torch/ops/csrc/vanilla_frame.cuh",
@@ -504,7 +523,7 @@ KERNELS = {
         source="nerf_tpu_torch/ops/csrc/ref_fused_recompute.cu",
         replaces="nerf_tpu/ops/ref_fused.py:867"),
     "prop_mlp_fwd_res": dict(
-        source="nerf_tpu_torch/ops/csrc/fused_mlp.cu",
+        source="nerf_tpu_torch/ops/csrc/prop_frame.cuh",
         replaces="nerf_tpu/ops/fused_mlp.py:483"),
     "prop_mlp_bwd_res": dict(
         source="nerf_tpu_torch/ops/csrc/fused_mlp_bwd.cu",
@@ -1850,6 +1869,127 @@ def vanilla_frame_checks():
                 widths=vanilla_frame_widths())
 
 
+# The bf16 proposal forwards on the frame (csrc/prop_frame.cuh): the
+# frame's edge counts of FRAME_NS and the main paths' (a default step's
+# 65,536 coarse points, an eval chunk's 262,144; at the model's width only)
+# at the model's width H = 256, the card tests' 48 and 64, and at 512 wide,
+# where the frame runs one consumer warpgroup on 64-point tiles; each with
+# the frame's consumer warpgroups that its launches must report
+# (fused_mlp.prop_body_name)
+PROP_FRAME_NS = (1, 127, 129, 50_689, RAYS * N_COARSE, CHUNK * N_COARSE)
+PROP_FRAME_WIDTHS = {256: 2, 48: 2, 64: 2, 512: 1}
+
+
+def prop_frame_identities(ws, x):
+    """The proposal frame's identities on one case: prop_mlp_fwd's density
+    equal to prop_mlp_fwd_res's, bit for bit; each of h1 .. h4 equal to
+    ops.dense_layer of its stored input (h1 of enc); every output finite;
+    the density's distance from the plain version's (tols_ratio, TOLS); the
+    body that each launch reported (ops.BODIES)."""
+    density, body = body_of("prop_mlp_fwd",
+                            lambda: ops.prop_mlp_fwd(ws, x))
+    (dres, acts), body_res = body_of("prop_mlp_fwd_res",
+                                     lambda: ops.prop_mlp_fwd_res(ws, x))
+    inputs = [x] + list(acts[:3])
+    return dict(
+        body=body, body_res=body_res,
+        fwd_equal_res=bool(torch.equal(density, dres)),
+        layers_equal_dense_layer=[
+            bool(torch.equal(a, ops.dense_layer(a_in, ws[2 * i],
+                                                ws[2 * i + 1])[0]))
+            for i, (a, a_in) in enumerate(zip(acts, inputs))],
+        finite=bool(all(torch.isfinite(t).all()
+                        for t in [density] + list(acts))),
+        density_vs_plain=tols_ratio(density, ops.prop_mlp_plain(ws, x),
+                                    TOLS[x.dtype]))
+
+
+# the width scan of the prop_frame phase: H from 640 to 792 in steps of 8,
+# 300 points each (the frame's widest fit and the 64-row tile's lie
+# between), and the widest that the 64-row tile ran in both bf16 forms
+# before the frame took them, which both forms must reach again
+PROP_WIDTH_SCAN = range(640, 800, 8)
+PROP_TILE_WIDEST = 776
+
+
+def prop_frame_widths():
+    """For each proposal form, the widest H of PROP_WIDTH_SCAN that runs the
+    frame and the widest that runs at all (the 64-row tile above the
+    frame's fit), each launch's density within TOLS of the plain version's;
+    fails where a width below one that runs raises, where the frame is
+    chosen above a width that took the 64-row tile, where the widest that
+    runs is short of PROP_TILE_WIDEST, or where the density parts from the
+    plain version."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    out = {}
+    for res in (False, True):
+        name = "prop_mlp_fwd_res" if res else "prop_mlp_fwd"
+        fn = getattr(ops, name)
+        bodies, worst = [], 0.0
+        for w in PROP_WIDTH_SCAN:
+            ws = random_weights(prop_shapes(h=w), gen, bf16, gain=PROP_GAIN)
+            x, _ = _encodings(gen, bf16, 300, dd=False)
+            try:
+                got, body = body_of(name, lambda: fn(ws, x))
+                torch.cuda.synchronize()
+            except RuntimeError:
+                bodies.append(None)
+                continue
+            bodies.append(body)
+            density = got[0] if res else got
+            worst = max(worst, tols_ratio(density, ops.prop_mlp_plain(ws, x),
+                                          TOLS[bf16]))
+            del ws, x, got, density
+        runs = [w for w, b in zip(PROP_WIDTH_SCAN, bodies) if b]
+        frame = [w for w, b in zip(PROP_WIDTH_SCAN, bodies)
+                 if b and b.startswith("prop_frame_kernel")]
+        key = "res" if res else "eval"
+        out[key] = dict(frame_to=max(frame, default=None),
+                        runs_to=max(runs, default=None),
+                        density_vs_plain=worst)
+        if (runs != list(PROP_WIDTH_SCAN)[:len(runs)]
+                or frame != runs[:len(frame)]
+                or max(runs, default=0) < PROP_TILE_WIDEST
+                or worst > 1.0):
+            fail(f"the proposal forwards' widths ({key}): "
+                 f"{dict(zip(PROP_WIDTH_SCAN, bodies))}, density vs plain "
+                 f"{worst}, widest before the frame {PROP_TILE_WIDEST}")
+    return out
+
+
+def prop_frame_checks():
+    """prop_frame_identities on seeded bf16 operands (its own generator) at
+    PROP_FRAME_NS x PROP_FRAME_WIDTHS; fails where an identity does not
+    hold, a value is not finite, the density parts from the plain version
+    beyond TOLS, or a launch ran another body than its width's; then the
+    width scan (prop_frame_widths).  Its launches are not the main
+    path's."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    cases = []
+    t0 = time.perf_counter()
+    for h, cons in PROP_FRAME_WIDTHS.items():
+        ws = random_weights(prop_shapes(h=h), gen, bf16, gain=PROP_GAIN)
+        for n in PROP_FRAME_NS:
+            if n > FRAME_NS[3] and h != 256:
+                continue
+            x, _ = _encodings(gen, bf16, n, dd=False)
+            c = dict(h=h, n=n, **prop_frame_identities(ws, x))
+            cases.append(c)
+            name = fused_mlp.prop_body_name
+            if not (c["fwd_equal_res"] and all(c["layers_equal_dense_layer"])
+                    and c["finite"] and c["density_vs_plain"] <= 1.0
+                    and c["body"] == name(cons, False)
+                    and c["body_res"] == name(cons, True)):
+                fail(f"the bf16 proposal frame fails an identity: {c}")
+            del x
+            torch.cuda.empty_cache()
+    checks_s = time.perf_counter() - t0
+    return dict(cases=cases, all_equal=True, seconds=checks_s,
+                widths=prop_frame_widths())
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the render path
 # ---------------------------------------------------------------------------
@@ -1965,6 +2105,8 @@ def run_path(tmp: str, model: str = "vanilla"):
 # the body each runs at the main paths' default widths in bf16: the frame,
 # two consumer warpgroups
 BODY_KERNELS = {
+    "prop_mlp_fwd": fused_mlp.prop_body_name(2, False),
+    "prop_mlp_fwd_res": fused_mlp.prop_body_name(2, True),
     "vanilla_mlp_fwd": fused_mlp.vanilla_body_name(2, False),
     "vanilla_mlp_fwd_res": fused_mlp.vanilla_body_name(2, True),
     "ref_spa_fwd": ref_fused.spa_body_name(2, "eval"),
@@ -2357,12 +2499,14 @@ def prop_res_vs_recompute(model: str):
     fine net residual in both: the residual forward gives the recompute
     form's density bit for bit and its backward the same grads, so the loss
     and every grad are expected equal; each grad is held to the bf16 grad
-    limit and the equal ones counted."""
+    limit and the equal ones counted; each launch that reports a body ran
+    the frame's two consumer warpgroups (the launches by body of each
+    step)."""
     cfg = PipelineConfig(model=model, bottleneck_noise=0.0, use_bf16=True)
     models = seeded_models(cfg, 6)
     rays, gt, jitter, u = step_batch(7)
     params = train_parameters(models)
-    out = {}
+    out, bodies = {}, {}
     for res in (True, False):
         ops.reset_launches()
         loss, _ = compute_loss(models, rays, gt,
@@ -2370,6 +2514,8 @@ def prop_res_vs_recompute(model: str):
                                noise=(jitter, u))
         out[res] = (loss.item(), torch.autograd.grad(loss, params),
                     dict(ops.LAUNCHES))
+        bodies["prop_res" if res else "prop_recompute"] = launched_bodies(
+            out[res][2], frame_launched(out[res][2]))
     if out[True][2]["prop_mlp_bwd_res"] != 1 or out[False][2][
             "prop_mlp_bwd"] != 1:
         fail(f"{model} bf16 prop residual vs recompute step: launches "
@@ -2383,7 +2529,7 @@ def prop_res_vs_recompute(model: str):
              f"{out[True][0]} vs {out[False][0]}, grad relative errors "
              f"{rels} (limit {lim})")
     return dict(loss_prop_res=out[True][0], loss_prop_recompute=out[False][0],
-                loss_rel=loss_rel, grad_rel_err_max=max(rels),
+                bodies=bodies, loss_rel=loss_rel, grad_rel_err_max=max(rels),
                 grad_rel_tol=lim, n_grads=len(rels),
                 grads_equal=sum(int(torch.equal(a, b)) for a, b in
                                 zip(out[True][1], out[False][1])))
@@ -3271,7 +3417,8 @@ OCCUPANCY_BF16 = (
     "spa_frame_kernel<eval>", "spa_frame_kernel<res>",
     "spa_frame_kernel<grad>", "dir_frame_kernel<eval>",
     "dir_frame_kernel<res>", "vanilla_frame_kernel<eval>",
-    "vanilla_frame_kernel<res>", "ref_spa_delta_kernel",
+    "vanilla_frame_kernel<res>", "prop_frame_kernel<eval>",
+    "prop_frame_kernel<res>", "ref_spa_delta_kernel",
     "ref_dir_delta_kernel",
     "ref_spa_recompute_kernel", "ref_dir_recompute_kernel<1>",
     "ref_dir_recompute_kernel<2>", "ref_dir_recompute_kernel<3>",
@@ -3285,7 +3432,7 @@ def delta_occupancy():
     "<lib> <name>/<bf16|f32>", the shared memory and blocks an SM of each
     distinct launch.  Fails where a launch ran below the blocks an SM its
     kernel was built for (two for a bf16 delta-pass kernel, one for the
-    weight-grad body and for the frame's seven forms), a query
+    weight-grad body and for the frame's nine forms), a query
     failed, a bf16 kernel of OCCUPANCY_BF16 was
     never launched, or a library of WGRAD_LIBS never launched
     wgrad_mma_kernel."""
@@ -3581,7 +3728,7 @@ ORBIT_FRAMES = 120
 # trace names it
 TRACE_FUNCTIONS = {"vanilla_mlp_fwd_res": "vanilla_frame_kernel",
                    "vanilla_mlp_bwd": "vanilla_delta_kernel",
-                   "prop_mlp_fwd": "prop_mlp_fwd_kernel",
+                   "prop_mlp_fwd": "prop_frame_kernel",
                    "prop_mlp_bwd": "prop_delta_kernel"}
 # train_once's console output and logged MFU and epoch times, per route
 EPOCH_RUNS = {}
@@ -4123,7 +4270,8 @@ def ipe_train(tmp: str):
     """A short ``python -m nerf_tpu_torch --use_ipe --epochs 2 -s -w`` run
     on the train split (the proposal net and the IPE fine net): one launch
     a step of each vanilla training kernel, one a chunk of each eval
-    forward, finite logged losses."""
+    forward, each that reports a body on the frame's two consumer
+    warpgroups, finite logged losses."""
     flags = ROUTES["ipe"][0]
     steps = TRAIN_VIEWS * IPE_EPOCHS
     launches, losses, mses, wall = train_once(tmp, "ipe_kernels", *flags,
@@ -4131,9 +4279,15 @@ def ipe_train(tmp: str):
     want = route_launches("ipe", steps, math.ceil(400 * 400 / CHUNK))
     if launches != want:
         fail(f"--use_ipe train run launches {launches}, expected {want}")
+    bodies = EPOCH_RUNS["ipe_kernels"]["bodies"]
+    for k in frame_launched(launches):
+        if bodies.get(k) != {BODY_KERNELS[k]: launches[k]}:
+            fail(f"--use_ipe train run: {k} ran {bodies.get(k)}, not "
+                 f"{BODY_KERNELS[k]} alone")
     return dict(command="python -m nerf_tpu_torch " + " ".join(
         a if "/" not in a else "<tmp>" for a in train_argv(
             tmp, *flags, epochs=IPE_EPOCHS)), steps=steps, launches=launches,
+        bodies=bodies,
         loss_first10=statistics.mean(losses[:10]),
         loss_last10=statistics.mean(losses[-10:]),
         img_mse_epoch_means=epoch_means(mses), s_entry=wall)
@@ -4262,20 +4416,22 @@ DELTA_KERNELS = ("vanilla_delta_kernel", "prop_delta_kernelILb0E",
 # no HMMA.  (The dissection's recompute-only stage, mode 0, runs no delta
 # pass.)
 HEADLESS = ("prop_delta_kernel<true>", "prop_delta_kernel<false>")
-# the bf16 persistent frame of the spatial, directional and vanilla forwards
-# (spa_frame.cuh, dir_frame.cuh, vanilla_frame.cuh; ref_fused.cu and
+# the bf16 persistent frame of the spatial, directional, vanilla and
+# proposal forwards (spa_frame.cuh, dir_frame.cuh, vanilla_frame.cuh,
+# prop_frame.cuh; ref_fused.cu and
 # fused_mlp.cu launch it for bf16, and their 64-row tiles in bf16 too for
 # the widths whose frame does not fit): each instantiation holds HGMMA and
 # no HMMA (the density column's first pullback is no product there) and
 # spills nothing; each kernel is built once for each of its forms
 # (FRAME_FORMS)
 FRAME_KERNELS = ("spa_frame_kernel", "dir_frame_kernel",
-                 "vanilla_frame_kernel")
+                 "vanilla_frame_kernel", "prop_frame_kernel")
 FRAME_FORMS = {"spa_frame_kernel": 3, "dir_frame_kernel": 2,
-               "vanilla_frame_kernel": 2}
+               "vanilla_frame_kernel": 2, "prop_frame_kernel": 2}
 # the frame's forms that must keep no stack frame (the spatial res and grad
 # forms keep 96 and 32 bytes)
-STACKLESS_FRAMES = ("dir_frame_kernel", "vanilla_frame_kernel")
+STACKLESS_FRAMES = ("dir_frame_kernel", "vanilla_frame_kernel",
+                    "prop_frame_kernel")
 TILE_AND_DELTA = (
     ("fused_mlp_recompute", "vanilla_recompute_kernel<__nv_bfloat16>"),
     ("ref_fused", "ref_spa_fwd_res_kernel<(bool)0, __nv_bfloat16>"),
@@ -4534,14 +4690,15 @@ def check_tile_mma(mma):
 
 def frame_build(reports, mma):
     """For each instantiation of the bf16 frame (FRAME_KERNELS: the spatial
-    net's three forms, the directional net's two, the vanilla net's two),
+    net's three forms, the directional net's two, the vanilla net's two,
+    the proposal net's two),
     by "<lib> <short demangled name>": ptxas's registers (the launch's; the
     consumers run at setmaxnreg's 232), stack frame and spill bytes (stores,
     loads) and its remarks that wgmma instructions were serialized, and the
     HGMMA and HMMA in its SASS.  Fails on a spill, on a stack frame in a
-    directional or vanilla form (STACKLESS_FRAMES), on HMMA, without HGMMA,
-    or unless each kernel was built once for each of its forms
-    (FRAME_FORMS)."""
+    directional, vanilla or proposal form (STACKLESS_FRAMES), on HMMA,
+    without HGMMA, or unless each kernel was built once for each of its
+    forms (FRAME_FORMS)."""
     found = ptxas_by_function(reports, lambda f: any(
         k in f for k in FRAME_KERNELS))
     names = demangle(sorted({f for v in found.values() for f in v}))
@@ -5192,6 +5349,10 @@ def main() -> int:
             torch.cuda.empty_cache()
     emit("spa_frame", **frame_checks())
     emit("dir_frame", **dir_frame_checks())
+    # before the vanilla frame's width scan: a library notes the occupancy
+    # of its first 32 (kernel, shared memory) pairs, and that scan's
+    # launches fill fused_mlp's log
+    emit("prop_frame", **prop_frame_checks())
     emit("vanilla_frame", **vanilla_frame_checks())
     emit("kernel_order_sensitivity", **order_sensitivity(gen))
     emit("backward_order_sensitivity", **backward_order_sensitivity())
@@ -5292,8 +5453,10 @@ def main() -> int:
     t0 = time.perf_counter()
     scaling = batch_scaling_rows()
     scaling_launches = dict(ops.LAUNCHES)
+    scaling_bodies = launched_bodies(scaling_launches,
+                                     frame_launched(scaling_launches))
     emit("batch_scaling_done", seconds=time.perf_counter() - t0,
-         launches=scaling_launches)
+         launches=scaling_launches, bodies=scaling_bodies)
     for k in PROP_RES_KERNELS:
         if scaling_launches[k] == 0:
             fail(f"the batch-scaling sweep launched {k} no time")
@@ -5382,7 +5545,7 @@ def main() -> int:
     # ``launches_batch_scaling``, ``launches_mip_train`` and
     # ``launches_ipe_train`` its count in each of those runs; ``mip`` the
     # vanilla kernels' readings on the Mip-NeRF path's operands (phase 18);
-    # ``bodies`` the launches by body that the bf16 directional forwards
+    # ``bodies`` the launches by body that each kernel of BODY_KERNELS
     # reported in the run that ``launches`` counts (ops.BODIES: the frame,
     # or the 64-row tile where it does not fit).
     recompute_steps = {k: memory["vanilla"]["recompute"]["launches"][k]
@@ -5407,7 +5570,7 @@ def main() -> int:
         res = checks[(name, torch.bfloat16)]   # -s trains and renders in bf16
         f32 = checks[(name, torch.float32)]
         path, bodies = (
-            (scaling_launches, None) if name in PROP_RES_KERNELS
+            (scaling_launches, scaling_bodies) if name in PROP_RES_KERNELS
             else (hybrid["launches"], hybrid["bodies"])
             if name in ("ref_spa_fwd_grad", "ref_spa_bwd_recompute")
             else (recompute_steps, None) if name in RECOMPUTE_KERNELS

@@ -1,7 +1,7 @@
 """Time the fused kernels of two checkouts in turns on one card.
 
     python3 kernel_ab.py --other DIR [--steps] [--tile | --spa | --dir |
-                                               --vanilla] > ab.json
+                                               --vanilla | --prop] > ab.json
 
 DIR is another checkout of this repository (for example ``git archive`` of
 an earlier commit unpacked under ``build/``).  Each turn is one process
@@ -69,9 +69,19 @@ encodings and on the ``-m`` path's IPE encodings at the same points, each
 with the sha1 of its outputs), a warm 400x400 vanilla and ``-m`` frame
 (wall seconds, device ms, busy share) and the trainer's default vanilla,
 ``-m`` and ``-t`` steps, with ptxas's registers and spills of every bf16
-kernel that runs the tile, the delta pass or the frame.  Prints one
-JSON object: each turn's readings by "kernel/dtype" (and its step
-readings), and the card's name and power limit.  Needs a card.
+kernel that runs the tile, the delta pass or the frame.  With ``--prop``
+the turns time the proposal net's two fused forwards in bf16
+(``PROP_KERNELS``: ``prop_mlp_fwd`` at an eval chunk's 262,144 points,
+``prop_mlp_fwd_res`` at a default step's 65,536, ``kernel_case``'s
+operands, ``cuda_ms``, each with the sha1 of its density and stored
+activations), a warm 400x400 vanilla and Ref-NeRF frame (wall seconds,
+device ms, busy share) and the trainer's default vanilla and ``-t`` steps,
+with ptxas's registers and spills; and each form's width scan
+(``PROP_WIDTHS``, 300 points a width: whether it ran and, where the
+checkout reports one, the body it ran), which reads the widest that a
+checkout runs.  Prints one JSON object: each turn's readings by
+"kernel/dtype" (and its step readings), and the card's name and power
+limit.  Needs a card.
 """
 
 from __future__ import annotations
@@ -106,6 +116,74 @@ SPA_KERNELS = ("ref_spa_fwd", "ref_spa_fwd_res", "ref_spa_fwd_grad")
 DIR_KERNELS = ("ref_dir_fwd", "ref_dir_fwd_res")
 # the vanilla net's fused forwards (PERF.md's row 1)
 VANILLA_KERNELS = ("vanilla_mlp_fwd", "vanilla_mlp_fwd_res")
+# the proposal net's fused forwards (PERF.md's row 3), and the widths of
+# their scan in each turn
+PROP_KERNELS = ("prop_mlp_fwd", "prop_mlp_fwd_res")
+PROP_WIDTHS = tuple(range(640, 800, 8))
+
+# one turn of --prop, run with the checkout's root as the working directory
+PROP_TURN = r"""
+import json, sys, tempfile
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import hashlib
+import chip_smoke as cs
+from nerf_tpu_torch import ops
+from nerf_tpu_torch.ops import build
+names, widths = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+reports = build.build()
+out = {"ptxas": {k: v for k, v in cs.tile_ptxas(reports).items()
+                 if "bfloat16" in k}}
+gen = torch.Generator(device="cuda").manual_seed(0)
+bf16 = torch.bfloat16
+
+
+def digest(t, h):
+    if isinstance(t, (tuple, list)):
+        for u in t:
+            digest(u, h)
+    else:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h
+
+
+for name in names:
+    args, kernel = cs.kernel_case(name, bf16, gen)[:2]
+    out[name + "/bf16"] = cs.cuda_ms(lambda: kernel(*args), 20)
+    out[name + "/sha1"] = digest(kernel(*args), hashlib.sha1()).hexdigest()
+    del args
+    torch.cuda.empty_cache()
+    fn, scan = getattr(ops, name), {}
+    for w in widths:
+        ws = cs.random_weights(cs.prop_shapes(h=w), gen, bf16)
+        x = cs._encodings(gen, bf16, 300, dd=False)[0]
+        before = dict(getattr(ops, "BODIES", {}).get(name, {}))
+        try:
+            fn(ws, x)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            scan[w] = None
+            continue
+        after = getattr(ops, "BODIES", {}).get(name, {})
+        ran = [b for b, c in after.items() if c != before.get(b, 0)]
+        scan[w] = ran[0] if ran else "ran"
+    out[name + "/widths"] = scan
+    out[name + "/widest"] = max((w for w, b in scan.items() if b),
+                                default=None)
+for model in ("vanilla", "ref"):
+    r = cs.profile_frame(model)
+    out["frame/" + model] = {k: r[k] for k in ("frame_s", "device_ms",
+                                                "device_busy_share")}
+with tempfile.TemporaryDirectory() as tmp:
+    cs.write_train_split(tmp)
+    for model, epochs, extra in (("vanilla", 5, ()), ("ref", 3, ("-t",))):
+        r = cs.profile_trainer(tmp, epochs, *extra)
+        out["step/" + model] = {k: r[k] for k in (
+            "step_ms_median", "host_issue_ms_per_step", "device_ms_per_step",
+            "device_busy_share", "rays_per_s")}
+print(json.dumps(out))
+"""
 
 # one turn of --vanilla, run with the checkout's root as the working
 # directory: each kernel on the vanilla path's encodings ("pe") and on the
@@ -344,8 +422,8 @@ print(json.dumps(out))
 
 def turn(root: Path, steps: bool, mode: str | None = None) -> dict:
     """One checkout's timings (and step readings), in a process of its
-    own; ``mode`` "tile", "spa", "dir" or "vanilla" picks another turn than
-    the default one."""
+    own; ``mode`` "tile", "spa", "dir", "vanilla" or "prop" picks another
+    turn than the default one."""
     cmd = ([sys.executable, "-c", TILE_TURN, json.dumps(TILE_KERNELS)]
            if mode == "tile" else
            [sys.executable, "-c", SPA_TURN, json.dumps(SPA_KERNELS)]
@@ -354,6 +432,9 @@ def turn(root: Path, steps: bool, mode: str | None = None) -> dict:
            if mode == "dir" else
            [sys.executable, "-c", VANILLA_TURN, json.dumps(VANILLA_KERNELS)]
            if mode == "vanilla" else
+           [sys.executable, "-c", PROP_TURN, json.dumps(PROP_KERNELS),
+            json.dumps(PROP_WIDTHS)]
+           if mode == "prop" else
            [sys.executable, "-c", TURN, json.dumps(DELTA_PASS_KERNELS),
             "1" if steps else "0", json.dumps(DELTA_AB_SHAPES)])
     proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
@@ -382,8 +463,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--vanilla", action="store_true",
                     help="time the vanilla net's fused forwards, the "
                          "vanilla and -m frames and steps instead")
+    ap.add_argument("--prop", action="store_true",
+                    help="time the proposal net's fused forwards and scan "
+                         "their widths, the vanilla and Ref-NeRF frames "
+                         "and steps instead")
     args = ap.parse_args(argv)
-    mode = next((m for m in ("tile", "spa", "dir", "vanilla")
+    mode = next((m for m in ("tile", "spa", "dir", "vanilla", "prop")
                  if getattr(args, m)), None)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -56,12 +56,13 @@
 // stay on the CUDA cores (head_tile).  The bf16 vanilla forwards run the
 // persistent frame of vanilla_frame.cuh instead (128-point tiles, one block
 // an SM, a producer that streams every layer's weights through one ring),
-// or this 64-row tile at widths whose frame does not fit a block
-// (vanilla_frame_body chooses by shape before the launch; the entries
-// report the body they launched).
+// and the bf16 proposal forwards that of prop_frame.cuh, or this 64-row
+// tile at widths whose frame does not fit a block (vanilla_frame_body and
+// prop_frame_body choose by shape before the launch; the entries report
+// the body they launched).
 
 #include "mlp_tile.cuh"
-#include "vanilla_frame.cuh"
+#include "prop_frame.cuh"
 
 namespace {
 
@@ -194,6 +195,30 @@ int launch_prop(const void* x, const uint64_t* ptrs, int64_t n, int dx, int h,
   return (int)cudaGetLastError();
 }
 
+// The proposal forward: in bf16 the frame where it fits (prop_frame_body),
+// else, and in f32, the 64-row tile.  *body: the body launched, the
+// frame's consumer warpgroups (1 or 2) or 0 for the 64-row tile.
+template <bool STORE, typename T>
+int launch_prop_fwd(const void* x, const uint64_t* ptrs, int64_t n, int dx,
+                    int h, float* out, const uint64_t* acts, int* body,
+                    cudaStream_t stream) {
+  *body = 0;
+  if constexpr (std::is_same<T, bf16_t>::value) {
+    if (!tile_widths_ok<T>({h})) return (int)cudaErrorInvalidValue;
+    FrameLayout L;
+    size_t smem = 0;
+    int sms = 0;
+    const int err = prop_frame_body(dx, h, STORE, &L, &smem, &sms);
+    if (err != 0) return err;
+    if (smem != 0) {
+      *body = L.cons;
+      return launch_prop_frame<STORE>(x, ptrs, n, dx, h, out, acts, L, smem,
+                                      sms, stream);
+    }
+  }
+  return launch_prop<STORE, T>(x, ptrs, n, dx, h, out, acts, stream);
+}
+
 // acts: null for the forward-only kernel, else the 9 activation pointers in
 // the order h1 h2 h3 h4 z5 z6 z7 bvec r1.
 template <bool STORE, typename T>
@@ -255,31 +280,23 @@ int launch_vanilla_fwd(const void* x, const void* d, const uint64_t* ptrs,
 
 extern "C" {
 
-int prop_mlp_fwd_f32(const void* x, const uint64_t* ptrs, int64_t n, int dx,
-                     int h, void* out, void* stream) {
-  return launch_prop<false, float>(x, ptrs, n, dx, h, (float*)out, nullptr,
-                                   (cudaStream_t)stream);
-}
+#define PROP_FWD(SUFFIX, T)                                                    \
+  int prop_mlp_fwd_##SUFFIX(const void* x, const uint64_t* ptrs, int64_t n,    \
+                            int dx, int h, void* out, int* body,               \
+                            void* stream) {                                    \
+    return launch_prop_fwd<false, T>(x, ptrs, n, dx, h, (float*)out, nullptr,  \
+                                     body, (cudaStream_t)stream);              \
+  }                                                                            \
+  int prop_mlp_fwd_res_##SUFFIX(const void* x, const uint64_t* ptrs,           \
+                                int64_t n, int dx, int h, void* out,           \
+                                const uint64_t* acts, int* body,               \
+                                void* stream) {                                \
+    return launch_prop_fwd<true, T>(x, ptrs, n, dx, h, (float*)out, acts,      \
+                                    body, (cudaStream_t)stream);               \
+  }
 
-int prop_mlp_fwd_bf16(const void* x, const uint64_t* ptrs, int64_t n, int dx,
-                      int h, void* out, void* stream) {
-  return launch_prop<false, __nv_bfloat16>(x, ptrs, n, dx, h, (float*)out,
-                                           nullptr, (cudaStream_t)stream);
-}
-
-int prop_mlp_fwd_res_f32(const void* x, const uint64_t* ptrs, int64_t n,
-                         int dx, int h, void* out, const uint64_t* acts,
-                         void* stream) {
-  return launch_prop<true, float>(x, ptrs, n, dx, h, (float*)out, acts,
-                                  (cudaStream_t)stream);
-}
-
-int prop_mlp_fwd_res_bf16(const void* x, const uint64_t* ptrs, int64_t n,
-                          int dx, int h, void* out, const uint64_t* acts,
-                          void* stream) {
-  return launch_prop<true, __nv_bfloat16>(x, ptrs, n, dx, h, (float*)out,
-                                          acts, (cudaStream_t)stream);
-}
+PROP_FWD(f32, float)
+PROP_FWD(bf16, __nv_bfloat16)
 
 #define VANILLA_FWD(SUFFIX, T)                                                 \
   int vanilla_mlp_fwd_##SUFFIX(const void* x, const void* d,                   \

@@ -8,7 +8,9 @@
 // layout and its search, the setmaxnreg split) also run the directional
 // net's forwards (FORM_DIR, FORM_DIR_RES), whose input stage and tail are
 // in dir_frame.cuh, and the vanilla net's (FORM_VANILLA, FORM_VANILLA_RES),
-// whose input tiles, heads and layer list are in vanilla_frame.cuh.
+// whose input tiles, heads and layer list are in vanilla_frame.cuh, and
+// the proposal net's (FORM_PROP, FORM_PROP_RES), whose layer list and
+// density head are in prop_frame.cuh.
 //
 // Replaces: the bf16 bodies of ref_fused.cu's ref_spa_fwd_kernel and
 // ref_spa_fwd_res_kernel, which ported the Pallas kernel
@@ -104,12 +106,15 @@ constexpr int FORM_DIR = 3, FORM_DIR_RES = 4;
 // the vanilla net's (vanilla_frame.cuh): vanilla_mlp_fwd and
 // vanilla_mlp_fwd_res
 constexpr int FORM_VANILLA = 5, FORM_VANILLA_RES = 6;
+// the proposal net's (prop_frame.cuh): prop_mlp_fwd and prop_mlp_fwd_res
+constexpr int FORM_PROP = 7, FORM_PROP_RES = 8;
 // the names under which set_smem notes each form's occupancy
-constexpr const char* FRAME_NAMES[7] = {
+constexpr const char* FRAME_NAMES[9] = {
     "spa_frame_kernel<eval>", "spa_frame_kernel<res>",
     "spa_frame_kernel<grad>", "dir_frame_kernel<eval>",
     "dir_frame_kernel<res>", "vanilla_frame_kernel<eval>",
-    "vanilla_frame_kernel<res>"};
+    "vanilla_frame_kernel<res>", "prop_frame_kernel<eval>",
+    "prop_frame_kernel<res>"};
 static_assert(FCOLS == DPASS && DK == TK && FSLOT == DSLOT * 2
               && FSLOT == TSLOT * 2, "a slot holds one k-step of a pass");
 
@@ -198,6 +203,23 @@ inline FrameConsts vanilla_frame_consts(int h, int bn, int r, bool staged) {
   return c;
 }
 
+// The proposal net's constants: the biases b0 .. b3 (h each), then bo (1)
+// at heads_b; the density head's weights wo as h f32 values (whead).
+// Without ``staged`` the biases alone.
+inline FrameConsts prop_frame_consts(int h, bool staged) {
+  FrameConsts c;
+  c.bbn = -1;
+  c.heads_b = 4 * h;
+  c.whead = (c.heads_b + 1 + 3) & ~3;
+  c.pe_w = c.pe_b = -1;
+  c.floats = c.whead + h;
+  if (!staged) {
+    c.floats = c.heads_b + 1;
+    c.whead = -1;
+  }
+  return c;
+}
+
 // The narrow heads' weights [wrt | wnct] as (o, 11) f32 rows: staged at
 // cb + off, or read from the bf16 weights where off is -1 (the same values:
 // a bf16 converts to f32 exactly).  Made where it is used from what the
@@ -235,7 +257,8 @@ struct FrameLayout {
 // the input rows (the spatial net's encoding, dense as its copy lands; the
 // directional net's x, at frame_ld's stride, which the glue writes);
 // l_max and n_ch: the directional net's IDE tables.  The vanilla forms read
-// o as bn and nb as r (vanilla_frame.cuh's widths) and dd, enc_d's width.
+// o as bn and nb as r (vanilla_frame.cuh's widths) and dd, enc_d's width;
+// the proposal forms take o = h and nb = 0 (its trunk is h wide).
 inline size_t frame_layout(FrameLayout* L, int form, int cons, bool staged,
                            int dx, int h, int o, int nb, int limit,
                            int l_max = 0, int n_ch = 0, int dd = 0) {
@@ -244,6 +267,7 @@ inline size_t frame_layout(FrameLayout* L, int form, int cons, bool staged,
   auto up16 = [](size_t b) { return (b + 15) & ~(size_t)15; };
   const bool dir = form == FORM_DIR || form == FORM_DIR_RES;
   const bool van = form == FORM_VANILLA || form == FORM_VANILLA_RES;
+  const bool prop = form == FORM_PROP || form == FORM_PROP_RES;
   int maxw = h > o ? h : o;
   if (van && nb > maxw) maxw = nb;
   L->lda = frame_ld(maxw);
@@ -259,7 +283,8 @@ inline size_t frame_layout(FrameLayout* L, int form, int cons, bool staged,
                             : dir ? (size_t)rows * 6 * 4 : 0;
   L->c = dir ? dir_frame_consts(h, o, l_max, n_ch, staged)
       : van ? vanilla_frame_consts(h, o, nb, staged)
-            : FrameConsts(dx, h, o, nb, grad, staged);
+      : prop ? prop_frame_consts(h, staged)
+             : FrameConsts(dx, h, o, nb, grad, staged);
   const size_t consts = up16((size_t)L->c.floats * 4);
   const size_t rest = act + xs + ds + masks + frows + consts;
   const long room = (long)limit - 1024 - (long)rest;
@@ -364,16 +389,18 @@ __device__ __forceinline__ void produce_t(FRing& R, const CUtensorMap* map,
 // The producer's whole stream: the layers of each of the block's tiles in
 // the consumers' order (the map indices of spa_maps and spa_dmaps, of
 // dir_maps for the directional forms, whose trunk ends in two O-wide
-// layers, or of vanilla_maps for the vanilla forms, o = bn and nb = r; dx
-// the input rows' width, dd enc_d's).
+// layers, of vanilla_maps for the vanilla forms, o = bn and nb = r, or of
+// prop_maps for the proposal forms, whose trunk ends at h4; dx the input
+// rows' width, dd enc_d's).
 template <int FORM>
 __device__ void frame_produce(FRing R, const TileMaps& maps,
                               const TileMaps& dm, int64_t tiles, int dx,
                               int h, int o, int nb, int dd = 0) {
   constexpr bool DIR = FORM == FORM_DIR || FORM == FORM_DIR_RES;
   constexpr bool VAN = FORM == FORM_VANILLA || FORM == FORM_VANILLA_RES;
+  constexpr bool PROP = FORM == FORM_PROP || FORM == FORM_PROP_RES;
   constexpr bool GRAD = FORM == FORM_RES || FORM == FORM_GRAD;
-  for (int i = 0; i < (VAN ? 11 : DIR ? 9 : 10); ++i) {
+  for (int i = 0; i < (PROP ? 4 : VAN ? 11 : DIR ? 9 : 10); ++i) {
     prefetch_tensormap(&maps.map[i]);
     if (GRAD) prefetch_tensormap(&dm.map[i]);
   }
@@ -382,6 +409,7 @@ __device__ void frame_produce(FRing R, const TileMaps& maps,
     produce_fwd(R, &maps.map[1], h, 0, h);        // h2
     produce_fwd(R, &maps.map[2], h, 0, h);        // h3
     produce_fwd(R, &maps.map[3], h, 0, h);        // h4
+    if constexpr (PROP) continue;
     produce_fwd(R, &maps.map[4], dx, h, h);       // z5: w4a, then w4b (5)
     produce_fwd(R, &maps.map[6], h, 0, h);        // z6
     if constexpr (VAN) {

@@ -3,10 +3,10 @@
 Eight kernels, CUDA C++ for ``sm_90a`` (``csrc/``), each replacing a Pallas
 kernel of nerf_tpu/ops/fused_mlp.py:
 
-``prop_mlp_fwd`` (``fused_mlp.cu``)
+``prop_mlp_fwd`` (``fused_mlp.cu``; in bf16 ``prop_frame.cuh``)
     ``_prop_fwd_kernel`` (:478) via ``make_prop_fused`` (:540).  enc (N, 63)
     -> 4 x (dense 256, ReLU, cast) -> raw density (N,) f32.
-``prop_mlp_fwd_res`` (``fused_mlp.cu``)
+``prop_mlp_fwd_res`` (``fused_mlp.cu``; in bf16 ``prop_frame.cuh``)
     ``_prop_fwd_res_kernel`` (:483), the training forward of
     ``prop_store_residuals=True``: the same density, bit for bit, and the 4
     activations h1 h2 h3 h4, (N, width) each in the compute dtype.
@@ -67,10 +67,12 @@ hidden widths that are multiples of 8 (the launch raises otherwise).
 
 The two bf16 vanilla forwards run the persistent frame of
 ``csrc/vanilla_frame.cuh`` (tiles of 128 points, one block an SM, a
-producer that streams every layer's weights through one ring), or the
-64-row tile of ``csrc/fused_mlp.cu`` at widths whose frame does not fit a
-block (chosen by shape before the launch; each launch counts the body it
-ran in ``BODIES``, named by ``vanilla_body_name``).
+producer that streams every layer's weights through one ring), and the two
+bf16 proposal forwards the same frame's parts in ``csrc/prop_frame.cuh``,
+or the 64-row tile of ``csrc/fused_mlp.cu`` at widths whose frame does not
+fit a block (chosen by shape before the launch; each launch counts the body
+it ran in ``BODIES``, named by ``vanilla_body_name`` and
+``prop_body_name``).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  There is no fallback from the kernel to the plain
@@ -337,8 +339,9 @@ def _act_widths(h, bn, r):
 
 # library and C signature of each kernel (csrc/<library>.cu)
 register({
-    "prop_mlp_fwd": ("fused_mlp", [PTR, U64P, I64, INT, INT, PTR]),
-    "prop_mlp_fwd_res": ("fused_mlp", [PTR, U64P, I64, INT, INT, PTR, U64P]),
+    "prop_mlp_fwd": ("fused_mlp", [PTR, U64P, I64, INT, INT, PTR, INTP]),
+    "prop_mlp_fwd_res": ("fused_mlp", [PTR, U64P, I64, INT, INT, PTR, U64P,
+                                       INTP]),
     "vanilla_mlp_fwd": ("fused_mlp", [PTR, PTR, U64P, I64, INTP, PTR, PTR,
                                       INTP]),
     "vanilla_mlp_fwd_res": ("fused_mlp", [PTR, PTR, U64P, I64, INTP, PTR,
@@ -390,11 +393,25 @@ def _prop_fwd(ws, enc, device, res: bool):
     acts = tuple(torch.empty((n, h), dtype=enc.dtype, device=enc.device)
                  for _ in range(N_PROP_ACTS)) if res else ()
     if n > 0:
+        name = "prop_mlp_fwd_res" if res else "prop_mlp_fwd"
         extra = (pointers(acts),) if res else ()
-        launch("prop_mlp_fwd_res" if res else "prop_mlp_fwd", enc.dtype,
-               enc.device, enc.data_ptr(), pointers(ws), n, dx, h,
-               out.data_ptr(), *extra)
+        body = ctypes.c_int(-1)
+        launch(name, enc.dtype, enc.device, enc.data_ptr(), pointers(ws), n,
+               dx, h, out.data_ptr(), *extra, ctypes.byref(body))
+        count_body(name, prop_body_name(body.value, res))
     return (out, acts) if res else out
+
+
+def prop_body_name(cons: int, res: bool) -> str:
+    """The name of the body that a ``prop_mlp_fwd`` (``prop_mlp_fwd_res``
+    with ``res``) launch ran, from what its C entry reports:
+    "prop_frame_kernel<eval|res> x2" (the frame, two consumer warpgroups,
+    128-point tiles), "x1" (one, 64-point tiles) or, for 0,
+    "prop_mlp_fwd_kernel" (the 64-row tile: f32, and bf16 where no frame
+    fits)."""
+    if cons == 0:
+        return "prop_mlp_fwd_kernel"
+    return f"prop_frame_kernel<{'res' if res else 'eval'}> x{cons}"
 
 
 def _vanilla_fwd(ws, enc_x, enc_d, device, res: bool):

@@ -574,6 +574,81 @@ def test_vanilla_frame_wide_widths(cuda):
     torch.cuda.synchronize()
 
 
+def _prop_frame_operands(cuda, n, seed, h):
+    """A seeded bf16 proposal weight tuple at width h (weights N(0, 1 /
+    fan_in), biases N(0, 0.25)), and the encodings of n points, uniform in
+    [-1, 1]."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    ws = []
+    for shape in ((63, h), (h, h), (h, h), (h, h), (h, 1)):
+        w = torch.randn(shape, generator=gen, device=cuda)
+        ws += [(w / shape[0] ** 0.5).to(torch.bfloat16),
+               0.5 * torch.randn((1, shape[1]), generator=gen, device=cuda)]
+    x = (torch.rand((n, 63), generator=gen, device=cuda) * 2 - 1).to(
+        torch.bfloat16)
+    return ws, x
+
+
+def _assert_prop_frame_identities(ws, x, cons=2, layers=True):
+    """prop_mlp_fwd's density equals prop_mlp_fwd_res's; with ``layers``
+    each stored h1 .. h4 equals ops.dense_layer of its stored input (h1 of
+    x), bit for bit;
+    every output is finite and the density meets the plain version's; each
+    launch reports the body ``cons`` names (ops.BODIES: the frame's
+    consumer warpgroups, 0 for the 64-row tile)."""
+    ops.reset_launches()
+    density = ops.prop_mlp_fwd(ws, x)
+    dres, acts = ops.prop_mlp_fwd_res(ws, x)
+    name = ops.fused_mlp.prop_body_name
+    assert ops.BODIES == {"prop_mlp_fwd": {name(cons, False): 1},
+                          "prop_mlp_fwd_res": {name(cons, True): 1}}
+    assert torch.equal(density, dres)
+    for i, (a, a_in) in enumerate(zip(acts, (x,) + tuple(acts[:3]))
+                                  if layers else ()):
+        assert torch.equal(a, ops.dense_layer(a_in, ws[2 * i],
+                                              ws[2 * i + 1])[0]), i
+    assert all(bool(torch.isfinite(t).all()) for t in (density,) + acts)
+    torch.testing.assert_close(density, ops.prop_mlp_plain(ws, x),
+                               **TOLS[torch.bfloat16])
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 50_689])
+@pytest.mark.parametrize("h", [256, 48, 64])
+def test_prop_frame_identities(cuda, n, h):
+    """The bf16 proposal forwards' persistent frame (csrc/prop_frame.cuh),
+    bit for bit (_assert_prop_frame_identities): at one point, either side
+    of the frame's 128-point tile and 50,689 points, at the model's width
+    and two narrow ones."""
+    ws, x = _prop_frame_operands(cuda, n, n + h, h)
+    _assert_prop_frame_identities(ws, x, cons=2)
+
+
+def test_prop_frame_wide_widths(cuda):
+    """Above 256 wide the frame takes two passes a layer into a second
+    activation buffer, on two consumer warpgroups while two buffers of 128
+    rows fit and on one on 64-point tiles above; above the frame's widest
+    fit the launcher chooses the 64-row tile by shape, up to the widest
+    that tile ran before the frame (chip_smoke.py's PROP_TILE_WIDEST, 776);
+    784 raises, as it did.  Past the frame the stored activations are held
+    to the plain version's (ACT_REL), where ops.dense_layer's own block
+    may not hold the layer."""
+    # (H, the frame's consumer warpgroups; 0: the 64-row tile)
+    cases = ((320, 2), (512, 1), (752, 1), (760, 0), (776, 0))
+    for seed, (h, cons) in enumerate(cases):
+        ws, x = _prop_frame_operands(cuda, 4099, 80 + seed, h)
+        _assert_prop_frame_identities(ws, x, cons=cons, layers=cons > 0)
+        acts = ops.prop_mlp_fwd_res(ws, x)[1]
+        plain = ops.prop_mlp_fwd_res_plain(ws, x)[1]
+        for i, (a, pa) in enumerate(zip(acts, plain)):
+            rel = _rel_err(a.float(), pa.float())
+            assert rel < ACT_REL[torch.bfloat16], (h, i, rel)
+    ws, x = _prop_frame_operands(cuda, 70, 90, 784)
+    for fn in (ops.prop_mlp_fwd, ops.prop_mlp_fwd_res):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fn(ws, x)
+    torch.cuda.synchronize()
+
+
 def _assert_dir_frame_identities(ws, heads, dirs, per_ray, noise=None,
                                  ide_level=4, use_srgb=False, cons=2):
     """ref_dir_fwd's rgb, normal and density equal ref_dir_fwd_dissect's
