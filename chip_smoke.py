@@ -1990,6 +1990,259 @@ def prop_frame_checks():
                 widths=prop_frame_widths())
 
 
+# The bf16 spatial backwards' delta passes on the frame
+# (csrc/spa_bwd_frame.cuh): the frame's edge counts of FRAME_NS and a
+# default step's merged points, and for the recompute form a ragged last
+# chunk (three whole chunks of fused_mlp.chunk_rows(TILE_ROWS) points and
+# 129 more), at FRAME_WIDTHS' width pairs; each with the frame's consumer
+# warpgroups that the residual and recompute launches must report (0: the
+# 64-row tile; ref_fused.spa_bwd_body_name): two at 256 and 48/80 wide,
+# one in both forms at 320 wide and in the recompute form at 512 wide, the
+# 64-row tile above the residual form's fit and at 600 wide
+SPA_BWD_FRAME_NS = FRAME_NS[:4] + (RAYS * N_MERGED,)
+SPA_BWD_RAGGED = 3 * fused_mlp.chunk_rows(TILE_ROWS) + 129
+SPA_BWD_FRAME_WIDTHS = {(256, 256): (2, 2), (48, 80): (2, 2),
+                        (320, 320): (1, 1), (512, 512): (0, 1),
+                        (600, 600): (0, 0)}
+
+
+def spa_bwd_inter(ws, g, inter, recompute: bool):
+    """d(inter) of the spatial backwards from ops.delta_layer calls, the
+    heads' pullbacks added as the 64-row tiles add them: g_rt's, g_nct's
+    added, g_bn's added and masked by inter in the residual form; g_bn's,
+    g_nct's added, g_rt's added and masked in the recompute form (jax.vjp's
+    order)."""
+    wrt, wnct, wbn = ws[17], ws[19], ws[21]
+    cd = wrt.dtype
+    heads = [(g[:, :2], wrt), (g[:, 2:11], wnct), (g[:, 11:], wbn)]
+    if recompute:
+        heads.reverse()
+    (a0, w0), (a1, w1), (a2, w2) = [(a.to(cd).contiguous(), w)
+                                    for a, w in heads]
+    t = ops.delta_layer(a0, w0)[0]
+    t = ops.delta_layer(a1, w1, add=t)[0]
+    return ops.delta_layer(a2, w2, act=inter, add=t)[0]
+
+
+def spa_bwd_chain(ws, acts, deltas):
+    """Whether each of d7 .. d1 (deltas[6] .. deltas[0]) equals
+    ops.delta_layer of the delta before it (deltas[7] = d(inter) first),
+    its layer's W (w7, w6, w5, w4b, w3, w2, w1) and the activation that
+    masks it (z7 .. h1), bit for bit: d7 first."""
+    mats = (ws[15], ws[13], ws[11], ws[9], ws[6], ws[4], ws[2])
+    return [bool(torch.equal(deltas[6 - j], ops.delta_layer(
+        deltas[7 - j], w, act=acts[6 - j])[0])) for j, w in enumerate(mats)]
+
+
+# The grads of a bf16 spatial backward over a few hundred points or fewer,
+# against the plain version's: its weight grads are a tile's or two of
+# rounded partials, and one partial rounded one ulp apart moves a grad by
+# up to 2^-8 of itself, so that the order limit, made for a step's points,
+# reads the 64-row tile beyond it too (1.26e-3 against 1.05e-3 at 600 wide
+# and 127 points on an H100 80GB HBM3); tests/test_torch_cuda.py holds the
+# Ref-NeRF backwards at this limit there (its REF_GRAD_REL).
+SPA_BWD_FEW = 300
+SPA_BWD_FEW_REL = 2e-3
+
+
+def spa_bwd_grads(name, n, got, plain):
+    """A bf16 spatial backward's 23 grads ``got`` over n points against
+    ``plain`` (a call of its plain version): above SPA_BWD_FEW points as
+    check_kernel holds them (order_reference: the plain chain with f64 delta
+    sums, the larger of REF_GRAD_REL and BWD_ORDER_FACTOR times the f32
+    chain's distance from it), else the plain version within
+    SPA_BWD_FEW_REL.  Returns (whether all are finite, the worst relative
+    error, its limit)."""
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    if n <= SPA_BWD_FEW:
+        return finite, _chain_rel(got, plain()), SPA_BWD_FEW_REL
+    want, lim, _ = order_reference(name, torch.bfloat16, plain, (), got,
+                                   plain())
+    return finite, _chain_rel(got, want), lim
+
+
+def spa_bwd_frame_identities(ws, x, pos, n, recompute: bool):
+    """The backward frame's identities on one case of n points (a seeded
+    cotangent g; the residual form on ref_spa_fwd_res's stored
+    activations): the residual form's rounded heads' cotangents equal to
+    g's columns cast to bf16, d(inter) to spa_bwd_inter's and d7 .. d1 to
+    spa_bwd_chain's, bit for bit; the recompute form's rebuilt activations
+    (the last chunk's, which its scratch holds) equal to ref_spa_fwd_res's
+    rows, and its deltas to the same identities in its order; the grads
+    finite and within their limit of the plain version's (spa_bwd_grads);
+    the body that the launch reported (ops.BODIES)."""
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    g = torch.randn((n, ref_fused.HEAD_FIXED + ws[21].shape[1]),
+                    generator=gen, device="cuda")
+    acts = ops.ref_spa_fwd_res(ws, x, pos)[2]
+    if recompute:
+        name = "ref_spa_bwd_recompute"
+        (grads, racts, deltas), body = body_of(
+            name, lambda: ref_fused._spa_bwd_recompute_launch(
+                ws, x, g, TILE_ROWS))
+        chunk = fused_mlp.chunk_rows(TILE_ROWS)
+        c0 = (n - 1) // chunk * chunk
+        rows = slice(c0, n)
+        racts = [a[:n - c0] for a in racts]
+        deltas = [d[:n - c0] for d in deltas]
+        out = dict(acts_equal_res=[bool(torch.equal(a, b[rows]))
+                                   for a, b in zip(racts, acts)])
+        plain = lambda: ops.ref_spa_bwd_recompute_plain(  # noqa: E731
+            ws, x, g, TILE_ROWS, acts=acts)
+    else:
+        name, rows = "ref_spa_bwd", slice(0, n)
+        (grads, deltas), body = body_of(
+            name, lambda: ref_fused._spa_bwd_launch(ws, x, g, acts,
+                                                     TILE_ROWS))
+        racts = acts
+        cd = x.dtype
+        out = dict(heads_rounded=bool(
+            torch.equal(deltas[8], g[:, :2].to(cd))
+            and torch.equal(deltas[9], g[:, 2:11].to(cd))
+            and torch.equal(deltas[10], g[:, 11:].to(cd))))
+    inter = spa_bwd_inter(ws, g[rows], racts[7], recompute)
+    finite, rel, lim = spa_bwd_grads(name, n, grads, plain if recompute
+                                     else lambda: ops.ref_spa_bwd_plain(
+                                         ws, x, g, acts, TILE_ROWS))
+    return dict(out, body=body,
+                inter_equal=bool(torch.equal(deltas[7], inter)),
+                chain_equal=spa_bwd_chain(ws, racts, deltas),
+                finite=finite, grad_rel_err=rel, grad_rel_lim=lim)
+
+
+# the width scan of the spa_bwd_frame phase: H = O from 472 to 776 in steps
+# of 8, 300 points each (the frame's widest fit in each form and the 64-row
+# tile's lie between), and the widest that the 64-row tile ran in each
+# bf16 form before the frame took the spatial backwards' delta passes
+# (kernel_ab.py --spa_bwd on the parent), which each form must reach again.
+# Where the frame runs, the scan holds its deltas to the phase's identities
+# bit for bit; the grads' distance from the plain version is a reading
+# beside them (one tile's rounded weight grads at these widths, above the
+# SPA_BWD_FEW_REL of the phase's cases: 2.03e-3 in the residual form on an
+# H100 80GB HBM3, the same with the frame's stores synchronous or by the
+# bulk-copy engine).
+SPA_BWD_WIDTH_SCAN = range(472, 784, 8)
+SPA_BWD_TILE_WIDEST = {"res": 768, "recompute": 736}
+
+
+def spa_bwd_frame_widths():
+    """For each form of the bf16 spatial backward, the widest H = O of
+    SPA_BWD_WIDTH_SCAN that runs the frame and the widest that runs at all
+    (the 64-row tile above the frame's fit), each launch's grads finite,
+    and at each width that ran the frame its identities (those of
+    spa_bwd_frame_identities: the rounded heads' cotangents, d(inter) and
+    d7 .. d1, on the activations it read or rebuilt) bit for bit; fails
+    where a width below one that runs raises, where the frame is chosen
+    above a width that took the 64-row tile, where the widest that runs is
+    short of SPA_BWD_TILE_WIDEST, or where a grad is not finite or an
+    identity fails.  Reads the worst relative distance of the grads from
+    the plain version's (the recompute form's on the activations it
+    rebuilt, which its scratch holds for these few points)."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    out = {}
+    for form in ("res", "recompute"):
+        name = "ref_spa_bwd" if form == "res" else "ref_spa_bwd_recompute"
+        bodies, worst, finite, broken = [], 0.0, True, []
+        for w in SPA_BWD_WIDTH_SCAN:
+            ws = random_weights(ref_spa_shapes(h=w, o=w), gen, bf16,
+                                gain=REF_GAIN)
+            pos, x = ref_points(gen, bf16, 300)
+            g = torch.randn((300, ref_fused.HEAD_FIXED + 128), generator=gen,
+                            device="cuda")
+            if form == "res":
+                acts = [torch.relu(torch.randn((300, w), generator=gen,
+                                               device="cuda")).to(bf16)
+                        for _ in range(8)]
+                call = lambda: ref_fused._spa_bwd_launch(  # noqa: E731
+                    ws, x, g, acts, TILE_ROWS)
+                plain = lambda: ops.ref_spa_bwd_plain(  # noqa: E731
+                    ws, x, g, acts, TILE_ROWS)
+            else:
+                call = lambda: ref_fused._spa_bwd_recompute_launch(  # noqa
+                    ws, x, g, TILE_ROWS)
+                plain = lambda: ops.ref_spa_bwd_recompute_plain(  # noqa
+                    ws, x, g, TILE_ROWS, acts=got[1])
+            try:
+                got, body = body_of(name, call)
+                torch.cuda.synchronize()
+            except RuntimeError:
+                bodies.append(None)
+                continue
+            bodies.append(body)
+            grads, deltas = got[0], got[-1]
+            racts = acts if form == "res" else got[1]
+            finite = finite and all(bool(torch.isfinite(t).all())
+                                    for t in grads)
+            worst = max(worst, _chain_rel(grads, plain()))
+            if body.startswith("spa_bwd_frame_kernel"):
+                ok = (torch.equal(deltas[7], spa_bwd_inter(
+                          ws, g, racts[7], form == "recompute"))
+                      and all(spa_bwd_chain(ws, racts, deltas)))
+                if form == "res":
+                    ok = ok and torch.equal(deltas[8], g[:, :2].to(bf16)) \
+                        and torch.equal(deltas[9], g[:, 2:11].to(bf16)) \
+                        and torch.equal(deltas[10], g[:, 11:].to(bf16))
+                if not ok:
+                    broken.append(w)
+            del ws, pos, x, g, got, grads, deltas, racts
+        runs = [w for w, b in zip(SPA_BWD_WIDTH_SCAN, bodies) if b]
+        frame = [w for w, b in zip(SPA_BWD_WIDTH_SCAN, bodies)
+                 if b and b.startswith("spa_bwd_frame_kernel")]
+        out[form] = dict(frame_to=max(frame, default=None),
+                         runs_to=max(runs, default=None),
+                         identities_held_at=frame, grads_finite=finite,
+                         grads_vs_plain=worst)
+        if (runs != list(SPA_BWD_WIDTH_SCAN)[:len(runs)]
+                or frame != runs[:len(frame)]
+                or max(runs, default=0) < SPA_BWD_TILE_WIDEST[form]
+                or not finite or broken):
+            fail(f"the spatial backwards' widths ({form}): "
+                 f"{dict(zip(SPA_BWD_WIDTH_SCAN, bodies))}, grads finite "
+                 f"{finite}, identities failing at {broken}, widest before "
+                 f"the frame {SPA_BWD_TILE_WIDEST[form]}")
+    return out
+
+
+def spa_bwd_frame_checks():
+    """spa_bwd_frame_identities on seeded bf16 operands (its own generator)
+    at SPA_BWD_FRAME_NS (and SPA_BWD_RAGGED for the recompute form) x
+    SPA_BWD_FRAME_WIDTHS; fails where an identity does not hold, a grad is
+    not finite or parts from the plain version beyond its limit, or a launch
+    ran another body than its width's; then the width scan
+    (spa_bwd_frame_widths).  Its launches are not the main path's."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    cases = []
+    t0 = time.perf_counter()
+    for (h, o), cons in SPA_BWD_FRAME_WIDTHS.items():
+        ws = random_weights(ref_spa_shapes(h=h, o=o), gen, bf16,
+                            gain=REF_GAIN)
+        for n in SPA_BWD_FRAME_NS + (SPA_BWD_RAGGED,):
+            pos, x = ref_points(gen, bf16, n)
+            for form, c in zip(("res", "recompute"), cons):
+                if n == SPA_BWD_RAGGED and form == "res":
+                    continue
+                r = dict(h=h, o=o, n=n, form=form,
+                         **spa_bwd_frame_identities(ws, x, pos, n,
+                                                    form == "recompute"))
+                cases.append(r)
+                if not (r.get("heads_rounded", True)
+                        and all(r.get("acts_equal_res", [True]))
+                        and r["inter_equal"] and all(r["chain_equal"])
+                        and r["finite"]
+                        and r["grad_rel_err"] <= r["grad_rel_lim"]
+                        and r["body"] == ref_fused.spa_bwd_body_name(c,
+                                                                     form)):
+                    fail(f"the bf16 spatial backward frame fails an "
+                         f"identity: {r}")
+            del pos, x
+            torch.cuda.empty_cache()
+    checks_s = time.perf_counter() - t0
+    return dict(cases=cases, all_equal=True, seconds=checks_s,
+                widths=spa_bwd_frame_widths())
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the render path
 # ---------------------------------------------------------------------------
@@ -2113,7 +2366,9 @@ BODY_KERNELS = {
     "ref_spa_fwd_res": ref_fused.spa_body_name(2, "res"),
     "ref_spa_fwd_grad": ref_fused.spa_body_name(2, "grad"),
     "ref_dir_fwd": ref_fused.dir_body_name(2, False),
-    "ref_dir_fwd_res": ref_fused.dir_body_name(2, True)}
+    "ref_dir_fwd_res": ref_fused.dir_body_name(2, True),
+    "ref_spa_bwd": ref_fused.spa_bwd_body_name(2, "res"),
+    "ref_spa_bwd_recompute": ref_fused.spa_bwd_body_name(2, "recompute")}
 
 
 def frame_launched(launches: dict) -> tuple:
@@ -3418,9 +3673,9 @@ OCCUPANCY_BF16 = (
     "spa_frame_kernel<grad>", "dir_frame_kernel<eval>",
     "dir_frame_kernel<res>", "vanilla_frame_kernel<eval>",
     "vanilla_frame_kernel<res>", "prop_frame_kernel<eval>",
-    "prop_frame_kernel<res>", "ref_spa_delta_kernel",
-    "ref_dir_delta_kernel",
-    "ref_spa_recompute_kernel", "ref_dir_recompute_kernel<1>",
+    "prop_frame_kernel<res>", "spa_bwd_frame_kernel<res>",
+    "spa_bwd_frame_kernel<recompute>", "ref_dir_delta_kernel",
+    "ref_dir_recompute_kernel<1>",
     "ref_dir_recompute_kernel<2>", "ref_dir_recompute_kernel<3>",
     "delta_layer_kernel")
 
@@ -3432,7 +3687,7 @@ def delta_occupancy():
     "<lib> <name>/<bf16|f32>", the shared memory and blocks an SM of each
     distinct launch.  Fails where a launch ran below the blocks an SM its
     kernel was built for (two for a bf16 delta-pass kernel, one for the
-    weight-grad body and for the frame's nine forms), a query
+    weight-grad body and for the frame's eleven forms), a query
     failed, a bf16 kernel of OCCUPANCY_BF16 was
     never launched, or a library of WGRAD_LIBS never launched
     wgrad_mma_kernel."""
@@ -4420,18 +4675,23 @@ HEADLESS = ("prop_delta_kernel<true>", "prop_delta_kernel<false>")
 # proposal forwards (spa_frame.cuh, dir_frame.cuh, vanilla_frame.cuh,
 # prop_frame.cuh; ref_fused.cu and
 # fused_mlp.cu launch it for bf16, and their 64-row tiles in bf16 too for
-# the widths whose frame does not fit): each instantiation holds HGMMA and
-# no HMMA (the density column's first pullback is no product there) and
-# spills nothing; each kernel is built once for each of its forms
-# (FRAME_FORMS)
+# the widths whose frame does not fit) and of the spatial backwards' delta
+# passes (spa_bwd_frame.cuh; ref_fused_bwd.cu and ref_fused_recompute.cu):
+# each instantiation holds HGMMA and spills nothing, and no HMMA (the
+# density column's first pullback is no product there) but in the frames
+# that run the narrow heads' pullbacks on mma.sync (FRAME_HEAD_MMA), which
+# hold it; each kernel is built once for each of its forms (FRAME_FORMS)
 FRAME_KERNELS = ("spa_frame_kernel", "dir_frame_kernel",
-                 "vanilla_frame_kernel", "prop_frame_kernel")
+                 "vanilla_frame_kernel", "prop_frame_kernel",
+                 "spa_bwd_frame_kernel")
 FRAME_FORMS = {"spa_frame_kernel": 3, "dir_frame_kernel": 2,
-               "vanilla_frame_kernel": 2, "prop_frame_kernel": 2}
+               "vanilla_frame_kernel": 2, "prop_frame_kernel": 2,
+               "spa_bwd_frame_kernel": 2}
+FRAME_HEAD_MMA = ("spa_bwd_frame_kernel",)
 # the frame's forms that must keep no stack frame (the spatial res and grad
 # forms keep 96 and 32 bytes)
 STACKLESS_FRAMES = ("dir_frame_kernel", "vanilla_frame_kernel",
-                    "prop_frame_kernel")
+                    "prop_frame_kernel", "spa_bwd_frame_kernel")
 TILE_AND_DELTA = (
     ("fused_mlp_recompute", "vanilla_recompute_kernel<__nv_bfloat16>"),
     ("ref_fused", "ref_spa_fwd_res_kernel<(bool)0, __nv_bfloat16>"),
@@ -4691,14 +4951,15 @@ def check_tile_mma(mma):
 def frame_build(reports, mma):
     """For each instantiation of the bf16 frame (FRAME_KERNELS: the spatial
     net's three forms, the directional net's two, the vanilla net's two,
-    the proposal net's two),
+    the proposal net's two, the spatial backward's two),
     by "<lib> <short demangled name>": ptxas's registers (the launch's; the
     consumers run at setmaxnreg's 232), stack frame and spill bytes (stores,
     loads) and its remarks that wgmma instructions were serialized, and the
     HGMMA and HMMA in its SASS.  Fails on a spill, on a stack frame in a
-    directional, vanilla or proposal form (STACKLESS_FRAMES), on HMMA,
-    without HGMMA, or unless each kernel was built once for each of its
-    forms (FRAME_FORMS)."""
+    directional, vanilla, proposal or backward form (STACKLESS_FRAMES),
+    without HGMMA, on HMMA outside FRAME_HEAD_MMA and without it inside, or
+    unless each kernel was built once for each of its forms
+    (FRAME_FORMS)."""
     found = ptxas_by_function(reports, lambda f: any(
         k in f for k in FRAME_KERNELS))
     names = demangle(sorted({f for v in found.values() for f in v}))
@@ -4726,8 +4987,11 @@ def frame_build(reports, mma):
                 fail(f"{lib} {name} spills: {r}")
             if name.startswith(STACKLESS_FRAMES) and r["stack_bytes"] != 0:
                 fail(f"{lib} {name} keeps a stack frame: {r}")
-            if mma is not None and (not r["HGMMA"] or r["HMMA"]):
-                fail(f"{lib} {name} should hold HGMMA and no HMMA: {r}")
+            heads = name.startswith(FRAME_HEAD_MMA)
+            if mma is not None and (not r["HGMMA"]
+                                    or bool(r["HMMA"]) != heads):
+                fail(f"{lib} {name} should hold HGMMA and "
+                     f"{'HMMA' if heads else 'no HMMA'}: {r}")
     if any(sum(n.split(" ", 1)[1].startswith(k + "<") for n in out)
            != FRAME_FORMS[k] for k in FRAME_KERNELS):
         fail(f"the frame's forms were not each built once: {sorted(out)}")
@@ -5482,6 +5746,9 @@ def main() -> int:
     delta = delta_phase(gen)
     emit("delta", seconds=time.perf_counter() - t0, **delta)
     emit("occupancy", kernels=delta_occupancy())
+    # after the occupancy line: its ops.delta_layer calls at 512 and 600
+    # wide run at one block an SM, which that line would fail
+    emit("spa_bwd_frame", **spa_bwd_frame_checks())
 
     # phase 18: Mip-NeRF and the IPE mode, on a train split of their own
     mip_checks = mip_kernel_checks()

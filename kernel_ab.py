@@ -1,7 +1,8 @@
 """Time the fused kernels of two checkouts in turns on one card.
 
     python3 kernel_ab.py --other DIR [--steps] [--tile | --spa | --dir |
-                                               --vanilla | --prop] > ab.json
+                                               --vanilla | --prop |
+                                               --spa_bwd] > ab.json
 
 DIR is another checkout of this repository (for example ``git archive`` of
 an earlier commit unpacked under ``build/``).  Each turn is one process
@@ -79,7 +80,20 @@ device ms, busy share) and the trainer's default vanilla and ``-t`` steps,
 with ptxas's registers and spills; and each form's width scan
 (``PROP_WIDTHS``, 300 points a width: whether it ran and, where the
 checkout reports one, the body it ran), which reads the widest that a
-checkout runs.  Prints one JSON object: each turn's readings by
+checkout runs.  With ``--spa_bwd`` the turns time the Ref-NeRF spatial
+net's two fused backwards in bf16 (``SPA_BWD_KERNELS``: ``ref_spa_bwd``
+and ``ref_spa_bwd_recompute`` at a default step's 196,608 points,
+``kernel_case``'s operands, ``cuda_ms``), each with the sha1 of its 23
+grads and, for ``ref_spa_bwd``, of the 11 deltas its C entry writes (the
+tuple of 11 tensors that the wrapper hands it), the device time of each of
+its launches by kernel (torch.profiler over 5 calls: the delta kernel, the
+weight-grad pass, the reduction), the host's time to issue one call (the
+median of 11, each from an idle card), each form's width scan
+(``SPA_BWD_WIDTHS``, H = O, 300 points a width: whether it ran, the body
+where the checkout reports one, the grads finite), and the trainer's
+default ``-t`` step and the ``-t --ref_kernels hybrid`` step (ms a step,
+host issue ms, device ms, busy share, rays/s, the top device kernels a
+step).  Prints one JSON object: each turn's readings by
 "kernel/dtype" (and its step readings), and the card's name and power
 limit.  Needs a card.
 """
@@ -120,6 +134,127 @@ VANILLA_KERNELS = ("vanilla_mlp_fwd", "vanilla_mlp_fwd_res")
 # their scan in each turn
 PROP_KERNELS = ("prop_mlp_fwd", "prop_mlp_fwd_res")
 PROP_WIDTHS = tuple(range(640, 800, 8))
+# the Ref-NeRF spatial net's fused backwards (PERF.md's row 6), and the
+# widths of their scan in each turn
+SPA_BWD_KERNELS = ("ref_spa_bwd", "ref_spa_bwd_recompute")
+SPA_BWD_WIDTHS = tuple(range(472, 800, 8))
+
+# one turn of --spa_bwd, run with the checkout's root as the working
+# directory
+SPA_BWD_TURN = r"""
+import hashlib, json, sys, tempfile, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as cs
+from nerf_tpu_torch import ops
+from nerf_tpu_torch.ops import build, ref_fused
+names, widths = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+reports = build.build()
+out = {"ptxas": {k: v for k, v in cs.tile_ptxas(reports).items()
+                 if "bfloat16" in k}}
+gen = torch.Generator(device="cuda").manual_seed(0)
+bf16 = torch.bfloat16
+
+
+def digest(t, h):
+    if isinstance(t, (tuple, list)):
+        for u in t:
+            digest(u, h)
+    else:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h
+
+
+def with_deltas(call):
+    # (what call returns, the 11 tensors that the wrapper handed its C
+    # entry as the deltas: d1 .. d8, g_rt, g_nct, g_bn)
+    seen, plain = [], ref_fused.pointers
+
+    def spy(ts):
+        seen.append(tuple(ts))
+        return plain(ts)
+
+    ref_fused.pointers = spy
+    try:
+        res = call()
+        torch.cuda.synchronize()
+    finally:
+        ref_fused.pointers = plain
+    return res, next(t for t in seen if len(t) == 11)
+
+
+def body(name, before):
+    after = getattr(ops, "BODIES", {}).get(name, {})
+    ran = [b for b, c in after.items() if c != before.get(b, 0)]
+    return ran[0] if ran else "ran"
+
+
+for name in names:
+    args, kernel = cs.kernel_case(name, bf16, gen)[:2]
+    out[name + "/bf16"] = cs.cuda_ms(lambda: kernel(*args), 20)
+    host = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kernel(*args)
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    out[name + "/host_issue_ms"] = sorted(host)[len(host) // 2]
+    if name == "ref_spa_bwd":
+        grads, deltas = with_deltas(lambda: kernel(*args))
+        out[name + "/sha1_deltas"] = digest(deltas,
+                                            hashlib.sha1()).hexdigest()
+        del deltas
+    else:
+        grads = kernel(*args)
+    out[name + "/sha1"] = digest(grads, hashlib.sha1()).hexdigest()
+    del grads
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            kernel(*args)
+        torch.cuda.synchronize()
+    out[name + "/device_ms"] = [[k, v / 5]
+                                for k, v in cs.device_times(prof, 8)[1]]
+    del args, prof
+    torch.cuda.empty_cache()
+    scan = {}
+    for w in widths:
+        ws = cs.random_weights(cs.ref_spa_shapes(h=w, o=w), gen, bf16,
+                               gain=cs.REF_GAIN)
+        x = cs.ref_points(gen, bf16, 300)[1]
+        g = torch.randn((300, ref_fused.HEAD_FIXED + 128), generator=gen,
+                        device="cuda")
+        before = dict(getattr(ops, "BODIES", {}).get(name, {}))
+        try:
+            if name == "ref_spa_bwd":
+                acts = tuple(torch.relu(torch.randn(
+                    (300, w), generator=gen, device="cuda")).to(bf16)
+                    for _ in range(8))
+                grads = ops.ref_spa_bwd(ws, x, g, acts)
+            else:
+                grads = ops.ref_spa_bwd_recompute(ws, x, g)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            scan[w] = None
+            continue
+        scan[w] = [body(name, before),
+                   all(bool(torch.isfinite(t).all()) for t in grads)]
+        del ws, x, g, grads
+    out[name + "/widths"] = scan
+    out[name + "/widest"] = max((w for w, b in scan.items() if b),
+                                default=None)
+with tempfile.TemporaryDirectory() as tmp:
+    cs.write_train_split(tmp)
+    for key, extra in (("ref", ("-t",)),
+                       ("hybrid", ("-t", "--ref_kernels", "hybrid"))):
+        r = cs.profile_trainer(tmp, 3, *extra)
+        out["step/" + key] = {k: r[k] for k in (
+            "step_ms_median", "host_issue_ms_per_step", "device_ms_per_step",
+            "device_busy_share", "rays_per_s", "top_device_ms_per_step")}
+print(json.dumps(out))
+"""
 
 # one turn of --prop, run with the checkout's root as the working directory
 PROP_TURN = r"""
@@ -422,8 +557,8 @@ print(json.dumps(out))
 
 def turn(root: Path, steps: bool, mode: str | None = None) -> dict:
     """One checkout's timings (and step readings), in a process of its
-    own; ``mode`` "tile", "spa", "dir", "vanilla" or "prop" picks another
-    turn than the default one."""
+    own; ``mode`` "tile", "spa", "dir", "vanilla", "prop" or "spa_bwd"
+    picks another turn than the default one."""
     cmd = ([sys.executable, "-c", TILE_TURN, json.dumps(TILE_KERNELS)]
            if mode == "tile" else
            [sys.executable, "-c", SPA_TURN, json.dumps(SPA_KERNELS)]
@@ -435,6 +570,9 @@ def turn(root: Path, steps: bool, mode: str | None = None) -> dict:
            [sys.executable, "-c", PROP_TURN, json.dumps(PROP_KERNELS),
             json.dumps(PROP_WIDTHS)]
            if mode == "prop" else
+           [sys.executable, "-c", SPA_BWD_TURN, json.dumps(SPA_BWD_KERNELS),
+            json.dumps(SPA_BWD_WIDTHS)]
+           if mode == "spa_bwd" else
            [sys.executable, "-c", TURN, json.dumps(DELTA_PASS_KERNELS),
             "1" if steps else "0", json.dumps(DELTA_AB_SHAPES)])
     proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
@@ -467,8 +605,12 @@ def main(argv=None) -> dict:
                     help="time the proposal net's fused forwards and scan "
                          "their widths, the vanilla and Ref-NeRF frames "
                          "and steps instead")
+    ap.add_argument("--spa_bwd", action="store_true",
+                    help="time the spatial net's fused backwards and scan "
+                         "their widths, the -t and hybrid steps instead")
     args = ap.parse_args(argv)
-    mode = next((m for m in ("tile", "spa", "dir", "vanilla", "prop")
+    mode = next((m for m in ("tile", "spa", "dir", "vanilla", "prop",
+                             "spa_bwd")
                  if getattr(args, m)), None)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -40,7 +40,10 @@
 // pass that writes every layer's delta (and, for the directional net, the
 // trunk input x and the f32 logit cotangent) to device memory, the split-K
 // weight-grad pass and the ordered reduction (wgrad.cuh): deterministic, no
-// atomics.
+// atomics.  The spatial net's bf16 delta pass runs on the persistent frame
+// (spa_bwd_frame.cuh) where it fits, else on the 64-row tile below
+// (ref_spa_delta_kernel, also the f32 body), chosen by shape before the
+// launch; the entry reports the body it launched.
 //
 // Bound on an H100 SXM (700 W), bf16 tensor-core peak 989 TFLOP/s: at
 // H = O = 256 the spatial backward costs 526,592 weight-grad MACs and about
@@ -52,6 +55,7 @@
 // CUDA cores) and pays the delta round trip through device memory.
 
 #include "ref_common.cuh"
+#include "spa_bwd_frame.cuh"
 #include "wgrad.cuh"
 
 namespace {
@@ -253,31 +257,55 @@ ref_dir_delta_kernel(const float* __restrict__ heads,
 }
 
 // dims: dx h o nb; acts: h1..h4 z5 z6 z7 inter; deltas: d1..d7 d8 g_rt g_nct
-// g_bn; grads: the 23 f32 outputs in the order of the weight tuple
+// g_bn; grads: the 23 f32 outputs in the order of the weight tuple.  The
+// delta pass: in bf16 the frame where it fits (spa_bwd_frame_body), else,
+// and in f32, the 64-row tile.  *body: the delta pass's body, the frame's
+// consumer warpgroups (1 or 2) or 0 for the 64-row tile.
 template <typename T>
 int launch_spa_bwd(const void* x, const float* g, const uint64_t* acts,
                    const uint64_t* ptrs, int64_t n, const int* dims,
                    const uint64_t* deltas, float* partial, int splits,
-                   int64_t rows_per_split, const uint64_t* grads,
+                   int64_t rows_per_split, const uint64_t* grads, int* body,
                    cudaStream_t stream) {
   const RefSpaWeights<T> p = spa_weights<T>(ptrs);
   const Acts<T> s = acts_of<T>(acts);
   const Deltas<T> dl = deltas_of<T>(deltas, 11);
   const int dx = dims[0], h = dims[1], o = dims[2], nb = dims[3];
   const int maxw = h > o ? h : o;
-  const size_t at = (size_t)TM * (11 + nb + 2 * maxw) * sizeof(T);
-  const size_t smem = at + delta_stage_bytes<T>(at);
   TileMaps dm;
   int err = spa_dmaps<T>(&dm, p, dx, h, o, nb, DPASS);
-  if (err == 0)
-    err = set_smem(ref_spa_delta_kernel<T>, smem, "ref_spa_delta_kernel", MinBlocks<T>::value);
   if (err != 0) return err;
-  if (n > 0) {
-    const unsigned grid = (unsigned)((n + TM - 1) / TM);
-    ref_spa_delta_kernel<T><<<grid, THREADS, smem, stream>>>(
-        p, s, g, n, h, o, nb, maxw, dl, dm);
-    err = (int)cudaGetLastError();
+  FrameLayout L;
+  size_t fsmem = 0;
+  *body = 0;
+  if constexpr (std::is_same<T, bf16_t>::value) {
+    int sms = 0;
+    err = spa_bwd_frame_body(dims, false, &L, &fsmem, &sms);
+    if (err == 0 && fsmem != 0) {
+      *body = L.cons;
+      err = launch_spa_bwd_frame<FORM_SPA_BWD>(nullptr, g, p, n, dims, acts,
+                                               deltas, dm, dm, L, fsmem, sms,
+                                               stream);
+    }
     if (err != 0) return err;
+  }
+  if (fsmem == 0) {
+    const size_t at = (size_t)TM * (11 + nb + 2 * maxw) * sizeof(T);
+    const size_t smem = at + delta_stage_bytes<T>(at);
+    // the occupancy of the f32 body is noted; the bf16 one runs only where
+    // the frame does not fit a block
+    err = set_smem(ref_spa_delta_kernel<T>, smem,
+                   std::is_same<T, float>::value ? "ref_spa_delta_kernel"
+                                                 : nullptr,
+                   MinBlocks<T>::value);
+    if (err != 0) return err;
+    if (n > 0) {
+      const unsigned grid = (unsigned)((n + TM - 1) / TM);
+      ref_spa_delta_kernel<T><<<grid, THREADS, smem, stream>>>(
+          p, s, g, n, h, o, nb, maxw, dl, dm);
+      err = (int)cudaGetLastError();
+      if (err != 0) return err;
+    }
   }
   const int64_t sizes[23] = {
       (int64_t)dx * h, h, (int64_t)h * h, h, (int64_t)h * h, h,
@@ -375,10 +403,10 @@ extern "C" {
                            int64_t n, const int* dims,                         \
                            const uint64_t* deltas, void* partial, int splits,  \
                            int64_t rows_per_split, const uint64_t* grads,      \
-                           void* stream) {                                     \
+                           int* body, void* stream) {                          \
     return launch_spa_bwd<T>(x, (const float*)g, acts, ptrs, n, dims, deltas,  \
                              (float*)partial, splits, rows_per_split, grads,   \
-                             (cudaStream_t)stream);                            \
+                             body, (cudaStream_t)stream);                      \
   }                                                                            \
   int ref_dir_bwd_##SUFFIX(                                                    \
       const void* heads, const void* noise, const void* dirs, int64_t per_ray, \

@@ -47,10 +47,15 @@
 // two-slot weight ring (RSTAGES) in the W^T stage ``st``.  The
 // delta pass runs through delta_tile as the residual forms' does (in bf16
 // the trunk passes on wgmma from a TMA-fed ring in the same stage, the
-// heads on mma.sync); the weight-grad pass is wgrad.cuh's.
+// heads on mma.sync); the weight-grad pass is wgrad.cuh's.  In bf16 the
+// spatial net's rebuild and delta pass run on the persistent frame instead
+// (spa_bwd_frame.cuh, FORM_SPA_BWD_RC, launched once a chunk) where it
+// fits, chosen by shape before the first launch; the entry reports the
+// body it launched.
 
 #include "ref_common.cuh"
 #include "ref_dir_recompute.cuh"
+#include "spa_bwd_frame.cuh"
 #include "wgrad.cuh"
 
 namespace {
@@ -134,14 +139,17 @@ ref_spa_recompute_kernel(const T* __restrict__ x, RefSpaWeights<T> p,
 
 // dims: dx h o nb; acts: h1..h4 z5 z6 z7 inter and deltas: d1..d7 d8, each
 // chunk_rows rows; grads: the 23 f32 outputs in the order of the weight
-// tuple; partial: chunk_rows / rows_per_split splits of them
+// tuple; partial: chunk_rows / rows_per_split splits of them.  Each chunk's
+// rebuild and delta pass: in bf16 the frame where it fits
+// (spa_bwd_frame_body), else, and in f32, the 64-row tile.  *body: that
+// body, the frame's consumer warpgroups (1 or 2) or 0 for the 64-row tile.
 template <typename T>
 int launch_spa_bwd_recompute(const void* x, const float* g,
                              const uint64_t* ptrs, int64_t n, const int* dims,
                              const uint64_t* acts, const uint64_t* deltas,
                              float* partial, int64_t rows_per_split,
                              int64_t chunk_rows, const uint64_t* grads,
-                             cudaStream_t stream) {
+                             int* body, cudaStream_t stream) {
   const RefSpaWeights<T> p = spa_weights<T>(ptrs);
   const Acts<T> s = acts_of<T>(acts);
   const Deltas<T> dl = deltas_of<T>(deltas);
@@ -154,8 +162,20 @@ int launch_spa_bwd_recompute(const void* x, const float* g,
   TileMaps maps, dm;
   int err = spa_maps<T>(&maps, p, dx, h, o, nb);
   if (err == 0) err = spa_dmaps<T>(&dm, p, dx, h, o, nb, DPASS);
-  if (err == 0)
-    err = set_smem(ref_spa_recompute_kernel<T>, smem, "ref_spa_recompute_kernel",
+  FrameLayout L;
+  size_t fsmem = 0;
+  int sms = 0;
+  *body = 0;
+  if constexpr (std::is_same<T, bf16_t>::value)
+    if (err == 0) err = spa_bwd_frame_body(dims, true, &L, &fsmem, &sms);
+  if (fsmem != 0)
+    *body = L.cons;
+  else if (err == 0)
+    // the occupancy of the f32 body is noted; the bf16 one runs only where
+    // the frame does not fit a block
+    err = set_smem(ref_spa_recompute_kernel<T>, smem,
+                   std::is_same<T, float>::value ? "ref_spa_recompute_kernel"
+                                                 : nullptr,
                    MinBlocks<T>::value);
   if (err != 0) return err;
   const int64_t sizes[23] = {
@@ -167,7 +187,14 @@ int launch_spa_bwd_recompute(const void* x, const float* g,
                  int& tiles) -> int {
     const T* xc = (const T*)x + c0 * dx;
     const float* gc = g + c0 * hw;
-    if (nc > 0) {
+    if (nc > 0 && fsmem != 0) {
+      if constexpr (std::is_same<T, bf16_t>::value) {
+        const int e = launch_spa_bwd_frame<FORM_SPA_BWD_RC>(
+            xc, gc, p, nc, dims, acts, deltas, maps, dm, L, fsmem, sms,
+            stream);
+        if (e != 0) return e;
+      }
+    } else if (nc > 0) {
       const unsigned grid = (unsigned)((nc + TM - 1) / TM);
       ref_spa_recompute_kernel<T><<<grid, THREADS, smem, stream>>>(
           xc, p, gc, nc, dx, h, o, nb, maxw, s, dl, maps, dm);
@@ -206,10 +233,10 @@ extern "C" {
       const void* x, const void* g, const uint64_t* ptrs, int64_t n,           \
       const int* dims, const uint64_t* acts, const uint64_t* deltas,           \
       void* partial, int64_t rows_per_split, int64_t chunk_rows,               \
-      const uint64_t* grads, void* stream) {                                   \
+      const uint64_t* grads, int* body, void* stream) {                        \
     return launch_spa_bwd_recompute<T>(                                        \
         x, (const float*)g, ptrs, n, dims, acts, deltas, (float*)partial,      \
-        rows_per_split, chunk_rows, grads, (cudaStream_t)stream);              \
+        rows_per_split, chunk_rows, grads, body, (cudaStream_t)stream);        \
   }                                                                            \
   int ref_dir_bwd_recompute_##SUFFIX(                                          \
       const void* heads, const void* noise, const void* dirs, int64_t per_ray, \

@@ -108,13 +108,17 @@ constexpr int FORM_DIR = 3, FORM_DIR_RES = 4;
 constexpr int FORM_VANILLA = 5, FORM_VANILLA_RES = 6;
 // the proposal net's (prop_frame.cuh): prop_mlp_fwd and prop_mlp_fwd_res
 constexpr int FORM_PROP = 7, FORM_PROP_RES = 8;
+// the spatial net's backward delta passes (spa_bwd_frame.cuh): ref_spa_bwd's
+// and ref_spa_bwd_recompute's
+constexpr int FORM_SPA_BWD = 9, FORM_SPA_BWD_RC = 10;
 // the names under which set_smem notes each form's occupancy
-constexpr const char* FRAME_NAMES[9] = {
+constexpr const char* FRAME_NAMES[11] = {
     "spa_frame_kernel<eval>", "spa_frame_kernel<res>",
     "spa_frame_kernel<grad>", "dir_frame_kernel<eval>",
     "dir_frame_kernel<res>", "vanilla_frame_kernel<eval>",
     "vanilla_frame_kernel<res>", "prop_frame_kernel<eval>",
-    "prop_frame_kernel<res>"};
+    "prop_frame_kernel<res>", "spa_bwd_frame_kernel<res>",
+    "spa_bwd_frame_kernel<recompute>"};
 static_assert(FCOLS == DPASS && DK == TK && FSLOT == DSLOT * 2
               && FSLOT == TSLOT * 2, "a slot holds one k-step of a pass");
 
@@ -250,6 +254,28 @@ struct FrameLayout {
   FrameConsts c;                          // (a kernel parameter: no register
 };                                        // holds its offsets)
 
+// Places the ring before pieces of these bytes (FrameLayout's order) in
+// ``limit`` bytes: as many slots as fit, up to FSTAGES; returns the dynamic
+// shared memory bytes, or 0 where fewer than two slots fit.
+inline size_t frame_place(FrameLayout* L, size_t act, size_t xs, size_t ds,
+                          size_t masks, size_t frows, size_t consts,
+                          int limit) {
+  const size_t rest = act + xs + ds + masks + frows + consts;
+  const long room = (long)limit - 1024 - (long)rest;
+  const long fit = room > 0 ? room / (FSLOT + 16) : 0;
+  L->stages = fit < FSTAGES ? (int)fit : FSTAGES;
+  if (L->stages < 2) return 0;
+  size_t at = (size_t)L->stages * FSLOT;
+  L->act = (int)at;
+  L->xs = (int)(at += act);
+  L->ds = (int)(at += xs);
+  L->masks = (int)(at += ds);
+  L->frows = (int)(at += masks);
+  L->consts = (int)(at += frows);
+  L->bars = (int)(at += consts);
+  return 1024 + at + (size_t)16 * L->stages;
+}
+
 // Fills L for a kernel of form ``form`` with ``cons`` consumer warpgroups,
 // its constants ``staged`` or not (FrameConsts), and returns its dynamic
 // shared memory bytes (1024 of them to align the ring), or 0 where fewer
@@ -285,21 +311,21 @@ inline size_t frame_layout(FrameLayout* L, int form, int cons, bool staged,
       : van ? vanilla_frame_consts(h, o, nb, staged)
       : prop ? prop_frame_consts(h, staged)
              : FrameConsts(dx, h, o, nb, grad, staged);
-  const size_t consts = up16((size_t)L->c.floats * 4);
-  const size_t rest = act + xs + ds + masks + frows + consts;
-  const long room = (long)limit - 1024 - (long)rest;
-  const long fit = room > 0 ? room / (FSLOT + 16) : 0;
-  L->stages = fit < FSTAGES ? (int)fit : FSTAGES;
-  if (L->stages < 2) return 0;
-  size_t at = (size_t)L->stages * FSLOT;
-  L->act = (int)at;
-  L->xs = (int)(at += act);
-  L->ds = (int)(at += xs);
-  L->masks = (int)(at += ds);
-  L->frows = (int)(at += masks);
-  L->consts = (int)(at += frows);
-  L->bars = (int)(at += consts);
-  return 1024 + at + (size_t)16 * L->stages;
+  return frame_place(L, act, xs, ds, masks, frows,
+                     up16((size_t)L->c.floats * 4), limit);
+}
+
+// The current device's SMs (*sms) and the shared memory a block may opt in
+// to (*limit).  Returns 0 or a CUDA error code.
+inline int frame_device(int* sms, int* limit) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  return (int)e;
 }
 
 // The layout of form ``form`` at these widths on the current device (L,
@@ -311,14 +337,9 @@ inline size_t frame_layout(FrameLayout* L, int form, int cons, bool staged,
 inline int frame_search(FrameLayout* L, size_t* smem, int* sms, int form,
                         int dx, int h, int o, int nb, int l_max = 0,
                         int n_ch = 0, int dd = 0) {
-  int dev = 0, limit = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (e != cudaSuccess) return (int)e;
+  int limit = 0;
+  const int e = frame_device(sms, &limit);
+  if (e != 0) return e;
   *smem = 0;
   int cons = 2;   // 128-point tiles first
   for (; cons >= 1 && *smem == 0; --cons)
@@ -657,6 +678,13 @@ __device__ __forceinline__ FRing frame_products(
   return frame_kloop<KMAJOR, 2, FWG>(acc, R, a0, ld0, k0, a1, ld1, k1);
 }
 
+// What a delta pass runs between its first pass's products and their
+// epilogue: nothing (the forwards' density gradient), or the spatial
+// backward's reading of its next mask (spa_bwd_frame.cuh).
+struct FrameNoHook {
+  __device__ __forceinline__ void operator()() const {}
+};
+
 // A forward layer of the warp's rows: out = relu(a0 @ w0 [+ a1 @ w1] +
 // bias) rounded to bf16 (rows of stride ldo, over the input where out is
 // a0's buffer and n_out <= FCOLS); with mbits the mask (out > 0) as bits,
@@ -779,13 +807,15 @@ __device__ __forceinline__ FRing spa_frame_head(FRing R, const bf16_t* a,
 // A delta pass of the density gradient over the warp's rows: out =
 // mask (a @ W^T) rounded to bf16, W the layer's (n_out, k_dim) forward
 // matrix, the mask the layer's bits (mbits), rows past n as zeros
-// (delta_tile with MBITS).
-template <int FWG>
+// (delta_tile with MBITS); ``hook`` runs once the first pass's products
+// are in, before their epilogue reads mbits.
+template <int FWG, typename Hook = FrameNoHook>
 __device__ __forceinline__ FRing spa_frame_delta(FRing R, const bf16_t* a,
                                               int lda, int k_dim, int n_out,
                                               const uint32_t* mbits,
                                               bf16_t* out, int ldo,
-                                              int64_t r0, int64_t n) {
+                                              int64_t r0, int64_t n,
+                                              Hook hook = Hook()) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   const int mw = mask_words(n_out);
   for (int c0 = 0; c0 < n_out; c0 += FCOLS) {
@@ -793,6 +823,7 @@ __device__ __forceinline__ FRing spa_frame_delta(FRing R, const bf16_t* a,
     float acc[FCOLS / 8][4];
     R = frame_products<true, FWG>(acc, R, a, lda, k_dim, nullptr, 0, 0,
                              (np + 31) >> 5);
+    if (c0 == 0) hook();
     const bool live[2] = {r0 + g < n, r0 + g + 8 < n};
     uint32_t word[2] = {0u, 0u};
 #pragma unroll

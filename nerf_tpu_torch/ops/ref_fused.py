@@ -42,7 +42,9 @@ The backwards are in ``csrc/ref_fused_bwd.cu``:
 
 ``ref_spa_bwd``
     ``_make_spa_bwd_res_kernel`` (:729): the cotangent of the heads and the
-    stored activations -> the 23 f32 grads of the spatial tuple.
+    stored activations -> the 23 f32 grads of the spatial tuple.  In bf16
+    its delta pass runs the persistent frame of ``csrc/spa_bwd_frame.cuh``
+    (the 64-row tile where no frame fits; ``spa_bwd_body_name``).
 ``ref_dir_bwd``
     ``_make_dir_bwd_res_kernel`` (:901): the cotangents of rgb, normal and
     density and the stored activations -> d(heads) (N, 11 + NB) f32 and the
@@ -55,7 +57,8 @@ The recompute backwards of ``store_residuals=False`` are in
 
 ``ref_spa_bwd_recompute``
     ``_make_spa_bwd_kernel`` (:701): enc and the heads' cotangent -> the 23
-    grads, the trunk rebuilt from enc.
+    grads, the trunk rebuilt from enc (in bf16 on the same frame, once a
+    chunk).
 ``ref_dir_bwd_recompute``
     ``_make_dir_bwd_kernel`` (:867): ``ref_dir_bwd``'s outputs from the
     forward's operands and the cotangents, the glue and the trunk rebuilt.
@@ -554,14 +557,14 @@ register({
     "ref_dir_fwd_res": ("ref_fused", [PTR, PTR, PTR, I64, PTR, PTR, U64P,
                                       I64, INTP, PTR, PTR, PTR, U64P, INTP]),
     "ref_spa_bwd": ("ref_fused_bwd", [PTR, PTR, U64P, U64P, I64, INTP, U64P,
-                                      PTR, INT, I64, U64P]),
+                                      PTR, INT, I64, U64P, INTP]),
     "ref_dir_bwd": ("ref_fused_bwd", [PTR, PTR, PTR, I64, PTR, PTR, PTR, PTR,
                                       PTR, U64P, U64P, I64, INTP, PTR, U64P,
                                       PTR, PTR, PTR, INT, I64, U64P]),
     "ref_spa_fwd_grad": ("ref_fused", [PTR, PTR, PTR, PTR, U64P, I64, INTP,
                                        PTR, PTR, INTP]),
     "ref_spa_bwd_recompute": ("ref_fused_recompute", [
-        PTR, PTR, U64P, I64, INTP, U64P, U64P, PTR, I64, I64, U64P]),
+        PTR, PTR, U64P, I64, INTP, U64P, U64P, PTR, I64, I64, U64P, INTP]),
     "ref_dir_bwd_recompute": ("ref_fused_recompute", [
         PTR, PTR, PTR, I64, PTR, PTR, PTR, PTR, PTR, U64P, I64, INTP, PTR,
         U64P, U64P, PTR, PTR, PTR, I64, I64, U64P]),
@@ -732,21 +735,47 @@ def ref_spa_bwd(ws, enc: torch.Tensor, g_heads: torch.Tensor, acts,
     cd = enc.dtype
     _check_acts(acts, n, (h,) * 7 + (o,), cd, dev)
     check_tensor(g_heads, (n, HEAD_FIXED + nb), F32, dev, "g_heads")
-    splits = _splits(n, tile)
+    _splits(n, tile)                       # raises on a tile below 1
     if dev.type == "cpu":
         return ref_spa_bwd_plain(ws, enc, g_heads, acts, tile)
+    return _spa_bwd_launch(ws, enc, g_heads, acts, tile)[0]
+
+
+def _spa_bwd_launch(ws, enc, g_heads, acts, tile: int):
+    """Launch ``ref_spa_bwd`` on checked CUDA operands with the scratch its
+    delta pass writes: (the 23 grads, that scratch: d1 .. d7 (N, H), d8
+    (N, O), then g_rt, g_nct and g_bn rounded to the compute dtype)."""
+    n, dx, h, o, nb = _spa_dims(ws, enc)
+    cd = enc.dtype
     like = dict(device=enc.device)
-    # d1 .. d7 (H), d8 (O), g_rt, g_nct, g_bn in the compute dtype
     deltas = tuple(torch.empty((n, w), dtype=cd, **like)
                    for w in (h,) * 7 + (o, 2, 9, nb))
+    splits = _splits(n, tile)
     partial = torch.empty(splits * sum(w.numel() for w in ws), dtype=F32,
                           **like)
     grads = tuple(torch.empty(w.shape, dtype=F32, **like) for w in ws)
     dims = (ctypes.c_int * 4)(dx, h, o, nb)
+    body = ctypes.c_int(-1)
     launch("ref_spa_bwd", cd, enc.device, enc.data_ptr(), g_heads.data_ptr(),
            pointers(acts), pointers(ws), n, dims, pointers(deltas),
-           partial.data_ptr(), splits, tile, pointers(grads))
-    return grads
+           partial.data_ptr(), splits, tile, pointers(grads),
+           ctypes.byref(body))
+    count_body("ref_spa_bwd", spa_bwd_body_name(body.value, "res"))
+    return grads, deltas
+
+
+def spa_bwd_body_name(cons: int, form: str) -> str:
+    """The name of the body that ran the delta pass of a spatial backward of
+    ``form`` ("res": ``ref_spa_bwd``, "recompute":
+    ``ref_spa_bwd_recompute``), from what its C entry reports:
+    "spa_bwd_frame_kernel<form> x2" (the frame, two consumer warpgroups,
+    128-point tiles), "x1" (one, 64-point tiles) or, for 0, the 64-row
+    tile (f32, and bf16 where no frame fits): "ref_spa_delta_kernel" (res)
+    or "ref_spa_recompute_kernel" (recompute)."""
+    if cons == 0:
+        return {"res": "ref_spa_delta_kernel",
+                "recompute": "ref_spa_recompute_kernel"}[form]
+    return f"spa_bwd_frame_kernel<{form}> x{cons}"
 
 
 def ref_dir_bwd(ws, heads: torch.Tensor, dirs: torch.Tensor, per_ray: int,
@@ -806,10 +835,21 @@ def ref_spa_bwd_recompute(ws, enc: torch.Tensor, g_heads: torch.Tensor,
     check_operands(ws, (enc,), N_REF_SPA_WS, REF_SPA_BIASES, dev)
     n, dx, h, o, nb = _spa_dims(ws, enc)
     check_tensor(g_heads, (n, HEAD_FIXED + nb), F32, dev, "g_heads")
-    splits = _splits(n, tile)
-    chunk = chunk_rows(tile)
+    _splits(n, tile)                       # raises on a tile below 1
     if dev.type == "cpu":
         return ref_spa_bwd_recompute_plain(ws, enc, g_heads, tile)
+    return _spa_bwd_recompute_launch(ws, enc, g_heads, tile)[0]
+
+
+def _spa_bwd_recompute_launch(ws, enc, g_heads, tile: int):
+    """Launch ``ref_spa_bwd_recompute`` on checked CUDA operands with the
+    chunk-sized scratch it walks the points in: (the 23 grads, the
+    scratch's 8 activations h1 .. inter and 8 deltas d1 .. d8, each
+    min(N, chunk_rows(tile)) rows, which then hold the last chunk's first
+    rows)."""
+    n, dx, h, o, nb = _spa_dims(ws, enc)
+    splits = _splits(n, tile)
+    chunk = chunk_rows(tile)
     like = dict(dtype=enc.dtype, device=enc.device)
     m = min(n, chunk)
     widths = (h,) * 7 + (o,)
@@ -821,11 +861,14 @@ def ref_spa_bwd_recompute(ws, enc: torch.Tensor, g_heads: torch.Tensor,
     grads = tuple(torch.empty(w.shape, dtype=F32, device=enc.device)
                   for w in ws)
     dims = (ctypes.c_int * 4)(dx, h, o, nb)
+    body = ctypes.c_int(-1)
     launch("ref_spa_bwd_recompute", enc.dtype, enc.device, enc.data_ptr(),
            g_heads.data_ptr(), pointers(ws), n, dims, pointers(acts),
            pointers(deltas), partial.data_ptr(), tile, chunk,
-           pointers(grads))
-    return grads
+           pointers(grads), ctypes.byref(body))
+    count_body("ref_spa_bwd_recompute",
+               spa_bwd_body_name(body.value, "recompute"))
+    return grads, acts, deltas
 
 
 def ref_dir_bwd_recompute(ws, heads: torch.Tensor, dirs: torch.Tensor,

@@ -920,6 +920,120 @@ def test_ref_train_kernels_levels_and_srgb(cuda, dtype, ide_level, use_srgb):
                             ide_level=ide_level, use_srgb=use_srgb)
 
 
+def _spa_bwd_operands(cuda, n, seed, hidden, output_dim):
+    """A randomized RefNeRF's bf16 spatial weights (_ref_operands), the
+    encodings and positions of n points, and a heads' cotangent N(0, 1)."""
+    m, enc, _ = _ref_operands(cuda, torch.bfloat16, n, 1, seed,
+                              hidden=hidden, output_dim=output_dim)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    g = torch.randn((n, 11 + m.bottleneck_dim), generator=gen, device=cuda)
+    return m.kernel_weights()[0], enc, enc[:, :3].float().contiguous(), g
+
+
+def _assert_spa_bwd_deltas(ws, g, acts, deltas, recompute):
+    """The deltas of a spatial backward (d1 .. d7, d(inter)) against
+    ops.delta_layer, bit for bit: d(inter) from the heads' three pullbacks
+    added in the 64-row tile's order (g_rt's, g_nct's, g_bn's masked by
+    inter; the reverse in the recompute form), each of d7 .. d1 from the
+    delta before it, its layer's W and the activation that masks it."""
+    heads = [(g[:, :2], ws[17]), (g[:, 2:11], ws[19]), (g[:, 11:], ws[21])]
+    if recompute:
+        heads.reverse()
+    (a0, w0), (a1, w1), (a2, w2) = [(a.to(torch.bfloat16).contiguous(), w)
+                                    for a, w in heads]
+    t = ops.delta_layer(a0, w0)[0]
+    t = ops.delta_layer(a1, w1, add=t)[0]
+    assert torch.equal(deltas[7],
+                       ops.delta_layer(a2, w2, act=acts[7], add=t)[0])
+    for j, w in enumerate((ws[15], ws[13], ws[11], ws[9], ws[6], ws[4],
+                           ws[2])):
+        assert torch.equal(deltas[6 - j], ops.delta_layer(
+            deltas[7 - j], w, act=acts[6 - j])[0]), j
+
+
+def _assert_spa_bwd_frame(ws, enc, pos, g, cons, fwd=True, tile=64):
+    """ref_spa_bwd (on the plain forward's activations) and
+    ref_spa_bwd_recompute over at most a chunk of points: each launch
+    reports the body that ``cons`` names for its form (ops.BODIES: the
+    frame's consumer warpgroups, 0 for the 64-row tile; None: the form
+    raises); the residual form's rounded heads' cotangents equal g's
+    columns cast to bf16 and its deltas meet _assert_spa_bwd_deltas; the
+    recompute form's deltas too, in its order, on the activations it
+    rebuilt, which equal ref_spa_fwd_res's (with ``fwd``: where that
+    forward runs); the grads of both are finite and meet the plain
+    versions' (REF_GRAD_REL, the recompute form's on its rebuilt
+    activations)."""
+    name = ops.ref_fused.spa_bwd_body_name
+    lim = REF_GRAD_REL[torch.bfloat16]
+    acts = ops.ref_spa_fwd_res_plain(ws, enc, pos)[2]
+    for form, c in zip(("res", "recompute"), cons):
+        rc = form == "recompute"
+        kernel = "ref_spa_bwd_recompute" if rc else "ref_spa_bwd"
+        if rc:
+            def call():
+                return ops.ref_fused._spa_bwd_recompute_launch(ws, enc, g,
+                                                               tile)
+        else:
+            def call():
+                return ops.ref_fused._spa_bwd_launch(ws, enc, g, acts, tile)
+        if c is None:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                call()
+            continue
+        ops.reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        assert ops.BODIES == {kernel: {name(c, form): 1}}, form
+        grads, deltas = out[0], out[-1]
+        if rc:
+            racts = out[1]
+            if fwd:
+                for a, b in zip(racts, ops.ref_spa_fwd_res(ws, enc, pos)[2]):
+                    assert torch.equal(a, b)
+            want = ops.ref_spa_bwd_recompute_plain(ws, enc, g, tile,
+                                                   acts=racts)
+        else:
+            racts = acts
+            for d, (a, b) in zip(deltas[8:], ((0, 2), (2, 11), (11, None))):
+                assert torch.equal(d, g[:, a:b].to(torch.bfloat16))
+            want = ops.ref_spa_bwd_plain(ws, enc, g, acts, tile)
+        _assert_spa_bwd_deltas(ws, g, racts, deltas, rc)
+        for i, (a, b) in enumerate(zip(grads, want)):
+            assert bool(torch.isfinite(a).all()), (form, i)
+            assert _rel_err(a, b) < lim, (form, i, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 4099])
+@pytest.mark.parametrize("hidden, output_dim", [(256, 256), (48, 80)])
+def test_spa_bwd_frame_identities(cuda, n, hidden, output_dim):
+    """The bf16 spatial backwards' delta passes on the persistent frame
+    (csrc/spa_bwd_frame.cuh), two consumer warpgroups on 128-point tiles,
+    bit for bit (_assert_spa_bwd_frame): at one point, either side of the
+    frame's tile and 4099 points (ragged 64-row weight-grad tiles)."""
+    ws, enc, pos, g = _spa_bwd_operands(cuda, n, n + 7, hidden, output_dim)
+    _assert_spa_bwd_frame(ws, enc, pos, g, (2, 2))
+
+
+def test_spa_bwd_frame_wide_widths(cuda):
+    """Above 256 wide each form runs one consumer warpgroup on 64-point
+    tiles, its layers in two passes into a second activation buffer, to
+    its widest fit (496 residual, 520 recompute on an H100 80GB HBM3); above
+    it the launcher chooses the 64-row tile by shape, up to the widest that
+    tile ran before the frame (chip_smoke.py's SPA_BWD_TILE_WIDEST: 768 and
+    736); one step wider raises, as it did.  The identities hold on either
+    body (_assert_spa_bwd_frame; past 712 wide, where ref_spa_fwd_res
+    raises, the recompute form's rebuilt activations are not held to it)."""
+    # (H = O, the body of each form: the frame's consumer warpgroups, 0 for
+    # the 64-row tile, None where the width raises)
+    cases = ((320, (1, 1)), (496, (1, 1)), (504, (0, 1)), (520, (0, 1)),
+             (528, (0, 0)), (736, (0, 0)), (744, (0, None)),
+             (768, (0, None)), (776, (None, None)))
+    for seed, (w, cons) in enumerate(cases):
+        ws, enc, pos, g = _spa_bwd_operands(cuda, 300, 40 + seed, w, w)
+        _assert_spa_bwd_frame(ws, enc, pos, g, cons, fwd=w <= 712)
+    torch.cuda.synchronize()
+
+
 def test_ref_train_kernels_raise_on_bad_operands(cuda):
     """A CUDA call with a CPU weight or a noise of the wrong dtype raises
     instead of running the plain version, and launches nothing."""
